@@ -1,0 +1,122 @@
+"""Δ-PoT quantization (paper §3.1), W8 serving subset.
+
+Port of `repro/core/quant/delta_pot.py`: the format description, the level
+table, nearest-code quantization and the int8 packing the W8 serving
+plane stores.  A level is 2^-q0 + 2^-(q0+q1) with the differential
+exponents Δq0 (3 bits) and Δq1 (4 bits) packed low-to-high; a zero Δ
+kills every later term.  Bit 7 of the packed byte is the sign.
+
+Quantization matches the JAX package bit for bit on the CPU: the same
+f32 midpoints (computed in float64, then rounded), `searchsorted` with
+side left, and the per-channel scale amax / max_level in f32.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class DPotFormat:
+    """Static description of a Δ-PoT code format."""
+
+    ks: tuple[int, ...] = (4, 4)
+
+    @property
+    def code_bits(self) -> int:
+        return int(sum(self.ks))
+
+
+# sign + ks=(3,4): packs with its sign into one uint8 (the serving plane)
+FORMAT_W8 = DPotFormat(ks=(3, 4))
+
+
+@functools.lru_cache(maxsize=None)
+def _level_table(ks: tuple[int, ...]) -> np.ndarray:
+    """All 2^Σk unsigned levels, indexed by code (term 0 in the low bits)."""
+    n_codes = 1 << sum(ks)
+    levels = np.zeros((n_codes,), dtype=np.float64)
+    for code in range(n_codes):
+        c, p_prev, total = code, 1.0, 0.0
+        for k in ks:
+            dq = c & ((1 << k) - 1)
+            c >>= k
+            if dq == 0:
+                break
+            p_prev *= 2.0 ** (-dq)
+            total += p_prev
+        levels[code] = total
+    return levels
+
+
+@functools.lru_cache(maxsize=None)
+def _sorted_levels(ks: tuple[int, ...]):
+    """(sorted unique levels, code of each sorted level, midpoints)."""
+    levels = _level_table(ks)
+    order = np.argsort(levels, kind="stable")
+    sorted_levels = levels[order]
+    uniq = np.ones_like(sorted_levels, dtype=bool)
+    uniq[1:] = sorted_levels[1:] != sorted_levels[:-1]
+    codes = order[uniq].astype(np.int64)
+    sorted_levels = sorted_levels[uniq]
+    mids = 0.5 * (sorted_levels[1:] + sorted_levels[:-1])
+    return sorted_levels, codes, mids
+
+
+def dpot_max_level(fmt: DPotFormat) -> float:
+    return float(_level_table(fmt.ks).max())
+
+
+@dataclasses.dataclass
+class DPotQuantized:
+    """codes uint8 (sign not included), signs int8 ±1, scale f32
+    broadcastable to the tensor."""
+    codes: torch.Tensor
+    signs: torch.Tensor
+    scale: torch.Tensor
+    ks: tuple[int, ...] = (4, 4)
+
+
+def dpot_quantize(w: torch.Tensor, fmt: DPotFormat = FORMAT_W8, *,
+                  axis: int = -1) -> DPotQuantized:
+    """Quantize to Δ-PoT codes with one scale per index of `axis` (the
+    output channel), reduced over every other axis: a stacked (L, K, N)
+    weight gets ONE (1, 1, N) scale."""
+    w = w.to(torch.float32)
+    absw = w.abs()
+    ax = axis % w.ndim
+    red = tuple(i for i in range(w.ndim) if i != ax)
+    amax = absw.amax(dim=red, keepdim=True) if red else absw
+    # tensor / tensor (not a python scalar) keeps IEEE f32 division
+    base = amax / torch.full_like(amax, dpot_max_level(fmt))
+    scale = torch.where(base <= 0, torch.ones_like(base), base)
+    _, codes, mids = _sorted_levels(fmt.ks)
+    md = torch.as_tensor(mids.astype(np.float32), device=w.device)
+    cd = torch.as_tensor(codes, device=w.device)
+    idx = torch.searchsorted(md, (absw / scale).contiguous(), right=False)
+    signs = torch.where(w < 0, -1, 1).to(torch.int8)
+    return DPotQuantized(codes=cd[idx].to(torch.uint8), signs=signs,
+                         scale=scale, ks=fmt.ks)
+
+
+def dpot_decode_codes(codes: torch.Tensor, ks) -> torch.Tensor:
+    """Code -> unsigned level in f32, by lookup in the exact level table.
+
+    Each W8 level has at most two set bits within 22 binary places, so it
+    is exact in f32; a table gather gives those exact values on any device
+    (the JAX package peels terms with exp2, whose f32 sums round to the
+    same exact levels)."""
+    table = torch.as_tensor(_level_table(tuple(ks)).astype(np.float32),
+                            device=codes.device)
+    return table[codes.to(torch.int64)]
+
+
+def dpot_pack_int8(q: DPotQuantized) -> torch.Tensor:
+    """Sign + code in one byte: bit 7 sign (1 = negative), bits 6:0 code."""
+    if DPotFormat(q.ks).code_bits > 7:
+        raise ValueError(f"format {q.ks} does not pack into int8 with a sign")
+    sign_bit = (q.signs < 0).to(torch.uint8) << 7
+    return q.codes | sign_bit

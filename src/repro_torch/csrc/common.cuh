@@ -1,0 +1,62 @@
+// Shared device helpers for the port's Hopper kernels.
+//
+// Rounding rule: every place where the JAX trace produces a bf16 value,
+// the kernels round with bf16r() (round to nearest even), so intermediate
+// values are the same bf16 grid points the plain PyTorch version holds.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro {
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float bf2f(bf16 x) { return __bfloat162float(x); }
+
+// exact 2^-q for 0 <= q < 127
+__device__ __forceinline__ float exp2_neg(int q) {
+  return __int_as_float((127 - q) << 23);
+}
+
+// One Δ-PoT W8 byte -> its bf16 weight, exactly as
+// core/quant/serving.py:unpack_leaf computes it: bit 7 is the sign,
+// bits 2:0 are Δq0 and bits 6:3 are Δq1; level = 2^-q0 + 2^-(q0+q1), a
+// zero Δ killing the later terms (exact in f32); then sign·level times
+// the channel's f32 scale, one f32 multiply, rounded once to bf16.
+__device__ __forceinline__ float dpot_w8_decode(uint32_t byte, float scale) {
+  const int dq0 = byte & 7;
+  const int dq1 = (byte >> 3) & 15;
+  float lvl = 0.f;
+  if (dq0) {
+    lvl = exp2_neg(dq0);
+    if (dq1) lvl += exp2_neg(dq0 + dq1);
+  }
+  const float s = (byte & 0x80u) ? -lvl : lvl;
+  return bf16r(s * scale);
+}
+
+// The RWKV-4 WKV step (core/wkv/wkv4.py:wkv4_step), f32 throughout, in
+// the same operation order.  Returns the output; writes the stepped state.
+__device__ __forceinline__ float wkv4_step(float a, float b, float o, float k,
+                                           float v, float w, float u,
+                                           float* na, float* nb, float* no) {
+  const float no1 = fmaxf(o, u + k);
+  const float A = expf(o - no1);
+  const float B = expf(u + k - no1);
+  const float y = (A * a + B * v) / (A * b + B);
+  const float no2 = fmaxf(o - w, k);
+  const float A2 = expf(o - w - no2);
+  const float B2 = expf(k - no2);
+  *na = A2 * a + B2 * v;
+  *nb = A2 * b + B2;
+  *no = no2;
+  return y;
+}
+
+}  // namespace repro

@@ -1,0 +1,6 @@
+// Error strings for the ctypes wrappers (kernels/build.py).
+#include <cuda_runtime.h>
+
+extern "C" const char* repro_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,120 @@
+"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+
+At first use, every `csrc/*.cu` source is compiled for `sm_90a` by its own
+nvcc process, all started together, and the objects are linked into
+`<checkout>/build/repro_torch/libkernels.so`, which ctypes then loads.
+The library has a plain C interface: device pointers and the stream are
+passed as integers, and each entry point returns `cudaGetLastError()`.
+
+No `--use_fast_math`: it changes `expf` and division, and both feed the WKV
+arithmetic.  `-fmad=false` keeps every elementwise a*b+c as a multiply and
+an add, each rounded, as eager PyTorch computes it; the matvec loops call
+`fmaf` explicitly.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+LIB_NAME = "libkernels.so"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+# C entry points: argument types (pointers and the stream as c_void_p)
+SIGNATURES = {
+    "dpot_w8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "wkv4_seq": [_P] * 12 + [_I, _I, _I, _I, _P],
+    "rwkv4_block_decode": [ctypes.POINTER(_P), _I, _I, _I, _I, _I, _P],
+}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _stale(lib: Path) -> bool:
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in CSRC.iterdir())
+    return lib.stat().st_mtime < newest
+
+
+def build() -> tuple[Path, str]:
+    """Compile every source in parallel and link the library; returns the
+    library path and the compilers' combined output (-Xptxas -v: each
+    kernel's registers, shared memory and spills)."""
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
+               "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for src, _, p in procs:
+        out, _ = p.communicate()
+        log.append(f"== {src.name}\n{out}")
+        if p.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in procs]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"linking {LIB_NAME} failed:\n{link.stdout}")
+    lib = BUILD_DIR / LIB_NAME
+    os.replace(tmp, lib)          # atomic: a concurrent loader sees old or new
+    text = "\n".join(log)
+    (BUILD_DIR / "ptxas.log").write_text(text)
+    return lib, text
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built first if missing or stale."""
+    lib_path = BUILD_DIR / LIB_NAME
+    if _stale(lib_path):
+        lib_path, _ = build()
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, name: str):
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = load_library().repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def stream_ptr(t) -> int:
+    """The current CUDA stream of `t`'s device, as an integer handle."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

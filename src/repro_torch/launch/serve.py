@@ -1,0 +1,95 @@
+"""Serving launcher for the port — a small CLI over the engine.
+
+    python -m repro_torch.launch.serve --arch rwkv4-169m --quantized \
+        --fused block --fused-prefill [--batch 8] [--tokens 32] \
+        [--smoke] [--device cuda|cpu]
+
+`--fused block` decodes through kernel K3 (one launch per layer) with the
+head through K5; `--fused-prefill` absorbs prompt chunks through K5 and the
+masked WKV kernel K2.  Without them the engine runs the plain per-op
+PyTorch path.  The device defaults to "cuda" and raises without a GPU.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch.core.quant.serving import unpack_params
+from repro_torch.device import resolve_device
+
+
+@torch.inference_mode()
+def sequential_decode(model, params, prompt: list[int], n_new: int,
+                      device="cuda") -> list[int]:
+    """Batch-1 greedy decode of one request through the per-op
+    `decode_step`: feed the prompt token by token, then argmax-chain
+    `n_new` tokens.  Packed params are decoded first; `params` must lie on
+    `device`."""
+    device = resolve_device(device)
+    params = unpack_params(params)
+    state = model.init_decode_state(1, 0, device=device)
+    logits = None
+    for t in prompt:
+        tok = torch.tensor([[t]], dtype=torch.int32, device=device)
+        logits, state = model.decode_step(params, state, tok, 0)
+    out = []
+    for _ in range(n_new):
+        nxt = int(torch.argmax(logits[0, -1].float()))
+        out.append(nxt)
+        tok = torch.tensor([[nxt]], dtype=torch.int32, device=device)
+        logits, state = model.decode_step(params, state, tok, 0)
+    return out
+
+
+def serve(arch: str, *, smoke: bool = False, batch: int = 8,
+          n_tokens: int = 32, quantized: bool = False, prompt_len: int = 8,
+          fused: str | None = None, fused_prefill: bool = False,
+          device: str = "cuda"):
+    """`batch` concurrent greedy requests (seeded prompts, weights from
+    seed 0) through the engine; prints the run's throughput and returns
+    the handles."""
+    from repro_torch.serving import ServingEngine
+    engine = ServingEngine(arch, smoke=smoke, max_batch=batch,
+                           quantized=quantized, fused_decode=fused,
+                           fused_prefill=fused_prefill, device=device)
+    rng = np.random.default_rng(0)
+    vocab = engine.model.cfg.vocab
+    handles = [engine.submit(rng.integers(0, vocab, prompt_len).tolist(),
+                             max_new_tokens=n_tokens)
+               for _ in range(batch)]
+    stats = engine.run()
+    name = torch.cuda.get_device_name(engine.device) \
+        if engine.device.type == "cuda" else "cpu"
+    print(f"{arch}{' (smoke)' if smoke else ''} on {name}: {batch} requests "
+          f"x {n_tokens} tokens ({'Δ-PoT W8' if quantized else 'fp'} "
+          f"weights, decode={fused or 'per_op'}, "
+          f"prefill={'chunked' if fused_prefill else 'per_op'}) — "
+          f"{stats['tokens_per_s']:.1f} tok/s over {stats['ticks']} ticks")
+    return handles
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="rwkv4-169m")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--quantized", action="store_true")
+    ap.add_argument("--fused", nargs="?", const="block", default=None,
+                    choices=["block"],
+                    help="decode through kernel K3, one launch per layer")
+    ap.add_argument("--fused-prefill", action="store_true",
+                    help="chunked prefill through kernels K5 and K2")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    serve(args.arch, smoke=args.smoke, batch=args.batch,
+          n_tokens=args.tokens, quantized=args.quantized,
+          prompt_len=args.prompt_len, fused=args.fused,
+          fused_prefill=args.fused_prefill, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,125 @@
+"""Model registry (port of `repro/models/registry.py`, rwkv4 family).
+
+`get_model(arch)` returns a `Model` handle bundling the rwkv4 module with
+its config.  The serving paths are rows of the `DECODE_PATHS` /
+`PREFILL_PATHS` tables: a path exists iff the module ships its entry.
+"""
+from __future__ import annotations
+
+import dataclasses
+from types import ModuleType
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, get_config, smoke_config
+from repro_torch.core.quant.serving import cast_compute
+from repro_torch.models import param as PM
+
+
+@dataclasses.dataclass(frozen=True)
+class PathDescriptor:
+    """One executable serving path.
+
+    name  — plan key ("per_op" | "block" | "chunked")
+    entry — module attribute implementing the step
+    """
+    name: str
+    entry: str
+
+
+DECODE_PATHS = (
+    PathDescriptor("per_op", "decode_step"),
+    # one K3 launch per layer; packed leaves decode in-kernel
+    PathDescriptor("block", "decode_step_fused"),
+)
+
+PREFILL_PATHS = (
+    # the per-op prefill is a loop of decode_step; the plan builds it
+    PathDescriptor("per_op", "decode_step"),
+    # chunk matmuls through K5, the masked WKV scan through K2
+    PathDescriptor("chunked", "prefill_chunk"),
+)
+
+
+def _module_for(cfg: ModelConfig) -> ModuleType:
+    if cfg.rwkv_version == 4:
+        from repro_torch.models import rwkv4
+        return rwkv4
+    raise NotImplementedError(
+        f"{cfg.name}: only the rwkv4 family is ported so far")
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    module: ModuleType
+
+    # -- parameters --------------------------------------------------------
+    def spec(self):
+        return self.module.spec(self.cfg)
+
+    def init_params(self, seed: int = 0, device="cuda",
+                    dtype=torch.float32):
+        return PM.init_params(self.spec(), seed, device, dtype)
+
+    def cast_params(self, params):
+        """Master params -> compute dtype (packed leaves pass through)."""
+        return cast_compute(params, getattr(torch, self.cfg.dtype))
+
+    # -- serving paths -----------------------------------------------------
+    def decode_paths(self) -> dict[str, PathDescriptor]:
+        return {d.name: d for d in DECODE_PATHS
+                if hasattr(self.module, d.entry)}
+
+    def prefill_paths(self) -> dict[str, PathDescriptor]:
+        return {d.name: d for d in PREFILL_PATHS
+                if hasattr(self.module, d.entry)}
+
+    def init_decode_state(self, batch: int, max_len: int = 0,
+                          dtype=torch.bfloat16, device="cuda"):
+        return self.module.init_decode_state(self.cfg, batch, max_len, dtype,
+                                             device)
+
+    def decode_state_axes(self):
+        return self.module.decode_state_axes(self.cfg)
+
+    def decode_step(self, params, state, tokens, pos):
+        """Per-op plain decode on plain (unpacked) params."""
+        return self.module.decode_step(self.cast_params(params), state,
+                                       tokens, pos, self.cfg)
+
+    def decode_step_fused(self, params, state, tokens, pos):
+        """Kernel decode (K3 per layer); params pass through uncast — the
+        model applies the packed-aware cast itself."""
+        return self.module.decode_step_fused(params, state, tokens, pos,
+                                             self.cfg)
+
+    def prefill_chunk(self, params, state, tokens, valid):
+        """Chunked prefill (K5 + K2): tokens (B, C) with a per-slot PREFIX
+        validity mask -> (new_state, last-valid logits)."""
+        return self.module.prefill_chunk(params, state, tokens, valid, 0,
+                                         self.cfg)
+
+    # -- per-slot decode-state contract (serving engine) -------------------
+    @property
+    def position_free_decode(self) -> bool:
+        return bool(getattr(self.module, "DECODE_POS_FREE", False))
+
+    def init_slot_state(self, n_slots: int = 1, dtype=torch.bfloat16,
+                        device="cuda"):
+        """Decode state for a slot pool: the batch axis is the slot axis."""
+        return self.init_decode_state(n_slots, 0, dtype, device)
+
+    def decode_state_batch_axes(self) -> list[int]:
+        """Position of the slot axis in every state leaf, in sorted-key
+        order (the order of `repro_torch.tree.leaves_with_path`)."""
+        axes = self.decode_state_axes()
+        return [axes[k].index("batch") for k in sorted(axes)]
+
+
+def get_model(cfg_or_id: ModelConfig | str, *, smoke: bool = False) -> Model:
+    if isinstance(cfg_or_id, str):
+        cfg = smoke_config(cfg_or_id) if smoke else get_config(cfg_or_id)
+    else:
+        cfg = cfg_or_id
+    return Model(cfg=cfg, module=_module_for(cfg))

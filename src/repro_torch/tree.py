@@ -1,0 +1,36 @@
+"""Parameter and state trees as nested dicts of tensors.
+
+The port keeps the JAX package's tree paths, so its trees are plain nested
+dicts.  A dict leaf — the packed `{"packed", "scale"}` plane — is kept
+whole when `is_leaf` says so.  Keys are visited in sorted order, the JAX
+flatten order.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+
+def _walk(tree, path, is_leaf):
+    if isinstance(tree, dict) and not (is_leaf is not None and is_leaf(tree)):
+        for k in sorted(tree):
+            yield from _walk(tree[k], path + (k,), is_leaf)
+    else:
+        yield path, tree
+
+
+def keystr(path: tuple) -> str:
+    """JAX's `keystr` form of a dict path: "['blocks']['att']['wr']"."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def leaves_with_path(tree, is_leaf: Optional[Callable] = None):
+    """[(path tuple, leaf)] in sorted-key order."""
+    return list(_walk(tree, (), is_leaf))
+
+
+def tree_map(fn: Callable, tree, *rest, is_leaf: Optional[Callable] = None):
+    """Apply fn leafwise over one or more trees of the same structure."""
+    if isinstance(tree, dict) and not (is_leaf is not None and is_leaf(tree)):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest),
+                            is_leaf=is_leaf) for k in tree}
+    return fn(tree, *rest)

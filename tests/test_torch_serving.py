@@ -1,0 +1,207 @@
+"""The port's serving stack on the CPU: engine, plan, scheduler and pool,
+plus the rules the port keeps — no JAX, no fallback, no quiet CPU run.
+"""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.bridge import from_jax_tree
+from repro_torch.device import exact_matmuls
+from repro_torch.kernels.fused_prefill import dpot_w8_matmul
+from repro_torch.kernels.wkv4 import wkv4_seq
+from repro_torch.launch.serve import sequential_decode
+from repro_torch.models.registry import get_model
+from repro_torch.serving import ServingEngine, build_plan
+from repro_torch.serving.plan import ExecutionPlan, masked_state_commit
+from repro_torch.serving.scheduler import Request, Scheduler
+from repro_torch.serving.state_pool import SlotStatePool
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PATHS = {"kernel": dict(fused_decode="block", fused_prefill=True),
+         "per_op": dict(fused_decode=False, fused_prefill=False)}
+
+
+def _engine(path, **kw):
+    return ServingEngine("rwkv4-169m", smoke=True, quantized=True,
+                         max_batch=4, prefill_chunk=4, device="cpu",
+                         **PATHS[path], **kw)
+
+
+def _prompts(n, vocab, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(k)).tolist()
+            for k in rng.integers(1, 11, n)]
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_engine_solo_equals_batched(path):
+    """Each request's stream is the same whether it shares the pool with
+    five others (ragged prompts, chunk splits, slot reuse) or runs alone."""
+    eng = _engine(path)
+    prompts = _prompts(6, eng.model.cfg.vocab)
+    handles = [eng.submit(p, max_new_tokens=6) for p in prompts]
+    stats = eng.run()
+    assert stats["tokens"] == 36 and all(h.done for h in handles)
+    for p, h in zip(prompts, handles):
+        solo = eng.submit(p, max_new_tokens=6)
+        eng.run()
+        assert solo.tokens == h.tokens
+
+
+def test_engine_matches_sequential_decode():
+    """The per-op engine against batch-1 greedy decode of each request."""
+    eng = _engine("per_op")
+    prompts = _prompts(3, eng.model.cfg.vocab, seed=1)
+    handles = [eng.submit(p, max_new_tokens=5) for p in prompts]
+    eng.run()
+    for p, h in zip(prompts, handles):
+        assert h.tokens == sequential_decode(
+            eng.model, eng.plan.prepared.raw, p, 5, device="cpu")
+
+
+def test_stream_yields_every_token():
+    eng = _engine("kernel")
+    h = eng.submit([1, 2, 3], max_new_tokens=4)
+    other = eng.submit([4, 5], max_new_tokens=7)
+    assert list(eng.stream(h)) == h.tokens and len(h.tokens) == 4
+    eng.run()
+    assert other.done and len(other.tokens) == 7
+
+
+def test_cuda_engine_raises_without_gpu(monkeypatch):
+    """device="cuda" (the default of every entry point) never quietly runs
+    on the CPU: the engine, the plan, the registry's constructors, the
+    pool, the sequential decode and the bridge all raise without a GPU."""
+    model = get_model("rwkv4-169m", smoke=True)
+    params = model.init_params(0, device="cpu")
+    plan = build_plan(model, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (
+            lambda: ServingEngine("rwkv4-169m", smoke=True, quantized=True,
+                                  fused_decode="block", fused_prefill=True),
+            lambda: build_plan("rwkv4-169m", smoke=True),
+            lambda: ExecutionPlan(model, plan.prepared, plan.decode_desc,
+                                  plan.prefill_desc),
+            lambda: model.init_params(0),
+            lambda: model.init_decode_state(2),
+            lambda: model.init_slot_state(2),
+            lambda: SlotStatePool(model, 2),
+            lambda: sequential_decode(model, params, [1, 2], 1),
+            lambda: from_jax_tree({"w": np.zeros(3, np.float32)})):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+
+
+def test_exact_matmuls_is_scoped():
+    """The plain versions switch TF32 and reduced-precision bf16 reductions
+    off only while they run; serving leaves the caller's settings as they
+    were."""
+    mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    flags = lambda: (mm.allow_tf32, dnn.allow_tf32,
+                     mm.allow_bf16_reduced_precision_reduction)
+    saved = flags()
+    try:
+        mm.allow_tf32 = dnn.allow_tf32 = True
+        mm.allow_bf16_reduced_precision_reduction = True
+        with exact_matmuls():
+            assert flags() == (False, False, False)
+        assert flags() == (True, True, True)
+        eng = _engine("per_op")
+        eng.submit([1, 2, 3], max_new_tokens=2)
+        eng.run()
+        assert flags() == (True, True, True)
+    finally:
+        (mm.allow_tf32, dnn.allow_tf32,
+         mm.allow_bf16_reduced_precision_reduction) = saved
+
+
+def test_kernel_wrappers_raise_off_cpu():
+    """A tensor that is not on the CPU goes to the kernel or raises; it
+    never falls back to the plain version (meta tensors stand in for a
+    device here: without nvcc the build raises)."""
+    meta = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt,
+                                                    device="meta")
+    before = (dpot_w8_matmul.launches, wkv4_seq.launches)
+    with pytest.raises((RuntimeError, NotImplementedError)):
+        dpot_w8_matmul(meta(4, 8, dt=torch.bfloat16),
+                       meta(8, 6, dt=torch.uint8), meta(6))
+    with pytest.raises((RuntimeError, NotImplementedError)):
+        wkv4_seq(meta(2, 3, 8), meta(2, 3, 8), meta(8), meta(8),
+                 meta(2, 8), meta(2, 8), meta(2, 8))
+    assert (dpot_w8_matmul.launches, wkv4_seq.launches) == before
+
+
+def test_scheduler_has_no_path_demotion():
+    """A failing decode program raises out of tick(): the scheduler never
+    swaps in a plain twin behind the caller's back."""
+    model = get_model("rwkv4-169m", smoke=True)
+    pool = SlotStatePool(model, 2, device="cpu")
+    calls = []
+
+    def prefill(state, toks, valid, fresh):
+        calls.append("prefill")
+        return state, torch.zeros((2, 1, model.cfg.vocab))
+
+    def decode(state, toks, mask):
+        calls.append("decode")
+        raise RuntimeError("kernel failed")
+    sched = Scheduler(pool, decode, prefill, prefill_chunk=4)
+    sched.enqueue(Request(rid=0, prompt=[1, 2], max_new_tokens=3))
+    # the tick prefills the prompt, emits its first token and decodes
+    with pytest.raises(RuntimeError, match="kernel failed"):
+        sched.tick()
+    assert calls == ["prefill", "decode"]
+    assert not hasattr(sched, "fallback_decode")
+
+
+def test_state_pool_slots():
+    model = get_model("rwkv4-169m", smoke=True)
+    pool = SlotStatePool(model, 3, device="cpu")
+    assert [pool.acquire() for _ in range(3)] == [0, 1, 2]
+    assert pool.acquire() is None
+    pool.release(1)
+    with pytest.raises(ValueError):
+        pool.release(1)
+    lane = {k: torch.full_like(v, 3.0) for k, v in pool.read_slot(2).items()}
+    pool.write_slot(1, lane)
+    assert all(bool((pool.read_slot(1)[k] == 3.0).all()) for k in lane)
+    assert all(bool((pool.state[k][:, 0] != 3.0).all()) for k in lane)
+    pool.reset_slot(1)
+    assert bool((pool.read_slot(1)["wkv_o"] < -1e30).all())
+    assert pool.acquire() == 1
+
+
+def test_masked_state_commit_broadcasts_fresh_lane():
+    model = get_model("rwkv4-169m", smoke=True)
+    state = model.init_slot_state(3, dtype=torch.float32, device="cpu")
+    state = {k: torch.ones_like(v) for k, v in state.items()}
+    fresh = model.init_slot_state(1, dtype=torch.float32, device="cpu")
+    mask = torch.tensor([True, False, True])
+    out = masked_state_commit(state, fresh, mask,
+                              model.decode_state_batch_axes())
+    for k in out:
+        assert bool((out[k][:, 0] == 1).all()) and bool(
+            (out[k][:, 2] == 1).all())
+        assert torch.equal(out[k][:, 1], fresh[k][:, 0])
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_imports_no_jax_and_no_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (f, mod)
