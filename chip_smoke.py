@@ -10,36 +10,56 @@ Phases, each of which raises on failure (the script then exits non-zero):
  2. Kernels at the full width of rwkv4-169m (L12 D768 F3072 V50277), each
     against its plain PyTorch version on the same inputs (TF32 off):
       dpot_w8_matmul (K5)      M in {128, 8} x (K, N) in {(768, 768),
-                               (768, 3072), (3072, 768), (768, 50277)},
-                               plus a bit-exact W8 decode check
-                               (x = identity rows against unpack_leaf)
+                               (768, 3072), (3072, 768), (768, 50277)}
+      dpot_w4_matmul (K5-W4)   M in {128, 8} x (K, N) in {(768, 768),
+                               (768, 50277)} (att.wk and the head)
+      vq_matmul (K5-VQ)        M in {128, 8} x (3072, 768) (ffn.wv)
       wkv4_seq (K2)            (B, T, C) = (8, 16, 768), prefix masks
-      rwkv4_block_decode (K3)  B = 8, D = 768, F = 3072
+      rwkv4_block_decode (K3)  B = 8, D = 768, F = 3072, on layer 0 of the
+                               W8 tree and of the MIXED tree
+      rwkv4_model_decode (K4)  B = 8, all 12 layers of the prepared MIXED
+                               slabs; bit for bit equal to 12 K3 launches
+    Each chunk matmul's decode is checked bit for bit: identity rows pick
+    out the decoded plane, which must equal unpack_leaf.
     Tolerances, against the plain version's output `ref`:
-      K5, K2  elementwise |d| <= 2^-7 |ref| + 2^-20 max|ref|: both sides
-              accumulate in f32 in another order and round to bf16 (K5) or
-              snap a bf16 carry (K2), so an output may move by one bf16
-              step (at most 2^-7 relative), and by nothing more.
+      K5 (all planes), K2  elementwise |d| <= 2^-7 |ref| + 2^-20 max|ref|:
+              both sides accumulate in f32 in another order and round to
+              bf16 (K5) or snap a bf16 carry (K2), so an output may move by
+              one bf16 step (at most 2^-7 relative), and by nothing more.
       K3      max|d| <= 2^-6 max|ref| and mean|d| <= 2^-11 mean|ref| per
               output: a LayerNorm sum in another order can flip one bf16
               rounding, which then travels through later matvecs as a few
               bf16 steps at most; a misplaced rounding moves most elements
               and shows in the mean.
+      K4      first, bit for bit equal to 12 K3 launches on the same
+              layers, each of which is held to K3's tolerance against
+              K3's plain version on that layer's inputs; then, per
+              output, max|d| <= K4_MAX_REL max|ref| and mean|d| <=
+              K4_MEAN_REL mean|ref|: K3's flips, carried through 12
+              layers of random weights, each moving every later one,
+              spread as far as the plain version run on the CPU sits from
+              itself on the card (K4_* is 1.25x what that plain pair
+              alone reads, PERF.md).
     Times come from CUDA events around single launches, with the 50 MB L2
     flushed (a 512 MB memset) before each, as the serving loop meets them,
     and the card kept busy while the host enqueues the launch (`_time_ms`).
- 3. Engine: ServingEngine("rwkv4-169m", quantized=True, fused_decode=
-    "block", fused_prefill=True, max_batch=8, prefill_chunk=16) serves 8
-    seeded requests (prompts of 5-40 tokens, 32 greedy tokens each) with
-    every launch counter set to 0 just before and read just after; each
-    kernel must have launched.  Each request's stream must equal the same
-    engine serving that request alone, bit for bit.  Teacher-forced
-    logits of the kernel path (a 16-token prefill chunk, then 32 decode
-    steps) are held with fixed bounds (TF_*) against an f32 witness of the
-    same model and against the plain bf16 per-op path on the card; the
-    plain bf16 paths on the card and on the CPU are held against the
-    witness beside it, so the line shows how far bf16 alone moves the
-    logits (`phase_teacher_forced`).
+ 3. Engines, two serving paths, each with every launch counter set to 0
+    just before its run and read just after; each kernel of the path must
+    have launched.  Each serves 8 seeded requests (prompts of 5-40 tokens,
+    32 greedy tokens each) with max_batch=8, prefill_chunk=16, and each
+    request's stream must equal the same engine serving it alone, bit for
+    bit:
+      block  ServingEngine(quantized=True, fused_decode="block",
+             fused_prefill=True): W8 weights, K5 + K2 + K3
+      model  ServingEngine(quantized=True, plane_policy=MIXED,
+             fused_decode="model", fused_prefill=True): W8 / W4 / VQ
+             planes, K5 + K5-W4 + K5-VQ + K2 + K4
+    Teacher-forced logits of each path's kernels (a 16-token prefill
+    chunk, then 32 decode steps) are held with fixed bounds (TF_BOUNDS)
+    against an f32 witness of the same model and against the plain bf16
+    per-op path on the card; the plain bf16 paths on the card and on the
+    CPU are held against the witness beside it, so the line shows how far
+    bf16 alone moves the logits (`phase_teacher_forced`).
  4. The `kernels` JSON line, the card's name and power limit, and the last
     line {"ok": true, "device": {...}}.
 
@@ -64,16 +84,38 @@ PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12         # H100 SXM f32 outside the tensor cores
 REPS = 10
 SLEEP_CYCLES = 4_000_000       # ~2 ms at the H100's 1.98 GHz boost clock
-# Teacher-forced bounds on the kernel path's logits (phase_teacher_forced):
-# 1.25x what the plain bf16 paths alone read on an H100 (PERF.md, PR 11
-# run 4: to the f32 witness mean 0.01409 (card) / 0.01403 (CPU), max
-# 0.0143 of max|f32|, argmax agreement 0.9545 at the least; CPU vs card
-# mean 0.01511, max 0.0163 of max|ref|).
-TF_MEAN_REL_F32 = 0.018      # mean |d| / mean |f32| against the witness
-TF_MAX_REL_F32 = 0.018       # max |d| / max |f32| against the witness
-TF_ARGMAX_F32 = 0.94         # argmax agreement with the witness
-TF_MEAN_REL_PLAIN = 0.019    # mean |d| / mean |ref| against the plain path
-TF_MAX_REL_PLAIN = 0.021     # max |d| / max |ref| against the plain path
+# Teacher-forced bounds on the kernel paths' logits (phase_teacher_forced),
+# per path: 1.25x what that path's plain bf16 paths alone read on an H100.
+#   block (PERF.md, PR 11 run 4): to the f32 witness mean 0.01409 (card) /
+#     0.01403 (CPU), max 0.0143 of max|f32|, argmax agreement 0.9545 at the
+#     least; CPU vs card mean 0.01511, max 0.0163 of max|ref|.
+#   model, MIXED planes (PERF.md, PR 12 run 2): to the f32 witness mean
+#     0.014061, max 0.01480 of max|f32|, argmax agreement 0.9394, outside
+#     the block path's 0.94, so the path has its own constants; against the
+#     plain path it keeps the block path's (run 3 reads its CPU-vs-card
+#     pair beside them).
+TF_BOUNDS = {
+    "block": {"mean_rel_f32": 0.018,    # mean |d| / mean |f32|, witness
+              "max_rel_f32": 0.018,     # max |d| / max |f32|, witness
+              "argmax_f32": 0.94,       # argmax agreement with the witness
+              "mean_rel_plain": 0.019,  # mean |d| / mean |ref|, plain path
+              "max_rel_plain": 0.021},  # max |d| / max |ref|, plain path
+    "model": {"mean_rel_f32": 0.0176, "max_rel_f32": 0.0185,
+              "argmax_f32": 0.924, "mean_rel_plain": 0.019,
+              "max_rel_plain": 0.021},
+}
+# K3 against its plain version (phase 2), per output, relative to max|ref|
+# and mean|ref| (the reason is in the docstring)
+K3_MAX_REL, K3_MEAN_REL = 2.0 ** -6, 2.0 ** -11
+# K4 against its plain version (phase 2): 1.25x the plain version's own
+# CPU-vs-card gap alone, the largest over the six outputs (PERF.md, PR 12
+# run 2: max 0.01136 of max|ref|, mean 0.005799 of mean|ref|)
+K4_MAX_REL, K4_MEAN_REL = 0.0142, 0.00725
+# the MIXED plane policy: W4 for att.wk and the head, VQ for ffn.wv, W8
+# elsewhere (tests/test_fused_decode.py), so every decode branch runs
+MIXED_OVERRIDES = ((r"\['att'\]\['wk'\]", "w4"),
+                   (r"\['ffn'\]\['wv'\]", "vq"),
+                   (r"\['head'\]", "w4"))
 
 
 def _bound(nbytes: float, ops: float, peak: float):
@@ -127,7 +169,8 @@ def phase_build():
     _, log = build()
     load_library()
     usage = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln
+             or "Compiling entry" in ln]
     _line({"phase": "build", "seconds": time.perf_counter() - t0,
            "ptxas": usage})
 
@@ -180,6 +223,59 @@ def phase_k5(params, cfg, flush):
     return rows
 
 
+def phase_k5_planes(params, cfg, flush):
+    """K5-W4 on att.wk (layer 0) and the head, K5-VQ on ffn.wv (layer 0)
+    of the MIXED tree: decode bit-exact against unpack_leaf, outputs
+    against the plain versions, times beside the byte bound."""
+    from repro_torch.core.quant.serving import unpack_leaf
+    from repro_torch.device import exact_matmuls
+    from repro_torch.kernels.fused_prefill import (
+        dpot_w4_matmul, dpot_w4_matmul_plain, vq_matmul, vq_matmul_plain)
+    blocks = params["blocks"]
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    wk, wv, head = blocks["att"]["wk"], blocks["ffn"]["wv"], params["head"]
+    w4 = lambda codes, scale: ({"packed4": codes, "scale": scale[None]},
+                               dpot_w4_matmul, dpot_w4_matmul_plain)
+    cases = [((D, D), wk["packed4"][0], wk["scale"].reshape(-1)),
+             ((D, V), head["packed4"], head["scale"].reshape(-1)),
+             ((F, D), wv["vq_idx"][0], wv["codebook"].reshape(-1))]
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    rows = []
+    for (K, N), codes, aux in cases:
+        if codes.shape[0] == K:           # VQ indices (K, N)
+            leaf, fn, plain = ({"vq_idx": codes, "codebook": aux},
+                               vq_matmul, vq_matmul_plain)
+        else:                             # W4 nibble pairs (K/2, N)
+            leaf, fn, plain = w4(codes, aux)
+        w_bf = unpack_leaf(leaf)
+        eye = torch.eye(K, dtype=torch.bfloat16, device=DEV)
+        if not torch.equal(fn(eye, codes, aux), w_bf):
+            raise AssertionError(f"{fn.__name__} decode differs from "
+                                 f"unpack_leaf at (K, N) = {(K, N)}")
+        for M in (128, 8):
+            x = torch.randn((M, K), generator=gen, device=DEV).to(
+                torch.bfloat16)
+            out, ref = fn(x, codes, aux), plain(x, codes, aux)
+            ok, err = _elementwise_ok(out, ref)
+            if not ok:
+                raise AssertionError(f"{fn.__name__} {(M, K, N)}: "
+                                     f"max |d| {err}")
+            nbytes = (M * K * 2 + codes.numel() + aux.numel()
+                      * aux.element_size() + M * N * 2)
+            bms, by = _bound(nbytes, 2.0 * M * N * K, PEAK_BF16_FLOPS)
+            with exact_matmuls():
+                lib = _time_ms(lambda: torch.matmul(x, w_bf), flush)
+            row = {"kernel": fn.__name__, "M": M, "K": K, "N": N,
+                   "max_abs_err": err, "decode_bit_exact": True,
+                   "kernel_ms": _time_ms(lambda: fn(x, codes, aux), flush),
+                   "plain_ms": _time_ms(lambda: plain(x, codes, aux),
+                                        flush),
+                   "library_ms": lib, "bound_ms": bms, "bound_by": by}
+            _line(row)
+            rows.append(row)
+    return rows
+
+
 def phase_k2(cfg, flush):
     from repro_torch.kernels.wkv4 import wkv4_seq, wkv4_seq_plain
     B, T, C = 8, 16, cfg.d_model
@@ -213,12 +309,29 @@ def phase_k2(cfg, flush):
     return row
 
 
-def phase_k3(params, cfg, flush):
+def _k3_check(out, ref, where):
+    """K3's outputs (x, new state) against its plain version's; returns
+    the largest max |d| and mean |d| / mean |ref| over the six."""
+    from repro_torch.kernels.fused_decode import STATE_KEYS
+    err, mean_rel = 0.0, 0.0
+    for name in ("x",) + STATE_KEYS:
+        o = out[0] if name == "x" else out[1][name]
+        r = ref[0] if name == "x" else ref[1][name]
+        ok, e, m = _spread_ok(o, r, K3_MAX_REL, K3_MEAN_REL)
+        if not ok:
+            raise AssertionError(f"K3 {where} {name}: max |d| {e}, mean "
+                                 f"rel {m}")
+        err, mean_rel = max(err, e), max(mean_rel, m)
+    return err, mean_rel
+
+
+def phase_k3(params, cfg, flush, planes="w8"):
     from repro_torch.core.quant.serving import (
         broadcast_packed_scales, cast_compute)
     from repro_torch.kernels.fused_decode import (
         rwkv4_block_decode, rwkv4_block_decode_plain)
-    from repro_torch.models.rwkv4 import STATE_KEYS, _layer
+    from repro_torch.models.rwkv4 import _layer
+    from repro_torch.tree import leaves_with_path
     B, D, F = 8, cfg.d_model, cfg.d_ff
     blocks = broadcast_packed_scales(
         cast_compute(params, torch.bfloat16)["blocks"], cfg.n_layers)
@@ -230,21 +343,19 @@ def phase_k3(params, cfg, flush):
     st = {"att_x": rn().to(bf), "ffn_x": rn().to(bf),
           "wkv_a": rn().to(bf), "wkv_b": (rn().abs() + 0.5).to(bf),
           "wkv_o": (rn() - 1).to(bf)}
-    x2, new = rwkv4_block_decode(lp, st, x)
-    x2_p, new_p = rwkv4_block_decode_plain(lp, st, x)
-    err, mean_rel = 0.0, 0.0
-    for name, o, r in [("x", x2, x2_p)] + [
-            (k, new[k], new_p[k]) for k in STATE_KEYS]:
-        ok, e, m = _spread_ok(o, r, 2.0 ** -6, 2.0 ** -11)
-        if not ok:
-            raise AssertionError(f"K3 {name}: max |d| {e}, mean rel {m}")
-        err, mean_rel = max(err, e), max(mean_rel, m)
-    w_bytes = 5 * D * D + 2 * D * F
-    nbytes = (w_bytes + 4 * (6 * D + F) + 2 * 11 * D   # codes, scales, vecs
-              + 2 * 6 * B * D + 2 * 6 * B * D)         # x + state in, out
-    bms, by = _bound(nbytes, 2.0 * B * w_bytes, PEAK_BF16_FLOPS)
-    row = {"kernel": "rwkv4_block_decode", "B": B, "D": D, "F": F,
-           "max_abs_err": err, "max_mean_rel_err": mean_rel,
+    err, mean_rel = _k3_check(rwkv4_block_decode(lp, st, x),
+                              rwkv4_block_decode_plain(lp, st, x),
+                              f"layer 0 ({planes})")
+    # the layer's own tensors (codes, scales or codebook, vectors), then
+    # x and the state in and out
+    nbytes = (sum(t.numel() * t.element_size()
+                  for _, t in leaves_with_path(lp))
+              + 2 * 6 * B * D + 2 * 6 * B * D)
+    ops = 2.0 * B * (5 * D * D + 2 * D * F)
+    bms, by = _bound(nbytes, ops, PEAK_BF16_FLOPS)
+    row = {"kernel": "rwkv4_block_decode", "planes": planes, "B": B, "D": D,
+           "F": F, "max_abs_err": err, "max_mean_rel_err": mean_rel,
+           "bytes": nbytes,
            "kernel_ms": _time_ms(lambda: rwkv4_block_decode(lp, st, x),
                                  flush),
            "plain_ms": _time_ms(lambda: rwkv4_block_decode_plain(lp, st, x),
@@ -254,7 +365,91 @@ def phase_k3(params, cfg, flush):
     return row
 
 
-def phase_engine(engine, counters):
+def phase_k4(engine, flush):
+    """K4 on the model-path engine's prepared MIXED slabs at B = 8: bit for
+    bit equal to 12 K3 launches over the same layers, each K3 launch within
+    K3_* of K3's plain version on the same inputs, and K4 within K4_* of
+    its own plain version; its time beside the byte bound."""
+    from repro_torch.core.quant.serving import unfuse_layer
+    from repro_torch.kernels.fused_decode import (
+        STATE_KEYS, rwkv4_block_decode, rwkv4_block_decode_plain,
+        rwkv4_model_decode, rwkv4_model_decode_plain)
+    stack = engine.plan.prepared.decode["blocks"]
+    cfg = engine.model.cfg
+    L, B, D, F = cfg.n_layers, 8, cfg.d_model, cfg.d_ff
+    g = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    rn = lambda *s: torch.randn(s, generator=g, device=DEV)
+    bf = torch.bfloat16
+    x = rn(B, D).to(bf)
+    st = {"att_x": rn(L, B, D).to(bf), "ffn_x": rn(L, B, D).to(bf),
+          "wkv_a": rn(L, B, D).to(bf),
+          "wkv_b": (rn(L, B, D).abs() + 0.5).to(bf),
+          "wkv_o": (rn(L, B, D) - 1).to(bf)}
+    x4, new4 = rwkv4_model_decode(stack, st, x)
+    aux = [a[0] for a in stack.aux]
+    x3, new3, k3_err, k3_mean = x, [], 0.0, 0.0
+    for l in range(L):
+        lp = unfuse_layer({k: s[l] for k, s in stack.slabs.items()}, aux,
+                          stack.manifest, stack.tdef)
+        st_l = {k: st[k][l] for k in STATE_KEYS}
+        out3 = rwkv4_block_decode(lp, st_l, x3)
+        e, m = _k3_check(out3, rwkv4_block_decode_plain(lp, st_l, x3),
+                         f"layer {l} (mixed)")
+        k3_err, k3_mean = max(k3_err, e), max(k3_mean, m)
+        x3, s3 = out3
+        new3.append(s3)
+    same = torch.equal(x4, x3) and all(
+        torch.equal(new4[k], torch.stack([s[k] for s in new3]))
+        for k in STATE_KEYS)
+    if not same:
+        raise AssertionError("K4 differs from 12 K3 launches")
+    from repro_torch.core.quant.serving import FusedLayerStack
+    from repro_torch.tree import tree_map
+    xp, newp = rwkv4_model_decode_plain(stack, st, x)
+    cpu = lambda t: t.cpu()
+    xc, newc = rwkv4_model_decode_plain(
+        FusedLayerStack(tree_map(cpu, stack.slabs),
+                        tuple(map(cpu, stack.aux)), stack.manifest,
+                        stack.tdef), tree_map(cpu, st), x.cpu())
+    pairs = [("x", x4, xp, xc)] + [
+        (k, new4[k], newp[k], newc[k]) for k in STATE_KEYS]
+    err, mean_rel, rel = 0.0, 0.0, {"kernel": {}, "plain_cpu": {}}
+    for name, o, r, c in pairs:
+        scale_max = float(r.float().abs().max())
+        for who, got in (("kernel", o), ("plain_cpu", c.to(DEV))):
+            d = (got.float() - r.float()).abs()
+            rel[who][name] = {
+                "max_rel": float(d.max()) / scale_max,
+                "mean_rel": float(d.mean() / r.float().abs().mean())}
+        ok, e, m = _spread_ok(o, r, K4_MAX_REL, K4_MEAN_REL)
+        if not ok:
+            _line({"kernel": "rwkv4_model_decode", "gaps_to_plain": rel})
+            raise AssertionError(f"K4 {name}: max |d| {e}, mean rel {m}")
+        err, mean_rel = max(err, e), max(mean_rel, m)
+    w_bytes = sum(s.numel() * s.element_size() for s in stack.slabs.values())
+    aux_bytes = sum(a.numel() * a.element_size() for a in stack.aux)
+    nbytes = (w_bytes + aux_bytes + 2 * 5 * L * B * D * 2   # state in, out
+              + 2 * B * D * 2)                              # x in, out
+    ops = 2.0 * B * L * (5 * D * D + 2 * D * F)
+    bms, by = _bound(nbytes, ops, PEAK_BF16_FLOPS)
+    row = {"kernel": "rwkv4_model_decode", "planes": "mixed", "L": L, "B": B,
+           "D": D, "F": F, "equals_k3_per_layer": True,
+           "k3_per_layer_vs_plain": {"max_abs_err": k3_err,
+                                     "max_mean_rel_err": k3_mean},
+           "max_abs_err": err, "max_mean_rel_err": mean_rel,
+           "gaps_to_plain": rel,
+           "bounds": {"max_rel": K4_MAX_REL, "mean_rel": K4_MEAN_REL},
+           "weight_bytes": w_bytes, "aux_bytes": aux_bytes, "bytes": nbytes,
+           "kernel_ms": _time_ms(lambda: rwkv4_model_decode(stack, st, x),
+                                 flush),
+           "plain_ms": _time_ms(
+               lambda: rwkv4_model_decode_plain(stack, st, x), flush),
+           "library_ms": None, "bound_ms": bms, "bound_by": by}
+    _line(row)
+    return row
+
+
+def phase_engine(engine, counters, path):
     V = engine.model.cfg.vocab
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, V, int(n)).tolist()
@@ -276,7 +471,7 @@ def phase_engine(engine, counters):
         if h.tokens != streams[i]:
             raise AssertionError(f"request {i}: batched stream differs from "
                                  f"serving it alone")
-    _line({"phase": "engine", "requests": 8, "new_tokens": 32,
+    _line({"phase": "engine", "path": path, "requests": 8, "new_tokens": 32,
            "prompt_lens": [len(p) for p in prompts],
            "tokens_per_s": stats["tokens_per_s"], "seconds": stats["seconds"],
            "ticks": stats["ticks"], "launches": launches,
@@ -284,17 +479,22 @@ def phase_engine(engine, counters):
     return launches
 
 
-def _kernel_logits(model, params, toks, C):
-    """Kernel path: one prefill chunk (K5 + K2), then decode steps (K3 per
-    layer, the head through K5).  Logits after the chunk and each step."""
+def _kernel_logits(engine, toks, C):
+    """The engine's kernel path: one prefill chunk (K5s + K2), then decode
+    steps (K3 per layer or one K4, the head through K5), each on the
+    weight form its path prepared.  Logits after the chunk and each
+    step."""
+    model, prep = engine.model, engine.plan.prepared
+    step = model.decode_step_fused_model if prep.decode_path == "model" \
+        else model.decode_step_fused
     B = toks.shape[0]
     valid = torch.ones((B, C), dtype=torch.bool, device=toks.device)
     with torch.inference_mode():
         s = model.init_decode_state(B, 0, device=toks.device)
-        s, lg = model.prefill_chunk(params, s, toks[:, :C], valid)
+        s, lg = model.prefill_chunk(prep.prefill, s, toks[:, :C], valid)
         out = [lg]
         for j in range(C, toks.shape[1]):
-            lg, s = model.decode_step_fused(params, s, toks[:, j:j + 1], 0)
+            lg, s = step(prep.decode, s, toks[:, j:j + 1], 0)
             out.append(lg)
     return torch.stack(out).float()
 
@@ -336,15 +536,16 @@ def _gap(out, ref):
 def phase_teacher_forced(engine):
     """Kernel path vs the plain per-op path on the card, on the same tokens
     (8 lanes: a 16-token prefill chunk, then 32 decode steps), both held
-    against an f32 witness of the same model.
+    against an f32 witness of the same model, with the plain path on the
+    CPU beside them.
 
     Every bf16 path at this width sits a bf16 noise distance from the f32
     witness; the kernel path must sit no farther than the plain bf16 paths
     do (on the card and on the CPU, which differ only in summation order),
-    within the fixed bounds TF_*.  The bounds come from the readings of
-    the committed script on an H100 (PERF.md, PR 11 run 4): what the plain
-    bf16 paths alone read, against the witness and against each other,
-    with a quarter of headroom.  They catch a kernel that is wrong (its
+    within the fixed bounds TF_BOUNDS of its path.  The bounds come from
+    the readings of the committed script on an H100 (PERF.md, PR 11 run 4
+    and PR 12 run 2): what the plain bf16 paths alone read, against the
+    witness and against each other, with a quarter of headroom.  They catch a kernel that is wrong (its
     logits move by their own size); a rounding made at the wrong place is
     caught by the per-kernel checks of phase 2, not here."""
     from repro_torch.tree import tree_map
@@ -354,38 +555,63 @@ def phase_teacher_forced(engine):
     B, C, S = 8, 16, 32
     toks = torch.randint(0, cfg.vocab, (B, C + S), generator=g,
                          device=DEV, dtype=torch.int32)
-    out = _kernel_logits(model, params, toks, C)
+    out = _kernel_logits(engine, toks, C)
     if not bool(torch.isfinite(out).all()):
         raise AssertionError("kernel-path logits are not finite")
     if out.shape != (S + 1, B, 1, cfg.vocab):
         raise AssertionError(f"logits shape {tuple(out.shape)}")
     ref = _plain_logits(model, params, toks, C)
     f32 = _plain_logits(model, params, toks, C, torch.float32)
+    max_f32, max_ref = float(f32.abs().max()), float(ref.abs().max())
     cpu = _plain_logits(model, tree_map(lambda t: t.cpu(), params),
                         toks.cpu(), C).to(DEV)
-    max_f32, max_ref = float(f32.abs().max()), float(ref.abs().max())
     gaps = {"kernel_vs_plain": _gap(out, ref),
             "kernel_vs_f32": _gap(out, f32),
             "plain_card_vs_f32": _gap(ref, f32),
             "plain_cpu_vs_f32": _gap(cpu, f32),
             "plain_cpu_vs_card": _gap(cpu, ref)}
+    path = engine.plan.prepared.decode_path
+    tb = TF_BOUNDS[path]
     kp, kf = gaps["kernel_vs_plain"], gaps["kernel_vs_f32"]
-    ok = (kf["mean_rel"] <= TF_MEAN_REL_F32
-          and kf["max_abs"] <= TF_MAX_REL_F32 * max_f32
-          and kf["argmax_agree"] >= TF_ARGMAX_F32
-          and kp["mean_rel"] <= TF_MEAN_REL_PLAIN
-          and kp["max_abs"] <= TF_MAX_REL_PLAIN * max_ref)
-    _line({"phase": "teacher_forced", "steps": S + 1, "lanes": B,
-           "max_abs_f32": max_f32, "gaps": gaps,
-           "bounds": {"kernel_vs_f32": {"mean_rel": TF_MEAN_REL_F32,
-                                        "max_abs": TF_MAX_REL_F32 * max_f32,
-                                        "argmax_agree": TF_ARGMAX_F32},
+    near_f32 = lambda gp: (gp["mean_rel"] <= tb["mean_rel_f32"]
+                           and gp["max_abs"] <= tb["max_rel_f32"] * max_f32
+                           and gp["argmax_agree"] >= tb["argmax_f32"])
+    ok = (near_f32(kf) and kp["mean_rel"] <= tb["mean_rel_plain"]
+          and kp["max_abs"] <= tb["max_rel_plain"] * max_ref)
+    _line({"phase": "teacher_forced", "path": path, "steps": S + 1,
+           "lanes": B, "max_abs_f32": max_f32, "gaps": gaps,
+           "bounds": {"kernel_vs_f32": {
+                          "mean_rel": tb["mean_rel_f32"],
+                          "max_abs": tb["max_rel_f32"] * max_f32,
+                          "argmax_agree": tb["argmax_f32"]},
                       "kernel_vs_plain": {
-                          "mean_rel": TF_MEAN_REL_PLAIN,
-                          "max_abs": TF_MAX_REL_PLAIN * max_ref}},
+                          "mean_rel": tb["mean_rel_plain"],
+                          "max_abs": tb["max_rel_plain"] * max_ref}},
+           "plain_card_within_f32_bound": near_f32(gaps["plain_card_vs_f32"]),
            "within_bound": ok})
     if not ok:
         raise AssertionError(f"teacher-forced logits out of bounds: {gaps}")
+
+
+def _kernel_row(name, source, replaces, rows, launches, note=None):
+    """One entry of the `kernels` line from a kernel's phase rows: times
+    and bounds summed over the shapes, one call each."""
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches["main"],
+           "launches_by_path": launches["by_path"],
+           "max_abs_err": max(r["max_abs_err"] for r in rows),
+           "ms": sum(r["kernel_ms"] for r in rows),
+           "plain_ms": sum(r["plain_ms"] for r in rows),
+           "bound_ms": sum(r["bound_ms"] for r in rows),
+           "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+           else "operations",
+           "library_ms": None if rows[0]["library_ms"] is None
+           else sum(r["library_ms"] for r in rows),
+           "shapes": [[r[k] for k in ("M", "K", "N", "L", "B", "T", "C", "D",
+                                      "F") if k in r] for r in rows]}
+    if note:
+        row["note"] = note
+    return row
 
 
 def main() -> int:
@@ -397,55 +623,68 @@ def main() -> int:
         print(f"chip_smoke: no port package under {src}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    from repro_torch.kernels.fused_decode import rwkv4_block_decode
-    from repro_torch.kernels.fused_prefill import dpot_w8_matmul
+    from repro_torch.core.quant.policy import PlanePolicy
+    from repro_torch.kernels.fused_decode import (
+        rwkv4_block_decode, rwkv4_model_decode)
+    from repro_torch.kernels.fused_prefill import (
+        dpot_w4_matmul, dpot_w8_matmul, vq_matmul)
     from repro_torch.kernels.wkv4 import wkv4_seq
     from repro_torch.serving import ServingEngine
 
     phase_build()
-    engine = ServingEngine("rwkv4-169m", smoke=False, quantized=True,
-                           fused_decode="block", fused_prefill=True,
-                           max_batch=8, prefill_chunk=16, seed=SEED,
-                           device=DEV)
-    params, cfg = engine.plan.prepared.raw, engine.model.cfg
+    common = dict(smoke=False, quantized=True, fused_prefill=True,
+                  max_batch=8, prefill_chunk=16, seed=SEED, device=DEV)
+    block = ServingEngine("rwkv4-169m", fused_decode="block", **common)
+    model = ServingEngine(
+        "rwkv4-169m", fused_decode="model",
+        plane_policy=PlanePolicy(default="w8", overrides=MIXED_OVERRIDES),
+        **common)
+    cfg = block.model.cfg
+    w8, mixed = block.plan.prepared.raw, model.plan.prepared.raw
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEV)
-    k5 = phase_k5(params, cfg, flush)
+    k5 = phase_k5(w8, cfg, flush)
+    k5p = phase_k5_planes(mixed, cfg, flush)
     k2 = phase_k2(cfg, flush)
-    k3 = phase_k3(params, cfg, flush)
+    k3 = phase_k3(w8, cfg, flush)
+    phase_k3(mixed, cfg, flush, planes="mixed")
+    k4 = phase_k4(model, flush)
     del flush
-    launches = phase_engine(
-        engine, (dpot_w8_matmul, wkv4_seq, rwkv4_block_decode))
-    phase_teacher_forced(engine)
+    by_path = {
+        "block": phase_engine(
+            block, (dpot_w8_matmul, wkv4_seq, rwkv4_block_decode), "block"),
+        "model": phase_engine(
+            model, (dpot_w8_matmul, dpot_w4_matmul, vq_matmul, wkv4_seq,
+                    rwkv4_model_decode), "model")}
+    phase_teacher_forced(block)
+    phase_teacher_forced(model)
 
-    total = lambda key: sum(r[key] for r in k5)
+    def launches(name, main_path):
+        return {"main": by_path[main_path][name],
+                "by_path": {p: n.get(name, 0) for p, n in by_path.items()}}
+    w4_rows = [r for r in k5p if r["kernel"] == "dpot_w4_matmul"]
+    vq_rows = [r for r in k5p if r["kernel"] == "vq_matmul"]
+    summed = "times and bounds summed over the shapes, one call each"
     kernels = [
-        {"name": "dpot_w8_matmul", "route": "cuda",
-         "source": "src/repro_torch/csrc/dpot_w8_matmul.cu",
-         "replaces": "src/repro/kernels/fused_prefill.py:84",
-         "launches": launches["dpot_w8_matmul"],
-         "max_abs_err": max(r["max_abs_err"] for r in k5),
-         "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
-         "bound_ms": total("bound_ms"),
-         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in k5)
-         else "operations",
-         "library_ms": total("library_ms"),
-         "shapes": [[r["M"], r["K"], r["N"]] for r in k5],
-         "note": "times and bounds summed over the shapes, one call each"},
-        {"name": "wkv4_seq", "route": "cuda",
-         "source": "src/repro_torch/csrc/wkv4_seq.cu",
-         "replaces": "src/repro/kernels/wkv4.py:101",
-         "launches": launches["wkv4_seq"], "max_abs_err": k2["max_abs_err"],
-         "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],
-         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-         "library_ms": None, "shapes": [[k2["B"], k2["T"], k2["C"]]]},
-        {"name": "rwkv4_block_decode", "route": "cuda",
-         "source": "src/repro_torch/csrc/rwkv4_block_decode.cu",
-         "replaces": "src/repro/kernels/fused_decode.py:77",
-         "launches": launches["rwkv4_block_decode"],
-         "max_abs_err": k3["max_abs_err"], "ms": k3["kernel_ms"],
-         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
-         "bound_by": k3["bound_by"], "library_ms": None,
-         "shapes": [[k3["B"], k3["D"], k3["F"]]]},
+        _kernel_row("dpot_w8_matmul", "src/repro_torch/csrc/chunk_matmul.cu",
+                    "src/repro/kernels/fused_prefill.py:84", k5,
+                    launches("dpot_w8_matmul", "block"), summed),
+        _kernel_row("dpot_w4_matmul", "src/repro_torch/csrc/chunk_matmul.cu",
+                    "src/repro/kernels/fused_prefill.py:117", w4_rows,
+                    launches("dpot_w4_matmul", "model"), summed),
+        _kernel_row("vq_matmul", "src/repro_torch/csrc/chunk_matmul.cu",
+                    "src/repro/kernels/fused_prefill.py:146", vq_rows,
+                    launches("vq_matmul", "model"), summed),
+        _kernel_row("wkv4_seq", "src/repro_torch/csrc/wkv4_seq.cu",
+                    "src/repro/kernels/wkv4.py:101", [k2],
+                    launches("wkv4_seq", "block")),
+        _kernel_row("rwkv4_block_decode",
+                    "src/repro_torch/csrc/rwkv4_block_decode.cu",
+                    "src/repro/kernels/fused_decode.py:77", [k3],
+                    launches("rwkv4_block_decode", "block")),
+        _kernel_row("rwkv4_model_decode",
+                    "src/repro_torch/csrc/rwkv4_model_decode.cu",
+                    "src/repro/kernels/fused_decode.py:182", [k4],
+                    launches("rwkv4_model_decode", "model")),
     ]
     _line({"kernels": kernels})
     smi = subprocess.run(

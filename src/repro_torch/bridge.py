@@ -2,8 +2,9 @@
 
 The caller turns a JAX parameter or state tree into numpy first
 (`jax.tree_util.tree_map(np.asarray, tree)`); this module takes it from
-there, so it imports no JAX.  Nested dicts keep their keys, so packed
-`{"packed", "scale"}` leaves stay intact.
+there, so it imports no JAX.  Nested dicts keep their keys, so the plane
+leaves — `{"packed", "scale"}`, `{"packed4", "scale"}` and
+`{"vq_idx", "codebook"}` — stay intact.
 
 JAX bf16 arrays come out of `np.asarray` as `ml_dtypes.bfloat16`, which
 `torch.from_numpy` refuses: they travel as their raw bits, a uint16 view
@@ -33,6 +34,25 @@ def from_jax_tree(tree, device="cuda"):
     if isinstance(tree, dict):
         return {k: from_jax_tree(v, device) for k, v in tree.items()}
     return to_torch(tree, device)
+
+
+def fused_stack_to_numpy(stack):
+    """A JAX `FusedLayerStack` (or the port's) -> (slabs {dtype name:
+    numpy}, [aux numpy], manifest tuple), read through its `.slabs`,
+    `.aux` and `.manifest` alone, for byte-level comparison."""
+    conv = lambda a: to_numpy_raw(a) if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+    return ({k: conv(v) for k, v in stack.slabs.items()},
+            [conv(a) for a in stack.aux],
+            tuple(tuple(e) for e in stack.manifest))
+
+
+def to_numpy_raw(t: torch.Tensor) -> np.ndarray:
+    """A torch tensor -> numpy with its bits kept: bf16 as a uint16 view."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

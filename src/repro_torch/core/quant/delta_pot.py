@@ -1,10 +1,12 @@
-"""Δ-PoT quantization (paper §3.1), W8 serving subset.
+"""Δ-PoT quantization (paper §3.1), the serving formats W8 and W4.
 
 Port of `repro/core/quant/delta_pot.py`: the format description, the level
-table, nearest-code quantization and the int8 packing the W8 serving
-plane stores.  A level is 2^-q0 + 2^-(q0+q1) with the differential
-exponents Δq0 (3 bits) and Δq1 (4 bits) packed low-to-high; a zero Δ
-kills every later term.  Bit 7 of the packed byte is the sign.
+table, nearest-code quantization, the int8 packing of the W8 plane and
+the nibble packing of the W4 plane.  A W8 level is 2^-q0 + 2^-(q0+q1)
+with the differential exponents Δq0 (3 bits) and Δq1 (4 bits) packed
+low-to-high; a zero Δ kills every later term.  Bit 7 of the packed byte
+is the sign.  A W4 level is the single term 2^-q (q in 1..7, 0 for
+q = 0); sign and code fill a nibble, two nibbles a byte.
 
 Quantization matches the JAX package bit for bit on the CPU: the same
 f32 midpoints (computed in float64, then rounded), `searchsorted` with
@@ -32,6 +34,8 @@ class DPotFormat:
 
 # sign + ks=(3,4): packs with its sign into one uint8 (the serving plane)
 FORMAT_W8 = DPotFormat(ks=(3, 4))
+# sign + ks=(3,): two weights per uint8 (nibble pairs), half W8's bytes
+FORMAT_W4 = DPotFormat(ks=(3,))
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,3 +124,31 @@ def dpot_pack_int8(q: DPotQuantized) -> torch.Tensor:
         raise ValueError(f"format {q.ks} does not pack into int8 with a sign")
     sign_bit = (q.signs < 0).to(torch.uint8) << 7
     return q.codes | sign_bit
+
+
+def dpot_pack_nibbles(q: DPotQuantized) -> torch.Tensor:
+    """Two sign+code nibbles per byte, paired along axis -2 (the
+    contraction axis of a (K, N) weight): row 2k is the LOW nibble and
+    row 2k+1 the high nibble of packed row k.  Nibble bit 3 is the sign
+    (1 = negative), bits 2:0 the code.  (..., K, N) -> (..., K/2, N)."""
+    if DPotFormat(q.ks).code_bits > 3:
+        raise ValueError(f"format {q.ks} does not pack into a nibble with "
+                         "a sign; use FORMAT_W4")
+    if q.codes.ndim < 2 or q.codes.shape[-2] % 2:
+        raise ValueError(f"nibble packing pairs along axis -2; shape "
+                         f"{tuple(q.codes.shape)} needs an even axis -2")
+    word = q.codes | ((q.signs < 0).to(torch.uint8) << 3)
+    return word[..., 0::2, :] | (word[..., 1::2, :] << 4)
+
+
+def dpot_unpack_nibbles(packed: torch.Tensor, scale: torch.Tensor,
+                        ks) -> DPotQuantized:
+    """Inverse of `dpot_pack_nibbles`: (..., K/2, N) -> codes and signs
+    of shape (..., K, N), the rows re-interleaved."""
+    words = torch.stack([packed & 0xF, (packed >> 4) & 0xF], dim=-2)
+    words = words.reshape(packed.shape[:-2] + (2 * packed.shape[-2],
+                                               packed.shape[-1]))
+    ones = torch.ones(words.shape, dtype=torch.int8, device=words.device)
+    signs = torch.where(((words >> 3) & 1).bool(), -ones, ones)
+    return DPotQuantized(codes=words & 0x7, signs=signs, scale=scale,
+                         ks=tuple(ks))

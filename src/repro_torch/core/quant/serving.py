@@ -1,55 +1,88 @@
-"""Packed-weight serving, Δ-PoT W8 plane (port of
+"""Packed-weight serving: the quantized weight planes (port of
 `repro/core/quant/serving.py`).
 
-Matmul weights live on the device as ONE uint8 per weight (sign + ks=(3,4)
-code) plus an f32 scale per output channel: `{"packed": uint8 (..., K, N),
-"scale": f32 (1, ..., N)}`.  `unpack_leaf` is the single definition of the
-decode numerics: sign · level in f32, times the scale in f32, rounded once
-to bf16.  The CUDA kernels decode in-kernel with the same arithmetic
-(`csrc/common.cuh:dpot_w8_decode`).
+Matmul weights live on the device in one of three plane forms, one dict
+shape per plane:
+
+  w8 — {"packed":  uint8 (..., K, N),   "scale": f32 (1, ..., N)}  sign + 7b
+  w4 — {"packed4": uint8 (..., K/2, N), "scale": f32 (1, ..., N)}  2 a byte
+  vq — {"vq_idx":  uint8 (..., K, N),   "codebook": bf16 (1, C)}   gather
+
+`unpack_leaf` is the single definition of the decode numerics: for W8 and
+W4, sign · level in f32, times the channel's f32 scale, rounded once to
+bf16; for VQ, the bf16 codebook entry.  The CUDA kernels decode in-kernel
+with the same arithmetic (`csrc/common.cuh`).
 
 API:
-  pack_params(params)          -> packed tree (+ other floating leaves bf16)
-  unpack_leaf(leaf)            -> decode ONE packed leaf to bf16
+  pack_params(params, policy)  -> packed tree (+ other floating leaves bf16)
+  unpack_leaf(leaf)            -> decode ONE plane leaf to bf16
   unpack_params(packed)        -> bf16 compute tree
-  broadcast_packed_scales(t,L) -> stacked scales (1,1,N) -> (L,1,N) views
+  broadcast_packed_scales(t,L) -> shared (1, ...) scales and codebooks ->
+                                  (L, ...) views
   cast_compute(tree, dtype)    -> packed-aware compute-dtype cast
+  fuse_layer_stack / unfuse_layer / prepare_layer_stack_params
+                               -> the whole-model decode's slab form
   PreparedParams               -> the per-path forms of one weight set
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
 
 from repro_torch.core.quant.delta_pot import (
-    FORMAT_W8, dpot_decode_codes, dpot_pack_int8, dpot_quantize)
-from repro_torch.core.quant.policy import classify_param
+    FORMAT_W4, FORMAT_W8, dpot_decode_codes, dpot_pack_int8,
+    dpot_pack_nibbles, dpot_quantize)
+from repro_torch.core.quant.policy import PlanePolicy, classify_param
+from repro_torch.core.quant.vq import vq_dequantize, vq_quantize
 from repro_torch.tree import keystr, leaves_with_path, tree_map
+
+_PLANE_KEYS = {
+    frozenset({"packed", "scale"}): "w8",
+    frozenset({"packed4", "scale"}): "w4",
+    frozenset({"vq_idx", "codebook"}): "vq",
+}
+# the key of each plane's code tensor (uint8, layer axis first)
+CODES_KEY = {"w8": "packed", "w4": "packed4", "vq": "vq_idx"}
 
 
 def leaf_plane(leaf) -> str | None:
-    """"w8" for a packed W8 leaf, None otherwise (the W4 and VQ planes are
-    not ported yet)."""
-    if isinstance(leaf, dict) and set(leaf) == {"packed", "scale"}:
-        return "w8"
-    return None
+    """"w8" | "w4" | "vq" for a quantized plane leaf, None otherwise."""
+    if not isinstance(leaf, dict):
+        return None
+    return _PLANE_KEYS.get(frozenset(leaf))
 
 
 def is_packed_leaf(leaf) -> bool:
+    """True for any quantized plane leaf (W8, W4 or VQ)."""
     return leaf_plane(leaf) is not None
 
 
-def pack_params(params):
-    """Quantize every matmul weight to Δ-PoT W8; cast the other floating
-    leaves to bf16."""
+def pack_params(params, policy: PlanePolicy | None = None):
+    """Quantize every matmul weight to a plane; cast the other floating
+    leaves to bf16.  Without a policy every matmul weight is W8; with one,
+    each tensor gets the policy's plane, W4 falling back to W8 where the
+    contraction axis is odd (nibbles pair along it)."""
     out: dict = {}
     for path, leaf in leaves_with_path(params):
-        if classify_param(keystr(path), leaf) == "matmul":
-            q = dpot_quantize(leaf, FORMAT_W8, axis=-1)
-            new = {"packed": dpot_pack_int8(q),
-                   "scale": q.scale.to(torch.float32)}
+        key = keystr(path)
+        if classify_param(key, leaf) == "matmul":
+            plane = "w8" if policy is None else policy.plane_for(key, leaf)
+            if plane == "w4" and (leaf.ndim < 2 or leaf.shape[-2] % 2):
+                plane = "w8"
+            if plane == "vq":
+                idx, codebook = vq_quantize(leaf, policy.vq_codes)
+                new = {"vq_idx": idx, "codebook": codebook}
+            elif plane == "w4":
+                q = dpot_quantize(leaf, FORMAT_W4, axis=-1)
+                new = {"packed4": dpot_pack_nibbles(q),
+                       "scale": q.scale.to(torch.float32)}
+            else:
+                q = dpot_quantize(leaf, FORMAT_W8, axis=-1)
+                new = {"packed": dpot_pack_int8(q),
+                       "scale": q.scale.to(torch.float32)}
         elif torch.is_floating_point(leaf):
             new = leaf.to(torch.bfloat16)
         else:
@@ -61,16 +94,32 @@ def pack_params(params):
     return out
 
 
+def _sign(bits: torch.Tensor) -> torch.Tensor:
+    ones = torch.ones(bits.shape, dtype=torch.float32, device=bits.device)
+    return torch.where(bits.bool(), -ones, ones)
+
+
 def unpack_leaf(leaf):
-    """Decode one packed leaf -> bf16 weights (identity on anything else)."""
-    if leaf_plane(leaf) is None:
+    """Decode one plane leaf -> bf16 weights (identity on anything else).
+    W4 re-interleaves the nibble pairs along the contraction axis (low
+    nibble = even row) before the same decode as W8; VQ gathers from the
+    flattened codebook."""
+    plane = leaf_plane(leaf)
+    if plane is None:
         return leaf
+    if plane == "vq":
+        return vq_dequantize(leaf["vq_idx"],
+                             leaf["codebook"]).to(torch.bfloat16)
+    if plane == "w4":
+        p = leaf["packed4"]
+        words = torch.stack([p & 0xF, (p >> 4) & 0xF], dim=-2).reshape(
+            p.shape[:-2] + (2 * p.shape[-2], p.shape[-1]))
+        lvl = dpot_decode_codes(words & 0x7, FORMAT_W4.ks)
+        return (_sign((words >> 3) & 1) * lvl
+                * leaf["scale"]).to(torch.bfloat16)
     p = leaf["packed"]
-    codes = p & 0x7F
-    ones = torch.ones(p.shape, dtype=torch.float32, device=p.device)
-    sign = torch.where(((p >> 7) & 1).bool(), -ones, ones)
-    lvl = dpot_decode_codes(codes, FORMAT_W8.ks)
-    return (sign * lvl * leaf["scale"]).to(torch.bfloat16)
+    lvl = dpot_decode_codes(p & 0x7F, FORMAT_W8.ks)
+    return (_sign((p >> 7) & 1) * lvl * leaf["scale"]).to(torch.bfloat16)
 
 
 def unpack_params(packed):
@@ -78,21 +127,25 @@ def unpack_params(packed):
 
 
 def broadcast_packed_scales(blocks, n_layers: int):
-    """Give every stacked packed leaf's shared (1, 1, N) scale the layer
-    axis (an expand view), so a per-layer slice decodes like the whole."""
+    """Give every stacked plane leaf's shared (1, ...) scale or codebook
+    the layer axis (an expand view), so a per-layer slice decodes like
+    the whole."""
     def fix(leaf):
         if not is_packed_leaf(leaf):
             return leaf
-        s = leaf["scale"]
-        if s.shape[0] == 1:
-            s = s.expand((n_layers,) + tuple(s.shape[1:]))
-        return {"packed": leaf["packed"], "scale": s}
+        out = {}
+        for k, v in leaf.items():
+            if k in ("scale", "codebook") and v.shape[0] == 1:
+                v = v.expand((n_layers,) + tuple(v.shape[1:]))
+            out[k] = v
+        return out
     return tree_map(fix, blocks, is_leaf=is_packed_leaf)
 
 
 def cast_compute(tree, dtype):
-    """Floating leaves to `dtype`; packed leaves pass through intact so the
-    uint8 codes and f32 scales reach the kernels unchanged."""
+    """Floating leaves to `dtype`; plane leaves pass through intact so the
+    uint8 codes, f32 scales and bf16 codebooks reach the kernels
+    unchanged."""
     def cast(a):
         if is_packed_leaf(a):
             return a
@@ -102,15 +155,104 @@ def cast_compute(tree, dtype):
     return tree_map(cast, tree, is_leaf=is_packed_leaf)
 
 
+# ---------------------------------------------------------------------------
+# Fused layer stack: each layer's weights as one contiguous row per dtype
+# ---------------------------------------------------------------------------
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedLayerStack:
+    """A stacked per-layer parameter tree in slab form.
+
+    slabs    — {dtype name: (L, N) tensor}: layer l's leaves of that
+               dtype, flattened and concatenated in flatten order.
+    aux      — leading-1 leaves kept out of the slabs (the shared scales
+               and codebooks), whole.
+    manifest — one entry per leaf, in flatten order: ("slab", dtype name,
+               offset in elements, per-layer shape) or ("aux", index).
+    tdef     — the leaves' paths, in flatten order (sorted keys, inside
+               plane dicts too), from which `unfuse_layer` rebuilds the
+               tree.
+    """
+    slabs: dict
+    aux: tuple
+    manifest: tuple
+    tdef: tuple
+
+    @property
+    def n_layers(self) -> int:
+        return next(iter(self.slabs.values())).shape[0]
+
+
+def fuse_layer_stack(blocks, n_layers: int) -> FusedLayerStack:
+    """Pack a stacked block tree into per-dtype (L, N) slabs, the layout
+    of the JAX package's `fuse_layer_stack` byte for byte.  Values are
+    only reshaped and concatenated, so unfusing is exact."""
+    flat = leaves_with_path(blocks)
+    manifest, aux, parts, offs = [], [], {}, {}
+    for path, leaf in flat:
+        if leaf.ndim and leaf.shape[0] == n_layers:
+            key = _dtype_name(leaf)
+            shape = tuple(leaf.shape[1:])
+            n = math.prod(shape)
+            manifest.append(("slab", key, offs.get(key, 0), shape))
+            parts.setdefault(key, []).append(leaf.reshape(n_layers, n))
+            offs[key] = offs.get(key, 0) + n
+        elif leaf.ndim and leaf.shape[0] == 1:
+            manifest.append(("aux", len(aux)))
+            aux.append(leaf)
+        else:
+            raise ValueError(
+                f"per-layer leaf {keystr(path)} has shape "
+                f"{tuple(leaf.shape)}; expected a leading axis of "
+                f"{n_layers} (stacked) or 1 (shared)")
+    slabs = {k: torch.cat(v, dim=1).contiguous() for k, v in parts.items()}
+    return FusedLayerStack(slabs, tuple(aux), tuple(manifest),
+                           tuple(p for p, _ in flat))
+
+
+def unfuse_layer(rows: dict, aux_vals, manifest, tdef):
+    """Rebuild one layer's tree: rows {dtype name: (N,) slab row}, aux_vals
+    the shared leaves with the leading 1 squeezed."""
+    out: dict = {}
+    for path, entry in zip(tdef, manifest):
+        if entry[0] == "slab":
+            _, key, off, shape = entry
+            leaf = rows[key][off:off + math.prod(shape)].reshape(shape)
+        else:
+            leaf = aux_vals[entry[1]]
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def prepare_layer_stack_params(params, cfg):
+    """The whole-model decode's one-time prep: the packed-aware compute
+    cast, then the stacked blocks into slabs (`fuse_layer_stack`)."""
+    params = cast_compute(params, getattr(torch, cfg.dtype))
+    return {**params,
+            "blocks": fuse_layer_stack(params["blocks"], cfg.n_layers)}
+
+
 @dataclasses.dataclass(frozen=True)
 class PreparedParams:
     """Every per-path form of one weight set, prepared once at startup.
 
-      raw     — the tree as stored (packed Δ-PoT when `quantized`)
-      decode  — the form the decode path consumes
+      raw     — the tree as stored (packed planes when `quantized`)
+      decode  — the form the decode path consumes (the "model" path's
+                `FusedLayerStack` slabs; == raw for the others)
       prefill — the form the prefill path consumes
+      decode_path / prefill_path — the paths that produced the forms
     """
     raw: Any
     decode: Any
     prefill: Any
     quantized: bool = False
+    decode_path: str = "per_op"
+    prefill_path: str = "per_op"

@@ -41,6 +41,29 @@ __device__ __forceinline__ float dpot_w8_decode(uint32_t byte, float scale) {
   return bf16r(s * scale);
 }
 
+// One Δ-PoT W4 weight -> its bf16 value, as the W4 branch of unpack_leaf
+// computes it: the byte holds contraction rows 2j (low nibble) and 2j+1
+// (high nibble); `hi` picks the nibble (k & 1).  Nibble bit 3 is the sign,
+// bits 2:0 the code q; level = 2^-q, and 0 for q = 0.  Then sign·level
+// times the channel's f32 scale, one f32 multiply, rounded once to bf16.
+__device__ __forceinline__ float dpot_w4_decode(uint32_t byte, int hi,
+                                                float scale) {
+  const uint32_t nib = hi ? (byte >> 4) & 15u : byte & 15u;
+  const int q = nib & 7;
+  const float lvl = q ? exp2_neg(q) : 0.f;
+  const float s = (nib & 8u) ? -lvl : lvl;
+  return bf16r(s * scale);
+}
+
+// One VQ weight: the bf16 codebook entry its uint8 index names (the
+// codebook in shared or global memory).
+__device__ __forceinline__ float vq_decode(uint32_t idx, const bf16* cb) {
+  return __bfloat162float(cb[idx]);
+}
+
+// The weight planes a matrix may arrive in (core/quant/serving.py).
+enum Plane { kPlaneW8 = 0, kPlaneW4 = 1, kPlaneVQ = 2 };
+
 // The RWKV-4 WKV step (core/wkv/wkv4.py:wkv4_step), f32 throughout, in
 // the same operation order.  Returns the output; writes the stepped state.
 __device__ __forceinline__ float wkv4_step(float a, float b, float o, float k,

@@ -28,12 +28,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_PP, _PI = ctypes.POINTER(_P), ctypes.POINTER(_I)
+_PL = ctypes.POINTER(ctypes.c_longlong)
 
 # C entry points: argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
     "dpot_w8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "dpot_w4_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "vq_matmul": [_P, _P, _P, _I, _P, _I, _I, _I, _P],
     "wkv4_seq": [_P] * 12 + [_I, _I, _I, _I, _P],
-    "rwkv4_block_decode": [ctypes.POINTER(_P), _I, _I, _I, _I, _I, _P],
+    "rwkv4_block_decode": [_PP, _I, _PI, _I, _I, _I, _I, _P],
+    "rwkv4_model_decode": [_PP, _I, _PL, _I, _PI, _I, _I, _I, _I, _I, _P],
 }
 
 

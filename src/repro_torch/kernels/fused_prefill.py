@@ -1,15 +1,19 @@
-"""Chunked-prefill building blocks: the W8 chunk matmul (kernel K5) and
-the plain prefix-mask helpers.
+"""Chunked-prefill building blocks: the chunk matmuls over the three
+weight planes (kernels K5, K5-W4, K5-VQ) and the plain prefix-mask helpers.
 
-Port of `repro/kernels/fused_prefill.py`.  `dpot_w8_matmul` replaces the
-TPU kernel `dpot_chunk_matmul` (`_mm_kernel`): x (M, K) bf16 @ the W8
-plane (K, N) with its per-channel f32 scale, decoding the uint8 codes in
-the kernel (`csrc/dpot_w8_matmul.cu`; its header says what bounds it on
-an H100 and how its design answers that).  The serving path calls it for
-every prefill matmul (M = B·C) and for the prefill and decode heads
-(M = B).
+Port of `repro/kernels/fused_prefill.py`.  Each wrapper replaces one TPU
+kernel, x (M, K) bf16 @ a quantized plane decoded inside the kernel:
 
-A CPU tensor takes the plain version, `x @ unpack_leaf(w).to(bf16)`; a
+  dpot_w8_matmul  `dpot_chunk_matmul` (`_mm_kernel`)     W8 (K, N) + (N,) f32
+  dpot_w4_matmul  `w4_chunk_matmul` (`_mm_kernel_w4`)    W4 (K/2, N) + (N,) f32
+  vq_matmul       `vq_chunk_matmul` (`_mm_kernel_vq`)    VQ (K, N) + (C,) bf16
+
+All three are one CUDA kernel template over a weight-decode policy
+(`csrc/chunk_matmul.cu`; its header says what bounds it on an H100 and
+how its design answers that).  The serving path calls them for every
+prefill matmul (M = B·C) and for the prefill and decode heads (M = B).
+
+A CPU tensor takes the plain version, `x @ unpack_leaf(leaf).to(bf16)`; a
 CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
@@ -29,26 +33,48 @@ def dpot_w8_matmul_plain(x: torch.Tensor, wq: torch.Tensor,
     return x @ w.to(x.dtype)
 
 
+@exact_matmuls()
+def dpot_w4_matmul_plain(x: torch.Tensor, wq4: torch.Tensor,
+                         scale: torch.Tensor) -> torch.Tensor:
+    w = unpack_leaf({"packed4": wq4, "scale": scale.reshape(1, -1)})
+    return x @ w.to(x.dtype)
+
+
+@exact_matmuls()
+def vq_matmul_plain(x: torch.Tensor, idx: torch.Tensor,
+                    codebook: torch.Tensor) -> torch.Tensor:
+    w = unpack_leaf({"vq_idx": idx, "codebook": codebook})
+    return x @ w.to(x.dtype)
+
+
+def _check_operands(name, x, codes, aux, k_rows: int, aux_dtype,
+                    aux_len: int | None):
+    M, K = x.shape
+    Kc, N = codes.shape
+    if Kc != k_rows or (aux_len is not None and aux.numel() != aux_len):
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)} codes "
+                         f"{tuple(codes.shape)} aux {aux.numel()} do not "
+                         "agree")
+    if (x.dtype != torch.bfloat16 or codes.dtype != torch.uint8
+            or aux.dtype != aux_dtype):
+        raise TypeError(f"{name} takes bf16 x, uint8 codes, {aux_dtype} "
+                        f"aux; got {x.dtype}, {codes.dtype}, {aux.dtype}")
+    if not (codes.device == x.device == aux.device):
+        raise ValueError(f"{name}: x, codes and aux must be on one device")
+    if not codes.is_contiguous():
+        raise ValueError(f"{name}: codes must be contiguous")
+    return M, K, N
+
+
 def dpot_w8_matmul(x: torch.Tensor, wq: torch.Tensor,
                    scale: torch.Tensor) -> torch.Tensor:
     """x (M, K) bf16 @ W8 plane wq (K, N) uint8 with scale (..., N) f32
     -> (M, N) bf16, the codes decoded in-kernel."""
     if x.device.type == "cpu":
         return dpot_w8_matmul_plain(x, wq, scale)
-    M, K = x.shape
-    K2, N = wq.shape
     scale = scale.reshape(-1)
-    if K != K2 or scale.numel() != N:
-        raise ValueError(f"shapes x {tuple(x.shape)} wq {tuple(wq.shape)} "
-                         f"scale {scale.numel()} do not agree")
-    if (x.dtype != torch.bfloat16 or wq.dtype != torch.uint8
-            or scale.dtype != torch.float32):
-        raise TypeError(f"dpot_w8_matmul takes bf16 x, uint8 wq, f32 scale; "
-                        f"got {x.dtype}, {wq.dtype}, {scale.dtype}")
-    if not (wq.device == x.device == scale.device):
-        raise ValueError("x, wq and scale must be on one device")
-    if not wq.is_contiguous():
-        raise ValueError("wq must be contiguous")
+    M, K, N = _check_operands("dpot_w8_matmul", x, wq, scale, x.shape[1],
+                              torch.float32, wq.shape[1])
     x, scale = x.contiguous(), scale.contiguous()
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     check(load_library().dpot_w8_matmul(
@@ -58,19 +84,71 @@ def dpot_w8_matmul(x: torch.Tensor, wq: torch.Tensor,
     return out
 
 
+def dpot_w4_matmul(x: torch.Tensor, wq4: torch.Tensor,
+                   scale: torch.Tensor) -> torch.Tensor:
+    """x (M, K) bf16 @ W4 plane wq4 (K/2, N) uint8 (row 2k in the low
+    nibble of packed row k) with scale (..., N) f32 -> (M, N) bf16."""
+    if x.device.type == "cpu":
+        return dpot_w4_matmul_plain(x, wq4, scale)
+    scale = scale.reshape(-1)
+    if x.shape[1] % 2:
+        raise ValueError(f"dpot_w4_matmul: K={x.shape[1]} must be even")
+    M, K, N = _check_operands("dpot_w4_matmul", x, wq4, scale,
+                              x.shape[1] // 2, torch.float32, wq4.shape[1])
+    x, scale = x.contiguous(), scale.contiguous()
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    check(load_library().dpot_w4_matmul(
+        x.data_ptr(), wq4.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        M, K, N, stream_ptr(x)), "dpot_w4_matmul")
+    dpot_w4_matmul.launches += 1
+    return out
+
+
+def vq_matmul(x: torch.Tensor, idx: torch.Tensor,
+              codebook: torch.Tensor) -> torch.Tensor:
+    """x (M, K) bf16 @ codebook[idx (K, N) uint8], codebook (..., C) bf16
+    with C <= 256 -> (M, N) bf16."""
+    if x.device.type == "cpu":
+        return vq_matmul_plain(x, idx, codebook)
+    cb = codebook.reshape(-1)
+    M, K, N = _check_operands("vq_matmul", x, idx, cb, x.shape[1],
+                              torch.bfloat16, None)
+    C = cb.numel()
+    if not 1 <= C <= 256:
+        raise ValueError(f"vq_matmul: codebook of {C} entries; uint8 "
+                         "indices need 1..256")
+    x, cb = x.contiguous(), cb.contiguous()
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    check(load_library().vq_matmul(
+        x.data_ptr(), idx.data_ptr(), cb.data_ptr(), C, out.data_ptr(),
+        M, K, N, stream_ptr(x)), "vq_matmul")
+    vq_matmul.launches += 1
+    return out
+
+
 dpot_w8_matmul.launches = 0
+dpot_w4_matmul.launches = 0
+vq_matmul.launches = 0
 
 
 def chunk_matmul(x: torch.Tensor, leaf, dt) -> torch.Tensor:
-    """`x @ leaf` over a (..., K) chunk tensor, packed-leaf aware: plain
-    leaves take the torch matmul (as the JAX package leaves them to XLA);
-    a W8 leaf flattens the chunk to (S·C, K) and runs K5."""
-    if leaf_plane(leaf) is None:
+    """`x @ leaf` over a (..., K) chunk tensor, plane aware: plain leaves
+    take the torch matmul (as the JAX package leaves them to XLA); a plane
+    leaf flattens the chunk to (S·C, K) and runs its kernel (K5, K5-W4 or
+    K5-VQ)."""
+    plane = leaf_plane(leaf)
+    if plane is None:
         return x @ leaf
     if x.dtype != dt:
         raise TypeError(f"chunk_matmul: x is {x.dtype}, compute dtype {dt}")
     lead, K = x.shape[:-1], x.shape[-1]
-    out = dpot_w8_matmul(x.reshape(-1, K), leaf["packed"], leaf["scale"])
+    xf = x.reshape(-1, K)
+    if plane == "w4":
+        out = dpot_w4_matmul(xf, leaf["packed4"], leaf["scale"])
+    elif plane == "vq":
+        out = vq_matmul(xf, leaf["vq_idx"], leaf["codebook"])
+    else:
+        out = dpot_w8_matmul(xf, leaf["packed"], leaf["scale"])
     return out.reshape(*lead, out.shape[-1])
 
 

@@ -1,13 +1,17 @@
 """Serving launcher for the port — a small CLI over the engine.
 
     python -m repro_torch.launch.serve --arch rwkv4-169m --quantized \
-        --fused block --fused-prefill [--batch 8] [--tokens 32] \
+        --fused {block,model} --fused-prefill [--batch 8] [--tokens 32] \
         [--smoke] [--device cuda|cpu]
 
-`--fused block` decodes through kernel K3 (one launch per layer) with the
-head through K5; `--fused-prefill` absorbs prompt chunks through K5 and the
-masked WKV kernel K2.  Without them the engine runs the plain per-op
-PyTorch path.  The device defaults to "cuda" and raises without a GPU.
+`--fused block` decodes through kernel K3 (one launch per layer),
+`--fused model` through kernel K4 (one launch for all layers), each with
+the head through K5; `--fused-prefill` absorbs prompt chunks through K5
+and the masked WKV kernel K2.  Without them the engine runs the plain
+per-op PyTorch path.  `--quantized` packs every matmul weight Δ-PoT W8;
+per-tensor planes (W4, VQ) are chosen through
+`ServingEngine(plane_policy=)`, as in the JAX package.  The device
+defaults to "cuda" and raises without a GPU.
 """
 from __future__ import annotations
 
@@ -16,8 +20,10 @@ import argparse
 import numpy as np
 import torch
 
-from repro_torch.core.quant.serving import unpack_params
+from repro_torch.core.quant.serving import (
+    is_packed_leaf, leaf_plane, unpack_params)
 from repro_torch.device import resolve_device
+from repro_torch.tree import leaves_with_path
 
 
 @torch.inference_mode()
@@ -43,6 +49,22 @@ def sequential_decode(model, params, prompt: list[int], n_new: int,
     return out
 
 
+def weights_label(params) -> str:
+    """The planes of a weight tree, for the printed line: "fp", "Δ-PoT W8"
+    when every matmul is W8, else the count of each plane."""
+    counts: dict = {}
+    for _, leaf in leaves_with_path(params, is_leaf=is_packed_leaf):
+        plane = leaf_plane(leaf)
+        if plane is not None:
+            counts[plane] = counts.get(plane, 0) + 1
+    if not counts:
+        return "fp"
+    if set(counts) == {"w8"}:
+        return "Δ-PoT W8"
+    return "planes " + " ".join(f"{p.upper()}×{counts[p]}"
+                                for p in ("w8", "w4", "vq") if p in counts)
+
+
 def serve(arch: str, *, smoke: bool = False, batch: int = 8,
           n_tokens: int = 32, quantized: bool = False, prompt_len: int = 8,
           fused: str | None = None, fused_prefill: bool = False,
@@ -63,7 +85,7 @@ def serve(arch: str, *, smoke: bool = False, batch: int = 8,
     name = torch.cuda.get_device_name(engine.device) \
         if engine.device.type == "cuda" else "cpu"
     print(f"{arch}{' (smoke)' if smoke else ''} on {name}: {batch} requests "
-          f"x {n_tokens} tokens ({'Δ-PoT W8' if quantized else 'fp'} "
+          f"x {n_tokens} tokens ({weights_label(engine.plan.prepared.raw)} "
           f"weights, decode={fused or 'per_op'}, "
           f"prefill={'chunked' if fused_prefill else 'per_op'}) — "
           f"{stats['tokens_per_s']:.1f} tok/s over {stats['ticks']} ticks")
@@ -79,8 +101,9 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--quantized", action="store_true")
     ap.add_argument("--fused", nargs="?", const="block", default=None,
-                    choices=["block"],
-                    help="decode through kernel K3, one launch per layer")
+                    choices=["block", "model"],
+                    help="decode through kernel K3, one launch per layer "
+                    "(block), or K4, one launch for all layers (model)")
     ap.add_argument("--fused-prefill", action="store_true",
                     help="chunked prefill through kernels K5 and K2")
     ap.add_argument("--device", default="cuda")

@@ -20,17 +20,23 @@ from repro_torch.models import param as PM
 class PathDescriptor:
     """One executable serving path.
 
-    name  — plan key ("per_op" | "block" | "chunked")
-    entry — module attribute implementing the step
+    name    — plan key ("per_op" | "block" | "model" | "chunked")
+    entry   — module attribute implementing the step
+    prepare — module attribute for the one-time param prep (None: params
+              pass through)
     """
     name: str
     entry: str
+    prepare: str | None = None
 
 
 DECODE_PATHS = (
     PathDescriptor("per_op", "decode_step"),
-    # one K3 launch per layer; packed leaves decode in-kernel
+    # one K3 launch per layer; plane leaves decode in-kernel
     PathDescriptor("block", "decode_step_fused"),
+    # one K4 launch for every layer, over the slab form of the weights
+    PathDescriptor("model", "decode_step_fused_model",
+                   prepare="prepare_fused_model_params"),
 )
 
 PREFILL_PATHS = (
@@ -93,6 +99,20 @@ class Model:
         model applies the packed-aware cast itself."""
         return self.module.decode_step_fused(params, state, tokens, pos,
                                              self.cfg)
+
+    def decode_step_fused_model(self, params, state, tokens, pos):
+        """Kernel decode (one K4 launch for all layers); params prepared by
+        `prepare_path_params` (the serving path) or raw and uncast."""
+        return self.module.decode_step_fused_model(params, state, tokens,
+                                                   pos, self.cfg)
+
+    def prepare_path_params(self, desc: PathDescriptor, params):
+        """One-time param prep for one path, through its descriptor: the
+        module's `desc.prepare`, or the params as they are when the
+        descriptor or the module has none."""
+        prep = getattr(self.module, desc.prepare, None) if desc.prepare \
+            else None
+        return params if prep is None else prep(params, self.cfg)
 
     def prefill_chunk(self, params, state, tokens, valid):
         """Chunked prefill (K5 + K2): tokens (B, C) with a per-slot PREFIX

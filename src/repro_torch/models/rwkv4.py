@@ -5,9 +5,12 @@ Block = TimeMix (token shift -> r/k/v projections -> WKV recurrence ->
 σ(r) gate), each after a LayerNorm, plus the pre-block ln0.
 
 Entry points, all on (B, ...) tensors with the JAX tree paths:
-  decode_step        — per-op plain torch, the port's reference path
-  decode_step_fused  — kernel K3 per layer, the head through K5
-  prefill_chunk      — chunk matmuls through K5, the WKV scan through K2
+  decode_step              — per-op plain torch, the port's reference path
+  decode_step_fused        — kernel K3 per layer, the head through K5
+  decode_step_fused_model  — kernel K4 for all layers, the head through K5
+  prefill_chunk            — chunk matmuls through K5, the WKV scan via K2
+K5 stands for the chunk matmul of the head's or the matrix's plane: K5
+(W8), K5-W4 or K5-VQ.
 
 Eager torch rounds every bf16 op, the rounding rule `exact_jit` pins for
 JAX, so the plain path follows the JAX trace op for op.  Standard (exact)
@@ -19,10 +22,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant.serving import (
-    broadcast_packed_scales, cast_compute)
+    FusedLayerStack, broadcast_packed_scales, cast_compute,
+    fuse_layer_stack, prepare_layer_stack_params)
 from repro_torch.core.wkv.wkv4 import WKV4State, wkv4_step
 from repro_torch.device import exact_matmuls, resolve_device
-from repro_torch.kernels.fused_decode import STATE_KEYS, rwkv4_block_decode
+from repro_torch.kernels.fused_decode import (
+    STATE_KEYS, rwkv4_block_decode, rwkv4_model_decode)
 from repro_torch.kernels.fused_prefill import (
     chunk_matmul, gather_last_valid, last_valid_select, shifted_prev)
 from repro_torch.kernels.wkv4 import wkv4_seq
@@ -172,6 +177,33 @@ def decode_step_fused(params, state, tokens, pos, cfg: ModelConfig):
         new.append(st)
     x = L.apply_norm(params["ln_f"], x[:, None])
     return chunk_matmul(x, params["head"], dt), _stack_states(new)
+
+
+def prepare_fused_model_params(params, cfg: ModelConfig):
+    """One-time prep for the whole-model decode: the packed-aware compute
+    cast, then the stacked blocks into per-dtype slabs
+    (`fuse_layer_stack`).  `decode_step_fused_model` takes the result."""
+    return prepare_layer_stack_params(params, cfg)
+
+
+def decode_step_fused_model(params, state, tokens, pos, cfg: ModelConfig):
+    """Kernel decode: ONE K4 launch runs every layer, the residual kept on
+    chip between them, and the head goes through K5.  `params` is the
+    output of `prepare_fused_model_params` (the serving path) or a raw
+    tree, which is cast and fused here on every call.  Embed, ln0 and ln_f
+    stay plain torch, as the JAX package leaves them outside any
+    kernel."""
+    del pos
+    dt = getattr(torch, cfg.dtype)
+    blocks = params["blocks"]
+    if not isinstance(blocks, FusedLayerStack):
+        params = cast_compute(params, dt)
+        blocks = fuse_layer_stack(params["blocks"], cfg.n_layers)
+    x = params["embed"][tokens[:, 0].long()].to(dt)
+    x = L.apply_norm(params["ln0"], x)
+    x, new_state = rwkv4_model_decode(blocks, state, x)
+    x = L.apply_norm(params["ln_f"], x[:, None])
+    return chunk_matmul(x, params["head"], dt), new_state
 
 
 def block_prefill(lp, st, x, valid):

@@ -15,6 +15,7 @@ from typing import Iterator, Optional
 
 import torch
 
+from repro_torch.core.quant.policy import PlanePolicy
 from repro_torch.models.registry import Model
 from repro_torch.serving.plan import STATE_DTYPE, build_plan
 from repro_torch.serving.scheduler import Request, Scheduler
@@ -48,20 +49,26 @@ class ServingEngine:
 
     model         — a Model handle or an arch id (resolved with `smoke=`)
     seed          — the weights are drawn from it on `device`
-    quantized     — pack weights to Δ-PoT W8 once at startup
+    quantized     — pack weights to quantized planes once at startup
+    plane_policy  — a `PlanePolicy` choosing W8 / W4 / VQ per tensor
+                    (needs quantized=True); None packs everything W8
     max_batch     — pool width: concurrent sequences
     prefill_chunk — prompt tokens absorbed per tick per prefilling slot
-    fused_decode  — False (per-op plain path) | "block" (K3 per layer)
+    fused_decode  — False (per-op plain path) | "block" (K3 per layer) |
+                    "model" (one K4 launch for all layers)
     fused_prefill — False (per-op loop) | True (chunked: K5 + K2)
     device        — "cuda" (default) or "cpu"; without a GPU "cuda" raises
     """
 
     def __init__(self, model: Model | str, *, smoke: bool = True,
                  max_batch: int = 8, prefill_chunk: int = 16,
-                 quantized: bool = False, fused_decode: str | None = None,
+                 quantized: bool = False,
+                 plane_policy: PlanePolicy | None = None,
+                 fused_decode: str | None = None,
                  fused_prefill: bool = False, seed: int = 0,
                  device="cuda"):
         plan = build_plan(model, smoke=smoke, quantized=quantized,
+                          plane_policy=plane_policy,
                           fused_decode=fused_decode,
                           fused_prefill=fused_prefill,
                           prefill_chunk=prefill_chunk, seed=seed,

@@ -3,17 +3,19 @@ programs (port of `repro/serving/plan.py`; no mesh, speculation or prefix
 cache yet).
 
     plan = build_plan("rwkv4-169m", smoke=False, quantized=True,
-                      fused_decode="block", fused_prefill=True)
+                      plane_policy=policy, fused_decode="model",
+                      fused_prefill=True)
 
 picks the decode and prefill paths from the registry's descriptor tables,
-prepares the weights once (`PreparedParams`), and hands the scheduler
-`decode_fn()` and `prefill_fn()`.  Every program commits state
+prepares each path's form of the weights once (`PreparedParams`), and
+hands the scheduler `decode_fn()` and `prefill_fn()`.  Every program commits state
 through `masked_state_commit`, the engine's one masking rule.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quant.policy import PlanePolicy
 from repro_torch.core.quant.serving import (
     PreparedParams, pack_params, unpack_params)
 from repro_torch.device import resolve_device
@@ -36,7 +38,7 @@ def masked_state_commit(new_state, old_state, mask, axes):
 
 
 def maybe_unpack(params, quantized: bool):
-    """Whole-tree Δ-PoT decode for the per-op paths; the kernel paths
+    """Whole-tree plane decode for the per-op paths; the kernel paths
     decode per leaf inside the kernels instead."""
     return unpack_params(params) if quantized else params
 
@@ -44,11 +46,10 @@ def maybe_unpack(params, quantized: bool):
 def _normalize_decode(fused_decode) -> str:
     if fused_decode in (False, None):
         return "per_op"
-    if fused_decode == "block":
+    if fused_decode in ("block", "model"):
         return fused_decode
-    raise ValueError(f"fused_decode={fused_decode!r}: expected False or "
-                     "'block' (the whole-model 'model' path is not ported "
-                     "yet)")
+    raise ValueError(f"fused_decode={fused_decode!r}: expected False, "
+                     "'block' or 'model'")
 
 
 class ExecutionPlan:
@@ -74,8 +75,11 @@ class ExecutionPlan:
 
     def _decode_step(self):
         model, quantized = self.model, self.prepared.quantized
+        if self.decode_desc.name == "model":
+            # one K4 launch for every layer, over the prepared slabs
+            return lambda p, s, t: model.decode_step_fused_model(p, s, t, 0)
         if self.decode_desc.name == "block":
-            # one K3 launch per layer; packed leaves decode in-kernel
+            # one K3 launch per layer; plane leaves decode in-kernel
             return lambda p, s, t: model.decode_step_fused(p, s, t, 0)
         return lambda p, s, t: model.decode_step(
             maybe_unpack(p, quantized), s, t, 0)
@@ -129,15 +133,19 @@ class ExecutionPlan:
 
 
 def build_plan(model: Model | str, *, smoke: bool = True,
-               quantized: bool = False, fused_decode: str | None = None,
+               quantized: bool = False,
+               plane_policy: PlanePolicy | None = None,
+               fused_decode: str | None = None,
                fused_prefill: bool = False, prefill_chunk: int = 16,
                seed: int = 0, device="cuda") -> ExecutionPlan:
     """Select paths, prepare params (one pass) and build an ExecutionPlan.
 
     model         — a Model handle or arch id (resolved with `smoke=`)
-    quantized     — pack the weights (drawn from `seed` on `device`) to
-                    Δ-PoT W8 once
-    fused_decode  — None/False (per-op) | "block" (K3 per layer)
+    quantized     — pack the weights (drawn from `seed` on `device`) once
+    plane_policy  — a `PlanePolicy` choosing W8 / W4 / VQ per tensor
+                    (needs quantized=True); None packs everything W8
+    fused_decode  — None/False (per-op) | "block" (K3 per layer) |
+                    "model" (one K4 launch for all layers)
     fused_prefill — False (per-op loop) | True (chunked: K5 + K2)
     device        — "cuda" (default) or "cpu"; a missing GPU raises
     """
@@ -150,11 +158,17 @@ def build_plan(model: Model | str, *, smoke: bool = True,
                          "position-free recurrent state")
     decode_desc = decode_paths[_normalize_decode(fused_decode)]
     prefill_desc = prefill_paths["chunked" if fused_prefill else "per_op"]
+    if plane_policy is not None and not quantized:
+        raise ValueError("plane_policy selects quantized weight planes; "
+                         "it does nothing without quantized=True")
     params = model.init_params(seed, dev)
     if quantized:
-        params = pack_params(params)
-    # no path of this slice prepares its weights: every form is the raw one
-    prepared = PreparedParams(raw=params, decode=params, prefill=params,
-                              quantized=quantized)
+        params = pack_params(params, plane_policy)
+    prepared = PreparedParams(
+        raw=params,
+        decode=model.prepare_path_params(decode_desc, params),
+        prefill=model.prepare_path_params(prefill_desc, params),
+        quantized=quantized, decode_path=decode_desc.name,
+        prefill_path=prefill_desc.name)
     return ExecutionPlan(model, prepared, decode_desc, prefill_desc,
                          prefill_chunk=prefill_chunk, device=dev)

@@ -1,9 +1,10 @@
 """Parameter and state trees as nested dicts of tensors.
 
 The port keeps the JAX package's tree paths, so its trees are plain nested
-dicts.  A dict leaf — the packed `{"packed", "scale"}` plane — is kept
-whole when `is_leaf` says so.  Keys are visited in sorted order, the JAX
-flatten order.
+dicts.  A dict leaf — a quantized plane such as `{"packed", "scale"}` —
+is kept whole when `is_leaf` says so; without `is_leaf` the walk descends
+into it, as JAX's flatten does.  Keys are visited in sorted order, the
+JAX flatten order.
 """
 from __future__ import annotations
 

@@ -22,9 +22,23 @@ import numpy as np
 import torch
 
 from repro_torch.bridge import from_jax_tree, to_numpy
+from repro_torch.core.quant.policy import PlanePolicy as TPlanePolicy
 
 MAX_REL = 2.0 ** -5
 MEAN_REL = 2.0 ** -8
+
+# The mixed plane policy of tests/test_fused_decode.py: W4 for att.wk and
+# the head, VQ for ffn.wv, W8 elsewhere, so every decode branch runs.
+MIXED_OVERRIDES = ((r"\['att'\]\['wk'\]", "w4"),
+                   (r"\['ffn'\]\['wv'\]", "vq"),
+                   (r"\['head'\]", "w4"))
+
+
+def mixed_policies():
+    """(the JAX package's PlanePolicy, the port's), both MIXED."""
+    from repro.core.quant.policy import PlanePolicy
+    return (PlanePolicy(default="w8", overrides=MIXED_OVERRIDES),
+            TPlanePolicy(default="w8", overrides=MIXED_OVERRIDES))
 
 
 def to_port(tree, device="cpu"):

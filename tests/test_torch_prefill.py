@@ -107,3 +107,69 @@ def test_last_valid_helpers():
     got = last_valid_select(seq, old, torch.tensor([2, 0, 4]))
     assert got.dtype == torch.bfloat16
     assert got[:, 0].tolist() == [1.0, -1.0, 11.0]
+
+
+# --- the W4 and VQ chunk matmuls (K5-W4, K5-VQ) and a mixed-plane tree ---
+
+from port_helpers import assert_bitwise, mixed_policies
+from repro.core.quant import delta_pot as jdp
+from repro.core.quant.vq import vq_quantize as j_vq_quantize
+from repro.kernels.fused_prefill import vq_chunk_matmul, w4_chunk_matmul
+from repro_torch.kernels.fused_prefill import (
+    chunk_matmul, dpot_w4_matmul, dpot_w4_matmul_plain, vq_matmul,
+    vq_matmul_plain)
+
+
+@pytest.mark.parametrize("plane", ["w4", "vq"])
+def test_w4_vq_matmul_plain_matches_jax(rng, plane):
+    """The plain versions of K5-W4 and K5-VQ against the TPU kernels
+    `w4_chunk_matmul` / `vq_chunk_matmul` in interpret mode: bit for bit
+    (both decode with unpack_leaf, then one bf16 matmul with f32
+    accumulation, K whole); the wrappers on CPU tensors are the plain
+    versions and launch nothing; chunk_matmul dispatches on the plane."""
+    K, N, M = 64, 96, 24
+    w = jnp.asarray(rng.standard_t(4.0, size=(K, N)) * 0.1, jnp.float32)
+    x = jnp.asarray(rng.normal(size=(M, K)), jnp.bfloat16)
+    if plane == "w4":
+        q = jdp.dpot_quantize(w, jdp.FORMAT_W4, axis=-1)
+        jleaf = {"packed4": jdp.dpot_pack_nibbles(q),
+                 "scale": q.scale.astype(jnp.float32)}
+        want = w4_chunk_matmul(x, jleaf["packed4"], jleaf["scale"],
+                               dt="bfloat16", bm=8, bn=32, interpret=True)
+        codes, aux = "packed4", "scale"
+        wrapper, plain = dpot_w4_matmul, dpot_w4_matmul_plain
+    else:
+        idx, cb = j_vq_quantize(w, 256)
+        jleaf = {"vq_idx": idx, "codebook": cb}
+        want = vq_chunk_matmul(x, idx, cb, dt="bfloat16", bm=8, bn=32,
+                               interpret=True)
+        codes, aux = "vq_idx", "codebook"
+        wrapper, plain = vq_matmul, vq_matmul_plain
+    leaf, tx = to_port(jleaf), to_port(x)
+    got = plain(tx, leaf[codes], leaf[aux])
+    assert got.dtype == torch.bfloat16
+    assert_bitwise(want, got, plane)
+    before = wrapper.launches
+    assert torch.equal(wrapper(tx, leaf[codes], leaf[aux]), got)
+    assert wrapper.launches == before
+    got3 = chunk_matmul(tx.reshape(3, 8, K), leaf, torch.bfloat16)
+    assert torch.equal(got3.reshape(M, N), got)
+
+
+def test_prefill_chunk_mixed_matches_oracle(models, rng):
+    """Chunked prefill over a MIXED tree (W8, W4 nibble pairs and a VQ
+    codebook; the head W4) against the JAX per-op masked scan."""
+    jm, tm, params = models
+    jmixed, tmixed = mixed_policies()
+    jp = j_pack(params, jmixed)
+    state, tokens, valid = _case(jm, rng)
+    s1, l1 = exact_jit(lambda p, s: oracle_prefill(
+        jm, p, s, tokens, valid, quantized=True))(jp, state)
+    tp = to_port(jp)
+    assert tp["blocks"]["att"]["wk"].keys() == {"packed4", "scale"}
+    assert tp["blocks"]["ffn"]["wv"].keys() == {"vq_idx", "codebook"}
+    s2, l2 = tm.prefill_chunk(tp, to_port(state), to_port(tokens),
+                              to_port(valid))
+    assert_close(l1, l2, "last-valid logits")
+    for k in STATE_KEYS:
+        assert_close(s1[k], s2[k], k)

@@ -150,3 +150,174 @@ def test_unpack_params_decodes_only_packed_leaves(trees):
         else:
             assert got is leaf
     assert f32(out["head"]).shape == tuple(tp["head"]["packed"].shape)
+
+
+# --- W4 and VQ planes, plane selection, the slab form (all bit for bit) ---
+
+from port_helpers import mixed_policies
+from repro.core.quant import policy as jpol
+from repro.core.quant import vq as jvq
+from repro.core.quant.serving import FusedLayerStack as JStack
+from repro_torch.bridge import fused_stack_to_numpy
+from repro_torch.core.quant import policy as tpol
+from repro_torch.core.quant import vq as tvq
+from repro_torch.core.quant.serving import (
+    broadcast_packed_scales, fuse_layer_stack, leaf_plane, unfuse_layer)
+from repro_torch.models import rwkv4 as t_rwkv4
+from repro_torch.models.registry import get_model as t_get_model
+from repro_torch.models.rwkv4 import _layer
+
+
+def _flat_leaves(tree):
+    """{keystr: leaf} of a JAX tree, descending into plane dicts."""
+    return {jax.tree_util.keystr(p): l for p, l in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _heavy(rng, shape, df):
+    """Student-t weights: df small -> heavy tails (large kurtosis)."""
+    return (rng.standard_t(df, size=shape) * 0.05).astype(np.float32)
+
+
+def test_w4_nibbles_bitwise(rng):
+    """FORMAT_W4 codes, scales and the nibble packing equal JAX's; the
+    unpacking re-interleaves the rows (low nibble = even row)."""
+    w = (rng.normal(size=(3, 16, 24)) * np.exp(rng.normal(size=(3, 16, 24)))
+         ).astype(np.float32)
+    jq = jdp.dpot_quantize(jnp.asarray(w), jdp.FORMAT_W4, axis=-1)
+    tq = tdp.dpot_quantize(torch.from_numpy(w), tdp.FORMAT_W4, axis=-1)
+    jp, tp = jdp.dpot_pack_nibbles(jq), tdp.dpot_pack_nibbles(tq)
+    assert tuple(tp.shape) == (3, 8, 24) and tp.dtype == torch.uint8
+    assert_bitwise(jp, tp, "packed4")
+    assert_bitwise(jq.scale, tq.scale, "scale")
+    assert_bitwise(jq.codes, tq.codes, "codes")
+    ju = jdp.dpot_unpack_nibbles(jp, jq.scale, jdp.FORMAT_W4.ks)
+    tu = tdp.dpot_unpack_nibbles(tp, tq.scale, tdp.FORMAT_W4.ks)
+    assert torch.equal(tu.codes, tq.codes) and torch.equal(tu.signs, tq.signs)
+    assert_bitwise(ju.codes, tu.codes, "unpacked codes")
+    assert_bitwise(ju.signs, tu.signs, "unpacked signs")
+    # row 2k is the low nibble of packed row k
+    assert torch.equal(tp[:, 0] & 0x7, tq.codes[:, 0])
+    assert torch.equal((tp[:, 0] >> 4) & 0x7, tq.codes[:, 1])
+
+
+@pytest.mark.parametrize("shape,n_codes,df",
+                         [((3, 40, 24), 256, 3.0), ((300, 256), 256, 2.5),
+                          ((50, 30), 16, 30.0)],
+                         ids=["stacked", "subsampled", "16-codes"])
+def test_vq_quantize_bitwise(rng, shape, n_codes, df):
+    """VQ indices (uint8) and the (1, C) bf16 codebook equal JAX's; the
+    (300, 256) case is larger than the 2^16 fitting sample."""
+    w = _heavy(rng, shape, df)
+    ji, jc = jvq.vq_quantize(jnp.asarray(w), n_codes)
+    ti, tc = tvq.vq_quantize(torch.from_numpy(w), n_codes)
+    assert ti.dtype == torch.uint8 and tuple(ti.shape) == shape
+    assert tc.dtype == torch.bfloat16 and tuple(tc.shape) == (1, n_codes)
+    assert_bitwise(ji, ti, "vq_idx")
+    assert_bitwise(jc, tc, "codebook")
+    assert_bitwise(jvq.vq_dequantize(ji, jc),
+                   tvq.vq_dequantize(ti, tc), "decoded")
+
+
+def test_plane_for_matches_jax(rng):
+    """PlanePolicy.plane_for under MIXED and the four presets, over the
+    smoke model's matmul leaves and over weights whose tails put the
+    kurtosis proxy in each of its three ranges."""
+    jmixed, tmixed = mixed_policies()
+    pairs = [(jmixed, tmixed), (jpol.PLANE_W8, tpol.PLANE_W8),
+             (jpol.PLANE_W4, tpol.PLANE_W4), (jpol.PLANE_VQ, tpol.PLANE_VQ),
+             (jpol.PLANE_PROXY, tpol.PLANE_PROXY)]
+    model = j_get_model("rwkv4-169m", smoke=True)
+    leaves = {k: np.array(l) for k, l in _flat_leaves(
+        model.init_params(jax.random.PRNGKey(0))).items()
+        if j_classify(k, l) == "matmul"}
+    for i, df in enumerate((200.0, 6.0, 2.2)):
+        leaves[f"['synthetic{i}']"] = _heavy(rng, (64, 48), df)
+    got = set()
+    for key, w in leaves.items():
+        assert tpol.weight_outlier_proxy(torch.from_numpy(w)) == \
+            jpol.weight_outlier_proxy(w), key
+        for jp_, tp_ in pairs:
+            want = jp_.plane_for(key, w)
+            assert tp_.plane_for(key, torch.from_numpy(w)) == want, key
+            got.add(want)
+    assert got == {"w8", "w4", "vq"}
+    assert tmixed.to_config() == jmixed.to_config()
+    assert tpol.PlanePolicy.from_config(tmixed.to_config()) == tmixed
+
+
+@pytest.mark.parametrize("which", ["mixed", "w4", "vq"])
+def test_pack_params_planes_bitwise(which, rng):
+    """pack_params under a plane policy, leaf by leaf (codes, nibble
+    pairs, indices, scales, codebooks, bf16 leaves), against JAX's; an
+    odd contraction axis makes W4 fall back to W8 on both sides."""
+    jmixed, tmixed = mixed_policies()
+    jpolicy, tpolicy = {"mixed": (jmixed, tmixed),
+                        "w4": (jpol.PLANE_W4, tpol.PLANE_W4),
+                        "vq": (jpol.PLANE_VQ, tpol.PLANE_VQ)}[which]
+    model = j_get_model("rwkv4-169m", smoke=True)
+    params = model.init_params(jax.random.PRNGKey(0))
+    params = {**params, "odd": jnp.asarray(rng.normal(size=(5, 8)),
+                                           jnp.float32)}
+    jp = _flat_leaves(j_pack(params, jpolicy))
+    tp = dict((keystr(p), l) for p, l in leaves_with_path(
+        t_pack(to_port(params), tpolicy)))
+    assert sorted(jp) == sorted(tp)
+    for key, leaf in jp.items():
+        got = tp[key]
+        assert str(got.dtype).replace("torch.", "") == leaf.dtype.name, key
+        assert_bitwise(leaf, got, key)
+    # the odd (5, 8) leaf: W8 under MIXED, and under W4 by the fallback
+    odd = {"mixed": "packed", "w4": "packed", "vq": "vq_idx"}[which]
+    assert f"['odd']['{odd}']" in tp
+
+
+@pytest.mark.parametrize("which", ["w8", "mixed"])
+def test_fuse_layer_stack_bitwise(which):
+    """The slab form — per-dtype slabs, aux leaves, manifest offsets —
+    equals JAX's prepare_fused_model_params byte for byte."""
+    jmixed, tmixed = mixed_policies()
+    jpolicy, tpolicy = (None, None) if which == "w8" else (jmixed, tmixed)
+    jm = j_get_model("rwkv4-169m", smoke=True)
+    tm = t_get_model("rwkv4-169m", smoke=True)
+    params = jm.init_params(jax.random.PRNGKey(0))
+    jstack = jm.prepare_fused_model_params(j_pack(params, jpolicy))["blocks"]
+    tstack = t_rwkv4.prepare_fused_model_params(
+        t_pack(to_port(params), tpolicy), tm.cfg)["blocks"]
+    assert isinstance(jstack, JStack)
+    js, ja, jmf = fused_stack_to_numpy(jstack)
+    ts, ta, tmf = fused_stack_to_numpy(tstack)
+    assert tmf == jmf
+    assert sorted(ts) == sorted(js)
+    for k in js:
+        assert ts[k].shape == js[k].shape, k
+        assert ts[k].tobytes() == js[k].tobytes(), k
+    assert len(ta) == len(ja)
+    for a, b in zip(ja, ta):
+        assert a.shape == b.shape and a.tobytes() == b.tobytes()
+    if which == "mixed":
+        assert {k: v.shape for k, v in ts.items()} == {
+            "uint8": (2, 51200), "bfloat16": (2, 704)}
+        assert len(ta) == 7
+
+
+def test_unfuse_layer_equals_layer_slice():
+    """unfuse_layer(row l) rebuilds layer l of the stacked tree exactly,
+    the shared scales and codebook squeezed (the K4 plain version's
+    input equals K3's)."""
+    _, tmixed = mixed_policies()
+    tm = t_get_model("rwkv4-169m", smoke=True)
+    tp = tm.cast_params(t_pack(tm.init_params(0, device="cpu"), tmixed))
+    stack = fuse_layer_stack(tp["blocks"], tm.cfg.n_layers)
+    bcast = broadcast_packed_scales(tp["blocks"], tm.cfg.n_layers)
+    aux = [a[0] for a in stack.aux]
+    for l in range(tm.cfg.n_layers):
+        got = unfuse_layer({k: s[l] for k, s in stack.slabs.items()}, aux,
+                           stack.manifest, stack.tdef)
+        want = _layer(bcast, l)
+        for (pg, g), (pw, w) in zip(leaves_with_path(got),
+                                    leaves_with_path(want)):
+            assert pg == pw
+            assert torch.equal(g.reshape(w.shape), w), pg
+        assert leaf_plane(got["ffn"]["wv"]) == "vq"
+        assert leaf_plane(got["att"]["wk"]) == "w4"

@@ -205,3 +205,112 @@ def test_port_imports_no_jax_and_no_repro():
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (f, mod)
+
+
+# --- the whole-model decode path "model" with mixed W8 / W4 / VQ planes ---
+
+from repro_torch.core.quant.policy import PlanePolicy
+from repro_torch.core.quant.serving import FusedLayerStack
+from repro_torch.kernels.fused_decode import rwkv4_model_decode
+from repro_torch.kernels.fused_prefill import dpot_w4_matmul, vq_matmul
+from repro_torch.launch.serve import weights_label
+from repro_torch.models.rwkv4 import prepare_fused_model_params
+
+# W4 for att.wk and the head, VQ for ffn.wv, W8 elsewhere
+MIXED = PlanePolicy(default="w8", overrides=(
+    (r"\['att'\]\['wk'\]", "w4"), (r"\['ffn'\]\['wv'\]", "vq"),
+    (r"\['head'\]", "w4")))
+
+
+def _model_engine(fused_prefill=True):
+    return ServingEngine("rwkv4-169m", smoke=True, quantized=True,
+                         plane_policy=MIXED, fused_decode="model",
+                         fused_prefill=fused_prefill, max_batch=4,
+                         prefill_chunk=4, device="cpu")
+
+
+def test_model_path_solo_equals_batched():
+    """The model path with MIXED planes: each request's stream is the
+    same shared or alone (ragged prompts, chunk splits, slot reuse)."""
+    eng = _model_engine()
+    prompts = _prompts(6, eng.model.cfg.vocab, seed=2)
+    handles = [eng.submit(p, max_new_tokens=6) for p in prompts]
+    assert eng.run()["tokens"] == 36
+    for p, h in zip(prompts, handles):
+        solo = eng.submit(p, max_new_tokens=6)
+        eng.run()
+        assert solo.tokens == h.tokens
+
+
+@pytest.mark.parametrize("fused_prefill", [False, True],
+                         ids=["per_op_prefill", "chunked_prefill"])
+def test_model_path_matches_sequential_decode(fused_prefill):
+    """The model path with MIXED planes against batch-1 greedy per-op
+    decode of each request on the unpacked tree."""
+    eng = _model_engine(fused_prefill)
+    prompts = _prompts(3, eng.model.cfg.vocab, seed=3)
+    handles = [eng.submit(p, max_new_tokens=5) for p in prompts]
+    eng.run()
+    for p, h in zip(prompts, handles):
+        assert h.tokens == sequential_decode(
+            eng.model, eng.plan.prepared.raw, p, 5, device="cpu")
+
+
+def test_build_plan_prepares_each_path_once():
+    """build_plan packs under the policy once and prepares each path's
+    form: the model path's slabs for decode, the raw tree for prefill."""
+    plan = build_plan("rwkv4-169m", smoke=True, quantized=True,
+                      plane_policy=MIXED, fused_decode="model",
+                      fused_prefill=True, device="cpu")
+    prep = plan.prepared
+    assert (prep.decode_path, prep.prefill_path) == ("model", "chunked")
+    assert isinstance(prep.decode["blocks"], FusedLayerStack)
+    assert prep.prefill is prep.raw
+    assert prep.raw["head"].keys() == {"packed4", "scale"}
+    assert prep.raw["blocks"]["ffn"]["wv"].keys() == {"vq_idx", "codebook"}
+    assert weights_label(prep.raw) == "planes W8×5 W4×2 VQ×1"
+    ref = prepare_fused_model_params(prep.raw, plan.model.cfg)["blocks"]
+    for k, slab in prep.decode["blocks"].slabs.items():
+        assert torch.equal(slab, ref.slabs[k])
+    block = build_plan("rwkv4-169m", smoke=True, quantized=True,
+                       fused_decode="block", device="cpu").prepared
+    assert block.decode is block.raw and block.decode_path == "block"
+    assert weights_label(block.raw) == "Δ-PoT W8"
+
+
+def test_plane_policy_needs_quantized():
+    with pytest.raises(ValueError, match="quantized"):
+        build_plan("rwkv4-169m", smoke=True, quantized=False,
+                   plane_policy=MIXED, device="cpu")
+    with pytest.raises(ValueError, match="fused_decode"):
+        build_plan("rwkv4-169m", smoke=True, fused_decode="stream",
+                   device="cpu")
+
+
+def test_new_kernel_wrappers_raise_off_cpu():
+    """K5-W4, K5-VQ and K4 on tensors that are not on the CPU go to their
+    kernels or raise; they never fall back to the plain versions."""
+    meta = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt,
+                                                    device="meta")
+    model = get_model("rwkv4-169m", smoke=True)
+    tp = model.cast_params(
+        build_plan(model, quantized=True, plane_policy=MIXED,
+                   device="cpu").prepared.raw)
+    stack = prepare_fused_model_params(tp, model.cfg)["blocks"]
+    stack = FusedLayerStack({k: v.to("meta") for k, v in stack.slabs.items()},
+                            tuple(a.to("meta") for a in stack.aux),
+                            stack.manifest, stack.tdef)
+    L, D = model.cfg.n_layers, model.cfg.d_model
+    state = {k: meta(L, 2, D, dt=torch.bfloat16)
+             for k in ("att_x", "ffn_x", "wkv_a", "wkv_b", "wkv_o")}
+    counters = (dpot_w4_matmul, vq_matmul, rwkv4_model_decode)
+    before = [c.launches for c in counters]
+    with pytest.raises((RuntimeError, NotImplementedError)):
+        dpot_w4_matmul(meta(4, 8, dt=torch.bfloat16),
+                       meta(4, 6, dt=torch.uint8), meta(6))
+    with pytest.raises((RuntimeError, NotImplementedError)):
+        vq_matmul(meta(4, 8, dt=torch.bfloat16), meta(8, 6, dt=torch.uint8),
+                  meta(1, 256, dt=torch.bfloat16))
+    with pytest.raises((RuntimeError, NotImplementedError)):
+        rwkv4_model_decode(stack, state, meta(2, D, dt=torch.bfloat16))
+    assert [c.launches for c in counters] == before
