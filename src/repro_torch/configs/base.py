@@ -1,7 +1,8 @@
-"""Model configuration: the `ModelConfig` fields the RWKV-4 port reads.
+"""Model configuration: the `ModelConfig` fields the port's models read.
 
 A copy of the fields of `repro/configs/base.py` that `models/rwkv4.py`
-consumes, with `get_config` / `smoke_config` resolving the rwkv4 family.
+and `models/rwkv6.py` consume, with `get_config` / `smoke_config`
+resolving the rwkv4 family and rwkv6-7b.
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ class ModelConfig:
     d_model: int
     d_ff: int
     vocab: int
-    rwkv_version: int = 0  # 4 for this package
+    rwkv_version: int = 0  # 4 or 6
+    n_heads: int = 0              # rwkv6 WKV heads (H·N = d_model)
+    rwkv_head_dim: int = 64       # rwkv6 head size N
     dtype: str = "bfloat16"
 
 
@@ -26,6 +29,7 @@ _ARCH_MODULES = {
     "rwkv4-1b5": "rwkv4_family",
     "rwkv4-3b": "rwkv4_family",
     "rwkv4-7b": "rwkv4_family",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 

@@ -84,19 +84,29 @@ class DPotQuantized:
     ks: tuple[int, ...] = (4, 4)
 
 
-def dpot_quantize(w: torch.Tensor, fmt: DPotFormat = FORMAT_W8, *,
-                  axis: int = -1) -> DPotQuantized:
-    """Quantize to Δ-PoT codes with one scale per index of `axis` (the
-    output channel), reduced over every other axis: a stacked (L, K, N)
-    weight gets ONE (1, 1, N) scale."""
-    w = w.to(torch.float32)
-    absw = w.abs()
-    ax = axis % w.ndim
-    red = tuple(i for i in range(w.ndim) if i != ax)
-    amax = absw.amax(dim=red, keepdim=True) if red else absw
+def dpot_scale(amax: torch.Tensor, fmt: DPotFormat) -> torch.Tensor:
+    """The per-channel scale from the channel's max |w|: amax / max_level
+    in f32, 1 where the channel is all zero."""
     # tensor / tensor (not a python scalar) keeps IEEE f32 division
     base = amax / torch.full_like(amax, dpot_max_level(fmt))
-    scale = torch.where(base <= 0, torch.ones_like(base), base)
+    return torch.where(base <= 0, torch.ones_like(base), base)
+
+
+def dpot_quantize(w: torch.Tensor, fmt: DPotFormat = FORMAT_W8, *,
+                  axis: int = -1,
+                  scale: torch.Tensor | None = None) -> DPotQuantized:
+    """Quantize to Δ-PoT codes with one scale per index of `axis` (the
+    output channel), reduced over every other axis: a stacked (L, K, N)
+    weight gets ONE (1, 1, N) scale.  A given `scale` (broadcastable to
+    w) is used as it is: `serving.pack_leaf` quantizes a stacked leaf one
+    layer at a time under the scale of the whole leaf."""
+    w = w.to(torch.float32)
+    absw = w.abs()
+    if scale is None:
+        ax = axis % w.ndim
+        red = tuple(i for i in range(w.ndim) if i != ax)
+        amax = absw.amax(dim=red, keepdim=True) if red else absw
+        scale = dpot_scale(amax, fmt)
     _, codes, mids = _sorted_levels(fmt.ks)
     md = torch.as_tensor(mids.astype(np.float32), device=w.device)
     cd = torch.as_tensor(codes, device=w.device)

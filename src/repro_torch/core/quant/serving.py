@@ -15,6 +15,9 @@ with the same arithmetic (`csrc/common.cuh`).
 
 API:
   pack_params(params, policy)  -> packed tree (+ other floating leaves bf16)
+  pack_leaf(key, leaf, policy) -> one leaf of it (models.param.init_params
+                                  packs each leaf as it is drawn)
+  predecode_packed_leaves(t, paths) -> decode the planes at those paths
   unpack_leaf(leaf)            -> decode ONE plane leaf to bf16
   unpack_params(packed)        -> bf16 compute tree
   broadcast_packed_scales(t,L) -> shared (1, ...) scales and codebooks ->
@@ -34,7 +37,7 @@ import torch
 
 from repro_torch.core.quant.delta_pot import (
     FORMAT_W4, FORMAT_W8, dpot_decode_codes, dpot_pack_int8,
-    dpot_pack_nibbles, dpot_quantize)
+    dpot_pack_nibbles, dpot_quantize, dpot_scale)
 from repro_torch.core.quant.policy import PlanePolicy, classify_param
 from repro_torch.core.quant.vq import vq_dequantize, vq_quantize
 from repro_torch.tree import keystr, leaves_with_path, tree_map
@@ -60,6 +63,46 @@ def is_packed_leaf(leaf) -> bool:
     return leaf_plane(leaf) is not None
 
 
+def _quantize_planes(leaf: torch.Tensor, fmt, pack) -> tuple:
+    """Δ-PoT-quantize a matmul leaf and pack it with `pack`, one slice of
+    axis 0 at a time when the leaf is stacked (3-D and up): the shared
+    (1, ..., N) scale is reduced over every slice first, so the bytes
+    equal a whole-leaf `dpot_quantize`, but the f32 and int64
+    temporaries are one layer's, not the stack's (rwkv6-7b's stacked
+    ffn.wk holds 1.9e9 weights)."""
+    if leaf.ndim < 3:
+        q = dpot_quantize(leaf, fmt, axis=-1)
+        return pack(q), q.scale.to(torch.float32)
+    red = tuple(range(leaf.ndim - 2))
+    amax = torch.stack([leaf[i].to(torch.float32).abs().amax(
+        dim=red, keepdim=True) for i in range(leaf.shape[0])]).amax(dim=0)
+    scale = dpot_scale(amax, fmt)
+    codes = torch.stack([pack(dpot_quantize(leaf[i], fmt, scale=scale))
+                         for i in range(leaf.shape[0])])
+    return codes, scale[None].to(torch.float32)
+
+
+def pack_leaf(key: str, leaf, policy: PlanePolicy | None = None):
+    """One leaf of `pack_params`: a matmul weight to its plane, another
+    floating leaf to bf16, anything else as it is.  `key` is the leaf's
+    JAX key string ("['blocks']['att']['wr']")."""
+    if classify_param(key, leaf) != "matmul":
+        if torch.is_floating_point(leaf):
+            return leaf.to(torch.bfloat16)
+        return leaf
+    plane = "w8" if policy is None else policy.plane_for(key, leaf)
+    if plane == "w4" and (leaf.ndim < 2 or leaf.shape[-2] % 2):
+        plane = "w8"
+    if plane == "vq":
+        idx, codebook = vq_quantize(leaf, policy.vq_codes)
+        return {"vq_idx": idx, "codebook": codebook}
+    if plane == "w4":
+        codes, scale = _quantize_planes(leaf, FORMAT_W4, dpot_pack_nibbles)
+        return {"packed4": codes, "scale": scale}
+    codes, scale = _quantize_planes(leaf, FORMAT_W8, dpot_pack_int8)
+    return {"packed": codes, "scale": scale}
+
+
 def pack_params(params, policy: PlanePolicy | None = None):
     """Quantize every matmul weight to a plane; cast the other floating
     leaves to bf16.  Without a policy every matmul weight is W8; with one,
@@ -67,31 +110,28 @@ def pack_params(params, policy: PlanePolicy | None = None):
     contraction axis is odd (nibbles pair along it)."""
     out: dict = {}
     for path, leaf in leaves_with_path(params):
-        key = keystr(path)
-        if classify_param(key, leaf) == "matmul":
-            plane = "w8" if policy is None else policy.plane_for(key, leaf)
-            if plane == "w4" and (leaf.ndim < 2 or leaf.shape[-2] % 2):
-                plane = "w8"
-            if plane == "vq":
-                idx, codebook = vq_quantize(leaf, policy.vq_codes)
-                new = {"vq_idx": idx, "codebook": codebook}
-            elif plane == "w4":
-                q = dpot_quantize(leaf, FORMAT_W4, axis=-1)
-                new = {"packed4": dpot_pack_nibbles(q),
-                       "scale": q.scale.to(torch.float32)}
-            else:
-                q = dpot_quantize(leaf, FORMAT_W8, axis=-1)
-                new = {"packed": dpot_pack_int8(q),
-                       "scale": q.scale.to(torch.float32)}
-        elif torch.is_floating_point(leaf):
-            new = leaf.to(torch.bfloat16)
-        else:
-            new = leaf
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = new
+        node[path[-1]] = pack_leaf(keystr(path), leaf, policy)
     return out
+
+
+def predecode_packed_leaves(params, paths):
+    """Decode the plane leaves at the given key paths (tuples of dict
+    keys) with `unpack_leaf`, leaving everything else, plain leaves at
+    those paths included, as it is: rwkv6's chunked prefill consumes a
+    few packed leaves element-wise, so it decodes them once at startup
+    and every other plane streams its codes into a kernel."""
+    def update(node, path):
+        if not path:
+            return unpack_leaf(node) if is_packed_leaf(node) else node
+        head, rest = path[0], path[1:]
+        return {**node, head: update(node[head], rest)}
+
+    for path in paths:
+        params = update(params, tuple(path))
+    return params
 
 
 def _sign(bits: torch.Tensor) -> torch.Tensor:

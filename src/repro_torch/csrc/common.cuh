@@ -61,6 +61,32 @@ __device__ __forceinline__ float vq_decode(uint32_t idx, const bf16* cb) {
   return __bfloat162float(cb[idx]);
 }
 
+// σ(x) = 1 / (1 + exp(-x)) with each op rounded to bf16: how XLA expands
+// jax.nn.sigmoid on bf16, and what models/rwkv4.py:sigmoid computes.
+__device__ __forceinline__ float sigmoid_bf16(float x) {
+  return bf16r(1.f / bf16r(1.f + bf16r(expf(-x))));
+}
+
+// Token-shift mix h·p + prev·(1-p), each op rounded to bf16 as in JAX.
+__device__ __forceinline__ bf16 mix(float h, float prev, float p) {
+  const float hp = bf16r(h * p);
+  const float q = bf16r(1.f - p);
+  const float xq = bf16r(prev * q);
+  return __float2bfloat16_rn(hp + xq);
+}
+
+// One element (n, m) of the RWKV-6 WKV step (core/wkv/wkv6.py:wkv6_step)
+// in f32, JAX's operation order, no contraction: kv = k[n]·v[m]; the
+// output term r[n]·(S + u[n]·kv), which the caller adds to y[m] in order
+// of n; and the stepped state w[n]·S + kv.
+__device__ __forceinline__ float wkv6_term(float s, float r, float k,
+                                           float v, float u, float w,
+                                           float* s_new) {
+  const float kv = k * v;
+  *s_new = w * s + kv;
+  return r * (s + u * kv);
+}
+
 // The weight planes a matrix may arrive in (core/quant/serving.py).
 enum Plane { kPlaneW8 = 0, kPlaneW4 = 1, kPlaneVQ = 2 };
 

@@ -66,12 +66,6 @@ struct LayerState {
   bf16* out[kNumState];
 };
 
-// σ(x) = 1 / (1 + exp(-x)) with each op rounded to bf16: how XLA expands
-// jax.nn.sigmoid on bf16, and what models/rwkv4.py:sigmoid computes.
-__device__ __forceinline__ float sigmoid_bf16(float x) {
-  return bf16r(1.f / bf16r(1.f + bf16r(expf(-x))));
-}
-
 // acc[b] += in[b][k]·w0 then in[b][k+1]·w1, lane b's bf16 row at
 // in + b·lane_stride (k even, 4-byte aligned).
 template <int BB>
@@ -160,14 +154,6 @@ __device__ void layernorm_lanes(const bf16* src, bf16* dst, int lane_stride,
       gr[d] = h;
     }
   }
-}
-
-// Token-shift mix h·p + prev·(1-p), each op rounded to bf16 as in JAX.
-__device__ __forceinline__ bf16 mix(float h, float prev, float p) {
-  const float hp = bf16r(h * p);
-  const float q = bf16r(1.f - p);
-  const float xq = bf16r(prev * q);
-  return __float2bfloat16_rn(hp + xq);
 }
 
 // The PLANES a layer with these 7 matrix planes is compiled for.

@@ -39,6 +39,11 @@ SIGNATURES = {
     "wkv4_seq": [_P] * 12 + [_I, _I, _I, _I, _P],
     "rwkv4_block_decode": [_PP, _I, _PI, _I, _I, _I, _I, _P],
     "rwkv4_model_decode": [_PP, _I, _PL, _I, _PI, _I, _I, _I, _I, _I, _P],
+    "wkv6_seq": [_P] * 9 + [_I] * 6 + [_P],
+    "rwkv6_block_decode": [_PP, _I] + [_I] * 6 + [_P],
+    "rwkv6_model_decode": [_PP, _I, _PL, _I] + [_I] * 7 + [_P],
+    "rwkv6_block_decode_grid": [_PI, _PI],
+    "rwkv6_model_decode_grid": [_PI, _PI],
 }
 
 
@@ -107,6 +112,8 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.rwkv6_decode_scratch_bytes.argtypes = [_I, _I]
+    lib.rwkv6_decode_scratch_bytes.restype = ctypes.c_longlong
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

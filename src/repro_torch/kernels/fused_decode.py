@@ -1,26 +1,31 @@
-"""RWKV-4 decode in one launch per layer (kernel K3) or one launch for the
-whole layer stack (kernel K4).
+"""RWKV decode in one launch per layer or one launch for the whole layer
+stack: kernels K3 and K4 (RWKV-4) and the two forms of K7 (RWKV-6).
 
-Port of `repro/kernels/fused_decode.py`: `rwkv4_block_decode` replaces
-`fused_block_decode` and `rwkv4_model_decode` replaces `fused_model_decode`,
-both for the RWKV-4 body with exact numerics.  Pallas traced the model's
-`block_decode` inside the kernel; CUDA cannot trace, so the body is
-written into `csrc/rwkv4_body.cuh`, which rounds to bf16 at the places the
-JAX trace does, and which both kernels run: L launches of K3 and one of
-K4 give the same bits.  The TPU's "stream" and "resident" forms of K4
-compute the same bits too, and on Hopper collapse into one layer loop
-inside the launch, so K4 has one form.  The sources' headers say what
-bounds each kernel on an H100 and how the design answers that.
+Port of `repro/kernels/fused_decode.py`: `rwkv4_block_decode` and
+`rwkv6_block_decode` replace `fused_block_decode`, `rwkv4_model_decode`
+and `rwkv6_model_decode` replace `fused_model_decode`, each for its
+model's body with exact numerics.  Pallas traced the model's
+`block_decode` inside the kernel; CUDA cannot trace, so each body is
+written into `csrc/rwkv4_body.cuh` or `csrc/rwkv6_body.cuh`, which round
+to bf16 at the places the JAX trace does, and which both forms of a model
+run: L block launches and one model launch give the same bits.  The TPU's
+"stream" and "resident" forms of the whole-model kernel compute the same
+bits too, and on Hopper collapse into one layer loop inside the launch.
+The sources' headers say what bounds each kernel on an H100 and how the
+design answers that.
 
-Every matrix may arrive as a W8, W4 or VQ plane (`core/quant/serving.py`);
-K3 takes the layer's tree, K4 the `FusedLayerStack` slab form, whose
-manifest the wrapper turns into a table of offsets and planes.
+K3 and K4 run a layer's batch tile on one thread block and take W8, W4
+or VQ planes (`core/quant/serving.py`).  K7 spreads each rwkv6-7b layer
+(220 MB of codes) over the whole card as a cooperative launch with
+grid-wide barriers between its phases, and takes W8 planes only.  The
+block forms take the layer's tree, the model forms the `FusedLayerStack`
+slab form, whose manifest the wrapper turns into a table of offsets.
 
-A CPU tensor takes the plain version — `models/rwkv4.py:block_decode` on
-the layer's weights decoded by `unpack_leaf`, exactly what the JAX kernel
-body ran, in a Python loop over layers for K4; a CUDA tensor launches the
-kernel or raises (the kernels take quantized planes and a bf16 state
-only; plain bf16 weights are not ported).
+A CPU tensor takes the plain version — the model's `block_decode` on the
+layer's weights decoded by `unpack_leaf`, exactly what the JAX kernel
+body ran, in a Python loop over layers for the model forms; a CUDA tensor
+launches the kernel or raises (the kernels take quantized planes and a
+bf16 state only; plain bf16 weights are not ported).
 """
 from __future__ import annotations
 
@@ -210,6 +215,27 @@ class MatEntry(NamedTuple):
     plane: int
 
 
+def _entry(entries: dict, path, kind: str, used: set):
+    """A leaf's manifest entry, which must be of `kind` ("slab" or
+    "aux"); the path joins `used`."""
+    e = entries.get(path)
+    if e is None or e[0] != kind:
+        raise ValueError(f"FusedLayerStack: {'.'.join(path)} must be a "
+                         f"leaf of kind {kind!r}, got {e}")
+    used.add(path)
+    return e
+
+
+def _slab_offset(entries: dict, path, dtype: str, shape, used: set) -> int:
+    """A slab leaf's offset in its dtype's slab row, checked against the
+    expected dtype and per-layer shape."""
+    _, key, off, got = _entry(entries, path, "slab", used)
+    if key != dtype or tuple(got) != shape:
+        raise ValueError(f"FusedLayerStack: {'.'.join(path)} is {key} "
+                         f"{tuple(got)}, expected {dtype} {shape}")
+    return off
+
+
 def stack_table(blocks: FusedLayerStack, D: int):
     """The K4 table of a slab stack, checked against the expected shapes:
     (F, the vectors' offsets in a bf16 slab row, [MatEntry] per matrix).
@@ -218,21 +244,9 @@ def stack_table(blocks: FusedLayerStack, D: int):
     every layer (a one-layer stack keeps them in its slabs)."""
     entries = dict(zip(blocks.tdef, blocks.manifest))
     used = set()
-
-    def entry(path, kind):
-        e = entries.get(path)
-        if e is None or e[0] != kind:
-            raise ValueError(f"FusedLayerStack: {'.'.join(path)} must be a "
-                             f"leaf of kind {kind!r}, got {e}")
-        used.add(path)
-        return e
-
-    def slab_offset(path, dtype, shape):
-        _, key, off, got = entry(path, "slab")
-        if key != dtype or tuple(got) != shape:
-            raise ValueError(f"FusedLayerStack: {'.'.join(path)} is {key} "
-                             f"{tuple(got)}, expected {dtype} {shape}")
-        return off
+    entry = lambda path, kind: _entry(entries, path, kind, used)
+    slab_offset = lambda path, dtype, shape: _slab_offset(
+        entries, path, dtype, shape, used)
 
     def plane_of(path):
         keys = {p[-1]: None for p in blocks.tdef if p[:-1] == path}
@@ -301,3 +315,230 @@ def rwkv4_model_decode(blocks: FusedLayerStack, state, x, *,
 
 
 rwkv4_model_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6: kernel K7 in its block form (one layer a launch) and its model
+# form (every layer in one launch), W8 planes only
+# ---------------------------------------------------------------------------
+
+# the RWKV-6 decode state leaves, in the order the kernels take them
+RWKV6_STATE_KEYS = ("att_x", "ffn_x", "wkv_s")
+# a layer's bf16 vectors and W8 planes, in the kernels' order
+# (csrc/rwkv6_body.cuh: enum Vec, enum Mat)
+RWKV6_VEC_KEYS = (("ln1", "scale"), ("ln1", "bias"), ("ln2", "scale"),
+                  ("ln2", "bias"), ("att", "time_decay"),
+                  ("att", "ln_x", "scale"), ("att", "ln_x", "bias"),
+                  ("ffn", "time_mix_r"), ("ffn", "time_mix_k"))
+RWKV6_MAT_KEYS = (("att", "time_maa_x"), ("att", "time_maa"),
+                  ("att", "time_faaaa"), ("att", "maa_w1"),
+                  ("att", "maa_w2"), ("att", "td_w1"), ("att", "td_w2"),
+                  ("att", "wr"), ("att", "wk"), ("att", "wv"), ("att", "wg"),
+                  ("att", "wo"), ("ffn", "wr"), ("ffn", "wk"), ("ffn", "wv"))
+RWKV6_MAX_B = 8             # batch lanes one K7 launch carries
+
+
+def _rwkv6_mat_shapes(D: int, F: int, H: int, N: int):
+    """Each plane's per-layer codes shape, in RWKV6_MAT_KEYS order."""
+    from repro_torch.models.rwkv6 import MAA_RANK, TD_RANK
+    return ((D,), (5, D), (H, N), (D, 5 * MAA_RANK), (5, MAA_RANK, D),
+            (D, TD_RANK), (TD_RANK, D)) + ((D, D),) * 6 + ((D, F), (F, D))
+
+
+def _rwkv6_dims(cfg, x):
+    B, D = x.shape
+    if D != cfg.d_model or cfg.n_heads * cfg.rwkv_head_dim != D:
+        raise ValueError(f"x (B, {D}) does not match {cfg.name}'s "
+                         f"D = {cfg.d_model} = H·N")
+    if not 1 <= B <= RWKV6_MAX_B:
+        raise ValueError(f"K7 carries 1..{RWKV6_MAX_B} batch lanes, got "
+                         f"B = {B}")
+    N = cfg.rwkv_head_dim
+    # a head's N threads tile K7's 512-thread blocks; codes load 4 bytes
+    # at a time
+    if 512 % N or D % 4 or cfg.d_ff % 4:
+        raise ValueError(f"K7 needs N | 512 and D, F multiples of 4; got "
+                         f"N {N}, D {D}, F {cfg.d_ff}")
+    return B, D, cfg.d_ff, cfg.n_heads, N
+
+
+def _w8_only(leaf, name: str):
+    if leaf_plane(leaf) != "w8":
+        raise TypeError(f"K7 takes W8 planes only; {name} is "
+                        f"{leaf_plane(leaf) or 'not a plane'}")
+
+
+def _rwkv6_state(st, shapes, name: str):
+    out = []
+    for k, shape in zip(RWKV6_STATE_KEYS, shapes):
+        s = st[k]
+        if tuple(s.shape) != shape or s.dtype != torch.bfloat16:
+            raise TypeError(f"{name} state {k}: expected bf16 {shape}, got "
+                            f"{s.dtype} {tuple(s.shape)}")
+        out.append(s.contiguous())
+    return out
+
+
+def _coop_grid(which: str, grid):
+    """The cooperative grid of K7's `which` form: the most blocks that fit
+    on the card at once, or `grid` when asked; raises if the device has
+    no cooperative launch or the grid would not fit."""
+    coop, most = ctypes.c_int(0), ctypes.c_int(0)
+    fn = getattr(load_library(), f"rwkv6_{which}_decode_grid")
+    check(fn(ctypes.byref(coop), ctypes.byref(most)),
+          f"rwkv6_{which}_decode_grid")
+    if not coop.value:
+        raise RuntimeError("K7 needs cooperative launch, which this device "
+                           "does not offer")
+    grid = most.value if grid is None else int(grid)
+    if not 1 <= grid <= most.value:
+        raise ValueError(f"K7 {which}: a cooperative grid of {grid} blocks "
+                         f"does not fit; at most {most.value} are resident "
+                         "at once")
+    return grid
+
+
+def _rwkv6_scratch(D: int, F: int, device):
+    n = load_library().rwkv6_decode_scratch_bytes(D, F)
+    return torch.zeros((n,), dtype=torch.uint8, device=device)
+
+
+@exact_matmuls()
+def rwkv6_block_decode_plain(lp, st, x, cfg):
+    """The plain version: decode the plane leaves, run `block_decode`."""
+    from repro_torch.models.rwkv6 import block_decode
+    lp = tree_map(lambda l: unpack_leaf(l).to(x.dtype)
+                  if is_packed_leaf(l) else l, lp, is_leaf=is_packed_leaf)
+    return block_decode(lp, st, x, cfg)
+
+
+def rwkv6_model_decode_plain(blocks: FusedLayerStack, state, x, cfg):
+    """The plain version of K7-model: for each layer, unfuse its slab rows
+    and run K7-block's plain version, the body the Pallas kernel ran per
+    layer."""
+    aux = [a[0] for a in blocks.aux]          # the leading 1 squeezed
+    new = []
+    for l in range(blocks.n_layers):
+        rows = {k: s[l] for k, s in blocks.slabs.items()}
+        lp = unfuse_layer(rows, aux, blocks.manifest, blocks.tdef)
+        x, st = rwkv6_block_decode_plain(
+            lp, {k: state[k][l] for k in RWKV6_STATE_KEYS}, x, cfg)
+        new.append(st)
+    return x, {k: torch.stack([s[k] for s in new])
+               for k in RWKV6_STATE_KEYS}
+
+
+def rwkv6_block_decode(lp, st, x, cfg, *, grid: int | None = None):
+    """One RWKV-6 layer's decode step: lp the layer's params (compute-cast,
+    W8 plane leaves with their shared scales broadcast), st the layer's
+    att_x, ffn_x (B, D) and wkv_s (B, H, N, N) bf16 state, x (B, D) bf16
+    -> (x2 (B, D), new state).  `grid` caps the cooperative grid (default:
+    every block that fits)."""
+    if x.device.type == "cpu":
+        return rwkv6_block_decode_plain(lp, st, x, cfg)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"x must be bf16, got {x.dtype}")
+    B, D, F, H, N = _rwkv6_dims(cfg, x)
+    vecs = [_vec(_get(lp, p), D, ".".join(p)) for p in RWKV6_VEC_KEYS]
+    codes, scales = [], []
+    for path, shape in zip(RWKV6_MAT_KEYS, _rwkv6_mat_shapes(D, F, H, N)):
+        name = ".".join(path)
+        leaf = _get(lp, path)
+        _w8_only(leaf, name)
+        c = leaf["packed"]
+        if (tuple(c.shape) != shape or c.dtype != torch.uint8
+                or not c.is_contiguous()):
+            raise ValueError(f"{name}: codes must be contiguous uint8 "
+                             f"{shape}, got {c.dtype} {tuple(c.shape)}")
+        if c.data_ptr() % 4:
+            raise ValueError(f"{name}: K7 reads codes four bytes at a "
+                             "time; the codes must be 4-byte aligned")
+        codes.append(c)
+        scales.append(_aux("w8", leaf["scale"], shape[-1], name))
+    states = _rwkv6_state(st, ((B, D), (B, D), (B, H, N, N)),
+                          "rwkv6_block_decode")
+    grid = _coop_grid("block", grid)
+    outs = [torch.empty_like(t) for t in (x, *states)]
+    scratch = _rwkv6_scratch(D, F, x.device)
+    arr = _launch_ptrs([x.contiguous(), outs[0], *vecs, *codes, *scales,
+                        *states, *outs[1:], scratch])
+    check(load_library().rwkv6_block_decode(
+        arr, len(arr), B, D, F, H, N, grid, stream_ptr(x)),
+        "rwkv6_block_decode")
+    rwkv6_block_decode.launches += 1
+    return outs[0], dict(zip(RWKV6_STATE_KEYS, outs[1:]))
+
+
+rwkv6_block_decode.launches = 0
+
+
+def rwkv6_stack_table(blocks: FusedLayerStack, D: int, F: int, H: int,
+                      N: int):
+    """K7-model's table of a slab stack, checked against the expected
+    shapes: (the vectors' offsets in a bf16 slab row, the planes' codes
+    offsets in a uint8 slab row, their shared f32 scales).  Raises on a
+    leaf the kernel does not take, on any plane other than W8, and unless
+    every scale is an aux leaf shared by every layer (a one-layer stack
+    keeps them in its slabs)."""
+    entries = dict(zip(blocks.tdef, blocks.manifest))
+    extra = {p for p in blocks.tdef
+             if p[:-1] not in RWKV6_MAT_KEYS and p not in RWKV6_VEC_KEYS}
+    if extra:
+        raise ValueError(f"FusedLayerStack holds leaves K7 does not take: "
+                         f"{sorted('.'.join(p) for p in extra)}")
+    used = set()
+    vec_offs = [_slab_offset(entries, p, "bfloat16", (D,), used)
+                for p in RWKV6_VEC_KEYS]
+    mat_offs, scales = [], []
+    for path, shape in zip(RWKV6_MAT_KEYS, _rwkv6_mat_shapes(D, F, H, N)):
+        _w8_only({p[-1]: None for p in blocks.tdef if p[:-1] == path},
+                 ".".join(path))
+        mat_offs.append(_slab_offset(entries, path + ("packed",), "uint8",
+                                     shape, used))
+        aux = _entry(entries, path + ("scale",), "aux", used)[1]
+        scales.append(_aux("w8", blocks.aux[aux], shape[-1],
+                           ".".join(path) + ".scale"))
+    return vec_offs, mat_offs, scales
+
+
+def rwkv6_model_decode(blocks: FusedLayerStack, state, x, cfg, *,
+                       grid: int | None = None):
+    """The whole L-layer RWKV-6 decode step: blocks the slab form of the
+    stacked W8 layers (`fuse_layer_stack` of the compute-cast tree), state
+    att_x, ffn_x (L, B, D) and wkv_s (L, B, H, N, N) bf16, x (B, D) bf16
+    -> (x out (B, D), new state)."""
+    if not isinstance(blocks, FusedLayerStack):
+        raise TypeError("rwkv6_model_decode takes a FusedLayerStack "
+                        "(core/quant/serving.py:fuse_layer_stack)")
+    if x.device.type == "cpu":
+        return rwkv6_model_decode_plain(blocks, state, x, cfg)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"x must be bf16, got {x.dtype}")
+    B, D, F, H, N = _rwkv6_dims(cfg, x)
+    L = blocks.n_layers
+    vec_offs, mat_offs, scales = rwkv6_stack_table(blocks, D, F, H, N)
+    u8, b16 = blocks.slabs["uint8"], blocks.slabs["bfloat16"]
+    if not (u8.is_contiguous() and b16.is_contiguous()):
+        raise ValueError("FusedLayerStack slabs must be contiguous")
+    if u8.shape[1] % 4 or any(o % 4 for o in mat_offs):
+        raise ValueError("K7 reads codes four bytes at a time: the uint8 "
+                         "slab row and every plane offset must be multiples "
+                         "of 4")
+    states = _rwkv6_state(state, ((L, B, D), (L, B, D), (L, B, H, N, N)),
+                          "rwkv6_model_decode")
+    grid = _coop_grid("model", grid)
+    x_out = torch.empty_like(x)
+    outs = [torch.empty_like(s) for s in states]
+    scratch = _rwkv6_scratch(D, F, x.device)
+    arr = _launch_ptrs([x.contiguous(), x_out, u8, b16, *scales, *states,
+                        *outs, scratch])
+    offs = (ctypes.c_longlong * (2 + len(vec_offs) + len(mat_offs)))(
+        u8.shape[1], b16.shape[1], *vec_offs, *mat_offs)
+    check(load_library().rwkv6_model_decode(
+        arr, len(arr), offs, len(offs), L, B, D, F, H, N, grid,
+        stream_ptr(x)), "rwkv6_model_decode")
+    rwkv6_model_decode.launches += 1
+    return x_out, dict(zip(RWKV6_STATE_KEYS, outs))
+
+
+rwkv6_model_decode.launches = 0

@@ -1,14 +1,15 @@
 """Serving launcher for the port — a small CLI over the engine.
 
-    python -m repro_torch.launch.serve --arch rwkv4-169m --quantized \
-        --fused {block,model} --fused-prefill [--batch 8] [--tokens 32] \
-        [--smoke] [--device cuda|cpu]
+    python -m repro_torch.launch.serve --arch {rwkv4-169m,rwkv6-7b} \
+        --quantized --fused {block,model} --fused-prefill [--batch 8] \
+        [--tokens 32] [--smoke] [--device cuda|cpu]
 
-`--fused block` decodes through kernel K3 (one launch per layer),
-`--fused model` through kernel K4 (one launch for all layers), each with
-the head through K5; `--fused-prefill` absorbs prompt chunks through K5
-and the masked WKV kernel K2.  Without them the engine runs the plain
-per-op PyTorch path.  `--quantized` packs every matmul weight Δ-PoT W8;
+`--fused block` decodes through one kernel launch per layer (K3 for
+rwkv4, K7-block for rwkv6), `--fused model` through one launch for all
+layers (K4, K7-model), each with the head through K5; `--fused-prefill`
+absorbs prompt chunks through K5 and the masked WKV kernel (K2 for rwkv4,
+K6 for rwkv6).  Without them the engine runs the plain per-op PyTorch
+path.  rwkv6's kernels take W8 planes only.  `--quantized` packs every matmul weight Δ-PoT W8;
 per-tensor planes (W4, VQ) are chosen through
 `ServingEngine(plane_policy=)`, as in the JAX package.  The device
 defaults to "cuda" and raises without a GPU.
@@ -102,10 +103,10 @@ def main(argv=None):
     ap.add_argument("--quantized", action="store_true")
     ap.add_argument("--fused", nargs="?", const="block", default=None,
                     choices=["block", "model"],
-                    help="decode through kernel K3, one launch per layer "
-                    "(block), or K4, one launch for all layers (model)")
+                    help="decode through one kernel launch per layer "
+                    "(block: K3, K7) or one for all layers (model: K4, K7)")
     ap.add_argument("--fused-prefill", action="store_true",
-                    help="chunked prefill through kernels K5 and K2")
+                    help="chunked prefill through kernels K5 and K2 / K6")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     serve(args.arch, smoke=args.smoke, batch=args.batch,

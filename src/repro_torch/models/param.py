@@ -8,6 +8,7 @@ do not equal JAX's random weights, and nothing needs them to.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import torch
 
@@ -60,17 +61,22 @@ def _init_leaf(p: P, gen: torch.Generator, device, dtype):
         std = 1.0 / max(fan_in, 1) ** 0.5
     t = torch.empty(p.shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * std).to(dtype)
+    return t.mul_(std).to(dtype)
 
 
-def init_params(spec, seed: int, device="cuda", dtype=torch.float32):
-    """Materialize a spec tree from one seeded generator on `device`."""
+def init_params(spec, seed: int, device="cuda", dtype=torch.float32, *,
+                leaf_fn: Optional[Callable] = None):
+    """Materialize a spec tree from one seeded generator on `device`.
+    `leaf_fn(path, tensor)`, when given, replaces each leaf as soon as it
+    is drawn (the serving plan packs it there), so a 7B tree never lies
+    on the device whole in f32; the draws are the same either way."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
 
-    def walk(node):
+    def walk(node, path):
         if isinstance(node, P):
-            return _init_leaf(node, gen, device, dtype)
-        return {k: walk(node[k]) for k in sorted(node)}
-    return walk(spec)
+            t = _init_leaf(node, gen, device, dtype)
+            return t if leaf_fn is None else leaf_fn(path, t)
+        return {k: walk(node[k], path + (k,)) for k in sorted(node)}
+    return walk(spec, ())

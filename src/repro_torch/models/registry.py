@@ -1,7 +1,8 @@
-"""Model registry (port of `repro/models/registry.py`, rwkv4 family).
+"""Model registry (port of `repro/models/registry.py`, the rwkv4 family
+and rwkv6-7b).
 
-`get_model(arch)` returns a `Model` handle bundling the rwkv4 module with
-its config.  The serving paths are rows of the `DECODE_PATHS` /
+`get_model(arch)` returns a `Model` handle bundling the model module
+(rwkv4 or rwkv6) with its config.  The serving paths are rows of the `DECODE_PATHS` /
 `PREFILL_PATHS` tables: a path exists iff the module ships its entry.
 """
 from __future__ import annotations
@@ -32,9 +33,11 @@ class PathDescriptor:
 
 DECODE_PATHS = (
     PathDescriptor("per_op", "decode_step"),
-    # one K3 launch per layer; plane leaves decode in-kernel
+    # one K3 (rwkv4) or K7 (rwkv6) launch per layer; planes decode
+    # in-kernel
     PathDescriptor("block", "decode_step_fused"),
-    # one K4 launch for every layer, over the slab form of the weights
+    # one K4 (rwkv4) or K7 (rwkv6) launch for every layer, over the slab
+    # form of the weights
     PathDescriptor("model", "decode_step_fused_model",
                    prepare="prepare_fused_model_params"),
 )
@@ -42,8 +45,10 @@ DECODE_PATHS = (
 PREFILL_PATHS = (
     # the per-op prefill is a loop of decode_step; the plan builds it
     PathDescriptor("per_op", "decode_step"),
-    # chunk matmuls through K5, the masked WKV scan through K2
-    PathDescriptor("chunked", "prefill_chunk"),
+    # chunk matmuls through K5, the masked WKV scan through K2 (rwkv4) or
+    # K6 (rwkv6); rwkv6 pre-decodes its element-wise planes once
+    PathDescriptor("chunked", "prefill_chunk",
+                   prepare="prepare_prefill_params"),
 )
 
 
@@ -51,8 +56,11 @@ def _module_for(cfg: ModelConfig) -> ModuleType:
     if cfg.rwkv_version == 4:
         from repro_torch.models import rwkv4
         return rwkv4
+    if cfg.rwkv_version == 6:
+        from repro_torch.models import rwkv6
+        return rwkv6
     raise NotImplementedError(
-        f"{cfg.name}: only the rwkv4 family is ported so far")
+        f"{cfg.name}: only the rwkv4 family and rwkv6 are ported so far")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,8 +73,11 @@ class Model:
         return self.module.spec(self.cfg)
 
     def init_params(self, seed: int = 0, device="cuda",
-                    dtype=torch.float32):
-        return PM.init_params(self.spec(), seed, device, dtype)
+                    dtype=torch.float32, *, leaf_fn=None):
+        """The seeded weights; `leaf_fn(path, leaf)` replaces each leaf
+        as it is drawn (`models.param.init_params`)."""
+        return PM.init_params(self.spec(), seed, device, dtype,
+                              leaf_fn=leaf_fn)
 
     def cast_params(self, params):
         """Master params -> compute dtype (packed leaves pass through)."""
@@ -95,13 +106,13 @@ class Model:
                                        tokens, pos, self.cfg)
 
     def decode_step_fused(self, params, state, tokens, pos):
-        """Kernel decode (K3 per layer); params pass through uncast — the
-        model applies the packed-aware cast itself."""
+        """Kernel decode (K3 or K7 per layer); params pass through uncast —
+        the model applies the packed-aware cast itself."""
         return self.module.decode_step_fused(params, state, tokens, pos,
                                              self.cfg)
 
     def decode_step_fused_model(self, params, state, tokens, pos):
-        """Kernel decode (one K4 launch for all layers); params prepared by
+        """Kernel decode (one K4 or K7 launch for all layers); params prepared by
         `prepare_path_params` (the serving path) or raw and uncast."""
         return self.module.decode_step_fused_model(params, state, tokens,
                                                    pos, self.cfg)
@@ -115,8 +126,8 @@ class Model:
         return params if prep is None else prep(params, self.cfg)
 
     def prefill_chunk(self, params, state, tokens, valid):
-        """Chunked prefill (K5 + K2): tokens (B, C) with a per-slot PREFIX
-        validity mask -> (new_state, last-valid logits)."""
+        """Chunked prefill (K5 + K2, or K5 + K6): tokens (B, C) with a
+        per-slot PREFIX validity mask -> (new_state, last-valid logits)."""
         return self.module.prefill_chunk(params, state, tokens, valid, 0,
                                          self.cfg)
 

@@ -54,9 +54,9 @@ class ServingEngine:
                     (needs quantized=True); None packs everything W8
     max_batch     — pool width: concurrent sequences
     prefill_chunk — prompt tokens absorbed per tick per prefilling slot
-    fused_decode  — False (per-op plain path) | "block" (K3 per layer) |
-                    "model" (one K4 launch for all layers)
-    fused_prefill — False (per-op loop) | True (chunked: K5 + K2)
+    fused_decode  — False (per-op plain path) | "block" (K3 or K7 per
+                    layer) | "model" (one K4 or K7 launch for all layers)
+    fused_prefill — False (per-op loop) | True (chunked: K5 + K2 or K6)
     device        — "cuda" (default) or "cpu"; without a GPU "cuda" raises
     """
 

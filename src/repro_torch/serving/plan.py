@@ -17,11 +17,13 @@ import torch
 
 from repro_torch.core.quant.policy import PlanePolicy
 from repro_torch.core.quant.serving import (
-    PreparedParams, pack_params, unpack_params)
+    PreparedParams, pack_leaf, unpack_params)
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import Model, PathDescriptor, get_model
+from repro_torch.tree import keystr
 
-# the pool dtype: K3 takes a bf16 state, as the JAX engine's default pool
+# the pool dtype: K3, K4 and K7 take a bf16 state, as the JAX engine's
+# default pool
 STATE_DTYPE = torch.bfloat16
 
 
@@ -76,10 +78,10 @@ class ExecutionPlan:
     def _decode_step(self):
         model, quantized = self.model, self.prepared.quantized
         if self.decode_desc.name == "model":
-            # one K4 launch for every layer, over the prepared slabs
+            # one K4 / K7 launch for every layer, over the prepared slabs
             return lambda p, s, t: model.decode_step_fused_model(p, s, t, 0)
         if self.decode_desc.name == "block":
-            # one K3 launch per layer; plane leaves decode in-kernel
+            # one K3 / K7 launch per layer; plane leaves decode in-kernel
             return lambda p, s, t: model.decode_step_fused(p, s, t, 0)
         return lambda p, s, t: model.decode_step(
             maybe_unpack(p, quantized), s, t, 0)
@@ -116,8 +118,8 @@ class ExecutionPlan:
             # newly admitted lanes restart from the fresh state in-call
             state = masked_state_commit(state, fresh_lane, ~fresh, axes)
             if chunked:
-                # chunk matmuls (K5) + the masked WKV scan (K2); packed
-                # leaves decode inside the kernels
+                # chunk matmuls (K5) + the masked WKV scan (K2 / K6);
+                # packed leaves decode inside the kernels
                 return model.prefill_chunk(params, state, toks, valid)
             p = maybe_unpack(params, quantized)
             last = torch.zeros((toks.shape[0], 1, model.cfg.vocab),
@@ -141,12 +143,13 @@ def build_plan(model: Model | str, *, smoke: bool = True,
     """Select paths, prepare params (one pass) and build an ExecutionPlan.
 
     model         — a Model handle or arch id (resolved with `smoke=`)
-    quantized     — pack the weights (drawn from `seed` on `device`) once
+    quantized     — pack the weights (drawn from `seed` on `device`) once,
+                    each leaf as it is drawn
     plane_policy  — a `PlanePolicy` choosing W8 / W4 / VQ per tensor
                     (needs quantized=True); None packs everything W8
-    fused_decode  — None/False (per-op) | "block" (K3 per layer) |
-                    "model" (one K4 launch for all layers)
-    fused_prefill — False (per-op loop) | True (chunked: K5 + K2)
+    fused_decode  — None/False (per-op) | "block" (K3 or K7 per layer) |
+                    "model" (one K4 or K7 launch for all layers)
+    fused_prefill — False (per-op loop) | True (chunked: K5 + K2 or K6)
     device        — "cuda" (default) or "cpu"; a missing GPU raises
     """
     dev = resolve_device(device)
@@ -161,9 +164,11 @@ def build_plan(model: Model | str, *, smoke: bool = True,
     if plane_policy is not None and not quantized:
         raise ValueError("plane_policy selects quantized weight planes; "
                          "it does nothing without quantized=True")
-    params = model.init_params(seed, dev)
-    if quantized:
-        params = pack_params(params, plane_policy)
+    # packing each leaf as it is drawn keeps rwkv6-7b's f32 tree (28 GB)
+    # off the device; the bytes equal pack_params(init_params(...))
+    pack = (lambda path, t: pack_leaf(keystr(path), t, plane_policy)) \
+        if quantized else None
+    params = model.init_params(seed, dev, leaf_fn=pack)
     prepared = PreparedParams(
         raw=params,
         decode=model.prepare_path_params(decode_desc, params),

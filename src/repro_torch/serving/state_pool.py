@@ -23,7 +23,8 @@ class SlotStatePool:
         self.max_slots = int(max_slots)
         self.state = model.init_slot_state(self.max_slots, dtype, device)
         self._fresh = model.init_slot_state(1, dtype, device)
-        # the slot axis of every leaf (rwkv4: axis 1 of (L, B, D))
+        # the slot axis of every leaf (axis 1 of rwkv4's (L, B, D) and of
+        # rwkv6's (L, B, D) and (L, B, H, N, N))
         axes = model.decode_state_axes()
         self._axis = {k: ax.index("batch") for k, ax in axes.items()}
         self._free = list(range(self.max_slots - 1, -1, -1))  # pop -> slot 0

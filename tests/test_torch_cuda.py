@@ -319,3 +319,217 @@ def test_engine_model_path(cuda):
         solo = eng.submit(p, max_new_tokens=5)
         eng.run()
         assert solo.tokens == h.tokens
+
+
+# --- RWKV-6: K6 and both forms of K7 --------------------------------------
+
+from repro_torch.kernels.fused_decode import (
+    rwkv6_block_decode, rwkv6_block_decode_plain, rwkv6_model_decode,
+    rwkv6_model_decode_plain)
+from repro_torch.kernels.wkv6 import wkv6_seq, wkv6_seq_plain
+
+STATE6 = ("att_x", "ffn_x", "wkv_s")
+
+
+@pytest.mark.parametrize("carry", ["bfloat16", None])
+def test_wkv6_seq(cuda, carry):
+    """K6 against its plain version: the state bit for bit (its update has
+    no sum), y by K2's elementwise rule (it sums n in another order); the
+    bf16 pool state reads as its f32 widening; the empty lane keeps its
+    state."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, T, H, N = 4, 9, 8, 64
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda)
+    args = (rn(B, T, H, N), rn(B, T, H, N), rn(B, T, H, N),
+            torch.exp(-torch.exp(0.5 * rn(B, T, H, N))), 0.5 * rn(H, N))
+    s0 = rn(B, H, N, N).to(torch.bfloat16)
+    valid = torch.zeros((B, T), dtype=torch.bool, device=cuda)
+    for i, n in enumerate((T, 3, 0, 1)):
+        valid[i, :n] = True
+    before = wkv6_seq.launches
+    y, sf = wkv6_seq(*args, s0, valid=valid, carry_dtype=carry)
+    y32, sf32 = wkv6_seq(*args, s0.float(), valid=valid, carry_dtype=carry)
+    torch.cuda.synchronize()
+    assert wkv6_seq.launches == before + 2
+    y_p, sf_p = wkv6_seq_plain(*args, s0, valid=valid, carry_dtype=carry)
+    _elementwise(y, y_p)
+    assert torch.equal(sf, sf_p)
+    assert torch.equal(y, y32) and torch.equal(sf, sf32)
+    assert torch.equal(sf[2], s0[2].float())
+
+
+@pytest.fixture(scope="module")
+def wide6():
+    """rwkv6-7b at full width (D 4096, H 64, N 64, F 14336) cut to two
+    layers and a 256-token vocabulary, W8 weights drawn on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import dataclasses
+    from repro_torch.core.quant.serving import pack_leaf
+    from repro_torch.tree import keystr
+    cfg = dataclasses.replace(get_model("rwkv6-7b").cfg, n_layers=2,
+                              vocab=256)
+    model = get_model(cfg)
+    params = model.init_params(0, "cuda", leaf_fn=lambda p, t: pack_leaf(
+        keystr(p), t, None))
+    return model, params
+
+
+def _state6(cfg, lead, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device="cuda").to(
+        torch.bfloat16)
+    D, H, N = cfg.d_model, cfg.n_heads, cfg.rwkv_head_dim
+    st = {"att_x": rn(*lead, D), "ffn_x": rn(*lead, D),
+          "wkv_s": rn(*lead, H, N, N)}
+    return st, rn(lead[-1], D)
+
+
+def _layers6(model, params):
+    blocks = broadcast_packed_scales(model.cast_params(params)["blocks"],
+                                     model.cfg.n_layers)
+    return [_layer(blocks, l) for l in range(model.cfg.n_layers)]
+
+
+def test_rwkv6_block_decode(cuda, wide6):
+    """K7-block on layer 0 at full width against its plain version: per
+    output, max|d| <= 2^-6 max|ref| (K3's) and a mean gap no more than
+    1.25x the plain version's own gap between the CPU and the card on the
+    same inputs (K3's 2^-11 mean does not hold here: the bf16 rounding of
+    a 14336-term sum flips under another summation order on a sizeable
+    share of the outputs, PERF.md §6, K7); bit for bit whatever the grid,
+    and for a lane alone."""
+    from repro_torch.tree import tree_map
+    model, params = wide6
+    cfg = model.cfg
+    lp = _layers6(model, params)[0]
+    st, x = _state6(cfg, (4,), 8)
+    before = rwkv6_block_decode.launches
+    x2, new = rwkv6_block_decode(lp, st, x, cfg)
+    torch.cuda.synchronize()
+    assert rwkv6_block_decode.launches == before + 1
+    ref = rwkv6_block_decode_plain(lp, st, x, cfg)
+    cpu = lambda t: t.cpu()
+    on_cpu = rwkv6_block_decode_plain(tree_map(cpu, lp), tree_map(cpu, st),
+                                      cpu(x), cfg)
+    pick = lambda out, k: out[0] if k == "x" else out[1][k]
+    for k in ("x",) + STATE6:
+        r = pick(ref, k).float()
+        d = (pick((x2, new), k).float() - r).abs()
+        dc = (pick(on_cpu, k).float().to(cuda) - r).abs()
+        assert float(d.max()) <= 2.0 ** -6 * float(r.abs().max()), k
+        assert float(d.mean()) <= 1.25 * float(dc.mean()) + \
+            2.0 ** -16 * float(r.abs().mean()), k
+    small, small_st = rwkv6_block_decode(lp, st, x, cfg, grid=37)
+    assert torch.equal(small, x2)
+    assert all(torch.equal(small_st[k], new[k]) for k in STATE6)
+    one, one_st = rwkv6_block_decode(
+        lp, {k: v[1:2] for k, v in st.items()}, x[1:2], cfg)
+    assert torch.equal(one[0], x2[1])
+    assert all(torch.equal(one_st[k][0], new[k][1]) for k in STATE6)
+
+
+def test_rwkv6_model_decode_equals_block_launches(cuda, wide6):
+    """One K7-model launch equals L K7-block launches bit for bit, and
+    holds to its plain version by the port_helpers rule (a flip in one
+    layer moves every later one)."""
+    from repro_torch.models.rwkv6 import prepare_fused_model_params
+    model, params = wide6
+    cfg = model.cfg
+    stack = prepare_fused_model_params(params, cfg)["blocks"]
+    st, x = _state6(cfg, (cfg.n_layers, 4), 9)
+    before = (rwkv6_model_decode.launches, rwkv6_block_decode.launches)
+    xm, newm = rwkv6_model_decode(stack, st, x, cfg)
+    xb, newb = x, []
+    for l, lp in enumerate(_layers6(model, params)):
+        xb, sb = rwkv6_block_decode(lp, {k: st[k][l] for k in STATE6}, xb,
+                                    cfg)
+        newb.append(sb)
+    torch.cuda.synchronize()
+    assert (rwkv6_model_decode.launches, rwkv6_block_decode.launches) == (
+        before[0] + 1, before[1] + cfg.n_layers)
+    assert torch.equal(xm, xb)
+    for k in STATE6:
+        assert torch.equal(newm[k], torch.stack([s[k] for s in newb]))
+    xp, newp = rwkv6_model_decode_plain(stack, st, x, cfg)
+    for o, r in [(xm, xp)] + [(newm[k], newp[k]) for k in STATE6]:
+        d = (o.float() - r.float()).abs()
+        assert float(d.max()) <= 2.0 ** -5 * float(r.float().abs().max())
+        assert float(d.mean()) <= 2.0 ** -8 * float(r.float().abs().mean())
+
+
+def test_rwkv6_kernels_take_w8_only(cuda):
+    """K7 refuses W4 and VQ planes and a slab stack with a leaf it does not
+    know, on card tensors, before launching."""
+    from repro_torch.core.quant.serving import fuse_layer_stack
+    model = get_model("rwkv6-7b", smoke=True)
+    cfg = model.cfg
+    st, x = _state6(cfg, (cfg.n_layers, 2), 10)
+    before = (rwkv6_block_decode.launches, rwkv6_model_decode.launches)
+    for plane in ("w4", "vq"):
+        policy = PlanePolicy(default="w8",
+                             overrides=((r"\['ffn'\]\['wv'\]", plane),))
+        params = model.cast_params(pack_params(model.init_params(0, cuda),
+                                               policy))
+        stack = fuse_layer_stack(params["blocks"], cfg.n_layers)
+        with pytest.raises(TypeError, match="W8 planes only"):
+            rwkv6_model_decode(stack, st, x, cfg)
+        lp = _layer(broadcast_packed_scales(params["blocks"],
+                                            cfg.n_layers), 0)
+        with pytest.raises(TypeError, match="W8 planes only"):
+            rwkv6_block_decode(lp, {k: v[0] for k, v in st.items()}, x, cfg)
+    params = model.cast_params(pack_params(model.init_params(0, cuda)))
+    extra = fuse_layer_stack(
+        {**params["blocks"],
+         "_luts": {"exp": torch.zeros(1, 256, device=cuda)}}, cfg.n_layers)
+    with pytest.raises(ValueError, match="_luts"):
+        rwkv6_model_decode(extra, st, x, cfg)
+    assert (rwkv6_block_decode.launches,
+            rwkv6_model_decode.launches) == before
+
+
+def test_rwkv6_raises_when_the_grid_cannot_launch(cuda):
+    """A cooperative grid larger than the blocks resident at once (or
+    empty) raises before launching; there is no smaller silent grid."""
+    from repro_torch.kernels.fused_decode import _coop_grid
+    from repro_torch.models.rwkv6 import prepare_fused_model_params
+    model = get_model("rwkv6-7b", smoke=True)
+    cfg = model.cfg
+    params = pack_params(model.init_params(0, cuda))
+    stack = prepare_fused_model_params(params, cfg)["blocks"]
+    st, x = _state6(cfg, (cfg.n_layers, 2), 11)
+    lp = _layers6(model, params)[0]
+    most = _coop_grid("model", None)
+    assert most >= torch.cuda.get_device_properties(0).multi_processor_count
+    before = (rwkv6_block_decode.launches, rwkv6_model_decode.launches)
+    for grid in (most + 1, 0):
+        with pytest.raises(ValueError, match="cooperative grid"):
+            rwkv6_model_decode(stack, st, x, cfg, grid=grid)
+        with pytest.raises(ValueError, match="cooperative grid"):
+            rwkv6_block_decode(lp, {k: v[0] for k, v in st.items()}, x, cfg,
+                               grid=grid)
+    assert (rwkv6_block_decode.launches,
+            rwkv6_model_decode.launches) == before
+
+
+@pytest.mark.parametrize("path", ["block", "model"])
+def test_engine_rwkv6_paths(cuda, path):
+    """The engine's rwkv6 kernel paths launch K5, K6 and their K7 form and
+    serve each request as it would alone."""
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine("rwkv6-7b", smoke=True, quantized=True,
+                        fused_decode=path, fused_prefill=True, max_batch=4,
+                        prefill_chunk=4, device="cuda")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, eng.model.cfg.vocab, int(n)).tolist()
+               for n in (3, 9, 1, 6)]
+    k7 = rwkv6_block_decode if path == "block" else rwkv6_model_decode
+    counters = (dpot_w8_matmul, wkv6_seq, k7)
+    before = [c.launches for c in counters]
+    handles = [eng.submit(p, max_new_tokens=5) for p in prompts]
+    eng.run()
+    assert all(c.launches > b for c, b in zip(counters, before))
+    for p, h in zip(prompts, handles):
+        solo = eng.submit(p, max_new_tokens=5)
+        eng.run()
+        assert solo.tokens == h.tokens

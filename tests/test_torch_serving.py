@@ -288,8 +288,9 @@ def test_plane_policy_needs_quantized():
 
 
 def test_new_kernel_wrappers_raise_off_cpu():
-    """K5-W4, K5-VQ and K4 on tensors that are not on the CPU go to their
-    kernels or raise; they never fall back to the plain versions."""
+    """K5-W4, K5-VQ, K4, K6 and both forms of K7 on tensors that are not
+    on the CPU go to their kernels or raise; they never fall back to the
+    plain versions."""
     meta = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt,
                                                     device="meta")
     model = get_model("rwkv4-169m", smoke=True)
@@ -313,4 +314,38 @@ def test_new_kernel_wrappers_raise_off_cpu():
                   meta(1, 256, dt=torch.bfloat16))
     with pytest.raises((RuntimeError, NotImplementedError)):
         rwkv4_model_decode(stack, state, meta(2, D, dt=torch.bfloat16))
+    assert [c.launches for c in counters] == before
+    # RWKV-6: K6, and K7 on a layer's W8 tree and on the slab stack
+    from repro_torch.core.quant.serving import broadcast_packed_scales
+    from repro_torch.kernels.fused_decode import (
+        rwkv6_block_decode, rwkv6_model_decode)
+    from repro_torch.kernels.wkv6 import wkv6_seq
+    from repro_torch.models.rwkv4 import _layer
+    from repro_torch.models.rwkv6 import prepare_fused_model_params as prep6
+    from repro_torch.tree import tree_map
+    m6 = get_model("rwkv6-7b", smoke=True)
+    cfg = m6.cfg
+    L, D, H, N = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.rwkv_head_dim
+    tp6 = m6.cast_params(build_plan(m6, quantized=True,
+                                    device="cpu").prepared.raw)
+    to_meta = lambda t: t.to("meta")
+    lp = tree_map(to_meta, _layer(broadcast_packed_scales(tp6["blocks"], L),
+                                  0))
+    stack6 = prep6(tp6, cfg)["blocks"]
+    stack6 = FusedLayerStack(tree_map(to_meta, stack6.slabs),
+                             tuple(map(to_meta, stack6.aux)),
+                             stack6.manifest, stack6.tdef)
+    bf = torch.bfloat16
+    st_l = {"att_x": meta(2, D, dt=bf), "ffn_x": meta(2, D, dt=bf),
+            "wkv_s": meta(2, H, N, N, dt=bf)}
+    st6 = {k: meta(L, *v.shape, dt=bf) for k, v in st_l.items()}
+    counters = (wkv6_seq, rwkv6_block_decode, rwkv6_model_decode)
+    before = [c.launches for c in counters]
+    with pytest.raises((RuntimeError, NotImplementedError)):
+        wkv6_seq(*(meta(2, 3, H, N) for _ in range(4)), meta(H, N),
+                 meta(2, H, N, N, dt=bf), carry_dtype="bfloat16")
+    with pytest.raises((RuntimeError, NotImplementedError)):
+        rwkv6_block_decode(lp, st_l, meta(2, D, dt=bf), cfg)
+    with pytest.raises((RuntimeError, NotImplementedError)):
+        rwkv6_model_decode(stack6, st6, meta(2, D, dt=bf), cfg)
     assert [c.launches for c in counters] == before
