@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card proof that the PyTorch/CUDA port serves RWKV-4 and RWKV-6 through
-its kernels.
+"""On-card proof that the PyTorch/CUDA port serves RWKV-4 (exact and
+hardware numerics) and RWKV-6 through its kernels.
 
     python3 chip_smoke.py            (from the root of a checkout, one GPU)
 
@@ -62,7 +62,43 @@ each prints its seconds and peak device memory (`phase_done` lines):
     per-op path on the card; the plain bf16 paths on the card and on the
     CPU are held against the witness beside it, so the line shows how far
     bf16 alone moves the logits (`phase_teacher_forced`).
- 4. rwkv6-7b at full width and depth (L32 D4096 H64 N64 F14336 V65536),
+ 4. rwkv4-169m under the paper's hardware numerics (LUT exp, PWL σ, LUT
+    division, A9 activations), W8 weights:
+      expsig (K9)              exp_kernel and sigmoid_kernel over every f32
+                               bit pattern but NaN (2^32 in chunks of
+                               2^28, ±inf included) and every bf16 one but
+                               NaN: bit for bit against the plain version
+                               on the card (a 2^24 sample also against it
+                               on the CPU); timed at 2^24 f32
+      wkv4_seq (K2-hw)         (8, 16, 768), prefix masks, the bf16 carry,
+                               both tables: bit for bit
+      dpot_w8_matmul_f32x      (128, 768, 768), att.wo: decode bit for bit,
+      (K5 f32-x)               outputs within K·2^-24·(|x| @ |w|)
+      rwkv4_block_decode       layer 0, B = 8, with the tables
+      (K3-hw)
+      rwkv4_model_decode       the 12 layers of the prepared hw stack; bit
+      (K4-hw)                  for bit equal to 12 K3-hw launches
+    K9 and K2-hw are bit for bit: every operation is one IEEE rounding
+    (hw_units.cuh, -fmad=false) and no sum changes order.  K3-hw is held
+    per output within 1.25x the worst relative gap its plain hw version
+    reads between the CPU and the card in the same run (K4's recipe), and
+    K4-hw within HW_SPREAD (1.25·√2) times that gap over its 12 layers: a
+    LayerNorm sum or matvec in another order can flip a bf16 rounding at
+    the element that sets an A9 scale, which moves the whole tensor's
+    codes, and through 12 layers the kernel and the plain version on the
+    card are two such orders (the reason for √2 is at HW_SPREAD).  Then
+    the hw greedy run, the way serve_legacy wraps the step: 8 seeded
+    prompts of 5-40 tokens through prefill_chunk(hw=True) in chunks of
+    16, then greedy_decode over 32 steps, once through
+    decode_step_fused(hw=True) (K3-hw) and once through the prepared
+    K4-hw form, each with its counters set to 0
+    before and read after (K5, K5 f32-x, K2-hw, K9's σ and K3-hw or
+    K4-hw must launch); the two paths' logits equal bit for bit.  Then
+    teacher-forced hw logits (a 16-token prefill chunk, 32 K3-hw steps)
+    against the plain per-op hw path on the card within 1.25x that plain
+    path's CPU-vs-card gap, and the gap from hw to the exact numerics,
+    printed as a reading of the paper's accuracy cost with no bound.
+ 5. rwkv6-7b at full width and depth (L32 D4096 H64 N64 F14336 V65536),
     W8 weights drawn on the card from the seed and packed leaf by leaf,
     one engine at a time (the first is freed before the second draws):
       dpot_w8_matmul (K5)      M in {128, 8} x (K, N) in {(4096, 4096),
@@ -89,8 +125,10 @@ each prints its seconds and peak device memory (`phase_done` lines):
     planes decoded inside the loop), with TF_BOUNDS["rwkv6-*"]; the model
     path's logits must equal the block path's bit for bit.  The CPU plain
     pair is left out at 7B (~5 TFLOP on the host).
- 5. The `kernels` JSON line (nine kernels), the card's name and power
-    limit, and the last line {"ok": true, "device": {...}}.
+ 6. The `kernels` JSON line (fourteen entries: the nine kernels, then K9
+    and the hardware-numerics forms of K2, K5, K3 and K4), the card's
+    name and power limit, and the last line {"ok": true, "device":
+    {...}}.
 
 Weights are random, from a seed.  Imports nothing of JAX.
 """
@@ -170,6 +208,18 @@ K4_MAX_REL, K4_MEAN_REL = 0.0142, 0.00725
 # the run: through 32 layers of random weights a flip moves every later
 # layer, and the gap grows to ~2% of mean|ref| (PERF.md §6, K7).
 K7B_MAX_REL, K7B_MEAN_REL = 0.0098, 0.00121
+# K4-hw against its plain hw version on the card: within HW_SPREAD times
+# the worst relative gap that plain version reads between the CPU and the
+# card in the same run.  K4's 1.25x failed for a right K4-hw (PERF.md §6,
+# the hardware numerics: x mean gap 0.01746 against the plain pair's
+# 0.01372, 1.27x, with K4-hw equal to 12 K3-hw launches bit for bit):
+# through 12 layers A9 turns each flipped bf16 rounding into a moved
+# scale, and the kernel's k-ordered sums and the card's cuBLAS order are
+# two independent orders, each about as far from a third as the CPU's,
+# so their gap may reach √2 times the pair's (as the rwkv6 TF_BOUNDS'
+# 1.25·√2 allow).  K3-hw (one layer) and the hw teacher-forced logits
+# keep K4's 1.25x.
+HW_SPREAD = 1.25 * 2 ** 0.5
 # the MIXED plane policy: W4 for att.wk and the head, VQ for ffn.wv, W8
 # elsewhere (tests/test_fused_decode.py), so every decode branch runs
 MIXED_OVERRIDES = ((r"\['att'\]\['wk'\]", "w4"),
@@ -689,6 +739,441 @@ def phase_teacher_forced(engine):
 
 
 # ---------------------------------------------------------------------------
+# rwkv4-169m under the paper's hardware numerics: K9, K2-hw, K5 f32-x,
+# K3-hw, K4-hw, and an hw greedy run through both decode paths
+# ---------------------------------------------------------------------------
+
+HW_OUTPUTS = ("x",) + ("att_x", "ffn_x", "wkv_a", "wkv_b", "wkv_o")
+
+
+def _bits_equal(out, ref, skip):
+    """Bit for bit where `skip` is False (f32 or bf16 views as ints)."""
+    it = torch.int32 if out.dtype == torch.float32 else torch.int16
+    return bool(((out.view(it) == ref.view(it)) | skip).all())
+
+
+def phase_k9(flush):
+    """K9 over every f32 bit pattern but NaN (2^32 inputs in chunks of
+    2^28) and every bf16 pattern but NaN, both modes, bit for bit against
+    the plain version on the card (a 2^24 sample also against it on the
+    CPU); then timed at 2^24 f32 elements."""
+    from repro_torch.kernels.expsig import (
+        exp_kernel, exp_kernel_plain, sigmoid_kernel, sigmoid_kernel_plain)
+    modes = ((exp_kernel, exp_kernel_plain), (sigmoid_kernel,
+                                              sigmoid_kernel_plain))
+    n_checked = 0
+    step = 1 << 28
+    for lo in range(-(1 << 31), 1 << 31, step):
+        x = torch.arange(lo, lo + step, dtype=torch.int64, device=DEV).to(
+            torch.int32).view(torch.float32)
+        nan = torch.isnan(x)
+        for fn, plain in modes:
+            if not _bits_equal(fn(x), plain(x), nan):
+                raise AssertionError(f"K9 {fn.__name__} differs from its "
+                                     f"plain version in f32 chunk {lo}")
+        n_checked += int((~nan).sum())
+        del x, nan
+    xb = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32,
+                      device=DEV).to(torch.int16).view(torch.bfloat16)
+    nanb = torch.isnan(xb)
+    for fn, plain in modes:
+        if not _bits_equal(fn(xb), plain(xb), nanb):
+            raise AssertionError(f"K9 {fn.__name__} differs from its plain "
+                                 "version in bf16")
+    g = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    xs = torch.randint(-(1 << 31), 1 << 31, (1 << 24,), generator=g,
+                       device=DEV, dtype=torch.int64).to(torch.int32).view(
+                           torch.float32)
+    for fn, plain in modes:
+        if not _bits_equal(fn(xs), plain(xs.cpu()).to(DEV), torch.isnan(xs)):
+            raise AssertionError(f"K9 {fn.__name__} differs from its plain "
+                                 "version on the CPU")
+    x = torch.randn((1 << 24,), generator=g, device=DEV) * 8
+    bms, by = _bound(2 * 4 * x.numel(), 10.0 * x.numel(), PEAK_F32_FLOPS)
+    rows = []
+    for fn, plain in modes:
+        row = {"kernel": fn.__name__, "N": x.numel(), "dtype": "float32",
+               "max_abs_err": 0.0, "f32_inputs_checked": n_checked,
+               "bf16_inputs_checked": int((~nanb).sum()),
+               "kernel_ms": _time_ms(lambda: fn(x), flush),
+               "plain_ms": _time_ms(lambda: plain(x), flush),
+               "library_ms": None, "bound_ms": bms, "bound_by": by}
+        _line(row)
+        rows.append(row)
+    return rows
+
+
+def _hw_luts():
+    from repro_torch.core.approx.units import lut_tensor
+    return {"exp": lut_tensor("exp", DEV), "div": lut_tensor("div", DEV)}
+
+
+def phase_k2_hw(cfg, flush):
+    """K2 with the EXP and DIV tables at the prefill's shape, prefix masks
+    and the bf16 carry, bit for bit against its plain version (every op is
+    one IEEE rounding in both, and no sum changes order)."""
+    from repro_torch.kernels.wkv4 import wkv4_seq, wkv4_seq_plain
+    B, T, C = 8, 16, cfg.d_model
+    g = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    rn = lambda *s: torch.randn(s, generator=g, device=DEV)
+    k, v = rn(B, T, C), rn(B, T, C)
+    w, u = torch.exp(0.5 * rn(C)), 0.5 * rn(C)
+    bf = lambda t: t.to(torch.bfloat16).float()
+    a0, b0, o0 = bf(rn(B, C)), bf(rn(B, C).abs() + 0.5), bf(rn(B, C) - 1)
+    valid = torch.zeros((B, T), dtype=torch.bool, device=DEV)
+    for i, n in enumerate((16, 9, 0, 1, 16, 5, 12, 16)):
+        valid[i, :n] = True
+    luts = _hw_luts()
+    args = (k, v, w, u, a0, b0, o0)
+    kw = {"valid": valid, "carry_dtype": "bfloat16",
+          "exp_table": luts["exp"], "div_table": luts["div"]}
+    y, fin = wkv4_seq(*args, **kw)
+    y_p, fin_p = wkv4_seq_plain(*args, **kw)
+    err = 0.0
+    for name, o, r in zip(("y", "a", "b", "o"), (y, *fin), (y_p, *fin_p)):
+        e = float((o - r).abs().max())
+        if not torch.equal(o, r):
+            raise AssertionError(f"K2-hw {name} differs from its plain "
+                                 f"version: max |d| {e}, "
+                                 f"{int((o != r).sum())} elements")
+        err = max(err, e)
+    nbytes = 4 * (3 * B * T * C + 2 * C + 6 * B * C + 512) + 4 * B * T
+    bms, by = _bound(nbytes, 40.0 * B * T * C, PEAK_F32_FLOPS)
+    row = {"kernel": "wkv4_seq", "numerics": "hw", "B": B, "T": T, "C": C,
+           "max_abs_err": err, "bit_exact": True,
+           "kernel_ms": _time_ms(lambda: wkv4_seq(*args, **kw), flush),
+           "plain_ms": _time_ms(lambda: wkv4_seq_plain(*args, **kw), flush),
+           "library_ms": None, "bound_ms": bms, "bound_by": by}
+    _line(row)
+    return row
+
+
+def phase_k5_f32x(params, cfg, flush):
+    """K5's f32-activation form at att.wo's prefill shape (128, 768, 768):
+    the decode bit for bit (identity rows), each output within the f32
+    summation bound K·2^-24·(|x| @ |w|) of the plain version."""
+    from repro_torch.core.quant.serving import unpack_leaf
+    from repro_torch.device import exact_matmuls
+    from repro_torch.kernels.fused_prefill import (
+        dpot_w8_matmul_f32x, dpot_w8_matmul_plain)
+    leaf = params["blocks"]["att"]["wo"]
+    wq, scale = leaf["packed"][0], leaf["scale"].reshape(-1)
+    K, N, M = cfg.d_model, cfg.d_model, 128
+    w_bf = unpack_leaf({"packed": wq, "scale": scale.reshape(1, -1)})
+    eye = torch.eye(K, device=DEV)
+    if not torch.equal(dpot_w8_matmul_f32x(eye, wq, scale), w_bf.float()):
+        raise AssertionError("K5 f32-x decode differs from unpack_leaf")
+    g = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    x = torch.randn((M, K), generator=g, device=DEV)
+    out = dpot_w8_matmul_f32x(x, wq, scale)
+    ref = dpot_w8_matmul_plain(x, wq, scale)
+    d = (out - ref).abs()
+    if not bool((d <= _sum_order_floor(x, w_bf)).all()):
+        raise AssertionError(f"K5 f32-x: max |d| {float(d.max())} passes "
+                             "the f32 summation bound")
+    nbytes = M * K * 4 + K * N + N * 4 + M * N * 4
+    bms, by = _bound(nbytes, 2.0 * M * N * K, PEAK_F32_FLOPS)
+    w32 = w_bf.float()
+    with exact_matmuls():
+        lib = _time_ms(lambda: torch.matmul(x, w32), flush)
+    row = {"kernel": "dpot_w8_matmul_f32x", "M": M, "K": K, "N": N,
+           "max_abs_err": float(d.max()), "decode_bit_exact": True,
+           "kernel_ms": _time_ms(
+               lambda: dpot_w8_matmul_f32x(x, wq, scale), flush),
+           "plain_ms": _time_ms(
+               lambda: dpot_w8_matmul_plain(x, wq, scale), flush),
+           "library_ms": lib, "bound_ms": bms, "bound_by": by}
+    _line(row)
+    return row
+
+
+def _hw_state(cfg, lead, seed):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=DEV)
+    bf = torch.bfloat16
+    D = cfg.d_model
+    st = {"att_x": rn(*lead, D).to(bf), "ffn_x": rn(*lead, D).to(bf),
+          "wkv_a": rn(*lead, D).to(bf),
+          "wkv_b": (rn(*lead, D).abs() + 0.5).to(bf),
+          "wkv_o": (rn(*lead, D) - 1).to(bf)}
+    return st, rn(lead[-1], D).to(bf)
+
+
+def _hw_check(out, ref, cpu, what, factor):
+    """Kernel vs plain (card) per output, within `factor` times the worst
+    relative gap the plain version reads between the CPU and the card over
+    the six outputs.  Returns the readings."""
+    pick = lambda o, n: o[0] if n == "x" else o[1][n]
+    rel = {"kernel": {}, "plain_cpu": {}}
+    for n in HW_OUTPUTS:
+        r = pick(ref, n).float()
+        for who, got in (("kernel", pick(out, n)),
+                         ("plain_cpu", pick(cpu, n).to(DEV))):
+            d = (got.float() - r).abs()
+            rel[who][n] = {"max_rel": float(d.max() / r.abs().max()),
+                           "mean_rel": float(d.mean() / r.abs().mean())}
+    bound = {m: factor * max(v[m] for v in rel["plain_cpu"].values())
+             for m in ("max_rel", "mean_rel")}
+    bad = [n for n in HW_OUTPUTS if any(rel["kernel"][n][m] > bound[m]
+                                      for m in bound)]
+    if bad:
+        _line({"kernel": what, "gaps_to_plain": rel, "bounds": bound})
+        raise AssertionError(f"{what} {bad} out of bounds {bound}")
+    return rel, bound
+
+
+def _to_cpu(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.cpu(), tree)
+
+
+def phase_k3_hw(params, cfg, flush):
+    """K3 with the EXP and DIV tables on layer 0 of the W8 tree, B = 8,
+    against its plain hw version on the card, within 1.25x the plain hw
+    version's own CPU-vs-card gap."""
+    from repro_torch.core.quant.serving import (
+        broadcast_packed_scales, cast_compute)
+    from repro_torch.kernels.fused_decode import (
+        rwkv4_block_decode, rwkv4_block_decode_plain)
+    from repro_torch.models.rwkv4 import _hw_numerics_with_tables, _layer
+    from repro_torch.tree import leaves_with_path
+    B, D, F = 8, cfg.d_model, cfg.d_ff
+    lp = _layer(broadcast_packed_scales(
+        cast_compute(params, torch.bfloat16)["blocks"], cfg.n_layers), 0)
+    st, x = _hw_state(cfg, (B,), SEED + 14)
+    luts = _hw_luts()
+    nm = _hw_numerics_with_tables(luts["exp"], luts["div"])
+    out = rwkv4_block_decode(lp, st, x, luts=luts)
+    ref = rwkv4_block_decode_plain(lp, st, x, nm)
+    cl = _to_cpu(luts)
+    cpu = rwkv4_block_decode_plain(
+        _to_cpu(lp), _to_cpu(st), x.cpu(),
+        _hw_numerics_with_tables(cl["exp"], cl["div"]))
+    rel, bound = _hw_check(out, ref, cpu, "K3-hw", 1.25)
+    nbytes = (sum(t.numel() * t.element_size()
+                  for _, t in leaves_with_path(lp))
+              + 2 * 6 * B * D + 2 * 6 * B * D + 2 * 256 * 4)
+    ops = 2.0 * B * (5 * D * D + 2 * D * F)
+    bms, by = _bound(nbytes, ops, PEAK_BF16_FLOPS)
+    row = {"kernel": "rwkv4_block_decode", "numerics": "hw", "planes": "w8",
+           "B": B, "D": D, "F": F,
+           "max_abs_err": max(float((o.float() - r.float()).abs().max())
+                              for o, r in zip((out[0], *out[1].values()),
+                                              (ref[0], *ref[1].values()))),
+           "gaps_to_plain": rel, "bounds": bound, "bytes": nbytes,
+           "kernel_ms": _time_ms(
+               lambda: rwkv4_block_decode(lp, st, x, luts=luts), flush),
+           "plain_ms": _time_ms(
+               lambda: rwkv4_block_decode_plain(lp, st, x, nm), flush),
+           "library_ms": None, "bound_ms": bms, "bound_by": by}
+    _line(row)
+    return row
+
+
+def phase_k4_hw(stack, cfg, flush):
+    """K4 over the 12 layers of the prepared W8 hw stack at B = 8: bit for
+    bit equal to 12 K3-hw launches, then against its plain hw version on
+    the card within HW_SPREAD times the plain version's own CPU-vs-card
+    gap."""
+    from repro_torch.core.quant.serving import FusedLayerStack, unfuse_layer
+    from repro_torch.kernels.fused_decode import (
+        STATE_KEYS, rwkv4_block_decode, rwkv4_model_decode,
+        rwkv4_model_decode_plain)
+    L, B, D, F = cfg.n_layers, 8, cfg.d_model, cfg.d_ff
+    st, x = _hw_state(cfg, (L, B), SEED + 15)
+    x4, new4 = rwkv4_model_decode(stack, st, x)
+    aux = [a[0] for a in stack.aux]
+    x3, new3 = x, []
+    for l in range(L):
+        lp = unfuse_layer({k: s[l] for k, s in stack.slabs.items()}, aux,
+                          stack.manifest, stack.tdef)
+        luts = lp.pop("_luts")
+        x3, s3 = rwkv4_block_decode(lp, {k: st[k][l] for k in STATE_KEYS},
+                                    x3, luts=luts)
+        new3.append(s3)
+    if not (torch.equal(x4, x3) and all(
+            torch.equal(new4[k], torch.stack([s[k] for s in new3]))
+            for k in STATE_KEYS)):
+        raise AssertionError("K4-hw differs from 12 K3-hw launches")
+    ref = rwkv4_model_decode_plain(stack, st, x)
+    cpu_stack = FusedLayerStack(_to_cpu(stack.slabs),
+                                tuple(a.cpu() for a in stack.aux),
+                                stack.manifest, stack.tdef)
+    cpu = rwkv4_model_decode_plain(cpu_stack, _to_cpu(st), x.cpu())
+    rel, bound = _hw_check((x4, new4), ref, cpu, "K4-hw", HW_SPREAD)
+    w_bytes = sum(s.numel() * s.element_size() for s in stack.slabs.values())
+    aux_bytes = sum(a.numel() * a.element_size() for a in stack.aux)
+    nbytes = w_bytes + aux_bytes + 2 * 5 * L * B * D * 2 + 2 * B * D * 2
+    ops = 2.0 * B * L * (5 * D * D + 2 * D * F)
+    bms, by = _bound(nbytes, ops, PEAK_BF16_FLOPS)
+    row = {"kernel": "rwkv4_model_decode", "numerics": "hw", "planes": "w8",
+           "L": L, "B": B, "D": D, "F": F, "equals_k3_per_layer": True,
+           "max_abs_err": max(float((o.float() - r.float()).abs().max())
+                              for o, r in zip((x4, *new4.values()),
+                                              (ref[0], *ref[1].values()))),
+           "gaps_to_plain": rel, "bounds": bound, "bytes": nbytes,
+           "kernel_ms": _time_ms(lambda: rwkv4_model_decode(stack, st, x),
+                                 flush),
+           "plain_ms": _time_ms(
+               lambda: rwkv4_model_decode_plain(stack, st, x), flush),
+           "library_ms": None, "bound_ms": bms, "bound_by": by}
+    _line(row)
+    return row
+
+
+class _Recorded:
+    """A model whose decode_step is `step` and whose logits are kept: the
+    way serve_legacy wraps the hw step, with the logits recorded."""
+
+    def __init__(self, step):
+        self.step, self.logits = step, []
+
+    def decode_step(self, params, state, tokens, pos):
+        lg, state = self.step(params, state, tokens, pos)
+        self.logits.append(lg)
+        return lg, state
+
+
+def _hw_prefill(model, params, prompts, C):
+    """Prompts of any length through prefill_chunk(hw=True) in chunks of
+    C with prefix masks; returns the state and each lane's last logits."""
+    from repro_torch.models import rwkv4
+    B = len(prompts)
+    n = max(len(p) for p in prompts)
+    toks = torch.zeros((B, -(-n // C) * C), dtype=torch.int32, device=DEV)
+    lens = torch.tensor([len(p) for p in prompts], device=DEV)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p, dtype=torch.int32, device=DEV)
+    state = model.init_decode_state(B, 0, device=DEV)
+    last = None
+    for c0 in range(0, toks.shape[1], C):
+        valid = torch.arange(c0, c0 + C, device=DEV)[None, :] < lens[:, None]
+        state, lg = rwkv4.prefill_chunk(params, state, toks[:, c0:c0 + C],
+                                        valid, 0, model.cfg, hw=True)
+        last = lg if last is None else torch.where(
+            valid.any(1)[:, None, None], lg, last)
+    return state, last
+
+
+def phase_hw_greedy(params, prep, model):
+    """8 lanes of seeded prompts (5-40 tokens) through prefill_chunk(hw)
+    in chunks of 16, then greedy_decode over 32 steps, once with
+    decode_step_fused(hw) (K3-hw per layer) and once with the prepared
+    K4-hw form; every counter of the path set to 0 before and read after
+    each; the two paths' logits bit for bit equal."""
+    from repro_torch.kernels.expsig import exp_kernel, sigmoid_kernel
+    from repro_torch.kernels.fused_decode import (
+        rwkv4_block_decode, rwkv4_model_decode)
+    from repro_torch.kernels.fused_prefill import (
+        dpot_w8_matmul, dpot_w8_matmul_f32x)
+    from repro_torch.kernels.wkv4 import wkv4_seq
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models import rwkv4
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(5, 41, 8)]
+    common = (dpot_w8_matmul, dpot_w8_matmul_f32x, wkv4_seq, sigmoid_kernel,
+              exp_kernel)
+    paths = {
+        "hw-block": (lambda p, s, t, pos: rwkv4.decode_step_fused(
+            p, s, t, pos, cfg, hw=True), params, rwkv4_block_decode),
+        "hw-model": (lambda p, s, t, pos: rwkv4.decode_step_fused_model(
+            p, s, t, pos, cfg, hw=True), prep, rwkv4_model_decode)}
+    out, by_path = {}, {}
+    for name, (step, p, decode_kernel) in paths.items():
+        counters = common + (decode_kernel,)
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            state, last = _hw_prefill(model, params, prompts, 16)
+            first = torch.argmax(last[:, -1].float(), -1)[:, None].to(
+                torch.int32)
+            rec = _Recorded(step)
+            toks, _ = greedy_decode(rec, p, state, first, 32)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        if min(launches[f.__name__] for f in counters
+               if f is not exp_kernel) == 0:
+            raise AssertionError(f"{name}: a kernel never launched: "
+                                 f"{launches}")
+        out[name] = (toks, torch.stack([last] + rec.logits))
+        by_path[name] = launches
+        _line({"phase": "hw_greedy", "path": name, "lanes": 8,
+               "prompt_lens": [len(q) for q in prompts], "new_tokens": 32,
+               "seconds": seconds, "tokens_per_s": 8 * 32 / seconds,
+               "launches": launches})
+    (tb, lb), (tm_, lm) = out["hw-block"], out["hw-model"]
+    if not (torch.equal(lb, lm) and torch.equal(tb, tm_)):
+        raise AssertionError("the hw model path's logits differ from the "
+                             "hw block path's")
+    if not bool(torch.isfinite(lb.float()).all()):
+        raise AssertionError("hw logits are not finite")
+    return by_path
+
+
+def phase_hw_teacher_forced(params, model):
+    """The hw kernel path (a 16-token prefill chunk, then 32 K3-hw decode
+    steps) against the plain per-op hw path on the card, on the same
+    tokens, within 1.25x what the plain hw path reads between the CPU and
+    the card; then the gap from hw to the exact numerics (the
+    plain bf16 path), a reading of the paper's accuracy cost with no
+    bound."""
+    from repro_torch.models import rwkv4
+    from repro_torch.serving.plan import maybe_unpack
+    from repro_torch.core.quant.serving import cast_compute
+    cfg = model.cfg
+    g = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    B, C, S = 8, 16, 32
+    toks = torch.randint(0, cfg.vocab, (B, C + S), generator=g,
+                         device=DEV, dtype=torch.int32)
+    valid = torch.ones((B, C), dtype=torch.bool, device=DEV)
+    with torch.inference_mode():
+        s = model.init_decode_state(B, 0, device=DEV)
+        s, lg = rwkv4.prefill_chunk(params, s, toks[:, :C], valid, 0, cfg,
+                                    hw=True)
+        kern = [lg]
+        for j in range(C, C + S):
+            lg, s = rwkv4.decode_step_fused(params, s, toks[:, j:j + 1], 0,
+                                            cfg, hw=True)
+            kern.append(lg)
+    kern = torch.stack(kern).float()
+
+    def plain(p, tk):
+        p = cast_compute(maybe_unpack(p, True), torch.bfloat16)
+        out = []
+        with torch.inference_mode():
+            s = model.init_decode_state(B, 0, device=tk.device)
+            for j in range(C + S):
+                lg, s = rwkv4.decode_step(p, s, tk[:, j:j + 1], 0, cfg,
+                                          hw=True)
+                if j >= C - 1:
+                    out.append(lg)
+        return torch.stack(out).float()
+    ref = plain(params, toks)
+    cpu = plain(_to_cpu(params), toks.cpu()).to(DEV)
+    exact = _plain_logits(model, params, toks, C)
+    gaps = {"kernel_vs_plain": _gap(kern, ref),
+            "plain_cpu_vs_card": _gap(cpu, ref),
+            "hw_vs_exact": _gap(ref, exact),
+            "hw_kernel_vs_exact": _gap(kern, exact)}
+    kp, pc = gaps["kernel_vs_plain"], gaps["plain_cpu_vs_card"]
+    bound = {"mean_rel": 1.25 * pc["mean_rel"],
+             "max_abs": 1.25 * pc["max_abs"]}
+    ok = kp["mean_rel"] <= bound["mean_rel"] and \
+        kp["max_abs"] <= bound["max_abs"] and \
+        bool(torch.isfinite(kern).all())
+    _line({"phase": "hw_teacher_forced", "steps": S + 1, "lanes": B,
+           "max_abs_plain": float(ref.abs().max()), "gaps": gaps,
+           "bounds": bound, "within_bound": ok})
+    if not ok:
+        raise AssertionError(f"hw teacher-forced logits out of bounds: "
+                             f"{gaps}")
+
+
+# ---------------------------------------------------------------------------
 # rwkv6-7b: K6, K7-block, K7-model, and the two kernel paths end to end
 # ---------------------------------------------------------------------------
 
@@ -1104,6 +1589,7 @@ def main() -> int:
         dpot_w4_matmul, dpot_w8_matmul, vq_matmul)
     from repro_torch.kernels.wkv4 import wkv4_seq
     from repro_torch.kernels.wkv6 import wkv6_seq
+    from repro_torch.models.rwkv4 import prepare_fused_model_params
     from repro_torch.serving import ServingEngine
 
     t_start = time.perf_counter()
@@ -1134,7 +1620,17 @@ def main() -> int:
                          rwkv4_model_decode), "model")}
     _timed("teacher forced block", phase_teacher_forced, block)
     _timed("teacher forced model", phase_teacher_forced, model)
-    del block, model, w8, mixed
+    # the paper's hardware numerics on rwkv4-169m, W8 weights
+    k9 = _timed("K9", phase_k9, flush)
+    k2h = _timed("K2-hw", phase_k2_hw, cfg, flush)
+    k5f = _timed("K5 f32-x", phase_k5_f32x, w8, cfg, flush)
+    k3h = _timed("K3-hw", phase_k3_hw, w8, cfg, flush)
+    hw_prep = prepare_fused_model_params(w8, cfg, hw=True)
+    k4h = _timed("K4-hw", phase_k4_hw, hw_prep["blocks"], cfg, flush)
+    by_path.update(_timed("hw greedy", phase_hw_greedy, w8, hw_prep,
+                          block.model))
+    _timed("hw teacher forced", phase_hw_teacher_forced, w8, block.model)
+    del block, model, w8, mixed, hw_prep
     _release()
 
     # rwkv6-7b at full width and depth, W8: one engine at a time; the plain
@@ -1210,6 +1706,36 @@ def main() -> int:
                     "src/repro_torch/csrc/rwkv6_model_decode.cu",
                     "src/repro/kernels/fused_decode.py:182", [k7m],
                     launches("rwkv6_model_decode", "rwkv6-model")),
+        _kernel_row("expsig", "src/repro_torch/csrc/expsig.cu",
+                    "src/repro/kernels/expsig.py:56", k9, {
+                        "main": sum(by_path["hw-block"][f] for f in (
+                            "exp_kernel", "sigmoid_kernel")),
+                        "by_path": {p: n.get("exp_kernel", 0)
+                                    + n.get("sigmoid_kernel", 0)
+                                    for p, n in by_path.items()}},
+                    "K9: exp_kernel (mode 0, expsig.py:71) and "
+                    "sigmoid_kernel (mode 1, :77), times summed over the "
+                    "two modes at 2^24 f32; on the main path the hw "
+                    "prefill's sigma"),
+        _kernel_row("wkv4_seq[hw]", "src/repro_torch/csrc/wkv4_seq.cu",
+                    "src/repro/kernels/wkv4.py:101", [k2h],
+                    launches("wkv4_seq", "hw-block"),
+                    "K2 with exp_table/div_table"),
+        _kernel_row("dpot_w8_matmul_f32x",
+                    "src/repro_torch/csrc/chunk_matmul.cu",
+                    "src/repro/kernels/fused_prefill.py:84", [k5f],
+                    launches("dpot_w8_matmul_f32x", "hw-block"),
+                    "K5 with an f32 activation (att.wo under hw)"),
+        _kernel_row("rwkv4_block_decode[hw]",
+                    "src/repro_torch/csrc/rwkv4_block_decode.cu",
+                    "src/repro/kernels/fused_decode.py:77", [k3h],
+                    launches("rwkv4_block_decode", "hw-block"),
+                    "K3 with the _luts operands"),
+        _kernel_row("rwkv4_model_decode[hw]",
+                    "src/repro_torch/csrc/rwkv4_model_decode.cu",
+                    "src/repro/kernels/fused_decode.py:182", [k4h],
+                    launches("rwkv4_model_decode", "hw-model"),
+                    "K4 with the _luts operands"),
     ]
     _line({"phase_done": "all", "seconds": time.perf_counter() - t_start})
     _line({"kernels": kernels})

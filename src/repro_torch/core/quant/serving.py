@@ -272,12 +272,15 @@ def unfuse_layer(rows: dict, aux_vals, manifest, tdef):
     return out
 
 
-def prepare_layer_stack_params(params, cfg):
+def prepare_layer_stack_params(params, cfg, extra_block_operands=None):
     """The whole-model decode's one-time prep: the packed-aware compute
-    cast, then the stacked blocks into slabs (`fuse_layer_stack`)."""
+    cast, any extra per-block kernel operands attached (rwkv4's hw LUT
+    tables), then the stacked blocks into slabs (`fuse_layer_stack`)."""
     params = cast_compute(params, getattr(torch, cfg.dtype))
-    return {**params,
-            "blocks": fuse_layer_stack(params["blocks"], cfg.n_layers)}
+    blocks = params["blocks"]
+    if extra_block_operands:
+        blocks = {**blocks, **extra_block_operands}
+    return {**params, "blocks": fuse_layer_stack(blocks, cfg.n_layers)}
 
 
 @dataclasses.dataclass(frozen=True)

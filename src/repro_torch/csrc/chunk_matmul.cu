@@ -1,8 +1,12 @@
 // K5, K5-W4, K5-VQ: out (M,N) bf16 = x (M,K) bf16 @ W, with W decoded
 // in-kernel from one quantized plane exactly as unpack_leaf decodes it:
-//   dpot_w8_matmul  W8 codes (K,N) u8 + scale (N,) f32
-//   dpot_w4_matmul  W4 nibble pairs (K/2,N) u8 + scale (N,) f32
-//   vq_matmul       VQ indices (K,N) u8 + codebook (C,) bf16, C <= 256
+//   dpot_w8_matmul       W8 codes (K,N) u8 + scale (N,) f32
+//   dpot_w4_matmul       W4 nibble pairs (K/2,N) u8 + scale (N,) f32
+//   vq_matmul            VQ indices (K,N) u8 + codebook (C,) bf16, C <= 256
+//   dpot_w8_matmul_f32x  K5 with an f32 x and an f32 out (M,N): the bf16
+//                        weights promoted, the sum not rounded, as
+//                        fused_prefill.py:102 gives result_type(x, dt); the
+//                        hardware numerics feed att.wo an f32 activation
 //
 // Replaces the TPU kernels kernels/fused_prefill.py:dpot_chunk_matmul
 // (_mm_kernel), w4_chunk_matmul (_mm_kernel_w4) and vq_chunk_matmul
@@ -70,10 +74,19 @@ struct DecodeVQ {
   }
 };
 
-template <int TM, class Dec>
+__device__ __forceinline__ float load_x(bf16 v) { return repro::bf2f(v); }
+__device__ __forceinline__ float load_x(float v) { return v; }
+__device__ __forceinline__ void store_out(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+
+// TX: the activation type (bf16, or f32 for the f32-x form); the output
+// has the same type, rounded once from the f32 sum
+template <int TM, class Dec, typename TX>
 __global__ void __launch_bounds__(BN)
-chunk_matmul_kernel(const bf16* __restrict__ x, const Dec dec,
-                    bf16* __restrict__ out, int M, int K, int N) {
+chunk_matmul_kernel(const TX* __restrict__ x, const Dec dec,
+                    TX* __restrict__ out, int M, int K, int N) {
   __shared__ float xs[TM][BK];
   __shared__ __align__(4) unsigned char cb_raw[256 * sizeof(bf16)];
   bf16* cb = reinterpret_cast<bf16*>(cb_raw);
@@ -90,7 +103,7 @@ chunk_matmul_kernel(const bf16* __restrict__ x, const Dec dec,
     for (int i = threadIdx.x; i < TM * BK; i += BN) {
       const int r = i / BK, c = i % BK;
       const int m = m0 + r, k = k0 + c;
-      xs[r][c] = (m < M && k < K) ? repro::bf2f(x[(size_t)m * K + k]) : 0.f;
+      xs[r][c] = (m < M && k < K) ? load_x(x[(size_t)m * K + k]) : 0.f;
     }
     __syncthreads();
     const int kn = min(BK, K - k0);
@@ -108,25 +121,27 @@ chunk_matmul_kernel(const bf16* __restrict__ x, const Dec dec,
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       const int m = m0 + i;
-      if (m < M) out[(size_t)m * N + n] = __float2bfloat16_rn(acc[i]);
+      if (m < M) store_out(out + (size_t)m * N + n, acc[i]);
     }
   }
 }
 
-template <class Dec>
+template <class Dec, typename TX = bf16>
 int launch(const void* x, const Dec& dec, void* out, int M, int K, int N,
            void* stream) {
   if (M < 1 || K < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 block(BN);
-  const auto* xp = static_cast<const bf16*>(x);
-  auto* op = static_cast<bf16*>(out);
+  const auto* xp = static_cast<const TX*>(x);
+  auto* op = static_cast<TX*>(out);
   if (M <= 8) {
     const dim3 grid((N + BN - 1) / BN, (M + 7) / 8);
-    chunk_matmul_kernel<8, Dec><<<grid, block, 0, s>>>(xp, dec, op, M, K, N);
+    chunk_matmul_kernel<8, Dec, TX><<<grid, block, 0, s>>>(xp, dec, op, M, K,
+                                                           N);
   } else {
     const dim3 grid((N + BN - 1) / BN, (M + 15) / 16);
-    chunk_matmul_kernel<16, Dec><<<grid, block, 0, s>>>(xp, dec, op, M, K, N);
+    chunk_matmul_kernel<16, Dec, TX><<<grid, block, 0, s>>>(xp, dec, op, M, K,
+                                                            N);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -138,6 +153,15 @@ extern "C" int dpot_w8_matmul(const void* x, const void* wq, const void* scale,
   const DecodeW8 dec{static_cast<const uint8_t*>(wq),
                      static_cast<const float*>(scale)};
   return launch(x, dec, out, M, K, N, stream);
+}
+
+// x (M, K) f32 -> out (M, N) f32
+extern "C" int dpot_w8_matmul_f32x(const void* x, const void* wq,
+                                   const void* scale, void* out, int M, int K,
+                                   int N, void* stream) {
+  const DecodeW8 dec{static_cast<const uint8_t*>(wq),
+                     static_cast<const float*>(scale)};
+  return launch<DecodeW8, float>(x, dec, out, M, K, N, stream);
 }
 
 // wq4 (K/2, N): contraction row k is nibble k & 1 of packed row k / 2

@@ -90,18 +90,30 @@ __device__ __forceinline__ float wkv6_term(float s, float r, float k,
 // The weight planes a matrix may arrive in (core/quant/serving.py).
 enum Plane { kPlaneW8 = 0, kPlaneW4 = 1, kPlaneVQ = 2 };
 
+// The exact e^x and x / y of the WKV step (the standard numerics);
+// hw_units.cuh:LutUnits is the hardware numerics' counterpart.
+struct ExactUnits {
+  __device__ __forceinline__ float exp(float x) const { return expf(x); }
+  __device__ __forceinline__ float div(float a, float b) const {
+    return a / b;
+  }
+};
+
 // The RWKV-4 WKV step (core/wkv/wkv4.py:wkv4_step), f32 throughout, in
-// the same operation order.  Returns the output; writes the stepped state.
+// the same operation order, its exp and division from `un`.  Returns the
+// output; writes the stepped state.
+template <class Units = ExactUnits>
 __device__ __forceinline__ float wkv4_step(float a, float b, float o, float k,
                                            float v, float w, float u,
-                                           float* na, float* nb, float* no) {
+                                           float* na, float* nb, float* no,
+                                           const Units& un = Units()) {
   const float no1 = fmaxf(o, u + k);
-  const float A = expf(o - no1);
-  const float B = expf(u + k - no1);
-  const float y = (A * a + B * v) / (A * b + B);
+  const float A = un.exp(o - no1);
+  const float B = un.exp(u + k - no1);
+  const float y = un.div(A * a + B * v, A * b + B);
   const float no2 = fmaxf(o - w, k);
-  const float A2 = expf(o - w - no2);
-  const float B2 = expf(k - no2);
+  const float A2 = un.exp(o - w - no2);
+  const float B2 = un.exp(k - no2);
   *na = A2 * a + B2 * v;
   *nb = A2 * b + B2;
   *no = no2;

@@ -2,8 +2,8 @@
 // layer per launch) and K4 (rwkv4_model_decode.cu, every layer in one
 // launch), so that both run the same code and give the same bits.
 //
-// One call runs models/rwkv4.py:block_decode (exact numerics) for one
-// layer and one tile of BB batch lanes:
+// One call runs models/rwkv4.py:block_decode for one layer and one tile of
+// BB batch lanes:
 //   1. LN1 (single pass, f32)        -> h, the new att_x state
 //   2. the three token-shift mixes   -> mr, mk, mv
 //   3. r/k/v matvecs, weights decoded in-kernel, and per channel the
@@ -18,6 +18,20 @@
 // their sum, each matvec output, σ(r)·out, relu² and the gated products,
 // and both residual adds.
 //
+// The numerics are a template parameter, HW:
+//   false  exact (the `_Std` numerics): XLA's bf16 σ expansion, expf and
+//          division in the WKV step.
+//   true   the paper's hardware numerics (`_Hw`, hw_units.cuh): LUT exp
+//          and LUT division in the WKV step, the PWL σ, and the A9 fake
+//          quant of the five mixes, kk, y = σ(r)·wkv and the gated FFN
+//          output.  σ_pwl returns f32, so y, att, rr and ffn stay f32
+//          where the exact numerics round to bf16, and the wo matvec takes
+//          the f32 y.  A9's scale is max|v| over the whole (BB, n) tensor:
+//          a block-wide reduction (exact, so its order does not matter)
+//          before any element is quantized.  A tile of BB < B lanes takes
+//          its own max, as the TPU kernel body sees one tile.  The two
+//          LUTs sit in shared memory beside the lanes.
+//
 // The residual x lives in shared memory in bf16 (X below): it enters
 // there and the body leaves the layer's output there, in place.  K3
 // copies it to device memory after one layer; K4 keeps it for the next.
@@ -29,12 +43,12 @@
 // alone is compiled, as before the planes came), kPlaneAny otherwise
 // (each matrix's plane is read at run time).  Both compute the same bits.
 //
-// Batch invariance: each LayerNorm reduction belongs to one warp in a
-// fixed order, and each matvec output accumulates over k = 0..K-1 in
-// order, whatever bb or the tile a lane falls in.
+// Batch invariance (exact numerics): each LayerNorm reduction belongs to
+// one warp in a fixed order, and each matvec output accumulates over
+// k = 0..K-1 in order, whatever bb or the tile a lane falls in.
 #pragma once
 
-#include "common.cuh"
+#include "hw_units.cuh"
 
 namespace repro {
 namespace rwkv4 {
@@ -81,13 +95,27 @@ __device__ __forceinline__ void fma_pair(const bf16* in, int lane_stride,
   }
 }
 
+// The same for f32 rows (the hardware numerics' y).
+template <int BB>
+__device__ __forceinline__ void fma_pair(const float* in, int lane_stride,
+                                         int k, float w0, float w1,
+                                         float (&acc)[BB]) {
+#pragma unroll
+  for (int b = 0; b < BB; ++b) {
+    const float* p = in + b * lane_stride + k;
+    acc[b] = fmaf(p[0], w0, acc[b]);
+    acc[b] = fmaf(p[1], w1, acc[b]);
+  }
+}
+
 // PLANES of a layer whose matrices' planes are read at run time
 constexpr int kPlaneAny = -1;
 
 // acc[b] = Σ_k in[b][k] · decode(w[k][col]) over k = 0..K-1 in order (K
-// even); PLANES is m's plane, or kPlaneAny to read it from m.
-template <int BB, int PLANES>
-__device__ __forceinline__ void dot_col(const bf16* in, int lane_stride, int K,
+// even); PLANES is m's plane, or kPlaneAny to read it from m; the rows are
+// bf16 or f32 (TIn).
+template <int BB, int PLANES, typename TIn>
+__device__ __forceinline__ void dot_col(const TIn* in, int lane_stride, int K,
                                         const Matrix& m, int N, int col,
                                         float (&acc)[BB]) {
 #pragma unroll
@@ -163,27 +191,128 @@ inline int planes_of(const int* planes) {
   return kPlaneW8;
 }
 
-// Shared memory a block needs for BB lanes: each lane's intermediates as
-// bf16, (6·D + F)·2 bytes a lane.
-__host__ __device__ inline size_t smem_bytes(int bb, int D, int F) {
-  return (size_t)bb * (6 * D + F) * sizeof(bf16);
+// A lane's stride in shared memory, in bf16 elements: X, H, M0, M1, M2,
+// R and KK (F wide) as bf16; under the hardware numerics R holds f32 (y,
+// then rr, then the gated FFN output) and takes two bf16 slots a value.
+__host__ __device__ inline int lane_stride(int D, int F, bool hw) {
+  return (hw ? 7 * D : 6 * D) + F;
+}
+
+// The hardware numerics' scratch after the lanes, in floats: the EXP and
+// DIV tables, then the block reductions' 33 slots for up to three values.
+constexpr int kHwTabs = 512;
+constexpr int kHwScratch = kHwTabs + 3 * 33;
+
+// Shared memory a block needs for BB lanes: each lane's intermediates,
+// (6·D + F)·2 bytes a lane, or (7·D + F)·2 under the hardware numerics
+// plus its scratch.
+__host__ __device__ inline size_t smem_bytes(int bb, int D, int F,
+                                             bool hw = false) {
+  return (size_t)bb * lane_stride(D, F, hw) * sizeof(bf16) +
+         (hw ? kHwScratch * sizeof(float) : 0);
+}
+
+// The hardware numerics' scratch of a block's shared memory.
+__device__ inline float* hw_scratch(bf16* smem, int bb, int D, int F) {
+  return reinterpret_cast<float*>(smem + (size_t)bb * lane_stride(D, F, true));
+}
+
+// Stage the EXP and DIV tables (256 f32 each) into the scratch; visible
+// after the caller's next barrier.
+__device__ inline void stage_luts(float* scratch, const float* exp_tab,
+                                  const float* div_tab) {
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
+    scratch[i] = exp_tab[i];
+    scratch[256 + i] = div_tab[i];
+  }
+}
+
+__device__ __forceinline__ float as_f32(bf16 v) { return bf2f(v); }
+__device__ __forceinline__ float as_f32(float v) { return v; }
+
+// m[j] <- the max of m[j] over the block, for each j < N (values >= 0);
+// red holds 33·N floats.  Every thread returns the same maxima.
+template <int N>
+__device__ void block_max(float (&m)[N], float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nwarps = blockDim.x / 32;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      m[j] = fmaxf(m[j], __shfl_xor_sync(0xffffffffu, m[j], off));
+    if (lane == 0) red[j * 33 + warp] = m[j];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      float v = lane < nwarps ? red[j * 33 + lane] : 0.f;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+      if (lane == 0) red[j * 33 + 32] = v;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < N; ++j) m[j] = red[j * 33 + 32];
+}
+
+// A9 of N tensors of BB lanes × n values each, in place: bufs[j] (lane
+// stride LS elements of T), each with its own max|v| over the block; a
+// bf16 tensor's dequantized value is rounded to bf16 (`.astype(x.dtype)`),
+// an f32 one's is kept.  Ends with a barrier.
+template <int BB, int N, typename T>
+__device__ void a9_tensors(T* const (&bufs)[N], int LS, int n, float* red) {
+  float m[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) m[j] = 0.f;
+  for (int i = threadIdx.x; i < BB * n; i += blockDim.x) {
+    const int b = i / n, d = i % n;
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      m[j] = fmaxf(m[j], fabsf(as_f32(bufs[j][b * LS + d])));
+  }
+  block_max<N>(m, red);
+#pragma unroll
+  for (int j = 0; j < N; ++j) m[j] = a9_scale(m[j]);
+  for (int i = threadIdx.x; i < BB * n; i += blockDim.x) {
+    const int b = i / n, d = i % n;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      T& v = bufs[j][b * LS + d];
+      if constexpr (sizeof(T) == sizeof(bf16))
+        v = __float2bfloat16_rn(a9(as_f32(v), m[j]));
+      else
+        v = a9(as_f32(v), m[j]);
+    }
+  }
+  __syncthreads();
 }
 
 // One layer for the BB lanes b0..b0+BB-1.  smem holds BB lanes of
-// (6·D + F) bf16 each; X (the first D of each lane) carries the residual
-// in and the layer's output out.  Ends without a barrier: the caller
-// synchronises before reading X.
-template <int BB, int PLANES>
+// lane_stride(D, F, HW) bf16 each; X (the first D of each lane) carries
+// the residual in and the layer's output out.  Under HW, `scratch` is
+// hw_scratch(): the staged LUTs, then the reductions' room.  Ends without
+// a barrier: the caller synchronises before reading X.
+template <int BB, int PLANES, bool HW = false>
 __device__ void layer(const LayerWeights& w, const LayerState& st,
-                      bf16* smem, int D, int F, int b0) {
-  const int LS = 6 * D + F;  // lane stride in shared memory
+                      bf16* smem, int D, int F, int b0,
+                      float* scratch = nullptr) {
+  const int LS = lane_stride(D, F, HW);  // lane stride in shared memory
   bf16* X = smem;            // residual x, then x2, then the output
-  bf16* H = smem + D;        // h, then y = σ(r)·wkv, then h2
+  bf16* H = smem + D;        // h, then y = σ(r)·wkv (exact numerics), h2
   bf16* M0 = smem + 2 * D;   // mixes: r / k / v, then ffn r / k
   bf16* M1 = smem + 3 * D;
   bf16* M2 = smem + 4 * D;
   bf16* R = smem + 5 * D;    // σ(ffn r)
-  bf16* KK = smem + 6 * D;   // relu²(ffn k), F wide
+  // hardware numerics: R as f32 (lane stride LS / 2 floats): y, then
+  // σ(ffn r), then the gated FFN output
+  float* RF = reinterpret_cast<float*>(R);
+  bf16* KK = smem + (HW ? 7 : 6) * D;  // relu²(ffn k), F wide
+  float* red = HW ? scratch + kHwTabs : nullptr;
+  const LutUnits units{scratch, HW ? scratch + 256 : nullptr};
   const int tid = threadIdx.x, nt = blockDim.x;
   const Matrix* mat = w.mat;
 
@@ -192,7 +321,7 @@ __device__ void layer(const LayerWeights& w, const LayerState& st,
                       st.out[ATT_X], b0);
   __syncthreads();
 
-  // 2. time-mix token shifts
+  // 2. time-mix token shifts (A9 under HW)
   for (int i = tid; i < BB * D; i += nt) {
     const int b = i / D, d = i % D;
     const float h = bf2f(H[b * LS + d]);
@@ -202,6 +331,10 @@ __device__ void layer(const LayerWeights& w, const LayerState& st,
     M2[b * LS + d] = mix(h, prev, bf2f(w.vec[ATT_MIX_V][d]));
   }
   __syncthreads();
+  if constexpr (HW) {
+    bf16* const mixes[3] = {M0, M1, M2};
+    a9_tensors<BB, 3>(mixes, LS, D, red);
+  }
 
   // 3. r/k/v matvecs, the WKV step and y = σ(r)·wkv, one channel a thread
   for (int c = tid; c < D; c += nt) {
@@ -215,22 +348,39 @@ __device__ void layer(const LayerWeights& w, const LayerState& st,
     for (int b = 0; b < BB; ++b) {
       const size_t g = (size_t)(b0 + b) * D + c;
       float na, nb, no;
-      const float out = wkv4_step(
-          bf2f(st.in[WKV_A][g]), bf2f(st.in[WKV_B][g]), bf2f(st.in[WKV_O][g]),
-          bf16r(ak[b]), bf16r(av[b]), wd, u, &na, &nb, &no);
+      if constexpr (HW) {
+        const float out = wkv4_step(
+            bf2f(st.in[WKV_A][g]), bf2f(st.in[WKV_B][g]),
+            bf2f(st.in[WKV_O][g]), bf16r(ak[b]), bf16r(av[b]), wd, u, &na,
+            &nb, &no, units);
+        RF[b * (LS / 2) + c] = sigmoid_pwl(bf16r(ar[b])) * bf16r(out);
+      } else {
+        const float out = wkv4_step(
+            bf2f(st.in[WKV_A][g]), bf2f(st.in[WKV_B][g]),
+            bf2f(st.in[WKV_O][g]), bf16r(ak[b]), bf16r(av[b]), wd, u, &na,
+            &nb, &no);
+        const float sr = sigmoid_bf16(bf16r(ar[b]));
+        H[b * LS + c] = __float2bfloat16_rn(sr * bf16r(out));
+      }
       st.out[WKV_A][g] = __float2bfloat16_rn(na);
       st.out[WKV_B][g] = __float2bfloat16_rn(nb);
       st.out[WKV_O][g] = __float2bfloat16_rn(no);
-      const float sr = sigmoid_bf16(bf16r(ar[b]));
-      H[b * LS + c] = __float2bfloat16_rn(sr * bf16r(out));
     }
   }
   __syncthreads();
 
-  // 4. att = y @ wo; x2 = x + att
+  // 4. att = y @ wo; x2 = x + att (y f32 and A9'd under HW; att is f32
+  //    there and rounded once on the add's input, as `att.astype(bf16)`)
+  if constexpr (HW) {
+    float* const ys[1] = {RF};
+    a9_tensors<BB, 1>(ys, LS / 2, D, red);
+  }
   for (int c = tid; c < D; c += nt) {
     float acc[BB];
-    dot_col<BB, PLANES>(H, LS, D, mat[ATT_WO], D, c, acc);
+    if constexpr (HW)
+      dot_col<BB, PLANES>(RF, LS / 2, D, mat[ATT_WO], D, c, acc);
+    else
+      dot_col<BB, PLANES>(H, LS, D, mat[ATT_WO], D, c, acc);
 #pragma unroll
     for (int b = 0; b < BB; ++b)
       X[b * LS + c] = __float2bfloat16_rn(bf2f(X[b * LS + c]) + bf16r(acc[b]));
@@ -242,7 +392,7 @@ __device__ void layer(const LayerWeights& w, const LayerState& st,
                       st.out[FFN_X], b0);
   __syncthreads();
 
-  // 6. channel-mix token shifts
+  // 6. channel-mix token shifts (A9 under HW)
   for (int i = tid; i < BB * D; i += nt) {
     const int b = i / D, d = i % D;
     const float h = bf2f(H[b * LS + d]);
@@ -251,8 +401,12 @@ __device__ void layer(const LayerWeights& w, const LayerState& st,
     M1[b * LS + d] = mix(h, prev, bf2f(w.vec[FFN_MIX_K][d]));
   }
   __syncthreads();
+  if constexpr (HW) {
+    bf16* const mixes[2] = {M0, M1};
+    a9_tensors<BB, 2>(mixes, LS, D, red);
+  }
 
-  // 7. kk = relu(mk @ wk)², rr = σ(mr @ wr)
+  // 7. kk = relu(mk @ wk)², rr = σ(mr @ wr) (σ_pwl in f32 under HW)
   for (int f = tid; f < F; f += nt) {
     float acc[BB];
     dot_col<BB, PLANES>(M1, LS, D, mat[FFN_WK], F, f, acc);
@@ -266,29 +420,57 @@ __device__ void layer(const LayerWeights& w, const LayerState& st,
     float acc[BB];
     dot_col<BB, PLANES>(M0, LS, D, mat[FFN_WR], D, c, acc);
 #pragma unroll
-    for (int b = 0; b < BB; ++b)
-      R[b * LS + c] = __float2bfloat16_rn(sigmoid_bf16(bf16r(acc[b])));
+    for (int b = 0; b < BB; ++b) {
+      if constexpr (HW)
+        RF[b * (LS / 2) + c] = sigmoid_pwl(bf16r(acc[b]));
+      else
+        R[b * LS + c] = __float2bfloat16_rn(sigmoid_bf16(bf16r(acc[b])));
+    }
   }
   __syncthreads();
 
   // 8. x = x2 + rr·(kk @ wv), in place: thread c alone reads and writes
-  //    column c of X in this phase
-  for (int c = tid; c < D; c += nt) {
-    float acc[BB];
-    dot_col<BB, PLANES>(KK, LS, F, mat[FFN_WV], D, c, acc);
+  //    column c of X (and of R) in this phase.  Under HW kk is A9'd first,
+  //    and the gated product is A9'd over the tile before the add.
+  if constexpr (HW) {
+    bf16* const kks[1] = {KK};
+    a9_tensors<BB, 1>(kks, LS, F, red);
+    for (int c = tid; c < D; c += nt) {
+      float acc[BB];
+      dot_col<BB, PLANES>(KK, LS, F, mat[FFN_WV], D, c, acc);
 #pragma unroll
-    for (int b = 0; b < BB; ++b) {
-      const float ffn = bf16r(bf2f(R[b * LS + c]) * bf16r(acc[b]));
+      for (int b = 0; b < BB; ++b)
+        RF[b * (LS / 2) + c] *= bf16r(acc[b]);
+    }
+    __syncthreads();
+    float m[1] = {0.f};
+    for (int i = tid; i < BB * D; i += nt)
+      m[0] = fmaxf(m[0], fabsf(RF[(i / D) * (LS / 2) + i % D]));
+    block_max<1>(m, red);
+    const float scale = a9_scale(m[0]);
+    for (int i = tid; i < BB * D; i += nt) {
+      const int b = i / D, c = i % D;
+      const float ffn = bf16r(a9(RF[b * (LS / 2) + c], scale));
       X[b * LS + c] = __float2bfloat16_rn(bf2f(X[b * LS + c]) + ffn);
+    }
+  } else {
+    for (int c = tid; c < D; c += nt) {
+      float acc[BB];
+      dot_col<BB, PLANES>(KK, LS, F, mat[FFN_WV], D, c, acc);
+#pragma unroll
+      for (int b = 0; b < BB; ++b) {
+        const float ffn = bf16r(bf2f(R[b * LS + c]) * bf16r(acc[b]));
+        X[b * LS + c] = __float2bfloat16_rn(bf2f(X[b * LS + c]) + ffn);
+      }
     }
   }
 }
 
 // Residual rows in: x (B, D) rows b0.. -> X of each lane.
-template <int BB>
+template <int BB, bool HW = false>
 __device__ void load_residual(const bf16* x, bf16* smem, int D, int F,
                               int b0) {
-  const int LS = 6 * D + F;
+  const int LS = lane_stride(D, F, HW);
   for (int i = threadIdx.x; i < BB * D; i += blockDim.x) {
     const int b = i / D, d = i % D;
     smem[b * LS + d] = x[(size_t)(b0 + b) * D + d];
@@ -296,10 +478,10 @@ __device__ void load_residual(const bf16* x, bf16* smem, int D, int F,
 }
 
 // Residual rows out: X of each lane -> x_out (B, D) rows b0..
-template <int BB>
+template <int BB, bool HW = false>
 __device__ void store_residual(const bf16* smem, bf16* x_out, int D, int F,
                                int b0) {
-  const int LS = 6 * D + F;
+  const int LS = lane_stride(D, F, HW);
   for (int i = threadIdx.x; i < BB * D; i += blockDim.x) {
     const int b = i / D, d = i % D;
     x_out[(size_t)(b0 + b) * D + d] = smem[b * LS + d];

@@ -21,6 +21,9 @@
 // the expected shapes; the kernel parses no tree.  Offsets are 64-bit:
 // rwkv4-7b's uint8 slab passes 2^31 bytes.
 //
+// Given the EXP and DIV tables (the stack's `_luts` aux leaves) it runs the
+// hardware numerics, the tables staged in shared memory once per launch.
+//
 // What bounds it on an H100: the weight codes, 12 × 7,372,800 B at
 // rwkv4-169m with the mixed W8/W4/VQ planes (~90 MB with the vectors, the
 // aux leaves and the state in and out, ~27 µs at 3.35 TB/s).  At bb = B the
@@ -48,10 +51,12 @@ struct ModelArgs {
   int mat_plane[R4::kNumMats];
   const bf16* st_in[R4::kNumState];        // (L, B, D) each
   bf16* st_out[R4::kNumState];             // (L, B, D) each
+  const float* exp_tab;                    // null: exact numerics
+  const float* div_tab;
   int L, B, D, F;
 };
 
-template <int BB, int PLANES>
+template <int BB, int PLANES, bool HW>
 __global__ void __launch_bounds__(1024)
 rwkv4_model_decode_kernel(const ModelArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -61,7 +66,12 @@ rwkv4_model_decode_kernel(const ModelArgs a) {
   const int D = a.D, F = a.F;
   const int b0 = blockIdx.x * BB;
   const size_t layer_state = (size_t)a.B * D;
-  R4::load_residual<BB>(a.x, smem, D, F, b0);
+  float* scratch = nullptr;
+  if constexpr (HW) {
+    scratch = R4::hw_scratch(smem, BB, D, F);
+    R4::stage_luts(scratch, a.exp_tab, a.div_tab);
+  }
+  R4::load_residual<BB, HW>(a.x, smem, D, F, b0);
   for (int l = 0; l < a.L; ++l) {
     if (threadIdx.x == 0) {
       const uint8_t* u8 = a.u8 + (size_t)l * a.u8_row;
@@ -75,46 +85,56 @@ rwkv4_model_decode_kernel(const ModelArgs a) {
       }
     }
     __syncthreads();  // the layer's table, and the residual, are in place
-    R4::layer<BB, PLANES>(w, st, smem, D, F, b0);
+    R4::layer<BB, PLANES, HW>(w, st, smem, D, F, b0, scratch);
     __syncthreads();  // the layer's output is in X before anyone reads it
   }
-  R4::store_residual<BB>(smem, a.x_out, D, F, b0);
+  R4::store_residual<BB, HW>(smem, a.x_out, D, F, b0);
 }
 
-template <int BB, int PLANES>
+template <int BB, int PLANES, bool HW>
 int launch(const ModelArgs& a, cudaStream_t s) {
   const int threads = std::min(1024, ((a.D + 31) / 32) * 32);
-  const size_t smem = R4::smem_bytes(BB, a.D, a.F);
+  const size_t smem = R4::smem_bytes(BB, a.D, a.F, HW);
   cudaError_t e = cudaFuncSetAttribute(
-      rwkv4_model_decode_kernel<BB, PLANES>,
+      rwkv4_model_decode_kernel<BB, PLANES, HW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  rwkv4_model_decode_kernel<BB, PLANES><<<a.B / BB, threads, smem, s>>>(a);
+  rwkv4_model_decode_kernel<BB, PLANES, HW><<<a.B / BB, threads, smem, s>>>(
+      a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int PLANES>
+template <int PLANES, bool HW>
 int launch_bb(int bb, const ModelArgs& a, cudaStream_t s) {
   switch (bb) {
-    case 1: return launch<1, PLANES>(a, s);
-    case 2: return launch<2, PLANES>(a, s);
-    case 3: return launch<3, PLANES>(a, s);
-    case 4: return launch<4, PLANES>(a, s);
-    case 5: return launch<5, PLANES>(a, s);
-    case 6: return launch<6, PLANES>(a, s);
-    case 7: return launch<7, PLANES>(a, s);
-    default: return launch<8, PLANES>(a, s);
+    case 1: return launch<1, PLANES, HW>(a, s);
+    case 2: return launch<2, PLANES, HW>(a, s);
+    case 3: return launch<3, PLANES, HW>(a, s);
+    case 4: return launch<4, PLANES, HW>(a, s);
+    case 5: return launch<5, PLANES, HW>(a, s);
+    case 6: return launch<6, PLANES, HW>(a, s);
+    case 7: return launch<7, PLANES, HW>(a, s);
+    default: return launch<8, PLANES, HW>(a, s);
   }
 }
 
-constexpr int kNumPtrs = 4 + R4::kNumMats + 2 * R4::kNumState;
+template <bool HW>
+int launch_planes(int bb, const int* planes, const ModelArgs& a,
+                  cudaStream_t s) {
+  return R4::planes_of(planes) == repro::kPlaneW8
+             ? launch_bb<repro::kPlaneW8, HW>(bb, a, s)
+             : launch_bb<R4::kPlaneAny, HW>(bb, a, s);
+}
+
+constexpr int kNumPtrs = 6 + R4::kNumMats + 2 * R4::kNumState;
 constexpr int kNumOffs = 2 + R4::kNumVecs + R4::kNumMats;
 
 }  // namespace
 
 // ptrs (kNumPtrs): x, x_out, the uint8 slab, the bf16 slab, the 7
 // matrices' shared scale / codebook in R4::Mat order, the 5 state leaves
-// in and the 5 out in R4::State order, each (L, B, D).
+// in and the 5 out in R4::State order, each (L, B, D), then the EXP and
+// DIV tables (256 f32 each; both null for the exact numerics).
 // offs (kNumOffs, int64): the uint8 and bf16 slab row lengths, the 11
 // vectors' offsets in a bf16 row (R4::Vec order), the 7 matrices' offsets
 // in a uint8 row.  planes: the 7 matrices' planes.
@@ -123,7 +143,8 @@ extern "C" int rwkv4_model_decode(const void* const* ptrs, int n_ptrs,
                                   const int* planes, int L, int B, int D,
                                   int F, int bb, void* stream) {
   if (n_ptrs != kNumPtrs || n_offs != kNumOffs || L < 1 || bb < 1 ||
-      bb > 8 || B % bb != 0 || D % 2 || F % 2)
+      bb > 8 || B % bb != 0 || D % 2 || F % 2 ||
+      (ptrs[kNumPtrs - 2] == nullptr) != (ptrs[kNumPtrs - 1] == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   ModelArgs a;
   int i = 0;
@@ -139,6 +160,8 @@ extern "C" int rwkv4_model_decode(const void* const* ptrs, int n_ptrs,
     a.st_in[k] = static_cast<const bf16*>(ptrs[i++]);
   for (int k = 0; k < R4::kNumState; ++k)
     a.st_out[k] = static_cast<bf16*>(const_cast<void*>(ptrs[i++]));
+  a.exp_tab = static_cast<const float*>(ptrs[i++]);
+  a.div_tab = static_cast<const float*>(ptrs[i++]);
   int j = 0;
   a.u8_row = offs[j++];
   a.b16_row = offs[j++];
@@ -149,7 +172,6 @@ extern "C" int rwkv4_model_decode(const void* const* ptrs, int n_ptrs,
   a.D = D;
   a.F = F;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return R4::planes_of(planes) == repro::kPlaneW8
-             ? launch_bb<repro::kPlaneW8>(bb, a, s)
-             : launch_bb<R4::kPlaneAny>(bb, a, s);
+  return a.exp_tab ? launch_planes<true>(bb, planes, a, s)
+                   : launch_planes<false>(bb, planes, a, s);
 }

@@ -29,14 +29,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PP, _PI = ctypes.POINTER(_P), ctypes.POINTER(_I)
-_PL = ctypes.POINTER(ctypes.c_longlong)
+_LL = ctypes.c_longlong
+_PL = ctypes.POINTER(_LL)
 
 # C entry points: argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
     "dpot_w8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "dpot_w8_matmul_f32x": [_P, _P, _P, _P, _I, _I, _I, _P],
     "dpot_w4_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
     "vq_matmul": [_P, _P, _P, _I, _P, _I, _I, _I, _P],
-    "wkv4_seq": [_P] * 12 + [_I, _I, _I, _I, _P],
+    "wkv4_seq": [_P] * 14 + [_I, _I, _I, _I, _P],
+    "expsig": [_P, _P, _P, _LL, _I, _I, _P],
     "rwkv4_block_decode": [_PP, _I, _PI, _I, _I, _I, _I, _P],
     "rwkv4_model_decode": [_PP, _I, _PL, _I, _PI, _I, _I, _I, _I, _I, _P],
     "wkv6_seq": [_P] * 9 + [_I] * 6 + [_P],

@@ -4,22 +4,30 @@ stack: kernels K3 and K4 (RWKV-4) and the two forms of K7 (RWKV-6).
 Port of `repro/kernels/fused_decode.py`: `rwkv4_block_decode` and
 `rwkv6_block_decode` replace `fused_block_decode`, `rwkv4_model_decode`
 and `rwkv6_model_decode` replace `fused_model_decode`, each for its
-model's body with exact numerics.  Pallas traced the model's
-`block_decode` inside the kernel; CUDA cannot trace, so each body is
-written into `csrc/rwkv4_body.cuh` or `csrc/rwkv6_body.cuh`, which round
-to bf16 at the places the JAX trace does, and which both forms of a model
-run: L block launches and one model launch give the same bits.  The TPU's
+model's body.  Pallas traced the model's `block_decode` inside the
+kernel; CUDA cannot trace, so each body is written into
+`csrc/rwkv4_body.cuh` or `csrc/rwkv6_body.cuh`, which round to bf16 at
+the places the JAX trace does, and which both forms of a model run: L
+block launches and one model launch give the same bits.  The TPU's
 "stream" and "resident" forms of the whole-model kernel compute the same
 bits too, and on Hopper collapse into one layer loop inside the launch.
 The sources' headers say what bounds each kernel on an H100 and how the
 design answers that.
 
 K3 and K4 run a layer's batch tile on one thread block and take W8, W4
-or VQ planes (`core/quant/serving.py`).  K7 spreads each rwkv6-7b layer
-(220 MB of codes) over the whole card as a cooperative launch with
-grid-wide barriers between its phases, and takes W8 planes only.  The
-block forms take the layer's tree, the model forms the `FusedLayerStack`
-slab form, whose manifest the wrapper turns into a table of offsets.
+or VQ planes (`core/quant/serving.py`), under the exact numerics or the
+paper's hardware numerics (LUT exp and division, PWL σ, A9 activations):
+K3 takes the EXP and DIV tables as `luts=`, K4 finds them as the stack's
+`_luts` aux leaves (`prepare_fused_model_params(hw=True)`).  Under the
+hardware numerics the A9 scale spans the tile's lanes, so a tile of
+bb < B lanes gives other bits than the whole batch, exactly as the TPU
+kernel body, which sees one tile, does (`fused_decode.py:249-252`); the
+plain versions split the batch into the same tiles.  K7 spreads each
+rwkv6-7b layer (220 MB of codes) over the whole card as a cooperative
+launch with grid-wide barriers between its phases, and takes W8 planes
+and the exact numerics only.  The block forms take the layer's tree, the
+model forms the `FusedLayerStack` slab form, whose manifest the wrapper
+turns into a table of offsets.
 
 A CPU tensor takes the plain version — the model's `block_decode` on the
 layer's weights decoded by `unpack_leaf`, exactly what the JAX kernel
@@ -55,6 +63,8 @@ MAT_KEYS = (("att", "wr"), ("att", "wk"), ("att", "wv"), ("att", "wo"),
 PLANE_IDS = {"w8": 0, "w4": 1, "vq": 2}   # csrc/common.cuh: enum Plane
 MAX_BB = 8                  # batch lanes per block the kernels instantiate
 SMEM_BYTES = 232_448        # shared memory one H100 block may use (227 KB)
+HW_SCRATCH_BYTES = (512 + 3 * 33) * 4   # csrc/rwkv4_body.cuh: kHwScratch
+LUT_KEYS = ("exp", "div")   # the `_luts` operands, EXP and DIV tables
 
 
 def _mat_shapes(D: int, F: int):
@@ -67,25 +77,45 @@ def _get(tree, path):
     return tree
 
 
+def _numerics(luts):
+    from repro_torch.models.rwkv4 import _Std, _hw_numerics_with_tables
+    if luts is None:
+        return _Std
+    return _hw_numerics_with_tables(luts["exp"], luts["div"])
+
+
 @exact_matmuls()
-def rwkv4_block_decode_plain(lp, st, x):
-    """The plain version: decode the plane leaves, run `block_decode`."""
-    from repro_torch.models.rwkv4 import block_decode
+def rwkv4_block_decode_plain(lp, st, x, nm=None, *, bb: int | None = None):
+    """The plain version: decode the plane leaves, run `block_decode` with
+    the numerics `nm` (None: exact).  Under the hardware numerics a tile
+    of bb < B lanes runs alone, as it does in the kernel; the exact
+    numerics' lanes do not depend on each other."""
+    from repro_torch.models.rwkv4 import _Std, block_decode
+    nm = _Std if nm is None else nm
     lp = tree_map(lambda l: unpack_leaf(l).to(x.dtype)
                   if is_packed_leaf(l) else l, lp, is_leaf=is_packed_leaf)
-    return block_decode(lp, st, x)
+    B = x.shape[0]
+    if not nm.hw or bb is None or bb >= B:
+        return block_decode(lp, st, x, nm)
+    outs = [block_decode(lp, {k: v[i:i + bb] for k, v in st.items()},
+                         x[i:i + bb], nm) for i in range(0, B, bb)]
+    return (torch.cat([o[0] for o in outs]),
+            {k: torch.cat([o[1][k] for o in outs]) for k in STATE_KEYS})
 
 
-def rwkv4_model_decode_plain(blocks: FusedLayerStack, state, x):
+def rwkv4_model_decode_plain(blocks: FusedLayerStack, state, x, *,
+                             bb: int | None = None):
     """The plain version of K4: for each layer, unfuse its slab rows and
-    run K3's plain version, the body the Pallas kernel ran per layer."""
+    run K3's plain version, the body the Pallas kernel ran per layer, with
+    the hardware numerics when the stack carries `_luts`."""
     aux = [a[0] for a in blocks.aux]          # the leading 1 squeezed
     new = []
     for l in range(blocks.n_layers):
         rows = {k: s[l] for k, s in blocks.slabs.items()}
         lp = unfuse_layer(rows, aux, blocks.manifest, blocks.tdef)
+        nm = _numerics(lp.pop("_luts", None))
         x, st = rwkv4_block_decode_plain(
-            lp, {k: state[k][l] for k in STATE_KEYS}, x)
+            lp, {k: state[k][l] for k in STATE_KEYS}, x, nm, bb=bb)
         new.append(st)
     return x, {k: torch.stack([s[k] for s in new]) for k in STATE_KEYS}
 
@@ -96,14 +126,16 @@ def default_bb(B: int) -> int:
     return max(d for d in range(1, min(B, MAX_BB) + 1) if B % d == 0)
 
 
-def check_tile(B: int, bb: int, D: int, F: int):
+def check_tile(B: int, bb: int, D: int, F: int, hw: bool = False):
     """Raise unless bb lanes divide B, lie in [1, MAX_BB] and their
-    intermediates, (6·D + F)·2 bytes a lane, fit one block's shared
-    memory.  There is no silent smaller tile."""
+    intermediates, (6·D + F)·2 bytes a lane, or (7·D + F)·2 and the LUT
+    and reduction scratch under the hardware numerics, fit one block's
+    shared memory.  There is no silent smaller tile."""
     if not 1 <= bb <= MAX_BB or B % bb:
         raise ValueError(f"batch tile bb={bb} must divide B={B} and lie in "
                          f"[1, {MAX_BB}]")
-    need = bb * (6 * D + F) * 2
+    need = bb * ((7 if hw else 6) * D + F) * 2 + (HW_SCRATCH_BYTES if hw
+                                                  else 0)
     if need > SMEM_BYTES:
         raise ValueError(
             f"batch tile bb={bb} at D={D}, F={F} needs {need} B of shared "
@@ -162,20 +194,38 @@ def _state_in(st, shape, name: str):
     return out
 
 
-def _launch_ptrs(tensors):
-    """The tensors' device pointers as a C array."""
+def _launch_ptrs(tensors, tail=()):
+    """The tensors' device pointers as a C array, then `tail`'s (None a
+    null pointer)."""
     if any(t.device != tensors[0].device for t in tensors):
         raise ValueError("decode kernel: operands on several devices")
-    ptrs = [t.data_ptr() for t in tensors]
+    ptrs = [t.data_ptr() for t in tensors] + [
+        None if t is None else t.data_ptr() for t in tail]
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
-def rwkv4_block_decode(lp, st, x, *, bb: int | None = None):
+def _luts_in(luts, device):
+    """The EXP and DIV tables as contiguous (256,) f32 on `device`."""
+    out = []
+    for k in LUT_KEYS:
+        t = luts[k].reshape(-1)
+        if t.shape != (256,) or t.dtype != torch.float32 or \
+                t.device != device:
+            raise ValueError(f"_luts.{k}: expected 256 f32 values on "
+                             f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+        out.append(t.contiguous())
+    return out
+
+
+def rwkv4_block_decode(lp, st, x, *, bb: int | None = None, luts=None):
     """One layer's decode step: lp the layer's params (compute-cast, plane
     leaves with a (1, N) scale or a codebook), st the five (B, D) state
-    leaves, x (B, D) bf16 -> (x2 (B, D), new state)."""
+    leaves, x (B, D) bf16 -> (x2 (B, D), new state).  `luts`, the EXP and
+    DIV tables {"exp", "div"} (256 f32 each), selects the hardware
+    numerics."""
     if x.device.type == "cpu":
-        return rwkv4_block_decode_plain(lp, st, x)
+        return rwkv4_block_decode_plain(lp, st, x, _numerics(luts), bb=bb)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"x must be bf16, got {x.dtype}")
     B, D = x.shape
@@ -185,7 +235,8 @@ def rwkv4_block_decode(lp, st, x, *, bb: int | None = None):
                         "ffn.wk is not one")
     F = wk[CODES_KEY[leaf_plane(wk)]].shape[-1]
     bb = default_bb(B) if bb is None else int(bb)
-    check_tile(B, bb, D, F)
+    check_tile(B, bb, D, F, luts is not None)
+    tabs = [None, None] if luts is None else _luts_in(luts, x.device)
     vecs = [_vec(_get(lp, p), D, ".".join(p)) for p in VEC_KEYS]
     mats = [_layer_matrix(_get(lp, p), K, N, ".".join(p))
             for p, (K, N) in zip(MAT_KEYS, _mat_shapes(D, F))]
@@ -194,7 +245,7 @@ def rwkv4_block_decode(lp, st, x, *, bb: int | None = None):
             for _ in range(1 + len(STATE_KEYS))]
     arr = _launch_ptrs([x.contiguous(), outs[0], *vecs,
                         *(m[0] for m in mats), *(m[1] for m in mats),
-                        *states, *outs[1:]])
+                        *states, *outs[1:]], tabs)
     planes = (ctypes.c_int * len(mats))(*(m[2] for m in mats))
     check(load_library().rwkv4_block_decode(
         arr, len(arr), planes, B, D, F, bb, stream_ptr(x)),
@@ -236,14 +287,37 @@ def _slab_offset(entries: dict, path, dtype: str, shape, used: set) -> int:
     return off
 
 
+def stack_luts(blocks: FusedLayerStack):
+    """The stack's `_luts` operands as {"exp", "div"} (each a (1, 256) f32
+    aux leaf), or None when it has none; raises on a partial or malformed
+    set."""
+    entries = dict(zip(blocks.tdef, blocks.manifest))
+    got = {p[1]: e for p, e in entries.items() if p[0] == "_luts"}
+    if not got:
+        return None
+    if set(got) != set(LUT_KEYS) or any(
+            e[0] != "aux" for e in got.values()):
+        raise ValueError(f"FusedLayerStack: _luts must hold the aux leaves "
+                         f"{LUT_KEYS}, got {got}")
+    luts = {k: blocks.aux[got[k][1]] for k in LUT_KEYS}
+    for k, t in luts.items():
+        if tuple(t.shape) != (1, 256) or t.dtype != torch.float32:
+            raise ValueError(f"FusedLayerStack: _luts.{k} must be (1, 256) "
+                             f"f32, got {t.dtype} {tuple(t.shape)}")
+    return luts
+
+
 def stack_table(blocks: FusedLayerStack, D: int):
     """The K4 table of a slab stack, checked against the expected shapes:
     (F, the vectors' offsets in a bf16 slab row, [MatEntry] per matrix).
     Raises on a leaf the kernel does not take or a shape it does not
     expect, and unless every scale and codebook is an aux leaf shared by
-    every layer (a one-layer stack keeps them in its slabs)."""
+    every layer (a one-layer stack keeps them in its slabs).  A complete
+    `_luts` set (`stack_luts`) is the hardware numerics' operand."""
     entries = dict(zip(blocks.tdef, blocks.manifest))
     used = set()
+    if stack_luts(blocks) is not None:
+        used.update(("_luts", k) for k in LUT_KEYS)
     entry = lambda path, kind: _entry(entries, path, kind, used)
     slab_offset = lambda path, dtype, shape: _slab_offset(
         entries, path, dtype, shape, used)
@@ -281,20 +355,23 @@ def stack_table(blocks: FusedLayerStack, D: int):
 def rwkv4_model_decode(blocks: FusedLayerStack, state, x, *,
                        bb: int | None = None):
     """The whole L-layer decode step: blocks the slab form of the stacked
-    layers (`fuse_layer_stack` of the compute-cast tree), state the five
-    (L, B, D) leaves, x (B, D) bf16 -> (x out (B, D), new state)."""
+    layers (`fuse_layer_stack` of the compute-cast tree, with `_luts` for
+    the hardware numerics), state the five (L, B, D) leaves, x (B, D)
+    bf16 -> (x out (B, D), new state)."""
     if not isinstance(blocks, FusedLayerStack):
         raise TypeError("rwkv4_model_decode takes a FusedLayerStack "
                         "(core/quant/serving.py:fuse_layer_stack)")
     if x.device.type == "cpu":
-        return rwkv4_model_decode_plain(blocks, state, x)
+        return rwkv4_model_decode_plain(blocks, state, x, bb=bb)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"x must be bf16, got {x.dtype}")
     B, D = x.shape
     L = blocks.n_layers
     F, vec_offs, mats = stack_table(blocks, D)
+    luts = stack_luts(blocks)
     bb = default_bb(B) if bb is None else int(bb)
-    check_tile(B, bb, D, F)
+    check_tile(B, bb, D, F, luts is not None)
+    tabs = [None, None] if luts is None else _luts_in(luts, x.device)
     u8, b16 = blocks.slabs["uint8"], blocks.slabs["bfloat16"]
     if not (u8.is_contiguous() and b16.is_contiguous()):
         raise ValueError("FusedLayerStack slabs must be contiguous")
@@ -303,7 +380,7 @@ def rwkv4_model_decode(blocks: FusedLayerStack, state, x, *,
     outs = [torch.empty((L, B, D), dtype=torch.bfloat16, device=x.device)
             for _ in STATE_KEYS]
     arr = _launch_ptrs([x.contiguous(), x_out, u8, b16,
-                        *(m.aux for m in mats), *states, *outs])
+                        *(m.aux for m in mats), *states, *outs], tabs)
     offs = (ctypes.c_longlong * (2 + len(vec_offs) + len(mats)))(
         u8.shape[1], b16.shape[1], *vec_offs, *(m.offset for m in mats))
     planes = (ctypes.c_int * len(mats))(*(m.plane for m in mats))

@@ -12,6 +12,9 @@ All three are one CUDA kernel template over a weight-decode policy
 (`csrc/chunk_matmul.cu`; its header says what bounds it on an H100 and
 how its design answers that).  The serving path calls them for every
 prefill matmul (M = B·C) and for the prefill and decode heads (M = B).
+`dpot_w8_matmul_f32x` is K5 for an f32 x, returning f32 (the TPU
+kernel's `result_type(x, dt)`): under the hardware numerics att.wo's
+input is f32.
 
 A CPU tensor takes the plain version, `x @ unpack_leaf(leaf).to(bf16)`; a
 CUDA tensor launches the kernel or raises.
@@ -48,22 +51,35 @@ def vq_matmul_plain(x: torch.Tensor, idx: torch.Tensor,
 
 
 def _check_operands(name, x, codes, aux, k_rows: int, aux_dtype,
-                    aux_len: int | None):
+                    aux_len: int | None, x_dtypes=(torch.bfloat16,)):
     M, K = x.shape
     Kc, N = codes.shape
     if Kc != k_rows or (aux_len is not None and aux.numel() != aux_len):
         raise ValueError(f"{name}: shapes x {tuple(x.shape)} codes "
                          f"{tuple(codes.shape)} aux {aux.numel()} do not "
                          "agree")
-    if (x.dtype != torch.bfloat16 or codes.dtype != torch.uint8
+    if (x.dtype not in x_dtypes or codes.dtype != torch.uint8
             or aux.dtype != aux_dtype):
-        raise TypeError(f"{name} takes bf16 x, uint8 codes, {aux_dtype} "
-                        f"aux; got {x.dtype}, {codes.dtype}, {aux.dtype}")
+        raise TypeError(f"{name} takes {x_dtypes} x, uint8 codes, "
+                        f"{aux_dtype} aux; got {x.dtype}, {codes.dtype}, "
+                        f"{aux.dtype}")
     if not (codes.device == x.device == aux.device):
         raise ValueError(f"{name}: x, codes and aux must be on one device")
     if not codes.is_contiguous():
         raise ValueError(f"{name}: codes must be contiguous")
     return M, K, N
+
+
+def _w8_launch(x, wq, scale, entry: str, x_dtype):
+    scale = scale.reshape(-1)
+    M, K, N = _check_operands(entry, x, wq, scale, x.shape[1],
+                              torch.float32, wq.shape[1], (x_dtype,))
+    x, scale = x.contiguous(), scale.contiguous()
+    out = torch.empty((M, N), dtype=x_dtype, device=x.device)
+    check(getattr(load_library(), entry)(
+        x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        M, K, N, stream_ptr(x)), entry)
+    return out
 
 
 def dpot_w8_matmul(x: torch.Tensor, wq: torch.Tensor,
@@ -72,15 +88,19 @@ def dpot_w8_matmul(x: torch.Tensor, wq: torch.Tensor,
     -> (M, N) bf16, the codes decoded in-kernel."""
     if x.device.type == "cpu":
         return dpot_w8_matmul_plain(x, wq, scale)
-    scale = scale.reshape(-1)
-    M, K, N = _check_operands("dpot_w8_matmul", x, wq, scale, x.shape[1],
-                              torch.float32, wq.shape[1])
-    x, scale = x.contiguous(), scale.contiguous()
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    check(load_library().dpot_w8_matmul(
-        x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, K, N, stream_ptr(x)), "dpot_w8_matmul")
+    out = _w8_launch(x, wq, scale, "dpot_w8_matmul", torch.bfloat16)
     dpot_w8_matmul.launches += 1
+    return out
+
+
+def dpot_w8_matmul_f32x(x: torch.Tensor, wq: torch.Tensor,
+                        scale: torch.Tensor) -> torch.Tensor:
+    """K5's f32-activation form: x (M, K) f32 @ the W8 plane -> (M, N)
+    f32, the bf16 weights promoted and the f32 sum not rounded."""
+    if x.device.type == "cpu":
+        return dpot_w8_matmul_plain(x, wq, scale)
+    out = _w8_launch(x, wq, scale, "dpot_w8_matmul_f32x", torch.float32)
+    dpot_w8_matmul_f32x.launches += 1
     return out
 
 
@@ -127,6 +147,7 @@ def vq_matmul(x: torch.Tensor, idx: torch.Tensor,
 
 
 dpot_w8_matmul.launches = 0
+dpot_w8_matmul_f32x.launches = 0
 dpot_w4_matmul.launches = 0
 vq_matmul.launches = 0
 
@@ -135,11 +156,12 @@ def chunk_matmul(x: torch.Tensor, leaf, dt) -> torch.Tensor:
     """`x @ leaf` over a (..., K) chunk tensor, plane aware: plain leaves
     take the torch matmul (as the JAX package leaves them to XLA); a plane
     leaf flattens the chunk to (S·C, K) and runs its kernel (K5, K5-W4 or
-    K5-VQ)."""
+    K5-VQ).  x is in the compute dtype `dt`, or f32 (the result then f32,
+    the weights promoted, as JAX's matmul promotes them)."""
     plane = leaf_plane(leaf)
     if plane is None:
-        return x @ leaf
-    if x.dtype != dt:
+        return x @ leaf.to(x.dtype)
+    if x.dtype not in (dt, torch.float32):
         raise TypeError(f"chunk_matmul: x is {x.dtype}, compute dtype {dt}")
     lead, K = x.shape[:-1], x.shape[-1]
     xf = x.reshape(-1, K)
@@ -147,6 +169,8 @@ def chunk_matmul(x: torch.Tensor, leaf, dt) -> torch.Tensor:
         out = dpot_w4_matmul(xf, leaf["packed4"], leaf["scale"])
     elif plane == "vq":
         out = vq_matmul(xf, leaf["vq_idx"], leaf["codebook"])
+    elif x.dtype == torch.float32:
+        out = dpot_w8_matmul_f32x(xf, leaf["packed"], leaf["scale"])
     else:
         out = dpot_w8_matmul(xf, leaf["packed"], leaf["scale"])
     return out.reshape(*lead, out.shape[-1])

@@ -3,6 +3,8 @@
     python -m repro_torch.launch.serve --arch {rwkv4-169m,rwkv6-7b} \
         --quantized --fused {block,model} --fused-prefill [--batch 8] \
         [--tokens 32] [--smoke] [--device cuda|cpu]
+    python -m repro_torch.launch.serve --legacy [--hw-numerics] [--smoke] \
+        [--batch 4] [--tokens 32] [--device cuda|cpu]
 
 `--fused block` decodes through one kernel launch per layer (K3 for
 rwkv4, K7-block for rwkv6), `--fused model` through one launch for all
@@ -13,10 +15,18 @@ path.  rwkv6's kernels take W8 planes only.  `--quantized` packs every matmul we
 per-tensor planes (W4, VQ) are chosen through
 `ServingEngine(plane_policy=)`, as in the JAX package.  The device
 defaults to "cuda" and raises without a GPU.
+
+`--legacy` is the seed's serving mode (`serve_legacy`): one fixed batch
+of random first tokens, the per-op `decode_step` in a host loop
+(`greedy_decode`).  `--hw-numerics` (rwkv4 only; implies `--legacy`)
+runs that loop under the paper's hardware numerics, which the engine does
+not serve: their A9 scale spans the batch, so a lane's bits depend on its
+batchmates.
 """
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 import torch
@@ -48,6 +58,67 @@ def sequential_decode(model, params, prompt: list[int], n_new: int,
         tok = torch.tensor([[nxt]], dtype=torch.int32, device=device)
         logits, state = model.decode_step(params, state, tok, 0)
     return out
+
+
+@torch.inference_mode()
+def greedy_decode(model, params, state, first_token, n_tokens: int,
+                  start_pos: int = 0):
+    """Argmax-chain `n_tokens` tokens from `first_token` (B, 1) int32
+    through `model.decode_step`, the seed's host loop.  Returns (tokens
+    (B, n_tokens + 1), the state)."""
+    tok, out, pos = first_token, [first_token], start_pos
+    for _ in range(n_tokens):
+        logits, state = model.decode_step(params, state, tok, pos)
+        tok = torch.argmax(logits[:, -1].float(), dim=-1)[:, None].to(
+            torch.int32)
+        pos += 1
+        out.append(tok)
+    return torch.cat(out, dim=1), state
+
+
+class HwModel:
+    """A model whose `decode_step` runs rwkv4's per-op step under the
+    hardware numerics, as the JAX launcher wraps it."""
+
+    def __init__(self, model):
+        self.model, self.cfg = model, model.cfg
+
+    def decode_step(self, params, state, tokens, pos):
+        from repro_torch.models import rwkv4
+        return rwkv4.decode_step(self.model.cast_params(params), state,
+                                 tokens, pos, self.cfg, hw=True)
+
+
+def serve_legacy(arch: str, *, smoke: bool = True, batch: int = 4,
+                 n_tokens: int = 32, quantized: bool = False, seed: int = 0,
+                 hw_numerics: bool = False, device: str = "cuda"):
+    """The seed's serving mode: one fixed batch of seeded first tokens,
+    decoded by the per-op step in a host loop; `hw_numerics` (rwkv4)
+    under the paper's numerics.  Prints tokens/s; returns the tokens."""
+    from repro_torch.models.registry import get_model
+    if quantized:
+        raise NotImplementedError(
+            "serve_legacy(quantized=True) fake-quantizes the tree with "
+            "fake_quantize_tree, which the fake-quant slice ports (ROADMAP "
+            "Queue 1 item 8)")
+    device = resolve_device(device)
+    model = get_model(arch, smoke=smoke)
+    params = model.init_params(seed, device)
+    state = model.init_decode_state(batch, n_tokens + 8, device=device)
+    rng = np.random.default_rng(seed)
+    first = torch.tensor(rng.integers(0, model.cfg.vocab, (batch, 1)),
+                         dtype=torch.int32, device=device)
+    m = HwModel(model) if hw_numerics and model.cfg.rwkv_version == 4 \
+        else model
+    t0 = time.perf_counter()
+    toks, _ = greedy_decode(m, params, state, first, n_tokens)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    print(f"{arch}: decoded {n_tokens} tokens x {batch} seqs in {dt:.2f}s "
+          f"({batch * n_tokens / max(dt, 1e-9):,.0f} tok/s"
+          f"{', hw numerics' if m is not model else ''})")
+    return toks
 
 
 def weights_label(params) -> str:
@@ -108,7 +179,17 @@ def main(argv=None):
     ap.add_argument("--fused-prefill", action="store_true",
                     help="chunked prefill through kernels K5 and K2 / K6")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--legacy", action="store_true",
+                    help="the seed's fixed-batch per-op decode loop")
+    ap.add_argument("--hw-numerics", action="store_true",
+                    help="the paper's LUT/PWL/A9 numerics (rwkv4; implies "
+                    "--legacy)")
     args = ap.parse_args(argv)
+    if args.legacy or args.hw_numerics:
+        serve_legacy(args.arch, smoke=args.smoke, batch=args.batch,
+                     n_tokens=args.tokens, quantized=args.quantized,
+                     hw_numerics=args.hw_numerics, device=args.device)
+        return
     serve(args.arch, smoke=args.smoke, batch=args.batch,
           n_tokens=args.tokens, quantized=args.quantized,
           prompt_len=args.prompt_len, fused=args.fused,

@@ -117,13 +117,21 @@ class Model:
         return self.module.decode_step_fused_model(params, state, tokens,
                                                    pos, self.cfg)
 
-    def prepare_path_params(self, desc: PathDescriptor, params):
+    def prepare_path_params(self, desc: PathDescriptor, params, **kw):
         """One-time param prep for one path, through its descriptor: the
         module's `desc.prepare`, or the params as they are when the
-        descriptor or the module has none."""
+        descriptor or the module has none.  `kw` goes to the module's
+        prep (rwkv4's "model" path: `hw=True` attaches the LUT
+        operands)."""
         prep = getattr(self.module, desc.prepare, None) if desc.prepare \
             else None
-        return params if prep is None else prep(params, self.cfg)
+        return params if prep is None else prep(params, self.cfg, **kw)
+
+    def prepare_fused_model_params(self, params, **kw):
+        """The "model" path's one-time prep (`kw` as above: the decode's
+        `hw` must match the prepared form)."""
+        return self.prepare_path_params(self.decode_paths()["model"],
+                                        params, **kw)
 
     def prefill_chunk(self, params, state, tokens, valid):
         """Chunked prefill (K5 + K2, or K5 + K6): tokens (B, C) with a

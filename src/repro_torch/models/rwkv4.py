@@ -13,21 +13,39 @@ K5 stands for the chunk matmul of the head's or the matrix's plane: K5
 (W8), K5-W4 or K5-VQ.
 
 Eager torch rounds every bf16 op, the rounding rule `exact_jit` pins for
-JAX, so the plain path follows the JAX trace op for op.  Standard (exact)
-numerics only; the paper's LUT/PWL hardware numerics are not ported yet.
+JAX, so the plain path follows the JAX trace op for op.
+
+Two numerics, chosen by `hw=` as in the JAX package:
+  standard  exact exp and division, XLA's bf16 σ expansion
+  hw        the accelerator's (paper §3-4): LUT exp, PWL σ and LUT division
+            (`core/approx`), activations fake-quantized to 9 bits (A9,
+            `core/quant/uniform.py`) over the whole (B, features) tensor.
+            The units return f32, so y, att, rr and ffn stay f32 where
+            the standard numerics hold bf16.  The kernels take the EXP and
+            DIV tables as operands (the paper's on-chip LUTs): K2 and K3 as
+            arguments, K4 as the prepared stack's `_luts` leaves.  Because
+            A9 spans the batch, a lane's bits depend on its batchmates, so
+            the serving engine stays on the standard numerics (as the JAX
+            engine does) and `launch/serve.py --legacy --hw-numerics`
+            serves a fixed batch.
+`forward` waits for the training slice.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.approx.units import (
+    div_lut, exp_lut, lut_tensor, sigmoid_pwl)
 from repro_torch.core.quant.serving import (
     FusedLayerStack, broadcast_packed_scales, cast_compute,
-    fuse_layer_stack, prepare_layer_stack_params)
+    prepare_layer_stack_params)
+from repro_torch.core.quant.uniform import uniform_fake_quant
 from repro_torch.core.wkv.wkv4 import WKV4State, wkv4_step
 from repro_torch.device import exact_matmuls, resolve_device
+from repro_torch.kernels.expsig import sigmoid_kernel
 from repro_torch.kernels.fused_decode import (
-    STATE_KEYS, rwkv4_block_decode, rwkv4_model_decode)
+    STATE_KEYS, rwkv4_block_decode, rwkv4_model_decode, stack_luts)
 from repro_torch.kernels.fused_prefill import (
     chunk_matmul, gather_last_valid, last_valid_select, shifted_prev)
 from repro_torch.kernels.wkv4 import wkv4_seq
@@ -99,6 +117,62 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.reciprocal(1.0 + torch.exp(-x))
 
 
+# ---------------------------------------------------------------------------
+# Numerics
+# ---------------------------------------------------------------------------
+
+
+class _Std:
+    hw = False
+    exp = staticmethod(torch.exp)
+    sigmoid = staticmethod(sigmoid)
+    div = None                    # wkv4_step's exact x / y
+    act_q = staticmethod(lambda x: x)
+
+
+class _Hw:
+    """Paper numerics: LUT exp, PWL sigmoid, LUT division, A9 activations
+    (one scale over the whole tensor)."""
+    hw = True
+    exp = staticmethod(exp_lut)
+    sigmoid = staticmethod(sigmoid_pwl)
+    div = staticmethod(div_lut)
+    act_q = staticmethod(lambda x: uniform_fake_quant(x, 9, None))
+
+
+def _numerics(hw: bool):
+    return _Hw if hw else _Std
+
+
+def _hw_numerics_with_tables(exp_table, div_table):
+    """_Hw with the LUTs bound as explicit tensors, as the kernels take
+    them."""
+    class _HwTabled(_Hw):
+        exp = staticmethod(lambda x: exp_lut(x, table=exp_table))
+        div = staticmethod(lambda a, b: div_lut(a, b, table=div_table))
+    return _HwTabled
+
+
+def _chunk_numerics(hw: bool):
+    """The chunked prefill's numerics: the same units, with A9 scoped per
+    token position (axis 1 of a (B, C, ...) chunk tensor), so that each
+    position sees the (B, features) grain the per-step oracle applies, and
+    σ through the EXP-σ kernel K9 (its plain version on the CPU)."""
+    if not hw:
+        return _Std
+
+    class _HwChunk(_Hw):
+        sigmoid = staticmethod(lambda x: sigmoid_kernel(x.to(torch.float32)))
+        act_q = staticmethod(lambda x: uniform_fake_quant(x, 9, 1))
+    return _HwChunk
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w with JAX's promotion: an f32 activation widens bf16 weights
+    (exactly) and the product is f32."""
+    return a @ w if a.dtype == w.dtype else a @ w.to(a.dtype)
+
+
 def _layer(tree, i: int):
     """Layer i of a stacked tree (packed leaves slice both planes)."""
     if isinstance(tree, dict):
@@ -110,31 +184,32 @@ def _stack_states(states: list) -> dict:
     return {k: torch.stack([s[k] for s in states]) for k in STATE_KEYS}
 
 
-def block_decode(lp, st, x):
-    """One layer's full decode step (exact numerics): ln1 -> token-shift
-    mix -> r/k/v matvecs -> WKV update -> gated output, then ln2 ->
-    channel mix.  x (B, D) residual; st this layer's state slice."""
+def block_decode(lp, st, x, nm=_Std):
+    """One layer's full decode step: ln1 -> token-shift mix -> r/k/v
+    matvecs -> WKV update -> gated output, then ln2 -> channel mix, under
+    the numerics `nm`.  x (B, D) residual; st this layer's state slice."""
     att_x, ffn_x = st["att_x"], st["ffn_x"]
     f32 = torch.float32
     wkv = WKV4State(st["wkv_a"].to(f32), st["wkv_b"].to(f32),
                     st["wkv_o"].to(f32))
     h = L.apply_norm(lp["ln1"], x)
     p = lp["att"]
-    mix = lambda m: h * p[m] + att_x * (1.0 - p[m])
+    mix = lambda m: nm.act_q(h * p[m] + att_x * (1.0 - p[m]))
     r = mix("time_mix_r") @ p["wr"]
     k = mix("time_mix_k") @ p["wk"]
     v = mix("time_mix_v") @ p["wv"]
     w = torch.exp(p["time_decay"].to(f32))
     new_wkv, out = wkv4_step(wkv, k.to(f32), v.to(f32), w,
-                             p["time_first"].to(f32))
-    att = (sigmoid(r) * out.to(r.dtype)) @ p["wo"]
+                             p["time_first"].to(f32), exp=nm.exp,
+                             div=nm.div)
+    att = _mm(nm.act_q(nm.sigmoid(r) * out.to(r.dtype)), p["wo"])
     x2 = x + att.to(x.dtype)
     h2 = L.apply_norm(lp["ln2"], x2)
     p = lp["ffn"]
-    mix2 = lambda m: h2 * p[m] + ffn_x * (1.0 - p[m])
-    rr = sigmoid(mix2("time_mix_r") @ p["wr"])
+    mix2 = lambda m: nm.act_q(h2 * p[m] + ffn_x * (1.0 - p[m]))
+    rr = nm.sigmoid(mix2("time_mix_r") @ p["wr"])
     kk = torch.square(torch.relu(mix2("time_mix_k") @ p["wk"]))
-    ffn = rr * (kk @ p["wv"])
+    ffn = nm.act_q(rr * (nm.act_q(kk) @ p["wv"]))
     new_st = {"att_x": h.to(att_x.dtype),
               "ffn_x": h2.to(ffn_x.dtype),
               "wkv_a": new_wkv.a.to(st["wkv_a"].dtype),
@@ -144,73 +219,107 @@ def block_decode(lp, st, x):
 
 
 @exact_matmuls()
-def decode_step(params, state, tokens, pos, cfg: ModelConfig):
+def decode_step(params, state, tokens, pos, cfg: ModelConfig, *,
+                hw: bool = False):
     """Per-op plain decode; params already in the compute dtype (plain
     leaves).  tokens (B, 1) -> (logits (B, 1, V), new_state)."""
     del pos  # RWKV state is position-free
+    nm = _numerics(hw)
     dt = getattr(torch, cfg.dtype)
     x = params["embed"][tokens[:, 0].long()].to(dt)
     x = L.apply_norm(params["ln0"], x)
     new = []
     for i in range(cfg.n_layers):
         x, st = block_decode(_layer(params["blocks"], i),
-                             {k: state[k][i] for k in STATE_KEYS}, x)
+                             {k: state[k][i] for k in STATE_KEYS}, x, nm)
         new.append(st)
     x = L.apply_norm(params["ln_f"], x[:, None])
     return x @ params["head"].to(x.dtype), _stack_states(new)
 
 
-def decode_step_fused(params, state, tokens, pos, cfg: ModelConfig):
+def _lut_operands(device, n_layers: int | None = None):
+    """The EXP and DIV tables as kernel operands {"exp", "div"}: (256,)
+    for K3, or (n_layers, 256) broadcast views for a stack (a leading 1
+    makes them shared aux leaves of K4's slab form)."""
+    out = {k: lut_tensor(k, device) for k in ("exp", "div")}
+    if n_layers is not None:
+        out = {k: t.expand(n_layers, 256) for k, t in out.items()}
+    return out
+
+
+def decode_step_fused(params, state, tokens, pos, cfg: ModelConfig, *,
+                      hw: bool = False):
     """Kernel decode: one K3 launch per layer, the head through K5, the
-    packed W8 leaves decoded inside the kernels.  Embed, ln0 and ln_f stay
-    plain torch, as the JAX package leaves them outside any kernel."""
+    packed W8 leaves decoded inside the kernels; `hw` passes the EXP and
+    DIV tables to K3.  Embed, ln0 and ln_f stay plain torch, as the JAX
+    package leaves them outside any kernel."""
     del pos
     dt = getattr(torch, cfg.dtype)
     params = cast_compute(params, dt)
     x = params["embed"][tokens[:, 0].long()].to(dt)
     x = L.apply_norm(params["ln0"], x)
     blocks = broadcast_packed_scales(params["blocks"], cfg.n_layers)
+    luts = _lut_operands(x.device) if hw else None
     new = []
     for i in range(cfg.n_layers):
         x, st = rwkv4_block_decode(_layer(blocks, i),
-                                   {k: state[k][i] for k in STATE_KEYS}, x)
+                                   {k: state[k][i] for k in STATE_KEYS}, x,
+                                   luts=luts)
         new.append(st)
     x = L.apply_norm(params["ln_f"], x[:, None])
     return chunk_matmul(x, params["head"], dt), _stack_states(new)
 
 
-def prepare_fused_model_params(params, cfg: ModelConfig):
+def prepare_fused_model_params(params, cfg: ModelConfig, *,
+                               hw: bool = False):
     """One-time prep for the whole-model decode: the packed-aware compute
     cast, then the stacked blocks into per-dtype slabs
-    (`fuse_layer_stack`).  `decode_step_fused_model` takes the result."""
-    return prepare_layer_stack_params(params, cfg)
+    (`fuse_layer_stack`), with the EXP and DIV tables as the `_luts` aux
+    leaves when `hw`.  `decode_step_fused_model` takes the result."""
+    extra = {"_luts": _lut_operands(params["embed"].device, 1)} if hw \
+        else None
+    return prepare_layer_stack_params(params, cfg, extra)
 
 
-def decode_step_fused_model(params, state, tokens, pos, cfg: ModelConfig):
+def _stack_has_luts(stack: FusedLayerStack) -> bool:
+    """Whether a prepared stack carries the hw LUT operands."""
+    return stack_luts(stack) is not None
+
+
+def decode_step_fused_model(params, state, tokens, pos, cfg: ModelConfig, *,
+                            hw: bool = False, bb: int | None = None):
     """Kernel decode: ONE K4 launch runs every layer, the residual kept on
     chip between them, and the head goes through K5.  `params` is the
-    output of `prepare_fused_model_params` (the serving path) or a raw
-    tree, which is cast and fused here on every call.  Embed, ln0 and ln_f
-    stay plain torch, as the JAX package leaves them outside any
-    kernel."""
+    output of `prepare_fused_model_params` (the serving path; its `hw`
+    must be this call's) or a raw tree, which is cast and fused here on
+    every call.  `bb` is K4's batch tile (under hw each tile takes its own
+    A9 scale).  Embed, ln0 and ln_f stay plain torch, as the JAX package
+    leaves them outside any kernel."""
     del pos
     dt = getattr(torch, cfg.dtype)
     blocks = params["blocks"]
-    if not isinstance(blocks, FusedLayerStack):
-        params = cast_compute(params, dt)
-        blocks = fuse_layer_stack(params["blocks"], cfg.n_layers)
+    prepared = isinstance(blocks, FusedLayerStack)
+    if prepared and _stack_has_luts(blocks) != hw:
+        raise ValueError(
+            f"prepared params were built with hw={not hw} but decode was "
+            f"called with hw={hw}; rebuild them with "
+            "prepare_fused_model_params(params, cfg, hw=...)")
+    if not prepared:
+        params = prepare_fused_model_params(params, cfg, hw=hw)
+        blocks = params["blocks"]
     x = params["embed"][tokens[:, 0].long()].to(dt)
     x = L.apply_norm(params["ln0"], x)
-    x, new_state = rwkv4_model_decode(blocks, state, x)
+    x, new_state = rwkv4_model_decode(blocks, state, x, bb=bb)
     x = L.apply_norm(params["ln_f"], x[:, None])
     return chunk_matmul(x, params["head"], dt), new_state
 
 
-def block_prefill(lp, st, x, valid):
+def block_prefill(lp, st, x, valid, nm=_Std, *, hw: bool = False):
     """One layer's chunked prefill over a (B, C, D) window: chunk-shaped
     r/k/v matmuls (K5 on packed leaves), the masked WKV sequence kernel
-    (K2, state snapped to the pool dtype every step), then the chunk-shaped
-    channel mix.  Matches scanning `block_decode` over the window with the
+    (K2, state snapped to the pool dtype every step; its LUT form when
+    `hw`), then the chunk-shaped channel mix, under the chunk numerics
+    `nm`.  Matches scanning `block_decode` over the window with the
     engine's per-step masked commits, for any per-slot PREFIX mask."""
     dt = x.dtype
     f32 = torch.float32
@@ -221,25 +330,29 @@ def block_prefill(lp, st, x, valid):
     # the valid prefix the carry freezes, as in the oracle's commits
     hx = shifted_prev(h.to(att_x.dtype), att_x, valid)
     mm = lambda a, w_: chunk_matmul(a, w_, dt)
-    mix = lambda m: h * p[m] + hx * (1.0 - p[m])
+    mix = lambda m: nm.act_q(h * p[m] + hx * (1.0 - p[m]))
     r = mm(mix("time_mix_r"), p["wr"])
     k = mm(mix("time_mix_k"), p["wk"])
     v = mm(mix("time_mix_v"), p["wv"])
     w = torch.exp(p["time_decay"].to(f32))
     carry = str(st["wkv_a"].dtype).replace("torch.", "")
+    tables = {}
+    if hw:
+        luts = _lut_operands(x.device)
+        tables = {"exp_table": luts["exp"], "div_table": luts["div"]}
     out, (af, bf, of) = wkv4_seq(
         k.to(f32), v.to(f32), w, p["time_first"].to(f32),
         st["wkv_a"].to(f32), st["wkv_b"].to(f32), st["wkv_o"].to(f32),
-        valid=valid, carry_dtype=carry)
-    att = mm(sigmoid(r) * out.to(r.dtype), p["wo"])
+        valid=valid, carry_dtype=carry, **tables)
+    att = mm(nm.act_q(nm.sigmoid(r) * out.to(r.dtype)), p["wo"])
     x2 = x + att.to(x.dtype)
     h2 = L.apply_norm(lp["ln2"], x2)
     p = lp["ffn"]
     h2x = shifted_prev(h2.to(ffn_x.dtype), ffn_x, valid)
-    mix2 = lambda m: h2 * p[m] + h2x * (1.0 - p[m])
-    rr = sigmoid(mm(mix2("time_mix_r"), p["wr"]))
+    mix2 = lambda m: nm.act_q(h2 * p[m] + h2x * (1.0 - p[m]))
+    rr = nm.sigmoid(mm(mix2("time_mix_r"), p["wr"]))
     kk = torch.square(torch.relu(mm(mix2("time_mix_k"), p["wk"])))
-    ffn = rr * mm(kk, p["wv"])
+    ffn = nm.act_q(rr * mm(nm.act_q(kk), p["wv"]))
     n_valid = valid.to(torch.int32).sum(dim=1)
     new_st = {"att_x": last_valid_select(h, att_x, n_valid),
               "ffn_x": last_valid_select(h2, ffn_x, n_valid),
@@ -251,11 +364,13 @@ def block_prefill(lp, st, x, valid):
 
 
 @exact_matmuls()
-def prefill_chunk(params, state, tokens, valid, pos, cfg: ModelConfig):
+def prefill_chunk(params, state, tokens, valid, pos, cfg: ModelConfig, *,
+                  hw: bool = False):
     """Chunked prefill: tokens (B, C) with a per-slot PREFIX validity mask
     (B, C) -> (new_state, last-valid logits (B, 1, V)).  Lanes with no
     valid token keep their state and return zero logits."""
     del pos
+    nm = _chunk_numerics(hw)
     dt = getattr(torch, cfg.dtype)
     params = cast_compute(params, dt)
     x = params["embed"][tokens.long()].to(dt)                 # (B, C, D)
@@ -264,7 +379,8 @@ def prefill_chunk(params, state, tokens, valid, pos, cfg: ModelConfig):
     new = []
     for i in range(cfg.n_layers):
         x, st = block_prefill(_layer(blocks, i),
-                              {k: state[k][i] for k in STATE_KEYS}, x, valid)
+                              {k: state[k][i] for k in STATE_KEYS}, x, valid,
+                              nm, hw=hw)
         new.append(st)
     n_valid = valid.to(torch.int32).sum(dim=1)
     xl = gather_last_valid(x, (n_valid - 1).clamp(min=0))[:, None]

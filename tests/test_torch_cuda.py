@@ -533,3 +533,182 @@ def test_engine_rwkv6_paths(cuda, path):
         solo = eng.submit(p, max_new_tokens=5)
         eng.run()
         assert solo.tokens == h.tokens
+
+
+# --- the paper's hardware numerics: K9, K2-hw, K5 f32-x, K3-hw, K4-hw ---
+#
+# K9 and K2-hw are bit for bit against their plain versions: their math is
+# IEEE operations rounded once each (hw_units.cuh), the powers of two are
+# built exactly, and no sum changes order.  K5 f32-x accumulates f32
+# products of f32 x and bf16-exact weights in another order than the plain
+# matmul: the f32 summation bound K·2^-24·(|x| @ |w|) per output.  K3-hw and
+# K4-hw hold the port_helpers rule (2^-5 max, 2^-8 mean): a LayerNorm sum
+# in another order can flip a bf16 rounding at the element that sets a
+# tensor's A9 scale, which then moves the whole tensor's codes.  Tiles are
+# bit for bit: a bb-lane tile of a launch equals a launch of those lanes
+# alone (each tile takes its own A9 scale), and K4-hw equals L K3-hw
+# launches.
+
+from repro_torch.core.approx.units import lut_tensor
+from repro_torch.kernels.expsig import (
+    exp_kernel, exp_kernel_plain, sigmoid_kernel, sigmoid_kernel_plain)
+from repro_torch.kernels.fused_prefill import dpot_w8_matmul_f32x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expsig(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = 8 * torch.randn((37, 1001), generator=g, device=cuda)
+    x[0, :8] = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), 1e-40,
+                             2.375, -5.0, 1e30], device=cuda)
+    x = x.to(dtype)
+    before = (exp_kernel.launches, sigmoid_kernel.launches)
+    e, s = exp_kernel(x), sigmoid_kernel(x)
+    torch.cuda.synchronize()
+    assert (exp_kernel.launches, sigmoid_kernel.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert e.dtype == s.dtype == dtype and e.shape == x.shape
+    assert torch.equal(e, exp_kernel_plain(x))
+    assert torch.equal(s, sigmoid_kernel_plain(x))
+    # a strided view is taken whole
+    assert torch.equal(exp_kernel(x.t()), exp_kernel_plain(x.t()))
+
+
+def _hw_tabs(cuda):
+    return {"exp_table": lut_tensor("exp", cuda),
+            "div_table": lut_tensor("div", cuda)}
+
+
+def test_wkv4_seq_hw(cuda):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    B, T, C = 4, 9, 160
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda)
+    bf = lambda t: t.to(torch.bfloat16).float()
+    args = (rn(B, T, C), rn(B, T, C), torch.exp(0.5 * rn(C)), 0.5 * rn(C),
+            bf(rn(B, C)), bf(rn(B, C).abs() + 0.5), bf(rn(B, C) - 1))
+    valid = torch.zeros((B, T), dtype=torch.bool, device=cuda)
+    for i, n in enumerate((T, 3, 0, 1)):
+        valid[i, :n] = True
+    kw = dict(valid=valid, carry_dtype="bfloat16", **_hw_tabs(cuda))
+    before = wkv4_seq.launches
+    y, fin = wkv4_seq(*args, **kw)
+    torch.cuda.synchronize()
+    assert wkv4_seq.launches == before + 1
+    y_p, fin_p = wkv4_seq_plain(*args, **kw)
+    for o, r in zip((y, *fin), (y_p, *fin_p)):
+        assert torch.equal(o, r)
+
+
+@pytest.mark.parametrize("M", [1, 8, 37, 128])
+def test_dpot_w8_matmul_f32x(cuda, M):
+    g = torch.Generator(device=cuda).manual_seed(13 + M)
+    K, N = 96, 203
+    q = dpot_quantize(torch.randn((K, N), generator=g, device=cuda),
+                      FORMAT_W8, axis=-1)
+    wq, scale = dpot_pack_int8(q), q.scale.reshape(-1)
+    x = torch.randn((M, K), generator=g, device=cuda)
+    before = (dpot_w8_matmul.launches, dpot_w8_matmul_f32x.launches)
+    out = dpot_w8_matmul_f32x(x, wq, scale)
+    torch.cuda.synchronize()
+    assert (dpot_w8_matmul.launches, dpot_w8_matmul_f32x.launches) == (
+        before[0], before[1] + 1)
+    assert out.dtype == torch.float32
+    w = unpack_leaf({"packed": wq, "scale": scale[None]})
+    ref = dpot_w8_matmul_plain(x, wq, scale)
+    bound = K * 2.0 ** -24 * (x.abs() @ w.float().abs())
+    assert bool(((out - ref).abs() <= bound).all())
+    eye = torch.eye(K, device=cuda)
+    assert torch.equal(dpot_w8_matmul_f32x(eye, wq, scale), w.float())
+    assert torch.equal(dpot_w8_matmul_f32x(x[:1], wq, scale), out[:1])
+    with pytest.raises(TypeError):
+        dpot_w8_matmul(x, wq, scale)
+
+
+def _close(out, ref):
+    d = (out.float() - ref.float()).abs()
+    assert float(d.max()) <= 2.0 ** -5 * float(ref.float().abs().max())
+    assert float(d.mean()) <= 2.0 ** -8 * float(ref.float().abs().mean())
+
+
+def _luts(cuda):
+    return {"exp": lut_tensor("exp", cuda), "div": lut_tensor("div", cuda)}
+
+
+@pytest.mark.parametrize("bb", [2, 4])
+def test_rwkv4_block_decode_hw(cuda, bb):
+    from repro_torch.models.rwkv4 import _hw_numerics_with_tables
+    model, lp = _layer0(cuda)
+    B, D = 4, model.cfg.d_model
+    st, x = _state(cuda, (B, D), 14)
+    luts = _luts(cuda)
+    before = rwkv4_block_decode.launches
+    x2, new = rwkv4_block_decode(lp, st, x, bb=bb, luts=luts)
+    torch.cuda.synchronize()
+    assert rwkv4_block_decode.launches == before + 1
+    nm = _hw_numerics_with_tables(luts["exp"], luts["div"])
+    x2_p, new_p = rwkv4_block_decode_plain(lp, st, x, nm, bb=bb)
+    _close(x2, x2_p)
+    for k in STATE_KEYS:
+        _close(new[k], new_p[k])
+    # each tile alone gives its lanes' bits
+    for i in range(0, B, bb):
+        one, one_st = rwkv4_block_decode(
+            lp, {k: v[i:i + bb] for k, v in st.items()}, x[i:i + bb],
+            luts=luts)
+        assert torch.equal(one, x2[i:i + bb])
+        assert all(torch.equal(one_st[k], new[k][i:i + bb])
+                   for k in STATE_KEYS)
+
+
+@pytest.mark.parametrize("bb", [2, 4])
+def test_model_decode_hw_equals_block_launches(cuda, bb):
+    model, packed = _packed(cuda, None)
+    stack = prepare_fused_model_params(packed, model.cfg, hw=True)["blocks"]
+    L, B, D = model.cfg.n_layers, 4, model.cfg.d_model
+    st, x = _state(cuda, (L, B, D), 15)
+    x4, new4 = rwkv4_model_decode(stack, st, x, bb=bb)
+    aux = [a[0] for a in stack.aux]
+    x3, new3 = x, []
+    for l in range(L):
+        lp = unfuse_layer({k: s[l] for k, s in stack.slabs.items()}, aux,
+                          stack.manifest, stack.tdef)
+        luts = lp.pop("_luts")
+        x3, s3 = rwkv4_block_decode(lp, {k: st[k][l] for k in STATE_KEYS},
+                                    x3, bb=bb, luts=luts)
+        new3.append(s3)
+    torch.cuda.synchronize()
+    assert torch.equal(x4, x3)
+    for k in STATE_KEYS:
+        assert torch.equal(new4[k], torch.stack([s[k] for s in new3]))
+    xp, newp = rwkv4_model_decode_plain(stack, st, x, bb=bb)
+    for o, r in [(x4, xp)] + [(new4[k], newp[k]) for k in STATE_KEYS]:
+        _close(o, r)
+
+
+def test_hw_paths_on_card(cuda):
+    """Prefill under hw launches K5, K5 f32-x, K2-hw and K9; the block and
+    model decode paths give the same logits bit for bit."""
+    from repro_torch.models import rwkv4
+    model, packed = _packed(cuda, None)
+    cfg = model.cfg
+    prep = model.prepare_fused_model_params(packed, hw=True)
+    B, C = 4, 6
+    g = torch.Generator(device=cuda).manual_seed(16)
+    toks = torch.randint(0, cfg.vocab, (B, C), generator=g, device=cuda,
+                         dtype=torch.int32)
+    valid = torch.zeros((B, C), dtype=torch.bool, device=cuda)
+    for i, n in enumerate((C, 3, 0, 1)):
+        valid[i, :n] = True
+    counters = (dpot_w8_matmul, dpot_w8_matmul_f32x, wkv4_seq,
+                sigmoid_kernel)
+    before = [c.launches for c in counters]
+    st = model.init_decode_state(B, 0, device=cuda)
+    st, lg = rwkv4.prefill_chunk(packed, st, toks, valid, 0, cfg, hw=True)
+    assert all(c.launches > b for c, b in zip(counters, before))
+    assert bool(torch.isfinite(lg.float()).all())
+    s1 = s2 = st
+    for j in range(4):
+        t = toks[:, j:j + 1]
+        l1, s1 = rwkv4.decode_step_fused(packed, s1, t, 0, cfg, hw=True)
+        l2, s2 = rwkv4.decode_step_fused_model(prep, s2, t, 0, cfg, hw=True)
+        assert torch.equal(l1, l2)
