@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card proof that the PyTorch/CUDA port serves RWKV-4 (exact and
-hardware numerics) and RWKV-6 through its kernels.
+hardware numerics), RWKV-6 and the dense transformer smollm-135m through
+its kernels.
 
     python3 chip_smoke.py            (from the root of a checkout, one GPU)
 
@@ -125,10 +126,33 @@ each prints its seconds and peak device memory (`phase_done` lines):
     planes decoded inside the loop), with TF_BOUNDS["rwkv6-*"]; the model
     path's logits must equal the block path's bit for bit.  The CPU plain
     pair is left out at 7B (~5 TFLOP on the host).
- 6. The `kernels` JSON line (fourteen entries: the nine kernels, then K9
-    and the hardware-numerics forms of K2, K5, K3 and K4), the card's
-    name and power limit, and the last line {"ok": true, "device":
-    {...}}.
+ 6. smollm-135m, the dense transformer, at full width and depth (L30
+    D576 H9 KVH3 hd64 F1536 V49152, RMSNorm, SwiGLU, RoPE, tied), bf16
+    weights drawn on the card from the seed:
+      flash_attention (K13)    (B, S, H, KVH, d) = (8, 2048, 9, 3, 64)
+                               causal bf16 (timed, SDPA beside it), S 512
+                               and 600 (ragged), non-causal S 1000, d 96
+                               (H 32 = KVH) and d 128 (H 24, KVH 8) at
+                               B 2, S 1024, f32 at S 700; the lse each time
+    Tolerance: bf16 outputs within one bf16 step (2^-7 |ref|), f32 within
+    2^-22 |ref|, each plus the f32 summation bound (Skv + d + 8)·2^-24·
+    (p @ |v|) / l of that output (`_attn_floor`): both sides compute in
+    f32 from the same inputs and sum in other orders.  Then:
+      prefill  build_prefill_step on use_flash_kernel=True at B 8, S 2048,
+               K13's counter set to 0 just before and read just after (it
+               must read 30, one launch a layer); its logits against the
+               plain-attention forward on the card and an f32 witness,
+               within PREFILL_BOUNDS (TF_BOUNDS' recipe); the step timed
+               beside the plain-attention step
+      decode   serve_legacy (8 lanes, 32 greedy steps through the KV
+               cache), then the K13 forward at B 8, S 512 against the
+               per-token decode_step chain over the same tokens, within
+               DECODE_SPREAD (1.25·√2) times the larger of the two
+               paths' gaps to the f32 witness, read in the run
+ 7. The `kernels` JSON line (fifteen entries: the nine kernels, then K9
+    and the hardware-numerics forms of K2, K5, K3 and K4, then K13), the
+    card's name and power limit, and the last line {"ok": true,
+    "device": {...}}.
 
 Weights are random, from a seed.  Imports nothing of JAX.
 """
@@ -220,6 +244,24 @@ K7B_MAX_REL, K7B_MEAN_REL = 0.0098, 0.00121
 # 1.25·√2 allow).  K3-hw (one layer) and the hw teacher-forced logits
 # keep K4's 1.25x.
 HW_SPREAD = 1.25 * 2 ** 0.5
+# smollm-135m's prefill logits (phase_prefill), the TF_BOUNDS recipe:
+# 1.25x what the plain-attention bf16 path read against the f32 witness
+# on an H100 (PERF.md §6, the first smollm-135m reading: mean 0.024553,
+# max 0.032391 of max|f32|, argmax agreement 0.93774, its disagreement
+# 1.25x), and for
+# the kernel path against the plain one, two bf16 paths each that far
+# from the witness, 1.25·√2x (the rwkv6 recipe).  Through 30 layers of
+# random weights every bf16 path sits ~2.5% from the witness and the two
+# paths ~2.3% from each other, so these catch a gross fault; K13 itself
+# is held per shape in phase_k13.
+PREFILL_BOUNDS = {"mean_rel_f32": 0.0307, "max_rel_f32": 0.0405,
+                  "argmax_f32": 0.922, "mean_rel_plain": 0.0434,
+                  "max_rel_plain": 0.0573}
+# the decode chain against the K13 forward (phase_decode): two bf16 paths
+# summing in other orders, each a bf16 noise distance from the f32
+# witness, so their gap may reach √2 times the larger of those distances
+# (the rwkv6 TF_BOUNDS' reasoning), with a quarter of headroom
+DECODE_SPREAD = 1.25 * 2 ** 0.5
 # the MIXED plane policy: W4 for att.wk and the head, VQ for ffn.wv, W8
 # elsewhere (tests/test_fused_decode.py), so every decode branch runs
 MIXED_OVERRIDES = ((r"\['att'\]\['wk'\]", "w4"),
@@ -1530,6 +1572,242 @@ def phase_teacher_forced6(engine, refs):
                              "the block path's")
 
 
+# ---------------------------------------------------------------------------
+# smollm-135m: the dense transformer's prefill through K13, and its decode
+# ---------------------------------------------------------------------------
+
+
+def _attn_floor(q, k, v, causal):
+    """The f32 summation bound of each K13 output: (Skv + d + 8)·2^-24
+    times (p @ |v|) / l, the most that summing the scores and p·v in
+    another order (and an exp a few ulps off) can move it; near a zero
+    output it passes any bound relative to that output (K5's rwkv6 floor,
+    for attention)."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    mag = flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                causal=causal)
+    return (k.shape[1] + q.shape[-1] + 8) * 2.0 ** -24 * mag
+
+
+def _attn_bound(B, Sq, Skv, H, KVH, d, causal, elem):
+    """K13's least time: q, k, v read and out written once; 4·d operations
+    for each (query, key) pair the mask keeps (two products), at the peak
+    of the inputs' type."""
+    nbytes = elem * (2 * B * Sq * H * d + 2 * B * Skv * KVH * d)
+    if causal:
+        pairs = sum(min(i + 1, Skv) for i in range(Sq))
+    else:
+        pairs = Sq * Skv
+    peak = PEAK_BF16_FLOPS if elem == 2 else PEAK_F32_FLOPS
+    return _bound(nbytes, 4.0 * d * pairs * B * H, peak)
+
+
+# K13's shapes: smollm-135m's prefill first (timed), then the routing
+# threshold, a ragged length, a full (non-causal) case, phi3's and
+# minitron's head layouts, and f32 with the lse
+K13_SHAPES = (
+    (8, 2048, 9, 3, 64, True, torch.bfloat16),
+    (8, 512, 9, 3, 64, True, torch.bfloat16),
+    (8, 600, 9, 3, 64, True, torch.bfloat16),
+    (2, 1000, 9, 3, 64, False, torch.bfloat16),
+    (2, 1024, 32, 32, 96, True, torch.bfloat16),
+    (2, 1024, 24, 8, 128, True, torch.bfloat16),
+    (2, 700, 9, 3, 64, True, torch.float32),
+)
+
+
+def phase_k13(flush):
+    """K13 against its plain version at every shape of K13_SHAPES: bf16
+    outputs within one bf16 step (|d| <= 2^-7 |ref|), f32 outputs within
+    2^-22 |ref|, each plus the f32 summation bound `_attn_floor`; the lse
+    within (Skv + d + 8)·2^-24·(1 + max|lse|).  Both sides compute in f32
+    from the same inputs and differ only in the order of their sums.
+    Timed at the first shape, with F.scaled_dot_product_attention
+    (is_causal, enable_gqa) as the library yardstick, which the port never
+    calls."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    rows = []
+    for i, (B, S, H, KVH, d, causal, dt) in enumerate(K13_SHAPES):
+        g = torch.Generator(device=DEV).manual_seed(SEED + 40 + i)
+        rn = lambda *s: torch.randn(s, generator=g, device=DEV).to(dt)
+        q, k, v = rn(B, S, H, d), rn(B, S, KVH, d), rn(B, S, KVH, d)
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        ref, lse_p = flash_attention_plain(q, k, v, causal=causal,
+                                           return_lse=True)
+        rel = 2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -22
+        dd = (out.float() - ref.float()).abs()
+        if not bool((dd <= rel * ref.float().abs()
+                     + _attn_floor(q, k, v, causal)).all()):
+            raise AssertionError(f"K13 {K13_SHAPES[i]}: max |d| "
+                                 f"{float(dd.max())}")
+        dl = float((lse - lse_p).abs().max())
+        if dl > (S + d + 8) * 2.0 ** -24 * (1.0 + float(lse_p.abs().max())):
+            raise AssertionError(f"K13 {K13_SHAPES[i]}: lse max |d| {dl}")
+        elem = 2 if dt == torch.bfloat16 else 4
+        bms, by = _attn_bound(B, S, S, H, KVH, d, causal, elem)
+        row = {"kernel": "flash_attention", "B": B, "S": S, "H": H,
+               "KVH": KVH, "d": d, "causal": causal, "dtype": str(dt),
+               "max_abs_err": float(dd.max()), "lse_max_abs_err": dl,
+               "bound_ms": bms, "bound_by": by}
+        if i == 0:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            row.update(
+                kernel_ms=_time_ms(
+                    lambda: flash_attention(q, k, v, causal=causal), flush),
+                plain_ms=_time_ms(lambda: flash_attention_plain(
+                    q, k, v, causal=causal), flush),
+                library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True), flush))
+        _line(row)
+        rows.append(row)
+        del q, k, v, out, ref, lse, lse_p, dd
+    return rows
+
+
+def _smollm(use_flash_kernel, dtype="bfloat16"):
+    from repro_torch.models.registry import get_model
+    cfg = get_model("smollm-135m").cfg
+    return get_model(dataclasses.replace(
+        cfg, use_flash_kernel=use_flash_kernel, dtype=dtype))
+
+
+def _logits_gaps(out, ref):
+    """_gap over (B, S, V) logits, with the scale each is relative to."""
+    out, ref = out.float(), ref.float()
+    gaps = _gap(out, ref)
+    gaps["max_rel"] = gaps["max_abs"] / float(ref.abs().max())
+    return gaps
+
+
+def phase_prefill(params):
+    """smollm-135m's prefill step at full width and depth (L30 D576 H9
+    KVH3 hd64 F1536 V49152), B = 8, S = 2048, through K13: the step from
+    `build_prefill_step` on a model with use_flash_kernel, K13's counter
+    set to 0 just before the step and read just after (it must read 30,
+    one launch a layer).  Its logits are held against the same forward
+    with the plain attention on the card and against an f32 witness of
+    the same model (the bf16 weights widened exactly, f32 activations and
+    products, the plain attention) within PREFILL_BOUNDS.  Then the step
+    is timed, with the plain-attention step beside it."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.core.quant.serving import cast_compute
+    B, S = 8, 2048
+    flash, plain = _smollm(True), _smollm(False)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 50)
+    toks = torch.randint(0, flash.cfg.vocab, (B, S), generator=g,
+                         device=DEV)
+    step, plain_step = build_prefill_step(flash), build_prefill_step(plain)
+    batch = {"tokens": toks}
+    with torch.inference_mode():
+        flash_attention.launches = 0
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        launches = flash_attention.launches
+        if launches != flash.cfg.n_layers:
+            raise AssertionError(f"K13 launched {launches} times in the "
+                                 f"prefill step, not {flash.cfg.n_layers}")
+        if logits.shape != (B, S, flash.cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError("prefill logits: bad shape or not finite")
+        ref = plain_step(params, batch)
+        witness = build_prefill_step(_smollm(False, "float32"))(
+            cast_compute(params, torch.float32), batch)
+        gaps = {"kernel_vs_f32": _logits_gaps(logits, witness),
+                "plain_vs_f32": _logits_gaps(ref, witness),
+                "kernel_vs_plain": _logits_gaps(logits, ref)}
+        del ref, witness
+        times = {}
+        for name, fn in (("plain", plain_step), ("k13", step),
+                         ("k13_2", step), ("plain_2", plain_step)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(params, batch)
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0) * 1e3
+    tb = PREFILL_BOUNDS
+    kf, kp = gaps["kernel_vs_f32"], gaps["kernel_vs_plain"]
+    ok = (kf["mean_rel"] <= tb["mean_rel_f32"]
+          and kf["max_rel"] <= tb["max_rel_f32"]
+          and kf["argmax_agree"] >= tb["argmax_f32"]
+          and kp["mean_rel"] <= tb["mean_rel_plain"]
+          and kp["max_rel"] <= tb["max_rel_plain"])
+    step_ms = (times["k13"] + times["k13_2"]) / 2
+    row = {"phase": "prefill", "arch": "smollm-135m", "B": B, "S": S,
+           "k13_launches": launches, "gaps": gaps, "bounds": tb,
+           "within_bound": ok, "step_ms": times,
+           "prefill_tokens_per_s": B * S / (step_ms / 1e3)}
+    _line(row)
+    if not ok:
+        raise AssertionError(f"prefill logits out of bounds: {gaps}")
+    return {"smollm-prefill": {"flash_attention": launches}}
+
+
+def phase_decode(params):
+    """The dense transformer's KV-cache decode: `serve_legacy` at full
+    width and depth (8 seeded first tokens, 32 greedy steps, a cache of
+    40 positions; no kernel, it prints its tokens/s), then the slice's
+    consistency check at B = 8, S = 512: the K13 forward's logits against
+    the per-token `decode_step` chain over the same 512 tokens (the plain
+    attention against the cache, written in place).  Both are bf16 paths
+    that sum in other orders, so the chain is held within DECODE_SPREAD
+    (1.25·√2) times the larger of the two paths' own gaps to an f32
+    witness of the same model on the same tokens, read in the run."""
+    from repro_torch.core.quant.serving import cast_compute
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import serve_legacy
+    t0 = time.perf_counter()
+    toks = serve_legacy("smollm-135m", smoke=False, batch=8, n_tokens=32,
+                        seed=SEED, device=DEV)
+    legacy_s = time.perf_counter() - t0
+    V = _smollm(False).cfg.vocab
+    if toks.shape != (8, 33) or int(toks.min()) < 0 or int(toks.max()) >= V:
+        raise AssertionError(f"serve_legacy tokens {tuple(toks.shape)}")
+    B, S = 8, 512
+    flash = _smollm(True)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 51)
+    seq = torch.randint(0, V, (B, S), generator=g, device=DEV)
+    with torch.inference_mode():
+        before = flash_attention.launches
+        fwd = flash.forward(params, {"tokens": seq})[0]
+        if flash_attention.launches != before + flash.cfg.n_layers:
+            raise AssertionError("the S = 512 forward did not run K13 in "
+                                 "every layer")
+        witness = _smollm(False, "float32").forward(
+            cast_compute(params, torch.float32), {"tokens": seq})[0]
+        state = flash.init_decode_state(B, S, device=DEV)
+        steps = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(S):
+            lg, state = flash.decode_step(params, state, seq[:, t:t + 1], t)
+            steps.append(lg[:, 0])
+        torch.cuda.synchronize()
+        chain_s = time.perf_counter() - t0
+        chain = torch.stack(steps, dim=1)
+        gaps = {"chain_vs_forward": _logits_gaps(chain, fwd),
+                "chain_vs_f32": _logits_gaps(chain, witness),
+                "forward_vs_f32": _logits_gaps(fwd, witness)}
+    spread = max(gaps["chain_vs_f32"]["mean_rel"],
+                 gaps["forward_vs_f32"]["mean_rel"])
+    spread_max = max(gaps["chain_vs_f32"]["max_rel"],
+                     gaps["forward_vs_f32"]["max_rel"])
+    cf = gaps["chain_vs_forward"]
+    ok = (cf["mean_rel"] <= DECODE_SPREAD * spread
+          and cf["max_rel"] <= DECODE_SPREAD * spread_max)
+    _line({"phase": "decode", "arch": "smollm-135m",
+           "serve_legacy": {"batch": 8, "new_tokens": 32,
+                            "seconds_with_init": legacy_s},
+           "chain": {"B": B, "S": S, "seconds": chain_s,
+                     "tokens_per_s": B * S / chain_s},
+           "gaps": gaps, "bound_factor": DECODE_SPREAD, "within_bound": ok})
+    if not ok:
+        raise AssertionError(f"decode chain vs forward out of bounds: "
+                             f"{gaps}")
+
+
 def _kernel_row(name, source, replaces, rows, launches, note=None):
     """One entry of the `kernels` line from a kernel's phase rows: times
     and bounds summed over the shapes, one call each."""
@@ -1545,7 +1823,8 @@ def _kernel_row(name, source, replaces, rows, launches, note=None):
            "library_ms": None if rows[0]["library_ms"] is None
            else sum(r["library_ms"] for r in rows),
            "shapes": [[r[k] for k in ("M", "K", "N", "L", "B", "T", "C", "D",
-                                      "F", "H") if k in r] for r in rows]}
+                                      "F", "H", "S", "KVH", "d") if k in r]
+                      for r in rows]}
     if note:
         row["note"] = note
     return row
@@ -1660,6 +1939,18 @@ def main() -> int:
     del eng6
     _release()
 
+    # smollm-135m at full width and depth: K13, the prefill step through
+    # it, and the KV-cache decode
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    k13 = _timed("K13", phase_k13, flush)
+    del flush
+    smollm = _smollm(False)
+    params = smollm.cast_params(smollm.init_params(SEED, DEV))
+    by_path.update(_timed("prefill smollm-135m", phase_prefill, params))
+    _timed("decode smollm-135m", phase_decode, params)
+    del params
+    _release()
+
     def launches(name, main_path):
         return {"main": by_path[main_path][name],
                 "by_path": {p: n.get(name, 0) for p, n in by_path.items()}}
@@ -1736,6 +2027,13 @@ def main() -> int:
                     "src/repro/kernels/fused_decode.py:182", [k4h],
                     launches("rwkv4_model_decode", "hw-model"),
                     "K4 with the _luts operands"),
+        _kernel_row("flash_attention",
+                    "src/repro_torch/csrc/flash_attention.cu",
+                    "src/repro/kernels/flash_attention.py:306", k13[:1],
+                    launches("flash_attention", "smollm-prefill"),
+                    "K13 forward, timed at smollm-135m's prefill (B8 S2048 "
+                    "H9 KVH3 d64, causal, bf16); the other shapes are "
+                    "checked only (their lines above)"),
     ]
     _line({"phase_done": "all", "seconds": time.perf_counter() - t_start})
     _line({"kernels": kernels})

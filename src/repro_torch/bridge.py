@@ -4,7 +4,9 @@ The caller turns a JAX parameter or state tree into numpy first
 (`jax.tree_util.tree_map(np.asarray, tree)`); this module takes it from
 there, so it imports no JAX.  Nested dicts keep their keys, so the plane
 leaves — `{"packed", "scale"}`, `{"packed4", "scale"}` and
-`{"vq_idx", "codebook"}` — stay intact.
+`{"vq_idx", "codebook"}` — stay intact, and so do the stacked layer axes:
+the dense transformer's `blocks.dense` leaves keep their leading
+(n_layers, 1, ...) pair, the layout `models/transformer.py` reads.
 
 JAX bf16 arrays come out of `np.asarray` as `ml_dtypes.bfloat16`, which
 `torch.from_numpy` refuses: they travel as their raw bits, a uint16 view

@@ -1,4 +1,7 @@
-"""Model configurations (the rwkv4 family) for the port."""
-from repro_torch.configs.base import ModelConfig, get_config, smoke_config
+"""Model configurations (rwkv4, rwkv6 and the dense transformers) for the
+port."""
+from repro_torch.configs.base import (
+    SHAPES, ModelConfig, ShapeConfig, get_config, smoke_config)
 
-__all__ = ["ModelConfig", "get_config", "smoke_config"]
+__all__ = ["SHAPES", "ModelConfig", "ShapeConfig", "get_config",
+           "smoke_config"]

@@ -7,13 +7,13 @@ Port of `repro/configs/rwkv6_7b.py`: the fields the port reads.
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
-    name="rwkv6-7b", n_layers=32, d_model=4096, d_ff=14336, vocab=65536,
-    rwkv_version=6, n_heads=64, rwkv_head_dim=64,
+    name="rwkv6-7b", family="ssm", n_layers=32, d_model=4096, d_ff=14336,
+    vocab=65536, rwkv_version=6, n_heads=64, rwkv_head_dim=64,
 )
 
 SMOKE = ModelConfig(
-    name="rwkv6-smoke", n_layers=2, d_model=64, d_ff=128, vocab=256,
-    rwkv_version=6, n_heads=4, rwkv_head_dim=16,
+    name="rwkv6-smoke", family="ssm", n_layers=2, d_model=64, d_ff=128,
+    vocab=256, rwkv_version=6, n_heads=4, rwkv_head_dim=16,
 )
 
 

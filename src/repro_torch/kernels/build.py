@@ -31,6 +31,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _PP, _PI = ctypes.POINTER(_P), ctypes.POINTER(_I)
 _LL = ctypes.c_longlong
 _PL = ctypes.POINTER(_LL)
+_F = ctypes.c_float
 
 # C entry points: argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
@@ -47,6 +48,7 @@ SIGNATURES = {
     "rwkv6_model_decode": [_PP, _I, _PL, _I] + [_I] * 7 + [_P],
     "rwkv6_block_decode_grid": [_PI, _PI],
     "rwkv6_model_decode_grid": [_PI, _PI],
+    "flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F, _P],
 }
 
 

@@ -3,8 +3,9 @@
     python -m repro_torch.launch.serve --arch {rwkv4-169m,rwkv6-7b} \
         --quantized --fused {block,model} --fused-prefill [--batch 8] \
         [--tokens 32] [--smoke] [--device cuda|cpu]
-    python -m repro_torch.launch.serve --legacy [--hw-numerics] [--smoke] \
-        [--batch 4] [--tokens 32] [--device cuda|cpu]
+    python -m repro_torch.launch.serve --legacy [--arch smollm-135m] \
+        [--hw-numerics] [--smoke] [--batch 4] [--tokens 32] \
+        [--device cuda|cpu]
 
 `--fused block` decodes through one kernel launch per layer (K3 for
 rwkv4, K7-block for rwkv6), `--fused model` through one launch for all
@@ -18,10 +19,13 @@ defaults to "cuda" and raises without a GPU.
 
 `--legacy` is the seed's serving mode (`serve_legacy`): one fixed batch
 of random first tokens, the per-op `decode_step` in a host loop
-(`greedy_decode`).  `--hw-numerics` (rwkv4 only; implies `--legacy`)
-runs that loop under the paper's hardware numerics, which the engine does
-not serve: their A9 scale spans the batch, so a lane's bits depend on its
-batchmates.
+(`greedy_decode`).  It is the one mode of the dense transformers
+(`--arch smollm-135m`, `phi3-mini-3.8b`, `minitron-4b`): their decode
+step writes a KV cache (sized tokens + 8) at its position, which the
+slotted engine does not serve.  `--hw-numerics` (rwkv4 only; implies
+`--legacy`) runs that loop under the paper's hardware numerics, which the
+engine does not serve: their A9 scale spans the batch, so a lane's bits
+depend on its batchmates.
 """
 from __future__ import annotations
 

@@ -80,3 +80,11 @@ def init_params(spec, seed: int, device="cuda", dtype=torch.float32, *,
             return t if leaf_fn is None else leaf_fn(path, t)
         return {k: walk(node[k], path + (k,)) for k in sorted(node)}
     return walk(spec, ())
+
+
+def abstract_params(spec, dtype=torch.float32):
+    """The spec tree as meta tensors: the shapes and dtype, no storage
+    (the analogue of JAX's ShapeDtypeStruct tree)."""
+    if isinstance(spec, P):
+        return torch.empty(spec.shape, dtype=dtype, device="meta")
+    return {k: abstract_params(v, dtype) for k, v in spec.items()}

@@ -1,9 +1,10 @@
-"""Model registry (port of `repro/models/registry.py`, the rwkv4 family
-and rwkv6-7b).
+"""Model registry (port of `repro/models/registry.py`: the rwkv4 family,
+rwkv6-7b and the dense transformers).
 
 `get_model(arch)` returns a `Model` handle bundling the model module
-(rwkv4 or rwkv6) with its config.  The serving paths are rows of the `DECODE_PATHS` /
-`PREFILL_PATHS` tables: a path exists iff the module ships its entry.
+(rwkv4, rwkv6 or transformer) with its config.  The serving paths are
+rows of the `DECODE_PATHS` / `PREFILL_PATHS` tables: a path exists iff
+the module ships its entry.
 """
 from __future__ import annotations
 
@@ -59,8 +60,12 @@ def _module_for(cfg: ModelConfig) -> ModuleType:
     if cfg.rwkv_version == 6:
         from repro_torch.models import rwkv6
         return rwkv6
+    if cfg.family == "dense":
+        from repro_torch.models import transformer
+        return transformer
     raise NotImplementedError(
-        f"{cfg.name}: only the rwkv4 family and rwkv6 are ported so far")
+        f"{cfg.name}: family {cfg.family!r} is not ported yet (the rwkv4 "
+        "family, rwkv6 and the dense transformers are)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,9 +84,24 @@ class Model:
         return PM.init_params(self.spec(), seed, device, dtype,
                               leaf_fn=leaf_fn)
 
+    def abstract_params(self, dtype=torch.float32):
+        """The parameter tree as meta tensors (shapes and dtype only)."""
+        return PM.abstract_params(self.spec(), dtype)
+
     def cast_params(self, params):
         """Master params -> compute dtype (packed leaves pass through)."""
         return cast_compute(params, getattr(torch, self.cfg.dtype))
+
+    # -- compute -----------------------------------------------------------
+    def forward(self, params, batch):
+        """(logits over the whole sequence, aux) on the compute-dtype cast
+        of `params`; the dense transformer's prefill step."""
+        if not hasattr(self.module, "forward"):
+            raise NotImplementedError(
+                f"{self.cfg.name}: forward waits for the training slice "
+                "(ROADMAP Queue 1 item 8)")
+        return self.module.forward(self.cast_params(params), batch,
+                                   self.cfg)
 
     # -- serving paths -----------------------------------------------------
     def decode_paths(self) -> dict[str, PathDescriptor]:

@@ -50,6 +50,7 @@ from repro_torch.kernels.fused_prefill import (
     chunk_matmul, gather_last_valid, last_valid_select, shifted_prev)
 from repro_torch.kernels.wkv4 import wkv4_seq
 from repro_torch.models import layers as L
+from repro_torch.models.layers import sigmoid
 from repro_torch.models.param import P, stack
 
 # decode_step ignores `pos`, so slots in a serving pool may sit at
@@ -107,14 +108,6 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int = 0,
 def decode_state_axes(cfg: ModelConfig):
     ax = ("layers", "batch", None)
     return {k: ax for k in STATE_KEYS}
-
-
-def sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """σ(x) = 1 / (1 + exp(-x)), each op rounded in x's dtype: how XLA
-    expands `jax.nn.sigmoid` (lax.logistic) for bf16, so the port rounds
-    where the JAX reference does (`torch.sigmoid` rounds once, and
-    differs from it in about a third of bf16 outputs)."""
-    return torch.reciprocal(1.0 + torch.exp(-x))
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,7 @@ Entry points, all on (B, ...) tensors with the JAX tree paths:
 Eager torch rounds every bf16 op, the rounding rule `exact_jit` pins for
 JAX, so the plain path follows the JAX trace op for op.  Two places need
 care: `jnp.var` is the biased variance, and `jax.nn.silu` is x·σ(x) with
-σ in XLA's bf16 expansion (`rwkv4.sigmoid`), which `F.silu` is not.
+σ in XLA's bf16 expansion (`layers.sigmoid`), which `F.silu` is not.
 """
 from __future__ import annotations
 
@@ -39,7 +39,8 @@ from repro_torch.kernels.fused_prefill import (
 from repro_torch.kernels.wkv6 import wkv6_seq
 from repro_torch.models import layers as L
 from repro_torch.models.param import P, stack
-from repro_torch.models.rwkv4 import _layer, sigmoid
+from repro_torch.models.layers import sigmoid, silu
+from repro_torch.models.rwkv4 import _layer
 
 MAA_RANK = 32   # low-rank dims of the data-dependent mixes (HF config: 32)
 TD_RANK = 64    # low-rank dim of the data-dependent decay
@@ -112,12 +113,6 @@ def decode_state_axes(cfg: ModelConfig):
     return {"att_x": ("layers", "batch", None),
             "ffn_x": ("layers", "batch", None),
             "wkv_s": ("layers", "batch", "tp", None, None)}
-
-
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """x·σ(x) with σ in XLA's bf16 expansion: `jax.nn.silu` on bf16, each
-    op rounded (F.silu rounds once and differs in ~40% of outputs)."""
-    return x * sigmoid(x)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,9 @@ layers of them, and a flip in one layer moves every later one, so it
 holds to the rule of the port's CPU tests (tests/port_helpers.py):
 max|d| <= 2^-5 max|ref| and mean|d| <= 2^-8 mean|ref|.  Batch invariance,
 the W4 and VQ decodes against unpack_leaf, and K4 against L launches of
-K3 are bit for bit.
+K3 are bit for bit.  K13 (flash attention) holds to one bf16 step (2^-22
+relative for f32) plus the f32 summation bound of each output, (Skv + d +
+8)·2^-24·(p @ |v|) / l (`_attn_floor`).
 """
 import numpy as np
 import pytest
@@ -712,3 +714,75 @@ def test_hw_paths_on_card(cuda):
         l1, s1 = rwkv4.decode_step_fused(packed, s1, t, 0, cfg, hw=True)
         l2, s2 = rwkv4.decode_step_fused_model(prep, s2, t, 0, cfg, hw=True)
         assert torch.equal(l1, l2)
+
+
+# --- K13: flash attention forward ----------------------------------------
+
+
+def _attn_floor(q, k, v, causal):
+    """The f32 summation bound of each output: (Skv + d + 8)·2^-24 times
+    (p @ |v|) / l, the most that summing the scores and p·v in another
+    order (and an exp a few ulps off) can move it, which near a zero output
+    passes any bound relative to that output."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    Skv, d = k.shape[1], q.shape[-1]
+    mag = flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                causal=causal)
+    return (Skv + d + 8) * 2.0 ** -24 * mag
+
+
+def _attn_ok(out, ref, floor):
+    """bf16 outputs within one bf16 step plus the floor, f32 outputs within
+    2^-22 relative plus the floor."""
+    rel = 2.0 ** -7 if out.dtype == torch.bfloat16 else 2.0 ** -22
+    d = (out.float() - ref.float()).abs()
+    assert bool((d <= rel * ref.float().abs() + floor).all()), float(d.max())
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KVH,d,causal,dtype", [
+    (1, 512, 512, 9, 3, 64, True, torch.bfloat16),     # smollm's heads
+    (2, 200, 200, 9, 3, 64, True, torch.bfloat16),     # ragged tiles
+    (1, 130, 130, 4, 4, 96, False, torch.float32),     # MHA, hd 96
+    (1, 70, 150, 8, 2, 128, True, torch.bfloat16),     # Sq != Skv, hd 128
+    (3, 1, 33, 6, 2, 24, True, torch.float32),         # one query row
+])
+def test_flash_attention(cuda, B, Sq, Skv, H, KVH, d, causal, dtype):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    g = torch.Generator(device=cuda).manual_seed(Sq + d)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
+    q, k, v = rn(B, Sq, H, d), rn(B, Skv, KVH, d), rn(B, Skv, KVH, d)
+    before = flash_attention.launches
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref, lse_p = flash_attention_plain(q, k, v, causal=causal,
+                                       return_lse=True)
+    _attn_ok(out, ref, _attn_floor(q, k, v, causal))
+    dl = (lse - lse_p).abs()
+    assert float(dl.max()) <= (Skv + d + 8) * 2.0 ** -24 * (
+        1.0 + float(lse_p.abs().max()))
+    assert torch.equal(flash_attention(q, k, v, causal=causal), out)
+
+
+def test_flash_attention_refusals(cuda):
+    """On the card the wrapper raises on what the kernel does not take:
+    fp16, mixed devices, a head count that is not a multiple of the kv
+    heads, a head dim past 128."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    z = lambda *s, dt=torch.bfloat16, dev=cuda: torch.zeros(
+        s, dtype=dt, device=dev)
+    before = flash_attention.launches
+    with pytest.raises(TypeError):
+        flash_attention(z(1, 8, 2, 16, dt=torch.float16),
+                        z(1, 8, 2, 16, dt=torch.float16),
+                        z(1, 8, 2, 16, dt=torch.float16))
+    with pytest.raises(ValueError, match="devices"):
+        flash_attention(z(1, 8, 2, 16), z(1, 8, 2, 16, dev="cpu"),
+                        z(1, 8, 2, 16))
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(z(1, 8, 6, 16), z(1, 8, 4, 16), z(1, 8, 4, 16))
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(z(1, 8, 2, 192), z(1, 8, 2, 192), z(1, 8, 2, 192))
+    assert flash_attention.launches == before
