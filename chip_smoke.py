@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card proof that the PyTorch/CUDA port serves RWKV-4 (exact and
-hardware numerics), RWKV-6 and the dense transformer smollm-135m through
-its kernels.
+hardware numerics), RWKV-6 and the dense transformer smollm-135m, and
+trains smollm-135m, through its kernels.
 
     python3 chip_smoke.py            (from the root of a checkout, one GPU)
 
@@ -106,9 +106,12 @@ each prints its seconds and peak device memory (`phase_done` lines):
                                (4096, 14336), (14336, 4096), (4096, 65536)}
       wkv6_seq (K6)            (B, T, H, N) = (8, 16, 64, 64), prefix
                                masks, the bf16 pool state in, bf16 carry
-      rwkv6_block_decode (K7)  B = 8, layer 0; a lane alone bit for bit
+      rwkv6_block_decode (K7)  B = 8, layer 0; a lane alone bit for bit;
+                               B = 16 (two 8-lane tiles) bit for bit
+                               equal to two 8-lane calls
       rwkv6_model_decode (K7)  B = 8, all 32 layers of the prepared slabs;
-                               bit for bit equal to 32 K7-block launches
+                               bit for bit equal to 32 K7-block launches;
+                               B = 16 as K7-block
     Tolerances: K5 elementwise as above, its floor the f32 summation bound
     K·2^-24·(|x| @ |w|) (at K = 4096 the order alone moves near-zero
     outputs past 2^-20 max|ref|); K6's final state bit for bit (its update
@@ -149,10 +152,36 @@ each prints its seconds and peak device memory (`phase_done` lines):
                per-token decode_step chain over the same tokens, within
                DECODE_SPREAD (1.25·√2) times the larger of the two
                paths' gaps to the f32 witness, read in the run
- 7. The `kernels` JSON line (fifteen entries: the nine kernels, then K9
-    and the hardware-numerics forms of K2, K5, K3 and K4, then K13), the
-    card's name and power limit, and the last line {"ok": true,
-    "device": {...}}.
+ 7. smollm-135m's training at full width and depth:
+      flash_attention_dq       K13_BWD_SHAPES: the train shape (B8 S2048
+      (K13-dq),                H9 KVH3 d64, causal, bf16; timed, with the
+      flash_attention_dkv      plain backward and SDPA's backward less its
+      (K13-dkv)                forward beside it, and run twice: bit for
+                               bit), test_torch_flash.py's shapes in f32,
+                               phi3's d 96 (B2 S1024 H32) in bf16
+    Tolerance (`_bwd_bounds`): one step of the output's type plus the f32
+    summation floor (rep·Sq + Skv + d + 8)·2^-24 times the magnitude of
+    what each output sums, ds's own error carried through; for bf16 dk and
+    dv also rep·2^-8 times the group's per-head magnitudes, since the
+    plain version rounds each query head and adds the group in bf16, as
+    JAX does, where the kernel sums the group in f32 and rounds once.
+    Then:
+      train    step 0 through `loss_and_grads` at B 8, S 2048 (SyntheticLM
+               tokens, f32 master weights from the seed, remat): K13's
+               counters set to 0 just before and read just after (60
+               forward, the forward and its recompute, 30 dq, 30 dkv);
+               its loss and gradients per leaf against the plain-attention
+               step and an f32 witness within TRAIN_BOUNDS (1.25x, and
+               1.25·√2x, the plain path's first reading against the
+               witness: TF_BOUNDS' recipe); one plain-attention
+               step timed; then `train_model` for 3 AdamW steps, the
+               counters again (3 x 60, 30, 30), finite losses, each step's
+               ms, tokens/s and the peak device memory beside the step's
+               operations bound (`_train_ops`, ~23.1 TFLOP)
+ 8. The `kernels` JSON line (seventeen entries: the nine kernels, then K9
+    and the hardware-numerics forms of K2, K5, K3 and K4, then K13, K13-dq
+    and K13-dkv), the card's name and power limit, and the last line
+    {"ok": true, "device": {...}}.
 
 Weights are random, from a seed.  Imports nothing of JAX.
 """
@@ -1325,6 +1354,29 @@ def _worst(per_layer, who):
             for name in ("x",) + STATE6}
 
 
+def _k7_sixteen(call, wrapper, cfg, lead, what):
+    """K7 at B = 16 (two 8-lane tiles, two launches) against two 8-lane
+    calls on the same lanes, bit for bit: a lane's bits do not depend on
+    its tile.  `lead` is the state's leading (layer) dims."""
+    st, x = _state6(cfg, lead + (16,), SEED + 11)
+    before = wrapper.launches
+    xo, so = call(st, x)
+    if wrapper.launches != before + 2:
+        raise AssertionError(f"{what} at B = 16 launched "
+                             f"{wrapper.launches - before} times, not 2")
+    ax = len(lead)
+    for i in (0, 8):
+        xt, stt = call({k: v.narrow(ax, i, 8) for k, v in st.items()},
+                       x[i:i + 8])
+        if not (torch.equal(xt, xo[i:i + 8]) and all(
+                torch.equal(stt[k], so[k].narrow(ax, i, 8))
+                for k in STATE6)):
+            raise AssertionError(f"{what} at B = 16: lanes {i}-{i + 7} "
+                                 "differ from an 8-lane call")
+    _line({"kernel": wrapper.__name__, "B": 16, "tiles": 2,
+           "equals_two_8_lane_calls": True})
+
+
 def phase_k7_block(engine, flush, usage):
     """K7-block on layer 0 of the engine's rwkv6-7b W8 tree at B = 8,
     against its plain version within K7B_* per output (the plain version
@@ -1355,6 +1407,8 @@ def phase_k7_block(engine, flush, usage):
     if not (torch.equal(one[0][0], out[0][5]) and all(
             torch.equal(one[1][k][0], out[1][k][5]) for k in STATE6)):
         raise AssertionError("K7-block: a lane alone differs from the batch")
+    _k7_sixteen(lambda s, xx: rwkv6_block_decode(lp, s, xx, cfg),
+                rwkv6_block_decode, cfg, (), "K7-block")
     # the layer's own tensors (codes, scales, vectors), x in and out, the
     # state in and out
     w_bytes = sum(t.numel() * t.element_size()
@@ -1426,6 +1480,8 @@ def phase_k7_model(engine, flush, usage):
             torch.equal(newm[k], torch.stack([s[k] for s in newb]))
             for k in STATE6)):
         raise AssertionError(f"K7-model differs from {L} K7-block launches")
+    _k7_sixteen(lambda s, xx: rwkv6_model_decode(stack, s, xx, cfg),
+                rwkv6_model_decode, cfg, (L,), "K7-model")
     ref = rwkv6_model_decode_plain(stack, st, x, cfg)
     cpu = lambda t: t.cpu()
     on_cpu = rwkv6_model_decode_plain(
@@ -1808,6 +1864,302 @@ def phase_decode(params):
                              f"{gaps}")
 
 
+# K13's backward: test_torch_flash.py's shapes (f32), phi3's d = 96 and
+# smollm-135m's train shape (timed), both bf16
+K13_BWD_SHAPES = (
+    (8, 2048, 9, 3, 64, True, torch.bfloat16),
+    (2, 64, 4, 4, 32, True, torch.float32),
+    (1, 128, 4, 2, 64, True, torch.float32),
+    (2, 32, 2, 2, 16, False, torch.float32),
+    (1, 256, 8, 1, 64, True, torch.float32),
+    (1, 96, 9, 3, 64, True, torch.float32),
+    (1, 48, 4, 4, 96, True, torch.float32),
+    (2, 1024, 32, 32, 96, True, torch.bfloat16),
+)
+
+
+def _bwd_bounds(q, k, v, o, lse, do, causal, ref):
+    """Per output of (dq, dk, dv), the bound on |kernel - plain|: one step
+    of the output's type (2^-7 |ref| for bf16, 2^-22 for f32) plus the f32
+    summation floor (rep·Sq + Skv + d + 8)·2^-24 times the magnitude of the
+    terms each output sums (ds's own error carried through: p·(|do|@|v|ᵀ
+    + |D| + |dp - D|·(scale·|q|@|k|ᵀ + 1))), and, for bf16 dk and dv, the
+    plain version's rep per-head roundings and rep - 1 bf16 adds (JAX's
+    order), rep·2^-8 times the sum of the per-head magnitudes
+    (tests/test_torch_cuda.py holds the kernels to the same bound)."""
+    import math
+    from repro_torch.device import exact_matmuls
+    B, Sq, H, d = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    rep, scale = H // KVH, 1.0 / math.sqrt(d)
+    F = (rep * Sq + Skv + d + 8) * 2.0 ** -24
+    group = lambda t: t.reshape(B, Skv, KVH, rep, d).sum(dim=3)
+    with exact_matmuls():
+        q32, do32 = q.float(), do.float()
+        k32 = k.float().repeat_interleave(rep, dim=2)
+        v32 = v.float().repeat_interleave(rep, dim=2)
+        e = torch.einsum
+        s = e("bqhd,bkhd->bhqk", q32 * scale, k32)
+        keep = torch.ones_like(s, dtype=torch.bool)
+        if causal:
+            keep = (torch.arange(Skv, device=q.device)[None, :]
+                    <= torch.arange(Sq, device=q.device)[:, None])
+        p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+        del s, keep
+        D = (do32 * o.float()).sum(-1).transpose(1, 2)[..., None]
+        dp = e("bqhd,bkhd->bhqk", do32, v32)
+        ms = scale * e("bqhd,bkhd->bhqk", q32.abs(), k32.abs())
+        a = p * (e("bqhd,bkhd->bhqk", do32.abs(), v32.abs()) + D.abs()
+                 + (dp - D).abs() * (ms + 1.0))
+        fl = [F * scale * e("bhqk,bkhd->bqhd", a, k32.abs()),
+              F * scale * group(e("bhqk,bqhd->bkhd", a, q32.abs())),
+              F * group(e("bhqk,bqhd->bkhd", p * (ms + 1.0), do32.abs()))]
+        del a, ms
+        if q.dtype == torch.bfloat16:
+            ds = p * (dp - D)
+            fl[1] = fl[1] + rep * 2.0 ** -8 * group(
+                scale * e("bhqk,bqhd->bkhd", ds, q32).abs())
+            fl[2] = fl[2] + rep * 2.0 ** -8 * group(
+                e("bhqk,bqhd->bkhd", p, do32).abs())
+    rel = 2.0 ** -7 if q.dtype == torch.bfloat16 else 2.0 ** -22
+    return [rel * r.float().abs() + f for r, f in zip(ref, fl)]
+
+
+def _bwd_bound(B, Sq, Skv, H, KVH, d, causal, elem, dots, outs):
+    """K13-dq's or K13-dkv's least time: q, k, v, dout read once, lse and
+    D (f32) once, its outputs (`outs`: "q" for dq, "kv" for dk and dv)
+    written once; 2·d operations a (query, key) pair the mask keeps, for
+    each of its `dots` products (kernel_traffic's counts: dq 3, dkv 4)."""
+    qb, kb = elem * B * Sq * H * d, elem * B * Skv * KVH * d
+    nbytes = 2 * qb + 2 * kb + 2 * 4 * B * H * Sq + (
+        qb if outs == "q" else 2 * kb)
+    pairs = (sum(min(i + 1, Skv) for i in range(Sq)) if causal
+             else Sq * Skv)
+    peak = PEAK_BF16_FLOPS if elem == 2 else PEAK_F32_FLOPS
+    return _bound(nbytes, dots * 2.0 * d * pairs * B * H, peak)
+
+
+def phase_k13_bwd(flush):
+    """K13-dq and K13-dkv against the plain backward at every shape of
+    K13_BWD_SHAPES, within `_bwd_bounds`; the main shape run twice, bit for
+    bit; the two kernels timed there, with the plain backward and the
+    library's backward (torch.autograd.grad through
+    F.scaled_dot_product_attention(is_causal, enable_gqa) less its
+    forward), which the port never calls."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        _delta, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_dkv, flash_attention_dq)
+    rows = []
+    for i, (B, S, H, KVH, d, causal, dt) in enumerate(K13_BWD_SHAPES):
+        g = torch.Generator(device=DEV).manual_seed(SEED + 60 + i)
+        rn = lambda *s: torch.randn(s, generator=g, device=DEV).to(dt)
+        q, k, v, do = rn(B, S, H, d), rn(B, S, KVH, d), rn(B, S, KVH, d), \
+            rn(B, S, H, d)
+        o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        ref = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+        errs = []
+        for name, x, r, bnd in zip(("dq", "dk", "dv"), got, ref, _bwd_bounds(
+                q, k, v, o, lse, do, causal, ref)):
+            dd = (x.float() - r.float()).abs()
+            if not bool((dd <= bnd).all()):
+                raise AssertionError(f"K13 backward {K13_BWD_SHAPES[i]} "
+                                     f"{name}: max |d| {float(dd.max())}")
+            errs.append(float(dd.max()))
+            del dd, bnd
+        elem = 2 if dt == torch.bfloat16 else 4
+        row = {"kernel": "flash_attention_bwd", "B": B, "S": S, "H": H,
+               "KVH": KVH, "d": d, "causal": causal, "dtype": str(dt),
+               "max_abs_err": {"dq": errs[0], "dk": errs[1],
+                               "dv": errs[2]}}
+        if i == 0:
+            again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError("K13's backward is not bit for bit "
+                                     "repeatable at the main shape")
+            delta = _delta(o, do)
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                          for t in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+            lib_fb = _time_ms(lambda: torch.autograd.grad(
+                sdpa(), (qt, kt, vt), dot), flush)
+            lib_f = _time_ms(sdpa, flush)
+            row.update(
+                bit_repeatable=True,
+                dq_ms=_time_ms(lambda: flash_attention_dq(
+                    q, k, v, o, lse, do, causal=causal, delta=delta), flush),
+                dkv_ms=_time_ms(lambda: flash_attention_dkv(
+                    q, k, v, o, lse, do, causal=causal, delta=delta), flush),
+                plain_ms=_time_ms(lambda: flash_attention_bwd_plain(
+                    q, k, v, o, lse, do, causal=causal), flush, 3),
+                library_ms=lib_fb - lib_f, library_fwd_bwd_ms=lib_fb,
+                library_fwd_ms=lib_f)
+            for which, dots, outs in (("dq", 3, "q"), ("dkv", 4, "kv")):
+                bms, by = _bwd_bound(B, S, S, H, KVH, d, causal, elem, dots,
+                                     outs)
+                row[f"{which}_bound_ms"], row[f"{which}_bound_by"] = bms, by
+            del qt, kt, vt, dot, again
+        _line(row)
+        rows.append(row)
+        del q, k, v, do, o, lse, got, ref
+    return rows
+
+
+# smollm-135m's train step 0 (phase_train), per gradient leaf and for the
+# loss: the relative gap mean|d| / mean|witness| (|d| / |witness| for the
+# loss) of the K13 path to the f32 witness within 1.25x what the
+# plain-attention bf16 path read against it on an H100, and of the K13
+# path to the plain path within 1.25·√2x that reading (two bf16 paths,
+# each that far from the witness): TF_BOUNDS' recipe, from the first
+# reading on an H100, in PERF.md §6.  Through 30 layers of random weights
+# every bf16 path's gradients sit 1.3–4.3% (mean) from the witness.
+_TRAIN_PLAIN = {
+    "blocks.dense.attn.wk": 0.026668, "blocks.dense.attn.wo": 0.017821,
+    "blocks.dense.attn.wq": 0.027003, "blocks.dense.attn.wv": 0.017657,
+    "blocks.dense.ln1.scale": 0.018228, "blocks.dense.ln2.scale": 0.021509,
+    "blocks.dense.mlp.wg": 0.021737, "blocks.dense.mlp.wi": 0.022711,
+    "blocks.dense.mlp.wo": 0.021686, "embed": 0.043065,
+    "ln_f.scale": 0.013545, "loss": 6.464e-05}
+TRAIN_BOUNDS = {
+    "kernel_vs_f32": {n: 1.25 * v for n, v in _TRAIN_PLAIN.items()},
+    "kernel_vs_plain": {n: 1.25 * 2 ** 0.5 * v
+                        for n, v in _TRAIN_PLAIN.items()}}
+
+
+def _grad_gaps(got, ref):
+    """Per leaf of two gradient trees: mean |d| / mean |ref|."""
+    from repro_torch.tree import leaves_with_path
+    r = dict(leaves_with_path(ref))
+    return {".".join(p): float((g.float() - r[p].float()).abs().mean()
+                               / r[p].float().abs().mean())
+            for p, g in leaves_with_path(got)}
+
+
+def _train_ops(model, B, S):
+    """The train step's operations: 6·N·T for the matmuls (N the weights,
+    the tied embedding counted once, as the head), 2·N_blocks·T for remat's
+    re-forward of the blocks, and 11 attention products a layer (the
+    forward 2, its recompute 2, dq 3, dkv 4) of 2·d operations per causal
+    (query, key) pair and head."""
+    cfg = model.cfg
+    N = model.param_count()
+    n_blocks = N - cfg.vocab * cfg.d_model - cfg.d_model   # less embed, ln_f
+    T = B * S
+    pairs = S * (S + 1) // 2
+    attn = 11 * 2.0 * cfg.resolved_head_dim * pairs * B * cfg.n_heads
+    return {"matmuls": 6.0 * N * T, "remat": 2.0 * n_blocks * T,
+            "attention": cfg.n_layers * attn}
+
+
+def phase_train():
+    """smollm-135m's train step at full width and depth (L30 D576 H9 KVH3
+    hd64 F1536 V49152), B = 8, S = 2048, SyntheticLM tokens, f32 master
+    weights from the seed, AdamW, remat, every layer's attention through
+    K13, K13-dq and K13-dkv.  Step 0's loss and gradients (`loss_and_grads`,
+    the train step's own) with the K13 counters set to 0 just before and
+    read just after (60 forward, 30 dq, 30 dkv) are held against the same
+    step with the plain attention (bf16) and against an f32 witness (the
+    f32 config on the same weights, plain attention), per leaf
+    (TRAIN_BOUNDS).  Then `train_model` runs 3 steps with the counters set
+    to 0 just before and read just after (3 x 60, 30, 30); losses finite;
+    the steps' ms, tokens/s and the peak device memory, beside the step's
+    operations bound."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_dkv, flash_attention_dq)
+    from repro_torch.launch.steps import build_train_step, loss_and_grads
+    from repro_torch.launch.train import train_model
+    B, S, steps = 8, 2048, 3
+    flash, plain = _smollm(True), _smollm(False)
+    counters = (flash_attention, flash_attention_dq, flash_attention_dkv)
+    L = flash.cfg.n_layers
+    per_step = (2 * L, L, L)
+    params = flash.init_params(SEED, DEV)
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in SyntheticLM(
+        vocab=flash.cfg.vocab, seq_len=S, global_batch=B,
+        seed=SEED).batch(0).items()}
+    for c in counters:
+        c.launches = 0
+    (loss_k, _), g_k = loss_and_grads(flash, params, batch)
+    torch.cuda.synchronize()
+    step0 = tuple(c.launches for c in counters)
+    if step0 != per_step:
+        raise AssertionError(f"step 0 launched K13, dq, dkv {step0} times, "
+                             f"not {per_step}")
+    (loss_p, _), g_p = loss_and_grads(plain, params, batch)
+    (loss_w, _), g_w = loss_and_grads(_smollm(False, "float32"), params,
+                                      batch)
+    losses = [float(x) for x in (loss_k, loss_p, loss_w)]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"step 0 losses not finite: {losses}")
+    gaps = {"kernel_vs_f32": _grad_gaps(g_k, g_w),
+            "plain_vs_f32": _grad_gaps(g_p, g_w),
+            "kernel_vs_plain": _grad_gaps(g_k, g_p)}
+    for who, x in (("kernel_vs_f32", losses[0]), ("plain_vs_f32", losses[1]),
+                   ("kernel_vs_plain", losses[0])):
+        ref = losses[1] if who == "kernel_vs_plain" else losses[2]
+        gaps[who]["loss"] = abs(x - ref) / abs(ref)
+    del g_k, g_p, g_w
+    bounds = TRAIN_BOUNDS
+    bad = {(w, n): gaps[w][n] for w in bounds for n in bounds[w]
+           if gaps[w][n] > bounds[w][n]}
+    _line({"phase": "train_step0", "arch": "smollm-135m", "B": B, "S": S,
+           "losses": {"k13": losses[0], "plain": losses[1],
+                      "f32": losses[2]},
+           "launches": dict(zip(("flash_attention", "flash_attention_dq",
+                                 "flash_attention_dkv"), step0)),
+           "gaps": gaps, "bounds": bounds, "within_bound": not bad})
+    if bad:
+        raise AssertionError(f"train step 0 out of bounds: {bad}")
+    del params, batch
+    _release()
+    # the plain-attention step, timed once beside the K13 steps
+    p_plain = plain.init_params(SEED, DEV)
+    step_p, _, (init_p, _) = build_train_step(plain)
+    opt_p = init_p(p_plain)
+    b0 = {k: torch.from_numpy(v).to(DEV) for k, v in SyntheticLM(
+        vocab=plain.cfg.vocab, seq_len=S, global_batch=B,
+        seed=SEED).batch(0).items()}
+    step_p(p_plain, opt_p, b0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_p(p_plain, opt_p, b0)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    del p_plain, opt_p, b0
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    out = train_model(flash, steps=steps, global_batch=B, seq_len=S,
+                      seed=SEED, device=DEV, log_every=1)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    want = {c.__name__: steps * n for c, n in zip(counters, per_step)}
+    if launches != want:
+        raise AssertionError(f"{steps} train steps launched {launches}, not "
+                             f"{want}")
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"train losses not finite: {out['losses']}")
+    ops = _train_ops(flash, B, S)
+    step_ms = [t * 1e3 for t in out["step_s"]]
+    steady = sum(step_ms[1:]) / len(step_ms[1:])
+    _line({"phase": "train", "arch": "smollm-135m", "B": B, "S": S,
+           "steps": steps, "losses": out["losses"], "step_ms": step_ms,
+           "plain_attention_step_ms": plain_ms,
+           "train_tokens_per_s": B * S / (steady / 1e3),
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches, "ops": ops,
+           "bound_ms": sum(ops.values()) / PEAK_BF16_FLOPS * 1e3})
+    del out
+    _release()
+    return {"smollm-train": launches}
+
+
 def _kernel_row(name, source, replaces, rows, launches, note=None):
     """One entry of the `kernels` line from a kernel's phase rows: times
     and bounds summed over the shapes, one call each."""
@@ -1950,6 +2302,12 @@ def main() -> int:
     _timed("decode smollm-135m", phase_decode, params)
     del params
     _release()
+    # smollm-135m's training: K13's backward, then the train step
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    k13b = _timed("K13 backward", phase_k13_bwd, flush)
+    del flush
+    _release()
+    by_path.update(_timed("train smollm-135m", phase_train))
 
     def launches(name, main_path):
         return {"main": by_path[main_path][name],
@@ -2035,6 +2393,30 @@ def main() -> int:
                     "H9 KVH3 d64, causal, bf16); the other shapes are "
                     "checked only (their lines above)"),
     ]
+    main = k13b[0]
+    for which, key, line in (("dq", "flash_attention_dq", 150),
+                             ("dkv", "flash_attention_dkv", 172)):
+        errs = [r["max_abs_err"][n] for r in k13b
+                for n in (("dq",) if which == "dq" else ("dk", "dv"))]
+        kernels.append({
+            "name": key, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+            "launches": by_path["smollm-train"][key],
+            "launches_by_path": {p: n.get(key, 0)
+                                 for p, n in by_path.items()},
+            "max_abs_err": max(errs), "ms": main[f"{which}_ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main[f"{which}_bound_ms"],
+            "bound_by": main[f"{which}_bound_by"],
+            "library_ms": main["library_ms"],
+            "shapes": [[r[k] for k in ("B", "S", "H", "KVH", "d")]
+                       for r in k13b],
+            "note": f"K13-{which}, timed at smollm-135m's train shape (B8 "
+                    "S2048 H9 KVH3 d64, causal, bf16); plain_ms is the "
+                    "whole plain backward (dq, dk, dv) and library_ms the "
+                    "whole SDPA backward less its forward; launches: the "
+                    "3-step train run"})
     _line({"phase_done": "all", "seconds": time.perf_counter() - t_start})
     _line({"kernels": kernels})
     smi = subprocess.run(

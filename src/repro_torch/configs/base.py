@@ -1,7 +1,7 @@
 """Model configuration: the `ModelConfig` fields the port's models read.
 
 A copy of the fields of `repro/configs/base.py` that `models/rwkv4.py`,
-`models/rwkv6.py` and `models/transformer.py` consume, with
+`models/rwkv6.py`, `models/transformer.py` and the train step consume, with
 `get_config` / `smoke_config` resolving the rwkv4 family, rwkv6-7b and
 the dense transformers (smollm-135m, phi3-mini-3.8b, minitron-4b), and
 `SHAPES`, the input shapes `launch/steps.py:build_step_for_cell` takes.
@@ -53,6 +53,10 @@ class ModelConfig:
     # route full-sequence attention (q_offset 0, Sq == Skv >= 512) through
     # the flash-attention kernel K13; off by default, as in JAX
     use_flash_kernel: bool = False
+    # training: recompute each layer in the backward (jax.checkpoint in
+    # JAX, torch.utils.checkpoint here), and the optimizer
+    remat: bool = True
+    optimizer: str = "adamw"      # adamw | adafactor
 
     @property
     def resolved_head_dim(self) -> int:

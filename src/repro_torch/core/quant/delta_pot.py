@@ -1,8 +1,9 @@
-"""Δ-PoT quantization (paper §3.1), the serving formats W8 and W4.
+"""Δ-PoT quantization (paper §3.1): the formats W9, W8, W4 and PoT4.
 
 Port of `repro/core/quant/delta_pot.py`: the format description, the level
-table, nearest-code quantization, the int8 packing of the W8 plane and
-the nibble packing of the W4 plane.  A W8 level is 2^-q0 + 2^-(q0+q1)
+table, nearest-code quantization (per-channel or tensor-wide scale, with
+the optional MSE grid search of the scale), the int8 packing of the W8
+plane and the nibble packing of the W4 plane.  A W8 level is 2^-q0 + 2^-(q0+q1)
 with the differential exponents Δq0 (3 bits) and Δq1 (4 bits) packed
 low-to-high; a zero Δ kills every later term.  Bit 7 of the packed byte
 is the sign.  A W4 level is the single term 2^-q (q in 1..7, 0 for
@@ -32,10 +33,15 @@ class DPotFormat:
         return int(sum(self.ks))
 
 
+# sign + ks=(4,4): the paper's "proposed" 8-code-bit format (W9 with the
+# sign, the Table-1 row), the quantizer's default
+FORMAT_W9 = DPotFormat(ks=(4, 4))
 # sign + ks=(3,4): packs with its sign into one uint8 (the serving plane)
 FORMAT_W8 = DPotFormat(ks=(3, 4))
 # sign + ks=(3,): two weights per uint8 (nibble pairs), half W8's bytes
 FORMAT_W4 = DPotFormat(ks=(3,))
+# a single 4-bit term: classic power-of-two levels
+FORMAT_POT4 = DPotFormat(ks=(4,))
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,21 +98,69 @@ def dpot_scale(amax: torch.Tensor, fmt: DPotFormat) -> torch.Tensor:
     return torch.where(base <= 0, torch.ones_like(base), base)
 
 
-def dpot_quantize(w: torch.Tensor, fmt: DPotFormat = FORMAT_W8, *,
-                  axis: int = -1,
+# the multiplicative refinements of the scale that `mse_search` tries
+# (delta_pot.py:_choose_scale)
+MSE_CANDIDATES = (0.6, 0.7, 0.8, 0.9, 1.0, 1.1, 1.2)
+
+
+def _nearest_level(x: torch.Tensor, fmt: DPotFormat) -> torch.Tensor:
+    """x -> the nearest level value (not its code), by `searchsorted` on
+    the f32 midpoints; a negative x falls to the lowest level, 0."""
+    levels, _, mids = _sorted_levels(fmt.ks)
+    lv = torch.as_tensor(levels.astype(np.float32), device=x.device)
+    md = torch.as_tensor(mids.astype(np.float32), device=x.device)
+    return lv[torch.searchsorted(md, x.contiguous(), right=False)]
+
+
+def _reduce_axes(ndim: int, axis) -> tuple[int, ...]:
+    """Every axis but the channel axes `axis` (an int or a tuple)."""
+    keep = {a % ndim for a in ((axis,) if isinstance(axis, int) else axis)}
+    return tuple(i for i in range(ndim) if i not in keep)
+
+
+def _choose_scale(w: torch.Tensor, absw: torch.Tensor, axis, fmt,
+                  mse_search: bool) -> torch.Tensor:
+    """amax / max_level per channel (one scalar for axis=None), refined
+    with `mse_search` by the candidate that gives the least squared error,
+    the first on a tie.  As in JAX, the error is taken on the signed w,
+    so a negative weight counts as quantized to level 0 there."""
+    if axis is None:
+        red = tuple(range(w.ndim))
+        amax = absw.amax()
+    else:
+        red = _reduce_axes(w.ndim, axis)
+        amax = absw.amax(dim=red, keepdim=True) if red else absw
+    base = dpot_scale(amax, fmt)
+    if not mse_search:
+        return base
+    cands = torch.tensor(MSE_CANDIDATES, dtype=torch.float32,
+                         device=w.device)
+
+    def err_for(c):
+        s = base * c
+        d = (_nearest_level(w / s, fmt) * s - w) ** 2
+        if axis is None:
+            return d.sum()
+        return d.sum(dim=red, keepdim=True) if red else d
+
+    errs = torch.stack([err_for(c) for c in cands])
+    return base * cands[torch.argmin(errs, dim=0)]
+
+
+def dpot_quantize(w: torch.Tensor, fmt: DPotFormat = FORMAT_W9, *,
+                  axis: int | tuple | None = 0, mse_search: bool = False,
                   scale: torch.Tensor | None = None) -> DPotQuantized:
     """Quantize to Δ-PoT codes with one scale per index of `axis` (the
-    output channel), reduced over every other axis: a stacked (L, K, N)
-    weight gets ONE (1, 1, N) scale.  A given `scale` (broadcastable to
-    w) is used as it is: `serving.pack_leaf` quantizes a stacked leaf one
-    layer at a time under the scale of the whole leaf."""
+    output channel), reduced over every other axis, or ONE tensor-wide
+    scale for axis=None; `mse_search` refines each scale over
+    MSE_CANDIDATES.  The defaults are JAX's: W9, axis 0.  A stacked (L, K,
+    N) weight under axis=-1 gets ONE (1, 1, N) scale.  A given `scale`
+    (broadcastable to w) is used as it is: `serving.pack_leaf` quantizes a
+    stacked leaf one layer at a time under the scale of the whole leaf."""
     w = w.to(torch.float32)
     absw = w.abs()
     if scale is None:
-        ax = axis % w.ndim
-        red = tuple(i for i in range(w.ndim) if i != ax)
-        amax = absw.amax(dim=red, keepdim=True) if red else absw
-        scale = dpot_scale(amax, fmt)
+        scale = _choose_scale(w, absw, axis, fmt, mse_search)
     _, codes, mids = _sorted_levels(fmt.ks)
     md = torch.as_tensor(mids.astype(np.float32), device=w.device)
     cd = torch.as_tensor(codes, device=w.device)

@@ -85,17 +85,20 @@ extern "C" int rwkv6_model_decode_grid(int* coop, int* max_blocks) {
 
 // ptrs (kNumPtrs): x, x_out, the uint8 slab, the bf16 slab, the 15
 // planes' shared f32 scales in R6::Mat order, the 3 state leaves in and
-// the 3 out in R6::State order, each (L, B, ...), the scratch
+// the 3 out in R6::State order, each pointing at lane 0 of this launch's
+// tile of B lanes in an (L, B_state, ...) leaf, the scratch
 // (rwkv6_decode_scratch_bytes, zeroed).  offs (kNumOffs, int64): the uint8
 // and bf16 slab row lengths, the 9 vectors' offsets in a bf16 row
 // (R6::Vec order), the 15 planes' offsets in a uint8 row (R6::Mat order).
+// B is the tile (at most R6::kLanes); B_state, the state's whole batch,
+// sets the layer stride, so a tile runs in place in the whole state.
 extern "C" int rwkv6_model_decode(const void* const* ptrs, int n_ptrs,
                                   const long long* offs, int n_offs, int L,
-                                  int B, int D, int F, int H, int N, int grid,
-                                  void* stream) {
+                                  int B, int B_state, int D, int F, int H,
+                                  int N, int grid, void* stream) {
   if (n_ptrs != kNumPtrs || n_offs != kNumOffs || L < 1 || B < 1 ||
-      B > R6::kLanes || H * N != D || R6::kThreads % N != 0 || D % 4 ||
-      F % 4 || grid < 1)
+      B > R6::kLanes || B_state < B || H * N != D || R6::kThreads % N != 0 ||
+      D % 4 || F % 4 || grid < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   ModelArgs a;
   int i = 0;
@@ -116,8 +119,8 @@ extern "C" int rwkv6_model_decode(const void* const* ptrs, int n_ptrs,
   a.b16_row = offs[j++];
   for (int v = 0; v < R6::kNumVecs; ++v) a.vec_off[v] = offs[j++];
   for (int m = 0; m < R6::kNumMats; ++m) a.mat_off[m] = offs[j++];
-  a.st_layer[R6::ATT_X] = a.st_layer[R6::FFN_X] = (long long)B * D;
-  a.st_layer[R6::WKV_S] = (long long)B * H * N * N;
+  a.st_layer[R6::ATT_X] = a.st_layer[R6::FFN_X] = (long long)B_state * D;
+  a.st_layer[R6::WKV_S] = (long long)B_state * H * N * N;
   a.dims = {B, D, F, H, N};
   a.L = L;
   return R6::launch(rwkv6_model_decode_kernel, a, grid,

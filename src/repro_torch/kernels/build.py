@@ -45,10 +45,12 @@ SIGNATURES = {
     "rwkv4_model_decode": [_PP, _I, _PL, _I, _PI, _I, _I, _I, _I, _I, _P],
     "wkv6_seq": [_P] * 9 + [_I] * 6 + [_P],
     "rwkv6_block_decode": [_PP, _I] + [_I] * 6 + [_P],
-    "rwkv6_model_decode": [_PP, _I, _PL, _I] + [_I] * 7 + [_P],
+    "rwkv6_model_decode": [_PP, _I, _PL, _I] + [_I] * 8 + [_P],
     "rwkv6_block_decode_grid": [_PI, _PI],
     "rwkv6_model_decode_grid": [_PI, _PI],
     "flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F, _P],
+    "flash_attention_dq": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "flash_attention_dkv": [_P] * 8 + [_I] * 8 + [_F, _P],
 }
 
 

@@ -1,18 +1,27 @@
-"""Fused flash attention, forward (kernel K13).
+"""Fused flash attention, forward (kernel K13) and backward (K13-dq and
+K13-dkv).
 
-Port of `repro/kernels/flash_attention.py:flash_attention`, the forward
-(`_kernel`, `_kernel_fwd`): causal or full attention with GQA, an online
-softmax over key tiles, the scores kept on chip, and optionally the
-log-sum-exp of each row that the backward needs.  The backward (`_kernel_dq`,
-`_kernel_dkv`) comes with the training slice.  The CUDA kernel is
-`csrc/flash_attention.cu`.
+Port of `repro/kernels/flash_attention.py:flash_attention`: causal or
+full attention with GQA, an online softmax over key tiles, the scores
+kept on chip, and the log-sum-exp of each row that the backward needs
+(`_kernel`, `_kernel_fwd`); the backward recomputes p = exp(s - lse) tile
+by tile and runs the dq and dk/dv products (`_kernel_dq`, `_kernel_dkv`,
+launched by `_bwd_call`).  The CUDA kernels are `csrc/flash_attention.cu`
+and `csrc/flash_attention_bwd.cu`.
 
-Layout at the public function, as in JAX: q (B, Sq, H, d), k and v
+Layout at the public functions, as in JAX: q (B, Sq, H, d), k and v
 (B, Skv, KVH, d) with H % KVH == 0; query head h reads kv head
 h // (H // KVH), the head `jnp.repeat(k, H // KVH, axis=2)` gives it
-(the kernel indexes it; nothing is repeated in memory).  f32 or bf16 in,
+(the kernels index it; nothing is repeated in memory).  f32 or bf16 in,
 q's dtype out; d up to 128; any Sq, Skv >= 1.  The causal mask is
-kpos <= qpos with both positions counted from 0.
+kpos <= qpos with both positions counted from 0.  The lse is (B, H, Sq)
+f32 (JAX's is (B·H, Sq)).
+
+`flash_attention` carries gradients when grad mode is on and an input
+requires them: it then runs through an autograd Function that saves (q,
+k, v, out, lse) in their own dtypes, as JAX's custom VJP saves them, and
+whose backward is `flash_attention_bwd`.  Under no_grad and
+inference_mode it is one forward launch and saves nothing.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.
@@ -83,11 +92,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return out
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    return_lse: bool = False):
-    """Attention of q over k, v: (B, Sq, H, d) in q's dtype, and with
-    `return_lse` also the (B, H, Sq) f32 log-sum-exp of each row."""
-    _check(q, k, v)
+def _forward(q, k, v, causal: bool, return_lse: bool):
+    """One forward: the plain version on the CPU, K13 on the card."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      return_lse=return_lse)
@@ -110,4 +116,193 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return (out, lse) if return_lse else out
 
 
+class _FlashAttention(torch.autograd.Function):
+    """K13 with its backward: the forward keeps (q, k, v, out, lse) as
+    JAX's `_flash_core_fwd` does; the backward is `flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = _forward(q, k, v, causal, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(),
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    return_lse: bool = False):
+    """Attention of q over k, v: (B, Sq, H, d) in q's dtype, and with
+    `return_lse` also the (B, H, Sq) f32 log-sum-exp of each row.  With
+    grad mode on and an input that requires grad, the result carries
+    gradients through K13-dq and K13-dkv (the plain backward on CPU
+    tensors)."""
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out, lse = _FlashAttention.apply(q, k, v, causal)
+        return (out, lse) if return_lse else out
+    return _forward(q, k, v, causal, return_lse)
+
+
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Backward: dq and dk/dv (K13-dq, K13-dkv)
+# ---------------------------------------------------------------------------
+
+
+def _check_bwd(q, k, v, o, lse, do):
+    _check(q, k, v)
+    B, Sq, H, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError(f"out and dout must be q's {q.dtype} "
+                         f"{tuple(q.shape)}, got {o.dtype} "
+                         f"{tuple(o.shape)} and {do.dtype} "
+                         f"{tuple(do.shape)}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be f32 {(B, H, Sq)}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    if not (q.device == o.device == lse.device == do.device):
+        raise ValueError("the backward's operands lie on different devices")
+
+
+def _delta(o, do):
+    """D = rowsum(dout ∘ out) in f32, (B, H, Sq): what `_bwd_call`
+    computes outside its Pallas calls."""
+    return (do.to(torch.float32) * o.to(torch.float32)).sum(dim=-1) \
+        .transpose(1, 2).contiguous()
+
+
+def _group_sum(x, rep: int):
+    """(B, S, H, d) per-query-head gradients -> (B, S, H/rep, d): the
+    transpose of `jnp.repeat(k, rep, axis=2)`, which XLA takes as a sum
+    over each group's heads in order, every add rounded to x's dtype."""
+    B, S, H, d = x.shape
+    x = x.reshape(B, S, H // rep, rep, d)
+    acc = x[..., 0, :]
+    for i in range(1, rep):
+        acc = acc + x[..., i, :]
+    return acc.contiguous()
+
+
+@exact_matmuls()
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True):
+    """`_kernel_dq` and `_kernel_dkv`'s arithmetic in f32 over all keys at
+    once: the scores of q·scale, the -1e30 mask, p = exp(s - lse), dp =
+    dout·v, ds = p·(dp - D), dq = scale·ds·k, dk = scale·dsᵀ·q, dv =
+    pᵀ·dout; dq rounded once to q's dtype, dk and dv per query head rounded
+    to k's dtype and then summed over each GQA group in that dtype, as
+    JAX's `_flash_core_bwd` and `jnp.repeat`'s transpose do.  Returns (dq,
+    dk, dv) shaped like q, k, v."""
+    _check_bwd(q, k, v, o, lse, do)
+    B, Sq, H, d = q.shape
+    rep = H // k.shape[2]
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(d)
+    q32, do32 = q.to(f32), do.to(f32)
+    k32 = k.to(f32).repeat_interleave(rep, dim=2)
+    v32 = v.to(f32).repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q32 * scale, k32)
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)
+        kpos = torch.arange(k.shape[1], device=q.device)
+        s = torch.where((kpos[None, :] <= qpos[:, None])[None, None], s,
+                        NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    del s
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
+    ds = p * (dp - _delta(o, do)[..., None])
+    del dp
+    dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds, k32)
+    dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, q32)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
+    return (dq.to(q.dtype), _group_sum(dk.to(k.dtype), rep),
+            _group_sum(dv.to(v.dtype), rep))
+
+
+def _bwd_args(q, k, v, do, lse, delta):
+    """The backward kernels' leading pointers and dimensions, from
+    contiguous operands."""
+    B, Sq, H, d = q.shape
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr()),
+            (B, Sq, k.shape[1], H, k.shape[2], d))
+
+
+def _on_card(q, name: str):
+    if q.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {q.device}")
+
+
+def flash_attention_dq(q, k, v, o, lse, do, *, causal: bool = True,
+                       delta=None):
+    """dq (B, Sq, H, d) in q's dtype: K13-dq on the card (D = `_delta(o,
+    do)` unless given), the plain backward's dq on the CPU."""
+    _check_bwd(q, k, v, o, lse, do)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                         causal=causal)[0]
+    _on_card(q, "flash_attention_dq")
+    q, k, v, do, lse = (t.contiguous() for t in (q, k, v, do, lse))
+    delta = _delta(o, do) if delta is None else delta.contiguous()
+    dq = torch.empty_like(q)
+    ptrs, dims = _bwd_args(q, k, v, do, lse, delta)
+    check(load_library().flash_attention_dq(
+        *ptrs, dq.data_ptr(), *dims, int(causal),
+        int(q.dtype == torch.bfloat16), ctypes.c_float(1.0 / math.sqrt(
+            q.shape[-1])), stream_ptr(q)), "flash_attention_dq")
+    flash_attention_dq.launches += 1
+    return dq
+
+
+flash_attention_dq.launches = 0
+
+
+def flash_attention_dkv(q, k, v, o, lse, do, *, causal: bool = True,
+                        delta=None):
+    """(dk, dv) (B, Skv, KVH, d) in k's dtype, each GQA group summed in f32
+    and rounded once: K13-dkv on the card, the plain backward's on the
+    CPU."""
+    _check_bwd(q, k, v, o, lse, do)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                         causal=causal)[1:]
+    _on_card(q, "flash_attention_dkv")
+    q, k, v, do, lse = (t.contiguous() for t in (q, k, v, do, lse))
+    delta = _delta(o, do) if delta is None else delta.contiguous()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    ptrs, dims = _bwd_args(q, k, v, do, lse, delta)
+    check(load_library().flash_attention_dkv(
+        *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, int(causal),
+        int(q.dtype == torch.bfloat16), ctypes.c_float(1.0 / math.sqrt(
+            q.shape[-1])), stream_ptr(q)), "flash_attention_dkv")
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
+    """(dq, dk, dv) of the attention whose forward gave `o` and `lse`,
+    for the output gradient `do`: the plain version on the CPU, K13-dq and
+    K13-dkv (sharing one D) on the card."""
+    _check_bwd(q, k, v, o, lse, do)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    _on_card(q, "flash_attention_bwd")
+    delta = _delta(o, do)
+    dq = flash_attention_dq(q, k, v, o, lse, do, causal=causal, delta=delta)
+    dk, dv = flash_attention_dkv(q, k, v, o, lse, do, causal=causal,
+                                 delta=delta)
+    return dq, dk, dv

@@ -120,10 +120,10 @@ def rwkv4_model_decode_plain(blocks: FusedLayerStack, state, x, *,
     return x, {k: torch.stack([s[k] for s in new]) for k in STATE_KEYS}
 
 
-def default_bb(B: int) -> int:
+def default_bb(B: int, most: int = MAX_BB) -> int:
     """The batch tile: the whole batch in one block (as fused_decode.py:91)
     when it fits the kernel, else the largest divisor of B that does."""
-    return max(d for d in range(1, min(B, MAX_BB) + 1) if B % d == 0)
+    return max(d for d in range(1, min(B, most) + 1) if B % d == 0)
 
 
 def check_tile(B: int, bb: int, D: int, F: int, hw: bool = False):
@@ -427,9 +427,6 @@ def _rwkv6_dims(cfg, x):
     if D != cfg.d_model or cfg.n_heads * cfg.rwkv_head_dim != D:
         raise ValueError(f"x (B, {D}) does not match {cfg.name}'s "
                          f"D = {cfg.d_model} = H·N")
-    if not 1 <= B <= RWKV6_MAX_B:
-        raise ValueError(f"K7 carries 1..{RWKV6_MAX_B} batch lanes, got "
-                         f"B = {B}")
     N = cfg.rwkv_head_dim
     # a head's N threads tile K7's 512-thread blocks; codes load 4 bytes
     # at a time
@@ -437,6 +434,19 @@ def _rwkv6_dims(cfg, x):
         raise ValueError(f"K7 needs N | 512 and D, F multiples of 4; got "
                          f"N {N}, D {D}, F {cfg.d_ff}")
     return B, D, cfg.d_ff, cfg.n_heads, N
+
+
+def _rwkv6_tile(B: int, bb):
+    """K7's batch tile: `bb` lanes a launch, one launch a tile (the largest
+    divisor of B up to RWKV6_MAX_B by default).  Raises unless bb divides B
+    and lies in [1, RWKV6_MAX_B]; there is no silent smaller tile.  The
+    exact numerics keep lanes independent, so a lane's bits do not depend
+    on its tile."""
+    bb = default_bb(B, RWKV6_MAX_B) if bb is None else int(bb)
+    if not 1 <= bb <= RWKV6_MAX_B or B % bb:
+        raise ValueError(f"K7 batch tile bb={bb} must divide B={B} and lie "
+                         f"in [1, {RWKV6_MAX_B}]")
+    return bb
 
 
 def _w8_only(leaf, name: str):
@@ -505,17 +515,20 @@ def rwkv6_model_decode_plain(blocks: FusedLayerStack, state, x, cfg):
                for k in RWKV6_STATE_KEYS}
 
 
-def rwkv6_block_decode(lp, st, x, cfg, *, grid: int | None = None):
+def rwkv6_block_decode(lp, st, x, cfg, *, grid: int | None = None,
+                       bb: int | None = None):
     """One RWKV-6 layer's decode step: lp the layer's params (compute-cast,
     W8 plane leaves with their shared scales broadcast), st the layer's
     att_x, ffn_x (B, D) and wkv_s (B, H, N, N) bf16 state, x (B, D) bf16
     -> (x2 (B, D), new state).  `grid` caps the cooperative grid (default:
-    every block that fits)."""
+    every block that fits); `bb` is the batch tile (`_rwkv6_tile`), one
+    launch a tile."""
     if x.device.type == "cpu":
         return rwkv6_block_decode_plain(lp, st, x, cfg)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"x must be bf16, got {x.dtype}")
     B, D, F, H, N = _rwkv6_dims(cfg, x)
+    bb = _rwkv6_tile(B, bb)
     vecs = [_vec(_get(lp, p), D, ".".join(p)) for p in RWKV6_VEC_KEYS]
     codes, scales = [], []
     for path, shape in zip(RWKV6_MAT_KEYS, _rwkv6_mat_shapes(D, F, H, N)):
@@ -535,14 +548,19 @@ def rwkv6_block_decode(lp, st, x, cfg, *, grid: int | None = None):
     states = _rwkv6_state(st, ((B, D), (B, D), (B, H, N, N)),
                           "rwkv6_block_decode")
     grid = _coop_grid("block", grid)
-    outs = [torch.empty_like(t) for t in (x, *states)]
+    ins = [x.contiguous(), *states]
+    outs = [torch.empty_like(t) for t in ins]
+    # lanes >= bb of the scratch are never written, so the tiles share it
     scratch = _rwkv6_scratch(D, F, x.device)
-    arr = _launch_ptrs([x.contiguous(), outs[0], *vecs, *codes, *scales,
-                        *states, *outs[1:], scratch])
-    check(load_library().rwkv6_block_decode(
-        arr, len(arr), B, D, F, H, N, grid, stream_ptr(x)),
-        "rwkv6_block_decode")
-    rwkv6_block_decode.launches += 1
+    for i in range(0, B, bb):
+        tile = [t[i:i + bb] for t in ins + outs]      # batch-major: contiguous
+        arr = _launch_ptrs([tile[0], tile[len(ins)], *vecs, *codes, *scales,
+                            *tile[1:len(ins)], *tile[len(ins) + 1:],
+                            scratch])
+        check(load_library().rwkv6_block_decode(
+            arr, len(arr), bb, D, F, H, N, grid, stream_ptr(x)),
+            "rwkv6_block_decode")
+        rwkv6_block_decode.launches += 1
     return outs[0], dict(zip(RWKV6_STATE_KEYS, outs[1:]))
 
 
@@ -579,11 +597,13 @@ def rwkv6_stack_table(blocks: FusedLayerStack, D: int, F: int, H: int,
 
 
 def rwkv6_model_decode(blocks: FusedLayerStack, state, x, cfg, *,
-                       grid: int | None = None):
+                       grid: int | None = None, bb: int | None = None):
     """The whole L-layer RWKV-6 decode step: blocks the slab form of the
     stacked W8 layers (`fuse_layer_stack` of the compute-cast tree), state
     att_x, ffn_x (L, B, D) and wkv_s (L, B, H, N, N) bf16, x (B, D) bf16
-    -> (x out (B, D), new state)."""
+    -> (x out (B, D), new state).  `bb` is the batch tile (`_rwkv6_tile`),
+    one launch a tile; a tile's state is a strided view of the whole
+    state, which the kernel walks with the whole batch's layer stride."""
     if not isinstance(blocks, FusedLayerStack):
         raise TypeError("rwkv6_model_decode takes a FusedLayerStack "
                         "(core/quant/serving.py:fuse_layer_stack)")
@@ -592,6 +612,7 @@ def rwkv6_model_decode(blocks: FusedLayerStack, state, x, cfg, *,
     if x.dtype != torch.bfloat16:
         raise TypeError(f"x must be bf16, got {x.dtype}")
     B, D, F, H, N = _rwkv6_dims(cfg, x)
+    bb = _rwkv6_tile(B, bb)
     L = blocks.n_layers
     vec_offs, mat_offs, scales = rwkv6_stack_table(blocks, D, F, H, N)
     u8, b16 = blocks.slabs["uint8"], blocks.slabs["bfloat16"]
@@ -604,17 +625,21 @@ def rwkv6_model_decode(blocks: FusedLayerStack, state, x, cfg, *,
     states = _rwkv6_state(state, ((L, B, D), (L, B, D), (L, B, H, N, N)),
                           "rwkv6_model_decode")
     grid = _coop_grid("model", grid)
+    x_in = x.contiguous()
     x_out = torch.empty_like(x)
     outs = [torch.empty_like(s) for s in states]
+    # lanes >= bb of the scratch are never written, so the tiles share it
     scratch = _rwkv6_scratch(D, F, x.device)
-    arr = _launch_ptrs([x.contiguous(), x_out, u8, b16, *scales, *states,
-                        *outs, scratch])
     offs = (ctypes.c_longlong * (2 + len(vec_offs) + len(mat_offs)))(
         u8.shape[1], b16.shape[1], *vec_offs, *mat_offs)
-    check(load_library().rwkv6_model_decode(
-        arr, len(arr), offs, len(offs), L, B, D, F, H, N, grid,
-        stream_ptr(x)), "rwkv6_model_decode")
-    rwkv6_model_decode.launches += 1
+    for i in range(0, B, bb):
+        lanes = [s[:, i:i + bb] for s in states + outs]
+        arr = _launch_ptrs([x_in[i:i + bb], x_out[i:i + bb], u8, b16,
+                            *scales, *lanes, scratch])
+        check(load_library().rwkv6_model_decode(
+            arr, len(arr), offs, len(offs), L, bb, B, D, F, H, N, grid,
+            stream_ptr(x)), "rwkv6_model_decode")
+        rwkv6_model_decode.launches += 1
     return x_out, dict(zip(RWKV6_STATE_KEYS, outs))
 
 

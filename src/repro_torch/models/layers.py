@@ -167,9 +167,10 @@ def attention(q, k, v, *, causal: bool = True, q_offset=0,
     The routing rule of the JAX package: full-sequence attention (q_offset
     0, Sq == Skv >= 512) goes to the flash-attention kernel K13 when
     `use_flash_kernel` is set, with k/v at their own head count (the
-    kernel maps query head h to kv head h // (H // KVH)); otherwise the
-    plain score matrix up to `flash_threshold` keys, the online-softmax
-    oracle above."""
+    kernel maps query head h to kv head h // (H // KVH)), which carries
+    gradients through K13-dq and K13-dkv when grad is enabled; otherwise
+    the plain score matrix up to `flash_threshold` keys, the
+    online-softmax oracle above."""
     Sq, H, KVH = q.shape[1], q.shape[2], k.shape[2]
     if (use_flash_kernel and q_offset == 0 and Sq == k.shape[1]
             and Sq >= 512):

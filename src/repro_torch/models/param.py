@@ -8,6 +8,7 @@ do not equal JAX's random weights, and nothing needs them to.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
@@ -80,6 +81,17 @@ def init_params(spec, seed: int, device="cuda", dtype=torch.float32, *,
             return t if leaf_fn is None else leaf_fn(path, t)
         return {k: walk(node[k], path + (k,)) for k in sorted(node)}
     return walk(spec, ())
+
+
+def _spec_leaves(spec):
+    if isinstance(spec, P):
+        return [spec]
+    return [p for k in sorted(spec) for p in _spec_leaves(spec[k])]
+
+
+def param_count(spec) -> int:
+    """The number of weights a spec tree holds."""
+    return int(sum(math.prod(p.shape) for p in _spec_leaves(spec)))
 
 
 def abstract_params(spec, dtype=torch.float32):

@@ -2,7 +2,8 @@
 rwkv6-7b and the dense transformers).
 
 `get_model(arch)` returns a `Model` handle bundling the model module
-(rwkv4, rwkv6 or transformer) with its config.  The serving paths are
+(rwkv4, rwkv6 or transformer) with its config; `loss_fn` is the
+causal-LM loss the train step differentiates.  The serving paths are
 rows of the `DECODE_PATHS` / `PREFILL_PATHS` tables: a path exists iff
 the module ships its entry.
 """
@@ -88,6 +89,9 @@ class Model:
         """The parameter tree as meta tensors (shapes and dtype only)."""
         return PM.abstract_params(self.spec(), dtype)
 
+    def param_count(self) -> int:
+        return PM.param_count(self.spec())
+
     def cast_params(self, params):
         """Master params -> compute dtype (packed leaves pass through)."""
         return cast_compute(params, getattr(torch, self.cfg.dtype))
@@ -95,11 +99,13 @@ class Model:
     # -- compute -----------------------------------------------------------
     def forward(self, params, batch):
         """(logits over the whole sequence, aux) on the compute-dtype cast
-        of `params`; the dense transformer's prefill step."""
+        of `params`; the dense transformer's prefill step and, with grad
+        enabled, its train step (gradients flow back to `params` through
+        the cast)."""
         if not hasattr(self.module, "forward"):
             raise NotImplementedError(
-                f"{self.cfg.name}: forward waits for the training slice "
-                "(ROADMAP Queue 1 item 8)")
+                f"{self.cfg.name}: forward waits for the RWKV training slice "
+                "(ROADMAP Queue 1 item 8b)")
         return self.module.forward(self.cast_params(params), batch,
                                    self.cfg)
 
@@ -182,3 +188,20 @@ def get_model(cfg_or_id: ModelConfig | str, *, smoke: bool = False) -> Model:
     else:
         cfg = cfg_or_id
     return Model(cfg=cfg, module=_module_for(cfg))
+
+
+def loss_fn(model: Model, params, batch):
+    """Causal-LM cross-entropy (mean over the unmasked tokens) + 0.01·aux:
+    the logits in f32, their log-softmax, the label's entry, the masked
+    mean.  Returns (loss + 0.01·aux, {"loss", "aux"})."""
+    logits, aux = model.forward(params, batch)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, -labels.shape[1]:]
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(ll)
+    loss = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux}

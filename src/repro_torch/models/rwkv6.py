@@ -210,9 +210,11 @@ def decode_step(params, state, tokens, pos, cfg: ModelConfig):
     return x @ params["head"].to(x.dtype), _stack_states(new)
 
 
-def decode_step_fused(params, state, tokens, pos, cfg: ModelConfig):
-    """Kernel decode: one K7 launch per layer, the head through K5, the W8
-    planes decoded inside the kernels.  Embed, ln0 and ln_f stay plain
+def decode_step_fused(params, state, tokens, pos, cfg: ModelConfig, *,
+                      bb: int | None = None):
+    """Kernel decode: one K7 launch per layer and batch tile of `bb` lanes
+    (default: the largest divisor of B up to 8), the head through K5, the
+    W8 planes decoded inside the kernels.  Embed, ln0 and ln_f stay plain
     torch, as the JAX package leaves them outside any kernel."""
     del pos
     dt = getattr(torch, cfg.dtype)
@@ -224,7 +226,7 @@ def decode_step_fused(params, state, tokens, pos, cfg: ModelConfig):
     for i in range(cfg.n_layers):
         x, st = rwkv6_block_decode(_layer(blocks, i),
                                    {k: state[k][i] for k in STATE_KEYS}, x,
-                                   cfg)
+                                   cfg, bb=bb)
         new.append(st)
     x = L.apply_norm(params["ln_f"], x[:, None])
     return chunk_matmul(x, params["head"], dt), _stack_states(new)
@@ -237,8 +239,10 @@ def prepare_fused_model_params(params, cfg: ModelConfig):
     return prepare_layer_stack_params(params, cfg)
 
 
-def decode_step_fused_model(params, state, tokens, pos, cfg: ModelConfig):
-    """Kernel decode: ONE K7 launch runs every layer and the head goes
+def decode_step_fused_model(params, state, tokens, pos, cfg: ModelConfig,
+                            *, bb: int | None = None):
+    """Kernel decode: ONE K7 launch a batch tile of `bb` lanes (default:
+    the largest divisor of B up to 8) runs every layer, and the head goes
     through K5.  `params` is the output of `prepare_fused_model_params`
     (the serving path) or a raw tree, which is cast and fused here on
     every call."""
@@ -250,7 +254,7 @@ def decode_step_fused_model(params, state, tokens, pos, cfg: ModelConfig):
         blocks = fuse_layer_stack(params["blocks"], cfg.n_layers)
     x = params["embed"][tokens[:, 0].long()].to(dt)
     x = L.apply_norm(params["ln0"], x)
-    x, new_state = rwkv6_model_decode(blocks, state, x, cfg)
+    x, new_state = rwkv6_model_decode(blocks, state, x, cfg, bb=bb)
     x = L.apply_norm(params["ln_f"], x[:, None])
     return chunk_matmul(x, params["head"], dt), new_state
 

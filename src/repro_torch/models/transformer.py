@@ -8,9 +8,12 @@ of axes (layer groups of one dense layer each), so a bridged JAX tree runs
 as it is.  Layers run as a Python loop over that stack where JAX scans.
 
 Entry points, on (B, ...) tensors:
-  forward      — logits over the whole sequence (the prefill step); its
-                 attention goes through K13 under `layers.attention`'s
-                 routing rule when cfg.use_flash_kernel is set
+  forward      — logits over the whole sequence (the prefill step, and the
+                 train step's forward); its attention goes through K13
+                 under `layers.attention`'s routing rule when
+                 cfg.use_flash_kernel is set, and with grad enabled each
+                 layer is recomputed in the backward when cfg.remat is
+                 set (JAX's `jax.checkpoint(dense_body)`)
   decode_step  — one token against the KV cache (plain attention)
 MoE, MLA and VLM patches raise NotImplementedError until their slice
 (ROADMAP Queue 1 item 9).  `decode_step` reads `pos` (the cache write
@@ -20,6 +23,7 @@ this family, as the JAX engine does.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import exact_matmuls, resolve_device
@@ -58,12 +62,20 @@ def spec(cfg: ModelConfig) -> dict:
     return sp
 
 
-def _layer(params, i: int) -> dict:
-    """Layer i's weights: index [i, 0] of every `blocks.dense` leaf."""
-    def pick(t):
-        return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) \
-            else t[i, 0]
-    return pick(params["blocks"]["dense"])
+def _layers(params, n_layers: int) -> list[dict]:
+    """Every layer's weights: each `blocks.dense` leaf's [:, 0] split once
+    with `unbind`, so autograd stacks the layers' gradients into one
+    tensor a leaf, where indexing [i, 0] per layer would scatter each
+    layer's gradient into a zero of the whole stack."""
+    def split(t):
+        return {k: split(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.select(1, 0).unbind(0)
+
+    def pick(t, i):
+        return {k: pick(v, i) for k, v in t.items()} if isinstance(t, dict) \
+            else t[i]
+    per_leaf = split(params["blocks"]["dense"])
+    return [pick(per_leaf, i) for i in range(n_layers)]
 
 
 def _apply_block(p, x, cfg: ModelConfig, *, positions=None, kv_cache=None,
@@ -86,15 +98,27 @@ def _head(params, x, cfg: ModelConfig):
     return x @ head.to(x.dtype)
 
 
+def _dense_body(p, x, cfg: ModelConfig, positions):
+    return _apply_block(p, x, cfg, positions=positions)[0]
+
+
 @exact_matmuls()
 def forward(params, batch: dict, cfg: ModelConfig):
     """batch: {"tokens": (B, S) int}; params in the compute dtype.
-    Returns (logits (B, S, V), aux), aux a zero (no MoE loss)."""
+    Returns (logits (B, S, V), aux), aux a zero (no MoE loss).  With grad
+    enabled and cfg.remat, each layer runs under a non-reentrant
+    `checkpoint`: its activations are recomputed in the backward (K13's
+    forward launches again there, as in JAX's remat)."""
     _check(cfg)
     x = _embed(params, batch["tokens"], cfg)
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.n_layers):
-        x, _ = _apply_block(_layer(params, i), x, cfg, positions=positions)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in _layers(params, cfg.n_layers):
+        if remat:
+            x = checkpoint(_dense_body, lp, x, cfg, positions,
+                           use_reentrant=False)
+        else:
+            x = _dense_body(lp, x, cfg, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _head(params, x, cfg), aux
 
@@ -128,8 +152,8 @@ def decode_step(params, state, tokens, pos, cfg: ModelConfig):
     x = _embed(params, tokens, cfg)
     pos = int(pos)
     positions = pos + torch.arange(tokens.shape[1], device=x.device)
-    for i in range(cfg.n_layers):
+    for i, lp in enumerate(_layers(params, cfg.n_layers)):
         cache = {"k": state["k"][i], "v": state["v"][i]}
-        x, _ = _apply_block(_layer(params, i), x, cfg, positions=positions,
+        x, _ = _apply_block(lp, x, cfg, positions=positions,
                             kv_cache=cache, cache_pos=pos)
     return _head(params, x, cfg), state

@@ -19,7 +19,13 @@ max|d| <= 2^-5 max|ref| and mean|d| <= 2^-8 mean|ref|.  Batch invariance,
 the W4 and VQ decodes against unpack_leaf, and K4 against L launches of
 K3 are bit for bit.  K13 (flash attention) holds to one bf16 step (2^-22
 relative for f32) plus the f32 summation bound of each output, (Skv + d +
-8)·2^-24·(p @ |v|) / l (`_attn_floor`).
+8)·2^-24·(p @ |v|) / l (`_attn_floor`); its backward, K13-dq and K13-dkv,
+to `_bwd_bounds` (one step, the summation floor of what each gradient
+sums, and for bf16 dk and dv the plain version's per-head roundings), and
+bit for bit run to run.  K7 at B = 16 (two 8-lane tiles) equals two
+8-lane calls bit for bit.  The smollm-smoke train step on the card holds
+each gradient leaf within 1.25·√2x the CPU bf16 step's gap to an f32
+witness.
 """
 import numpy as np
 import pytest
@@ -786,3 +792,210 @@ def test_flash_attention_refusals(cuda):
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(z(1, 8, 2, 192), z(1, 8, 2, 192), z(1, 8, 2, 192))
     assert flash_attention.launches == before
+
+
+# --- K7 over more than 8 lanes ---------------------------------------------
+
+
+def test_rwkv6_block_decode_b16_equals_two_tiles(cuda, wide6):
+    """K7-block at B = 16 runs two 8-lane tiles and equals two 8-lane calls
+    bit for bit: a lane's bits do not depend on its tile."""
+    model, params = wide6
+    cfg = model.cfg
+    lp = _layers6(model, params)[0]
+    st, x = _state6(cfg, (16,), 12)
+    before = rwkv6_block_decode.launches
+    x2, new = rwkv6_block_decode(lp, st, x, cfg)
+    torch.cuda.synchronize()
+    assert rwkv6_block_decode.launches == before + 2
+    for i in (0, 8):
+        xt, st_t = rwkv6_block_decode(
+            lp, {k: v[i:i + 8] for k, v in st.items()}, x[i:i + 8], cfg)
+        assert torch.equal(xt, x2[i:i + 8])
+        assert all(torch.equal(st_t[k], new[k][i:i + 8]) for k in STATE6)
+    x4, new4 = rwkv6_block_decode(lp, st, x, cfg, bb=4)
+    assert torch.equal(x4, x2)
+    assert all(torch.equal(new4[k], new[k]) for k in STATE6)
+    with pytest.raises(ValueError, match="batch tile"):
+        rwkv6_block_decode(lp, st, x, cfg, bb=16)
+
+
+def test_rwkv6_model_decode_b16_equals_two_tiles(cuda, wide6):
+    """K7-model at B = 16 runs two 8-lane tiles in place in the whole
+    (L, 16, ...) state and equals two 8-lane calls bit for bit; a
+    6-lane batch takes one tile, a 12-lane one two tiles of 6."""
+    from repro_torch.models.rwkv6 import prepare_fused_model_params
+    model, params = wide6
+    cfg = model.cfg
+    stack = prepare_fused_model_params(params, cfg)["blocks"]
+    st, x = _state6(cfg, (cfg.n_layers, 16), 13)
+    before = rwkv6_model_decode.launches
+    xm, newm = rwkv6_model_decode(stack, st, x, cfg)
+    torch.cuda.synchronize()
+    assert rwkv6_model_decode.launches == before + 2
+    for i in (0, 8):
+        xt, st_t = rwkv6_model_decode(
+            stack, {k: v[:, i:i + 8] for k, v in st.items()}, x[i:i + 8],
+            cfg)
+        assert torch.equal(xt, xm[i:i + 8])
+        assert all(torch.equal(st_t[k], newm[k][:, i:i + 8])
+                   for k in STATE6)
+    before = rwkv6_model_decode.launches
+    x12, new12 = rwkv6_model_decode(
+        stack, {k: v[:, :12] for k, v in st.items()}, x[:12], cfg)
+    assert rwkv6_model_decode.launches == before + 2
+    assert torch.equal(x12, xm[:12])
+    assert all(torch.equal(new12[k], newm[k][:, :12]) for k in STATE6)
+
+
+def test_engine_rwkv6_sixteen_lanes(cuda):
+    """An rwkv6 engine with 16 slots serves through both K7 forms (each
+    tick two tiles of 8) and each request as it would alone."""
+    from repro_torch.serving import ServingEngine
+    rng = np.random.default_rng(5)
+    for path, k7 in (("block", rwkv6_block_decode),
+                     ("model", rwkv6_model_decode)):
+        eng = ServingEngine("rwkv6-7b", smoke=True, quantized=True,
+                            fused_decode=path, fused_prefill=True,
+                            max_batch=16, prefill_chunk=4, device="cuda")
+        prompts = [rng.integers(0, eng.model.cfg.vocab, int(n)).tolist()
+                   for n in rng.integers(1, 9, 16)]
+        before = k7.launches
+        handles = [eng.submit(p, max_new_tokens=3) for p in prompts]
+        eng.run()
+        assert k7.launches > before
+        for p, h in list(zip(prompts, handles))[:3]:
+            solo = eng.submit(p, max_new_tokens=3)
+            eng.run()
+            assert solo.tokens == h.tokens
+
+
+# --- K13's backward: K13-dq and K13-dkv ------------------------------------
+
+
+def _bwd_bounds(q, k, v, o, lse, do, causal, ref):
+    """Per output of (dq, dk, dv), the bound on |kernel - plain|: one step
+    of the output's type (2^-7 |ref| for bf16, 2^-22 for f32) plus the f32
+    summation floor (rep·Sq + Skv + d + 8)·2^-24 times the magnitude of the
+    terms each output sums (ds's own error carried through: p·(|do|@|v|ᵀ
+    + |D| + |dp - D|·(scale·|q|@|k|ᵀ + 1))), and, for bf16 dk and dv, the
+    plain version's rep per-head roundings and rep - 1 bf16 adds (JAX's
+    order), rep·2^-8 times the sum of the per-head magnitudes."""
+    import math
+    from repro_torch.device import exact_matmuls
+    B, Sq, H, d = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    rep, scale = H // KVH, 1.0 / math.sqrt(d)
+    F = (rep * Sq + Skv + d + 8) * 2.0 ** -24
+    group = lambda t: t.reshape(B, Skv, KVH, rep, d).sum(dim=3)
+    with exact_matmuls():
+        q32, do32 = q.float(), do.float()
+        k32 = k.float().repeat_interleave(rep, dim=2)
+        v32 = v.float().repeat_interleave(rep, dim=2)
+        e = lambda spec, a, b: torch.einsum(spec, a, b)
+        s = e("bqhd,bkhd->bhqk", q32 * scale, k32)
+        keep = torch.ones_like(s, dtype=torch.bool)
+        if causal:
+            keep = (torch.arange(Skv, device=q.device)[None, :]
+                    <= torch.arange(Sq, device=q.device)[:, None])
+        p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+        D = (do32 * o.float()).sum(-1).transpose(1, 2)[..., None]
+        dp = e("bqhd,bkhd->bhqk", do32, v32)
+        ms = scale * e("bqhd,bkhd->bhqk", q32.abs(), k32.abs())
+        a = p * (e("bqhd,bkhd->bhqk", do32.abs(), v32.abs()) + D.abs()
+                 + (dp - D).abs() * (ms + 1.0))
+        fl = [F * scale * e("bhqk,bkhd->bqhd", a, k32.abs()),
+              F * scale * group(e("bhqk,bqhd->bkhd", a, q32.abs())),
+              F * group(e("bhqk,bqhd->bkhd", p * (ms + 1.0), do32.abs()))]
+        if q.dtype == torch.bfloat16:
+            ds = p * (dp - D)
+            fl[1] = fl[1] + rep * 2.0 ** -8 * group(
+                scale * e("bhqk,bqhd->bkhd", ds, q32).abs())
+            fl[2] = fl[2] + rep * 2.0 ** -8 * group(
+                e("bhqk,bqhd->bkhd", p, do32).abs())
+    rel = 2.0 ** -7 if q.dtype == torch.bfloat16 else 2.0 ** -22
+    return [rel * r.float().abs() + f for r, f in zip(ref, fl)]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KVH,d,causal,dtype", [
+    (1, 512, 512, 9, 3, 64, True, torch.bfloat16),     # smollm's heads
+    (2, 200, 200, 9, 3, 64, True, torch.bfloat16),     # ragged tiles
+    (1, 130, 130, 4, 4, 96, False, torch.float32),     # MHA, hd 96
+    (1, 70, 150, 8, 2, 128, True, torch.bfloat16),     # Sq != Skv, hd 128
+    (1, 150, 70, 6, 2, 32, True, torch.float32),       # keys past the rows
+    (3, 1, 33, 6, 2, 24, False, torch.float32),        # one query row
+])
+def test_flash_attention_bwd(cuda, B, Sq, Skv, H, KVH, d, causal, dtype):
+    """K13-dq and K13-dkv against the plain backward within `_bwd_bounds`;
+    deterministic bit for bit; through the autograd Function too."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_dkv, flash_attention_dq)
+    g = torch.Generator(device=cuda).manual_seed(Sq + 3 * d)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
+    q, k, v = rn(B, Sq, H, d), rn(B, Skv, KVH, d), rn(B, Skv, KVH, d)
+    do = rn(B, Sq, H, d)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    before = (flash_attention_dq.launches, flash_attention_dkv.launches)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_dq.launches, flash_attention_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    bounds = _bwd_bounds(q, k, v, o, lse, do, causal, ref)
+    for name, x, r, bnd in zip(("dq", "dk", "dv"), got, ref, bounds):
+        assert x.dtype == dtype and x.shape == r.shape, name
+        dd = (x.float() - r.float()).abs()
+        assert bool((dd <= bnd).all()), (name, float(dd.max()))
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = flash_attention(qg, kg, vg, causal=causal)
+    assert torch.equal(out.detach(), o)
+    auto = torch.autograd.grad(out, (qg, kg, vg), do)
+    assert all(torch.equal(a, b) for a, b in zip(auto, got))
+
+
+def test_train_step_smollm_smoke_on_card(cuda):
+    """One train step of smollm smoke at S = 512 with use_flash_kernel on
+    the card: K13 twice a layer (the forward and its recompute under
+    remat), K13-dq and K13-dkv once a layer; a finite loss; each leaf's
+    gradient no farther from an f32 witness (the port's f32 config on the
+    same weights, plain attention, on the CPU) than 1.25·√2 times the CPU
+    bf16 step's own gap to it (two bf16 paths, each a bf16 noise distance
+    from the witness)."""
+    import dataclasses
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_dkv, flash_attention_dq)
+    from repro_torch.launch.steps import build_train_step, loss_and_grads
+    from repro_torch.tree import leaves_with_path, tree_map
+    base = get_model("smollm-135m", smoke=True)
+    mk = lambda **kw: type(base)(cfg=dataclasses.replace(base.cfg, **kw),
+                                 module=base.module)
+    flash, f32m = mk(use_flash_kernel=True), mk(dtype="float32")
+    params = flash.init_params(0, "cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, flash.cfg.vocab, (2, 513))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).int(),
+             "labels": torch.from_numpy(toks[:, 1:]).int(),
+             "mask": torch.ones((2, 512))}
+    on = lambda t: tree_map(lambda a: a.to(cuda), t)
+    (_, _), g_wit = loss_and_grads(f32m, params, batch)
+    (_, _), g_cpu = loss_and_grads(flash, params, batch)
+    step, _, (init_opt, _) = build_train_step(flash)
+    p_card = on(params)
+    (_, _), g_card = loss_and_grads(flash, p_card, on(batch))
+    counters = (flash_attention, flash_attention_dq, flash_attention_dkv)
+    before = [c.launches for c in counters]
+    p_card, _, metrics = step(p_card, init_opt(p_card), on(batch))
+    torch.cuda.synchronize()
+    L = flash.cfg.n_layers
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [2 * L, L, L]
+    assert bool(torch.isfinite(metrics["loss"]))
+    wit, cpu = dict(leaves_with_path(g_wit)), dict(leaves_with_path(g_cpu))
+    for path, g in leaves_with_path(g_card):
+        w = wit[path].float()
+        gap = lambda x: float((x.float().cpu() - w).abs().mean()
+                              / w.abs().mean())
+        assert gap(g) <= 1.25 * 2 ** 0.5 * gap(cpu[path]), path

@@ -321,3 +321,39 @@ def test_unfuse_layer_equals_layer_slice():
             assert torch.equal(g.reshape(w.shape), w), pg
         assert leaf_plane(got["ffn"]["wv"]) == "vq"
         assert leaf_plane(got["att"]["wk"]) == "w4"
+
+
+# --- dpot_quantize as JAX has it: W9 and PoT4, axis 0, axis=None, MSE ---
+
+
+def test_quantize_defaults_match_jax(rng):
+    """With no format or axis: W9 (ks (4, 4)) and one scale per index of
+    axis 0, as JAX's defaults; codes, signs and scales bit for bit."""
+    w = (rng.normal(size=(24, 40)) * np.exp(rng.normal(size=(24, 40)))
+         ).astype(np.float32)
+    jq = jdp.dpot_quantize(jnp.asarray(w))
+    tq = tdp.dpot_quantize(torch.from_numpy(w))
+    assert tq.ks == jq.ks == (4, 4) and tuple(tq.scale.shape) == (24, 1)
+    for a, b in ((jq.codes, tq.codes), (jq.signs, tq.signs),
+                 (jq.scale, tq.scale)):
+        assert_bitwise(a, b)
+
+
+@pytest.mark.parametrize("fmt", ["FORMAT_W9", "FORMAT_W8", "FORMAT_W4",
+                                 "FORMAT_POT4"])
+@pytest.mark.parametrize("axis", [0, -1, None, (0, 2)])
+@pytest.mark.parametrize("mse", [False, True])
+def test_quantize_axes_and_mse_search_bitwise(rng, fmt, axis, mse):
+    """Every format, per-channel and tensor-wide scales, with and without
+    the MSE grid search of the scale (the 0.6-1.2 candidates): codes and
+    scales bit for bit, the scale's shape JAX's."""
+    w = (rng.normal(size=(6, 20, 16)) * np.exp(rng.normal(size=(6, 20, 16))
+                                               * 2)).astype(np.float32)
+    w[1] = 0.0                                     # an all-zero channel
+    jq = jdp.dpot_quantize(jnp.asarray(w), getattr(jdp, fmt), axis=axis,
+                           mse_search=mse)
+    tq = tdp.dpot_quantize(torch.from_numpy(w), getattr(tdp, fmt),
+                           axis=axis, mse_search=mse)
+    assert tuple(tq.scale.shape) == tuple(np.shape(jq.scale))
+    assert_bitwise(jq.codes, tq.codes)
+    assert_bitwise(jq.scale, tq.scale)

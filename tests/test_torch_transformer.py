@@ -93,7 +93,7 @@ def test_configs_match_jax(arch):
     fields = ("name", "family", "n_layers", "d_model", "n_heads",
               "n_kv_heads", "d_ff", "vocab", "head_dim", "act", "norm",
               "rope_theta", "tie_embeddings", "use_flash_kernel", "dtype",
-              "resolved_head_dim")
+              "resolved_head_dim", "remat", "optimizer")
     for j, t in ((j_get_config(arch), get_config(arch)),
                  (j_smoke_config(arch), smoke_config(arch))):
         assert {f: getattr(t, f) for f in fields} == \
@@ -140,7 +140,8 @@ def test_registry_refusals():
 
 def test_step_for_cell():
     """The (arch, shape) entry: the prefill step with meta arguments at
-    the cell's shape, the serve step with a meta KV cache, train raises."""
+    the cell's shape, the serve step with a meta KV cache, the train step
+    with meta params, optimizer state and batch."""
     step, (params, batch), kind = build_step_for_cell(
         "smollm-135m", "prefill_32k",
         cfg_overrides={"use_flash_kernel": True})
@@ -153,8 +154,11 @@ def test_step_for_cell():
     assert kind == "serve_step[base]" and tok.shape == (128, 1)
     assert state["k"].shape == (30, 128, 32_768, 3, 64)
     assert params["embed"].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="training"):
-        build_step_for_cell("smollm-135m", "train_4k")
+    step, (params, opt, batch), kind = build_step_for_cell(
+        "smollm-135m", "train_4k")
+    assert kind == "train_step" and callable(step)
+    assert batch["tokens"].shape == (256, 4096)
+    assert opt.nu["embed"].device.type == "meta"
 
 
 # --- layers ----------------------------------------------------------------
