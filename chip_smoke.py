@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card proof that the PyTorch/CUDA port serves RWKV-4 (exact and
-hardware numerics), RWKV-6 and the dense transformer smollm-135m, and
-trains smollm-135m, through its kernels.
+hardware numerics), RWKV-6 and the dense transformer smollm-135m, runs
+the RWKV whole-sequence forward, and trains smollm-135m, through its
+kernels.
 
     python3 chip_smoke.py            (from the root of a checkout, one GPU)
 
@@ -129,7 +130,39 @@ each prints its seconds and peak device memory (`phase_done` lines):
     planes decoded inside the loop), with TF_BOUNDS["rwkv6-*"]; the model
     path's logits must equal the block path's bit for bit.  The CPU plain
     pair is left out at 7B (~5 TFLOP on the host).
- 6. smollm-135m, the dense transformer, at full width and depth (L30
+ 6. The RWKV whole-sequence forward (the prefill step of both families):
+      fused_layernorm (K11)    (rows, D) in K11_SHAPES: (32768, 4096) and
+                               (8192, 768) in bf16 and f32, ragged rows, a
+                               D without vector loads; timed at (32768,
+                               4096) bf16 with F.layer_norm beside it
+      wkv6_chunked_kernel      K10_SHAPES (one chunk; several; T = 96, the
+      (K10)                    chunk halving to 32; N = 16; strong decay),
+                               then rwkv6-7b's layer-0 operands at B1
+                               T32768 H64 N64 (timed; bit for bit run to
+                               run)
+    Tolerances: K11 one step of the output's type plus the f32 sum-order
+    bound `_ln_floor`; K10 y and the final state within `_k10_bound`,
+    (8·G + 2C + 2N + 16)·2^-24 of each output's magnitude (the plain
+    version on absolute values) plus 2C·2^-23·max|log w| of it.  Then:
+      rwkv4    rwkv4-169m at full width and depth, B 8, S 1024, bf16
+               weights from the seed, exact and hw: build_prefill_step
+               with every counter set to 0 just before and read just after
+               (K11 26, K2 12; under hw K9 24), step ms, tokens/s, peak
+               memory; K2 (K2-hw) on layer 0's operands at the forward's
+               shape (B8 T1024 C768, zero state, no mask, f32 carry)
+               against its plain version, elementwise as in phase 2 (bit
+               for bit under hw); logits within RWKV4_FWD_BOUNDS of the
+               plain path (the plain versions on the card) and an f32
+               witness
+      rwkv6    rwkv6-7b at full width and depth, bf16 weights drawn after
+               the rwkv6 engines are freed, B 1, S 32768: K10 32, K11 66,
+               no K6; finite logits; step ms, tokens/s, peak memory beside
+               the matmul bound; at B 2, S 512 the logits within
+               RWKV6_FWD_BOUNDS of the plain path and the f32 witness; at
+               S 40, K6 32 and no K10, and K6 on layer 0's operands there
+               (B2 T40 H64 N64, zero f32 state, no mask) against its
+               plain version, as in phase 5
+ 7. smollm-135m, the dense transformer, at full width and depth (L30
     D576 H9 KVH3 hd64 F1536 V49152, RMSNorm, SwiGLU, RoPE, tied), bf16
     weights drawn on the card from the seed:
       flash_attention (K13)    (B, S, H, KVH, d) = (8, 2048, 9, 3, 64)
@@ -152,7 +185,7 @@ each prints its seconds and peak device memory (`phase_done` lines):
                per-token decode_step chain over the same tokens, within
                DECODE_SPREAD (1.25·√2) times the larger of the two
                paths' gaps to the f32 witness, read in the run
- 7. smollm-135m's training at full width and depth:
+ 8. smollm-135m's training at full width and depth:
       flash_attention_dq       K13_BWD_SHAPES: the train shape (B8 S2048
       (K13-dq),                H9 KVH3 d64, causal, bf16; timed, with the
       flash_attention_dkv      plain backward and SDPA's backward less its
@@ -178,10 +211,13 @@ each prints its seconds and peak device memory (`phase_done` lines):
                counters again (3 x 60, 30, 30), finite losses, each step's
                ms, tokens/s and the peak device memory beside the step's
                operations bound (`_train_ops`, ~23.1 TFLOP)
- 8. The `kernels` JSON line (seventeen entries: the nine kernels, then K9
+ 9. The `kernels` JSON line (nineteen entries: the nine kernels, then K9
     and the hardware-numerics forms of K2, K5, K3 and K4, then K13, K13-dq
-    and K13-dkv), the card's name and power limit, and the last line
-    {"ok": true, "device": {...}}.
+    and K13-dkv, then K10 and K11; the entries of K2, K2-hw and K6 carry
+    their forward-shape checks under "forward_check", their errors in
+    max_abs_err and their shapes in shapes), the card's name and power
+    limit, and
+    the last line {"ok": true, "device": {...}}.
 
 Weights are random, from a seed.  Imports nothing of JAX.
 """
@@ -2160,6 +2196,494 @@ def phase_train():
     return {"smollm-train": launches}
 
 
+# ---------------------------------------------------------------------------
+# The RWKV whole-sequence forward: K10 (chunked WKV-6), K11 (LayerNorm), and
+# the forwards of rwkv4-169m and rwkv6-7b through them
+# ---------------------------------------------------------------------------
+
+# K10's shapes (B, T, H, N, s0, decay shift, bf16 r/k/v): a chunk, several
+# chunks of the real head size, a ragged T (the chunk halves to 32), the
+# smoke model's N = 16, and strong decay, where e^L underflows to 0
+K10_SHAPES = (
+    (1, 64, 1, 64, False, 0.0, False),
+    (2, 256, 4, 64, True, 0.0, False),
+    (2, 96, 4, 64, True, 0.0, True),
+    (2, 128, 4, 16, True, 0.0, True),
+    (1, 256, 4, 64, True, 3.0, False),
+)
+# K11's shapes (rows, D, dtype): rwkv6-7b's forward rows at B1 S32768 (the
+# first, timed), rwkv4-169m's at B8 S1024, in both types, then ragged row
+# counts and a D that takes no vector loads
+K11_SHAPES = (
+    (32768, 4096, torch.bfloat16), (32768, 4096, torch.float32),
+    (8192, 768, torch.bfloat16), (8192, 768, torch.float32),
+    (1000, 4096, torch.bfloat16), (37, 768, torch.float32),
+    (5, 100, torch.bfloat16),
+)
+# The forwards' logits, the TF_BOUNDS recipe: 1.25x what the plain path
+# (the plain versions on the card) read against the f32 witness in its
+# first run on an H100 (its argmax disagreement 1.25x), and 1.25·√2x that
+# for the kernel path against the plain one, two bf16 paths each that far
+# from the witness (PERF.md §6, the RWKV forward's entry, run 2):
+#   rwkv4-169m exact (B8 S1024): mean 0.013894, max 0.015126 of max|f32|,
+#     argmax agreement 0.96704;
+#   rwkv4-169m hw: mean 0.046184, max 0.048522, argmax 0.89514 (the hw
+#     numerics in f32 are the witness);
+#   rwkv6-7b (B2 S512, 32 layers): mean 0.31101, max 0.42432, argmax
+#     0.42578, the ~31% every bf16 path sits from the witness after 32
+#     random layers, so this one catches a gross fault only; K10 and K11
+#     are held per call above.
+RWKV4_FWD_BOUNDS = {
+    False: {"mean_rel_f32": 0.0174, "max_rel_f32": 0.019,
+            "argmax_f32": 0.9588, "mean_rel_plain": 0.0246,
+            "max_rel_plain": 0.0268},
+    True: {"mean_rel_f32": 0.0578, "max_rel_f32": 0.0607,
+           "argmax_f32": 0.8689, "mean_rel_plain": 0.0817,
+           "max_rel_plain": 0.0858},
+}
+RWKV6_FWD_BOUNDS = {"mean_rel_f32": 0.3888, "max_rel_f32": 0.5305,
+                    "argmax_f32": 0.2822, "mean_rel_plain": 0.5499,
+                    "max_rel_plain": 0.7502}
+
+
+def _k10_bound(r, k, v, w, u, s0):
+    """The most that K10 and its plain version, two f32 evaluations of the
+    same chunked WKV-6 in other orders, may differ by per output of y and
+    S: (8·G + 2C + 2N + 16)·2^-24 times the output's magnitude (the plain
+    version on |r|, |k|, |v|, |u|, |s0|, each sum's absolute terms; the
+    state's error carried through G chunks), plus 2C·2^-23·max|log w| of
+    it, for the card's log a last bit off the kernel's logf, which moves
+    every L after it.  Returns (y bound, S bound, relative factor)."""
+    from repro_torch.kernels.wkv6 import chunk_length, wkv6_chunked_plain
+    B, T, H, N = r.shape
+    C = chunk_length(T)
+    G = T // C
+    mag = wkv6_chunked_plain(r.float().abs(), k.float().abs(),
+                             v.float().abs(), w, u.abs(),
+                             None if s0 is None else s0.abs())
+    logw = float(torch.log(torch.clamp(w.float(), min=1e-38)).abs().max())
+    rel = (8 * G + 2 * C + 2 * N + 16) * 2.0 ** -24 \
+        + 2 * C * 2.0 ** -23 * logw
+    return rel * mag[0], rel * mag[1], rel
+
+
+def _k10_cost(r, w, s0):
+    """K10's bytes (r, k, v, w read once in their types, u, s0, y and the
+    final state) and operations: a chunk of C tokens needs, per head, 4CN²
+    multiply-adds (the inter-chunk product and the state update), 7·N per
+    strictly-lower pair (C(C-1)/2 of them: a subtraction, an exponential,
+    three products and sums), ~15·C·N elementwise operations (log, cumsum,
+    the decays, the bonus) and 2N²; each exponential and log counts as one
+    operation at the f32 rate."""
+    from repro_torch.kernels.wkv6 import chunk_length
+    B, T, H, N = r.shape
+    C = chunk_length(T)
+    elems = B * T * H * N
+    nbytes = (3 * r.element_size() + w.element_size() + 4) * elems \
+        + 4 * H * N + 4 * B * H * N * N * (2 if s0 is not None else 1)
+    pairs = C * (C - 1) // 2
+    ops = B * H * (T // C) * (4 * C * N * N + 7 * pairs * N + 15 * C * N
+                              + 2 * N * N)
+    return nbytes, ops
+
+
+def _k10_check(what, r, k, v, w, u, s0, flush=None):
+    """K10 against its plain version within `_k10_bound`; timed (the plain
+    version once, it takes ~1 s at B1 T32768) when `flush` is given."""
+    from repro_torch.kernels.wkv6 import (
+        chunk_length, wkv6_chunked_kernel, wkv6_chunked_plain)
+    y, S = wkv6_chunked_kernel(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    y_p, S_p = wkv6_chunked_plain(r, k, v, w, u, s0)
+    by, bS, rel = _k10_bound(r, k, v, w, u, s0)
+    dy, dS = (y - y_p).abs(), (S - S_p).abs()
+    ok = bool((dy <= by).all()) and bool((dS <= bS).all()) and bool(
+        torch.isfinite(y).all()) and bool(torch.isfinite(S).all())
+    B, T, H, N = r.shape
+    nbytes, ops = _k10_cost(r, w, s0)
+    bms, by_ = _bound(nbytes, ops, PEAK_F32_FLOPS)
+    row = {"kernel": "wkv6_chunked_kernel", "what": what, "B": B, "T": T,
+           "H": H, "N": N, "C": chunk_length(T), "s0": s0 is not None,
+           "rkv_dtype": str(r.dtype), "max_abs_err": float(
+               torch.maximum(dy.max(), dS.max())),
+           "y_max_abs_err": float(dy.max()), "S_max_abs_err": float(dS.max()),
+           # the largest |d| / (bound / rel): the error in units of the
+           # outputs' magnitude, against the bound's factor `rel`
+           "y_err_per_mag": float((dy * rel / by.clamp(min=1e-30)).max()),
+           "S_err_per_mag": float((dS * rel / bS.clamp(min=1e-30)).max()),
+           "bound_rel": rel, "within_bound": ok, "bytes": nbytes, "ops": ops,
+           "bound_ms": bms, "bound_by": by_, "library_ms": None}
+    if flush is not None:
+        row["kernel_ms"] = _time_ms(
+            lambda: wkv6_chunked_kernel(r, k, v, w, u, s0), flush)
+        row["plain_ms"] = _time_ms(
+            lambda: wkv6_chunked_plain(r, k, v, w, u, s0), flush, reps=1)
+    _line(row)
+    if not ok:
+        raise AssertionError(f"K10 {what} {(B, T, H, N)}: y max |d| "
+                             f"{float(dy.max())}, S max |d| "
+                             f"{float(dS.max())}")
+    return row
+
+
+def _layer0_input(params, toks):
+    """Layer 0's parameters and its TimeMix input, ln1(ln0(embed)), as an
+    RWKV forward computes them on bf16 weights."""
+    from repro_torch.models.layers import layernorm_kernel
+    from repro_torch.models.rwkv4 import _layer
+    lp = _layer(params["blocks"], 0)
+    x = params["embed"][toks.long()].to(torch.bfloat16)
+    return lp, layernorm_kernel(lp["ln1"], layernorm_kernel(params["ln0"], x))
+
+
+def _rwkv6_layer0_operands(model, params, toks):
+    """Layer 0's WKV operands of rwkv6's forward on `toks`: r, k, v bf16,
+    w and u f32, as `_time_mix_seq` hands them to K10."""
+    from repro_torch.models import rwkv6
+    with torch.no_grad():
+        lp, h = _layer0_input(params, toks)
+        r, k, v, w, u, _ = rwkv6._wkv_operands(lp["att"], h, model.cfg)
+    return r, k, v, w, u
+
+
+def phase_k10(flush, layer0):
+    """K10 against its plain version at every shape of K10_SHAPES (random
+    operands, w = exp(-exp(0.5·z + shift))), then on rwkv6-7b's layer-0
+    operands at B1 T32768, timed there, within `_k10_bound`."""
+    from repro_torch.kernels.wkv6 import wkv6_chunked_kernel
+    rows = []
+    for i, (B, T, H, N, with_s0, shift, bf) in enumerate(K10_SHAPES):
+        g = torch.Generator(device=DEV).manual_seed(SEED + 60 + i)
+        rn = lambda *s: torch.randn(s, generator=g, device=DEV)
+        dt = torch.bfloat16 if bf else torch.float32
+        r, k, v = (rn(B, T, H, N).to(dt) for _ in range(3))
+        w = torch.exp(-torch.exp(0.5 * rn(B, T, H, N) + shift))
+        s0 = rn(B, H, N, N) if with_s0 else None
+        rows.append(_k10_check("random", r, k, v, w, 0.5 * rn(H, N), s0))
+    rows.append(_k10_check("rwkv6-7b layer 0", *layer0, None, flush))
+    y = wkv6_chunked_kernel(*layer0)[0]
+    if not torch.equal(y, wkv6_chunked_kernel(*layer0)[0]):
+        raise AssertionError("K10 is not repeatable bit for bit")
+    return rows
+
+
+def _ln_floor(x, gamma, beta, eps=1e-5):
+    """The f32 sum-order bound of each LayerNorm output: the row's mean and
+    E[x²] summed in another order move by up to (D + 2)·2^-24 of their
+    absolute sums, which moves var, then rsqrt (a few ulps apart on the
+    two sides), then (x − μ)·rs·γ + β, each op one more rounding."""
+    u = 2.0 ** -24
+    x32 = x.float()
+    D = x.shape[-1]
+    mu = x32.mean(-1, keepdim=True)
+    ex2 = (x32 * x32).mean(-1, keepdim=True)
+    var = ex2 - mu * mu
+    em = (D + 2) * u * x32.abs().mean(-1, keepdim=True)
+    e_var = (D + 2) * u * ex2 + 2 * mu.abs() * em + 2 * u * (ex2 + mu * mu)
+    rs = torch.rsqrt(var + eps)
+    rel_rs = 0.5 * e_var / (var + eps) + 4 * u
+    yn = (x32 - mu).abs() * rs
+    g, b = gamma.float().abs(), beta.float().abs()
+    return g * (em * rs + yn * rel_rs) + 4 * u * (yn * g + b)
+
+
+def phase_k11(flush):
+    """K11 against its plain version at every shape of K11_SHAPES (x = 2z +
+    0.5, γ and β standard normal, in x's type): |d| <= one step of the
+    output's type (2^-7 |ref| in bf16, 2^-22 in f32) plus the f32 sum-order
+    bound `_ln_floor`.  Timed at the first shape, with F.layer_norm (the
+    same function in two passes; the port never calls it) beside it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused_layernorm import (
+        fused_layernorm, fused_layernorm_plain)
+    rows = []
+    for i, (R, D, dt) in enumerate(K11_SHAPES):
+        g = torch.Generator(device=DEV).manual_seed(SEED + 70 + i)
+        rn = lambda *s: torch.randn(s, generator=g, device=DEV)
+        x = (2 * rn(R, D) + 0.5).to(dt)
+        gamma, beta = rn(D).to(dt), rn(D).to(dt)
+        out = fused_layernorm(x, gamma, beta)
+        ref = fused_layernorm_plain(x, gamma, beta)
+        step = 2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -22
+        d = (out.float() - ref.float()).abs()
+        ok = bool((d <= step * ref.float().abs()
+                   + 1.01 * _ln_floor(x, gamma, beta)).all())
+        elem = x.element_size()
+        bms, by = _bound(2 * R * D * elem + 2 * D * elem, 7.0 * R * D,
+                         PEAK_F32_FLOPS)
+        row = {"kernel": "fused_layernorm", "R": R, "D": D,
+               "dtype": str(dt), "max_abs_err": float(d.max()),
+               "within_bound": ok, "bound_ms": bms, "bound_by": by}
+        if i == 0:
+            row.update(
+                kernel_ms=_time_ms(lambda: fused_layernorm(x, gamma, beta),
+                                   flush),
+                plain_ms=_time_ms(
+                    lambda: fused_layernorm_plain(x, gamma, beta), flush),
+                library_ms=_time_ms(lambda: F.layer_norm(
+                    x, (D,), gamma, beta, 1e-5), flush))
+        _line(row)
+        if not ok:
+            raise AssertionError(f"K11 {(R, D, dt)}: max |d| {float(d.max())}")
+        rows.append(row)
+        del x, out, ref, d
+    return rows
+
+
+class _PlainKernels:
+    """Inside the block the RWKV forwards call the plain versions of K2,
+    K6, K9, K10 and K11 (on the card): the plain path that each kernel
+    path is held to."""
+
+    def __enter__(self):
+        from repro_torch.kernels.expsig import sigmoid_kernel_plain
+        from repro_torch.kernels.fused_layernorm import fused_layernorm_plain
+        from repro_torch.kernels.wkv4 import wkv4_seq_plain
+        from repro_torch.kernels.wkv6 import (
+            wkv6_chunked_plain, wkv6_seq_plain)
+        from repro_torch.models import layers, rwkv4, rwkv6
+        swaps = ((rwkv6, "wkv6_chunked_kernel", wkv6_chunked_plain),
+                 (rwkv6, "wkv6_seq", wkv6_seq_plain),
+                 (rwkv4, "wkv4_seq", wkv4_seq_plain),
+                 (layers, "fused_layernorm", fused_layernorm_plain),
+                 (rwkv4, "sigmoid_kernel", sigmoid_kernel_plain))
+        self.saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+        for m, n, fn in swaps:
+            setattr(m, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def _forward_counters():
+    from repro_torch.kernels.expsig import sigmoid_kernel
+    from repro_torch.kernels.fused_layernorm import fused_layernorm
+    from repro_torch.kernels.wkv4 import wkv4_seq
+    from repro_torch.kernels.wkv6 import wkv6_chunked_kernel, wkv6_seq
+    return (fused_layernorm, wkv4_seq, sigmoid_kernel, wkv6_chunked_kernel,
+            wkv6_seq)
+
+
+def _run_counted(step, params, batch, want, what):
+    """The main-path run: every counter of the forwards' kernels set to 0
+    just before the step and read just after; they must read `want`."""
+    counters = _forward_counters()
+    for c in counters:
+        c.launches = 0
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    got = {c.__name__: c.launches for c in counters}
+    full = {c.__name__: want.get(c.__name__, 0) for c in counters}
+    if got != full:
+        raise AssertionError(f"{what} launched {got}, not {full}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{what}: logits not finite")
+    return logits, got
+
+
+def _timed_steps(step, params, batch, n=2):
+    """Host-clock ms of `n` calls of `step`, each ending in a synchronize,
+    and the peak device memory over them."""
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(params, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        del out
+    return ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _fwd_gaps(model, params, batch, hw, bounds):
+    """The kernel path's logits against the plain path (the plain versions
+    on the card) and an f32 witness (the f32 config on the bf16 weights
+    widened exactly, the plain versions), within `bounds`."""
+    from repro_torch.core.quant.serving import cast_compute
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models.registry import get_model
+    step = build_prefill_step(model, hw=hw)
+    out = step(params, batch)
+    with _PlainKernels():
+        ref = step(params, batch)
+        witness = build_prefill_step(get_model(dataclasses.replace(
+            model.cfg, dtype="float32")), hw=hw)(
+            cast_compute(params, torch.float32), batch)
+    gaps = {"kernel_vs_f32": _logits_gaps(out, witness),
+            "plain_vs_f32": _logits_gaps(ref, witness),
+            "kernel_vs_plain": _logits_gaps(out, ref)}
+    kf, kp = gaps["kernel_vs_f32"], gaps["kernel_vs_plain"]
+    ok = (kf["mean_rel"] <= bounds["mean_rel_f32"]
+          and kf["max_rel"] <= bounds["max_rel_f32"]
+          and kf["argmax_agree"] >= bounds["argmax_f32"]
+          and kp["mean_rel"] <= bounds["mean_rel_plain"]
+          and kp["max_rel"] <= bounds["max_rel_plain"])
+    return gaps, ok
+
+
+def _k2_fwd_check(model, params, toks, hw, flush):
+    """K2 on rwkv4-169m layer 0's operands as the forward hands them (B8
+    T1024 C768: the zero state, no valid mask, the f32 carry; the EXP and
+    DIV tables under hw) against its plain version on the same inputs:
+    under hw bit for bit (phase_k2_hw's reason), else within phase_k2's
+    elementwise rule.  The kernel timed L2-cold, the plain version once
+    (a Python loop over T)."""
+    from repro_torch.kernels.wkv4 import wkv4_seq, wkv4_seq_plain
+    from repro_torch.models import rwkv4
+    with torch.no_grad():
+        lp, h = _layer0_input(params, toks)
+        _, args, kw = rwkv4._wkv_operands(lp["att"], h,
+                                          rwkv4._seq_numerics(hw))
+    y, fin = wkv4_seq(*args, **kw)
+    y_p, fin_p = wkv4_seq_plain(*args, **kw)
+    err, exact = 0.0, True
+    for name, o, r in zip(("y", "a", "b", "o"), (y, *fin), (y_p, *fin_p)):
+        ok, e = _elementwise_ok(o, r)
+        exact = exact and torch.equal(o, r)
+        if not (exact if hw else ok):
+            raise AssertionError(f"K2{'-hw' if hw else ''} forward shape "
+                                 f"{name}: max |d| {e}")
+        err = max(err, e)
+    B, T, C = args[0].shape
+    nbytes = 4 * (3 * B * T * C + 2 * C + 6 * B * C + (512 if hw else 0))
+    bms, by = _bound(nbytes, (40.0 if hw else 20.0) * B * T * C,
+                     PEAK_F32_FLOPS)
+    row = {"kernel": "wkv4_seq", "numerics": "hw" if hw else "exact",
+           "what": "rwkv4-169m layer 0, forward", "B": B, "T": T, "C": C,
+           "max_abs_err": err, "bit_exact": exact,
+           "kernel_ms": _time_ms(lambda: wkv4_seq(*args, **kw), flush),
+           "plain_ms": _time_ms(lambda: wkv4_seq_plain(*args, **kw), flush,
+                                reps=1),
+           "library_ms": None, "bound_ms": bms, "bound_by": by}
+    _line(row)
+    return row
+
+
+def phase_rwkv4_forward(model, params, hw, flush):
+    """rwkv4-169m's forward at full width and depth, B 8, S 1024 (the
+    RWKV-4-Pile models' training context), through build_prefill_step
+    under the exact or the hardware numerics: the counters read K11 26
+    (2L + 2), K2 12 and, under hw, K9 24 (σ twice a layer); K2 held to
+    its plain version on layer 0's operands (`_k2_fwd_check`); finite
+    logits held to the plain path and the f32 witness within
+    RWKV4_FWD_BOUNDS; step ms, tokens/s and peak device memory.  Returns
+    the path's launches and the K2 check's row."""
+    from repro_torch.launch.steps import build_prefill_step
+    B, S, L = 8, 1024, model.cfg.n_layers
+    g = torch.Generator(device=DEV).manual_seed(SEED + 80)
+    batch = {"tokens": torch.randint(0, model.cfg.vocab, (B, S), generator=g,
+                                     device=DEV)}
+    step = build_prefill_step(model, hw=hw)
+    want = {"fused_layernorm": 2 * L + 2, "wkv4_seq": L,
+            "sigmoid_kernel": 2 * L if hw else 0}
+    path = "rwkv4-forward" + ("-hw" if hw else "")
+    logits, launches = _run_counted(step, params, batch, want, path)
+    if logits.shape != (B, S, model.cfg.vocab):
+        raise AssertionError(f"{path}: logits {tuple(logits.shape)}")
+    del logits
+    k2 = _k2_fwd_check(model, params, batch["tokens"], hw, flush)
+    ms, peak = _timed_steps(step, params, batch)
+    gaps, ok = _fwd_gaps(model, params, batch, hw, RWKV4_FWD_BOUNDS[hw])
+    _line({"phase": "forward", "path": path, "arch": model.cfg.name, "B": B,
+           "S": S, "launches": launches, "step_ms": ms,
+           "tokens_per_s": B * S / (sum(ms) / len(ms) / 1e3),
+           "max_memory_allocated_gib": peak, "gaps": gaps,
+           "bounds": RWKV4_FWD_BOUNDS[hw], "within_bound": ok})
+    if not ok:
+        raise AssertionError(f"{path} logits out of bounds: {gaps}")
+    return {path: launches}, k2
+
+
+def _k6_fwd_check(model, params, toks):
+    """K6 on rwkv6-7b layer 0's operands as the forward hands them at a
+    length that is no multiple of the chunk (B2 T40 H64 N64: r, k, v
+    widened from bf16, the zero f32 state, no valid mask, the f32 carry)
+    against its plain version on the same inputs: the final state bit for
+    bit, y within phase_k6's elementwise rule (phase_k6's reasons)."""
+    from repro_torch.kernels.wkv6 import wkv6_seq, wkv6_seq_plain
+    r, k, v, w, u = _rwkv6_layer0_operands(model, params, toks)
+    B, T, H, N = r.shape
+    args = (r.float(), k.float(), v.float(), w, u,
+            torch.zeros((B, H, N, N), dtype=torch.float32, device=DEV))
+    y, sf = wkv6_seq(*args)
+    y_p, sf_p = wkv6_seq_plain(*args)
+    ok, err = _elementwise_ok(y, y_p)
+    if not ok:
+        raise AssertionError(f"K6 forward shape y: max |d| {err}")
+    if not torch.equal(sf, sf_p):
+        raise AssertionError("K6 forward shape: final state differs from "
+                             "the plain version")
+    row = {"kernel": "wkv6_seq", "what": "rwkv6-7b layer 0, forward S40",
+           "B": B, "T": T, "H": H, "N": N, "max_abs_err": err,
+           "state_bit_exact": True}
+    _line(row)
+    return row
+
+
+def _rwkv6_fwd_ops(cfg, B, S):
+    """The rwkv6 forward's matmul operations, 2·(weights in products)·B·S:
+    per layer wr, wk, wv, wg, wo (5·D²), the ddlerp and decay low-rank
+    products (D·5·32 + 5·32·D, D·64 + 64·D), the channel mix (D² + 2·D·F);
+    then the head, D·V."""
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    per_layer = 5 * D * D + 2 * 5 * 32 * D + 2 * 64 * D + D * D + 2 * D * F
+    return 2.0 * (cfg.n_layers * per_layer + D * V) * B * S
+
+
+def phase_rwkv6_forward(model, params, toks):
+    """rwkv6-7b's forward at full width and depth, B 1, S 32768 (the
+    prefill_32k cell's length; its batch of 32 cut to 1 to fit one card),
+    through build_prefill_step: the counters read K10 32, K11 66 and no
+    K6; finite logits; step ms, tokens/s and peak device memory beside the
+    matmul bound.  Then at B 2, S 512 the logits against the plain path
+    and the f32 witness within RWKV6_FWD_BOUNDS, and at S 40 (not a
+    multiple of the chunk) K6 32 times and no K10, then K6 held to its
+    plain version on layer 0's operands there (`_k6_fwd_check`).  Returns
+    the paths' launches and the K6 check's row."""
+    from repro_torch.launch.steps import build_prefill_step
+    L = model.cfg.n_layers
+    B, S = toks.shape
+    step = build_prefill_step(model)
+    batch = {"tokens": toks}
+    logits, launches = _run_counted(
+        step, params, batch, {"wkv6_chunked_kernel": L,
+                              "fused_layernorm": 2 * L + 2},
+        "rwkv6-forward")
+    if logits.shape != (B, S, model.cfg.vocab):
+        raise AssertionError(f"rwkv6 forward: logits {tuple(logits.shape)}")
+    del logits
+    ms, peak = _timed_steps(step, params, batch)
+    ops = _rwkv6_fwd_ops(model.cfg, B, S)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 81)
+    short = {"tokens": torch.randint(0, model.cfg.vocab, (2, 512),
+                                     generator=g, device=DEV)}
+    gaps, ok = _fwd_gaps(model, params, short, False, RWKV6_FWD_BOUNDS)
+    _release()
+    odd = {"tokens": short["tokens"][:, :40].contiguous()}
+    _, launches40 = _run_counted(step, params, odd, {
+        "wkv6_seq": L, "fused_layernorm": 2 * L + 2}, "rwkv6-forward S40")
+    k6 = _k6_fwd_check(model, params, odd["tokens"])
+    _line({"phase": "forward", "path": "rwkv6-forward",
+           "arch": model.cfg.name, "B": B, "S": S, "launches": launches,
+           "step_ms": ms, "tokens_per_s": B * S / (sum(ms) / len(ms) / 1e3),
+           "max_memory_allocated_gib": peak, "matmul_ops": ops,
+           "bound_ms": ops / PEAK_BF16_FLOPS * 1e3,
+           "short_B2_S512": {"gaps": gaps, "bounds": RWKV6_FWD_BOUNDS,
+                             "within_bound": ok},
+           "S40_launches": launches40})
+    if not ok:
+        raise AssertionError(f"rwkv6 forward logits out of bounds: {gaps}")
+    return {"rwkv6-forward": launches, "rwkv6-forward-s40": launches40}, k6
+
+
+# the order of a phase row's dimensions in a `kernels` entry's shapes
+_SHAPE_KEYS = ("M", "K", "N", "L", "B", "T", "C", "D", "F", "H", "S", "KVH",
+               "d")
+
+
 def _kernel_row(name, source, replaces, rows, launches, note=None):
     """One entry of the `kernels` line from a kernel's phase rows: times
     and bounds summed over the shapes, one call each."""
@@ -2174,9 +2698,7 @@ def _kernel_row(name, source, replaces, rows, launches, note=None):
            else "operations",
            "library_ms": None if rows[0]["library_ms"] is None
            else sum(r["library_ms"] for r in rows),
-           "shapes": [[r[k] for k in ("M", "K", "N", "L", "B", "T", "C", "D",
-                                      "F", "H", "S", "KVH", "d") if k in r]
-                      for r in rows]}
+           "shapes": [[r[k] for k in _SHAPE_KEYS if k in r] for r in rows]}
     if note:
         row["note"] = note
     return row
@@ -2291,6 +2813,37 @@ def main() -> int:
     del eng6
     _release()
 
+    # the RWKV whole-sequence forward: K11 and K10, then rwkv4-169m (exact
+    # and hw) and rwkv6-7b, each on bf16 weights drawn on the card
+    from repro_torch.models.registry import get_model
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    k11 = _timed("K11", phase_k11, flush)
+    m4 = get_model("rwkv4-169m")
+    p4 = m4.cast_params(m4.init_params(SEED, DEV))
+    k2_fwd = {}
+    for hw in (False, True):
+        paths, k2_fwd[hw] = _timed(
+            "forward rwkv4-169m" + (" hw" if hw else ""),
+            phase_rwkv4_forward, m4, p4, hw, flush)
+        by_path.update(paths)
+    del p4
+    _release()
+    m6 = get_model("rwkv6-7b")
+    p6 = _timed("rwkv6 bf16 weights", m6.init_params, SEED, DEV,
+                torch.bfloat16)
+    toks6 = torch.randint(0, m6.cfg.vocab, (1, 32768), device=DEV,
+                          generator=torch.Generator(device=DEV).manual_seed(
+                              SEED + 82))
+    k10 = _timed("K10", phase_k10, flush,
+                 _rwkv6_layer0_operands(m6, p6, toks6))
+    del flush
+    _release()
+    paths, k6_fwd = _timed("forward rwkv6-7b", phase_rwkv6_forward, m6, p6,
+                           toks6)
+    by_path.update(paths)
+    del p6, toks6
+    _release()
+
     # smollm-135m at full width and depth: K13, the prefill step through
     # it, and the KV-cache decode
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEV)
@@ -2393,6 +2946,22 @@ def main() -> int:
                     "H9 KVH3 d64, causal, bf16); the other shapes are "
                     "checked only (their lines above)"),
     ]
+    k10_row = _kernel_row(
+        "wkv6_chunked_kernel", "src/repro_torch/csrc/wkv6_chunked.cu",
+        "src/repro/kernels/wkv6.py:74", k10[-1:],
+        launches("wkv6_chunked_kernel", "rwkv6-forward"),
+        "K10, timed on rwkv6-7b's layer-0 operands at B1 T32768 H64 N64 "
+        "(bf16 r, k, v; f32 w); the other shapes are checked only")
+    k10_row["max_abs_err"] = max(r["max_abs_err"] for r in k10)
+    k10_row["shapes"] = [[r[k] for k in ("B", "T", "H", "N")] for r in k10]
+    k11_row = _kernel_row(
+        "fused_layernorm", "src/repro_torch/csrc/fused_layernorm.cu",
+        "src/repro/kernels/fused_layernorm.py:35", k11[:1],
+        launches("fused_layernorm", "rwkv6-forward"),
+        "K11, timed at (32768, 4096) bf16, rwkv6-7b's forward rows; "
+        "library_ms is F.layer_norm on the same rows (two passes)")
+    k11_row["max_abs_err"] = max(r["max_abs_err"] for r in k11)
+    k11_row["shapes"] = [[r["R"], r["D"]] for r in k11]
     main = k13b[0]
     for which, key, line in (("dq", "flash_attention_dq", 150),
                              ("dkv", "flash_attention_dkv", 172)):
@@ -2417,6 +2986,20 @@ def main() -> int:
                     "whole plain backward (dq, dk, dv) and library_ms the "
                     "whole SDPA backward less its forward; launches: the "
                     "3-step train run"})
+    kernels += [k10_row, k11_row]
+    # K2 and K6 as the RWKV forwards call them: checked there, their
+    # errors and shapes joined to the entries above, their times beside
+    for entry in kernels:
+        check = {"wkv4_seq": k2_fwd[False], "wkv4_seq[hw]": k2_fwd[True],
+                 "wkv6_seq": k6_fwd}.get(entry["name"])
+        if check is not None:
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       check["max_abs_err"])
+            entry["shapes"].append([check[k] for k in _SHAPE_KEYS
+                                    if k in check])
+            entry["forward_check"] = {k: check[k] for k in (
+                "what", "kernel_ms", "plain_ms", "bound_ms", "bound_by")
+                if k in check}
     _line({"phase_done": "all", "seconds": time.perf_counter() - t_start})
     _line({"kernels": kernels})
     smi = subprocess.run(

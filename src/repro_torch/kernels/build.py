@@ -44,6 +44,8 @@ SIGNATURES = {
     "rwkv4_block_decode": [_PP, _I, _PI, _I, _I, _I, _I, _P],
     "rwkv4_model_decode": [_PP, _I, _PL, _I, _PI, _I, _I, _I, _I, _I, _P],
     "wkv6_seq": [_P] * 9 + [_I] * 6 + [_P],
+    "wkv6_chunked": [_P] * 8 + [_I] * 7 + [_P],
+    "fused_layernorm": [_P] * 4 + [_I, _I, _F] + [_I] * 4 + [_P],
     "rwkv6_block_decode": [_PP, _I] + [_I] * 6 + [_P],
     "rwkv6_model_decode": [_PP, _I, _PL, _I] + [_I] * 8 + [_P],
     "rwkv6_block_decode_grid": [_PI, _PI],
@@ -131,6 +133,21 @@ def check(err: int, name: str):
     if err != 0:
         msg = load_library().repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def refuse_grad(name: str, *tensors):
+    """Raise where a kernel with no backward would be asked for gradients:
+    grad mode on and an operand that requires grad.  The plain versions on
+    CPU tensors stay differentiable; a CUDA call never falls back to
+    them."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: this kernel has no backward yet; gradients of the "
+            "RWKV models on the card wait for the RWKV training slice "
+            "(ROADMAP Queue 1 item 8c). Run it under torch.no_grad(), or "
+            "on CPU tensors for the differentiable plain version")
 
 
 def stream_ptr(t) -> int:

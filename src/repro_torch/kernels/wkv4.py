@@ -8,7 +8,8 @@ and LUT division (`core/approx/units.py`).  The CUDA kernel is
 design answers that.
 
 A CPU tensor takes the plain version, a step loop over
-`core/wkv/wkv4.py:wkv4_step`; a CUDA tensor launches the kernel or raises.
+`core/wkv/wkv4.py:wkv4_step`; a CUDA tensor launches the kernel or raises,
+also when grad mode is on and an operand requires grad (no backward yet).
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import torch
 
 from repro_torch.core.approx.units import div_lut, exp_lut
 from repro_torch.core.wkv.wkv4 import WKV4State, wkv4_step
-from repro_torch.kernels.build import check, load_library, stream_ptr
+from repro_torch.kernels.build import (
+    check, load_library, refuse_grad, stream_ptr)
 
 _CARRY = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
@@ -72,6 +74,7 @@ def wkv4_seq(k, v, w, u, a0, b0, o0, *, valid=None,
         return wkv4_seq_plain(k, v, w, u, a0, b0, o0, valid=valid,
                               carry_dtype=carry_dtype, exp_table=exp_table,
                               div_table=div_table)
+    refuse_grad("wkv4_seq", k, v, w, u, a0, b0, o0)
     B, T, C = k.shape
     tabs = [] if exp_table is None else [exp_table, div_table]
     if any(t.shape != (256,) for t in tabs):

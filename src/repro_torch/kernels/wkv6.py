@@ -1,20 +1,29 @@
-"""The masked sequential RWKV-6 WKV kernel (kernel K6).
+"""The RWKV-6 WKV kernels: the masked sequential form (kernel K6) and the
+chunked form (kernel K10).
 
-Port of `repro/kernels/wkv6.py:wkv6_seq_pallas` (`_seq_kernel`): the
-exact per-step `wkv6_step` recurrence over a prompt chunk, each head's
+K6 is the port of `repro/kernels/wkv6.py:wkv6_seq_pallas` (`_seq_kernel`):
+the exact per-step `wkv6_step` recurrence over a prompt chunk, each head's
 (N, N) state kept on chip for the whole window, with the `valid` commit
-mask and the `carry_dtype` snap of the chunked prefill.  The CUDA kernel
-is `csrc/wkv6_seq.cu`; its header says what bounds it on an H100 and how
-its design answers that.  The chunked form `wkv6_pallas` (K10) waits for
-the training slice.
+mask and the `carry_dtype` snap of the chunked prefill.  Its CUDA kernel
+is `csrc/wkv6_seq.cu`.
+
+K10 is the port of `wkv6_pallas` (`_kernel`): the chunked WKV-6 of the
+whole-sequence forward, one head's state on chip across all chunks of C
+tokens, each chunk an inter-chunk product against the state, the exact
+pairwise decays masked strictly lower before the exp, the u-bonus and
+the state update (the one-level scheme; `core/wkv/wkv6.py:wkv6_chunked`
+is JAX's two-level form of the same function).  Its CUDA kernel is
+`csrc/wkv6_chunked.cu`.  Each source's header says what bounds it on an
+H100 and how its design answers that.
 
 The initial state may be f32 or the bf16 pool state itself: bf16 -> f32
 is exact, so the kernel reads the pool's bf16 bytes and widens them on
 chip instead of taking an f32 copy.  The final state is f32 (snapped
 through bf16 when the carry is bf16), as the JAX kernel returns it.
 
-A CPU tensor takes the plain version, a step loop over
-`core/wkv/wkv6.py:wkv6_step`; a CUDA tensor launches the kernel or raises.
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+or raises, also when grad mode is on and an operand requires grad (the
+kernels have no backward yet).
 """
 from __future__ import annotations
 
@@ -23,7 +32,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core.wkv.wkv6 import wkv6_step
-from repro_torch.kernels.build import check, load_library, stream_ptr
+from repro_torch.kernels.build import (
+    check, load_library, refuse_grad, stream_ptr)
 
 _CARRY = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
@@ -57,6 +67,7 @@ def wkv6_seq(r, k, v, w, u, s0, *, valid=None,
     if r.device.type == "cpu":
         return wkv6_seq_plain(r, k, v, w, u, s0, valid=valid,
                               carry_dtype=carry_dtype)
+    refuse_grad("wkv6_seq", r, k, v, w, u, s0)
     B, T, H, N = r.shape
     ops = [r, k, v, w, u]
     if any(t.dtype != torch.float32 or t.device != r.device for t in ops):
@@ -87,3 +98,110 @@ def wkv6_seq(r, k, v, w, u, s0, *, valid=None,
 
 
 wkv6_seq.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K10: the chunked form
+# ---------------------------------------------------------------------------
+
+K10_HEAD_DIMS = (16, 32, 64)
+K10_MAX_CHUNK = 64
+_K10_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def chunk_length(T: int, chunk: int = 64) -> int:
+    """The chunk the TPU kernel's wrapper takes: min(chunk, T), halved
+    until it divides T."""
+    C = min(chunk, T)
+    while T % C != 0:
+        C //= 2
+    return C
+
+
+def wkv6_chunked_plain(r, k, v, w, u, s0=None, *, chunk: int = 64):
+    """The plain version, K10's one-level algorithm in torch: log max(w,
+    1e-38), its inclusive cumsum L over each chunk taken in order of the
+    positions (the kernel's order), Lprev = L - log w; then per chunk the
+    inter-chunk (r e^Lprev) @ S, the exact (C, C, N) pairwise decay masked
+    strictly lower to -1e30 before the exp and its att @ v, the u-bonus,
+    and S <- e^Ltot S + (k e^(Ltot - L))ᵀ v.  All in f32."""
+    B, T, H, N = r.shape
+    C = chunk_length(T, chunk)
+    G = T // C
+    f32 = torch.float32
+    resh = lambda x: x.to(f32).reshape(B, G, C, H, N)
+    rs, ks, vs = resh(r), resh(k), resh(v)
+    logw = torch.log(torch.clamp(resh(w), min=1e-38))
+    cum = [logw[:, :, 0]]
+    for c in range(1, C):
+        cum.append(cum[-1] + logw[:, :, c])
+    L = torch.stack(cum, dim=2)                       # (B, G, C, H, N)
+    Lprev = L - logw
+    u32 = u.to(f32)
+    S = torch.zeros((B, H, N, N), dtype=f32, device=r.device) \
+        if s0 is None else s0.to(f32)
+    mask = torch.tril(torch.ones((C, C), dtype=torch.bool,
+                                 device=r.device), diagonal=-1)
+    ys = []
+    for g in range(G):
+        rc, kc, vc, Lc, Lp = rs[:, g], ks[:, g], vs[:, g], L[:, g], \
+            Lprev[:, g]
+        y = torch.einsum("bchn,bhnm->bchm", rc * torch.exp(Lp), S)
+        D = Lp[:, :, None] - Lc[:, None, :]           # (B, C, C, H, N)
+        D = torch.where(mask[None, :, :, None, None], D, -1e30)
+        att = torch.einsum("bshn,bihn,bsihn->bhsi", rc, kc, torch.exp(D))
+        y = y + torch.einsum("bhsi,bihn->bshn", att, vc)
+        y = y + torch.sum(rc * u32 * kc, dim=-1, keepdim=True) * vc
+        Ltot = Lc[:, -1:]                              # (B, 1, H, N)
+        k_fut = kc * torch.exp(Ltot - Lc)
+        S = torch.exp(Ltot[:, 0])[..., None] * S + torch.einsum(
+            "bchn,bchm->bhnm", k_fut, vc)
+        ys.append(y)
+    return torch.stack(ys, dim=1).reshape(B, T, H, N), S
+
+
+def wkv6_chunked_kernel(r, k, v, w, u, s0=None, *, chunk: int = 64):
+    """r, k, v (B, T, H, N) f32 or bf16 (one type); w (B, T, H, N) f32 or
+    bf16; u (H, N); s0 (B, H, N, N) f32 or None (zeros) -> (y (B, T, H, N)
+    f32, final S (B, H, N, N) f32), over chunks of `chunk_length(T,
+    chunk)` tokens.  On the card N must be 16, 32 or 64 and the chunk at
+    most 64."""
+    if r.device.type == "cpu":
+        return wkv6_chunked_plain(r, k, v, w, u, s0, chunk=chunk)
+    refuse_grad("wkv6_chunked_kernel", r, k, v, w, u, s0)
+    B, T, H, N = r.shape
+    if r.dtype not in _K10_DTYPES or k.dtype != r.dtype or \
+            v.dtype != r.dtype or w.dtype not in _K10_DTYPES:
+        raise TypeError("wkv6_chunked_kernel takes r, k, v of one type and "
+                        "w, each f32 or bf16; got "
+                        f"{r.dtype}, {k.dtype}, {v.dtype}, {w.dtype}")
+    if any(t.shape != r.shape for t in (k, v, w)) or u.shape != (H, N) or (
+            s0 is not None and s0.shape != (B, H, N, N)):
+        raise ValueError("wkv6_chunked_kernel: operand shapes do not agree")
+    if N not in K10_HEAD_DIMS:
+        raise ValueError(f"wkv6_chunked_kernel: head dim {N} not in "
+                         f"{K10_HEAD_DIMS}")
+    C = chunk_length(T, chunk)
+    if C > K10_MAX_CHUNK:
+        raise ValueError(f"wkv6_chunked_kernel: chunk {C} > "
+                         f"{K10_MAX_CHUNK}")
+    if any(t.device != r.device for t in (k, v, w, u)) or (
+            s0 is not None and s0.device != r.device):
+        raise ValueError("wkv6_chunked_kernel: operands on other devices")
+    r, k, v, w = (t.contiguous() for t in (r, k, v, w))
+    u = u.to(torch.float32).contiguous()
+    if s0 is not None:
+        s0 = s0.to(torch.float32).contiguous()
+    y = torch.empty((B, T, H, N), dtype=torch.float32, device=r.device)
+    sf = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    check(load_library().wkv6_chunked(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        u.data_ptr(), None if s0 is None else s0.data_ptr(), y.data_ptr(),
+        sf.data_ptr(), B, T, H, N, C, int(r.dtype == torch.bfloat16),
+        int(w.dtype == torch.bfloat16), stream_ptr(r)),
+        "wkv6_chunked_kernel")
+    wkv6_chunked_kernel.launches += 1
+    return y, sf
+
+
+wkv6_chunked_kernel.launches = 0

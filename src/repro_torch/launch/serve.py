@@ -104,7 +104,7 @@ def serve_legacy(arch: str, *, smoke: bool = True, batch: int = 4,
         raise NotImplementedError(
             "serve_legacy(quantized=True) fake-quantizes the tree with "
             "fake_quantize_tree, which the fake-quant slice ports (ROADMAP "
-            "Queue 1 item 8)")
+            "Queue 1 item 8c)")
     device = resolve_device(device)
     model = get_model(arch, smoke=smoke)
     params = model.init_params(seed, device)

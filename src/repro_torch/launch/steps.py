@@ -6,6 +6,7 @@ without a mesh: one card, no shardings, no jit).
     step = build_prefill_step(model)        # step(params, batch) -> logits
     step, args, kind = build_step_for_cell(
         "smollm-135m", "train_4k", cfg_overrides={"use_flash_kernel": True})
+    step, args, kind = build_step_for_cell("rwkv6-7b", "prefill_32k")
 
 `args` are meta tensors, the analogue of JAX's abstract arguments: the
 shapes and dtypes a call of `step` takes at that cell.
@@ -83,11 +84,17 @@ def build_train_step(model: Model, shape: ShapeConfig | None = None):
     return train_step, args, (init_opt, update_opt)
 
 
-def build_prefill_step(model: Model):
+def build_prefill_step(model: Model, *, hw: bool = False):
     """Inference prefill: the forward pass producing logits (no state
-    capture); with cfg.use_flash_kernel its attention runs through K13."""
+    capture), under no_grad.  The dense family's attention runs through
+    K13 with cfg.use_flash_kernel; the RWKV families' WKV runs through K2
+    (rwkv4) or K10 / K6 (rwkv6) and their LayerNorms through K11.  `hw`
+    picks rwkv4's hardware numerics (JAX's `forward(..., hw=True)`)."""
+    kw = {"hw": True} if hw else {}
+
     def prefill_step(params, batch):
-        logits, _ = model.forward(params, batch)
+        with torch.no_grad():
+            logits, _ = model.forward(params, batch, **kw)
         return logits
     return prefill_step
 
@@ -101,8 +108,10 @@ def build_serve_step(model: Model):
 
 
 def build_step_for_cell(arch: str, shape_name: str, *, smoke: bool = False,
-                        cfg_overrides: dict | None = None):
-    """(arch, shape) -> (step, meta arguments, kind)."""
+                        cfg_overrides: dict | None = None,
+                        hw: bool = False):
+    """(arch, shape) -> (step, meta arguments, kind); `hw` goes to a
+    prefill step (rwkv4's hardware numerics)."""
     model = get_model(arch, smoke=smoke)
     if cfg_overrides:
         model = Model(cfg=dataclasses.replace(model.cfg, **cfg_overrides),
@@ -115,7 +124,7 @@ def build_step_for_cell(arch: str, shape_name: str, *, smoke: bool = False,
         return step, args, "train_step"
     if shape.kind == "prefill":
         args = (model.abstract_params(), {"tokens": meta(B, S)})
-        return build_prefill_step(model), args, "prefill_step"
+        return build_prefill_step(model, hw=hw), args, "prefill_step"
     args = (model.abstract_params(torch.bfloat16),
             model.init_decode_state(B, S, device="meta"), meta(B, 1), 0)
     return build_serve_step(model), args, "serve_step[base]"

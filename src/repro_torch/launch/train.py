@@ -7,10 +7,10 @@
 The dense transformers train (their attention through K13 and its
 backward when the model's cfg has use_flash_kernel: call `train_model`
 on such a model, or build the step with `build_step_for_cell(...,
-cfg_overrides={"use_flash_kernel": True})`).  The RWKV models' forward,
-and with it their training, wait for ROADMAP Queue 1 item 8b, as do
-checkpoints (`--ckpt-dir`).  The device defaults to "cuda" and raises
-without a GPU.
+cfg_overrides={"use_flash_kernel": True})`).  The RWKV models' training
+waits for ROADMAP Queue 1 item 8c (their forward serves, but its kernels
+have no backward yet), as do checkpoints (`--ckpt-dir`).  The device
+defaults to "cuda" and raises without a GPU.
 """
 from __future__ import annotations
 
@@ -43,7 +43,12 @@ def train_model(model, *, steps: int = 100, global_batch: int = 8,
     if ckpt_dir:
         raise NotImplementedError(
             "checkpoints wait for checkpoint/store.py (ROADMAP Queue 1 "
-            "item 8b)")
+            "item 8c)")
+    if model.cfg.rwkv_version:
+        raise NotImplementedError(
+            f"{model.cfg.name}: RWKV training waits for ROADMAP Queue 1 item "
+            "8c (the forward serves; K2, K6, K10 and K11 have no backward "
+            "yet)")
     device = resolve_device(device)
     cfg = model.cfg
     shape = ShapeConfig("custom", seq_len, global_batch, "train")

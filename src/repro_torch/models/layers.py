@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
+from repro_torch.kernels.fused_layernorm import fused_layernorm
 from repro_torch.models.param import P
 
 # ---------------------------------------------------------------------------
@@ -46,6 +47,20 @@ def apply_norm(p: dict, x: torch.Tensor, kind: str = "layernorm",
         var = ex2 - mu * mu
         y = (x32 - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
     return y.to(x.dtype)
+
+
+def layernorm_kernel(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """`apply_norm`'s LayerNorm through kernel K11 (its plain version, the
+    same formula, on the CPU): ln0, ln1, ln2 and ln_f of the RWKV
+    whole-sequence forwards.  `apply_norm` itself stays eager, so the
+    paths that call it keep their plain witnesses."""
+    return fused_layernorm(x, p["scale"], p["bias"])
+
+
+def token_shift(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) -> the previous-token tensor, a zero before the first:
+    the RWKV forwards' token shift from a zero carry."""
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
 
 
 # ---------------------------------------------------------------------------

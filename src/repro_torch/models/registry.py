@@ -97,17 +97,15 @@ class Model:
         return cast_compute(params, getattr(torch, self.cfg.dtype))
 
     # -- compute -----------------------------------------------------------
-    def forward(self, params, batch):
+    def forward(self, params, batch, **kw):
         """(logits over the whole sequence, aux) on the compute-dtype cast
-        of `params`; the dense transformer's prefill step and, with grad
-        enabled, its train step (gradients flow back to `params` through
-        the cast)."""
-        if not hasattr(self.module, "forward"):
-            raise NotImplementedError(
-                f"{self.cfg.name}: forward waits for the RWKV training slice "
-                "(ROADMAP Queue 1 item 8b)")
+        of `params`: the prefill step of every family and, with grad
+        enabled, the dense transformer's train step (gradients flow back
+        to `params` through the cast).  `kw` goes to the module's forward
+        (rwkv4's `hw`, rwkv6's `chunk`).  The RWKV forwards' kernels have
+        no backward yet: on the card they raise under grad."""
         return self.module.forward(self.cast_params(params), batch,
-                                   self.cfg)
+                                   self.cfg, **kw)
 
     # -- serving paths -----------------------------------------------------
     def decode_paths(self) -> dict[str, PathDescriptor]:

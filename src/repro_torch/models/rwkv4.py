@@ -9,6 +9,10 @@ Entry points, all on (B, ...) tensors with the JAX tree paths:
   decode_step_fused        — kernel K3 per layer, the head through K5
   decode_step_fused_model  — kernel K4 for all layers, the head through K5
   prefill_chunk            — chunk matmuls through K5, the WKV scan via K2
+  forward                  — logits over a whole sequence (the prefill
+                             step): the WKV through K2, the LayerNorms
+                             through K11, σ under hw through K9, the
+                             matmuls plain torch
 K5 stands for the chunk matmul of the head's or the matrix's plane: K5
 (W8), K5-W4 or K5-VQ.
 
@@ -27,8 +31,10 @@ Two numerics, chosen by `hw=` as in the JAX package:
             A9 spans the batch, a lane's bits depend on its batchmates, so
             the serving engine stays on the standard numerics (as the JAX
             engine does) and `launch/serve.py --legacy --hw-numerics`
-            serves a fixed batch.
-`forward` waits for the training slice.
+            serves a fixed batch.  `forward` applies A9 over the whole
+            (B, S, features) tensor, as JAX's forward does.
+JAX's `cfg.wkv_stub` (dry-run instrumentation) waits for the analysis
+tools (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -382,3 +388,87 @@ def prefill_chunk(params, state, tokens, valid, pos, cfg: ModelConfig, *,
     keep = (n_valid > 0)[:, None, None]
     return _stack_states(new), torch.where(keep, logits,
                                            torch.zeros_like(logits))
+
+
+# ---------------------------------------------------------------------------
+# Forward over a whole sequence (the prefill step)
+# ---------------------------------------------------------------------------
+
+
+def _seq_numerics(hw: bool):
+    """The forward's numerics: the same units, A9 over the whole tensor,
+    and under hw σ through the EXP-σ kernel K9 (its plain version on the
+    CPU)."""
+    if not hw:
+        return _Std
+
+    class _HwSeq(_Hw):
+        sigmoid = staticmethod(lambda x: sigmoid_kernel(x.to(torch.float32)))
+    return _HwSeq
+
+
+def _wkv_operands(p, x, nm):
+    """TimeMix's operands over a whole sequence x (B, S, D) from a zero
+    carry: r, and K2's arguments as the forward hands them — k, v, w, u
+    in f32 and the zero state (a, b 0, o -1e38) — with the EXP and DIV
+    tables under hw."""
+    f32 = torch.float32
+    xx = L.token_shift(x)
+    mix = lambda m: nm.act_q(x * p[m] + xx * (1.0 - p[m]))
+    r = _mm(mix("time_mix_r"), p["wr"])
+    k = _mm(mix("time_mix_k"), p["wk"])
+    v = _mm(mix("time_mix_v"), p["wv"])
+    B, D = k.shape[0], k.shape[-1]
+    z = lambda: torch.zeros((B, D), dtype=f32, device=x.device)
+    args = (k.to(f32), v.to(f32), torch.exp(p["time_decay"].to(f32)),
+            p["time_first"].to(f32), z(), z(),
+            torch.full((B, D), -1e38, dtype=f32, device=x.device))
+    tables = {}
+    if nm.hw:
+        luts = _lut_operands(x.device)
+        tables = {"exp_table": luts["exp"], "div_table": luts["div"]}
+    return r, args, tables
+
+
+def _time_mix_seq(p, x, nm):
+    """TimeMix over a whole sequence: the mixes, the r/k/v products, the
+    WKV over every position through K2 (its LUT form under hw) from the
+    zero state, the σ(r) gate and the output product."""
+    r, args, tables = _wkv_operands(p, x, nm)
+    out, _ = wkv4_seq(*args, **tables)
+    out = nm.act_q(nm.sigmoid(r) * out.to(r.dtype))
+    return _mm(out, p["wo"])
+
+
+def _channel_mix_seq(p, x, nm):
+    """ChannelMix over a whole sequence from a zero carry."""
+    xx = L.token_shift(x)
+    mix = lambda m: nm.act_q(x * p[m] + xx * (1.0 - p[m]))
+    r = nm.sigmoid(_mm(mix("time_mix_r"), p["wr"]))
+    k = torch.square(torch.relu(_mm(mix("time_mix_k"), p["wk"])))
+    return nm.act_q(r * _mm(nm.act_q(k), p["wv"]))
+
+
+@exact_matmuls()
+def forward(params, batch: dict, cfg: ModelConfig, *, hw: bool = False):
+    """batch {"tokens": (B, S) int}; params plain, in the compute dtype ->
+    (logits (B, S, V), aux 0).  JAX's `rwkv4.forward` op for op under the
+    numerics `hw` picks: ln0, then per layer ln1 -> TimeMix -> residual,
+    ln2 -> ChannelMix -> residual, ln_f and the head, every token shift
+    from a zero carry.  With grad enabled and an operand that requires
+    grad, a CUDA call raises (K2, K9 and K11 have no backward yet); CPU
+    tensors stay differentiable."""
+    nm = _seq_numerics(hw)
+    dt = getattr(torch, cfg.dtype)
+    x = params["embed"][batch["tokens"].long()].to(dt)
+    x = L.layernorm_kernel(params["ln0"], x)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["blocks"], i)
+        att = _time_mix_seq(lp["att"], L.layernorm_kernel(lp["ln1"], x), nm)
+        x = x + att.to(x.dtype)
+        ffn = _channel_mix_seq(lp["ffn"], L.layernorm_kernel(lp["ln2"], x),
+                               nm)
+        x = x + ffn.to(x.dtype)
+    x = L.layernorm_kernel(params["ln_f"], x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x @ params["head"].to(x.dtype), aux

@@ -15,7 +15,10 @@ Entry points, all on (B, ...) tensors with the JAX tree paths:
   decode_step_fused        — kernel K7 per layer, the head through K5
   decode_step_fused_model  — kernel K7 for all layers, the head through K5
   prefill_chunk            — chunk matmuls through K5, the WKV scan via K6
-`forward` (training, chunked WKV) waits for the training slice.
+  forward                  — logits over a whole sequence (the prefill
+                             step): the WKV through K10 (S % chunk == 0 and
+                             S > chunk) or K6, the LayerNorms through K11,
+                             the matmuls plain torch
 
 Eager torch rounds every bf16 op, the rounding rule `exact_jit` pins for
 JAX, so the plain path follows the JAX trace op for op.  Two places need
@@ -36,7 +39,7 @@ from repro_torch.kernels.fused_decode import (
     RWKV6_STATE_KEYS as STATE_KEYS, rwkv6_block_decode, rwkv6_model_decode)
 from repro_torch.kernels.fused_prefill import (
     chunk_matmul, gather_last_valid, last_valid_select, shifted_prev)
-from repro_torch.kernels.wkv6 import wkv6_seq
+from repro_torch.kernels.wkv6 import wkv6_chunked_kernel, wkv6_seq
 from repro_torch.models import layers as L
 from repro_torch.models.param import P, stack
 from repro_torch.models.layers import sigmoid, silu
@@ -352,3 +355,71 @@ def prefill_chunk(params, state, tokens, valid, pos, cfg: ModelConfig):
     keep = (n_valid > 0)[:, None, None]
     return _stack_states(new), torch.where(keep, logits,
                                            torch.zeros_like(logits))
+
+
+# ---------------------------------------------------------------------------
+# Forward over a whole sequence (the prefill step)
+# ---------------------------------------------------------------------------
+
+
+def _wkv_operands(p, x, cfg: ModelConfig):
+    """TimeMix's operands over a whole sequence x (B, S, D) from a zero
+    carry: the ddlerp mixes, then r, k, v (B, S, H, N) in x's dtype, w
+    (B, S, H, N) and u (H, N) in f32, and the SiLU gate g (B, S, D)."""
+    B, S, _ = x.shape
+    H, N = cfg.n_heads, cfg.rwkv_head_dim
+    xw, xk, xv, xr, xg = _ddlerp(p, x, L.token_shift(x) - x)
+    r = (xr @ p["wr"]).reshape(B, S, H, N)
+    k = (xk @ p["wk"]).reshape(B, S, H, N)
+    v = (xv @ p["wv"]).reshape(B, S, H, N)
+    g = silu(xg @ p["wg"])
+    w = _decay(p, xw).reshape(B, S, H, N)
+    return r, k, v, w, p["time_faaaa"].to(torch.float32), g
+
+
+def _time_mix_seq(p, x, cfg: ModelConfig, chunk: int):
+    """TimeMix over a whole sequence x (B, S, D) from a zero carry: the
+    operands, the WKV — K10 where S % chunk == 0 and S > chunk, else the
+    exact sequential K6, as JAX picks `wkv6_chunked` or `wkv6_scan` —
+    cast to r's dtype, GroupNorm and the gate."""
+    B, S, D = x.shape
+    H, N = cfg.n_heads, cfg.rwkv_head_dim
+    f32 = torch.float32
+    r, k, v, w, u, g = _wkv_operands(p, x, cfg)
+    if S % chunk == 0 and S > chunk:
+        y, _ = wkv6_chunked_kernel(r, k, v, w, u, chunk=chunk)
+    else:
+        s0 = torch.zeros((B, H, N, N), dtype=f32, device=x.device)
+        y, _ = wkv6_seq(r.to(f32), k.to(f32), v.to(f32), w, u, s0)
+    y = _group_norm(p["ln_x"], y.to(r.dtype).reshape(B, S, D), H)
+    return (y * g) @ p["wo"]
+
+
+def _channel_mix_seq(p, x):
+    """ChannelMix over a whole sequence from a zero carry."""
+    xx = L.token_shift(x)
+    mix = lambda m: x * p[m] + xx * (1.0 - p[m])
+    r = sigmoid(mix("time_mix_r") @ p["wr"])
+    k = torch.square(torch.relu(mix("time_mix_k") @ p["wk"]))
+    return r * (k @ p["wv"])
+
+
+@exact_matmuls()
+def forward(params, batch: dict, cfg: ModelConfig, *, chunk: int = 64):
+    """batch {"tokens": (B, S) int}; params plain, in the compute dtype ->
+    (logits (B, S, V), aux 0).  JAX's `rwkv6.forward` op for op: ln0, then
+    per layer ln1 -> TimeMix -> residual, ln2 -> ChannelMix -> residual,
+    ln_f and the head, every token shift from a zero carry.  With grad
+    enabled and an operand that requires grad, a CUDA call raises (K10,
+    K6 and K11 have no backward yet); CPU tensors stay differentiable."""
+    dt = getattr(torch, cfg.dtype)
+    x = params["embed"][batch["tokens"].long()].to(dt)
+    x = L.layernorm_kernel(params["ln0"], x)
+    norm = L.layernorm_kernel
+    for i in range(cfg.n_layers):
+        lp = _layer(params["blocks"], i)
+        x = x + _time_mix_seq(lp["att"], norm(lp["ln1"], x), cfg, chunk)
+        x = x + _channel_mix_seq(lp["ffn"], norm(lp["ln2"], x))
+    x = L.layernorm_kernel(params["ln_f"], x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x @ params["head"].to(x.dtype), aux

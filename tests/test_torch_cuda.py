@@ -25,7 +25,14 @@ sums, and for bf16 dk and dv the plain version's per-head roundings), and
 bit for bit run to run.  K7 at B = 16 (two 8-lane tiles) equals two
 8-lane calls bit for bit.  The smollm-smoke train step on the card holds
 each gradient leaf within 1.25·√2x the CPU bf16 step's gap to an f32
-witness.
+witness.  K10 (chunked WKV-6) holds y and the final state to
+`_wkv6_chunked_bound` (the f32 summation bound of each output over the
+whole sequence, and the log's last-bit term); K11 (LayerNorm) to one
+step of the output's type plus `_ln_floor` (the f32 sum-order bound of
+the row's mean, variance and rsqrt, carried to each output).  The RWKV
+smoke forwards on the card hold their logits to the plain path on the
+card by the CPU tests' rule (max |d| <= 2^-5 max|ref|, mean |d| <= 2^-8
+mean|ref|).
 """
 import numpy as np
 import pytest
@@ -999,3 +1006,211 @@ def test_train_step_smollm_smoke_on_card(cuda):
         gap = lambda x: float((x.float().cpu() - w).abs().mean()
                               / w.abs().mean())
         assert gap(g) <= 1.25 * 2 ** 0.5 * gap(cpu[path]), path
+
+
+# --- the RWKV whole-sequence forward: K10, K11 and the smoke forwards -----
+
+from repro_torch.kernels.expsig import sigmoid_kernel, sigmoid_kernel_plain
+from repro_torch.kernels.fused_layernorm import (
+    fused_layernorm, fused_layernorm_plain)
+from repro_torch.kernels.wkv6 import (
+    chunk_length, wkv6_chunked_kernel, wkv6_chunked_plain, wkv6_seq,
+    wkv6_seq_plain)
+
+
+def _wkv6_chunked_bound(r, k, v, w, u, s0, chunk=64):
+    """The most that two f32 evaluations of the chunked WKV-6 in other
+    orders may differ by, per output of y and S: (8·G + 2C + 2N + 16)·2^-24
+    times the output's magnitude (the recurrence on |r|, |k|, |v|, |u|,
+    |s0|: each sum's absolute terms; the state's error is carried through
+    G chunks), plus 2C·2^-23·max|log w| of the magnitude, for a log of the
+    card's plain version a last bit off the kernel's logf, which moves
+    every L after it."""
+    B, T, H, N = r.shape
+    C = chunk_length(T, chunk)
+    G = T // C
+    mag = wkv6_chunked_plain(r.float().abs(), k.float().abs(),
+                             v.float().abs(), w, u.abs(),
+                             None if s0 is None else s0.abs(), chunk=chunk)
+    logw = float(torch.log(torch.clamp(w.float(), min=1e-38)).abs().max())
+    rel = (8 * G + 2 * C + 2 * N + 16) * 2.0 ** -24 + 2 * C * 2.0 ** -23 * logw
+    return rel * mag[0], rel * mag[1]
+
+
+# (B, T, H, N, s0, decay shift, bf16 r/k/v)
+K10_CASES = [
+    (1, 64, 1, 64, False, 0.0, False),
+    (2, 256, 4, 64, True, 0.0, False),
+    (2, 96, 4, 64, True, 0.0, False),     # ragged: C halves to 32
+    (2, 128, 4, 16, True, 0.0, True),     # the smoke model's head size
+    (1, 128, 2, 32, False, 0.5, True),
+    (1, 128, 4, 64, True, 3.0, False),    # strong decay: e^L underflows
+]
+
+
+@pytest.mark.parametrize("B,T,H,N,with_s0,shift,bf", K10_CASES)
+def test_wkv6_chunked(cuda, B, T, H, N, with_s0, shift, bf):
+    g = torch.Generator(device=cuda).manual_seed(T + N)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda)
+    dt = torch.bfloat16 if bf else torch.float32
+    r, k, v = (rn(B, T, H, N).to(dt) for _ in range(3))
+    w = torch.exp(-torch.exp(0.5 * rn(B, T, H, N) + shift))
+    u, s0 = 0.5 * rn(H, N), rn(B, H, N, N) if with_s0 else None
+    before = wkv6_chunked_kernel.launches
+    y, S = wkv6_chunked_kernel(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wkv6_chunked_kernel.launches == before + 1
+    y_p, S_p = wkv6_chunked_plain(r, k, v, w, u, s0)
+    by, bS = _wkv6_chunked_bound(r, k, v, w, u, s0)
+    for o, ref, bound in ((y, y_p, by), (S, S_p, bS)):
+        assert o.dtype == torch.float32 and bool(torch.isfinite(o).all())
+        assert bool(((o - ref).abs() <= bound).all()), \
+            float((o - ref).abs().max())
+    # repeatable bit for bit
+    y2, S2 = wkv6_chunked_kernel(r, k, v, w, u, s0)
+    assert torch.equal(y, y2) and torch.equal(S, S2)
+
+
+def test_wkv6_chunked_refusals(cuda):
+    rn = lambda *s: torch.randn(s, device=cuda)
+    before = wkv6_chunked_kernel.launches
+    with pytest.raises(ValueError, match="head dim"):
+        wkv6_chunked_kernel(*(rn(1, 64, 2, 24) for _ in range(4)),
+                            rn(2, 24))
+    with pytest.raises(ValueError, match="chunk"):
+        wkv6_chunked_kernel(*(rn(1, 256, 2, 16) for _ in range(4)),
+                            rn(2, 16), chunk=128)
+    assert wkv6_chunked_kernel.launches == before
+
+
+def _ln_floor(x, gamma, beta, eps=1e-5):
+    """The f32 sum-order bound of each LayerNorm output: the row's mean and
+    E[x²] summed in another order move by up to (D + 2)·2^-24 of their
+    absolute sums, which moves var, then rsqrt (a few ulps apart on the
+    two sides), then (x − μ)·rs·γ + β, each op one more rounding."""
+    u = 2.0 ** -24
+    x32 = x.float()
+    D = x.shape[-1]
+    mu = x32.mean(-1, keepdim=True)
+    ex2 = (x32 * x32).mean(-1, keepdim=True)
+    var = ex2 - mu * mu
+    em = (D + 2) * u * x32.abs().mean(-1, keepdim=True)
+    e_var = (D + 2) * u * ex2 + 2 * mu.abs() * em + 2 * u * (ex2 + mu * mu)
+    rs = torch.rsqrt(var + eps)
+    rel_rs = 0.5 * e_var / (var + eps) + 4 * u
+    yn = (x32 - mu).abs() * rs
+    g, b = gamma.float().abs(), beta.float().abs()
+    return g * (em * rs + yn * rel_rs) + 4 * u * (yn * g + b)
+
+
+def _ln_ok(out, ref, x, gamma, beta):
+    step = 2.0 ** -7 if out.dtype == torch.bfloat16 else 2.0 ** -22
+    d = (out.float() - ref.float()).abs()
+    return bool((d <= step * ref.float().abs()
+                 + 1.01 * _ln_floor(x, gamma, beta)).all()), float(d.max())
+
+
+@pytest.mark.parametrize("R,D", [(64, 4096), (37, 768), (5, 100), (3, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_layernorm(cuda, R, D, dtype):
+    """K11 against its plain version: rows ragged against nothing (one
+    block a row), D a multiple of 16 bytes (vector loads) or not."""
+    g = torch.Generator(device=cuda).manual_seed(R * D)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda)
+    x = (2 * rn(R, D) + 0.5).to(dtype)
+    gamma, beta = rn(D).to(dtype), rn(D).to(dtype)
+    before = fused_layernorm.launches
+    out = fused_layernorm(x, gamma, beta)
+    torch.cuda.synchronize()
+    assert fused_layernorm.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    ok, err = _ln_ok(out, fused_layernorm_plain(x, gamma, beta), x, gamma,
+                     beta)
+    assert ok, err
+    # a (B, S, D) view and f32 gamma on bf16 x, as the f32 witness mixes
+    x3 = x.reshape(1, R, D)
+    g32, b32 = gamma.float(), beta.float()
+    ok, err = _ln_ok(fused_layernorm(x3, g32, b32),
+                     fused_layernorm_plain(x3, g32, b32), x3, g32, b32)
+    assert ok, err
+
+
+def _plain_kernels(monkeypatch):
+    """Send the RWKV forwards through the plain versions on the card: the
+    plain path every kernel path is held to."""
+    from repro_torch.models import layers, rwkv4, rwkv6
+    for mod, name, fn in (
+            (rwkv6, "wkv6_chunked_kernel", wkv6_chunked_plain),
+            (rwkv6, "wkv6_seq", wkv6_seq_plain),
+            (rwkv4, "wkv4_seq", wkv4_seq_plain),
+            (layers, "fused_layernorm", fused_layernorm_plain),
+            (rwkv4, "sigmoid_kernel", sigmoid_kernel_plain)):
+        monkeypatch.setattr(mod, name, fn)
+
+
+@pytest.mark.parametrize("arch,S,hw", [("rwkv6-7b", 128, False),
+                                       ("rwkv6-7b", 40, False),
+                                       ("rwkv4-169m", 64, False),
+                                       ("rwkv4-169m", 64, True)])
+def test_rwkv_forward_smoke_on_card(cuda, monkeypatch, arch, S, hw):
+    """The smoke forward of each RWKV family on the card through
+    build_prefill_step: K11 2L + 2 times; K10 L times (S % 64 == 0, S >
+    64) or K6 L times for rwkv6; K2 L times for rwkv4, and under hw K9 2L
+    times; its logits against the plain path on the card."""
+    from repro_torch.launch.steps import build_prefill_step
+    model = get_model(arch, smoke=True)
+    params = model.cast_params(model.init_params(0, cuda))
+    L = model.cfg.n_layers
+    toks = torch.randint(0, model.cfg.vocab, (2, S), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    counters = (fused_layernorm, wkv6_chunked_kernel, wkv6_seq, wkv4_seq,
+                sigmoid_kernel)
+    for c in counters:
+        c.launches = 0
+    logits = build_prefill_step(model, hw=hw)(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    got = {c.__name__: c.launches for c in counters}
+    rwkv6 = arch == "rwkv6-7b"
+    want = {"fused_layernorm": 2 * L + 2,
+            "wkv6_chunked_kernel": L if rwkv6 and S == 128 else 0,
+            "wkv6_seq": L if rwkv6 and S == 40 else 0,
+            "wkv4_seq": 0 if rwkv6 else L,
+            "sigmoid_kernel": 2 * L if hw else 0}
+    assert got == want
+    assert logits.shape == (2, S, model.cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    _plain_kernels(monkeypatch)
+    ref = build_prefill_step(model, hw=hw)(params, {"tokens": toks}).float()
+    d = (logits.float() - ref).abs()
+    assert float(d.max()) <= 2.0 ** -5 * float(ref.abs().max())
+    assert float(d.mean()) <= 2.0 ** -8 * float(ref.abs().mean())
+
+
+def test_rwkv_forward_refuses_grad_on_card(cuda):
+    """With grad enabled and params that require grad, the RWKV forward on
+    the card raises (its kernels have no backward) before any launch, and
+    so do K10, K11, K6 and K2 alone; it never takes the plain versions."""
+    model = get_model("rwkv4-169m", smoke=True)
+    params = model.init_params(0, cuda)
+    params["ln0"]["scale"].requires_grad_()
+    toks = torch.zeros((1, 8), dtype=torch.int32, device=cuda)
+    counters = (fused_layernorm, wkv4_seq, wkv6_chunked_kernel, wkv6_seq)
+    before = [c.launches for c in counters]
+    with pytest.raises(NotImplementedError, match="8c"):
+        model.forward(params, {"tokens": toks})
+    rq = torch.randn((1, 64, 2, 16), device=cuda, requires_grad=True)
+    rn = lambda *s: torch.randn(s, device=cuda)
+    for call in (
+            lambda: fused_layernorm(rn(4, 64), rq.flatten()[:64], rn(64)),
+            lambda: wkv6_chunked_kernel(rq, rq, rq, rn(1, 64, 2, 16),
+                                        rn(2, 16)),
+            lambda: wkv6_seq(rq, rq, rq, rn(1, 64, 2, 16), rn(2, 16),
+                             rn(1, 2, 16, 16)),
+            lambda: wkv4_seq(rq.reshape(1, 64, 32), rn(1, 64, 32), rn(32),
+                             rn(32), rn(1, 32), rn(1, 32), rn(1, 32))):
+        with pytest.raises(NotImplementedError, match="8c"):
+            call()
+    assert [c.launches for c in counters] == before
+    with torch.no_grad():       # no grad mode: the forward serves
+        logits, _ = model.forward(params, {"tokens": toks})
+    assert bool(torch.isfinite(logits).all())

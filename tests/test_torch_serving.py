@@ -201,6 +201,8 @@ def test_port_imports_no_jax_and_no_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    kernels = ROOT / "src" / "repro_torch" / "kernels"
+    assert {kernels / "fused_layernorm.py", kernels / "wkv6.py"} <= set(files)
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

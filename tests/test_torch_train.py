@@ -284,16 +284,16 @@ def test_make_optimizer_and_step_for_cell():
 def test_train_launcher():
     """`train` on the smoke config: finite losses that equal a second run
     (the same seeds), the checkpoint option refused until its module is
-    ported, and an RWKV arch refused at its forward."""
+    ported, and an RWKV arch refused until its training slice."""
     out = train(ARCH, smoke=True, steps=2, global_batch=2, seq_len=32,
                 device="cpu", log_every=1)
     again = train_model(get_model(ARCH, smoke=True), steps=2,
                         global_batch=2, seq_len=32, device="cpu")
     assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
     assert out["losses"] == again["losses"] and len(out["step_s"]) == 2
-    with pytest.raises(NotImplementedError, match="8b"):
+    with pytest.raises(NotImplementedError, match="8c"):
         train(ARCH, steps=1, ckpt_dir="unused", device="cpu")
-    with pytest.raises(NotImplementedError, match="8b"):
+    with pytest.raises(NotImplementedError, match="8c"):
         train("rwkv4-169m", steps=1, global_batch=1, seq_len=8,
               device="cpu")
 
