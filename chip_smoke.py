@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """On-card proof that the PyTorch/CUDA port serves RWKV-4 (exact and
 hardware numerics), RWKV-6 and the dense transformer smollm-135m, runs
-the RWKV whole-sequence forward, and trains smollm-135m, through its
-kernels.
+the RWKV whole-sequence forward, and trains smollm-135m and rwkv4-169m,
+through its kernels.
 
     python3 chip_smoke.py            (from the root of a checkout, one GPU)
 
@@ -202,22 +202,55 @@ each prints its seconds and peak device memory (`phase_done` lines):
       train    step 0 through `loss_and_grads` at B 8, S 2048 (SyntheticLM
                tokens, f32 master weights from the seed, remat): K13's
                counters set to 0 just before and read just after (60
-               forward, the forward and its recompute, 30 dq, 30 dkv);
+               forward, the forward and its recompute, 30 dq, 30 dkv, and
+               the loss's K12 and K12-bwd once each);
                its loss and gradients per leaf against the plain-attention
                step and an f32 witness within TRAIN_BOUNDS (1.25x, and
                1.25·√2x, the plain path's first reading against the
                witness: TF_BOUNDS' recipe); one plain-attention
                step timed; then `train_model` for 3 AdamW steps, the
-               counters again (3 x 60, 30, 30), finite losses, each step's
+               counters again (3 x 60, 30, 30, 1, 1), finite losses, each step's
                ms, tokens/s and the peak device memory beside the step's
                operations bound (`_train_ops`, ~23.1 TFLOP)
- 9. The `kernels` JSON line (nineteen entries: the nine kernels, then K9
-    and the hardware-numerics forms of K2, K5, K3 and K4, then K13, K13-dq
-    and K13-dkv, then K10 and K11; the entries of K2, K2-hw and K6 carry
-    their forward-shape checks under "forward_check", their errors in
-    max_abs_err and their shapes in shapes), the card's name and power
-    limit, and
-    the last line {"ok": true, "device": {...}}.
+ 9. rwkv4-169m's training at full width and depth:
+      fused_cross_entropy      (rows, V) = (8192, 50277) (rwkv4's train
+      (K12), _bwd (K12-bwd)    step) and (16384, 49152) (smollm's), bf16:
+                               the NLL within 2^-16 + 2^-21 |ref| of the
+                               plain version, the gradient through the
+                               autograd Function within one bf16 step plus
+                               2^-16 |g|·p (p the entry's probability) of
+                               the plain version's autograd one; the
+                               backward twice, bit for bit; timed
+                               beside the plain version and F.cross_entropy
+                               (forward, and autograd backward)
+      wkv4_seq_bwd (K2-bwd)    layer 0's WKV operands of the train step
+                               (B8 T1024 C768, zero state), per output max
+                               2^-10 of max|ref|, mean 2^-13 of mean|ref|
+                               against the plain version's autograd
+                               gradient; bit for bit run to run
+      fused_layernorm_bwd      layer 0's ln1 operands ((8192, 768) bf16):
+      (K11-bwd)                one bf16 step plus the sum-order floors of
+                               its row means and column sums; bit for bit
+                               run to run; F.layer_norm's backward beside
+    Then:
+      train    step 0 through `loss_and_grads` at B 8, S 1024 (SyntheticLM
+               tokens, f32 masters from the seed, remat), every counter set
+               to 0 just before and read just after (K11 50, K11-bwd 26,
+               K2 24, K2-bwd 12, K12 1, K12-bwd 1); loss and gradients per
+               leaf against the plain path (the plain versions of K2, K11
+               and K12 on the card, timed) and an f32 witness within
+               RWKV4_TRAIN_BOUNDS (TRAIN_BOUNDS' recipe); then
+               `train_model` for 3 AdamW steps, the counters again (3x),
+               each step's ms, tokens/s and peak memory beside the step's
+               operations bound (~7.93 TFLOP); the trained params through
+               an AsyncCheckpointer into build/ and back, bit for bit
+10. The `kernels` JSON line (twenty-three entries: the nine kernels, then
+    K9 and the hardware-numerics forms of K2, K5, K3 and K4, then K13,
+    K13-dq and K13-dkv, then K10 and K11, then K12, K12-bwd, K2-bwd and
+    K11-bwd; the entries of K2, K2-hw and K6 carry their forward-shape
+    checks under "forward_check", their errors in max_abs_err and their
+    shapes in shapes), the card's name and power limit, and the last line
+    {"ok": true, "device": {...}}.
 
 Weights are random, from a seed.  Imports nothing of JAX.
 """
@@ -2094,25 +2127,31 @@ def phase_train():
     """smollm-135m's train step at full width and depth (L30 D576 H9 KVH3
     hd64 F1536 V49152), B = 8, S = 2048, SyntheticLM tokens, f32 master
     weights from the seed, AdamW, remat, every layer's attention through
-    K13, K13-dq and K13-dkv.  Step 0's loss and gradients (`loss_and_grads`,
-    the train step's own) with the K13 counters set to 0 just before and
-    read just after (60 forward, 30 dq, 30 dkv) are held against the same
-    step with the plain attention (bf16) and against an f32 witness (the
-    f32 config on the same weights, plain attention), per leaf
-    (TRAIN_BOUNDS).  Then `train_model` runs 3 steps with the counters set
-    to 0 just before and read just after (3 x 60, 30, 30); losses finite;
-    the steps' ms, tokens/s and the peak device memory, beside the step's
-    operations bound."""
+    K13, K13-dq and K13-dkv, the loss through K12 and K12-bwd.  Step 0's
+    loss and gradients (`loss_and_grads`, the train step's own) with the
+    K13 and K12 counters set to 0 just before and read just after (60
+    forward, 30 dq, 30 dkv, one K12, one K12-bwd) are held against the
+    same step with the plain attention and K12's plain version (bf16,
+    under `_PlainKernels`) and against an f32 witness (the f32 config on
+    the same weights, both plain), per leaf (TRAIN_BOUNDS, set against
+    that plain path).  The plain step is timed under `_PlainKernels` too.
+    Then `train_model` runs 3 steps with the counters set to 0 just before
+    and read just after (3 x those); losses finite; the steps' ms,
+    tokens/s and the peak device memory, beside the step's operations
+    bound."""
     from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.fused_ce import (
+        fused_cross_entropy, fused_cross_entropy_bwd)
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_dkv, flash_attention_dq)
     from repro_torch.launch.steps import build_train_step, loss_and_grads
     from repro_torch.launch.train import train_model
     B, S, steps = 8, 2048, 3
     flash, plain = _smollm(True), _smollm(False)
-    counters = (flash_attention, flash_attention_dq, flash_attention_dkv)
+    counters = (flash_attention, flash_attention_dq, flash_attention_dkv,
+                fused_cross_entropy, fused_cross_entropy_bwd)
     L = flash.cfg.n_layers
-    per_step = (2 * L, L, L)
+    per_step = (2 * L, L, L, 1, 1)
     params = flash.init_params(SEED, DEV)
     batch = {k: torch.from_numpy(v).to(DEV) for k, v in SyntheticLM(
         vocab=flash.cfg.vocab, seq_len=S, global_batch=B,
@@ -2123,11 +2162,12 @@ def phase_train():
     torch.cuda.synchronize()
     step0 = tuple(c.launches for c in counters)
     if step0 != per_step:
-        raise AssertionError(f"step 0 launched K13, dq, dkv {step0} times, "
-                             f"not {per_step}")
-    (loss_p, _), g_p = loss_and_grads(plain, params, batch)
-    (loss_w, _), g_w = loss_and_grads(_smollm(False, "float32"), params,
-                                      batch)
+        raise AssertionError(f"step 0 launched K13, dq, dkv, K12, K12-bwd "
+                             f"{step0} times, not {per_step}")
+    with _PlainKernels():
+        (loss_p, _), g_p = loss_and_grads(plain, params, batch)
+        (loss_w, _), g_w = loss_and_grads(_smollm(False, "float32"), params,
+                                          batch)
     losses = [float(x) for x in (loss_k, loss_p, loss_w)]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"step 0 losses not finite: {losses}")
@@ -2145,8 +2185,7 @@ def phase_train():
     _line({"phase": "train_step0", "arch": "smollm-135m", "B": B, "S": S,
            "losses": {"k13": losses[0], "plain": losses[1],
                       "f32": losses[2]},
-           "launches": dict(zip(("flash_attention", "flash_attention_dq",
-                                 "flash_attention_dkv"), step0)),
+           "launches": {c.__name__: n for c, n in zip(counters, step0)},
            "gaps": gaps, "bounds": bounds, "within_bound": not bad})
     if bad:
         raise AssertionError(f"train step 0 out of bounds: {bad}")
@@ -2159,12 +2198,13 @@ def phase_train():
     b0 = {k: torch.from_numpy(v).to(DEV) for k, v in SyntheticLM(
         vocab=plain.cfg.vocab, seq_len=S, global_batch=B,
         seed=SEED).batch(0).items()}
-    step_p(p_plain, opt_p, b0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step_p(p_plain, opt_p, b0)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    with _PlainKernels():
+        step_p(p_plain, opt_p, b0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_p(p_plain, opt_p, b0)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
     del p_plain, opt_p, b0
     _release()
     torch.cuda.reset_peak_memory_stats()
@@ -2432,21 +2472,24 @@ def phase_k11(flush):
 
 class _PlainKernels:
     """Inside the block the RWKV forwards call the plain versions of K2,
-    K6, K9, K10 and K11 (on the card): the plain path that each kernel
-    path is held to."""
+    K6, K9, K10 and K11 (on the card), and `loss_fn` K12's: the plain path
+    that each kernel path is held to."""
 
     def __enter__(self):
         from repro_torch.kernels.expsig import sigmoid_kernel_plain
+        from repro_torch.kernels.fused_ce import fused_cross_entropy_plain
         from repro_torch.kernels.fused_layernorm import fused_layernorm_plain
         from repro_torch.kernels.wkv4 import wkv4_seq_plain
         from repro_torch.kernels.wkv6 import (
             wkv6_chunked_plain, wkv6_seq_plain)
-        from repro_torch.models import layers, rwkv4, rwkv6
+        from repro_torch.models import layers, registry, rwkv4, rwkv6
         swaps = ((rwkv6, "wkv6_chunked_kernel", wkv6_chunked_plain),
                  (rwkv6, "wkv6_seq", wkv6_seq_plain),
                  (rwkv4, "wkv4_seq", wkv4_seq_plain),
                  (layers, "fused_layernorm", fused_layernorm_plain),
-                 (rwkv4, "sigmoid_kernel", sigmoid_kernel_plain))
+                 (rwkv4, "sigmoid_kernel", sigmoid_kernel_plain),
+                 (registry, "fused_cross_entropy",
+                  fused_cross_entropy_plain))
         self.saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
         for m, n, fn in swaps:
             setattr(m, n, fn)
@@ -2457,27 +2500,39 @@ class _PlainKernels:
             setattr(m, n, fn)
 
 
-def _forward_counters():
+def _path_counters():
+    """The launch counters of the RWKV forwards' and train steps' kernels."""
     from repro_torch.kernels.expsig import sigmoid_kernel
-    from repro_torch.kernels.fused_layernorm import fused_layernorm
-    from repro_torch.kernels.wkv4 import wkv4_seq
+    from repro_torch.kernels.fused_ce import (
+        fused_cross_entropy, fused_cross_entropy_bwd)
+    from repro_torch.kernels.fused_layernorm import (
+        fused_layernorm, fused_layernorm_bwd)
+    from repro_torch.kernels.wkv4 import wkv4_seq, wkv4_seq_bwd
     from repro_torch.kernels.wkv6 import wkv6_chunked_kernel, wkv6_seq
-    return (fused_layernorm, wkv4_seq, sigmoid_kernel, wkv6_chunked_kernel,
-            wkv6_seq)
+    return (fused_layernorm, fused_layernorm_bwd, wkv4_seq, wkv4_seq_bwd,
+            fused_cross_entropy, fused_cross_entropy_bwd, sigmoid_kernel,
+            wkv6_chunked_kernel, wkv6_seq)
 
 
-def _run_counted(step, params, batch, want, what):
-    """The main-path run: every counter of the forwards' kernels set to 0
-    just before the step and read just after; they must read `want`."""
-    counters = _forward_counters()
+def _counted(fn, want, what):
+    """The main-path run: every counter of `_path_counters` set to 0 just
+    before fn runs and read just after; they must read `want` (absent
+    names 0).  Returns fn's result and the counts."""
+    counters = _path_counters()
     for c in counters:
         c.launches = 0
-    logits = step(params, batch)
+    out = fn()
     torch.cuda.synchronize()
     got = {c.__name__: c.launches for c in counters}
     full = {c.__name__: want.get(c.__name__, 0) for c in counters}
     if got != full:
         raise AssertionError(f"{what} launched {got}, not {full}")
+    return out, got
+
+
+def _run_counted(step, params, batch, want, what):
+    """A forward step counted by `_counted`, its logits finite."""
+    logits, got = _counted(lambda: step(params, batch), want, what)
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{what}: logits not finite")
     return logits, got
@@ -2679,6 +2734,394 @@ def phase_rwkv6_forward(model, params, toks):
     return {"rwkv6-forward": launches, "rwkv6-forward-s40": launches40}, k6
 
 
+# ---------------------------------------------------------------------------
+# rwkv4-169m's training: K12 and K12-bwd (the loss), K2-bwd and K11-bwd,
+# the train step through them, and a checkpoint round trip
+# ---------------------------------------------------------------------------
+
+# K12's shapes (rows, V): rwkv4-169m's train step (B8 S1024 V50277) and
+# smollm-135m's (B8 S2048 V49152), bf16 logits as the steps give them
+K12_SHAPES = ((8192, 50277), (16384, 49152))
+RWKV4_TRAIN_B, RWKV4_TRAIN_S = 8, 1024
+# rwkv4-169m's train step 0 (phase_rwkv4_train), TRAIN_BOUNDS' recipe:
+# per leaf mean |d| / mean |ref| (and the loss's relative gap), 1.25x what
+# the plain path (the plain versions of K2, K11 and K12 on the card) read
+# against the f32 witness in its first run on an H100 (PERF.md §6; the
+# kernel path read 0.97–1.17x these there), and 1.25·√2x that
+# for the kernel path against the plain one.
+RWKV4_TRAIN_PLAIN = {
+    "blocks.att.time_decay": 0.015229, "blocks.att.time_first": 0.014809,
+    "blocks.att.time_mix_k": 0.011941, "blocks.att.time_mix_r": 0.017411,
+    "blocks.att.time_mix_v": 0.013607, "blocks.att.wk": 0.012512,
+    "blocks.att.wo": 0.0070425, "blocks.att.wr": 0.012031,
+    "blocks.att.wv": 0.0069252, "blocks.ffn.time_mix_k": 0.014369,
+    "blocks.ffn.time_mix_r": 0.015615, "blocks.ffn.wk": 0.010063,
+    "blocks.ffn.wr": 0.011629, "blocks.ffn.wv": 0.0056013,
+    "blocks.ln1.bias": 0.0048016, "blocks.ln1.scale": 0.0075631,
+    "blocks.ln2.bias": 0.0054561, "blocks.ln2.scale": 0.0097185,
+    "embed": 0.017582, "head": 0.0073783, "ln0.bias": 0.0050478,
+    "ln0.scale": 0.0085883, "ln_f.bias": 0.0020366, "ln_f.scale": 0.0045826,
+    "loss": 3.6961e-05}
+RWKV4_TRAIN_BOUNDS = {
+    "kernel_vs_f32": {n: 1.25 * v for n, v in RWKV4_TRAIN_PLAIN.items()},
+    "kernel_vs_plain": {n: 1.25 * 2 ** 0.5 * v
+                        for n, v in RWKV4_TRAIN_PLAIN.items()}}
+
+
+def _ce_ok(x, nll, ref, dx, dx_ref, g):
+    """K12 within 2^-16 + 2^-21 |ref| of the plain NLL, K12-bwd within one
+    step of its type plus 2^-16 |g|·p of each entry, p = exp(x − lse) its
+    probability (the reasons are in
+    tests/test_torch_cuda.py:test_fused_cross_entropy)."""
+    d = (nll - ref).abs()
+    ok = bool((d <= 2.0 ** -16 + 2.0 ** -21 * ref.abs()).all())
+    step = 2.0 ** -7 if dx.dtype == torch.bfloat16 else 2.0 ** -22
+    x32 = x.float()
+    p = torch.exp(x32 - torch.logsumexp(x32, dim=-1, keepdim=True))
+    del x32
+    dd = (dx.float() - dx_ref.float()).abs()
+    ok_b = bool((dd <= step * dx_ref.float().abs()
+                 + 2.0 ** -16 * g[:, None] * p).all())
+    return ok and ok_b, float(d.max()), float(dd.max())
+
+
+def _grad_ms(out, inputs, grad, flush, reps=REPS):
+    """The device time of one autograd backward of `out` (its graph kept)."""
+    return _time_ms(lambda: torch.autograd.grad(out, inputs, grad,
+                                                retain_graph=True),
+                    flush, reps)
+
+
+def phase_k12(flush):
+    """K12 and K12-bwd against their plain versions at K12_SHAPES (logits
+    3·N(0, 1) in bf16, seeded labels, row cotangents g uniform in [0, 1)):
+    the NLL, and the gradient through the autograd Function against the
+    plain version's autograd gradient (`_ce_ok`); the backward twice, bit
+    for bit.  Timed each: K12 beside the plain forward (log-softmax in f32
+    and the gather) and F.cross_entropy(logits.float(), reduction="none")
+    (the port never calls it); K12-bwd beside the plain version's autograd
+    backward and F.cross_entropy's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused_ce import (
+        fused_cross_entropy, fused_cross_entropy_bwd,
+        fused_cross_entropy_plain)
+    rows = []
+    for i, (N, V) in enumerate(K12_SHAPES):
+        g = torch.Generator(device=DEV).manual_seed(SEED + 90 + i)
+        x = (3 * torch.randn((N, V), generator=g, device=DEV)).to(
+            torch.bfloat16)
+        lbl = torch.randint(0, V, (N,), generator=g, device=DEV,
+                            dtype=torch.int32)
+        gr = torch.rand((N,), generator=g, device=DEV)
+        xa = x.clone().requires_grad_()
+        nll = fused_cross_entropy(xa, lbl)
+        (dx,) = torch.autograd.grad(nll, xa, gr)
+        xr = x.clone().requires_grad_()
+        ref = fused_cross_entropy_plain(xr, lbl)
+        (dx_ref,) = torch.autograd.grad(ref, xr, gr, retain_graph=True)
+        ok, err, err_b = _ce_ok(x, nll.detach(), ref.detach(), dx, dx_ref,
+                                gr)
+        lse = torch.logsumexp(x.float(), dim=-1)
+        again = [fused_cross_entropy_bwd(x, lbl, lse, gr) for _ in range(2)]
+        repeat = torch.equal(again[0], again[1])
+        del again, dx, dx_ref
+        elem = x.element_size()
+        fb, fby = _bound(N * V * elem + 3 * N * 4, 4.0 * N * V,
+                         PEAK_F32_FLOPS)
+        bb, bby = _bound(2 * N * V * elem + 3 * N * 4, 4.0 * N * V,
+                         PEAK_F32_FLOPS)
+        xl = x.clone().requires_grad_()
+        lib = F.cross_entropy(xl.float(), lbl.long(), reduction="none")
+        with torch.no_grad():
+            row = {"kernel": "fused_cross_entropy", "N": N, "V": V,
+                   "dtype": "bfloat16", "max_abs_err": err,
+                   "bwd_max_abs_err": err_b, "within_bound": ok,
+                   "bwd_bit_repeat": repeat,
+                   "kernel_ms": _time_ms(
+                       lambda: fused_cross_entropy(x, lbl), flush),
+                   "plain_ms": _time_ms(
+                       lambda: fused_cross_entropy_plain(x, lbl), flush),
+                   "library_ms": _time_ms(lambda: F.cross_entropy(
+                       x.float(), lbl.long(), reduction="none"), flush),
+                   "bound_ms": fb, "bound_by": fby,
+                   "bwd_kernel_ms": _time_ms(
+                       lambda: fused_cross_entropy_bwd(x, lbl, lse, gr),
+                       flush)}
+        row.update(bwd_plain_ms=_grad_ms(ref, xr, gr, flush),
+                   bwd_library_ms=_grad_ms(lib, xl, gr, flush),
+                   bwd_bound_ms=bb, bwd_bound_by=bby)
+        _line(row)
+        if not (ok and repeat):
+            raise AssertionError(f"K12 {(N, V)}: nll {err}, dx {err_b}, "
+                                 f"bit repeat {repeat}")
+        rows.append(row)
+        del x, xa, xr, xl, nll, ref, lib, lse
+        _release()
+    return rows
+
+
+def _rwkv4_train_model(dtype="bfloat16"):
+    from repro_torch.models.registry import get_model
+    cfg = get_model("rwkv4-169m").cfg
+    return get_model(dataclasses.replace(cfg, dtype=dtype))
+
+
+def _train_batch(cfg, step=0):
+    from repro_torch.data import SyntheticLM
+    return {k: torch.from_numpy(v).to(DEV) for k, v in SyntheticLM(
+        vocab=cfg.vocab, seq_len=RWKV4_TRAIN_S,
+        global_batch=RWKV4_TRAIN_B, seed=SEED).batch(step).items()}
+
+
+def _rwkv4_layer0(model, params, batch):
+    """Layer 0's ln1 operands (x, γ, β) and WKV operands (k, v, w, u, the
+    zero state) of the train step's forward, from the compute cast of the
+    f32 masters."""
+    from repro_torch.models import rwkv4
+    from repro_torch.models.layers import layernorm_kernel
+    cast = model.cast_params(params)
+    with torch.no_grad():
+        lp = rwkv4._layer(cast["blocks"], 0)
+        x = layernorm_kernel(cast["ln0"], cast["embed"][
+            batch["tokens"].long()].to(torch.bfloat16))
+        h = layernorm_kernel(lp["ln1"], x)
+        _, args, _ = rwkv4._wkv_operands(lp["att"], h, rwkv4._Std)
+    return (x, lp["ln1"]["scale"], lp["ln1"]["bias"]), args
+
+
+def phase_k2_bwd(layer0, flush):
+    """K2-bwd on layer 0's WKV operands of rwkv4-169m's train step (B8
+    T1024 C768, the zero state) with a seeded N(0, 1) output gradient:
+    through the autograd Function against the plain version's autograd
+    gradient, per output max |d| <= 2^-10 max|ref| and mean |d| <= 2^-13
+    mean|ref| (tests/test_torch_cuda.py:test_wkv4_seq_bwd says why); twice,
+    bit for bit.  Timed: the kernel L2-cold, the plain autograd backward
+    once (a loop over T); no library call computes it."""
+    from repro_torch.kernels.wkv4 import wkv4_seq, wkv4_seq_bwd, \
+        wkv4_seq_plain
+    k, v, w, u, a0, b0, o0 = layer0
+    B, T, C = k.shape
+    gy = torch.randn((B, T, C), device=DEV,
+                     generator=torch.Generator(device=DEV).manual_seed(
+                         SEED + 91))
+    ins = [t.clone().requires_grad_() for t in (k, v, w, u)]
+    y, _ = wkv4_seq(*ins, a0, b0, o0)
+    got = torch.autograd.grad(y, ins, gy)
+    ref_ins = [t.clone().requires_grad_() for t in (k, v, w, u)]
+    y_ref, _ = wkv4_seq_plain(*ref_ins, a0, b0, o0)
+    ref = torch.autograd.grad(y_ref, ref_ins, gy, retain_graph=True)
+    errs, ok = {}, True
+    for name, a, r in zip(("gk", "gv", "gw", "gu"), got, ref):
+        good, e, mean = _spread_ok(a, r, 2.0 ** -10, 2.0 ** -13)
+        errs[name] = {"max_abs": e, "mean_rel": mean}
+        ok = ok and good and bool(torch.isfinite(a).all())
+    again = wkv4_seq_bwd(k, v, w, u, a0, b0, o0, gy)
+    repeat = all(torch.equal(a, b) for a, b in zip(again, got))
+    del again
+    # the function's bytes: k, v, gy read, gk, gv written, w, u read, gw,
+    # gu written; the (y, den, n) of every step that the kernel writes and
+    # reads back is its design's, reported beside as scratch_bytes
+    nbytes = 4 * (5 * B * T * C + 4 * C)
+    bms, by = _bound(nbytes, 60.0 * B * T * C, PEAK_F32_FLOPS)
+    row = {"kernel": "wkv4_seq_bwd", "what": "rwkv4-169m layer 0, train",
+           "B": B, "T": T, "C": C,
+           "max_abs_err": max(e["max_abs"] for e in errs.values()),
+           "errors": errs, "within_bound": ok, "bit_repeat": repeat,
+           "kernel_ms": _time_ms(
+               lambda: wkv4_seq_bwd(k, v, w, u, a0, b0, o0, gy), flush),
+           "plain_ms": _grad_ms(y_ref, ref_ins, gy, flush, reps=1),
+           "library_ms": None, "bound_ms": bms, "bound_by": by,
+           "scratch_bytes": 2 * 4 * 3 * B * T * C}
+    _line(row)
+    if not (ok and repeat):
+        raise AssertionError(f"K2-bwd: {errs}, bit repeat {repeat}")
+    return row
+
+
+def phase_k11_bwd(ln1, flush):
+    """K11-bwd on layer 0's ln1 operands of rwkv4-169m's train step
+    ((8192, 768) bf16 x, bf16 γ and β) with a seeded N(0, 1) bf16 output
+    gradient: through the autograd Function against the plain version's
+    autograd gradient, dx within one bf16 step plus (D + 64)·2^-24
+    rs·(|dx̂| + mean|dx̂| + |x̂|·mean|dx̂·x̂|), dγ and dβ within one step plus
+    (R + 16)·2^-24 of Σ|dy·x̂| and Σ|dy| (tests/test_torch_cuda.py:
+    test_fused_layernorm_bwd); twice, bit for bit.  Timed beside the plain
+    version's autograd backward and F.layer_norm's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused_layernorm import (
+        fused_layernorm, fused_layernorm_bwd, fused_layernorm_plain)
+    x, gamma, beta = (t.detach().contiguous() for t in ln1)
+    D = x.shape[-1]
+    R = x.numel() // D
+    dy = torch.randn(x.shape, device=DEV, generator=torch.Generator(
+        device=DEV).manual_seed(SEED + 92)).to(x.dtype)
+
+    def graph(fn):
+        ins = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+        return fn(*ins), ins
+    out, ins = graph(fused_layernorm)
+    got = torch.autograd.grad(out, ins, dy)
+    ref_out, ref_ins = graph(fused_layernorm_plain)
+    ref = torch.autograd.grad(ref_out, ref_ins, dy, retain_graph=True)
+    lib_out, lib_ins = graph(lambda a, g, b: F.layer_norm(a, (D,), g, b,
+                                                          1e-5))
+    x32, dy32 = x.float().reshape(R, D), dy.float().reshape(R, D)
+    mu = x32.mean(-1, keepdim=True)
+    rs = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) - mu * mu + 1e-5)
+    xh = (x32 - mu) * rs
+    dxh = dy32 * gamma.float()
+    floors = (
+        ((D + 64) * 2.0 ** -24 * rs * (
+            dxh.abs() + dxh.abs().mean(-1, keepdim=True)
+            + xh.abs() * (dxh * xh).abs().mean(-1, keepdim=True))
+         ).reshape(x.shape),
+        (R + 16) * 2.0 ** -24 * (dy32 * xh).abs().sum(0),
+        (R + 16) * 2.0 ** -24 * dy32.abs().sum(0))
+    errs, ok = {}, True
+    for name, a, r, fl in zip(("dx", "dgamma", "dbeta"), got, ref, floors):
+        d = (a.float() - r.float()).abs()
+        errs[name] = float(d.max())
+        ok = ok and bool((d <= 2.0 ** -7 * r.float().abs() + fl).all())
+    again = fused_layernorm_bwd(x, gamma, beta, dy)
+    repeat = all(torch.equal(a, b) for a, b in zip(again, got))
+    del again, floors
+    elem = x.element_size()
+    bms, by = _bound(3 * R * D * elem + 3 * D * elem, 12.0 * R * D,
+                     PEAK_F32_FLOPS)
+    row = {"kernel": "fused_layernorm_bwd", "what":
+           "rwkv4-169m layer 0 ln1, train", "R": R, "D": D,
+           "dtype": str(x.dtype), "max_abs_err": max(errs.values()),
+           "errors": errs, "within_bound": ok, "bit_repeat": repeat,
+           "kernel_ms": _time_ms(
+               lambda: fused_layernorm_bwd(x, gamma, beta, dy), flush),
+           "plain_ms": _grad_ms(ref_out, ref_ins, dy, flush),
+           "library_ms": _grad_ms(lib_out, lib_ins, dy, flush),
+           "bound_ms": bms, "bound_by": by}
+    _line(row)
+    if not (ok and repeat):
+        raise AssertionError(f"K11-bwd: {errs}, bit repeat {repeat}")
+    return row
+
+
+def _rwkv4_train_per_step(L):
+    """Launches of one rwkv4 train step under remat: K11 at ln0, ln_f and
+    twice a layer, again in each layer's recompute; K2 once a layer and
+    again in the recompute; each backward once per forward call."""
+    return {"fused_layernorm": 4 * L + 2, "fused_layernorm_bwd": 2 * L + 2,
+            "wkv4_seq": 2 * L, "wkv4_seq_bwd": L,
+            "fused_cross_entropy": 1, "fused_cross_entropy_bwd": 1}
+
+
+def _rwkv4_train_ops(model, B, S):
+    """6·N·T for the products (N = the weights in products: the blocks'
+    matrices and the head; the embedding is a gather) and 2·N_blocks·T for
+    remat's re-forward of the blocks."""
+    cfg = model.cfg
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    n_blocks = cfg.n_layers * (5 * D * D + 2 * D * F)
+    T = B * S
+    return {"matmuls": 6.0 * (n_blocks + D * V) * T,
+            "remat": 2.0 * n_blocks * T}
+
+
+def phase_rwkv4_train():
+    """rwkv4-169m's training at full width and depth (L12 D768 F3072
+    V50277), B 8, S 1024, SyntheticLM tokens, f32 master weights from the
+    seed, AdamW, remat.  Step 0 (`loss_and_grads`) with every counter set
+    to 0 just before and read just after (`_rwkv4_train_per_step`); its
+    loss and gradients per leaf against the plain path (the plain versions
+    of K2, K11 and K12 on the card) and an f32 witness (the f32 config, the
+    plain versions), within RWKV4_TRAIN_BOUNDS; the plain step timed.
+    Then `train_model` for 3 steps, the counters again (3x), finite
+    losses, each step's ms, tokens/s and the peak device memory beside the
+    step's operations bound; then the trained params through an
+    AsyncCheckpointer into the checkout's build/ and back, bit for bit.
+    Returns the path's launches."""
+    import shutil
+    from repro_torch.checkpoint import AsyncCheckpointer, restore_checkpoint
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import train_model
+    from repro_torch.tree import leaves_with_path
+    B, S, steps = RWKV4_TRAIN_B, RWKV4_TRAIN_S, 3
+    model = _rwkv4_train_model()
+    L = model.cfg.n_layers
+    per_step = _rwkv4_train_per_step(L)
+    params = model.init_params(SEED, DEV)
+    batch = _train_batch(model.cfg)
+    (loss_k, _), g_k = _counted(
+        lambda: loss_and_grads(model, params, batch), per_step,
+        "rwkv4 train step 0")[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _PlainKernels():
+        (loss_p, _), g_p = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        (loss_w, _), g_w = loss_and_grads(_rwkv4_train_model("float32"),
+                                          params, batch)
+    losses = [float(x) for x in (loss_k, loss_p, loss_w)]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"rwkv4 step 0 losses not finite: {losses}")
+    gaps = {"kernel_vs_f32": _grad_gaps(g_k, g_w),
+            "plain_vs_f32": _grad_gaps(g_p, g_w),
+            "kernel_vs_plain": _grad_gaps(g_k, g_p)}
+    for who, x, ref in (("kernel_vs_f32", losses[0], losses[2]),
+                        ("plain_vs_f32", losses[1], losses[2]),
+                        ("kernel_vs_plain", losses[0], losses[1])):
+        gaps[who]["loss"] = abs(x - ref) / abs(ref)
+    finite = all(bool(torch.isfinite(g).all())
+                 for _, g in leaves_with_path(g_k))
+    del g_k, g_p, g_w
+    bounds = RWKV4_TRAIN_BOUNDS
+    bad = {(w, n): gaps[w][n] for w in bounds for n in bounds[w]
+           if gaps[w][n] > bounds[w][n]}
+    _line({"phase": "train_step0", "arch": "rwkv4-169m", "B": B, "S": S,
+           "losses": {"kernels": losses[0], "plain": losses[1],
+                      "f32": losses[2]},
+           "launches": per_step, "plain_step_ms": plain_ms, "gaps": gaps,
+           "bounds": bounds, "within_bound": not bad})
+    if bad or not finite:
+        raise AssertionError(f"rwkv4 train step 0 out of bounds: {bad}, "
+                             f"finite gradients {finite}")
+    del params, batch
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = _counted(
+        lambda: train_model(model, steps=steps, global_batch=B, seq_len=S,
+                            seed=SEED, device=DEV, log_every=1),
+        {n: steps * c for n, c in per_step.items()}, "rwkv4 train")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"train losses not finite: {out['losses']}")
+    ops = _rwkv4_train_ops(model, B, S)
+    step_ms = [t * 1e3 for t in out["step_s"]]
+    steady = sum(step_ms[1:]) / len(step_ms[1:])
+    ck_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    ck = AsyncCheckpointer(str(ck_dir))
+    ck.save(steps, out["params"])
+    save_s = time.perf_counter() - t0
+    ck.wait()
+    back = restore_checkpoint(str(ck_dir), steps, out["params"])
+    ck_s = time.perf_counter() - t0
+    equal = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        leaves_with_path(out["params"]), leaves_with_path(back)))
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    _line({"phase": "train", "arch": "rwkv4-169m", "B": B, "S": S,
+           "steps": steps, "losses": out["losses"], "step_ms": step_ms,
+           "train_tokens_per_s": B * S / (steady / 1e3),
+           "max_memory_allocated_gib": peak, "launches": launches,
+           "ops": ops, "bound_ms": sum(ops.values()) / PEAK_BF16_FLOPS * 1e3,
+           "checkpoint": {"bit_equal": equal, "save_return_s": save_s,
+                          "save_restore_s": ck_s}})
+    if not equal:
+        raise AssertionError("the checkpoint round trip changed a bit")
+    del out, back
+    _release()
+    return {"rwkv4-train": launches}
+
+
 # the order of a phase row's dimensions in a `kernels` entry's shapes
 _SHAPE_KEYS = ("M", "K", "N", "L", "B", "T", "C", "D", "F", "H", "S", "KVH",
                "d")
@@ -2861,6 +3304,18 @@ def main() -> int:
     del flush
     _release()
     by_path.update(_timed("train smollm-135m", phase_train))
+    # rwkv4-169m's training: K12 and K12-bwd, K2-bwd and K11-bwd on layer
+    # 0's operands of the train step, then the train step through them
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    k12 = _timed("K12", phase_k12, flush)
+    m4t = _rwkv4_train_model()
+    ln1, wkv = _rwkv4_layer0(m4t, m4t.init_params(SEED, DEV),
+                             _train_batch(m4t.cfg))
+    k2b = _timed("K2-bwd", phase_k2_bwd, wkv, flush)
+    k11b = _timed("K11-bwd", phase_k11_bwd, ln1, flush)
+    del ln1, wkv, flush
+    _release()
+    by_path.update(_timed("train rwkv4-169m", phase_rwkv4_train))
 
     def launches(name, main_path):
         return {"main": by_path[main_path][name],
@@ -2987,6 +3442,46 @@ def main() -> int:
                     "whole SDPA backward less its forward; launches: the "
                     "3-step train run"})
     kernels += [k10_row, k11_row]
+    # the training slice's kernels, launches from the 3-step rwkv4 run
+    bwd_rows = [{k[4:] if k.startswith("bwd_") else k: v
+                 for k, v in r.items() if k.startswith("bwd_")
+                 or k in ("N", "V")} for r in k12]
+    kernels += [
+        _kernel_row("fused_cross_entropy", "src/repro_torch/csrc/fused_ce.cu",
+                    "src/repro/kernels/fused_ce.py:136", k12[:1],
+                    launches("fused_cross_entropy", "rwkv4-train"),
+                    "K12, timed at rwkv4-169m's train rows (8192, 50277) "
+                    "bf16; smollm-135m's (16384, 49152) on its line above; "
+                    "library_ms is F.cross_entropy(logits.float(), "
+                    "reduction='none')"),
+        _kernel_row("fused_cross_entropy_bwd",
+                    "src/repro_torch/csrc/fused_ce.cu",
+                    "src/repro/kernels/fused_ce.py:61", bwd_rows[:1],
+                    launches("fused_cross_entropy_bwd", "rwkv4-train"),
+                    "K12-bwd, timed as K12; plain_ms and library_ms are "
+                    "the autograd backward of the plain version and of "
+                    "F.cross_entropy"),
+        _kernel_row("wkv4_seq_bwd", "src/repro_torch/csrc/wkv4_bwd.cu",
+                    "src/repro/core/wkv/wkv4.py:61", [k2b],
+                    launches("wkv4_seq_bwd", "rwkv4-train"),
+                    "K2-bwd: no TPU kernel, the backward XLA derives from "
+                    "wkv4_scan; timed on rwkv4-169m's layer-0 operands at "
+                    "B8 T1024 C768; plain_ms the autograd backward of the "
+                    "plain step loop"),
+        _kernel_row("fused_layernorm_bwd",
+                    "src/repro_torch/csrc/fused_layernorm.cu",
+                    "src/repro/models/layers.py:31", [k11b],
+                    launches("fused_layernorm_bwd", "rwkv4-train"),
+                    "K11-bwd: no TPU kernel, the backward XLA derives from "
+                    "apply_norm's LayerNorm; timed on rwkv4-169m's layer-0 "
+                    "ln1 operands (8192, 768) bf16; library_ms F.layer_norm's "
+                    "autograd backward"),
+    ]
+    for entry in kernels[-4:-2]:
+        entry["shapes"] = [[r["N"], r["V"]] for r in k12]
+        entry["max_abs_err"] = max(r["max_abs_err"] for r in (
+            k12 if entry["name"] == "fused_cross_entropy" else bwd_rows))
+    kernels[-1]["shapes"] = [[k11b["R"], k11b["D"]]]
     # K2 and K6 as the RWKV forwards call them: checked there, their
     # errors and shapes joined to the entries above, their times beside
     for entry in kernels:

@@ -53,6 +53,10 @@ SIGNATURES = {
     "flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F, _P],
     "flash_attention_dq": [_P] * 7 + [_I] * 8 + [_F, _P],
     "flash_attention_dkv": [_P] * 8 + [_I] * 8 + [_F, _P],
+    "fused_ce_fwd": [_P] * 4 + [_I] * 3 + [_P],
+    "fused_ce_bwd": [_P] * 5 + [_I] * 4 + [_P],
+    "fused_layernorm_bwd": [_P] * 7 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
+    "wkv4_seq_bwd": [_P] * 14 + [_I] * 3 + [_P],
 }
 
 
@@ -135,19 +139,26 @@ def check(err: int, name: str):
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
-def refuse_grad(name: str, *tensors):
+WAITS = ("rwkv6's gradients on the card wait for backward kernels of K10 "
+         "and K6, with rwkv6 training (ROADMAP Queue 1 item 10: rwkv6-7b "
+         "with f32 masters and AdamW needs more than one card)")
+
+HW_UNTRAINED = ("the hardware numerics are not trained (JAX's loss_fn "
+                "runs the standard ones)")
+
+
+def refuse_grad(name: str, *tensors, why: str = WAITS):
     """Raise where a kernel with no backward would be asked for gradients:
-    grad mode on and an operand that requires grad.  The plain versions on
-    CPU tensors stay differentiable; a CUDA call never falls back to
-    them."""
+    grad mode on and an operand that requires grad.  `why` says what the
+    gradient waits for.  The plain versions on CPU tensors stay
+    differentiable; a CUDA call never falls back to them."""
     import torch
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name}: this kernel has no backward yet; gradients of the "
-            "RWKV models on the card wait for the RWKV training slice "
-            "(ROADMAP Queue 1 item 8c). Run it under torch.no_grad(), or "
-            "on CPU tensors for the differentiable plain version")
+            f"{name}: this call has no backward kernel; {why}. Run it under "
+            "torch.no_grad(), or on CPU tensors for the differentiable "
+            "plain version")
 
 
 def stream_ptr(t) -> int:

@@ -10,7 +10,8 @@ compile too.  The chunked prefill under the hardware numerics takes its
 
 A CPU tensor takes the plain version (`core/approx/units.py`); a CUDA
 tensor launches the kernel or raises, also when grad mode is on and x
-requires grad (no backward yet).
+requires grad: the hardware numerics are not trained (JAX's `loss_fn`
+runs the standard ones), so K9 has no backward.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch.core.approx.units import exp_lut, lut_tensor, sigmoid_pwl
 from repro_torch.kernels.build import (
-    check, load_library, refuse_grad, stream_ptr)
+    HW_UNTRAINED, check, load_library, refuse_grad, stream_ptr)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -34,7 +35,7 @@ def sigmoid_kernel_plain(x: torch.Tensor) -> torch.Tensor:
 def _launch(x: torch.Tensor, mode: int, wrapper) -> torch.Tensor:
     if x.dtype not in _DTYPES:
         raise TypeError(f"the EXP-σ kernel takes f32 or bf16, got {x.dtype}")
-    refuse_grad(wrapper.__name__, x)
+    refuse_grad(wrapper.__name__, x, why=HW_UNTRAINED)
     x = x.contiguous()
     out = torch.empty_like(x)
     if x.numel():

@@ -22,8 +22,9 @@ chip instead of taking an f32 copy.  The final state is f32 (snapped
 through bf16 when the carry is bf16), as the JAX kernel returns it.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises, also when grad mode is on and an operand requires grad (the
-kernels have no backward yet).
+or raises, also when grad mode is on and an operand requires grad: the
+kernels have no backward yet, and rwkv6's training on the card waits for
+theirs (`kernels/build.py:WAITS`).
 """
 from __future__ import annotations
 

@@ -7,6 +7,7 @@ without a mesh: one card, no shardings, no jit).
     step, args, kind = build_step_for_cell(
         "smollm-135m", "train_4k", cfg_overrides={"use_flash_kernel": True})
     step, args, kind = build_step_for_cell("rwkv6-7b", "prefill_32k")
+    step, args, kind = build_step_for_cell("rwkv4-169m", "train_4k")
 
 `args` are meta tensors, the analogue of JAX's abstract arguments: the
 shapes and dtypes a call of `step` takes at that cell.

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, get_config, smoke_config
 from repro_torch.core.quant.serving import cast_compute
+from repro_torch.kernels.fused_ce import fused_cross_entropy
 from repro_torch.models import param as PM
 
 
@@ -102,8 +103,9 @@ class Model:
         of `params`: the prefill step of every family and, with grad
         enabled, the dense transformer's train step (gradients flow back
         to `params` through the cast).  `kw` goes to the module's forward
-        (rwkv4's `hw`, rwkv6's `chunk`).  The RWKV forwards' kernels have
-        no backward yet: on the card they raise under grad."""
+        (rwkv4's `hw`, rwkv6's `chunk`).  rwkv4's gradients on the card
+        flow through K2-bwd and K11-bwd; rwkv6's raise at K10 or K6 (no
+        backward kernel yet)."""
         return self.module.forward(self.cast_params(params), batch,
                                    self.cfg, **kw)
 
@@ -190,16 +192,17 @@ def get_model(cfg_or_id: ModelConfig | str, *, smoke: bool = False) -> Model:
 
 def loss_fn(model: Model, params, batch):
     """Causal-LM cross-entropy (mean over the unmasked tokens) + 0.01·aux:
-    the logits in f32, their log-softmax, the label's entry, the masked
-    mean.  Returns (loss + 0.01·aux, {"loss", "aux"})."""
+    each token's NLL through `fused_cross_entropy` (K12 and K12-bwd on the
+    card; on the CPU the f32 log-softmax and the label's entry, as JAX's
+    `loss_fn` computes it), then the masked mean.  Returns (loss +
+    0.01·aux, {"loss", "aux"})."""
     logits, aux = model.forward(params, batch)
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:
         logits = logits[:, -labels.shape[1]:]
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    nll = fused_cross_entropy(logits, labels)
     mask = batch.get("mask")
     if mask is None:
-        mask = torch.ones_like(ll)
-    loss = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        mask = torch.ones_like(nll)
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}

@@ -10,9 +10,11 @@ Entry points, all on (B, ...) tensors with the JAX tree paths:
   decode_step_fused_model  — kernel K4 for all layers, the head through K5
   prefill_chunk            — chunk matmuls through K5, the WKV scan via K2
   forward                  — logits over a whole sequence (the prefill
-                             step): the WKV through K2, the LayerNorms
-                             through K11, σ under hw through K9, the
-                             matmuls plain torch
+                             step, and the train step under grad): the
+                             WKV through K2, the LayerNorms through K11
+                             (their gradients through K2-bwd and K11-bwd),
+                             σ under hw through K9, the matmuls plain
+                             torch
 K5 stands for the chunk matmul of the head's or the matrix's plane: K5
 (W8), K5-W4 or K5-VQ.
 
@@ -39,6 +41,7 @@ tools (ROADMAP Queue 1 item 10).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.approx.units import (
@@ -449,26 +452,39 @@ def _channel_mix_seq(p, x, nm):
     return nm.act_q(r * _mm(nm.act_q(k), p["wv"]))
 
 
+def _block_seq(lp, x, nm):
+    """One layer over a whole sequence: ln1 -> TimeMix -> residual, ln2 ->
+    ChannelMix -> residual (JAX's `forward.body`)."""
+    att = _time_mix_seq(lp["att"], L.layernorm_kernel(lp["ln1"], x), nm)
+    x = x + att.to(x.dtype)
+    ffn = _channel_mix_seq(lp["ffn"], L.layernorm_kernel(lp["ln2"], x), nm)
+    return x + ffn.to(x.dtype)
+
+
 @exact_matmuls()
 def forward(params, batch: dict, cfg: ModelConfig, *, hw: bool = False):
     """batch {"tokens": (B, S) int}; params plain, in the compute dtype ->
     (logits (B, S, V), aux 0).  JAX's `rwkv4.forward` op for op under the
     numerics `hw` picks: ln0, then per layer ln1 -> TimeMix -> residual,
     ln2 -> ChannelMix -> residual, ln_f and the head, every token shift
-    from a zero carry.  With grad enabled and an operand that requires
-    grad, a CUDA call raises (K2, K9 and K11 have no backward yet); CPU
-    tensors stay differentiable."""
+    from a zero carry.  With grad enabled and cfg.remat, each layer runs
+    under a non-reentrant `checkpoint`, as JAX's `jax.checkpoint(body)`:
+    its activations are recomputed in the backward (K11 and K2 launch
+    again there).  Gradients flow through K2-bwd and K11-bwd under the
+    standard numerics; under hw a CUDA call raises at K9 or K2-hw (the
+    hardware numerics are not trained), while CPU tensors stay
+    differentiable."""
     nm = _seq_numerics(hw)
     dt = getattr(torch, cfg.dtype)
     x = params["embed"][batch["tokens"].long()].to(dt)
     x = L.layernorm_kernel(params["ln0"], x)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         lp = _layer(params["blocks"], i)
-        att = _time_mix_seq(lp["att"], L.layernorm_kernel(lp["ln1"], x), nm)
-        x = x + att.to(x.dtype)
-        ffn = _channel_mix_seq(lp["ffn"], L.layernorm_kernel(lp["ln2"], x),
-                               nm)
-        x = x + ffn.to(x.dtype)
+        if remat:
+            x = checkpoint(_block_seq, lp, x, nm, use_reentrant=False)
+        else:
+            x = _block_seq(lp, x, nm)
     x = L.layernorm_kernel(params["ln_f"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x @ params["head"].to(x.dtype), aux

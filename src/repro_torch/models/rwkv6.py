@@ -28,6 +28,7 @@ care: `jnp.var` is the biased variance, and `jax.nn.silu` is x·σ(x) with
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant.serving import (
@@ -404,22 +405,36 @@ def _channel_mix_seq(p, x):
     return r * (k @ p["wv"])
 
 
+def _block_seq(lp, x, cfg: ModelConfig, chunk: int):
+    """One layer over a whole sequence: ln1 -> TimeMix -> residual, ln2 ->
+    ChannelMix -> residual (JAX's `forward.body`)."""
+    norm = L.layernorm_kernel
+    x = x + _time_mix_seq(lp["att"], norm(lp["ln1"], x), cfg, chunk)
+    return x + _channel_mix_seq(lp["ffn"], norm(lp["ln2"], x))
+
+
 @exact_matmuls()
 def forward(params, batch: dict, cfg: ModelConfig, *, chunk: int = 64):
     """batch {"tokens": (B, S) int}; params plain, in the compute dtype ->
     (logits (B, S, V), aux 0).  JAX's `rwkv6.forward` op for op: ln0, then
     per layer ln1 -> TimeMix -> residual, ln2 -> ChannelMix -> residual,
     ln_f and the head, every token shift from a zero carry.  With grad
-    enabled and an operand that requires grad, a CUDA call raises (K10,
-    K6 and K11 have no backward yet); CPU tensors stay differentiable."""
+    enabled and cfg.remat, each layer runs under a non-reentrant
+    `checkpoint`, as JAX's `jax.checkpoint(body)`.  CPU tensors train
+    through the plain versions; on the card, under grad with an operand
+    that requires it, K10 or K6 raises (no backward kernel yet: rwkv6's
+    training waits for theirs and for ROADMAP Queue 1 item 10)."""
     dt = getattr(torch, cfg.dtype)
     x = params["embed"][batch["tokens"].long()].to(dt)
     x = L.layernorm_kernel(params["ln0"], x)
-    norm = L.layernorm_kernel
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         lp = _layer(params["blocks"], i)
-        x = x + _time_mix_seq(lp["att"], norm(lp["ln1"], x), cfg, chunk)
-        x = x + _channel_mix_seq(lp["ffn"], norm(lp["ln2"], x))
+        if remat:
+            x = checkpoint(_block_seq, lp, x, cfg, chunk,
+                           use_reentrant=False)
+        else:
+            x = _block_seq(lp, x, cfg, chunk)
     x = L.layernorm_kernel(params["ln_f"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x @ params["head"].to(x.dtype), aux

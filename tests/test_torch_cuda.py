@@ -1187,30 +1187,295 @@ def test_rwkv_forward_smoke_on_card(cuda, monkeypatch, arch, S, hw):
 
 
 def test_rwkv_forward_refuses_grad_on_card(cuda):
-    """With grad enabled and params that require grad, the RWKV forward on
-    the card raises (its kernels have no backward) before any launch, and
-    so do K10, K11, K6 and K2 alone; it never takes the plain versions."""
-    model = get_model("rwkv4-169m", smoke=True)
-    params = model.init_params(0, cuda)
-    params["ln0"]["scale"].requires_grad_()
-    toks = torch.zeros((1, 8), dtype=torch.int32, device=cuda)
-    counters = (fused_layernorm, wkv4_seq, wkv6_chunked_kernel, wkv6_seq)
+    """With grad enabled and params that require grad, what has no backward
+    kernel raises on the card before it launches, and never takes the plain
+    versions: rwkv6's forward at K10 (naming item 10, after ln0 and ln1
+    went through K11), rwkv4's hw forward at K2-hw, and K10, K6, K9, K2
+    with the LUT tables or a valid mask alone."""
+    from repro_torch.tree import tree_map
+    grad = lambda p: tree_map(lambda t: t.requires_grad_(), p)
+    model6 = get_model("rwkv6-7b", smoke=True)
+    params6 = grad(model6.init_params(0, cuda))
+    toks = torch.zeros((1, 128), dtype=torch.int32, device=cuda)
+    counters = (wkv4_seq, wkv6_chunked_kernel, wkv6_seq, sigmoid_kernel)
     before = [c.launches for c in counters]
-    with pytest.raises(NotImplementedError, match="8c"):
-        model.forward(params, {"tokens": toks})
+    with pytest.raises(NotImplementedError, match="item 10"):
+        model6.forward(params6, {"tokens": toks})
+    model4 = get_model("rwkv4-169m", smoke=True)
+    params4 = grad(model4.init_params(0, cuda))
+    with pytest.raises(NotImplementedError, match="hardware numerics"):
+        model4.forward(params4, {"tokens": toks[:, :8]}, hw=True)
     rq = torch.randn((1, 64, 2, 16), device=cuda, requires_grad=True)
     rn = lambda *s: torch.randn(s, device=cuda)
-    for call in (
-            lambda: fused_layernorm(rn(4, 64), rq.flatten()[:64], rn(64)),
-            lambda: wkv6_chunked_kernel(rq, rq, rq, rn(1, 64, 2, 16),
-                                        rn(2, 16)),
-            lambda: wkv6_seq(rq, rq, rq, rn(1, 64, 2, 16), rn(2, 16),
-                             rn(1, 2, 16, 16)),
-            lambda: wkv4_seq(rq.reshape(1, 64, 32), rn(1, 64, 32), rn(32),
-                             rn(32), rn(1, 32), rn(1, 32), rn(1, 32))):
-        with pytest.raises(NotImplementedError, match="8c"):
+    luts = {"exp_table": lut_tensor("exp", cuda),
+            "div_table": lut_tensor("div", cuda)}
+    k2 = lambda **kw: wkv4_seq(rq.reshape(1, 64, 32), rn(1, 64, 32),
+                               rn(32), rn(32), rn(1, 32), rn(1, 32),
+                               rn(1, 32), **kw)
+    for call, why in (
+            (lambda: wkv6_chunked_kernel(rq, rq, rq, rn(1, 64, 2, 16),
+                                         rn(2, 16)), "item 10"),
+            (lambda: wkv6_seq(rq, rq, rq, rn(1, 64, 2, 16), rn(2, 16),
+                              rn(1, 2, 16, 16)), "item 10"),
+            (lambda: sigmoid_kernel(rq), "hardware numerics"),
+            (lambda: k2(**luts), "hardware numerics"),
+            (lambda: k2(valid=torch.ones((1, 64), device=cuda)),
+             "valid mask")):
+        with pytest.raises(NotImplementedError, match=why):
             call()
     assert [c.launches for c in counters] == before
     with torch.no_grad():       # no grad mode: the forward serves
-        logits, _ = model.forward(params, {"tokens": toks})
+        logits, _ = model6.forward(params6, {"tokens": toks})
     assert bool(torch.isfinite(logits).all())
+
+
+# --- the RWKV training slice: K12, K12-bwd, K11-bwd, K2-bwd ---------------
+
+from repro_torch.kernels.fused_ce import (
+    fused_cross_entropy, fused_cross_entropy_bwd, fused_cross_entropy_plain)
+from repro_torch.kernels.fused_layernorm import fused_layernorm_bwd
+from repro_torch.kernels.wkv4 import wkv4_seq_bwd, wkv4_seq_bwd_plain
+
+
+def _ce_inputs(cuda, N, V, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (3 * torch.randn((N, V), generator=g, device=cuda)).to(dtype)
+    lbl = torch.randint(0, V, (N,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    lbl[:4] = torch.tensor([0, V - 1, min(127, V - 1), min(128, V - 1)],
+                           device=cuda, dtype=torch.int32)[:min(4, N)]
+    return x, lbl, torch.rand((N,), generator=g, device=cuda)
+
+
+@pytest.mark.parametrize("N,V,dtype", [
+    (64, 50277, torch.bfloat16), (37, 50277, torch.float32),
+    (16, 49152, torch.bfloat16), (9, 1000, torch.float32),
+    (5, 129, torch.bfloat16), (3, 1, torch.float32)])
+def test_fused_cross_entropy(cuda, N, V, dtype):
+    """K12 against its plain version (the f32 log-softmax and the label's
+    entry): |d| <= 2^-16 + 2^-21 |ref| (the sum-exp taken in another order
+    moves the lse by up to ~2^-17 absolute at V = 50277: ~100 sequential
+    f32 adds a thread, the tree, the exp's argument rounding; then the
+    lse and nll roundings).  K12-bwd against the plain version's autograd
+    gradient, through the autograd Function: |d| <= one step of the
+    output's type (2^-7 |ref| in bf16, 2^-22 in f32) plus 2^-16 |g|·p,
+    p = exp(x − lse) the entry's probability: p taken from another lse
+    (Δlse up to ~2^-17) and from x − lse rounded in f32 (2^-20 relative
+    at |x − lse| < 32) moves p·g by that fraction of itself, and the
+    floor scales with p, so an entry written wrong fails however small
+    its probability; at the label, p − 1 cancels, and the floor's p·g
+    still covers the error of p.  Labels at both ends of the row and at a
+    128-block edge; V = 50277 and 129 take a ragged tail, V = 1 no vector
+    at all; the backward twice, bit for bit."""
+    x, lbl, gr = _ce_inputs(cuda, N, V, dtype, N * V)
+    b0, b1 = fused_cross_entropy.launches, fused_cross_entropy_bwd.launches
+    with torch.no_grad():
+        nll = fused_cross_entropy(x, lbl)
+    ref = fused_cross_entropy_plain(x, lbl)
+    d = (nll - ref).abs()
+    assert bool((d <= 2.0 ** -16 + 2.0 ** -21 * ref.abs()).all()), \
+        float(d.max())
+    xa = x.clone().requires_grad_()
+    (fused_cross_entropy(xa, lbl) * gr).sum().backward()
+    xr = x.clone().requires_grad_()
+    (fused_cross_entropy_plain(xr, lbl) * gr).sum().backward()
+    torch.cuda.synchronize()
+    assert (fused_cross_entropy.launches - b0,
+            fused_cross_entropy_bwd.launches - b1) == (2, 1)
+    assert xa.grad.dtype == dtype
+    step = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+    lse = torch.logsumexp(x.float(), dim=-1)
+    p = torch.exp(x.float() - lse[:, None])
+    d = (xa.grad.float() - xr.grad.float()).abs()
+    ok = d <= step * xr.grad.float().abs() + 2.0 ** -16 * gr[:, None] * p
+    assert bool(ok.all()), float(d.max())
+    again = [fused_cross_entropy_bwd(x, lbl, lse, gr) for _ in range(2)]
+    assert torch.equal(again[0], again[1])
+
+
+def test_fused_cross_entropy_batched_and_offset(cuda):
+    """(B, S, V) logits through the wrapper equal the (B·S, V) call; a row
+    view at an odd element offset (the head peeled to reach 16 bytes) gives
+    the aligned copy's bits."""
+    x, lbl, _ = _ce_inputs(cuda, 12, 333, torch.bfloat16, 5)
+    with torch.no_grad():
+        flat = fused_cross_entropy(x, lbl)
+        batched = fused_cross_entropy(x.reshape(3, 4, 333),
+                                      lbl.reshape(3, 4))
+        assert torch.equal(batched.reshape(-1), flat)
+        big = torch.zeros(12 * 333 + 1, dtype=torch.bfloat16, device=cuda)
+        big[1:] = x.reshape(-1)
+        off = big[1:].view(12, 333)
+        assert off.data_ptr() % 16 != 0
+        assert torch.equal(fused_cross_entropy(off, lbl), flat)
+
+
+def _layernorm_grads(fn, x, gamma, beta, dy):
+    xa, ga, ba = (t.clone().requires_grad_() for t in (x, gamma, beta))
+    fn(xa, ga, ba).backward(dy)
+    return xa.grad, ga.grad, ba.grad
+
+
+@pytest.mark.parametrize("R,D", [(8192, 768), (64, 4096), (37, 768),
+                                 (5, 100), (3, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_layernorm_bwd(cuda, R, D, dtype):
+    """K11-bwd through the autograd Function against the plain version's
+    autograd gradient: dx within one step of its type plus (D + 64)·2^-24
+    rs·(|dx̂| + mean|dx̂| + |x̂|·mean|dx̂·x̂|) (the row means summed in
+    another order, and autograd's other graph for the same derivative);
+    dγ and dβ within one step plus (R + 16)·2^-24 of Σ|dy·x̂| and Σ|dy|
+    (the sums over rows in another order).  Twice, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(R + D)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda)
+    x = (2 * rn(R, D) + 0.5).to(dtype)
+    gamma, beta, dy = rn(D).to(dtype), rn(D).to(dtype), rn(R, D).to(dtype)
+    before = (fused_layernorm.launches, fused_layernorm_bwd.launches)
+    got = _layernorm_grads(fused_layernorm, x, gamma, beta, dy)
+    torch.cuda.synchronize()
+    assert (fused_layernorm.launches - before[0],
+            fused_layernorm_bwd.launches - before[1]) == (1, 1)
+    ref = _layernorm_grads(fused_layernorm_plain, x, gamma, beta, dy)
+    step = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+    x32, dy32 = x.float(), dy.float()
+    mu = x32.mean(-1, keepdim=True)
+    rs = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) - mu * mu + 1e-5)
+    xh = (x32 - mu) * rs
+    dxh = dy32 * gamma.float()
+    floors = (
+        (D + 64) * 2.0 ** -24 * rs * (
+            dxh.abs() + dxh.abs().mean(-1, keepdim=True)
+            + xh.abs() * (dxh * xh).abs().mean(-1, keepdim=True)),
+        (R + 16) * 2.0 ** -24 * (dy32 * xh).abs().sum(0),
+        (R + 16) * 2.0 ** -24 * dy32.abs().sum(0))
+    for name, a, b, fl in zip(("dx", "dgamma", "dbeta"), got, ref, floors):
+        assert a.dtype == b.dtype
+        d = (a.float() - b.float()).abs()
+        assert bool((d <= step * b.float().abs() + fl).all()), \
+            (name, float(d.max()))
+    again = fused_layernorm_bwd(x, gamma, beta, dy)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def _wkv4_case(cuda, B, T, C, zero_state, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda)
+    k, v, gy = 2 * rn(B, T, C), rn(B, T, C), rn(B, T, C)
+    w = torch.exp(0.5 * rn(C) - 1)
+    u = rn(C)
+    if zero_state:
+        a0, b0 = torch.zeros((B, C), device=cuda), torch.zeros((B, C),
+                                                               device=cuda)
+        o0 = torch.full((B, C), -1e38, device=cuda)
+    else:
+        a0, b0, o0 = rn(B, C), rn(B, C).abs() + 0.5, rn(B, C)
+    return k, v, w, u, a0, b0, o0, gy
+
+
+def _gap_ok(out, ref, max_rel, mean_rel):
+    d = (out.float() - ref.float()).abs()
+    r = ref.float().abs()
+    return (bool(d.max() <= max_rel * r.max())
+            and bool(d.mean() <= mean_rel * r.mean())), float(d.max())
+
+
+@pytest.mark.parametrize("B,T,C,zero_state", [
+    (8, 1024, 768, True), (2, 64, 37, True), (3, 100, 64, False),
+    (1, 1, 8, True)])
+def test_wkv4_seq_bwd(cuda, B, T, C, zero_state):
+    """K2-bwd through the autograd Function against the plain version's
+    autograd gradient (the step loop differentiated by torch): per output,
+    max |d| <= 2^-10 max|ref| and mean |d| <= 2^-13 mean|ref| (f32 sums
+    of up to T decayed terms in another order, T·2^-24 = 2^-14 at T 1024,
+    and the running-max rescalings rounded elsewhere; a wrong term moves
+    outputs by their own size).  Against the plain version of its own
+    passes within 2^-18 of each output's max (the same operations, gw
+    and gu summed over B in another order).  The forward's zero state
+    (o0 = -1e38: no NaN) and a random state; twice, bit for bit."""
+    k, v, w, u, a0, b0, o0, gy = _wkv4_case(cuda, B, T, C, zero_state,
+                                           B * T + C)
+    before = (wkv4_seq.launches, wkv4_seq_bwd.launches)
+    ka, va, wa, ua = (t.clone().requires_grad_() for t in (k, v, w, u))
+    y, _ = wkv4_seq(ka, va, wa, ua, a0, b0, o0)
+    got = torch.autograd.grad(y, (ka, va, wa, ua), gy)
+    torch.cuda.synchronize()
+    assert (wkv4_seq.launches - before[0],
+            wkv4_seq_bwd.launches - before[1]) == (1, 1)
+    kr, vr, wr, ur = (t.clone().requires_grad_() for t in (k, v, w, u))
+    yr, _ = wkv4_seq_plain(kr, vr, wr, ur, a0, b0, o0)
+    ref = torch.autograd.grad(yr, (kr, vr, wr, ur), gy, allow_unused=True)
+    # at T = 1 no decay is applied before the only output: w unused
+    ref = [torch.zeros_like(t) if g is None else g
+           for g, t in zip(ref, (k, v, w, u))]
+    twin = wkv4_seq_bwd_plain(k, v, w, u, a0, b0, o0, gy)
+    for name, a, b, t in zip("kvwu", got, ref, twin):
+        assert bool(torch.isfinite(a).all()), name
+        ok, err = _gap_ok(a, b, 2.0 ** -10, 2.0 ** -13)
+        assert ok, (name, err)
+        assert float((a - t).abs().max()) <= 2.0 ** -18 * float(
+            t.abs().max()), name
+    again = wkv4_seq_bwd(k, v, w, u, a0, b0, o0, gy)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_train_step_rwkv4_smoke_on_card(cuda):
+    """One train step of rwkv4 smoke (L2 D64, B 2, S 64) on the card: K11
+    2L + 2 + 2L (remat's recompute) and K11-bwd 2L + 2, K2 2L and K2-bwd L,
+    K12 and K12-bwd once; a finite loss; each leaf's gradient no farther
+    from an f32 witness (the f32 config on the same weights, on the CPU)
+    than 1.25·√2 times the CPU bf16 step's own gap to it."""
+    import dataclasses
+    from repro_torch.launch.steps import build_train_step, loss_and_grads
+    from repro_torch.tree import leaves_with_path, tree_map
+    base = get_model("rwkv4-169m", smoke=True)
+    f32m = type(base)(cfg=dataclasses.replace(base.cfg, dtype="float32"),
+                      module=base.module)
+    params = base.init_params(0, "cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, base.cfg.vocab, (2, 65))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).int(),
+             "labels": torch.from_numpy(toks[:, 1:]).int(),
+             "mask": torch.ones((2, 64))}
+    on = lambda t: tree_map(lambda a: a.to(cuda), t)
+    (_, _), g_wit = loss_and_grads(f32m, params, batch)
+    (_, _), g_cpu = loss_and_grads(base, params, batch)
+    counters = (fused_layernorm, fused_layernorm_bwd, wkv4_seq, wkv4_seq_bwd,
+                fused_cross_entropy, fused_cross_entropy_bwd)
+    before = [c.launches for c in counters]
+    (_, _), g_card = loss_and_grads(base, on(params), on(batch))
+    torch.cuda.synchronize()
+    L = base.cfg.n_layers
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [4 * L + 2, 2 * L + 2, 2 * L, L, 1, 1]
+    step, _, (init_opt, _) = build_train_step(base)
+    p_card = on(params)
+    p_card, _, metrics = step(p_card, init_opt(p_card), on(batch))
+    assert bool(torch.isfinite(metrics["loss"]))
+    wit, cpu = dict(leaves_with_path(g_wit)), dict(leaves_with_path(g_cpu))
+    for path, g in leaves_with_path(g_card):
+        w = wit[path].float()
+        gap = lambda x: float((x.float().cpu() - w).abs().mean()
+                              / w.abs().mean())
+        assert gap(g) <= 1.25 * 2 ** 0.5 * gap(cpu[path]), path
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """AsyncCheckpointer on card tensors: f32 and bf16 leaves restored onto
+    the card bit for bit, and a Python scalar as its type."""
+    from repro_torch.checkpoint import AsyncCheckpointer, restore_checkpoint
+    g = torch.Generator(device=cuda).manual_seed(3)
+    tree = {"w": torch.randn((64, 32), generator=g, device=cuda),
+            "b": torch.randn((32,), generator=g,
+                             device=cuda).to(torch.bfloat16),
+            "n": 7}
+    w0 = tree["w"].clone()
+    ck = AsyncCheckpointer(str(tmp_path))
+    ck.save(1, tree)
+    tree["w"].add_(1.0)             # the snapshot was taken at save
+    ck.wait()
+    like = {"w": torch.empty_like(tree["w"]),
+            "b": torch.empty_like(tree["b"]), "n": 0}
+    out = restore_checkpoint(str(tmp_path), 1, like)
+    assert out["w"].device.type == "cuda" and out["n"] == 7
+    assert torch.equal(out["w"], w0)
+    assert torch.equal(out["b"], tree["b"])

@@ -281,21 +281,23 @@ def test_make_optimizer_and_step_for_cell():
     assert batch["mask"].dtype == torch.float32
 
 
-def test_train_launcher():
+def test_train_launcher(tmp_path):
     """`train` on the smoke config: finite losses that equal a second run
-    (the same seeds), the checkpoint option refused until its module is
-    ported, and an RWKV arch refused until its training slice."""
+    (the same seeds), the checkpoint option writing its steps (the store
+    is `tests/test_torch_checkpoint.py`'s), and an RWKV arch training too
+    (its slice is `tests/test_torch_rwkv_train.py`)."""
     out = train(ARCH, smoke=True, steps=2, global_batch=2, seq_len=32,
                 device="cpu", log_every=1)
     again = train_model(get_model(ARCH, smoke=True), steps=2,
-                        global_batch=2, seq_len=32, device="cpu")
+                        global_batch=2, seq_len=32, device="cpu",
+                        ckpt_dir=str(tmp_path), ckpt_every=1)
     assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
     assert out["losses"] == again["losses"] and len(out["step_s"]) == 2
-    with pytest.raises(NotImplementedError, match="8c"):
-        train(ARCH, steps=1, ckpt_dir="unused", device="cpu")
-    with pytest.raises(NotImplementedError, match="8c"):
-        train("rwkv4-169m", steps=1, global_batch=1, seq_len=8,
-              device="cpu")
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "step_00000001", "step_00000002"]
+    rwkv = train("rwkv4-169m", steps=1, global_batch=1, seq_len=8,
+                 device="cpu")
+    assert np.isfinite(rwkv["losses"]).all()
 
 
 def test_straggler_detector_matches_jax():
