@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card proof that the PyTorch/CUDA port serves RWKV-4 (exact and
 hardware numerics), RWKV-6 and the dense transformer smollm-135m, runs
-the RWKV whole-sequence forward, and trains smollm-135m and rwkv4-169m,
-through its kernels.
+the RWKV whole-sequence forward, trains smollm-135m and rwkv4-169m, and
+runs the quantized serve step and the Δ-PoT matmuls of its public kernel
+entry point, through its kernels.
 
     python3 chip_smoke.py            (from the root of a checkout, one GPU)
 
@@ -244,13 +245,45 @@ each prints its seconds and peak device memory (`phase_done` lines):
                each step's ms, tokens/s and peak memory beside the step's
                operations bound (~7.93 TFLOP); the trained params through
                an AsyncCheckpointer into build/ and back, bit for bit
-10. The `kernels` JSON line (twenty-three entries: the nine kernels, then
+10. The quantized serve step and the public kernel entry point (run where
+    their weights are at hand: the rwkv4 part after phase 4, the rest
+    after phase 5's model-path engine, on its packed W8 tree, before
+    phase 6):
+      quantized step           build_serve_step(variant="quantized") at
+                               B 128 (decode_32k's batch) on the engines'
+                               packed W8 trees, rwkv4-169m and rwkv6-7b
+                               at full width and depth: a warm step and 3
+                               timed ones (ms a step, tokens/s, peak
+                               memory); every step's logits and the final
+                               state bit for bit equal to the base step on
+                               unpack_params(tree); no kernel launches
+      serve_legacy             rwkv4-169m, quantized=True (JAX's batch 4,
+                               32 tokens): tokens/s; its fake-quantized
+                               tree bit for bit equal, leaf by leaf, to
+                               the same weights fake-quantized on the CPU
+      dpot_matmul (K1),        through repro_torch.kernels.ops, M in {8,
+      dpot_matmul_w4 (K8)      128} with bf16 x, on rwkv6-7b's layer-0
+                               att.wr (4096 x 4096), ffn.wk (4096 x
+                               14336), ffn.wv (14336 x 4096) and head
+                               (4096 x 65536), W8 as packed and W4 packed
+                               from them by pack_leaf; K8 also on
+                               rwkv4-169m MIXED's W4 att.wk (768 x 768)
+                               and head (768 x 50277); K1 at bench_kernels'
+                               (8, 1024, 1024) with f32 x.  The counted
+                               run calls each case once (9 K1, 12 K8)
+    Tolerances (`phase_k1_k8`): against the plain version on the card,
+    each output within K·2^-24·(|x| @ |w|) plus one step of its type, and
+    the decode bit for bit (identity rows: 128 rows of each plane, and
+    every code at its column scales); against the quantized step's own
+    bf16 product x @ unpack_leaf(leaf), within 2^-8·(|x| @ |w|) plus one
+    bf16 step.
+11. The `kernels` JSON line (twenty-five entries: the nine kernels, then
     K9 and the hardware-numerics forms of K2, K5, K3 and K4, then K13,
     K13-dq and K13-dkv, then K10 and K11, then K12, K12-bwd, K2-bwd and
-    K11-bwd; the entries of K2, K2-hw and K6 carry their forward-shape
-    checks under "forward_check", their errors in max_abs_err and their
-    shapes in shapes), the card's name and power limit, and the last line
-    {"ok": true, "device": {...}}.
+    K11-bwd, then K1 and K8; the entries of K2, K2-hw and K6 carry their
+    forward-shape checks under "forward_check", their errors in
+    max_abs_err and their shapes in shapes), the card's name and power
+    limit, and the last line {"ok": true, "device": {...}}.
 
 Weights are random, from a seed.  Imports nothing of JAX.
 """
@@ -3122,6 +3155,301 @@ def phase_rwkv4_train():
     return {"rwkv4-train": launches}
 
 
+# --- the ninth slice: K1 and K8 through kernels/ops.py, the quantized serve
+# --- step, serve_legacy(quantized=True)
+
+def _k1k8_planes(raw6, w4_rwkv4):
+    """(operand name, plane, codes, scale (N,)) of every K1 / K8 case:
+    rwkv6-7b's layer-0 att.wr, ffn.wk, ffn.wv and the head as packed W8 in
+    the engine's tree; bench_kernels' serving matvec weights (1024 x 1024,
+    N(0, 0.05), packed W8 here); the four rwkv6 matrices packed W4 by
+    pack_leaf from their decoded W8 weights; rwkv4-169m MIXED's W4 leaves
+    (layer-0 att.wk and the head)."""
+    from repro_torch.core.quant.delta_pot import (
+        FORMAT_W8, dpot_dequantize, dpot_unpack_int8)
+    from repro_torch.core.quant.policy import PLANE_W4
+    from repro_torch.core.quant.serving import pack_leaf
+    b = raw6["blocks"]
+    planes = []
+    for name, leaf in (("att.wr", b["att"]["wr"]), ("ffn.wk", b["ffn"]["wk"]),
+                       ("ffn.wv", b["ffn"]["wv"]), ("head", raw6["head"])):
+        codes = leaf["packed"][0] if leaf["packed"].dim() == 3 \
+            else leaf["packed"]
+        planes.append((f"rwkv6-7b {name}", "w8", codes,
+                       leaf["scale"].reshape(-1).contiguous()))
+    g = torch.Generator(device=DEV).manual_seed(SEED + 91)
+    bench = pack_leaf("['w']", torch.randn((1024, 1024), generator=g,
+                                           device=DEV) * 0.05)
+    planes.append(("bench_kernels 1024x1024", "w8", bench["packed"],
+                   bench["scale"].reshape(-1)))
+    for name, _, codes, scale in planes[:4]:
+        w = dpot_dequantize(dpot_unpack_int8(codes, scale[None, :],
+                                             FORMAT_W8.ks))
+        l4 = pack_leaf("['w']", w, PLANE_W4)
+        del w
+        planes.append((name + " as W4", "w4", l4["packed4"],
+                       l4["scale"].reshape(-1)))
+    for name, leaf in w4_rwkv4.items():
+        planes.append((name, "w4", leaf["packed4"],
+                       leaf["scale"].reshape(-1).contiguous()))
+    return planes
+
+
+def _k1k8_decode_exact(fn, plain_plane, codes, scale, w4, g):
+    """Identity rows pick the decoded f32 plane out of the kernel: 128
+    sampled rows of the real plane (the first and last among them), and
+    a plane holding every code (256 W8 bytes; 16 W4 nibbles, each in both
+    halves of a byte) at this plane's column scales; both bit for bit
+    against the plain version's dpot_dequantize."""
+    K = codes.shape[0] * (2 if w4 else 1)
+    rows = torch.unique(torch.cat([
+        torch.tensor([0, K - 1], device=DEV),
+        torch.randint(0, K, (126,), generator=g, device=DEV)]))
+    eye = torch.zeros((rows.numel(), K), device=DEV)
+    eye[torch.arange(rows.numel(), device=DEV), rows] = 1.0
+    plane = plain_plane(codes, scale)
+    if not torch.equal(fn(eye, codes, scale), plane[rows]):
+        raise AssertionError("decoded rows differ from the plain plane")
+    N = scale.numel()
+    if w4:
+        lo = torch.arange(16, dtype=torch.uint8, device=DEV)
+        every = (lo | (lo.flip(0) << 4))[:, None].expand(16, N).contiguous()
+    else:
+        every = torch.arange(256, dtype=torch.uint8, device=DEV)[
+            :, None].expand(256, N).contiguous()
+    Ke = every.shape[0] * (2 if w4 else 1)
+    if not torch.equal(fn(torch.eye(Ke, device=DEV), every, scale),
+                       plain_plane(every, scale)):
+        raise AssertionError("a code decodes otherwise than the plain "
+                             "version")
+
+
+def phase_k1_k8(raw6, w4_rwkv4, flush):
+    """K1 (dpot_matmul) and K8 (dpot_matmul_w4) through the public entry
+    point `repro_torch.kernels.ops`, on the operands of `_k1k8_planes`,
+    M in {8, 128} with bf16 x (8 the serving matvec, 128 the quantized
+    step's batch) and bench_kernels' own (8, 1024, 1024) with f32 x.
+
+    The main-path run: both counters set to 0, every case called once
+    through ops, the counters read (each must equal its number of
+    cases).  Then each output against the plain version on the card:
+    within K·2^-24·(|x| @ |w|) plus one step of the output's type; the
+    decode bit for bit (`_k1k8_decode_exact`); and the bf16 cases against
+    the quantized step's own product x @ unpack_leaf(leaf) (bf16
+    weights, f32 accumulation, as decode_step runs it under
+    exact_matmuls): within 2^-8·(|x| @ |w|) plus one bf16 step, since each
+    bf16 weight sits within 2^-9 relative of K1's f32 weight and each f32
+    sum within K·2^-24 (at most 2^-10.2 at K = 14336).  Times: the
+    kernel L2-cold (`_time_ms`), the plain version and torch.matmul of
+    x.float() on the pre-decoded f32 plane (TF32 off), 3 reps each,
+    beside max(bytes / 3.35 TB/s, 2·M·K·N / 67 TFLOP/s f32)."""
+    from repro_torch.core.quant.delta_pot import (
+        FORMAT_W4, FORMAT_W8, dpot_dequantize, dpot_unpack_int8,
+        dpot_unpack_nibbles)
+    from repro_torch.core.quant.serving import unpack_leaf
+    from repro_torch.device import exact_matmuls
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dpot_matmul import (
+        dpot_matmul_plain, dpot_matmul_w4_plain)
+
+    def plain_plane(w4):
+        unpack = dpot_unpack_nibbles if w4 else dpot_unpack_int8
+        ks = FORMAT_W4.ks if w4 else FORMAT_W8.ks
+        return lambda c, s: dpot_dequantize(unpack(c, s[None, :], ks))
+    planes = _k1k8_planes(raw6, w4_rwkv4)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 92)
+    cases = []
+    for name, plane, codes, scale in planes:
+        Ms = (8,) if name.startswith("bench") else (8, 128)
+        dt = torch.float32 if name.startswith("bench") else torch.bfloat16
+        K = codes.shape[0] * (2 if plane == "w4" else 1)
+        for M in Ms:
+            x = torch.randn((M, K), generator=g, device=DEV).to(dt)
+            cases.append((name, plane, codes, scale, x))
+    fns = {"w8": ops.dpot_matmul, "w4": ops.dpot_matmul_w4}
+    for fn in fns.values():
+        fn.launches = 0
+    outs = [fns[p](x, c, s) for _, p, c, s, x in cases]
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in fns.values()}
+    want = {fns[p].__name__: sum(c[1] == p for c in cases) for p in fns}
+    if launches != want:
+        raise AssertionError(f"ops launched {launches}, not {want}")
+    rows, checked = [], set()
+    for (name, plane, codes, scale, x), out in zip(cases, outs):
+        w4 = plane == "w4"
+        fn = fns[plane]
+        plain = dpot_matmul_w4_plain if w4 else dpot_matmul_plain
+        M, K = x.shape
+        N = scale.numel()
+        ref = plain(x, codes, scale)
+        w32 = plain_plane(w4)(codes, scale)
+        with exact_matmuls():
+            mag = x.double().abs() @ w32.double().abs()
+        eps = torch.finfo(x.dtype).eps
+        o, r = out.double(), ref.double()
+        d = (o - r).abs()
+        bound = K * 2.0 ** -24 * mag + eps * torch.maximum(o.abs(), r.abs())
+        if not bool((d <= bound).all()):
+            raise AssertionError(f"{fn.__name__} {name} M={M}: max |d| "
+                                 f"{float(d.max())} passes the bound")
+        if (name, plane) not in checked:
+            _k1k8_decode_exact(fn, plain_plane(w4), codes, scale, w4, g)
+            checked.add((name, plane))
+        row = {"kernel": fn.__name__, "operand": name, "M": M, "K": K,
+               "N": N, "x": str(x.dtype).replace("torch.", ""),
+               "max_abs_err": float(d.max()), "decode_bit_exact": True}
+        if x.dtype == torch.bfloat16:
+            leaf = {"packed4" if w4 else "packed": codes,
+                    "scale": scale[None, :]}
+            with exact_matmuls():     # as decode_step computes it
+                prod = (x @ unpack_leaf(leaf)).double()
+            dp = (o - prod).abs()
+            bp = 2.0 ** -8 * mag + eps * torch.maximum(o.abs(), prod.abs())
+            if not bool((dp <= bp).all()):
+                raise AssertionError(f"{fn.__name__} {name} M={M}: the "
+                                     "quantized step's product differs by "
+                                     f"{float(dp.max())}, past its bound")
+            row["step_product_max_abs_gap"] = float(dp.max())
+            row["step_product_gap_over_bound"] = float((dp / bp).max())
+            del prod, dp, bp
+        nbytes = (M * K * x.element_size() + codes.numel() + N * 4
+                  + M * N * x.element_size())
+        bms, by = _bound(nbytes, 2.0 * M * K * N, PEAK_F32_FLOPS)
+        xf = x.float()
+        with exact_matmuls():
+            lib = _time_ms(lambda: torch.matmul(xf, w32), flush, reps=3)
+        row.update({
+            "kernel_ms": _time_ms(lambda: fn(x, codes, scale), flush),
+            "plain_ms": _time_ms(lambda: plain(x, codes, scale), flush,
+                                 reps=3),
+            "library_ms": lib, "bound_ms": bms, "bound_by": by})
+        _line(row)
+        rows.append(row)
+        del ref, w32, mag, d, bound, xf
+    return rows, launches
+
+
+def phase_quantized_step(model, packed, B, name):
+    """`build_serve_step(model, variant="quantized")` at batch B on the
+    packed W8 tree: a warm step and 3 timed steps (host clock, each ending
+    in a synchronize), greedy tokens fed back; ms a step, tokens/s, peak
+    memory.  Then the "base" step on unpack_params(tree), from the same
+    fresh state on the same tokens: every step's logits and the final
+    state equal the quantized step's bit for bit (the same operations on
+    the same weights).  The step decodes its codes with unpack_params (as
+    JAX's does, inside the step) and calls no kernel of ours: every
+    counter reads 0."""
+    from repro_torch.core.quant.serving import unpack_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.tree import leaves_with_path
+    step_q = build_serve_step(model, variant="quantized")
+    step_b = build_serve_step(model, variant="base")
+    g = torch.Generator(device=DEV).manual_seed(SEED + 93)
+    toks = [torch.randint(0, model.cfg.vocab, (B, 1), generator=g,
+                          device=DEV, dtype=torch.int32)]
+    counters = _path_counters() + (ops.dpot_matmul, ops.dpot_matmul_w4)
+    for c in counters:
+        c.launches = 0
+    logits, ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        state = model.init_decode_state(B, 0, device=DEV)
+        for i in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, state = step_q(packed, state, toks[-1], i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg)
+            toks.append(torch.argmax(lg[:, -1].float(), -1)[:, None].to(
+                torch.int32))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = {c.__name__: c.launches for c in counters}
+        if any(launches.values()):
+            raise AssertionError(f"the quantized step launched {launches}")
+        final_q = state
+        plain = unpack_params(packed)
+        state = model.init_decode_state(B, 0, device=DEV)
+        for i in range(4):
+            lg, state = step_b(plain, state, toks[i], i)
+            if not torch.equal(lg, logits[i]):
+                raise AssertionError(f"{name}: step {i}'s logits differ "
+                                     "from the base step's")
+        for (p, a), (_, b) in zip(leaves_with_path(state),
+                                  leaves_with_path(final_q)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: state {p} differs from the "
+                                     "base step's")
+        del plain
+    if not all(bool(torch.isfinite(lg.float()).all()) for lg in logits):
+        raise AssertionError(f"{name}: logits not finite")
+    step_ms = sum(ms[1:]) / 3
+    _line({"phase": "quantized_step", "model": name, "B": B,
+           "warm_ms": ms[0], "step_ms": ms[1:], "ms_per_step": step_ms,
+           "tokens_per_s": B / (step_ms / 1e3),
+           "max_memory_allocated_gib": peak,
+           "equal_to_base_on_unpacked": True, "launches": launches})
+    return launches
+
+
+def phase_serve_legacy_quantized():
+    """serve_legacy("rwkv4-169m", smoke=False, quantized=True) on the
+    card (JAX's defaults: batch 4, 32 tokens): its printed lines and
+    tokens/s; finite tokens of the right shape; its fake-quantized tree
+    (read through a spy on `fake_quantize_tree`) equal, bit for bit and
+    leaf by leaf, to the same weights fake-quantized on the CPU."""
+    import contextlib
+    import io
+    import re
+    from repro_torch.core.quant.policy import QuantPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as S
+    from repro_torch.tree import leaves_with_path, tree_map
+    seen = {}
+    real = S.fake_quantize_tree
+
+    def spy(params, policy):
+        seen["in"], seen["out"] = params, real(params, policy)
+        return seen["out"]
+    counters = _path_counters() + (ops.dpot_matmul, ops.dpot_matmul_w4)
+    for c in counters:
+        c.launches = 0
+    buf = io.StringIO()
+    S.fake_quantize_tree = spy
+    try:
+        with contextlib.redirect_stdout(buf):
+            toks = S.serve_legacy("rwkv4-169m", smoke=False, quantized=True,
+                                  device=DEV)
+    finally:
+        S.fake_quantize_tree = real
+    launches = {c.__name__: c.launches for c in counters}
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    if tuple(toks.shape) != (4, 33) or not bool(
+            ((toks >= 0) & (toks < 50277)).all()):
+        raise AssertionError(f"serve_legacy tokens {tuple(toks.shape)}")
+    tps = float(re.search(r"\(([\d,]+) tok/s\)", text).group(1).replace(
+        ",", ""))
+    t0 = time.perf_counter()
+    cpu = real(tree_map(lambda t: t.cpu(), seen["in"]), QuantPolicy())
+    cpu_s = time.perf_counter() - t0
+    n = 0
+    for (path, a), (_, b) in zip(leaves_with_path(seen["out"]),
+                                 leaves_with_path(cpu)):
+        if not torch.equal(a.cpu().view(torch.int32),
+                           b.view(torch.int32)):
+            raise AssertionError(f"fake-quantized leaf {path} differs "
+                                 "between the card and the CPU")
+        n += 1
+    _line({"phase": "serve_legacy_quantized", "model": "rwkv4-169m",
+           "batch": 4, "tokens": 32, "tokens_per_s": tps,
+           "leaves_bit_equal_card_vs_cpu": n, "cpu_fake_quant_s": cpu_s,
+           "launches": launches})
+    return launches
+
+
 # the order of a phase row's dimensions in a `kernels` entry's shapes
 _SHAPE_KEYS = ("M", "K", "N", "L", "B", "T", "C", "D", "F", "H", "S", "KVH",
                "d")
@@ -3226,6 +3554,19 @@ def main() -> int:
     by_path.update(_timed("hw greedy", phase_hw_greedy, w8, hw_prep,
                           block.model))
     _timed("hw teacher forced", phase_hw_teacher_forced, w8, block.model)
+    # the quantized serve step at decode_32k's batch, serve_legacy's
+    # fake-quantized decode; rwkv4 MIXED's W4 leaves kept for K8
+    by_path["rwkv4-quantized-step"] = _timed(
+        "quantized step rwkv4-169m", phase_quantized_step, block.model, w8,
+        128, "rwkv4-169m")
+    by_path["serve-legacy-quantized"] = _timed(
+        "serve_legacy quantized", phase_serve_legacy_quantized)
+    w4_rwkv4 = {
+        "rwkv4-169m att.wk (MIXED W4)": {
+            "packed4": mixed["blocks"]["att"]["wk"]["packed4"][0].clone(),
+            "scale": mixed["blocks"]["att"]["wk"]["scale"].clone()},
+        "rwkv4-169m head (MIXED W4)": {
+            k: v.clone() for k, v in mixed["head"].items()}}
     del block, model, w8, mixed, hw_prep
     _release()
 
@@ -3253,7 +3594,20 @@ def main() -> int:
         "engine rwkv6-model", phase_engine, eng6,
         (dpot_w8_matmul, wkv6_seq, rwkv6_model_decode), "rwkv6-model")
     _timed("teacher forced rwkv6-model", phase_teacher_forced6, eng6, refs6)
+    # the engine's packed W8 tree outlives the engine: K1 and K8 through
+    # kernels/ops.py on its matrices, then the quantized serve step on it
+    raw6, model6 = eng6.plan.prepared.raw, eng6.model
     del eng6
+    _release()
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    k1k8, by_path["ops"] = _timed("K1, K8", phase_k1_k8, raw6, w4_rwkv4,
+                                  flush)
+    del flush, w4_rwkv4
+    _release()
+    by_path["rwkv6-quantized-step"] = _timed(
+        "quantized step rwkv6-7b", phase_quantized_step, model6, raw6, 128,
+        "rwkv6-7b")
+    del raw6, model6
     _release()
 
     # the RWKV whole-sequence forward: K11 and K10, then rwkv4-169m (exact
@@ -3482,6 +3836,14 @@ def main() -> int:
         entry["max_abs_err"] = max(r["max_abs_err"] for r in (
             k12 if entry["name"] == "fused_cross_entropy" else bwd_rows))
     kernels[-1]["shapes"] = [[k11b["R"], k11b["D"]]]
+    # the ninth slice: K1 and K8 through kernels/ops.py
+    for name, line in (("dpot_matmul", 68), ("dpot_matmul_w4", 124)):
+        kernels.append(_kernel_row(
+            name, "src/repro_torch/csrc/dpot_matmul.cu",
+            f"src/repro/kernels/dpot_matmul.py:{line}",
+            [r for r in k1k8 if r["kernel"] == name], launches(name, "ops"),
+            summed + "; the operands in each phase line; library_ms is "
+            "torch.matmul of x.float() on the pre-decoded f32 plane"))
     # K2 and K6 as the RWKV forwards call them: checked there, their
     # errors and shapes joined to the entries above, their times beside
     for entry in kernels:

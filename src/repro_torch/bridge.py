@@ -6,7 +6,10 @@ there, so it imports no JAX.  Nested dicts keep their keys, so the plane
 leaves — `{"packed", "scale"}`, `{"packed4", "scale"}` and
 `{"vq_idx", "codebook"}` — stay intact, and so do the stacked layer axes:
 the dense transformer's `blocks.dense` leaves keep their leading
-(n_layers, 1, ...) pair, the layout `models/transformer.py` reads.
+(n_layers, 1, ...) pair, the layout `models/transformer.py` reads.  A
+JAX `DPotQuantized` (a pytree node, as `quantize_tree` leaves it) comes
+across as the port's `DPotQuantized`, its arrays converted and its `ks`
+kept.
 
 JAX bf16 arrays come out of `np.asarray` as `ml_dtypes.bfloat16`, which
 `torch.from_numpy` refuses: they travel as their raw bits, a uint16 view
@@ -32,9 +35,15 @@ def to_torch(a, device="cuda") -> torch.Tensor:
 
 def from_jax_tree(tree, device="cuda"):
     """Nested dicts of numpy arrays -> the same dicts of torch tensors on
-    `device`."""
+    `device`; a `DPotQuantized` node -> the port's."""
     if isinstance(tree, dict):
         return {k: from_jax_tree(v, device) for k, v in tree.items()}
+    if type(tree).__name__ == "DPotQuantized":
+        from repro_torch.core.quant.delta_pot import DPotQuantized
+        return DPotQuantized(codes=to_torch(tree.codes, device),
+                             signs=to_torch(tree.signs, device),
+                             scale=to_torch(tree.scale, device),
+                             ks=tuple(tree.ks))
     return to_torch(tree, device)
 
 

@@ -11,15 +11,26 @@ q = 0); sign and code fill a nibble, two nibbles a byte.
 
 Quantization matches the JAX package bit for bit on the CPU: the same
 f32 midpoints (computed in float64, then rounded), `searchsorted` with
-side left, and the per-channel scale amax / max_level in f32.
+side left, and the per-channel scale amax / max_level in f32.  Decoding
+(`dpot_decode_codes`, `dpot_dequantize`) gathers from the exact level
+table: bit for bit with JAX for W8 and W4, whose exp2 sums land on the
+exact levels; for W9 and PoT4 XLA's exp2 on the CPU is inexact at
+2^-13 and from 2^-15 down, so 36 of W9's 256 levels (2 of PoT4's 16)
+differ from the exact ones there, by at most 4.8e-7 relative.
+
+`dpot_fake_quant` is quantize -> dequantize with a straight-through
+gradient (a `torch.autograd.Function` whose backward is the identity).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
+
+from repro_torch.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +42,20 @@ class DPotFormat:
     @property
     def code_bits(self) -> int:
         return int(sum(self.ks))
+
+    @property
+    def total_bits(self) -> int:
+        """Code bits + 1 sign bit (the hardware packing's bits a weight)."""
+        return self.code_bits + 1
+
+    def __post_init__(self):
+        if not self.ks:
+            raise ValueError("need at least one term")
+        if any(k < 1 for k in self.ks):
+            raise ValueError(f"term widths must be >= 1, got {self.ks}")
+        if self.code_bits > 8:
+            raise ValueError(
+                f"code bits {self.code_bits} > 8 unsupported (uint8 storage)")
 
 
 # sign + ks=(4,4): the paper's "proposed" 8-code-bit format (W9 with the
@@ -76,6 +101,13 @@ def _sorted_levels(ks: tuple[int, ...]):
     return sorted_levels, codes, mids
 
 
+def dpot_levels(fmt: DPotFormat, device="cuda") -> torch.Tensor:
+    """Dense code -> level table (2^code_bits entries), unsigned, before
+    the scale, exact in f32."""
+    return torch.as_tensor(_level_table(fmt.ks).astype(np.float32),
+                           device=resolve_device(device))
+
+
 def dpot_max_level(fmt: DPotFormat) -> float:
     return float(_level_table(fmt.ks).max())
 
@@ -88,6 +120,20 @@ class DPotQuantized:
     signs: torch.Tensor
     scale: torch.Tensor
     ks: tuple[int, ...] = (4, 4)
+
+    @property
+    def fmt(self) -> DPotFormat:
+        return DPotFormat(self.ks)
+
+    @property
+    def shape(self):
+        return self.codes.shape
+
+    def nbytes_hardware(self) -> int:
+        """Bytes at the hardware packing: code_bits + 1 bits a weight,
+        rounded up to a byte, plus one f32 a scale."""
+        n = math.prod(self.codes.shape)
+        return (n * self.fmt.total_bits + 7) // 8 + self.scale.numel() * 4
 
 
 def dpot_scale(amax: torch.Tensor, fmt: DPotFormat) -> torch.Tensor:
@@ -173,13 +219,42 @@ def dpot_quantize(w: torch.Tensor, fmt: DPotFormat = FORMAT_W9, *,
 def dpot_decode_codes(codes: torch.Tensor, ks) -> torch.Tensor:
     """Code -> unsigned level in f32, by lookup in the exact level table.
 
-    Each W8 level has at most two set bits within 22 binary places, so it
-    is exact in f32; a table gather gives those exact values on any device
-    (the JAX package peels terms with exp2, whose f32 sums round to the
-    same exact levels)."""
+    Each level has at most two set bits within 30 binary places, so it is
+    exact in f32; a table gather gives those exact values on any device.
+    The JAX package peels terms with exp2: its W8 and W4 sums round to the
+    same exact levels, its W9 and PoT4 ones miss some (module docstring)."""
     table = torch.as_tensor(_level_table(tuple(ks)).astype(np.float32),
                             device=codes.device)
     return table[codes.to(torch.int64)]
+
+
+def dpot_dequantize(q: DPotQuantized) -> torch.Tensor:
+    """signs · level · scale in f32, in that order (one rounding, at the
+    scale)."""
+    lvl = dpot_decode_codes(q.codes, q.ks)
+    return q.signs.to(torch.float32) * lvl * q.scale
+
+
+class _DPotFakeQuant(torch.autograd.Function):
+    """Quantize -> dequantize in w's dtype; the gradient passes straight
+    through, as the reference's custom_vjp defines it."""
+
+    @staticmethod
+    def forward(ctx, w, ks, axis, mse_search):
+        q = dpot_quantize(w, DPotFormat(tuple(ks)), axis=axis,
+                          mse_search=mse_search)
+        return dpot_dequantize(q).to(w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+def dpot_fake_quant(w: torch.Tensor, ks: tuple[int, ...] = (4, 4),
+                    axis: int | tuple | None = 0,
+                    mse_search: bool = False) -> torch.Tensor:
+    """quantize -> dequantize with a straight-through gradient."""
+    return _DPotFakeQuant.apply(w, tuple(ks), axis, mse_search)
 
 
 def dpot_pack_int8(q: DPotQuantized) -> torch.Tensor:
@@ -188,6 +263,15 @@ def dpot_pack_int8(q: DPotQuantized) -> torch.Tensor:
         raise ValueError(f"format {q.ks} does not pack into int8 with a sign")
     sign_bit = (q.signs < 0).to(torch.uint8) << 7
     return q.codes | sign_bit
+
+
+def dpot_unpack_int8(packed: torch.Tensor, scale: torch.Tensor,
+                     ks) -> DPotQuantized:
+    """Inverse of `dpot_pack_int8`: codes = bits 6:0, sign from bit 7."""
+    ones = torch.ones(packed.shape, dtype=torch.int8, device=packed.device)
+    signs = torch.where(((packed >> 7) & 1).bool(), -ones, ones)
+    return DPotQuantized(codes=packed & 0x7F, signs=signs, scale=scale,
+                         ks=tuple(ks))
 
 
 def dpot_pack_nibbles(q: DPotQuantized) -> torch.Tensor:

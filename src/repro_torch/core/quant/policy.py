@@ -1,21 +1,36 @@
-"""Which parameters the serving plane quantizes, and into which plane
-(port of the classifier and the per-tensor plane selection in
-`repro/core/quant/policy.py`).
+"""Mixed-precision quantization policy over a parameter tree (port of
+`repro/core/quant/policy.py`, the paper's §3.2).
 
-Weights that multiply activations (≥2-D projections) get a quantized
-plane; weights used additively or element-wise (token-shift μ, decay,
-bonus, LayerNorm γ/β, embeddings — matched by path) stay as they are.
-`PlanePolicy` picks the plane of each matmul tensor: scalar Δ-PoT W8,
-nibble-packed W4, or a VQ codebook, by path override, by a fixed
-default, or by the excess kurtosis of the weights.
+Weights that multiply activations (≥2-D projections) take Δ-PoT;
+weights used additively or element-wise (token-shift μ, decay, bonus,
+LayerNorm γ/β, embeddings — matched by path, or 1-D) take 9-bit uniform
+symmetric.  `QuantPolicy` is the operating point (W9 matmuls, A9
+activations); `fake_quantize_tree` and `fake_quantize_tree_with` apply it
+(or a Table-1 scheme) as quantize -> dequantize, `quantize_tree` and
+`dequantize_tree` as real codes and back.  `PlanePolicy` picks the
+serving plane of each matmul tensor: scalar Δ-PoT W8, nibble-packed W4,
+or a VQ codebook, by path override, by a fixed default, or by the excess
+kurtosis of the weights.
+
+Paths are JAX key strings ("['blocks']['att']['wr']"); trees are nested
+dicts, walked in sorted-key order (JAX's flatten order).
 """
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
+import torch
+
+from repro_torch.core.quant.delta_pot import (
+    FORMAT_W4, FORMAT_W8, FORMAT_W9, DPotFormat, DPotQuantized,
+    dpot_dequantize, dpot_fake_quant, dpot_quantize)
+from repro_torch.core.quant.uniform import (
+    uniform_dequantize, uniform_fake_quant, uniform_quantize)
+from repro_torch.core.quant.vq import vq_dequantize, vq_quantize
+from repro_torch.tree import keystr
 
 # path substrings that force the uniform branch even for 2-D tensors
 _ADDITIVE_HINTS = re.compile(
@@ -23,6 +38,21 @@ _ADDITIVE_HINTS = re.compile(
     r"decay|bonus|gamma|beta|_shift|pos_emb|a_log|dt_bias|conv)",
     re.IGNORECASE,
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantPolicy:
+    """The mixed-precision operating point."""
+
+    matmul_fmt: DPotFormat = FORMAT_W9   # Δ-PoT format of projections
+    additive_bits: int = 9               # uniform bits, additive weights
+    activation_bits: int = 9             # uniform bits, activations
+    channel_axis: int = -1               # per-output-channel scales
+    mse_search: bool = False
+
+    def act_fq(self, x: torch.Tensor) -> torch.Tensor:
+        """Activation fake-quant, per tensor (the paper's A9)."""
+        return uniform_fake_quant(x, self.activation_bits, None)
 
 
 def classify_param(path: str, leaf: Any) -> str:
@@ -124,3 +154,104 @@ PLANE_W8 = PlanePolicy(default="w8")
 PLANE_W4 = PlanePolicy(default="w4")
 PLANE_VQ = PlanePolicy(default="vq")
 PLANE_PROXY = PlanePolicy()
+
+
+def _map_with_path(fn: Callable, tree, path=()):
+    """fn(key string, leaf) over every leaf of a nested dict tree."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, tree[k], path + (k,)) for k in tree}
+    return fn(keystr(path), tree)
+
+
+def _fake_quantize(params, matmul_fn: Callable, additive_bits: int):
+    def leaf_fn(p, leaf):
+        kind = classify_param(p, leaf)
+        if kind == "matmul":
+            return matmul_fn(leaf)
+        if kind == "additive":
+            return uniform_fake_quant(leaf, additive_bits, None)
+        return leaf
+    return _map_with_path(leaf_fn, params)
+
+
+def fake_quantize_tree(params, policy: QuantPolicy = QuantPolicy()):
+    """Quantize -> dequantize every weight per the policy (accuracy
+    evaluation): the same tree, the same dtypes."""
+    return _fake_quantize(params, lambda w: dpot_fake_quant(
+        w, policy.matmul_fmt.ks, policy.channel_axis, policy.mse_search),
+        policy.additive_bits)
+
+
+def fake_quantize_tree_with(params, scheme_fn: Callable, bits: int = 9,
+                            axis=None):
+    """A Table-1 scheme on every matmul weight; additive weights always
+    take 9-bit uniform (the ablation varies only the matrix scheme)."""
+    return _fake_quantize(params, lambda w: scheme_fn(w, bits, axis), 9)
+
+
+def quantize_tree(params, policy: QuantPolicy = QuantPolicy(), *,
+                  planes: PlanePolicy | None = None):
+    """Real quantization: matmul weights become `DPotQuantized`, additive
+    weights {"codes": int16, "scale": f32}.  With `planes`, each matmul
+    tensor takes its plane's format: "w8" FORMAT_W8, "w4" FORMAT_W4 (W8
+    where axis -2 is odd), "vq" {"vq_idx", "codebook"}; the stats then
+    gain bytes by plane and the selection map.  Returns (tree, stats),
+    stats with the byte accounting of the Table-2 resource benchmark."""
+    stats = {"bytes_fp16": 0, "bytes_quant": 0}
+    by_plane: dict = {}
+    plane_map: dict = {}
+
+    def leaf_fn(p, leaf):
+        kind = classify_param(p, leaf)
+        if kind == "skip":
+            return leaf
+        stats["bytes_fp16"] += leaf.numel() * 2
+        if kind == "additive":
+            codes, scale = uniform_quantize(leaf, policy.additive_bits)
+            stats["bytes_quant"] += (leaf.numel() * policy.additive_bits
+                                     + 7) // 8 + 4
+            return {"codes": codes.to(torch.int16), "scale": scale}
+        if planes is None:
+            q = dpot_quantize(leaf, policy.matmul_fmt,
+                              axis=policy.channel_axis,
+                              mse_search=policy.mse_search)
+            stats["bytes_quant"] += q.nbytes_hardware()
+            return q
+        plane = planes.plane_for(p, leaf)
+        if plane == "w4" and (leaf.ndim < 2 or leaf.shape[-2] % 2):
+            plane = "w8"        # nibble pairing needs an even axis -2
+        if plane == "vq":
+            idx, codebook = vq_quantize(leaf, planes.vq_codes)
+            nb = idx.numel() + codebook.numel() * 2
+            out = {"vq_idx": idx, "codebook": codebook}
+        else:
+            out = dpot_quantize(leaf, FORMAT_W4 if plane == "w4"
+                                else FORMAT_W8, axis=policy.channel_axis,
+                                mse_search=policy.mse_search)
+            nb = out.nbytes_hardware()
+        plane_map[p] = plane
+        by_plane[plane] = by_plane.get(plane, 0) + nb
+        stats["bytes_quant"] += nb
+        return out
+
+    tree = _map_with_path(leaf_fn, params)
+    stats["compression"] = stats["bytes_fp16"] / max(stats["bytes_quant"], 1)
+    if planes is not None:
+        stats["bytes_by_plane"] = by_plane
+        stats["planes"] = plane_map
+    return tree, stats
+
+
+def dequantize_tree(qparams):
+    """Inverse of `quantize_tree` (the tests' reference path): f32
+    weights."""
+    if isinstance(qparams, DPotQuantized):
+        return dpot_dequantize(qparams)
+    if isinstance(qparams, dict):
+        if set(qparams) == {"codes", "scale"}:
+            return uniform_dequantize(qparams["codes"], qparams["scale"])
+        if set(qparams) == {"vq_idx", "codebook"}:
+            return vq_dequantize(qparams["vq_idx"],
+                                 qparams["codebook"]).to(torch.float32)
+        return {k: dequantize_tree(v) for k, v in qparams.items()}
+    return qparams

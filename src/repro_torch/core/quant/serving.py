@@ -20,6 +20,8 @@ API:
   predecode_packed_leaves(t, paths) -> decode the planes at those paths
   unpack_leaf(leaf)            -> decode ONE plane leaf to bf16
   unpack_params(packed)        -> bf16 compute tree
+  plane_fingerprint(params)    -> "fp" | "dpot_w8" | "dpot_mix_<hash>"
+  packed_abstract(abstract)    -> the packed tree as meta tensors
   broadcast_packed_scales(t,L) -> shared (1, ...) scales and codebooks ->
                                   (L, ...) views
   cast_compute(tree, dtype)    -> packed-aware compute-dtype cast
@@ -30,6 +32,7 @@ API:
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 from typing import Any
 
@@ -139,31 +142,67 @@ def _sign(bits: torch.Tensor) -> torch.Tensor:
     return torch.where(bits.bool(), -ones, ones)
 
 
+def _decode_plane(plane: str, codes: torch.Tensor, aux: torch.Tensor):
+    if plane == "vq":
+        return vq_dequantize(codes, aux).to(torch.bfloat16)
+    if plane == "w4":
+        words = torch.stack([codes & 0xF, (codes >> 4) & 0xF], dim=-2)
+        words = words.reshape(codes.shape[:-2] + (2 * codes.shape[-2],
+                                                  codes.shape[-1]))
+        lvl = dpot_decode_codes(words & 0x7, FORMAT_W4.ks)
+        return (_sign((words >> 3) & 1) * lvl * aux).to(torch.bfloat16)
+    lvl = dpot_decode_codes(codes & 0x7F, FORMAT_W8.ks)
+    return (_sign((codes >> 7) & 1) * lvl * aux).to(torch.bfloat16)
+
+
 def unpack_leaf(leaf):
     """Decode one plane leaf -> bf16 weights (identity on anything else).
     W4 re-interleaves the nibble pairs along the contraction axis (low
     nibble = even row) before the same decode as W8; VQ gathers from the
-    flattened codebook."""
+    flattened codebook.  A stacked leaf (3-D and up) decodes one slice of
+    axis 0 at a time into its output: the decode is elementwise, so the
+    bits equal a whole-leaf decode, while the f32 and int64 temporaries
+    are one layer's (rwkv6-7b's stacked ffn.wk would take ~15 GB of int64
+    indices and several 7.5 GB f32 temporaries at once)."""
     plane = leaf_plane(leaf)
     if plane is None:
         return leaf
-    if plane == "vq":
-        return vq_dequantize(leaf["vq_idx"],
-                             leaf["codebook"]).to(torch.bfloat16)
-    if plane == "w4":
-        p = leaf["packed4"]
-        words = torch.stack([p & 0xF, (p >> 4) & 0xF], dim=-2).reshape(
-            p.shape[:-2] + (2 * p.shape[-2], p.shape[-1]))
-        lvl = dpot_decode_codes(words & 0x7, FORMAT_W4.ks)
-        return (_sign((words >> 3) & 1) * lvl
-                * leaf["scale"]).to(torch.bfloat16)
-    p = leaf["packed"]
-    lvl = dpot_decode_codes(p & 0x7F, FORMAT_W8.ks)
-    return (_sign((p >> 7) & 1) * lvl * leaf["scale"]).to(torch.bfloat16)
+    codes = leaf[CODES_KEY[plane]]
+    aux = leaf["codebook" if plane == "vq" else "scale"]
+    if codes.ndim < 3:
+        return _decode_plane(plane, codes, aux)
+    out = None
+    for i in range(codes.shape[0]):
+        a = aux
+        if plane != "vq" and aux.ndim == codes.ndim:
+            a = aux[i if aux.shape[0] > 1 else 0]
+        w = _decode_plane(plane, codes[i], a)
+        if out is None:
+            out = torch.empty((codes.shape[0],) + tuple(w.shape),
+                              dtype=torch.bfloat16, device=codes.device)
+        out[i] = w
+    return out
 
 
 def unpack_params(packed):
     return tree_map(unpack_leaf, packed, is_leaf=is_packed_leaf)
+
+
+def plane_fingerprint(params) -> str:
+    """The quant-form fingerprint of a (possibly packed) tree, as JAX's
+    `plane_fingerprint` gives it: "fp" when nothing is packed, "dpot_w8"
+    when every plane is W8, else "dpot_mix_" + a 4-byte blake2b of the
+    repr of the [(key string, plane), ...] list in flatten order, so two
+    per-tensor selections never share a fingerprint."""
+    kinds = [(keystr(path), leaf_plane(leaf)) for path, leaf in
+             leaves_with_path(params, is_leaf=is_packed_leaf)
+             if is_packed_leaf(leaf)]
+    if not kinds:
+        return "fp"
+    if all(k == "w8" for _, k in kinds):
+        return "dpot_w8"
+    h = hashlib.blake2b(repr(kinds).encode(), digest_size=4).hexdigest()
+    return f"dpot_mix_{h}"
 
 
 def broadcast_packed_scales(blocks, n_layers: int):
@@ -193,6 +232,31 @@ def cast_compute(tree, dtype):
             return a.to(dtype)
         return a
     return tree_map(cast, tree, is_leaf=is_packed_leaf)
+
+
+def packed_abstract(abstract_params):
+    """The W8 packed form of an abstract (meta-tensor) parameter tree, as
+    `pack_params` shapes it: each matmul leaf {"packed": uint8 of its
+    shape, "scale": f32 (1, ..., N)}, every other leaf bf16.  Meta tensors
+    carry the shapes and dtypes only (JAX's ShapeDtypeStructs; JAX's
+    function also takes the spec tree, which it does not read)."""
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    out: dict = {}
+    for path, leaf in leaves_with_path(abstract_params):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        shape = tuple(leaf.shape)
+        if classify_param(keystr(path), leaf) == "matmul":
+            node[path[-1]] = {
+                "packed": meta(shape, torch.uint8),
+                "scale": meta((1,) * (len(shape) - 1) + shape[-1:],
+                              torch.float32)}
+        else:
+            node[path[-1]] = meta(shape, torch.bfloat16)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -19,10 +19,11 @@ defaults to "cuda" and raises without a GPU.
 
 `--legacy` is the seed's serving mode (`serve_legacy`): one fixed batch
 of random first tokens, the per-op `decode_step` in a host loop
-(`greedy_decode`).  It is the one mode of the dense transformers
-(`--arch smollm-135m`, `phi3-mini-3.8b`, `minitron-4b`): their decode
-step writes a KV cache (sized tokens + 8) at its position, which the
-slotted engine does not serve.  `--hw-numerics` (rwkv4 only; implies
+(`greedy_decode`); there `--quantized` fake-quantizes the weights under
+the paper's W9/A9 policy, as the JAX launcher does.  It is the one mode
+of the dense transformers (`--arch smollm-135m`, `phi3-mini-3.8b`,
+`minitron-4b`): their decode step writes a KV cache (sized tokens + 8) at
+its position, which the slotted engine does not serve.  `--hw-numerics` (rwkv4 only; implies
 `--legacy`) runs that loop under the paper's hardware numerics, which the
 engine does not serve: their A9 scale spans the batch, so a lane's bits
 depend on its batchmates.
@@ -35,6 +36,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core.quant.policy import QuantPolicy, fake_quantize_tree
 from repro_torch.core.quant.serving import (
     is_packed_leaf, leaf_plane, unpack_params)
 from repro_torch.device import resolve_device
@@ -98,16 +100,21 @@ def serve_legacy(arch: str, *, smoke: bool = True, batch: int = 4,
                  hw_numerics: bool = False, device: str = "cuda"):
     """The seed's serving mode: one fixed batch of seeded first tokens,
     decoded by the per-op step in a host loop; `hw_numerics` (rwkv4)
-    under the paper's numerics.  Prints tokens/s; returns the tokens."""
+    under the paper's numerics; `quantized` fake-quantizes the weights
+    first (`fake_quantize_tree` under `QuantPolicy()`: W9 Δ-PoT matmuls,
+    9-bit uniform additive weights).  Prints tokens/s; returns the
+    tokens."""
     from repro_torch.models.registry import get_model
-    if quantized:
-        raise NotImplementedError(
-            "serve_legacy(quantized=True) fake-quantizes the tree with "
-            "fake_quantize_tree, which the fake-quant slice ports (ROADMAP "
-            "Queue 1 item 8c)")
     device = resolve_device(device)
     model = get_model(arch, smoke=smoke)
     params = model.init_params(seed, device)
+    if quantized:
+        t0 = time.perf_counter()
+        params = fake_quantize_tree(params, QuantPolicy())
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        print(f"quantized (Δ-PoT W9/A9 policy) in "
+              f"{time.perf_counter() - t0:.1f}s")
     state = model.init_decode_state(batch, n_tokens + 8, device=device)
     rng = np.random.default_rng(seed)
     first = torch.tensor(rng.integers(0, model.cfg.vocab, (batch, 1)),

@@ -8,6 +8,9 @@ without a mesh: one card, no shardings, no jit).
         "smollm-135m", "train_4k", cfg_overrides={"use_flash_kernel": True})
     step, args, kind = build_step_for_cell("rwkv6-7b", "prefill_32k")
     step, args, kind = build_step_for_cell("rwkv4-169m", "train_4k")
+    step = build_serve_step(model, variant="quantized")
+    step, args, kind = build_step_for_cell("rwkv6-7b", "decode_32k",
+                                           serve_variant="quantized")
 
 `args` are meta tensors, the analogue of JAX's abstract arguments: the
 shapes and dtypes a call of `step` takes at that cell.
@@ -19,6 +22,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
+from repro_torch.core.quant.serving import packed_abstract, unpack_params
 from repro_torch.data.pipeline import batch_specs
 from repro_torch.device import exact_matmuls
 from repro_torch.models.registry import Model, get_model, loss_fn
@@ -100,19 +104,46 @@ def build_prefill_step(model: Model, *, hw: bool = False):
     return prefill_step
 
 
-def build_serve_step(model: Model):
-    """One decode step of the per-op path on plain weights (JAX's "base"
-    variant): (params, state, tokens (B, 1), pos) -> (logits, state)."""
+SERVE_VARIANTS = ("base", "quantized")
+
+
+def build_serve_step(model: Model, *, variant: str = "base"):
+    """One decode step of the per-op path: (params, state, tokens (B, 1),
+    pos) -> (logits, state).
+
+    variant:
+      "base"       plain (bf16) weights
+      "quantized"  the W8 tree `pack_params` makes ({"packed", "scale"} on
+                   every matmul), decoded by `unpack_params` inside the
+                   step, every step, as JAX's step decodes inside its jit:
+                   the same operations as "base" on `unpack_params(tree)`,
+                   so the same bits
+    JAX's "replicated" variant (bf16 weights replicated over the data
+    axis of a mesh) waits for the port's meshes (ROADMAP Queue 1 item
+    10)."""
+    if variant == "replicated":
+        raise NotImplementedError(
+            'build_serve_step(variant="replicated") replicates the weights '
+            "over a device mesh, which waits for the port's meshes (ROADMAP "
+            "Queue 1 item 10)")
+    if variant not in SERVE_VARIANTS:
+        raise ValueError(f"variant={variant!r}: expected one of "
+                         f"{SERVE_VARIANTS + ('replicated',)}")
+    decode = unpack_params if variant == "quantized" else (lambda p: p)
+
     def serve_step(params, state, tokens, pos):
-        return model.decode_step(params, state, tokens, pos)
+        return model.decode_step(decode(params), state, tokens, pos)
     return serve_step
 
 
 def build_step_for_cell(arch: str, shape_name: str, *, smoke: bool = False,
+                        serve_variant: str = "base",
                         cfg_overrides: dict | None = None,
                         hw: bool = False):
     """(arch, shape) -> (step, meta arguments, kind); `hw` goes to a
-    prefill step (rwkv4's hardware numerics)."""
+    prefill step (rwkv4's hardware numerics), `serve_variant` to a decode
+    cell's serve step, whose meta parameters are then the packed tree's
+    (`packed_abstract`)."""
     model = get_model(arch, smoke=smoke)
     if cfg_overrides:
         model = Model(cfg=dataclasses.replace(model.cfg, **cfg_overrides),
@@ -126,6 +157,10 @@ def build_step_for_cell(arch: str, shape_name: str, *, smoke: bool = False,
     if shape.kind == "prefill":
         args = (model.abstract_params(), {"tokens": meta(B, S)})
         return build_prefill_step(model, hw=hw), args, "prefill_step"
-    args = (model.abstract_params(torch.bfloat16),
-            model.init_decode_state(B, S, device="meta"), meta(B, 1), 0)
-    return build_serve_step(model), args, "serve_step[base]"
+    step = build_serve_step(model, variant=serve_variant)
+    params = model.abstract_params(torch.bfloat16)
+    if serve_variant == "quantized":
+        params = packed_abstract(params)
+    args = (params, model.init_decode_state(B, S, device="meta"),
+            meta(B, 1), 0)
+    return step, args, f"serve_step[{serve_variant}]"

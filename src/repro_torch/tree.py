@@ -4,7 +4,7 @@ The port keeps the JAX package's tree paths, so its trees are plain nested
 dicts.  A dict leaf — a quantized plane such as `{"packed", "scale"}` —
 is kept whole when `is_leaf` says so; without `is_leaf` the walk descends
 into it, as JAX's flatten does.  Keys are visited in sorted order, the
-JAX flatten order.
+JAX flatten order; `leaves_with_path` also walks lists, by index.
 """
 from __future__ import annotations
 
@@ -12,15 +12,21 @@ from typing import Callable, Optional
 
 
 def _walk(tree, path, is_leaf):
-    if isinstance(tree, dict) and not (is_leaf is not None and is_leaf(tree)):
+    if is_leaf is not None and is_leaf(tree):
+        yield path, tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
             yield from _walk(tree[k], path + (k,), is_leaf)
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _walk(v, path + (i,), is_leaf)
     else:
         yield path, tree
 
 
 def keystr(path: tuple) -> str:
-    """JAX's `keystr` form of a dict path: "['blocks']['att']['wr']"."""
+    """JAX's `keystr` form of a path: "['blocks']['att']['wr']", a list
+    index as "[0]"."""
     return "".join(f"[{k!r}]" for k in path)
 
 

@@ -1479,3 +1479,105 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
     assert out["w"].device.type == "cuda" and out["n"] == 7
     assert torch.equal(out["w"], w0)
     assert torch.equal(out["b"], tree["b"])
+
+
+# --- K1 and K8: the Δ-PoT matmuls with f32 weights (kernels/dpot_matmul.py)
+#
+# Tolerance: each output within K·2^-24·(|x| @ |w|) of the plain version
+# (two f32 sums of the same products in other orders) plus one step of
+# the output's type at the larger of the two (each side rounds its f32
+# sum once); the decoded f32 plane, over every code, bit for bit (identity
+# rows pick it out); a row's result bit for bit whatever rows share the
+# call.
+
+from repro_torch.core.quant.delta_pot import (
+    FORMAT_W4, dpot_dequantize, dpot_pack_nibbles, dpot_unpack_int8,
+    dpot_unpack_nibbles)
+from repro_torch.kernels import ops
+from repro_torch.kernels.dpot_matmul import (
+    dpot_matmul_plain, dpot_matmul_w4_plain)
+
+K1K8_SHAPES = [(1, 96, 203), (37, 96, 203), (8, 1024, 1024),
+               (128, 4096, 4096), (8, 4096, 14336), (128, 14336, 4096),
+               (8, 4096, 65536), (128, 768, 50277)]
+
+
+def _k1k8_operands(cuda, M, K, N, w4, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.randn((K, N), generator=g, device=cuda) * 0.05
+    q = dpot_quantize(w, FORMAT_W4 if w4 else FORMAT_W8, axis=-1)
+    codes = dpot_pack_nibbles(q) if w4 else dpot_pack_int8(q)
+    x = torch.randn((M, K), generator=g, device=cuda).to(dtype)
+    return x, codes, q.scale.reshape(-1)
+
+
+def _k1k8_plane(codes, scale, w4):
+    unpack = dpot_unpack_nibbles if w4 else dpot_unpack_int8
+    return dpot_dequantize(unpack(codes, scale[None, :],
+                                  FORMAT_W4.ks if w4 else FORMAT_W8.ks))
+
+
+def _k1k8_within(out, ref, x, w32):
+    from repro_torch.device import exact_matmuls
+    with exact_matmuls():
+        mag = x.double().abs() @ w32.double().abs()
+    eps = torch.finfo(out.dtype).eps
+    o, r = out.double(), ref.double()
+    bound = x.shape[1] * 2.0 ** -24 * mag + eps * torch.maximum(o.abs(),
+                                                                r.abs())
+    assert bool(((o - r).abs() <= bound).all()), float(
+        ((o - r).abs() - bound).max())
+
+
+@pytest.mark.parametrize("w4", [False, True], ids=["k1", "k8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", K1K8_SHAPES)
+def test_dpot_matmul_k1_k8(cuda, M, K, N, dtype, w4):
+    x, codes, scale = _k1k8_operands(cuda, M, K, N, w4, dtype, M + K + N)
+    fn = ops.dpot_matmul_w4 if w4 else ops.dpot_matmul
+    plain = dpot_matmul_w4_plain if w4 else dpot_matmul_plain
+    before = fn.launches
+    out = fn(x, codes, scale)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert out.dtype == dtype and tuple(out.shape) == (M, N)
+    _k1k8_within(out, plain(x, codes, scale), x,
+                 _k1k8_plane(codes, scale, w4))
+    assert torch.equal(fn(x[:1], codes, scale), out[:1])
+
+
+@pytest.mark.parametrize("w4", [False, True], ids=["k1", "k8"])
+def test_dpot_matmul_decode_every_code(cuda, w4):
+    """Every code (256 W8 bytes, 16 W4 nibbles in both halves of a byte)
+    at 4096 random column scales: identity rows through the kernel give
+    the plain version's decoded f32 plane bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    N = 4096
+    scale = torch.rand(N, generator=g, device=cuda) * 2.0 ** torch.randint(
+        -12, 4, (N,), generator=g, device=cuda)
+    if w4:
+        lo = torch.arange(16, dtype=torch.uint8, device=cuda)
+        codes = (lo | (lo.flip(0) << 4))[:, None].expand(16, N).contiguous()
+        K = 32
+    else:
+        codes = torch.arange(256, dtype=torch.uint8, device=cuda)[
+            :, None].expand(256, N).contiguous()
+        K = 256
+    eye = torch.eye(K, device=cuda)
+    fn = ops.dpot_matmul_w4 if w4 else ops.dpot_matmul
+    got = fn(eye, codes, scale)
+    plane = _k1k8_plane(codes, scale, w4)
+    assert torch.equal(got, plane)
+
+
+def test_dpot_matmul_refuses_grad_and_bad_operands(cuda):
+    x, codes, scale = _k1k8_operands(cuda, 4, 64, 32, False,
+                                     torch.float32, 0)
+    with pytest.raises(NotImplementedError):
+        ops.dpot_matmul(x.requires_grad_(), codes, scale)
+    with torch.no_grad():
+        assert ops.dpot_matmul(x, codes, scale).shape == (4, 32)
+    with pytest.raises(ValueError):
+        ops.dpot_matmul_w4(x[:, :63].detach(), codes[:32], scale)
+    with pytest.raises(TypeError):
+        ops.dpot_matmul(x.detach().half(), codes, scale)

@@ -337,8 +337,13 @@ def test_serve_legacy_hw_cli_runs(capsys):
     toks = t_serve.serve_legacy("rwkv4-169m", batch=2, n_tokens=3,
                                 hw_numerics=True, device="cpu")
     assert toks.shape == (2, 4) and toks.dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_serve.serve_legacy("rwkv4-169m", quantized=True, device="cpu")
+    # quantized=True fake-quantizes the tree under QuantPolicy() (held to
+    # JAX's fake_quantize_tree in tests/test_torch_quant_serve.py)
+    capsys.readouterr()
+    toks = t_serve.serve_legacy("rwkv4-169m", batch=2, n_tokens=3,
+                                quantized=True, device="cpu")
+    assert toks.shape == (2, 4) and toks.dtype == torch.int32
+    assert "quantized (Δ-PoT W9/A9 policy)" in capsys.readouterr().out
 
 
 def test_greedy_decode_hw_equals_per_op_loop(models):
