@@ -25,7 +25,10 @@ each prints its seconds and peak device memory (`phase_done` lines):
       rwkv4_model_decode (K4)  B = 8, all 12 layers of the prepared MIXED
                                slabs; bit for bit equal to 12 K3 launches
     Each chunk matmul's decode is checked bit for bit: identity rows pick
-    out the decoded plane, which must equal unpack_leaf.
+    out the decoded plane, which must equal unpack_leaf; its M 8 call's
+    rows equal the M 128 call's first rows bit for bit.  One
+    `prefill_chunk` (B 8, C 16) is timed on each rwkv4 engine's params
+    (and on rwkv6-7b's in phase 5), its K5 launches counted.
     Tolerances, against the plain version's output `ref`:
       K5 (all planes), K2  elementwise |d| <= 2^-7 |ref| + 2^-20 max|ref|:
               both sides accumulate in f32 in another order and round to
@@ -105,7 +108,10 @@ each prints its seconds and peak device memory (`phase_done` lines):
     W8 weights drawn on the card from the seed and packed leaf by leaf,
     one engine at a time (the first is freed before the second draws):
       dpot_w8_matmul (K5)      M in {128, 8} x (K, N) in {(4096, 4096),
-                               (4096, 14336), (14336, 4096), (4096, 65536)}
+                               (4096, 14336), (14336, 4096), (4096, 65536),
+                               (4096, 160), (4096, 64), (64, 4096)}; the
+                               decode on 128-row identity windows across
+                               every slice boundary
       wkv6_seq (K6)            (B, T, H, N) = (8, 16, 64, 64), prefix
                                masks, the bf16 pool state in, bf16 carry
       rwkv6_block_decode (K7)  B = 8, layer 0; a lane alone bit for bit;
@@ -483,53 +489,94 @@ def _registers(usage, kernel):
     return out
 
 
-def phase_k5(params, cfg, flush, decode_check=True):
-    """K5 at the (K, N) of a model's matmuls and its head, M = 128 (a
-    prefill chunk of 8 lanes) and 8 (a decode step).  The identity-row
-    decode check runs at rwkv4-169m; at rwkv6-7b it would be a
-    14336-row product, and the decode is the same code.  There the
-    elementwise rule's floor is the f32 summation bound
-    (`_sum_order_floor`): with K = 4096 the order alone moves near-zero
-    outputs by more than 2^-20 max|ref| (PERF.md §6, K7)."""
+def _eye_windows(K, plan, rows=128):
+    """Identity-row windows of `rows` rows that cross every slice boundary
+    of `plan` (and cover row 0 and row K - 1): (first row, x) pairs, x
+    picking out rows first .. first + rows - 1 of the decoded plane."""
+    rows = min(rows, K)
+    firsts = sorted({max(0, min(K - rows, b - rows // 2)) for b in
+                     [0, K] + [s * plan.slice_len
+                               for s in range(1, plan.slices)]})
+    out = []
+    for r0 in firsts:
+        x = torch.zeros((rows, K), dtype=torch.bfloat16, device=DEV)
+        x[torch.arange(rows), r0 + torch.arange(rows)] = 1
+        out.append((r0, x))
+    return out
+
+
+def phase_k5(params, cfg, flush, wide=False):
+    """K5 at the (K, N) of a model's matmuls and its head (at rwkv6-7b
+    also the low-rank maa_w1, td_w1 and td_w2), M = 128 (a prefill chunk
+    of 8 lanes) and 8 (a decode step; its x the first 8 rows of the M
+    128 call's, whose outputs it must equal bit for bit).  The decode is
+    checked bit for bit: at rwkv4-169m by the whole identity, at rwkv6-7b
+    (`wide`) by 128-row identity windows across every slice boundary of
+    the plan.  There the elementwise rule's floor is the f32 summation
+    bound (`_sum_order_floor`): with K = 4096 the order alone moves
+    near-zero outputs by more than 2^-20 max|ref| (PERF.md §6, K7).  Each
+    row carries the plan's blocks and slices."""
     from repro_torch.core.quant.serving import unpack_leaf
     from repro_torch.device import exact_matmuls
     from repro_torch.kernels.fused_prefill import (
-        dpot_w8_matmul, dpot_w8_matmul_plain)
+        chunk_matmul_plan, dpot_w8_matmul, dpot_w8_matmul_plain)
     blocks = params["blocks"]
     D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab
-    leaves = {(D, D): blocks["att"]["wr"], (D, F): blocks["ffn"]["wk"],
-              (F, D): blocks["ffn"]["wv"], (D, V): params["head"]}
+    leaves = {"att.wr": blocks["att"]["wr"], "ffn.wk": blocks["ffn"]["wk"],
+              "ffn.wv": blocks["ffn"]["wv"], "head": params["head"]}
+    for k in ("maa_w1", "td_w1", "td_w2"):
+        if k in blocks["att"]:
+            leaves[k] = blocks["att"][k]
     gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
     rows = []
 
     def lib_ms(x, w_bf):
         with exact_matmuls():     # f32 reductions, as K5 and its plain
             return _time_ms(lambda: torch.matmul(x, w_bf), flush)
-    for (K, N), leaf in leaves.items():
+    for what, leaf in leaves.items():
         wq = leaf["packed"] if leaf["packed"].dim() == 2 else \
             leaf["packed"][0]
         scale = leaf["scale"].reshape(-1)
+        K, N = wq.shape
         w_bf = unpack_leaf({"packed": wq, "scale": scale.reshape(1, -1)})
+        plan = chunk_matmul_plan(128, K, N)
         # bit-exact decode: identity rows pick out the decoded weights
-        if decode_check:
+        if wide:
+            for r0, eye in _eye_windows(K, plan):
+                if not torch.equal(dpot_w8_matmul(eye, wq, scale),
+                                   w_bf[r0:r0 + eye.shape[0]]):
+                    raise AssertionError(
+                        f"K5 W8 decode differs from unpack_leaf at (K, N) "
+                        f"= {(K, N)}, rows {r0}..")
+        else:
             eye = torch.eye(K, dtype=torch.bfloat16, device=DEV)
             if not torch.equal(dpot_w8_matmul(eye, wq, scale), w_bf):
                 raise AssertionError(f"K5 W8 decode differs from "
                                      f"unpack_leaf at (K, N) = {(K, N)}")
+        x128 = torch.randn((128, K), generator=gen, device=DEV).to(
+            torch.bfloat16)
+        out128 = None
         for M in (128, 8):
-            x = torch.randn((M, K), generator=gen, device=DEV).to(
-                torch.bfloat16)
+            x = x128[:M]
             out = dpot_w8_matmul(x, wq, scale)
             ref = dpot_w8_matmul_plain(x, wq, scale)
             ok, err = _elementwise_ok(
-                out, ref, None if decode_check else _sum_order_floor(x, w_bf))
+                out, ref, _sum_order_floor(x, w_bf) if wide else None)
             if not ok:
                 raise AssertionError(f"K5 {(M, K, N)}: max |d| {err}")
+            if out128 is None:
+                out128 = out
+            elif not torch.equal(out, out128[:M]):
+                raise AssertionError(f"K5 {(M, K, N)}: rows differ from "
+                                     "the first rows of the M 128 call")
             nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
             bms, by = _bound(nbytes, 2.0 * M * N * K, PEAK_BF16_FLOPS)
-            row = {"kernel": "dpot_w8_matmul", "model": cfg.name, "M": M,
-                   "K": K, "N": N, "max_abs_err": err,
-                   "decode_bit_exact": decode_check,
+            p = chunk_matmul_plan(M, K, N)
+            row = {"kernel": "dpot_w8_matmul", "model": cfg.name,
+                   "matrix": what, "M": M, "K": K, "N": N,
+                   "max_abs_err": err, "decode_bit_exact": True,
+                   "rows_equal_m128": True, "blocks": p.blocks,
+                   "slices": p.slices,
                    "kernel_ms": _time_ms(
                        lambda: dpot_w8_matmul(x, wq, scale), flush),
                    "plain_ms": _time_ms(
@@ -544,11 +591,13 @@ def phase_k5(params, cfg, flush, decode_check=True):
 def phase_k5_planes(params, cfg, flush):
     """K5-W4 on att.wk (layer 0) and the head, K5-VQ on ffn.wv (layer 0)
     of the MIXED tree: decode bit-exact against unpack_leaf, outputs
-    against the plain versions, times beside the byte bound."""
-    from repro_torch.core.quant.serving import unpack_leaf
+    against the plain versions, the M 8 call's rows equal to the M 128
+    call's first rows, times beside the byte bound."""
+    from repro_torch.core.quant.serving import leaf_plane, unpack_leaf
     from repro_torch.device import exact_matmuls
     from repro_torch.kernels.fused_prefill import (
-        dpot_w4_matmul, dpot_w4_matmul_plain, vq_matmul, vq_matmul_plain)
+        chunk_matmul_plan, dpot_w4_matmul, dpot_w4_matmul_plain, vq_matmul,
+        vq_matmul_plain)
     blocks = params["blocks"]
     D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab
     wk, wv, head = blocks["att"]["wk"], blocks["ffn"]["wv"], params["head"]
@@ -570,21 +619,31 @@ def phase_k5_planes(params, cfg, flush):
         if not torch.equal(fn(eye, codes, aux), w_bf):
             raise AssertionError(f"{fn.__name__} decode differs from "
                                  f"unpack_leaf at (K, N) = {(K, N)}")
+        x128 = torch.randn((128, K), generator=gen, device=DEV).to(
+            torch.bfloat16)
+        out128 = None
         for M in (128, 8):
-            x = torch.randn((M, K), generator=gen, device=DEV).to(
-                torch.bfloat16)
+            x = x128[:M]
             out, ref = fn(x, codes, aux), plain(x, codes, aux)
             ok, err = _elementwise_ok(out, ref)
             if not ok:
                 raise AssertionError(f"{fn.__name__} {(M, K, N)}: "
                                      f"max |d| {err}")
+            if out128 is None:
+                out128 = out
+            elif not torch.equal(out, out128[:M]):
+                raise AssertionError(f"{fn.__name__} {(M, K, N)}: rows "
+                                     "differ from the M 128 call's")
             nbytes = (M * K * 2 + codes.numel() + aux.numel()
                       * aux.element_size() + M * N * 2)
             bms, by = _bound(nbytes, 2.0 * M * N * K, PEAK_BF16_FLOPS)
             with exact_matmuls():
                 lib = _time_ms(lambda: torch.matmul(x, w_bf), flush)
+            p = chunk_matmul_plan(M, K, N, leaf_plane(leaf))
             row = {"kernel": fn.__name__, "M": M, "K": K, "N": N,
                    "max_abs_err": err, "decode_bit_exact": True,
+                   "rows_equal_m128": True, "blocks": p.blocks,
+                   "slices": p.slices,
                    "kernel_ms": _time_ms(lambda: fn(x, codes, aux), flush),
                    "plain_ms": _time_ms(lambda: plain(x, codes, aux),
                                         flush),
@@ -592,6 +651,54 @@ def phase_k5_planes(params, cfg, flush):
             _line(row)
             rows.append(row)
     return rows
+
+
+def phase_prefill_chunk(engine, label, flush):
+    """One prefill_chunk (B 8, C 16) on an engine's prepared params, as
+    the engine calls it: its time (L2-cold, `_time_ms`; where the host
+    takes longer than `SLEEP_CYCLES` to enqueue the chunk, the time is the
+    host's), the bound its plane bytes set (every plane's codes and aux
+    read once) and the K5 launches it makes, counted from 0 around one
+    call."""
+    from repro_torch.core.quant.serving import (
+        CODES_KEY, is_packed_leaf, leaf_plane)
+    from repro_torch.kernels.fused_prefill import (
+        dpot_w4_matmul, dpot_w8_matmul, vq_matmul)
+    from repro_torch.tree import leaves_with_path
+    model, prep = engine.model, engine.plan.prepared
+    B, C = 8, 16
+    toks = torch.randint(0, model.cfg.vocab, (B, C), device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(
+                             SEED + 7))
+    valid = torch.ones((B, C), dtype=torch.bool, device=DEV)
+    state = model.init_decode_state(B, 0, device=DEV)
+
+    def call():
+        with torch.inference_mode():
+            return model.prefill_chunk(prep.prefill, state, toks, valid)
+    counters = (dpot_w8_matmul, dpot_w4_matmul, vq_matmul)
+    for fn in counters:
+        fn.launches = 0
+    _, logits = call()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    if launches["dpot_w8_matmul"] == 0:
+        raise AssertionError(f"prefill_chunk {label}: K5 never launched")
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"prefill_chunk {label}: non-finite logits")
+    nbytes = 0
+    for _, leaf in leaves_with_path(prep.prefill, is_leaf=is_packed_leaf):
+        plane = leaf_plane(leaf) if is_packed_leaf(leaf) else None
+        if plane is not None:
+            aux = leaf["codebook" if plane == "vq" else "scale"]
+            nbytes += (leaf[CODES_KEY[plane]].numel()
+                       + aux.numel() * aux.element_size())
+    row = {"phase": "prefill_chunk", "model": label, "B": B, "C": C,
+           "ms": _time_ms(call, flush), "plane_bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "k5_launches": launches}
+    _line(row)
+    return row
 
 
 def phase_k2(cfg, flush):
@@ -3535,6 +3642,10 @@ def main() -> int:
     k3 = _timed("K3", phase_k3, w8, cfg, flush)
     _timed("K3 mixed", phase_k3, mixed, cfg, flush, planes="mixed")
     k4 = _timed("K4", phase_k4, model, flush)
+    _timed("prefill chunk block", phase_prefill_chunk, block, "rwkv4-169m W8",
+           flush)
+    _timed("prefill chunk model", phase_prefill_chunk, model,
+           "rwkv4-169m MIXED", flush)
     by_path = {
         "block": _timed("engine block", phase_engine, block,
                         (dpot_w8_matmul, wkv4_seq, rwkv4_block_decode),
@@ -3577,7 +3688,9 @@ def main() -> int:
                   fused_decode="block", **common)
     cfg6 = eng6.model.cfg
     k5_6 = _timed("K5 rwkv6", phase_k5, eng6.plan.prepared.raw, cfg6, flush,
-                  decode_check=False)
+                  wide=True)
+    _timed("prefill chunk rwkv6", phase_prefill_chunk, eng6, "rwkv6-7b W8",
+           flush)
     k6 = _timed("K6", phase_k6, flush)
     k7b = _timed("K7-block", phase_k7_block, eng6, flush, usage)
     by_path["rwkv6-block"] = _timed(

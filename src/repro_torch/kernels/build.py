@@ -35,10 +35,10 @@ _F = ctypes.c_float
 
 # C entry points: argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "dpot_w8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "dpot_w8_matmul": [_P] * 6 + [_I] * 9 + [_P],
     "dpot_w8_matmul_f32x": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "dpot_w4_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "vq_matmul": [_P, _P, _P, _I, _P, _I, _I, _I, _P],
+    "dpot_w4_matmul": [_P] * 6 + [_I] * 9 + [_P],
+    "vq_matmul": [_P, _P, _P, _I, _P, _P] + [_I] * 9 + [_P],
     "wkv4_seq": [_P] * 14 + [_I, _I, _I, _I, _P],
     "expsig": [_P, _P, _P, _LL, _I, _I, _P],
     "rwkv4_block_decode": [_PP, _I, _PI, _I, _I, _I, _I, _P],

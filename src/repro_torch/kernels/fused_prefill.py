@@ -8,24 +8,115 @@ kernel, x (M, K) bf16 @ a quantized plane decoded inside the kernel:
   dpot_w4_matmul  `w4_chunk_matmul` (`_mm_kernel_w4`)    W4 (K/2, N) + (N,) f32
   vq_matmul       `vq_chunk_matmul` (`_mm_kernel_vq`)    VQ (K, N) + (C,) bf16
 
-All three are one CUDA kernel template over a weight-decode policy
+All three are one tensor-core CUDA kernel over a decode table
 (`csrc/chunk_matmul.cu`; its header says what bounds it on an H100 and
-how its design answers that).  The serving path calls them for every
-prefill matmul (M = B·C) and for the prefill and decode heads (M = B).
-`dpot_w8_matmul_f32x` is K5 for an f32 x, returning f32 (the TPU
+how its design answers that).  `chunk_matmul_plan` cuts the work: one row
+tile for M <= 128, 128-column tiles, and K in slices chosen from K and N
+only, so a row's bits never depend on M.  The wrappers pass the plan, the
+decode table (`decode_table`, cached per device) and, when K is cut, an
+f32 workspace for the slices' partials.  The serving path calls them for
+every prefill matmul (M = B·C) and for the prefill and decode heads (M =
+B).  `dpot_w8_matmul_f32x` is K5 for an f32 x, returning f32 (the TPU
 kernel's `result_type(x, dt)`): under the hardware numerics att.wo's
-input is f32.
+input is f32; it keeps a CUDA-core loop.
 
 A CPU tensor takes the plain version, `x @ unpack_leaf(leaf).to(bf16)`; a
 CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
-from repro_torch.core.quant.serving import leaf_plane, unpack_leaf
+from repro_torch.core.quant.delta_pot import (
+    FORMAT_W4, FORMAT_W8, dpot_decode_codes)
+from repro_torch.core.quant.serving import _sign, leaf_plane, unpack_leaf
 from repro_torch.device import exact_matmuls
 from repro_torch.kernels.build import check, load_library, stream_ptr
+
+# the kernel's tile (csrc/chunk_matmul.cu: BN, BK), the grid it aims for
+# (two blocks on each of the H100's 132 SMs: the 128-row instance's
+# occupancy), the least code bytes a block should read when the plane is
+# too small for that many, and a block's fixed cost in ring stages (the
+# prologue, the table and the epilogue), by which the plan weighs a
+# partly filled last wave
+CHUNK_BN, CHUNK_BK = 128, 32
+TARGET_BLOCKS = 2 * 132
+BLOCK_CODE_BYTES = 16 * 1024
+BLOCK_OVERHEAD_STAGES = 4
+
+
+class ChunkPlan(NamedTuple):
+    """How `csrc/chunk_matmul.cu` cuts one call: rows in tiles of `bm`
+    (16·ceil(M/16), at most 128), columns in tiles of `bn`, the
+    contraction in `slices` slices of `slice_len` rows (the last shorter),
+    each `bk` rows a ring stage."""
+    bm: int
+    bn: int
+    bk: int
+    slices: int
+    slice_len: int
+    row_tiles: int
+    col_tiles: int
+
+    @property
+    def blocks(self) -> int:
+        return self.row_tiles * self.col_tiles * self.slices
+
+
+@functools.lru_cache(maxsize=None)
+def chunk_matmul_plan(M: int, K: int, N: int, plane: str = "w8") -> ChunkPlan:
+    """The slices come from K, N and the plane only, never from M.  They
+    are at least enough to give the grid TARGET_BLOCKS blocks, or one per
+    BLOCK_CODE_BYTES of codes when the plane is smaller; a slice is a
+    whole number of ring stages (so W4's slices are even), rounded down
+    so the slices are at least as many as asked.  A plane that needs a
+    split to fill the card takes, from up to twice that many slices, the
+    count with the least waves × (stages a block + its fixed cost)."""
+    bm = min(128, 16 * -(-M // 16))
+    col_tiles = -(-N // CHUNK_BN)
+    code_bytes = K * N // 2 if plane == "w4" else K * N
+    want = min(TARGET_BLOCKS, -(-code_bytes // BLOCK_CODE_BYTES))
+    k_tiles = -(-K // CHUNK_BK)
+    s_min = min(k_tiles, -(-want // col_tiles))
+
+    def cut(s):
+        length = (k_tiles // s) * CHUNK_BK
+        return length, -(-K // length)
+
+    def cost(c):
+        waves = -(-col_tiles * c[1] // TARGET_BLOCKS)
+        return waves * (c[0] // CHUNK_BK + BLOCK_OVERHEAD_STAGES)
+    best = cut(s_min)
+    if want == TARGET_BLOCKS and s_min > 1:
+        best = min((cut(s) for s in range(s_min, min(k_tiles, 2 * s_min)
+                                          + 1)), key=cost)
+    return ChunkPlan(bm, CHUNK_BN, CHUNK_BK, best[1], best[0], -(-M // 128),
+                     col_tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_table(plane: str, device: torch.device) -> torch.Tensor:
+    """The kernel's decode table: sign·level in f32 for each of W8's 256
+    codes or W4's 16 nibbles, formed by unpack_leaf's own operations, so
+    bf16(table[code]·scale) is unpack_leaf's weight bit for bit."""
+    fmt, bits = (FORMAT_W8, 8) if plane == "w8" else (FORMAT_W4, 4)
+    codes = torch.arange(1 << bits, device=device)
+    top = 1 << (bits - 1)
+    return _sign((codes & top) // top) * dpot_decode_codes(codes & (top - 1),
+                                                           fmt.ks)
+
+
+def _vector_loads(x: torch.Tensor, codes: torch.Tensor) -> int:
+    """Which producers copy 16-byte chunks by cp.async: bit 0 the code
+    rows, bit 1 the x rows; each needs rows that are whole chunks, starting
+    on 16-byte addresses.  A plane that has not (rwkv4-169m's head, N =
+    50277) takes the kernel instance whose producer loads bytes."""
+    K, N = x.shape[1], codes.shape[1]
+    return (int(N % 16 == 0 and codes.data_ptr() % 16 == 0)
+            | int(K % 8 == 0 and x.data_ptr() % 16 == 0) << 1)
 
 
 @exact_matmuls()
@@ -70,15 +161,20 @@ def _check_operands(name, x, codes, aux, k_rows: int, aux_dtype,
     return M, K, N
 
 
-def _w8_launch(x, wq, scale, entry: str, x_dtype):
-    scale = scale.reshape(-1)
-    M, K, N = _check_operands(entry, x, wq, scale, x.shape[1],
-                              torch.float32, wq.shape[1], (x_dtype,))
-    x, scale = x.contiguous(), scale.contiguous()
-    out = torch.empty((M, N), dtype=x_dtype, device=x.device)
+def _launch(entry: str, plane: str, x, codes, lead: tuple):
+    """Launch one K5 form: `lead` are the entry's arguments between the
+    codes and the workspace (the scale and the decode table, or the
+    codebook and its length)."""
+    M, K, N = x.shape[0], x.shape[1], codes.shape[1]
+    plan = chunk_matmul_plan(M, K, N, plane)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    ws = (torch.empty((plan.slices, M, N), dtype=torch.float32,
+                      device=x.device) if plan.slices > 1 else None)
     check(getattr(load_library(), entry)(
-        x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, K, N, stream_ptr(x)), entry)
+        x.data_ptr(), codes.data_ptr(), *lead,
+        None if ws is None else ws.data_ptr(), out.data_ptr(), M, K, N,
+        plan.bm, plan.bn, plan.bk, plan.slice_len, plan.slices,
+        _vector_loads(x, codes), stream_ptr(x)), entry)
     return out
 
 
@@ -88,7 +184,12 @@ def dpot_w8_matmul(x: torch.Tensor, wq: torch.Tensor,
     -> (M, N) bf16, the codes decoded in-kernel."""
     if x.device.type == "cpu":
         return dpot_w8_matmul_plain(x, wq, scale)
-    out = _w8_launch(x, wq, scale, "dpot_w8_matmul", torch.bfloat16)
+    scale = scale.reshape(-1)
+    _check_operands("dpot_w8_matmul", x, wq, scale, x.shape[1],
+                    torch.float32, wq.shape[1])
+    x, scale = x.contiguous(), scale.contiguous()
+    out = _launch("dpot_w8_matmul", "w8", x, wq, (
+        scale.data_ptr(), decode_table("w8", x.device).data_ptr()))
     dpot_w8_matmul.launches += 1
     return out
 
@@ -99,7 +200,15 @@ def dpot_w8_matmul_f32x(x: torch.Tensor, wq: torch.Tensor,
     f32, the bf16 weights promoted and the f32 sum not rounded."""
     if x.device.type == "cpu":
         return dpot_w8_matmul_plain(x, wq, scale)
-    out = _w8_launch(x, wq, scale, "dpot_w8_matmul_f32x", torch.float32)
+    scale = scale.reshape(-1)
+    M, K, N = _check_operands("dpot_w8_matmul_f32x", x, wq, scale,
+                              x.shape[1], torch.float32, wq.shape[1],
+                              (torch.float32,))
+    x, scale = x.contiguous(), scale.contiguous()
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    check(load_library().dpot_w8_matmul_f32x(
+        x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        M, K, N, stream_ptr(x)), "dpot_w8_matmul_f32x")
     dpot_w8_matmul_f32x.launches += 1
     return out
 
@@ -113,13 +222,11 @@ def dpot_w4_matmul(x: torch.Tensor, wq4: torch.Tensor,
     scale = scale.reshape(-1)
     if x.shape[1] % 2:
         raise ValueError(f"dpot_w4_matmul: K={x.shape[1]} must be even")
-    M, K, N = _check_operands("dpot_w4_matmul", x, wq4, scale,
-                              x.shape[1] // 2, torch.float32, wq4.shape[1])
+    _check_operands("dpot_w4_matmul", x, wq4, scale, x.shape[1] // 2,
+                    torch.float32, wq4.shape[1])
     x, scale = x.contiguous(), scale.contiguous()
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    check(load_library().dpot_w4_matmul(
-        x.data_ptr(), wq4.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, K, N, stream_ptr(x)), "dpot_w4_matmul")
+    out = _launch("dpot_w4_matmul", "w4", x, wq4, (
+        scale.data_ptr(), decode_table("w4", x.device).data_ptr()))
     dpot_w4_matmul.launches += 1
     return out
 
@@ -131,17 +238,14 @@ def vq_matmul(x: torch.Tensor, idx: torch.Tensor,
     if x.device.type == "cpu":
         return vq_matmul_plain(x, idx, codebook)
     cb = codebook.reshape(-1)
-    M, K, N = _check_operands("vq_matmul", x, idx, cb, x.shape[1],
-                              torch.bfloat16, None)
+    _check_operands("vq_matmul", x, idx, cb, x.shape[1], torch.bfloat16,
+                    None)
     C = cb.numel()
     if not 1 <= C <= 256:
         raise ValueError(f"vq_matmul: codebook of {C} entries; uint8 "
                          "indices need 1..256")
     x, cb = x.contiguous(), cb.contiguous()
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    check(load_library().vq_matmul(
-        x.data_ptr(), idx.data_ptr(), cb.data_ptr(), C, out.data_ptr(),
-        M, K, N, stream_ptr(x)), "vq_matmul")
+    out = _launch("vq_matmul", "vq", x, idx, (cb.data_ptr(), C))
     vq_matmul.launches += 1
     return out
 

@@ -226,7 +226,8 @@ def apply_attention(p, x, cfg, *, positions=None, causal=True,
       * prefill: kv_cache None — full-sequence attention, through K13 under
         the routing rule of `attention` when cfg.use_flash_kernel is set
       * decode: kv_cache {"k","v"} (B,Smax,KVH,hd), cache_pos an int —
-        writes this step's K/V at cache_pos, then attends to the prefix
+        writes this step's K/V at cache_pos (clamped to [0, Smax - S], as
+        JAX's dynamic_update_slice clamps it), then attends to the prefix
         with q_offset=cache_pos.  The cache is updated IN PLACE (JAX
         returns a new one); the returned cache is the same dict.
     Returns (out (B,S,D), the cache or None)."""
@@ -240,11 +241,14 @@ def apply_attention(p, x, cfg, *, positions=None, causal=True,
     if kv_cache is not None:
         kc, vc = kv_cache["k"], kv_cache["v"]
         pos = int(cache_pos)
-        if not 0 <= pos <= kc.shape[1] - S:
-            raise ValueError(f"cache_pos {pos} + {S} tokens outside the "
-                             f"cache's {kc.shape[1]} positions")
-        kc[:, pos:pos + S] = k.to(kc.dtype)
-        vc[:, pos:pos + S] = v.to(vc.dtype)
+        if S > kc.shape[1]:
+            raise ValueError(f"{S} tokens exceed the cache's {kc.shape[1]} "
+                             "positions")
+        # dynamic_update_slice's rule: the write starts at pos clamped to
+        # [0, Smax - S]; the attention still takes q_offset = pos
+        start = min(max(pos, 0), kc.shape[1] - S)
+        kc[:, start:start + S] = k.to(kc.dtype)
+        vc[:, start:start + S] = v.to(vc.dtype)
         o = attention(q, kc, vc, causal=True, q_offset=pos)
     else:
         o = attention(q, k, v, causal=causal, q_offset=0,

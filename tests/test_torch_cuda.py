@@ -84,10 +84,41 @@ def _spread(out, ref):
     assert float(d.mean()) <= 2.0 ** -11 * float(r.mean())
 
 
-@pytest.mark.parametrize("M", [1, 8, 37, 128])
-def test_dpot_w8_matmul(cuda, M):
-    g = torch.Generator(device=cuda).manual_seed(M)
-    K, N = 96, 203                        # ragged N edge
+# K5's shapes: M across one 16-row tile, several, one 128-row tile and
+# two; K not a multiple of the slice (96 one slice, 200 and 4160 several,
+# chunk_matmul_plan) and K = 100 (x rows not whole 16-byte chunks); N =
+# 203 (ragged: the byte-loading producer) and 384 (the cp.async producer)
+K5_M = [1, 8, 16, 17, 128, 200]
+K5_KN = [(96, 203), (200, 203), (4160, 203), (96, 384), (4160, 384),
+         (100, 203)]
+
+
+def _unaligned(t):
+    """t's values one element past a 16-byte boundary: the wrapper then
+    takes the producer that loads single elements."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _batch_invariant(fn, x, codes, aux, out):
+    """A row's bits do not depend on the other rows: x[:1] and x[:8] give
+    the first rows of the whole call; a second call gives the same bits,
+    and so do x and the codes at unaligned addresses (the other
+    producers)."""
+    assert torch.equal(fn(x[:1], codes, aux), out[:1])
+    if x.shape[0] >= 8:
+        assert torch.equal(fn(x[:8], codes, aux), out[:8])
+    assert torch.equal(fn(x, codes, aux), out)
+    assert torch.equal(fn(_unaligned(x), codes, aux), out)
+    assert torch.equal(fn(x, _unaligned(codes), aux), out)
+
+
+@pytest.mark.parametrize("K,N", K5_KN)
+@pytest.mark.parametrize("M", K5_M)
+def test_dpot_w8_matmul(cuda, M, K, N):
+    g = torch.Generator(device=cuda).manual_seed(M * 7919 + K + N)
     q = dpot_quantize(torch.randn((K, N), generator=g, device=cuda),
                       FORMAT_W8, axis=-1)
     wq, scale = dpot_pack_int8(q), q.scale.reshape(-1)
@@ -101,7 +132,7 @@ def test_dpot_w8_matmul(cuda, M):
     assert torch.equal(dpot_w8_matmul(eye, wq, scale),
                        unpack_leaf({"packed": wq, "scale": scale[None]}))
     # batch invariance: a row's result does not depend on the other rows
-    assert torch.equal(dpot_w8_matmul(x[:1], wq, scale), out[:1])
+    _batch_invariant(dpot_w8_matmul, x, wq, scale, out)
 
 
 @pytest.mark.parametrize("carry", ["bfloat16", None])
@@ -174,16 +205,16 @@ def test_engine_kernel_path(cuda):
         assert solo.tokens == h.tokens
 
 
-@pytest.mark.parametrize("M", [1, 8, 37, 128])
+@pytest.mark.parametrize("K,N", K5_KN)
+@pytest.mark.parametrize("M", K5_M)
 @pytest.mark.parametrize("plane", ["w4", "vq"])
-def test_w4_vq_matmul(cuda, plane, M):
+def test_w4_vq_matmul(cuda, plane, M, K, N):
     """K5-W4 and K5-VQ against their plain versions; identity rows pick
     out the decoded plane, which must equal unpack_leaf bit for bit."""
     from repro_torch.core.quant.delta_pot import (
         FORMAT_W4, dpot_pack_nibbles)
     from repro_torch.core.quant.vq import vq_quantize
-    g = torch.Generator(device=cuda).manual_seed(10 + M)
-    K, N = 96, 203                        # ragged N edge
+    g = torch.Generator(device=cuda).manual_seed(10 + M * 7919 + K + N)
     w = torch.randn((K, N), generator=g, device=cuda)
     if plane == "w4":
         q = dpot_quantize(w, FORMAT_W4, axis=-1)
@@ -203,7 +234,7 @@ def test_w4_vq_matmul(cuda, plane, M):
     _elementwise(out, plain(x, codes, aux))
     eye = torch.eye(K, dtype=torch.bfloat16, device=cuda)
     assert torch.equal(fn(eye, codes, aux), unpack_leaf(leaf))
-    assert torch.equal(fn(x[:1], codes, aux), out[:1])
+    _batch_invariant(fn, x, codes, aux, out)
 
 
 def _packed(cuda, policy=MIXED, cfg="rwkv4-169m"):

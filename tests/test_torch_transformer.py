@@ -313,12 +313,40 @@ def test_decode_chain_matches_jax_and_forward(arch):
 
 
 def test_decode_cache_overflow_raises():
+    """More tokens than the cache has positions cannot be written (JAX's
+    dynamic_update_slice refuses them too); a start past the end is
+    clamped (`test_kv_cache_write_clamps_like_jax`)."""
     tm = t_get_model("smollm-135m", smoke=True)
     params = tm.init_params(0, "cpu")
     st = tm.init_decode_state(1, 2, device="cpu")
-    tok = torch.zeros((1, 1), dtype=torch.int32)
+    tok = torch.zeros((1, 3), dtype=torch.int32)
     with pytest.raises(ValueError, match="cache"):
-        tm.decode_step(params, st, tok, 2)
+        tm.decode_step(params, st, tok, 0)
+
+
+def test_kv_cache_write_clamps_like_jax():
+    """A cache_pos past the cache's end: JAX's dynamic_update_slice writes
+    at Smax - S and the attention keeps q_offset = cache_pos; the port's
+    output and both cache tensors equal JAX's (the port_helpers rule)."""
+    cfg, lp, tlp = _layer0("smollm-135m")
+    B, S, Smax = 2, 3, 8
+    pos = Smax - S + 2
+    rng = np.random.default_rng(5)
+    jx, tx = _x((B, S, cfg.d_model), seed=4)
+    shape = (B, Smax, cfg.n_kv_heads, cfg.resolved_head_dim)
+    jc = {k: jnp.asarray(rng.normal(size=shape), jnp.bfloat16)
+          for k in ("k", "v")}
+    tc = {k: to_port(v).clone() for k, v in jc.items()}
+    want, wc = exact_jit(lambda p, x, c: JL.apply_attention(
+        p, x, cfg, kv_cache=c, cache_pos=pos))(lp["attn"], jx, jc)
+    got, gc = TL.apply_attention(tlp["attn"], tx, smoke_config(
+        "smollm-135m"), kv_cache=tc, cache_pos=pos)
+    assert_close(want, got, "attention past the end")
+    for key in ("k", "v"):
+        assert_close(wc[key], gc[key], f"cache {key}")
+        # rows before Smax - S keep their values; the write lands at the end
+        np.testing.assert_array_equal(f32(wc[key])[:, :Smax - S],
+                                      f32(jc[key])[:, :Smax - S])
 
 
 def test_serve_legacy_runs_kv_cache_decode():
