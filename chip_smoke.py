@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card proof that the PyTorch/CUDA port serves RWKV-4 (exact and
-hardware numerics), RWKV-6 and the dense transformer smollm-135m, runs
+hardware numerics) and RWKV-6 on every weight form (W8, W4, VQ and mixed
+planes, plain bf16), and the dense transformer smollm-135m, runs
 the RWKV whole-sequence forward, trains smollm-135m and rwkv4-169m, and
 runs the quantized serve step and the Δ-PoT matmuls of its public kernel
 entry point, through its kernels.
@@ -283,13 +284,50 @@ each prints its seconds and peak device memory (`phase_done` lines):
     every code at its column scales); against the quantized step's own
     bf16 product x @ unpack_leaf(leaf), within 2^-8·(|x| @ |w|) plus one
     bf16 step.
-11. The `kernels` JSON line (twenty-five entries: the nine kernels, then
+11. The other weight forms of the decode and prefill kernels (run where
+    their weights are at hand: rwkv4 after phase 3 and in phase 4, the
+    MIXED rwkv6 engine after phase 10's rwkv6 part, K7 on bf16 in phase 6
+    before K10):
+      rwkv4 bf16               ServingEngine(quantized=False,
+                               fused_decode="model", fused_prefill=True):
+                               K3 on layer 0 (K3's rule), K4 over the 12
+                               layers (bit for bit 12 K3 launches; K4's
+                               recipe, 1.25x its plain version's
+                               CPU-vs-card gap, read in the run: K4_*
+                               holds MIXED's reading), the engine run
+                               (K2 + K4), one
+                               decode_step_fused step (K3)
+      K5-W4, K5-VQ f32-x       (128, 768, 768) on att.wo of trees packed
+                               all W4 and all VQ, beside K5 f32-x: decode
+                               bit for bit, the f32 summation bound; then
+                               prefill_chunk(hw=True) on each tree (B 8, C
+                               16, prefix masks): the f32-x form once a
+                               layer, logits and state within 1.25x the
+                               per-op hw path's CPU-vs-card gap
+      rwkv6 MIXED              ServingEngine(plane_policy=MIXED,
+                               fused_decode="model", fused_prefill=True) at
+                               full width and depth: K7-model bit for bit
+                               32 K7-block launches, each within K7B_* of
+                               the plain version on the card; a lane alone
+                               bit for bit; the W4 and VQ decodes on
+                               identity windows; the engine run (K5,
+                               K5-W4, K5-VQ, K6, K7-model); teacher-forced
+                               logits within TF_BOUNDS["rwkv6-model"]'s
+                               kernel-vs-plain bounds of the plain bf16
+                               path on the same tree; one
+                               decode_step_fused step (K7-block)
+      rwkv6 bf16               K7 on phase 6's bf16 tree as MIXED (its slab
+                               stack built there, 15 GB, and dropped before
+                               K10), one step through each kernel path
+12. The `kernels` JSON line (thirty-three entries: the nine kernels, then
     K9 and the hardware-numerics forms of K2, K5, K3 and K4, then K13,
     K13-dq and K13-dkv, then K10 and K11, then K12, K12-bwd, K2-bwd and
-    K11-bwd, then K1 and K8; the entries of K2, K2-hw and K6 carry their
-    forward-shape checks under "forward_check", their errors in
-    max_abs_err and their shapes in shapes), the card's name and power
-    limit, and the last line {"ok": true, "device": {...}}.
+    K11-bwd, then K1 and K8, then phase 11's forms: K3 and K4 on bf16,
+    K5-W4 and K5-VQ f32-x, K7-block and K7-model on MIXED and on bf16;
+    the entries of K2, K2-hw and K6 carry their forward-shape checks under
+    "forward_check", their errors in max_abs_err and their shapes in
+    shapes), the card's name and power limit, and the last line {"ok":
+    true, "device": {...}}.
 
 Weights are random, from a seed.  Imports nothing of JAX.
 """
@@ -588,11 +626,15 @@ def phase_k5(params, cfg, flush, wide=False):
     return rows
 
 
-def phase_k5_planes(params, cfg, flush):
+def phase_k5_planes(params, cfg, flush, wide=False):
     """K5-W4 on att.wk (layer 0) and the head, K5-VQ on ffn.wv (layer 0)
     of the MIXED tree: decode bit-exact against unpack_leaf, outputs
     against the plain versions, the M 8 call's rows equal to the M 128
-    call's first rows, times beside the byte bound."""
+    call's first rows, times beside the byte bound.  At rwkv6-7b (`wide`)
+    the decode is checked as `phase_k5` checks it there, on 128-row
+    identity windows across every slice boundary of the plane's plan, and
+    the elementwise rule's floor is the f32 summation bound
+    (`_sum_order_floor`)."""
     from repro_torch.core.quant.serving import leaf_plane, unpack_leaf
     from repro_torch.device import exact_matmuls
     from repro_torch.kernels.fused_prefill import (
@@ -615,17 +657,27 @@ def phase_k5_planes(params, cfg, flush):
         else:                             # W4 nibble pairs (K/2, N)
             leaf, fn, plain = w4(codes, aux)
         w_bf = unpack_leaf(leaf)
-        eye = torch.eye(K, dtype=torch.bfloat16, device=DEV)
-        if not torch.equal(fn(eye, codes, aux), w_bf):
-            raise AssertionError(f"{fn.__name__} decode differs from "
-                                 f"unpack_leaf at (K, N) = {(K, N)}")
+        if wide:
+            plan = chunk_matmul_plan(128, K, N, leaf_plane(leaf))
+            for r0, eye in _eye_windows(K, plan):
+                if not torch.equal(fn(eye, codes, aux),
+                                   w_bf[r0:r0 + eye.shape[0]]):
+                    raise AssertionError(
+                        f"{fn.__name__} decode differs from unpack_leaf at "
+                        f"(K, N) = {(K, N)}, rows {r0}..")
+        else:
+            eye = torch.eye(K, dtype=torch.bfloat16, device=DEV)
+            if not torch.equal(fn(eye, codes, aux), w_bf):
+                raise AssertionError(f"{fn.__name__} decode differs from "
+                                     f"unpack_leaf at (K, N) = {(K, N)}")
         x128 = torch.randn((128, K), generator=gen, device=DEV).to(
             torch.bfloat16)
         out128 = None
         for M in (128, 8):
             x = x128[:M]
             out, ref = fn(x, codes, aux), plain(x, codes, aux)
-            ok, err = _elementwise_ok(out, ref)
+            ok, err = _elementwise_ok(
+                out, ref, _sum_order_floor(x, w_bf) if wide else None)
             if not ok:
                 raise AssertionError(f"{fn.__name__} {(M, K, N)}: "
                                      f"max |d| {err}")
@@ -640,8 +692,9 @@ def phase_k5_planes(params, cfg, flush):
             with exact_matmuls():
                 lib = _time_ms(lambda: torch.matmul(x, w_bf), flush)
             p = chunk_matmul_plan(M, K, N, leaf_plane(leaf))
-            row = {"kernel": fn.__name__, "M": M, "K": K, "N": N,
-                   "max_abs_err": err, "decode_bit_exact": True,
+            row = {"kernel": fn.__name__, "model": cfg.name, "M": M,
+                   "K": K, "N": N, "max_abs_err": err,
+                   "decode_bit_exact": True,
                    "rows_equal_m128": True, "blocks": p.blocks,
                    "slices": p.slices,
                    "kernel_ms": _time_ms(lambda: fn(x, codes, aux), flush),
@@ -790,11 +843,14 @@ def phase_k3(params, cfg, flush, planes="w8"):
     return row
 
 
-def phase_k4(engine, flush):
-    """K4 on the model-path engine's prepared MIXED slabs at B = 8: bit for
-    bit equal to 12 K3 launches over the same layers, each K3 launch within
-    K3_* of K3's plain version on the same inputs, and K4 within K4_* of
-    its own plain version; its time beside the byte bound."""
+def phase_k4(engine, flush, planes="mixed"):
+    """K4 on the model-path engine's prepared slabs (MIXED planes, or
+    plain bf16 weights) at B = 8: bit for bit equal to 12 K3 launches over
+    the same layers, each K3 launch within K3_* of K3's plain version on
+    the same inputs, and K4 within K4_* of its own plain version (on
+    another form than MIXED, K4_*'s recipe applied to that form: 1.25x
+    the gap its plain version reads between the CPU and the card in this
+    run); its time beside the byte bound."""
     from repro_torch.core.quant.serving import unfuse_layer
     from repro_torch.kernels.fused_decode import (
         STATE_KEYS, rwkv4_block_decode, rwkv4_block_decode_plain,
@@ -819,7 +875,7 @@ def phase_k4(engine, flush):
         st_l = {k: st[k][l] for k in STATE_KEYS}
         out3 = rwkv4_block_decode(lp, st_l, x3)
         e, m = _k3_check(out3, rwkv4_block_decode_plain(lp, st_l, x3),
-                         f"layer {l} (mixed)")
+                         f"layer {l} ({planes})")
         k3_err, k3_mean = max(k3_err, e), max(k3_mean, m)
         x3, s3 = out3
         new3.append(s3)
@@ -846,7 +902,13 @@ def phase_k4(engine, flush):
             rel[who][name] = {
                 "max_rel": float(d.max()) / scale_max,
                 "mean_rel": float(d.mean() / r.float().abs().mean())}
-        ok, e, m = _spread_ok(o, r, K4_MAX_REL, K4_MEAN_REL)
+    # K4_* is the MIXED planes' reading of the recipe; another form takes
+    # the recipe itself, 1.25x its own plain pair's gap in this run
+    bounds = (K4_MAX_REL, K4_MEAN_REL) if planes == "mixed" else tuple(
+        1.25 * max(g[m] for g in rel["plain_cpu"].values())
+        for m in ("max_rel", "mean_rel"))
+    for name, o, r, _ in pairs:
+        ok, e, m = _spread_ok(o, r, *bounds)
         if not ok:
             _line({"kernel": "rwkv4_model_decode", "gaps_to_plain": rel})
             raise AssertionError(f"K4 {name}: max |d| {e}, mean rel {m}")
@@ -857,13 +919,13 @@ def phase_k4(engine, flush):
               + 2 * B * D * 2)                              # x in, out
     ops = 2.0 * B * L * (5 * D * D + 2 * D * F)
     bms, by = _bound(nbytes, ops, PEAK_BF16_FLOPS)
-    row = {"kernel": "rwkv4_model_decode", "planes": "mixed", "L": L, "B": B,
+    row = {"kernel": "rwkv4_model_decode", "planes": planes, "L": L, "B": B,
            "D": D, "F": F, "equals_k3_per_layer": True,
            "k3_per_layer_vs_plain": {"max_abs_err": k3_err,
                                      "max_mean_rel_err": k3_mean},
            "max_abs_err": err, "max_mean_rel_err": mean_rel,
            "gaps_to_plain": rel,
-           "bounds": {"max_rel": K4_MAX_REL, "mean_rel": K4_MEAN_REL},
+           "bounds": {"max_rel": bounds[0], "mean_rel": bounds[1]},
            "weight_bytes": w_bytes, "aux_bytes": aux_bytes, "bytes": nbytes,
            "kernel_ms": _time_ms(lambda: rwkv4_model_decode(stack, st, x),
                                  flush),
@@ -1128,43 +1190,55 @@ def phase_k2_hw(cfg, flush):
     return row
 
 
-def phase_k5_f32x(params, cfg, flush):
-    """K5's f32-activation form at att.wo's prefill shape (128, 768, 768):
+F32X_AUX = {"w8": "scale", "w4": "scale", "vq": "codebook"}
+F32X_FN = {"w8": "dpot_w8_matmul", "w4": "dpot_w4_matmul", "vq": "vq_matmul"}
+
+
+def phase_k5_f32x(trees, cfg, flush):
+    """K5's f32-activation forms at att.wo's prefill shape (128, 768, 768),
+    each on layer 0's att.wo of a tree packed in its plane (W8, W4, VQ):
     the decode bit for bit (identity rows), each output within the f32
-    summation bound K·2^-24·(|x| @ |w|) of the plain version."""
-    from repro_torch.core.quant.serving import unpack_leaf
+    summation bound K·2^-24·(|x| @ |w|) of the plain version.  One row a
+    plane."""
+    from repro_torch.core.quant.serving import CODES_KEY, unpack_leaf
     from repro_torch.device import exact_matmuls
-    from repro_torch.kernels.fused_prefill import (
-        dpot_w8_matmul_f32x, dpot_w8_matmul_plain)
-    leaf = params["blocks"]["att"]["wo"]
-    wq, scale = leaf["packed"][0], leaf["scale"].reshape(-1)
-    K, N, M = cfg.d_model, cfg.d_model, 128
-    w_bf = unpack_leaf({"packed": wq, "scale": scale.reshape(1, -1)})
-    eye = torch.eye(K, device=DEV)
-    if not torch.equal(dpot_w8_matmul_f32x(eye, wq, scale), w_bf.float()):
-        raise AssertionError("K5 f32-x decode differs from unpack_leaf")
-    g = torch.Generator(device=DEV).manual_seed(SEED + 13)
-    x = torch.randn((M, K), generator=g, device=DEV)
-    out = dpot_w8_matmul_f32x(x, wq, scale)
-    ref = dpot_w8_matmul_plain(x, wq, scale)
-    d = (out - ref).abs()
-    if not bool((d <= _sum_order_floor(x, w_bf)).all()):
-        raise AssertionError(f"K5 f32-x: max |d| {float(d.max())} passes "
-                             "the f32 summation bound")
-    nbytes = M * K * 4 + K * N + N * 4 + M * N * 4
-    bms, by = _bound(nbytes, 2.0 * M * N * K, PEAK_F32_FLOPS)
-    w32 = w_bf.float()
-    with exact_matmuls():
-        lib = _time_ms(lambda: torch.matmul(x, w32), flush)
-    row = {"kernel": "dpot_w8_matmul_f32x", "M": M, "K": K, "N": N,
-           "max_abs_err": float(d.max()), "decode_bit_exact": True,
-           "kernel_ms": _time_ms(
-               lambda: dpot_w8_matmul_f32x(x, wq, scale), flush),
-           "plain_ms": _time_ms(
-               lambda: dpot_w8_matmul_plain(x, wq, scale), flush),
-           "library_ms": lib, "bound_ms": bms, "bound_by": by}
-    _line(row)
-    return row
+    from repro_torch.kernels import fused_prefill as fp
+    rows = []
+    for plane, params in trees.items():
+        leaf = params["blocks"]["att"]["wo"]
+        codes = leaf[CODES_KEY[plane]][0]
+        aux = leaf[F32X_AUX[plane]].reshape(-1)
+        fn = getattr(fp, F32X_FN[plane] + "_f32x")
+        plain = getattr(fp, F32X_FN[plane] + "_plain")
+        K, N, M = cfg.d_model, cfg.d_model, 128
+        w_bf = unpack_leaf({CODES_KEY[plane]: codes,
+                            F32X_AUX[plane]: aux.reshape(1, -1)})
+        eye = torch.eye(K, device=DEV)
+        if not torch.equal(fn(eye, codes, aux), w_bf.float()):
+            raise AssertionError(f"{fn.__name__} decode differs from "
+                                 "unpack_leaf")
+        g = torch.Generator(device=DEV).manual_seed(SEED + 13)
+        x = torch.randn((M, K), generator=g, device=DEV)
+        out = fn(x, codes, aux)
+        ref = plain(x, codes, aux)
+        d = (out - ref).abs()
+        if not bool((d <= _sum_order_floor(x, w_bf)).all()):
+            raise AssertionError(f"{fn.__name__}: max |d| {float(d.max())} "
+                                 "passes the f32 summation bound")
+        nbytes = (M * K * 4 + codes.numel() + aux.numel() * aux.element_size()
+                  + M * N * 4)
+        bms, by = _bound(nbytes, 2.0 * M * N * K, PEAK_F32_FLOPS)
+        w32 = w_bf.float()
+        with exact_matmuls():
+            lib = _time_ms(lambda: torch.matmul(x, w32), flush)
+        row = {"kernel": fn.__name__, "M": M, "K": K, "N": N,
+               "max_abs_err": float(d.max()), "decode_bit_exact": True,
+               "kernel_ms": _time_ms(lambda: fn(x, codes, aux), flush),
+               "plain_ms": _time_ms(lambda: plain(x, codes, aux), flush),
+               "library_ms": lib, "bound_ms": bms, "bound_by": by}
+        _line(row)
+        rows.append(row)
+    return rows
 
 
 def _hw_state(cfg, lead, seed):
@@ -1451,6 +1525,108 @@ def phase_hw_teacher_forced(params, model):
     if not ok:
         raise AssertionError(f"hw teacher-forced logits out of bounds: "
                              f"{gaps}")
+
+
+def _hw_scan(model, params, toks, valid):
+    """The per-op hw step scanned over a chunk with the engine's masked
+    commits, from the fresh state: (each lane's last valid logits, the
+    state)."""
+    from repro_torch.core.quant.serving import cast_compute
+    from repro_torch.models import rwkv4
+    from repro_torch.serving.plan import maybe_unpack
+    p = cast_compute(maybe_unpack(params, True), torch.bfloat16)
+    B, C = toks.shape
+    with torch.inference_mode():
+        s = model.init_decode_state(B, 0, device=toks.device)
+        last = None
+        for t in range(C):
+            lg, sn = rwkv4.decode_step(p, s, toks[:, t:t + 1], 0, model.cfg,
+                                       hw=True)
+            ok = valid[:, t]
+            s = {k: torch.where(ok[None, :, None], sn[k], s[k]) for k in s}
+            last = torch.where(ok[:, None, None], lg,
+                               torch.zeros_like(lg) if last is None else last)
+    return last, s
+
+
+def phase_hw_prefill_planes(model, trees):
+    """prefill_chunk(hw=True) (B 8, C 16, prefix masks) on rwkv4-169m
+    trees packed W4 and VQ, as a user calls it: att.wo's f32 x goes
+    through K5-W4's or K5-VQ's f32-x form once a layer, every counter of
+    the path set to 0 before and read after.  The last logits and the
+    state against the per-op hw step scanned over the chunk on the card,
+    within 1.25x what that per-op path reads between the CPU and the card
+    (the hw teacher-forced recipe, `_hw_check`)."""
+    from repro_torch.kernels.expsig import sigmoid_kernel
+    from repro_torch.kernels.fused_prefill import (
+        dpot_w4_matmul, dpot_w4_matmul_f32x, vq_matmul, vq_matmul_f32x)
+    from repro_torch.kernels.wkv4 import wkv4_seq
+    from repro_torch.models import rwkv4
+    cfg = model.cfg
+    B, C = 8, 16
+    g = torch.Generator(device=DEV).manual_seed(SEED + 21)
+    toks = torch.randint(0, cfg.vocab, (B, C), generator=g, device=DEV,
+                         dtype=torch.int32)
+    valid = torch.zeros((B, C), dtype=torch.bool, device=DEV)
+    for i, n in enumerate((16, 9, 0, 1, 16, 5, 12, 16)):
+        valid[i, :n] = True
+    by_path = {}
+    for plane, params in trees.items():
+        bf, f32x = {"w4": (dpot_w4_matmul, dpot_w4_matmul_f32x),
+                    "vq": (vq_matmul, vq_matmul_f32x)}[plane]
+        counters = (bf, f32x, wkv4_seq, sigmoid_kernel)
+        for fn in counters:
+            fn.launches = 0
+        with torch.inference_mode():
+            st, lg = rwkv4.prefill_chunk(
+                params, model.init_decode_state(B, 0, device=DEV), toks,
+                valid, 0, cfg, hw=True)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        if min(launches.values()) == 0 or \
+                launches[f32x.__name__] != cfg.n_layers:
+            raise AssertionError(f"hw prefill {plane}: launches {launches}")
+        if not bool(torch.isfinite(lg.float()).all()):
+            raise AssertionError(f"hw prefill {plane}: non-finite logits")
+        ref = _hw_scan(model, params, toks, valid)
+        cpu = _hw_scan(model, _to_cpu(params), toks.cpu(), valid.cpu())
+        rel, bound = _hw_check((lg, st), ref, cpu, f"hw prefill {plane}",
+                               1.25)
+        by_path[f"hw-prefill-{plane}"] = launches
+        _line({"phase": "hw_prefill", "planes": plane, "B": B, "C": C,
+               "launches": launches, "gaps_to_plain": rel,
+               "bounds": bound})
+    return by_path
+
+
+def phase_path_step(model, params, path, counters, name):
+    """One decode step (B 8, the fresh state, seeded tokens) through a
+    kernel path as a user calls it: "block" decode_step_fused, "model"
+    decode_step_fused_model; every counter set to 0 before and read
+    after, each must have launched; finite logits of the vocabulary's
+    width."""
+    step = model.decode_step_fused if path == "block" \
+        else model.decode_step_fused_model
+    B = 8
+    toks = torch.randint(0, model.cfg.vocab, (B, 1), device=DEV,
+                         dtype=torch.int32,
+                         generator=torch.Generator(device=DEV).manual_seed(
+                             SEED + 31))
+    for fn in counters:
+        fn.launches = 0
+    with torch.inference_mode():
+        lg, _ = step(params, model.init_decode_state(B, 0, device=DEV), toks,
+                     0)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"{name}: a kernel never launched: {launches}")
+    if lg.shape != (B, 1, model.cfg.vocab) or \
+            not bool(torch.isfinite(lg.float()).all()):
+        raise AssertionError(f"{name}: logits {tuple(lg.shape)}, finite "
+                             f"{bool(torch.isfinite(lg.float()).all())}")
+    _line({"phase": "path_step", "path": name, "B": B, "launches": launches})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1835,6 +2011,166 @@ def phase_teacher_forced6(engine, refs):
     if not same:
         raise AssertionError("the rwkv6 model path's logits differ from "
                              "the block path's")
+
+
+def _decode_windows(fn, codes, aux, w_bf, rows=128):
+    """`fn`'s decode on identity windows of `rows` rows, at the plane's
+    first and last rows, against w_bf (unpack_leaf's) bit for bit."""
+    K = w_bf.shape[0]
+    rows = min(rows, K)
+    for r0 in (0, K - rows):
+        x = torch.zeros((rows, K), device=DEV)
+        x[torch.arange(rows), r0 + torch.arange(rows)] = 1
+        if not torch.equal(fn(x, codes, aux), w_bf[r0:r0 + rows].float()):
+            raise AssertionError(f"{fn.__name__}: rows {r0}.. decode other "
+                                 "than unpack_leaf")
+
+
+def phase_k7_form(model, raw, stack, flush, form):
+    """K7 on a rwkv6-7b tree of another weight form (MIXED planes, or plain
+    bf16 weights) at B = 8: K7-model over the prepared slabs bit for bit
+    equal to 32 K7-block launches, each of which holds K7B_* against the
+    plain version on its own inputs (on the card); a lane alone bit for
+    bit; under MIXED the W4 and VQ decodes (att.wk, ffn.wv of layer 0)
+    bit for bit against unpack_leaf on identity windows, through K5-W4's
+    and K5-VQ's f32-x forms, which share K7's decode functions
+    (csrc/common.cuh).  The times and byte bounds of both forms; rows
+    (block, model)."""
+    from repro_torch.core.quant.serving import (
+        CODES_KEY, broadcast_packed_scales, cast_compute, unpack_leaf)
+    from repro_torch.kernels import fused_prefill as fp
+    from repro_torch.kernels.fused_decode import (
+        rwkv6_block_decode, rwkv6_block_decode_plain, rwkv6_model_decode,
+        rwkv6_model_decode_plain)
+    from repro_torch.models.rwkv4 import _layer
+    from repro_torch.tree import leaves_with_path
+    cfg = model.cfg
+    L, B = cfg.n_layers, 8
+    blocks = broadcast_packed_scales(
+        cast_compute(raw, torch.bfloat16)["blocks"], L)
+    st, x = _state6(cfg, (L, B), SEED + 30)
+    xm, newm = rwkv6_model_decode(stack, st, x, cfg)
+    xb, newb, kb_err, kb_mean = x, [], 0.0, 0.0
+    for l in range(L):
+        lp = _layer(blocks, l)
+        st_l = {k: st[k][l] for k in STATE6}
+        out = rwkv6_block_decode(lp, st_l, xb, cfg)
+        e, m, _, _ = _k7_check(out, rwkv6_block_decode_plain(
+            lp, st_l, xb, cfg), f"{form} block, layer {l}")
+        kb_err, kb_mean = max(kb_err, e), max(kb_mean, m)
+        xb = out[0]
+        newb.append(out[1])
+    if not (torch.equal(xm, xb) and all(
+            torch.equal(newm[k], torch.stack([s[k] for s in newb]))
+            for k in STATE6)):
+        raise AssertionError(f"K7-model {form} differs from {L} K7-block "
+                             "launches")
+    del newb
+    lp = _layer(blocks, 0)
+    st0 = {k: v[0] for k, v in st.items()}
+    out0 = rwkv6_block_decode(lp, st0, x, cfg)
+    one = rwkv6_block_decode(lp, {k: v[5:6] for k, v in st0.items()},
+                             x[5:6], cfg)
+    if not (torch.equal(one[0][0], out0[0][5]) and all(
+            torch.equal(one[1][k][0], out0[1][k][5]) for k in STATE6)):
+        raise AssertionError(f"K7-block {form}: a lane alone differs")
+    if form == "mixed":
+        for path, plane in (("wk", "w4"), ("wv", "vq")):
+            leaf = raw["blocks"]["att" if path == "wk" else "ffn"][path]
+            codes = leaf[CODES_KEY[plane]][0]
+            aux = leaf[F32X_AUX[plane]].reshape(-1)
+            w_bf = unpack_leaf({CODES_KEY[plane]: codes,
+                                F32X_AUX[plane]: aux.reshape(1, -1)})
+            _decode_windows(getattr(fp, F32X_FN[plane] + "_f32x"), codes,
+                            aux, w_bf)
+    state_bytes = lambda sd: sum(t.numel() * t.element_size()
+                                 for t in sd.values())
+    w0 = sum(t.numel() * t.element_size() for _, t in leaves_with_path(lp))
+    b_bytes = w0 + 2 * B * cfg.d_model * 2 + 2 * state_bytes(st0)
+    bms, by = _bound(b_bytes, _k7_ops(cfg, B), PEAK_BF16_FLOPS)
+    block = {"kernel": "rwkv6_block_decode", "planes": form,
+             "model": cfg.name, "B": B, "D": cfg.d_model, "F": cfg.d_ff,
+             "H": cfg.n_heads, "max_abs_err": kb_err,
+             "max_mean_rel_err": kb_mean,
+             "bounds": {"max_rel": K7B_MAX_REL, "mean_rel": K7B_MEAN_REL},
+             "lane_alone_bit_exact": True, "weight_bytes": w0,
+             "bytes": b_bytes,
+             "kernel_ms": _time_ms(
+                 lambda: rwkv6_block_decode(lp, st0, x, cfg), flush),
+             "plain_ms": _time_ms(
+                 lambda: rwkv6_block_decode_plain(lp, st0, x, cfg), flush, 3),
+             "library_ms": None, "bound_ms": bms, "bound_by": by}
+    _line(block)
+    w_bytes = sum(t.numel() * t.element_size() for t in stack.slabs.values())
+    aux_bytes = sum(a.numel() * a.element_size() for a in stack.aux)
+    m_bytes = w_bytes + aux_bytes + 2 * state_bytes(st) + \
+        2 * B * cfg.d_model * 2
+    bms, by = _bound(m_bytes, _k7_ops(cfg, B, L), PEAK_BF16_FLOPS)
+    mrow = {"kernel": "rwkv6_model_decode", "planes": form,
+            "model": cfg.name, "L": L, "B": B, "D": cfg.d_model,
+            "F": cfg.d_ff, "H": cfg.n_heads, "equals_block_per_layer": True,
+            "max_abs_err": kb_err, "max_mean_rel_err": kb_mean,
+            "weight_bytes": w_bytes, "aux_bytes": aux_bytes,
+            "bytes": m_bytes,
+            "kernel_ms": _time_ms(
+                lambda: rwkv6_model_decode(stack, st, x, cfg), flush),
+            "plain_ms": _time_ms(
+                lambda: rwkv6_model_decode_plain(stack, st, x, cfg), flush,
+                2),
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
+    _line(mrow)
+    return block, mrow
+
+
+def phase_k7_bf16(model, params, flush):
+    """K7 on the forward section's plain bf16 rwkv6-7b tree: the slab stack
+    built here (another 15 GB) and dropped on return; `phase_k7_form`,
+    then one decode step through each kernel path as a user calls it."""
+    from repro_torch.kernels.fused_decode import (
+        rwkv6_block_decode, rwkv6_model_decode)
+    from repro_torch.models.rwkv6 import prepare_fused_model_params
+    prep = prepare_fused_model_params(params, model.cfg)
+    rows = phase_k7_form(model, params, prep["blocks"], flush, "bf16")
+    paths = {"rwkv6-bf16-block": phase_path_step(
+                 model, params, "block", (rwkv6_block_decode,),
+                 "rwkv6-bf16-block"),
+             "rwkv6-bf16-model": phase_path_step(
+                 model, prep, "model", (rwkv6_model_decode,),
+                 "rwkv6-bf16-model")}
+    return rows, paths
+
+
+def phase_teacher_forced6_plain(engine):
+    """rwkv6's kernel path on another weight form (the MIXED engine) vs the
+    plain bf16 per-op path on the same tree, on the card, on
+    phase_teacher_forced6's tokens: no farther than that phase's W8 path
+    may sit from its plain path (TF_BOUNDS["rwkv6-model"]'s kernel-vs-plain
+    bounds).  The f32 witness is left out (the W8 path reads it)."""
+    model, cfg = engine.model, engine.model.cfg
+    B, C, S = 8, 16, 32
+    g = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    toks = torch.randint(0, cfg.vocab, (B, C + S), generator=g, device=DEV,
+                         dtype=torch.int32)
+    ref = _plain_logits6(model, engine.plan.prepared.raw, toks, C,
+                         torch.bfloat16)
+    out = _kernel_logits(engine, toks, C)
+    if not bool(torch.isfinite(out).all()) or out.shape != ref.shape:
+        raise AssertionError(f"kernel-path logits {tuple(out.shape)}, "
+                             f"finite {bool(torch.isfinite(out).all())}")
+    tb = TF_BOUNDS["rwkv6-model"]
+    max_ref = float(ref.abs().max())
+    kp = _gap(out, ref)
+    ok = kp["mean_rel"] <= tb["mean_rel_plain"] and \
+        kp["max_abs"] <= tb["max_rel_plain"] * max_ref
+    _line({"phase": "teacher_forced", "path": "rwkv6-mixed-model",
+           "steps": S + 1, "lanes": B, "max_abs_plain": max_ref,
+           "gaps": {"kernel_vs_plain": kp},
+           "bounds": {"mean_rel": tb["mean_rel_plain"],
+                      "max_abs": tb["max_rel_plain"] * max_ref},
+           "within_bound": ok})
+    if not ok:
+        raise AssertionError(f"MIXED teacher-forced logits out of bounds: "
+                             f"{kp}")
 
 
 # ---------------------------------------------------------------------------
@@ -3612,7 +3948,7 @@ def main() -> int:
         print(f"chip_smoke: no port package under {src}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    from repro_torch.core.quant.policy import PlanePolicy
+    from repro_torch.core.quant.policy import PLANE_VQ, PLANE_W4, PlanePolicy
     from repro_torch.kernels.fused_decode import (
         rwkv4_block_decode, rwkv4_model_decode, rwkv6_block_decode,
         rwkv6_model_decode)
@@ -3620,8 +3956,10 @@ def main() -> int:
         dpot_w4_matmul, dpot_w8_matmul, vq_matmul)
     from repro_torch.kernels.wkv4 import wkv4_seq
     from repro_torch.kernels.wkv6 import wkv6_seq
+    from repro_torch.core.quant.serving import pack_leaf
     from repro_torch.models.rwkv4 import prepare_fused_model_params
     from repro_torch.serving import ServingEngine
+    from repro_torch.tree import keystr
 
     t_start = time.perf_counter()
     usage = _timed("build", phase_build)
@@ -3655,10 +3993,33 @@ def main() -> int:
                          rwkv4_model_decode), "model")}
     _timed("teacher forced block", phase_teacher_forced, block)
     _timed("teacher forced model", phase_teacher_forced, model)
+    # rwkv4-169m on plain bf16 weights (quantized=False): K3 and K4 on bf16
+    # matrices, the model-path engine, one block-path step
+    plain4 = ServingEngine("rwkv4-169m", fused_decode="model",
+                           **{**common, "quantized": False})
+    bf4 = plain4.plan.prepared.raw
+    k3bf = _timed("K3 bf16", phase_k3, bf4, cfg, flush, planes="bf16")
+    k4bf = _timed("K4 bf16", phase_k4, plain4, flush, planes="bf16")
+    by_path["rwkv4-bf16-model"] = _timed(
+        "engine rwkv4-bf16-model", phase_engine, plain4,
+        (wkv4_seq, rwkv4_model_decode), "rwkv4-bf16-model")
+    by_path["rwkv4-bf16-block"] = _timed(
+        "step rwkv4-bf16-block", phase_path_step, plain4.model, bf4, "block",
+        (rwkv4_block_decode,), "rwkv4-bf16-block")
+    del plain4, bf4
     # the paper's hardware numerics on rwkv4-169m, W8 weights
     k9 = _timed("K9", phase_k9, flush)
     k2h = _timed("K2-hw", phase_k2_hw, cfg, flush)
-    k5f = _timed("K5 f32-x", phase_k5_f32x, w8, cfg, flush)
+    # rwkv4-169m packed all W4 and all VQ: K5-W4's and K5-VQ's f32-x forms
+    # (att.wo under hw), alone and in prefill_chunk(hw=True)
+    packed4 = {plane: block.model.init_params(
+        SEED, DEV, leaf_fn=lambda p, t, pol=pol: pack_leaf(keystr(p), t, pol))
+        for plane, pol in (("w4", PLANE_W4), ("vq", PLANE_VQ))}
+    k5f = _timed("K5 f32-x", phase_k5_f32x, {"w8": w8, **packed4}, cfg,
+                 flush)
+    by_path.update(_timed("hw prefill W4, VQ", phase_hw_prefill_planes,
+                          block.model, packed4))
+    del packed4
     k3h = _timed("K3-hw", phase_k3_hw, w8, cfg, flush)
     hw_prep = prepare_fused_model_params(w8, cfg, hw=True)
     k4h = _timed("K4-hw", phase_k4_hw, hw_prep["blocks"], cfg, flush)
@@ -3722,6 +4083,34 @@ def main() -> int:
         "rwkv6-7b")
     del raw6, model6
     _release()
+    # rwkv6-7b on the paper's mixed planes (W4 att.wk and head, VQ ffn.wv):
+    # the model-path engine, K7 on its tree (block and model), its
+    # teacher-forced logits, one block-path step
+    mixed6 = _timed("rwkv6 MIXED engine", ServingEngine, "rwkv6-7b",
+                    fused_decode="model",
+                    plane_policy=PlanePolicy(default="w8",
+                                             overrides=MIXED_OVERRIDES),
+                    **common)
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    k5p6 = _timed("K5-W4, K5-VQ rwkv6", phase_k5_planes,
+                  mixed6.plan.prepared.raw, mixed6.model.cfg, flush,
+                  wide=True)
+    k7mx = _timed("K7 MIXED", phase_k7_form, mixed6.model,
+                  mixed6.plan.prepared.raw,
+                  mixed6.plan.prepared.decode["blocks"], flush, "mixed")
+    del flush
+    by_path["rwkv6-mixed-model"] = _timed(
+        "engine rwkv6-mixed-model", phase_engine, mixed6,
+        (dpot_w8_matmul, dpot_w4_matmul, vq_matmul, wkv6_seq,
+         rwkv6_model_decode), "rwkv6-mixed-model")
+    _timed("teacher forced rwkv6-mixed-model", phase_teacher_forced6_plain,
+           mixed6)
+    by_path["rwkv6-mixed-block"] = _timed(
+        "step rwkv6-mixed-block", phase_path_step, mixed6.model,
+        mixed6.plan.prepared.raw, "block", (rwkv6_block_decode,),
+        "rwkv6-mixed-block")
+    del mixed6
+    _release()
 
     # the RWKV whole-sequence forward: K11 and K10, then rwkv4-169m (exact
     # and hw) and rwkv6-7b, each on bf16 weights drawn on the card
@@ -3744,6 +4133,9 @@ def main() -> int:
     toks6 = torch.randint(0, m6.cfg.vocab, (1, 32768), device=DEV,
                           generator=torch.Generator(device=DEV).manual_seed(
                               SEED + 82))
+    k7bf, paths = _timed("K7 bf16", phase_k7_bf16, m6, p6, flush)
+    by_path.update(paths)
+    _release()
     k10 = _timed("K10", phase_k10, flush,
                  _rwkv6_layer0_operands(m6, p6, toks6))
     del flush
@@ -3800,14 +4192,22 @@ def main() -> int:
             launches("dpot_w8_matmul", "rwkv6-block")).items()
         if k in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err",
                  "shapes")}
-    kernels = [
-        k5_row,
-        _kernel_row("dpot_w4_matmul", "src/repro_torch/csrc/chunk_matmul.cu",
-                    "src/repro/kernels/fused_prefill.py:117", w4_rows,
-                    launches("dpot_w4_matmul", "model"), summed),
-        _kernel_row("vq_matmul", "src/repro_torch/csrc/chunk_matmul.cu",
-                    "src/repro/kernels/fused_prefill.py:146", vq_rows,
-                    launches("vq_matmul", "model"), summed),
+    # K5-W4 and K5-VQ at rwkv6-7b's MIXED shapes, beside their rwkv4 rows
+    planes_rows = []
+    for name, rows in (("dpot_w4_matmul", w4_rows), ("vq_matmul", vq_rows)):
+        entry = _kernel_row(name, "src/repro_torch/csrc/chunk_matmul.cu",
+                            "src/repro/kernels/fused_prefill.py:" + (
+                                "117" if name == "dpot_w4_matmul" else
+                                "146"), rows, launches(name, "model"),
+                            summed + ", rwkv4-169m")
+        entry["rwkv6_7b"] = {
+            k: v for k, v in _kernel_row(
+                name, "", "", [r for r in k5p6 if r["kernel"] == name],
+                launches(name, "rwkv6-mixed-model")).items()
+            if k in ("launches", "ms", "plain_ms", "bound_ms", "library_ms",
+                     "max_abs_err", "shapes")}
+        planes_rows.append(entry)
+    kernels = [k5_row, *planes_rows,
         _kernel_row("wkv4_seq", "src/repro_torch/csrc/wkv4_seq.cu",
                     "src/repro/kernels/wkv4.py:101", [k2],
                     launches("wkv4_seq", "block")),
@@ -3847,7 +4247,7 @@ def main() -> int:
                     "K2 with exp_table/div_table"),
         _kernel_row("dpot_w8_matmul_f32x",
                     "src/repro_torch/csrc/chunk_matmul.cu",
-                    "src/repro/kernels/fused_prefill.py:84", [k5f],
+                    "src/repro/kernels/fused_prefill.py:84", k5f[:1],
                     launches("dpot_w8_matmul_f32x", "hw-block"),
                     "K5 with an f32 activation (att.wo under hw)"),
         _kernel_row("rwkv4_block_decode[hw]",
@@ -3970,6 +4370,51 @@ def main() -> int:
             entry["forward_check"] = {k: check[k] for k in (
                 "what", "kernel_ms", "plain_ms", "bound_ms", "bound_by")
                 if k in check}
+    # the eleventh slice: the weight forms the earlier rows' kernels now take
+    kernels += [
+        _kernel_row("rwkv4_block_decode[bf16]",
+                    "src/repro_torch/csrc/rwkv4_block_decode.cu",
+                    "src/repro/kernels/fused_decode.py:77", [k3bf],
+                    launches("rwkv4_block_decode", "rwkv4-bf16-block"),
+                    "K3 on plain bf16 weights (quantized=False), layer 0"),
+        _kernel_row("rwkv4_model_decode[bf16]",
+                    "src/repro_torch/csrc/rwkv4_model_decode.cu",
+                    "src/repro/kernels/fused_decode.py:182", [k4bf],
+                    launches("rwkv4_model_decode", "rwkv4-bf16-model"),
+                    "K4 on plain bf16 weights; the bf16 engine's path"),
+        _kernel_row("dpot_w4_matmul_f32x",
+                    "src/repro_torch/csrc/chunk_matmul.cu",
+                    "src/repro/kernels/fused_prefill.py:117", k5f[1:2],
+                    launches("dpot_w4_matmul_f32x", "hw-prefill-w4"),
+                    "K5-W4 with an f32 activation (att.wo under hw, "
+                    "PLANE_W4)"),
+        _kernel_row("vq_matmul_f32x", "src/repro_torch/csrc/chunk_matmul.cu",
+                    "src/repro/kernels/fused_prefill.py:146", k5f[2:3],
+                    launches("vq_matmul_f32x", "hw-prefill-vq"),
+                    "K5-VQ with an f32 activation (att.wo under hw, "
+                    "PLANE_VQ)"),
+        _kernel_row("rwkv6_block_decode[mixed]",
+                    "src/repro_torch/csrc/rwkv6_block_decode.cu",
+                    "src/repro/kernels/fused_decode.py:77", k7mx[:1],
+                    launches("rwkv6_block_decode", "rwkv6-mixed-block"),
+                    "K7-block on the MIXED planes (W4 att.wk, VQ ffn.wv), "
+                    "layer 0"),
+        _kernel_row("rwkv6_model_decode[mixed]",
+                    "src/repro_torch/csrc/rwkv6_model_decode.cu",
+                    "src/repro/kernels/fused_decode.py:182", k7mx[1:],
+                    launches("rwkv6_model_decode", "rwkv6-mixed-model"),
+                    "K7-model on the MIXED planes; the MIXED engine's path"),
+        _kernel_row("rwkv6_block_decode[bf16]",
+                    "src/repro_torch/csrc/rwkv6_block_decode.cu",
+                    "src/repro/kernels/fused_decode.py:77", k7bf[:1],
+                    launches("rwkv6_block_decode", "rwkv6-bf16-block"),
+                    "K7-block on plain bf16 weights, layer 0"),
+        _kernel_row("rwkv6_model_decode[bf16]",
+                    "src/repro_torch/csrc/rwkv6_model_decode.cu",
+                    "src/repro/kernels/fused_decode.py:182", k7bf[1:],
+                    launches("rwkv6_model_decode", "rwkv6-bf16-model"),
+                    "K7-model on plain bf16 weights"),
+    ]
     _line({"phase_done": "all", "seconds": time.perf_counter() - t_start})
     _line({"kernels": kernels})
     smi = subprocess.run(

@@ -26,22 +26,35 @@ def _bf16_round(x: np.ndarray) -> np.ndarray:
     return t.to(torch.bfloat16).to(torch.float32).numpy()
 
 
-def _assign(values: np.ndarray, centroids: np.ndarray) -> np.ndarray:
-    """Exact nearest-centroid index per value (centroids sorted)."""
-    mids = 0.5 * (centroids[1:] + centroids[:-1])
-    return np.searchsorted(mids, values).astype(np.int64)
+# values one searchsorted call takes, bounding its f32 copy (a stacked
+# rwkv6-7b leaf holds 1.9e9 weights)
+ASSIGN_STEP = 1 << 26
+
+
+def _assign(flat: torch.Tensor, centroids: np.ndarray,
+            dtype: torch.dtype) -> torch.Tensor:
+    """Exact nearest-centroid index per value of a flat tensor (centroids
+    sorted), on the tensor's device, ASSIGN_STEP values at a time: the
+    first of the f32 midpoints that is >= the value."""
+    c = torch.from_numpy(centroids).to(flat.device)
+    mids = 0.5 * (c[1:] + c[:-1])
+    out = torch.empty(flat.shape, dtype=dtype, device=flat.device)
+    for i in range(0, flat.numel(), ASSIGN_STEP):
+        out[i:i + ASSIGN_STEP] = torch.searchsorted(
+            mids, flat[i:i + ASSIGN_STEP].to(torch.float32)).to(dtype)
+    return out
 
 
 def kmeans_1d(values: np.ndarray, n_codes: int, iters: int = 16
               ) -> np.ndarray:
     """Deterministic 1-D Lloyd k-means: `n_codes` sorted centroids (f32,
     already bf16-rounded)."""
-    v = np.asarray(values, np.float32).reshape(-1)
+    v = np.ascontiguousarray(values, np.float32).reshape(-1)
     qs = (np.arange(n_codes, dtype=np.float64) + 0.5) / n_codes
     cent = np.quantile(v, qs).astype(np.float32)
     cent = np.sort(_bf16_round(cent))
     for _ in range(iters):
-        idx = _assign(v, cent)
+        idx = _assign(torch.from_numpy(v), cent, torch.int64).numpy()
         sums = np.bincount(idx, weights=v, minlength=n_codes)
         cnts = np.bincount(idx, minlength=n_codes)
         new = np.where(cnts > 0, sums / np.maximum(cnts, 1), cent)
@@ -58,12 +71,13 @@ def vq_quantize(w: torch.Tensor, n_codes: int = 256, iters: int = 16,
     shaped like `w`, bf16 codebook (1, n_codes)), both on `w`'s device."""
     if not 2 <= n_codes <= 256:
         raise ValueError(f"n_codes={n_codes}: uint8 indices need 2..256")
-    v = w.detach().to(torch.float32).cpu().numpy().reshape(-1)
-    fit = v if v.size <= sample else v[:: (v.size + sample - 1) // sample]
-    cent = kmeans_1d(fit, n_codes, iters)
-    idx = _assign(v, cent).astype(np.uint8).reshape(tuple(w.shape))
+    flat = w.detach().reshape(-1)
+    fit = flat if flat.numel() <= sample else \
+        flat[:: (flat.numel() + sample - 1) // sample]
+    cent = kmeans_1d(fit.to(torch.float32).cpu().numpy(), n_codes, iters)
     codebook = torch.from_numpy(cent).to(torch.bfloat16).reshape(1, n_codes)
-    return torch.from_numpy(idx).to(w.device), codebook.to(w.device)
+    return (_assign(flat, cent, torch.uint8).reshape(tuple(w.shape)),
+            codebook.to(w.device))
 
 
 def vq_dequantize(idx: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:

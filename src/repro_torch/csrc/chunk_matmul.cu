@@ -3,10 +3,12 @@
 //   dpot_w8_matmul       W8 codes (K,N) u8 + scale (N,) f32
 //   dpot_w4_matmul       W4 nibble pairs (K/2,N) u8 + scale (N,) f32
 //   vq_matmul            VQ indices (K,N) u8 + codebook (C,) bf16, C <= 256
-//   dpot_w8_matmul_f32x  K5 with an f32 x and an f32 out (M,N): the bf16
-//                        weights promoted, the sum not rounded, as
-//                        fused_prefill.py:102 gives result_type(x, dt); the
-//                        hardware numerics feed att.wo an f32 activation
+//   dpot_w8_matmul_f32x, dpot_w4_matmul_f32x, vq_matmul_f32x
+//                        the three with an f32 x and an f32 out (M,N): the
+//                        bf16 weights promoted, the sum not rounded, as
+//                        fused_prefill.py:102, :131 and :161 give
+//                        result_type(x, dt); the hardware numerics feed
+//                        att.wo an f32 activation
 //
 // Replaces the TPU kernels kernels/fused_prefill.py:dpot_chunk_matmul
 // (_mm_kernel), w4_chunk_matmul (_mm_kernel_w4) and vq_chunk_matmul
@@ -50,9 +52,10 @@
 // or the tile the row falls in; so a row's bits never depend on which
 // other rows share the call (the plan's slices do not depend on M).
 //
-// dpot_w8_matmul_f32x keeps a CUDA-core loop (an f32 x has no bf16
-// tensor-core form that keeps its sum; TF32 would round x): out[m][n]
-// accumulates x[m][k]·w[k][n] with fmaf for k = 0..K-1 in order.
+// The f32-x forms keep a CUDA-core loop (an f32 x has no bf16 tensor-core
+// form that keeps its sum; TF32 would round x): out[m][n] accumulates
+// x[m][k]·w[k][n] with fmaf for k = 0..K-1 in order, the weight decoded by
+// the plane's policy (common.cuh: Decode, which K7 shares).
 #include <algorithm>
 
 #include "common.cuh"
@@ -461,30 +464,22 @@ Args make_args(const void* x, const void* codes, void* ws, void* out, int M,
   return a;
 }
 
-// K5 f32-x: one thread a column, TM rows a block, k in order with fmaf.
-// The W8 decode policy: col(n) is read once per output column; at(k, n,
-// ...) is the bf16-exact weight w[k][n] as a float.
-struct DecodeW8 {
-  const uint8_t* __restrict__ codes;
-  const float* __restrict__ scale;
-  __device__ float col(int n) const { return scale[n]; }
-  __device__ float at(int k, int n, int N, float sc) const {
-    return repro::dpot_w8_decode(__ldg(codes + (size_t)k * N + n), sc);
-  }
-};
-
+// K5 f32-x: one thread a column, TM rows a block, k in order with fmaf,
+// each weight decoded by the plane's policy (common.cuh: Decode), the
+// column's scale read once.
 constexpr int FX_TM = 16;  // rows of x a block
 constexpr int FX_BK = 64;  // K tile of x staged in shared memory
 
-template <int TM, class Dec>
+template <int TM, int PLANE>
 __global__ void __launch_bounds__(BN)
-w8_matmul_f32x_kernel(const float* __restrict__ x, const Dec dec,
-                      float* __restrict__ out, int M, int K, int N) {
+matmul_f32x_kernel(const float* __restrict__ x, const repro::Matrix w,
+                   float* __restrict__ out, int M, int K, int N) {
+  using Dec = repro::Decode<PLANE>;
   __shared__ float xs[TM][FX_BK];
   const int n = blockIdx.x * BN + threadIdx.x;
   const int m0 = blockIdx.y * TM;
   const bool col_ok = n < N;  // ragged N edge (V = 50277 is odd)
-  const float cp = col_ok ? dec.col(n) : 0.f;
+  const float cp = col_ok ? Dec::col(w, n) : 0.f;
   float acc[TM];
 #pragma unroll
   for (int i = 0; i < TM; ++i) acc[i] = 0.f;
@@ -500,9 +495,9 @@ w8_matmul_f32x_kernel(const float* __restrict__ x, const Dec dec,
     if (col_ok) {
 #pragma unroll 4
       for (int kk = 0; kk < kn; ++kk) {
-        const float w = dec.at(k0 + kk, n, N, cp);
+        const float wv = Dec::at(w, k0 + kk, n, N, cp);
 #pragma unroll
-        for (int i = 0; i < TM; ++i) acc[i] = fmaf(xs[i][kk], w, acc[i]);
+        for (int i = 0; i < TM; ++i) acc[i] = fmaf(xs[i][kk], wv, acc[i]);
       }
     }
     __syncthreads();
@@ -556,17 +551,43 @@ extern "C" int vq_matmul(const void* x, const void* idx, const void* codebook,
   return launch<repro::kPlaneVQ>(a, bm, bn, bk, slices, vec, stream);
 }
 
+namespace {
+
+// codes and aux: the plane's codes and its f32 scale or bf16 codebook
+template <int PLANE>
+int launch_f32x(const void* x, const void* codes, const void* aux, void* out,
+                int M, int K, int N, void* stream) {
+  if (M < 1 || K < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const repro::Matrix w{static_cast<const uint8_t*>(codes), aux, PLANE, 0};
+  const dim3 grid((N + BN - 1) / BN, (M + FX_TM - 1) / FX_TM);
+  matmul_f32x_kernel<FX_TM, PLANE>
+      <<<grid, BN, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(x), w, static_cast<float*>(out), M, K,
+          N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // x (M, K) f32 -> out (M, N) f32
 extern "C" int dpot_w8_matmul_f32x(const void* x, const void* wq,
                                    const void* scale, void* out, int M, int K,
                                    int N, void* stream) {
-  if (M < 1 || K < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const DecodeW8 dec{static_cast<const uint8_t*>(wq),
-                     static_cast<const float*>(scale)};
-  const dim3 grid((N + BN - 1) / BN, (M + FX_TM - 1) / FX_TM);
-  w8_matmul_f32x_kernel<FX_TM, DecodeW8>
-      <<<grid, BN, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(x), dec, static_cast<float*>(out), M, K,
-          N);
-  return static_cast<int>(cudaGetLastError());
+  return launch_f32x<repro::kPlaneW8>(x, wq, scale, out, M, K, N, stream);
+}
+
+// wq4 (K/2, N), K even
+extern "C" int dpot_w4_matmul_f32x(const void* x, const void* wq4,
+                                   const void* scale, void* out, int M, int K,
+                                   int N, void* stream) {
+  if (K % 2) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_f32x<repro::kPlaneW4>(x, wq4, scale, out, M, K, N, stream);
+}
+
+// idx (K, N) indices into codebook (C,) bf16, 1 <= C <= 256
+extern "C" int vq_matmul_f32x(const void* x, const void* idx,
+                              const void* codebook, int C, void* out, int M,
+                              int K, int N, void* stream) {
+  if (C < 1 || C > 256) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_f32x<repro::kPlaneVQ>(x, idx, codebook, out, M, K, N, stream);
 }

@@ -61,6 +61,14 @@ __device__ __forceinline__ float vq_decode(uint32_t idx, const bf16* cb) {
   return __bfloat162float(cb[idx]);
 }
 
+// A bf16 value held in the high or low 16 bits of a word, as a float.
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+
 // σ(x) = 1 / (1 + exp(-x)) with each op rounded to bf16: how XLA expands
 // jax.nn.sigmoid on bf16, and what models/rwkv4.py:sigmoid computes.
 __device__ __forceinline__ float sigmoid_bf16(float x) {
@@ -87,8 +95,76 @@ __device__ __forceinline__ float wkv6_term(float s, float r, float k,
   return r * (s + u * kv);
 }
 
-// The weight planes a matrix may arrive in (core/quant/serving.py).
-enum Plane { kPlaneW8 = 0, kPlaneW4 = 1, kPlaneVQ = 2 };
+// The weight forms a matrix may arrive in: the three quantized planes of
+// core/quant/serving.py, or plain bf16 weights (a tree that was never
+// packed).
+enum Plane { kPlaneW8 = 0, kPlaneW4 = 1, kPlaneVQ = 2, kPlaneBF16 = 3 };
+
+// A weight matrix as the decode kernels take it.
+struct Matrix {
+  const uint8_t* codes;  // W8, VQ: (K, N) bytes; W4: (K/2, N); BF16: (K, N)
+                         // bf16 weights
+  const void* aux;       // W8, W4: f32 scale (N,); VQ: bf16 codebook (C,);
+                         // BF16: null
+  int plane;             // enum Plane
+  int aux_len;           // VQ: C, the codebook's entries (<= 256)
+};
+
+// The per-plane decode policies, one for each enum Plane, shared by K5's
+// f32-x loop (chunk_matmul.cu) and K7 (rwkv6_body.cuh).  col(m, n) is what
+// column n's weights share (the f32 scale of W8 and W4), read once a
+// column; at(m, r, n, N, c) is weight (r, n) of an (R, N) matrix m, with
+// c = col(m, n), as unpack_leaf decodes it (a W4 byte holds rows r & ~1
+// and r | 1; a BF16 matrix's codes are its bf16 weights, as they are).
+template <int PLANE>
+struct Decode;
+
+template <>
+struct Decode<kPlaneW8> {
+  static __device__ __forceinline__ float col(const Matrix& m, int n) {
+    return static_cast<const float*>(m.aux)[n];
+  }
+  static __device__ __forceinline__ float at(const Matrix& m, int r, int n,
+                                             int N, float c) {
+    return dpot_w8_decode(__ldg(m.codes + (size_t)r * N + n), c);
+  }
+};
+
+template <>
+struct Decode<kPlaneW4> {
+  static __device__ __forceinline__ float col(const Matrix& m, int n) {
+    return static_cast<const float*>(m.aux)[n];
+  }
+  static __device__ __forceinline__ float at(const Matrix& m, int r, int n,
+                                             int N, float c) {
+    return dpot_w4_decode(__ldg(m.codes + (size_t)(r >> 1) * N + n), r & 1,
+                          c);
+  }
+};
+
+template <>
+struct Decode<kPlaneVQ> {
+  static __device__ __forceinline__ float col(const Matrix&, int) {
+    return 0.f;
+  }
+  static __device__ __forceinline__ float at(const Matrix& m, int r, int n,
+                                             int N, float) {
+    return vq_decode(__ldg(m.codes + (size_t)r * N + n),
+                     static_cast<const bf16*>(m.aux));
+  }
+};
+
+template <>
+struct Decode<kPlaneBF16> {
+  static __device__ __forceinline__ float col(const Matrix&, int) {
+    return 0.f;
+  }
+  static __device__ __forceinline__ float at(const Matrix& m, int r, int n,
+                                             int N, float) {
+    return bf16_lo(__ldg(reinterpret_cast<const unsigned short*>(m.codes) +
+                         (size_t)r * N + n));
+  }
+};
 
 // The exact e^x and x / y of the WKV step (the standard numerics);
 // hw_units.cuh:LutUnits is the hardware numerics' counterpart.

@@ -1,4 +1,5 @@
-// K3: one whole RWKV-4 block decode step per launch, W8, W4 or VQ weights.
+// K3: one whole RWKV-4 block decode step per launch, over W8, W4 or VQ
+// planes or plain bf16 weights.
 //
 // Replaces the TPU kernel kernels/fused_decode.py:fused_block_decode with
 // the RWKV-4 body (models/rwkv4.py:block_decode, exact or hardware
@@ -91,9 +92,12 @@ int launch_bb(int bb, const Args& a, cudaStream_t s) {
 
 template <bool HW>
 int launch_planes(int bb, const int* planes, const Args& a, cudaStream_t s) {
-  return R4::planes_of(planes) == repro::kPlaneW8
-             ? launch_bb<repro::kPlaneW8, HW>(bb, a, s)
-             : launch_bb<R4::kPlaneAny, HW>(bb, a, s);
+  switch (R4::planes_of(planes)) {
+    case repro::kPlaneW8: return launch_bb<repro::kPlaneW8, HW>(bb, a, s);
+    case repro::kPlaneBF16: return launch_bb<repro::kPlaneBF16, HW>(bb, a, s);
+    case R4::kPlaneAny: return launch_bb<R4::kPlaneAny, HW>(bb, a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 constexpr int kNumPtrs =
@@ -102,8 +106,8 @@ constexpr int kNumPtrs =
 }  // namespace
 
 // ptrs (kNumPtrs device pointers): x (B,D), x_out (B,D), the 11 vectors
-// in R4::Vec order, the 7 matrices' codes then their scale / codebook in
-// R4::Mat order, the 5 state leaves in and the 5 out in R4::State order,
+// in R4::Vec order, the 7 matrices' codes (a BF16 matrix: its weights)
+// then their scale / codebook (BF16: null) in R4::Mat order, the 5 state leaves in and the 5 out in R4::State order,
 // each (B,D), then the EXP and DIV tables (256 f32 each; both null for the
 // exact numerics).  planes: the 7 matrices' planes.
 extern "C" int rwkv4_block_decode(const void* const* ptrs, int n_ptrs,
@@ -122,8 +126,11 @@ extern "C" int rwkv4_block_decode(const void* const* ptrs, int n_ptrs,
   for (int m = 0; m < R4::kNumMats; ++m)
     a.w.mat[m].codes = static_cast<const uint8_t*>(ptrs[i++]);
   for (int m = 0; m < R4::kNumMats; ++m) {
+    if (planes[m] < repro::kPlaneW8 || planes[m] > repro::kPlaneBF16)
+      return static_cast<int>(cudaErrorInvalidValue);
     a.w.mat[m].aux = ptrs[i++];
     a.w.mat[m].plane = planes[m];
+    a.w.mat[m].aux_len = 0;
   }
   for (int k = 0; k < R4::kNumState; ++k)
     a.st.in[k] = static_cast<const bf16*>(ptrs[i++]);

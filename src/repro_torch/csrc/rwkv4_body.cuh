@@ -37,11 +37,15 @@
 // copies it to device memory after one layer; K4 keeps it for the next.
 //
 // Each matrix arrives as a descriptor {codes, scale or codebook, plane}
-// (W8, W4 or VQ, core/quant/serving.py).  The plane is uniform across a
-// matrix, so its branch costs no divergence.  The body is a template on
-// PLANES: kPlaneW8 when every matrix of the layer is W8 (the W8 loop
-// alone is compiled, as before the planes came), kPlaneAny otherwise
-// (each matrix's plane is read at run time).  Both compute the same bits.
+// (common.cuh: Matrix): a W8, W4 or VQ plane (core/quant/serving.py), or
+// plain bf16 weights read as they are (a tree that was never packed; the
+// descriptor's `codes` then point at the bf16 weights and `aux` is null).
+// The plane is uniform across a matrix, so its branch costs no
+// divergence.  The body is a template on PLANES: kPlaneW8 or kPlaneBF16
+// when every matrix of the layer has that form (that loop alone is
+// compiled), kPlaneAny for a layer of mixed quantized planes (each
+// matrix's plane is read at run time; a plain tree's layer is all BF16).
+// Both compute the same bits.
 //
 // Batch invariance (exact numerics): each LayerNorm reduction belongs to
 // one warp in a fixed order, and each matvec output accumulates over
@@ -63,12 +67,6 @@ enum Vec {
 enum Mat { ATT_WR, ATT_WK, ATT_WV, ATT_WO, FFN_WR, FFN_WK, FFN_WV, kNumMats };
 // the recurrent state leaves, each (B, D) bf16 for one layer
 enum State { ATT_X, FFN_X, WKV_A, WKV_B, WKV_O, kNumState };
-
-struct Matrix {
-  const uint8_t* codes;  // W8, VQ: (K, N); W4: (K/2, N)
-  const void* aux;       // W8, W4: f32 scale (N,); VQ: bf16 codebook (C,)
-  int plane;             // kPlaneW8 | kPlaneW4 | kPlaneVQ
-};
 
 struct LayerWeights {
   const bf16* vec[kNumVecs];
@@ -122,7 +120,15 @@ __device__ __forceinline__ void dot_col(const TIn* in, int lane_stride, int K,
   for (int b = 0; b < BB; ++b) acc[b] = 0.f;
   const uint8_t* __restrict__ wp = m.codes + col;
   const int plane = PLANES == kPlaneAny ? m.plane : PLANES;
-  if (plane == kPlaneVQ) {
+  if constexpr (PLANES == kPlaneBF16) {
+    const unsigned short* __restrict__ wb =
+        reinterpret_cast<const unsigned short*>(m.codes) + col;
+#pragma unroll 2
+    for (int k = 0; k < K; k += 2) {
+      fma_pair<BB>(in, lane_stride, k, bf16_lo(__ldg(wb + (size_t)k * N)),
+                   bf16_lo(__ldg(wb + (size_t)(k + 1) * N)), acc);
+    }
+  } else if (plane == kPlaneVQ) {
     const bf16* cb = static_cast<const bf16*>(m.aux);
 #pragma unroll 2
     for (int k = 0; k < K; k += 2) {
@@ -184,11 +190,20 @@ __device__ void layernorm_lanes(const bf16* src, bf16* dst, int lane_stride,
   }
 }
 
-// The PLANES a layer with these 7 matrix planes is compiled for.
+// The PLANES a layer with these 7 matrix planes is compiled for: W8 or
+// BF16 when every matrix is, else kPlaneAny (quantized planes only); -2
+// for a layer that mixes plain bf16 and quantized matrices, which no
+// packed or plain tree holds and the kernels refuse.
+constexpr int kPlanesInvalid = -2;
 inline int planes_of(const int* planes) {
-  for (int m = 0; m < kNumMats; ++m)
-    if (planes[m] != kPlaneW8) return kPlaneAny;
-  return kPlaneW8;
+  bool bf16 = false, any = false, w8 = true;
+  for (int m = 0; m < kNumMats; ++m) {
+    if (planes[m] < kPlaneW8 || planes[m] > kPlaneBF16) return kPlanesInvalid;
+    (planes[m] == kPlaneBF16 ? bf16 : any) = true;
+    w8 = w8 && planes[m] == kPlaneW8;
+  }
+  if (bf16) return any ? kPlanesInvalid : kPlaneBF16;
+  return w8 ? kPlaneW8 : kPlaneAny;
 }
 
 // A lane's stride in shared memory, in bf16 elements: X, H, M0, M1, M2,

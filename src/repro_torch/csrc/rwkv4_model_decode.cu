@@ -15,8 +15,11 @@
 //
 // Weights: layer l's codes are row l of the uint8 slab (every matrix's
 // W8 bytes, W4 nibble pairs or VQ indices at a fixed offset), its vectors
-// row l of the bf16 slab; the shared scales and codebooks (leading-1
-// leaves) are aux pointers, the same for every layer.  The host turns the
+// row l of the bf16 slab, and so are the weights of a plain bf16 matrix
+// (a tree that was never packed has no uint8 slab); the table's plane of
+// a matrix picks the slab its offset indexes.  The shared scales and
+// codebooks (leading-1 leaves) are aux pointers, the same for every
+// layer.  The host turns the
 // slab manifest into a table of offsets and planes and checks it against
 // the expected shapes; the kernel parses no tree.  Offsets are 64-bit:
 // rwkv4-7b's uint8 slab passes 2^31 bytes.
@@ -46,7 +49,8 @@ struct ModelArgs {
   const bf16* b16;                         // (L, b16_row) vector slab
   long long u8_row, b16_row;               // slab row lengths (elements)
   long long vec_off[R4::kNumVecs];         // into a bf16 slab row
-  long long mat_off[R4::kNumMats];         // into a uint8 slab row
+  long long mat_off[R4::kNumMats];         // into a uint8 slab row (a
+                                           // BF16 matrix: a bf16 row)
   const void* mat_aux[R4::kNumMats];       // shared scale or codebook
   int mat_plane[R4::kNumMats];
   const bf16* st_in[R4::kNumState];        // (L, B, D) each
@@ -78,7 +82,10 @@ rwkv4_model_decode_kernel(const ModelArgs a) {
       const bf16* b16 = a.b16 + (size_t)l * a.b16_row;
       for (int v = 0; v < R4::kNumVecs; ++v) w.vec[v] = b16 + a.vec_off[v];
       for (int m = 0; m < R4::kNumMats; ++m)
-        w.mat[m] = {u8 + a.mat_off[m], a.mat_aux[m], a.mat_plane[m]};
+        w.mat[m] = {a.mat_plane[m] == repro::kPlaneBF16
+                        ? reinterpret_cast<const uint8_t*>(b16 + a.mat_off[m])
+                        : u8 + a.mat_off[m],
+                    a.mat_aux[m], a.mat_plane[m], 0};
       for (int k = 0; k < R4::kNumState; ++k) {
         st.in[k] = a.st_in[k] + l * layer_state;
         st.out[k] = a.st_out[k] + l * layer_state;
@@ -121,9 +128,12 @@ int launch_bb(int bb, const ModelArgs& a, cudaStream_t s) {
 template <bool HW>
 int launch_planes(int bb, const int* planes, const ModelArgs& a,
                   cudaStream_t s) {
-  return R4::planes_of(planes) == repro::kPlaneW8
-             ? launch_bb<repro::kPlaneW8, HW>(bb, a, s)
-             : launch_bb<R4::kPlaneAny, HW>(bb, a, s);
+  switch (R4::planes_of(planes)) {
+    case repro::kPlaneW8: return launch_bb<repro::kPlaneW8, HW>(bb, a, s);
+    case repro::kPlaneBF16: return launch_bb<repro::kPlaneBF16, HW>(bb, a, s);
+    case R4::kPlaneAny: return launch_bb<R4::kPlaneAny, HW>(bb, a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 constexpr int kNumPtrs = 6 + R4::kNumMats + 2 * R4::kNumState;
@@ -134,10 +144,12 @@ constexpr int kNumOffs = 2 + R4::kNumVecs + R4::kNumMats;
 // ptrs (kNumPtrs): x, x_out, the uint8 slab, the bf16 slab, the 7
 // matrices' shared scale / codebook in R4::Mat order, the 5 state leaves
 // in and the 5 out in R4::State order, each (L, B, D), then the EXP and
-// DIV tables (256 f32 each; both null for the exact numerics).
+// DIV tables (256 f32 each; both null for the exact numerics).  The
+// uint8 slab and a BF16 matrix's aux are null where there are none.
 // offs (kNumOffs, int64): the uint8 and bf16 slab row lengths, the 11
 // vectors' offsets in a bf16 row (R4::Vec order), the 7 matrices' offsets
-// in a uint8 row.  planes: the 7 matrices' planes.
+// in a uint8 row (a BF16 matrix's in a bf16 row).  planes: the 7
+// matrices' planes.
 extern "C" int rwkv4_model_decode(const void* const* ptrs, int n_ptrs,
                                   const long long* offs, int n_offs,
                                   const int* planes, int L, int B, int D,
@@ -153,6 +165,8 @@ extern "C" int rwkv4_model_decode(const void* const* ptrs, int n_ptrs,
   a.u8 = static_cast<const uint8_t*>(ptrs[i++]);
   a.b16 = static_cast<const bf16*>(ptrs[i++]);
   for (int m = 0; m < R4::kNumMats; ++m) {
+    if (planes[m] < repro::kPlaneW8 || planes[m] > repro::kPlaneBF16)
+      return static_cast<int>(cudaErrorInvalidValue);
     a.mat_aux[m] = ptrs[i++];
     a.mat_plane[m] = planes[m];
   }

@@ -37,6 +37,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "dpot_w8_matmul": [_P] * 6 + [_I] * 9 + [_P],
     "dpot_w8_matmul_f32x": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "dpot_w4_matmul_f32x": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "vq_matmul_f32x": [_P, _P, _P, _I, _P, _I, _I, _I, _P],
     "dpot_w4_matmul": [_P] * 6 + [_I] * 9 + [_P],
     "vq_matmul": [_P, _P, _P, _I, _P, _P] + [_I] * 9 + [_P],
     "wkv4_seq": [_P] * 14 + [_I, _I, _I, _I, _P],
@@ -46,10 +48,10 @@ SIGNATURES = {
     "wkv6_seq": [_P] * 9 + [_I] * 6 + [_P],
     "wkv6_chunked": [_P] * 8 + [_I] * 7 + [_P],
     "fused_layernorm": [_P] * 4 + [_I, _I, _F] + [_I] * 4 + [_P],
-    "rwkv6_block_decode": [_PP, _I] + [_I] * 6 + [_P],
-    "rwkv6_model_decode": [_PP, _I, _PL, _I] + [_I] * 8 + [_P],
-    "rwkv6_block_decode_grid": [_PI, _PI],
-    "rwkv6_model_decode_grid": [_PI, _PI],
+    "rwkv6_block_decode": [_PP, _I, _PI] + [_I] * 6 + [_P],
+    "rwkv6_model_decode": [_PP, _I, _PL, _I, _PI] + [_I] * 8 + [_P],
+    "rwkv6_block_decode_grid": [_PI, _PI, _PI],
+    "rwkv6_model_decode_grid": [_PI, _PI, _PI],
     "flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F, _P],
     "flash_attention_dq": [_P] * 7 + [_I] * 8 + [_F, _P],
     "flash_attention_dkv": [_P] * 8 + [_I] * 8 + [_F, _P],

@@ -14,26 +14,31 @@ bits too, and on Hopper collapse into one layer loop inside the launch.
 The sources' headers say what bounds each kernel on an H100 and how the
 design answers that.
 
-K3 and K4 run a layer's batch tile on one thread block and take W8, W4
-or VQ planes (`core/quant/serving.py`), under the exact numerics or the
-paper's hardware numerics (LUT exp and division, PWL σ, A9 activations):
+Every form takes W8, W4 or VQ planes (`core/quant/serving.py`, a mixed
+policy's layer holding several) and plain bf16 weights (a tree that was
+never packed), as the JAX kernels take packed and plain trees; a plain
+matrix in another dtype raises.  K3 and K4 run a layer's batch tile on
+one thread block, under the exact numerics or the paper's hardware
+numerics (LUT exp and division, PWL σ, A9 activations):
 K3 takes the EXP and DIV tables as `luts=`, K4 finds them as the stack's
 `_luts` aux leaves (`prepare_fused_model_params(hw=True)`).  Under the
 hardware numerics the A9 scale spans the tile's lanes, so a tile of
 bb < B lanes gives other bits than the whole batch, exactly as the TPU
 kernel body, which sees one tile, does (`fused_decode.py:249-252`); the
 plain versions split the batch into the same tiles.  K7 spreads each
-rwkv6-7b layer (220 MB of codes) over the whole card as a cooperative
-launch with grid-wide barriers between its phases, and takes W8 planes
-and the exact numerics only.  The block forms take the layer's tree, the
-model forms the `FusedLayerStack` slab form, whose manifest the wrapper
-turns into a table of offsets.
+rwkv6-7b layer (220 MB of W8 codes) over the whole card as a cooperative
+launch with grid-wide barriers between its phases, under the exact
+numerics (the JAX package has no RWKV-6 hardware numerics).  A W4 leaf
+must pair rows within a layer: `pack_leaf` pairs a (L, D) leaf such as
+time_maa_x along the layer axis, which K7 refuses, as the JAX fused paths
+cannot take it either.  The block forms take the layer's tree, the model
+forms the `FusedLayerStack` slab form, whose manifest the wrapper turns
+into a table of offsets and planes.
 
 A CPU tensor takes the plain version — the model's `block_decode` on the
 layer's weights decoded by `unpack_leaf`, exactly what the JAX kernel
 body ran, in a Python loop over layers for the model forms; a CUDA tensor
-launches the kernel or raises (the kernels take quantized planes and a
-bf16 state only; plain bf16 weights are not ported).
+launches the kernel or raises (the kernels take a bf16 state only).
 """
 from __future__ import annotations
 
@@ -60,7 +65,9 @@ VEC_KEYS = (("ln1", "scale"), ("ln1", "bias"), ("ln2", "scale"),
             ("ffn", "time_mix_k"))
 MAT_KEYS = (("att", "wr"), ("att", "wk"), ("att", "wv"), ("att", "wo"),
             ("ffn", "wr"), ("ffn", "wk"), ("ffn", "wv"))
-PLANE_IDS = {"w8": 0, "w4": 1, "vq": 2}   # csrc/common.cuh: enum Plane
+# csrc/common.cuh: enum Plane ("bf16": plain weights, never packed)
+PLANE_IDS = {"w8": 0, "w4": 1, "vq": 2, "bf16": 3}
+PLANE_NAMES = {v: k for k, v in PLANE_IDS.items()}
 MAX_BB = 8                  # batch lanes per block the kernels instantiate
 SMEM_BYTES = 232_448        # shared memory one H100 block may use (227 KB)
 HW_SCRATCH_BYTES = (512 + 3 * 33) * 4   # csrc/rwkv4_body.cuh: kHwScratch
@@ -163,24 +170,74 @@ def _aux(plane: str, aux: torch.Tensor, N: int, name: str):
     return aux.contiguous()
 
 
-def _codes_shape(plane: str, K: int, N: int):
-    return (K // 2, N) if plane == "w4" else (K, N)
+def _codes_shape(plane: str, shape: tuple, name: str):
+    """The per-layer codes shape of a matrix of per-layer `shape`: W4
+    bytes pair rows along axis -2, which must be even.  A leaf with no
+    such axis in a layer, time_maa_x (D,) for one, is one whose nibbles
+    `pack_leaf` paired along the stack's layer axis: no decode kernel
+    takes it (nor do the JAX fused paths)."""
+    if plane != "w4":
+        return tuple(shape)
+    if len(shape) < 2 or shape[-2] % 2:
+        raise ValueError(
+            f"{name}: a W4 plane pairs contraction rows within a layer, and "
+            f"this leaf's per-layer shape {tuple(shape)} has no even row "
+            "axis (its nibbles pair two layers); pack it W8, e.g. with a "
+            "PlanePolicy override")
+    return tuple(shape[:-2]) + (shape[-2] // 2, shape[-1])
 
 
-def _layer_matrix(leaf, K: int, N: int, name: str):
-    """(codes, scale or codebook, plane id) of one plane leaf."""
+def _plain_matrix(leaf, shape: tuple, name: str):
+    """Raise unless `leaf` is contiguous bf16 weights of `shape`: a plain
+    matrix in another dtype (an f32 tree) is no form the kernels take."""
+    if not torch.is_tensor(leaf) or leaf.dtype != torch.bfloat16:
+        got = leaf.dtype if torch.is_tensor(leaf) else type(leaf).__name__
+        raise TypeError(f"the decode kernels take W8, W4 or VQ planes or "
+                        f"bf16 weights; {name} is {got}")
+    if tuple(leaf.shape) != tuple(shape) or not leaf.is_contiguous():
+        raise ValueError(f"{name}: weights must be contiguous bf16 "
+                         f"{tuple(shape)}, got {tuple(leaf.shape)}")
+
+
+def _layer_matrix(leaf, shape: tuple, name: str):
+    """(codes, scale or codebook, plane id) of one matrix of per-layer
+    `shape`: a plane leaf, or plain bf16 weights, which the kernels read
+    as they are (codes the weights, aux None)."""
     plane = leaf_plane(leaf)
     if plane is None:
-        raise TypeError(f"the decode kernels take W8, W4 or VQ planes; "
-                        f"{name} is not one")
+        _plain_matrix(leaf, shape, name)
+        return leaf, None, PLANE_IDS["bf16"]
     codes = leaf[CODES_KEY[plane]]
-    want = _codes_shape(plane, K, N)
-    if (codes.shape != want or codes.dtype != torch.uint8
+    want = _codes_shape(plane, shape, name)
+    if (tuple(codes.shape) != want or codes.dtype != torch.uint8
             or not codes.is_contiguous()):
         raise ValueError(f"{name}: codes must be contiguous uint8 {want}, "
                          f"got {codes.dtype} {tuple(codes.shape)}")
     aux = leaf["codebook"] if plane == "vq" else leaf["scale"]
-    return codes, _aux(plane, aux, N, name), PLANE_IDS[plane]
+    return codes, _aux(plane, aux, shape[-1], name), PLANE_IDS[plane]
+
+
+def _k3_planes(planes):
+    """K3's and K4's plane ids of a layer's seven matrices: all plain bf16
+    or all quantized (the kernels compile no layer that mixes the two, and
+    no packed or plain tree holds one)."""
+    plain = [p == PLANE_IDS["bf16"] for p in planes]
+    if any(plain) and not all(plain):
+        raise ValueError("K3 and K4 take a layer of plain bf16 matrices or "
+                         "of quantized planes, not both: "
+                         f"{[PLANE_NAMES[p] for p in planes]}")
+    return planes
+
+
+def _out_cols(leaf, name: str) -> int:
+    """The output width of a plane leaf or plain matrix."""
+    plane = leaf_plane(leaf)
+    if plane is not None:
+        return leaf[CODES_KEY[plane]].shape[-1]
+    if not torch.is_tensor(leaf):
+        raise TypeError(f"the decode kernels take W8, W4 or VQ planes or "
+                        f"bf16 weights; {name} is {type(leaf).__name__}")
+    return leaf.shape[-1]
 
 
 def _state_in(st, shape, name: str):
@@ -195,12 +252,13 @@ def _state_in(st, shape, name: str):
 
 
 def _launch_ptrs(tensors, tail=()):
-    """The tensors' device pointers as a C array, then `tail`'s (None a
-    null pointer)."""
-    if any(t.device != tensors[0].device for t in tensors):
+    """The device pointers of `tensors`, then of `tail`, as a C array
+    (None a null pointer)."""
+    given = [t for t in tensors if t is not None]
+    if any(t.device != given[0].device for t in given):
         raise ValueError("decode kernel: operands on several devices")
-    ptrs = [t.data_ptr() for t in tensors] + [
-        None if t is None else t.data_ptr() for t in tail]
+    ptrs = [None if t is None else t.data_ptr()
+            for t in list(tensors) + list(tail)]
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
@@ -220,33 +278,29 @@ def _luts_in(luts, device):
 
 def rwkv4_block_decode(lp, st, x, *, bb: int | None = None, luts=None):
     """One layer's decode step: lp the layer's params (compute-cast, plane
-    leaves with a (1, N) scale or a codebook), st the five (B, D) state
-    leaves, x (B, D) bf16 -> (x2 (B, D), new state).  `luts`, the EXP and
-    DIV tables {"exp", "div"} (256 f32 each), selects the hardware
-    numerics."""
+    leaves with a (1, N) scale or a codebook, or plain bf16 matrices), st
+    the five (B, D) state leaves, x (B, D) bf16 -> (x2 (B, D), new
+    state).  `luts`, the EXP and DIV tables {"exp", "div"} (256 f32 each),
+    selects the hardware numerics."""
     if x.device.type == "cpu":
         return rwkv4_block_decode_plain(lp, st, x, _numerics(luts), bb=bb)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"x must be bf16, got {x.dtype}")
     B, D = x.shape
-    wk = lp["ffn"]["wk"]
-    if not is_packed_leaf(wk):
-        raise TypeError("the decode kernels take W8, W4 or VQ planes; "
-                        "ffn.wk is not one")
-    F = wk[CODES_KEY[leaf_plane(wk)]].shape[-1]
+    F = _out_cols(lp["ffn"]["wk"], "ffn.wk")
     bb = default_bb(B) if bb is None else int(bb)
     check_tile(B, bb, D, F, luts is not None)
     tabs = [None, None] if luts is None else _luts_in(luts, x.device)
     vecs = [_vec(_get(lp, p), D, ".".join(p)) for p in VEC_KEYS]
-    mats = [_layer_matrix(_get(lp, p), K, N, ".".join(p))
-            for p, (K, N) in zip(MAT_KEYS, _mat_shapes(D, F))]
+    mats = [_layer_matrix(_get(lp, p), shape, ".".join(p))
+            for p, shape in zip(MAT_KEYS, _mat_shapes(D, F))]
     states = _state_in(st, (B, D), "rwkv4_block_decode")
     outs = [torch.empty((B, D), dtype=torch.bfloat16, device=x.device)
             for _ in range(1 + len(STATE_KEYS))]
     arr = _launch_ptrs([x.contiguous(), outs[0], *vecs,
                         *(m[0] for m in mats), *(m[1] for m in mats),
                         *states, *outs[1:]], tabs)
-    planes = (ctypes.c_int * len(mats))(*(m[2] for m in mats))
+    planes = (ctypes.c_int * len(mats))(*_k3_planes([m[2] for m in mats]))
     check(load_library().rwkv4_block_decode(
         arr, len(arr), planes, B, D, F, bb, stream_ptr(x)),
         "rwkv4_block_decode")
@@ -258,12 +312,14 @@ rwkv4_block_decode.launches = 0
 
 
 class MatEntry(NamedTuple):
-    """One matrix in K4's table: its codes' offset in a uint8 slab row,
-    its scale or codebook (an aux leaf, shared by every layer) and its
-    plane."""
+    """One matrix in a model form's table: its offset in a row of `slab`
+    (the codes' in "uint8", or plain bf16 weights' in "bfloat16"), its
+    scale or codebook (an aux leaf, shared by every layer; None for plain
+    weights) and its plane id."""
     offset: int
-    aux: torch.Tensor
+    aux: torch.Tensor | None
     plane: int
+    slab: str
 
 
 def _entry(entries: dict, path, kind: str, used: set):
@@ -285,6 +341,49 @@ def _slab_offset(entries: dict, path, dtype: str, shape, used: set) -> int:
         raise ValueError(f"FusedLayerStack: {'.'.join(path)} is {key} "
                          f"{tuple(got)}, expected {dtype} {shape}")
     return off
+
+
+def _stack_plane(blocks: FusedLayerStack, entries: dict, path) -> str:
+    """The form of the matrix at `path` in a slab stack: its plane, or
+    "bf16" for plain weights (one slab leaf); raises on anything else."""
+    if path in entries:
+        e = entries[path]
+        if e[0] == "slab" and e[1] == "bfloat16":
+            return "bf16"
+        raise TypeError(f"the decode kernels take W8, W4 or VQ planes or "
+                        f"bf16 weights; {'.'.join(path)} is "
+                        f"{e[1] if e[0] == 'slab' else 'a shared aux leaf'}")
+    plane = leaf_plane({p[-1]: None for p in blocks.tdef if p[:-1] == path})
+    if plane is None:
+        raise TypeError(f"the decode kernels take W8, W4 or VQ planes or "
+                        f"bf16 weights; {'.'.join(path)} is neither")
+    return plane
+
+
+def _stack_matrix(blocks: FusedLayerStack, entries: dict, path,
+                  shape: tuple, used: set) -> MatEntry:
+    """The table entry of the matrix at `path`, checked against its
+    per-layer `shape`; its scale or codebook must be an aux leaf."""
+    name = ".".join(path)
+    plane = _stack_plane(blocks, entries, path)
+    if plane == "bf16":
+        off = _slab_offset(entries, path, "bfloat16", tuple(shape), used)
+        return MatEntry(off, None, PLANE_IDS["bf16"], "bfloat16")
+    off = _slab_offset(entries, path + (CODES_KEY[plane],), "uint8",
+                       _codes_shape(plane, shape, name), used)
+    aux_path = path + ("codebook" if plane == "vq" else "scale",)
+    aux = _aux(plane, blocks.aux[_entry(entries, aux_path, "aux", used)[1]],
+               shape[-1], ".".join(aux_path))
+    return MatEntry(off, aux, PLANE_IDS[plane], "uint8")
+
+
+def _stack_slabs(blocks: FusedLayerStack):
+    """The uint8 slab (None when no leaf is packed) and the bf16 slab, each
+    contiguous."""
+    u8, b16 = blocks.slabs.get("uint8"), blocks.slabs["bfloat16"]
+    if not all(t.is_contiguous() for t in (u8, b16) if t is not None):
+        raise ValueError("FusedLayerStack slabs must be contiguous")
+    return u8, b16
 
 
 def stack_luts(blocks: FusedLayerStack):
@@ -309,7 +408,8 @@ def stack_luts(blocks: FusedLayerStack):
 
 def stack_table(blocks: FusedLayerStack, D: int):
     """The K4 table of a slab stack, checked against the expected shapes:
-    (F, the vectors' offsets in a bf16 slab row, [MatEntry] per matrix).
+    (F, the vectors' offsets in a bf16 slab row, [MatEntry] per matrix:
+    a plane's codes in the uint8 slab, plain weights in the bf16 slab).
     Raises on a leaf the kernel does not take or a shape it does not
     expect, and unless every scale and codebook is an aux leaf shared by
     every layer (a one-layer stack keeps them in its slabs).  A complete
@@ -318,33 +418,17 @@ def stack_table(blocks: FusedLayerStack, D: int):
     used = set()
     if stack_luts(blocks) is not None:
         used.update(("_luts", k) for k in LUT_KEYS)
-    entry = lambda path, kind: _entry(entries, path, kind, used)
-    slab_offset = lambda path, dtype, shape: _slab_offset(
-        entries, path, dtype, shape, used)
-
-    def plane_of(path):
-        keys = {p[-1]: None for p in blocks.tdef if p[:-1] == path}
-        plane = leaf_plane(keys)
-        if plane is None:
-            raise TypeError(f"the decode kernels take W8, W4 or VQ planes; "
-                            f"{'.'.join(path)} is not one")
-        return plane
-
-    wk_plane = plane_of(("ffn", "wk"))
-    wk_codes = entries.get(("ffn", "wk", CODES_KEY[wk_plane]))
-    if wk_codes is None or wk_codes[0] != "slab":
+    wk_plane = _stack_plane(blocks, entries, ("ffn", "wk"))
+    wk = entries.get(("ffn", "wk") if wk_plane == "bf16"
+                     else ("ffn", "wk", CODES_KEY[wk_plane]))
+    if wk is None or wk[0] != "slab":
         raise ValueError("FusedLayerStack: ffn.wk codes must be a slab leaf")
-    F = wk_codes[3][-1]
-    vec_offs = [slab_offset(p, "bfloat16", (D,)) for p in VEC_KEYS]
-    mats = []
-    for path, (K, N) in zip(MAT_KEYS, _mat_shapes(D, F)):
-        plane = plane_of(path)
-        off = slab_offset(path + (CODES_KEY[plane],), "uint8",
-                          _codes_shape(plane, K, N))
-        aux_path = path + ("codebook" if plane == "vq" else "scale",)
-        aux = _aux(plane, blocks.aux[entry(aux_path, "aux")[1]], N,
-                   ".".join(aux_path))
-        mats.append(MatEntry(off, aux, PLANE_IDS[plane]))
+    F = wk[3][-1]
+    vec_offs = [_slab_offset(entries, p, "bfloat16", (D,), used)
+                for p in VEC_KEYS]
+    mats = [_stack_matrix(blocks, entries, path, shape, used)
+            for path, shape in zip(MAT_KEYS, _mat_shapes(D, F))]
+    _k3_planes([m.plane for m in mats])
     extra = set(blocks.tdef) - used
     if extra:
         raise ValueError(f"FusedLayerStack holds leaves K4 does not take: "
@@ -355,9 +439,9 @@ def stack_table(blocks: FusedLayerStack, D: int):
 def rwkv4_model_decode(blocks: FusedLayerStack, state, x, *,
                        bb: int | None = None):
     """The whole L-layer decode step: blocks the slab form of the stacked
-    layers (`fuse_layer_stack` of the compute-cast tree, with `_luts` for
-    the hardware numerics), state the five (L, B, D) leaves, x (B, D)
-    bf16 -> (x out (B, D), new state)."""
+    layers (`fuse_layer_stack` of the compute-cast tree, packed or plain,
+    with `_luts` for the hardware numerics), state the five (L, B, D)
+    leaves, x (B, D) bf16 -> (x out (B, D), new state)."""
     if not isinstance(blocks, FusedLayerStack):
         raise TypeError("rwkv4_model_decode takes a FusedLayerStack "
                         "(core/quant/serving.py:fuse_layer_stack)")
@@ -372,9 +456,7 @@ def rwkv4_model_decode(blocks: FusedLayerStack, state, x, *,
     bb = default_bb(B) if bb is None else int(bb)
     check_tile(B, bb, D, F, luts is not None)
     tabs = [None, None] if luts is None else _luts_in(luts, x.device)
-    u8, b16 = blocks.slabs["uint8"], blocks.slabs["bfloat16"]
-    if not (u8.is_contiguous() and b16.is_contiguous()):
-        raise ValueError("FusedLayerStack slabs must be contiguous")
+    u8, b16 = _stack_slabs(blocks)
     states = _state_in(state, (L, B, D), "rwkv4_model_decode")
     x_out = torch.empty((B, D), dtype=torch.bfloat16, device=x.device)
     outs = [torch.empty((L, B, D), dtype=torch.bfloat16, device=x.device)
@@ -382,7 +464,8 @@ def rwkv4_model_decode(blocks: FusedLayerStack, state, x, *,
     arr = _launch_ptrs([x.contiguous(), x_out, u8, b16,
                         *(m.aux for m in mats), *states, *outs], tabs)
     offs = (ctypes.c_longlong * (2 + len(vec_offs) + len(mats)))(
-        u8.shape[1], b16.shape[1], *vec_offs, *(m.offset for m in mats))
+        0 if u8 is None else u8.shape[1], b16.shape[1], *vec_offs,
+        *(m.offset for m in mats))
     planes = (ctypes.c_int * len(mats))(*(m.plane for m in mats))
     check(load_library().rwkv4_model_decode(
         arr, len(arr), offs, len(offs), planes, L, B, D, F, bb,
@@ -396,12 +479,12 @@ rwkv4_model_decode.launches = 0
 
 # ---------------------------------------------------------------------------
 # RWKV-6: kernel K7 in its block form (one layer a launch) and its model
-# form (every layer in one launch), W8 planes only
+# form (every layer in one launch)
 # ---------------------------------------------------------------------------
 
 # the RWKV-6 decode state leaves, in the order the kernels take them
 RWKV6_STATE_KEYS = ("att_x", "ffn_x", "wkv_s")
-# a layer's bf16 vectors and W8 planes, in the kernels' order
+# a layer's bf16 vectors and matrices, in the kernels' order
 # (csrc/rwkv6_body.cuh: enum Vec, enum Mat)
 RWKV6_VEC_KEYS = (("ln1", "scale"), ("ln1", "bias"), ("ln2", "scale"),
                   ("ln2", "bias"), ("att", "time_decay"),
@@ -416,7 +499,7 @@ RWKV6_MAX_B = 8             # batch lanes one K7 launch carries
 
 
 def _rwkv6_mat_shapes(D: int, F: int, H: int, N: int):
-    """Each plane's per-layer codes shape, in RWKV6_MAT_KEYS order."""
+    """Each matrix's per-layer shape, in RWKV6_MAT_KEYS order."""
     from repro_torch.models.rwkv6 import MAA_RANK, TD_RANK
     return ((D,), (5, D), (H, N), (D, 5 * MAA_RANK), (5, MAA_RANK, D),
             (D, TD_RANK), (TD_RANK, D)) + ((D, D),) * 6 + ((D, F), (F, D))
@@ -449,10 +532,35 @@ def _rwkv6_tile(B: int, bb):
     return bb
 
 
-def _w8_only(leaf, name: str):
-    if leaf_plane(leaf) != "w8":
-        raise TypeError(f"K7 takes W8 planes only; {name} is "
-                        f"{leaf_plane(leaf) or 'not a plane'}")
+# bytes K7 reads at a time from a matrix of each form (4 columns of codes,
+# or of bf16 weights), to which its codes must be aligned
+K7_ALIGN = {"w8": 4, "w4": 4, "vq": 4, "bf16": 8}
+
+
+def _k7_info(planes, auxes):
+    """K7's matrix info, 2·15 ints: the planes, then the codebooks'
+    entries (0 unless VQ)."""
+    lens = [a.numel() if p == PLANE_IDS["vq"] else 0
+            for p, a in zip(planes, auxes)]
+    return (ctypes.c_int * (2 * len(planes)))(*planes, *lens)
+
+
+def rwkv6_layer_table(lp, D: int, F: int, H: int, N: int):
+    """K7-block's matrices of one layer's tree, checked against the
+    expected shapes: (codes or bf16 weights, scale or codebook or None,
+    plane id) per matrix in RWKV6_MAT_KEYS order.  Raises on a leaf the
+    kernel does not take (a W4 leaf paired across layers among them,
+    `_codes_shape`) or one not aligned for its loads."""
+    mats = []
+    for path, shape in zip(RWKV6_MAT_KEYS, _rwkv6_mat_shapes(D, F, H, N)):
+        name = ".".join(path)
+        m = _layer_matrix(_get(lp, path), shape, name)
+        need = K7_ALIGN[PLANE_NAMES[m[2]]]
+        if m[0].data_ptr() % need:
+            raise ValueError(f"{name}: K7 reads {need} bytes of it at a "
+                             f"time; it must be {need}-byte aligned")
+        mats.append(m)
+    return mats
 
 
 def _rwkv6_state(st, shapes, name: str):
@@ -466,22 +574,33 @@ def _rwkv6_state(st, shapes, name: str):
     return out
 
 
-def _coop_grid(which: str, grid):
-    """The cooperative grid of K7's `which` form: the most blocks that fit
-    on the card at once, or `grid` when asked; raises if the device has
-    no cooperative launch or the grid would not fit."""
-    coop, most = ctypes.c_int(0), ctypes.c_int(0)
-    fn = getattr(load_library(), f"rwkv6_{which}_decode_grid")
-    check(fn(ctypes.byref(coop), ctypes.byref(most)),
-          f"rwkv6_{which}_decode_grid")
-    if not coop.value:
-        raise RuntimeError("K7 needs cooperative launch, which this device "
-                           "does not offer")
-    grid = most.value if grid is None else int(grid)
-    if not 1 <= grid <= most.value:
+# (form, the 15 matrix planes, device index) -> the most K7 blocks of the
+# instance those planes select that are resident at once
+_COOP_GRIDS: dict = {}
+
+
+def _coop_grid(which: str, grid, info, device):
+    """The cooperative grid of K7's `which` form for the instance that the
+    matrix planes in `info` (`_k7_info`) select: the most blocks that fit
+    on the card at once (queried once per form, planes and device), or
+    `grid` when asked; raises if the device has no cooperative launch or
+    the grid would not fit."""
+    key = (which, tuple(info[:len(RWKV6_MAT_KEYS)]), device.index)
+    if key not in _COOP_GRIDS:
+        coop, most = ctypes.c_int(0), ctypes.c_int(0)
+        fn = getattr(load_library(), f"rwkv6_{which}_decode_grid")
+        check(fn(info, ctypes.byref(coop), ctypes.byref(most)),
+              f"rwkv6_{which}_decode_grid")
+        if not coop.value:
+            raise RuntimeError("K7 needs cooperative launch, which this "
+                               "device does not offer")
+        _COOP_GRIDS[key] = most.value
+    most = _COOP_GRIDS[key]
+    grid = most if grid is None else int(grid)
+    if not 1 <= grid <= most:
         raise ValueError(f"K7 {which}: a cooperative grid of {grid} blocks "
-                         f"does not fit; at most {most.value} are resident "
-                         "at once")
+                         f"does not fit; at most {most} are resident at "
+                         "once")
     return grid
 
 
@@ -518,7 +637,8 @@ def rwkv6_model_decode_plain(blocks: FusedLayerStack, state, x, cfg):
 def rwkv6_block_decode(lp, st, x, cfg, *, grid: int | None = None,
                        bb: int | None = None):
     """One RWKV-6 layer's decode step: lp the layer's params (compute-cast,
-    W8 plane leaves with their shared scales broadcast), st the layer's
+    W8, W4 or VQ plane leaves with their shared scales and codebooks
+    broadcast, or plain bf16 matrices), st the layer's
     att_x, ffn_x (B, D) and wkv_s (B, H, N, N) bf16 state, x (B, D) bf16
     -> (x2 (B, D), new state).  `grid` caps the cooperative grid (default:
     every block that fits); `bb` is the batch tile (`_rwkv6_tile`), one
@@ -530,35 +650,23 @@ def rwkv6_block_decode(lp, st, x, cfg, *, grid: int | None = None,
     B, D, F, H, N = _rwkv6_dims(cfg, x)
     bb = _rwkv6_tile(B, bb)
     vecs = [_vec(_get(lp, p), D, ".".join(p)) for p in RWKV6_VEC_KEYS]
-    codes, scales = [], []
-    for path, shape in zip(RWKV6_MAT_KEYS, _rwkv6_mat_shapes(D, F, H, N)):
-        name = ".".join(path)
-        leaf = _get(lp, path)
-        _w8_only(leaf, name)
-        c = leaf["packed"]
-        if (tuple(c.shape) != shape or c.dtype != torch.uint8
-                or not c.is_contiguous()):
-            raise ValueError(f"{name}: codes must be contiguous uint8 "
-                             f"{shape}, got {c.dtype} {tuple(c.shape)}")
-        if c.data_ptr() % 4:
-            raise ValueError(f"{name}: K7 reads codes four bytes at a "
-                             "time; the codes must be 4-byte aligned")
-        codes.append(c)
-        scales.append(_aux("w8", leaf["scale"], shape[-1], name))
+    mats = rwkv6_layer_table(lp, D, F, H, N)
+    info = _k7_info([m[2] for m in mats], [m[1] for m in mats])
     states = _rwkv6_state(st, ((B, D), (B, D), (B, H, N, N)),
                           "rwkv6_block_decode")
-    grid = _coop_grid("block", grid)
+    grid = _coop_grid("block", grid, info, x.device)
     ins = [x.contiguous(), *states]
     outs = [torch.empty_like(t) for t in ins]
     # lanes >= bb of the scratch are never written, so the tiles share it
     scratch = _rwkv6_scratch(D, F, x.device)
     for i in range(0, B, bb):
         tile = [t[i:i + bb] for t in ins + outs]      # batch-major: contiguous
-        arr = _launch_ptrs([tile[0], tile[len(ins)], *vecs, *codes, *scales,
+        arr = _launch_ptrs([tile[0], tile[len(ins)], *vecs,
+                            *(m[0] for m in mats), *(m[1] for m in mats),
                             *tile[1:len(ins)], *tile[len(ins) + 1:],
                             scratch])
         check(load_library().rwkv6_block_decode(
-            arr, len(arr), bb, D, F, H, N, grid, stream_ptr(x)),
+            arr, len(arr), info, bb, D, F, H, N, grid, stream_ptr(x)),
             "rwkv6_block_decode")
         rwkv6_block_decode.launches += 1
     return outs[0], dict(zip(RWKV6_STATE_KEYS, outs[1:]))
@@ -570,36 +678,32 @@ rwkv6_block_decode.launches = 0
 def rwkv6_stack_table(blocks: FusedLayerStack, D: int, F: int, H: int,
                       N: int):
     """K7-model's table of a slab stack, checked against the expected
-    shapes: (the vectors' offsets in a bf16 slab row, the planes' codes
-    offsets in a uint8 slab row, their shared f32 scales).  Raises on a
-    leaf the kernel does not take, on any plane other than W8, and unless
-    every scale is an aux leaf shared by every layer (a one-layer stack
-    keeps them in its slabs)."""
+    shapes: (the vectors' offsets in a bf16 slab row, [MatEntry] per
+    matrix: a W8, W4 or VQ plane's codes in the uint8 slab with its shared
+    scale or codebook, plain weights in the bf16 slab).  Raises on a leaf
+    the kernel does not take (a W4 leaf paired across layers among them,
+    `_codes_shape`), and unless every scale and codebook is an aux leaf
+    shared by every layer (a one-layer stack keeps them in its slabs)."""
     entries = dict(zip(blocks.tdef, blocks.manifest))
-    extra = {p for p in blocks.tdef
-             if p[:-1] not in RWKV6_MAT_KEYS and p not in RWKV6_VEC_KEYS}
+    extra = {p for p in blocks.tdef if p[:-1] not in RWKV6_MAT_KEYS
+             and p not in RWKV6_MAT_KEYS and p not in RWKV6_VEC_KEYS}
     if extra:
         raise ValueError(f"FusedLayerStack holds leaves K7 does not take: "
                          f"{sorted('.'.join(p) for p in extra)}")
     used = set()
     vec_offs = [_slab_offset(entries, p, "bfloat16", (D,), used)
                 for p in RWKV6_VEC_KEYS]
-    mat_offs, scales = [], []
-    for path, shape in zip(RWKV6_MAT_KEYS, _rwkv6_mat_shapes(D, F, H, N)):
-        _w8_only({p[-1]: None for p in blocks.tdef if p[:-1] == path},
-                 ".".join(path))
-        mat_offs.append(_slab_offset(entries, path + ("packed",), "uint8",
-                                     shape, used))
-        aux = _entry(entries, path + ("scale",), "aux", used)[1]
-        scales.append(_aux("w8", blocks.aux[aux], shape[-1],
-                           ".".join(path) + ".scale"))
-    return vec_offs, mat_offs, scales
+    mats = [_stack_matrix(blocks, entries, path, shape, used)
+            for path, shape in zip(RWKV6_MAT_KEYS,
+                                   _rwkv6_mat_shapes(D, F, H, N))]
+    return vec_offs, mats
 
 
 def rwkv6_model_decode(blocks: FusedLayerStack, state, x, cfg, *,
                        grid: int | None = None, bb: int | None = None):
     """The whole L-layer RWKV-6 decode step: blocks the slab form of the
-    stacked W8 layers (`fuse_layer_stack` of the compute-cast tree), state
+    stacked layers (`fuse_layer_stack` of the compute-cast tree, packed or
+    plain), state
     att_x, ffn_x (L, B, D) and wkv_s (L, B, H, N, N) bf16, x (B, D) bf16
     -> (x out (B, D), new state).  `bb` is the batch tile (`_rwkv6_tile`),
     one launch a tile; a tile's state is a strided view of the whole
@@ -614,31 +718,31 @@ def rwkv6_model_decode(blocks: FusedLayerStack, state, x, cfg, *,
     B, D, F, H, N = _rwkv6_dims(cfg, x)
     bb = _rwkv6_tile(B, bb)
     L = blocks.n_layers
-    vec_offs, mat_offs, scales = rwkv6_stack_table(blocks, D, F, H, N)
-    u8, b16 = blocks.slabs["uint8"], blocks.slabs["bfloat16"]
-    if not (u8.is_contiguous() and b16.is_contiguous()):
-        raise ValueError("FusedLayerStack slabs must be contiguous")
-    if u8.shape[1] % 4 or any(o % 4 for o in mat_offs):
-        raise ValueError("K7 reads codes four bytes at a time: the uint8 "
-                         "slab row and every plane offset must be multiples "
-                         "of 4")
+    vec_offs, mats = rwkv6_stack_table(blocks, D, F, H, N)
+    u8, b16 = _stack_slabs(blocks)
+    rows = (0 if u8 is None else u8.shape[1], b16.shape[1])
+    if any(r % 4 for r in rows) or any(m.offset % 4 for m in mats):
+        raise ValueError("K7 reads four columns at a time (four code bytes "
+                         "or bf16 weights): the slab rows and every matrix "
+                         "offset must be multiples of 4")
+    info = _k7_info([m.plane for m in mats], [m.aux for m in mats])
     states = _rwkv6_state(state, ((L, B, D), (L, B, D), (L, B, H, N, N)),
                           "rwkv6_model_decode")
-    grid = _coop_grid("model", grid)
+    grid = _coop_grid("model", grid, info, x.device)
     x_in = x.contiguous()
     x_out = torch.empty_like(x)
     outs = [torch.empty_like(s) for s in states]
     # lanes >= bb of the scratch are never written, so the tiles share it
     scratch = _rwkv6_scratch(D, F, x.device)
-    offs = (ctypes.c_longlong * (2 + len(vec_offs) + len(mat_offs)))(
-        u8.shape[1], b16.shape[1], *vec_offs, *mat_offs)
+    offs = (ctypes.c_longlong * (2 + len(vec_offs) + len(mats)))(
+        *rows, *vec_offs, *(m.offset for m in mats))
     for i in range(0, B, bb):
         lanes = [s[:, i:i + bb] for s in states + outs]
         arr = _launch_ptrs([x_in[i:i + bb], x_out[i:i + bb], u8, b16,
-                            *scales, *lanes, scratch])
+                            *(m.aux for m in mats), *lanes, scratch])
         check(load_library().rwkv6_model_decode(
-            arr, len(arr), offs, len(offs), L, bb, B, D, F, H, N, grid,
-            stream_ptr(x)), "rwkv6_model_decode")
+            arr, len(arr), offs, len(offs), info, L, bb, B, D, F, H, N,
+            grid, stream_ptr(x)), "rwkv6_model_decode")
         rwkv6_model_decode.launches += 1
     return x_out, dict(zip(RWKV6_STATE_KEYS, outs))
 

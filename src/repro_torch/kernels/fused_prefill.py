@@ -16,9 +16,10 @@ only, so a row's bits never depend on M.  The wrappers pass the plan, the
 decode table (`decode_table`, cached per device) and, when K is cut, an
 f32 workspace for the slices' partials.  The serving path calls them for
 every prefill matmul (M = B·C) and for the prefill and decode heads (M =
-B).  `dpot_w8_matmul_f32x` is K5 for an f32 x, returning f32 (the TPU
-kernel's `result_type(x, dt)`): under the hardware numerics att.wo's
-input is f32; it keeps a CUDA-core loop.
+B).  `dpot_w8_matmul_f32x`, `dpot_w4_matmul_f32x` and `vq_matmul_f32x`
+are the three for an f32 x, returning f32 (the TPU kernels'
+`result_type(x, dt)`): under the hardware numerics att.wo's input is
+f32; they keep a CUDA-core loop.
 
 A CPU tensor takes the plain version, `x @ unpack_leaf(leaf).to(bf16)`; a
 CUDA tensor launches the kernel or raises.
@@ -250,18 +251,64 @@ def vq_matmul(x: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+def dpot_w4_matmul_f32x(x: torch.Tensor, wq4: torch.Tensor,
+                        scale: torch.Tensor) -> torch.Tensor:
+    """K5-W4's f32-activation form: x (M, K) f32 @ the W4 plane -> (M, N)
+    f32, the bf16 weights promoted and the f32 sum not rounded."""
+    if x.device.type == "cpu":
+        return dpot_w4_matmul_plain(x, wq4, scale)
+    scale = scale.reshape(-1)
+    if x.shape[1] % 2:
+        raise ValueError(f"dpot_w4_matmul_f32x: K={x.shape[1]} must be even")
+    M, K, N = _check_operands("dpot_w4_matmul_f32x", x, wq4, scale,
+                              x.shape[1] // 2, torch.float32, wq4.shape[1],
+                              (torch.float32,))
+    x, scale = x.contiguous(), scale.contiguous()
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    check(load_library().dpot_w4_matmul_f32x(
+        x.data_ptr(), wq4.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        M, K, N, stream_ptr(x)), "dpot_w4_matmul_f32x")
+    dpot_w4_matmul_f32x.launches += 1
+    return out
+
+
+def vq_matmul_f32x(x: torch.Tensor, idx: torch.Tensor,
+                   codebook: torch.Tensor) -> torch.Tensor:
+    """K5-VQ's f32-activation form: x (M, K) f32 @ codebook[idx] -> (M, N)
+    f32, the bf16 weights promoted and the f32 sum not rounded."""
+    if x.device.type == "cpu":
+        return vq_matmul_plain(x, idx, codebook)
+    cb = codebook.reshape(-1)
+    M, K, N = _check_operands("vq_matmul_f32x", x, idx, cb, x.shape[1],
+                              torch.bfloat16, None, (torch.float32,))
+    C = cb.numel()
+    if not 1 <= C <= 256:
+        raise ValueError(f"vq_matmul_f32x: codebook of {C} entries; uint8 "
+                         "indices need 1..256")
+    x, cb = x.contiguous(), cb.contiguous()
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    check(load_library().vq_matmul_f32x(
+        x.data_ptr(), idx.data_ptr(), cb.data_ptr(), C, out.data_ptr(),
+        M, K, N, stream_ptr(x)), "vq_matmul_f32x")
+    vq_matmul_f32x.launches += 1
+    return out
+
+
 dpot_w8_matmul.launches = 0
 dpot_w8_matmul_f32x.launches = 0
 dpot_w4_matmul.launches = 0
+dpot_w4_matmul_f32x.launches = 0
 vq_matmul.launches = 0
+vq_matmul_f32x.launches = 0
 
 
 def chunk_matmul(x: torch.Tensor, leaf, dt) -> torch.Tensor:
     """`x @ leaf` over a (..., K) chunk tensor, plane aware: plain leaves
     take the torch matmul (as the JAX package leaves them to XLA); a plane
     leaf flattens the chunk to (S·C, K) and runs its kernel (K5, K5-W4 or
-    K5-VQ).  x is in the compute dtype `dt`, or f32 (the result then f32,
-    the weights promoted, as JAX's matmul promotes them)."""
+    K5-VQ, or their f32-x forms).  x is in the compute dtype `dt`, or f32
+    (the result then f32, the weights promoted, as JAX's matmul promotes
+    them)."""
     plane = leaf_plane(leaf)
     if plane is None:
         return x @ leaf.to(x.dtype)
@@ -269,14 +316,16 @@ def chunk_matmul(x: torch.Tensor, leaf, dt) -> torch.Tensor:
         raise TypeError(f"chunk_matmul: x is {x.dtype}, compute dtype {dt}")
     lead, K = x.shape[:-1], x.shape[-1]
     xf = x.reshape(-1, K)
+    f32x = x.dtype == torch.float32
     if plane == "w4":
-        out = dpot_w4_matmul(xf, leaf["packed4"], leaf["scale"])
+        fn = dpot_w4_matmul_f32x if f32x else dpot_w4_matmul
+        out = fn(xf, leaf["packed4"], leaf["scale"])
     elif plane == "vq":
-        out = vq_matmul(xf, leaf["vq_idx"], leaf["codebook"])
-    elif x.dtype == torch.float32:
-        out = dpot_w8_matmul_f32x(xf, leaf["packed"], leaf["scale"])
+        fn = vq_matmul_f32x if f32x else vq_matmul
+        out = fn(xf, leaf["vq_idx"], leaf["codebook"])
     else:
-        out = dpot_w8_matmul(xf, leaf["packed"], leaf["scale"])
+        fn = dpot_w8_matmul_f32x if f32x else dpot_w8_matmul
+        out = fn(xf, leaf["packed"], leaf["scale"])
     return out.reshape(*lead, out.shape[-1])
 
 

@@ -12,7 +12,8 @@ rwkv4, K7-block for rwkv6), `--fused model` through one launch for all
 layers (K4, K7-model), each with the head through K5; `--fused-prefill`
 absorbs prompt chunks through K5 and the masked WKV kernel (K2 for rwkv4,
 K6 for rwkv6).  Without them the engine runs the plain per-op PyTorch
-path.  rwkv6's kernels take W8 planes only.  `--quantized` packs every matmul weight Δ-PoT W8;
+path.  The kernels take every weight form: `--quantized` packs every
+matmul weight Δ-PoT W8, without it they read the plain bf16 weights;
 per-tensor planes (W4, VQ) are chosen through
 `ServingEngine(plane_policy=)`, as in the JAX package.  The device
 defaults to "cuda" and raises without a GPU.

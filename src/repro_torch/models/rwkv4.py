@@ -251,8 +251,9 @@ def _lut_operands(device, n_layers: int | None = None):
 
 def decode_step_fused(params, state, tokens, pos, cfg: ModelConfig, *,
                       hw: bool = False):
-    """Kernel decode: one K3 launch per layer, the head through K5, the
-    packed W8 leaves decoded inside the kernels; `hw` passes the EXP and
+    """Kernel decode: one K3 launch per layer, the head through K5 (or a
+    torch matmul when plain), the plane leaves decoded inside the kernels
+    and plain bf16 matrices read as they are; `hw` passes the EXP and
     DIV tables to K3.  Embed, ln0 and ln_f stay plain torch, as the JAX
     package leaves them outside any kernel."""
     del pos

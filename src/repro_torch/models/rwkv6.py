@@ -217,8 +217,10 @@ def decode_step(params, state, tokens, pos, cfg: ModelConfig):
 def decode_step_fused(params, state, tokens, pos, cfg: ModelConfig, *,
                       bb: int | None = None):
     """Kernel decode: one K7 launch per layer and batch tile of `bb` lanes
-    (default: the largest divisor of B up to 8), the head through K5, the
-    W8 planes decoded inside the kernels.  Embed, ln0 and ln_f stay plain
+    (default: the largest divisor of B up to 8), the head through K5 (or
+    a torch matmul when plain), the W8, W4 or VQ planes decoded inside the
+    kernels, plain bf16 matrices read as they are.  Embed, ln0 and ln_f
+    stay plain
     torch, as the JAX package leaves them outside any kernel."""
     del pos
     dt = getattr(torch, cfg.dtype)

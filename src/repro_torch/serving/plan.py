@@ -148,7 +148,9 @@ def build_plan(model: Model | str, *, smoke: bool = True,
     plane_policy  — a `PlanePolicy` choosing W8 / W4 / VQ per tensor
                     (needs quantized=True); None packs everything W8
     fused_decode  — None/False (per-op) | "block" (K3 or K7 per layer) |
-                    "model" (one K4 or K7 launch for all layers)
+                    "model" (one K4 or K7 launch for all layers); the
+                    kernels take the packed tree of any plane policy and
+                    the plain bf16 tree of quantized=False alike
     fused_prefill — False (per-op loop) | True (chunked: K5 + K2 or K6)
     device        — "cuda" (default) or "cpu"; a missing GPU raises
     """

@@ -32,7 +32,10 @@ step of the output's type plus `_ln_floor` (the f32 sum-order bound of
 the row's mean, variance and rsqrt, carried to each output).  The RWKV
 smoke forwards on the card hold their logits to the plain path on the
 card by the CPU tests' rule (max |d| <= 2^-5 max|ref|, mean |d| <= 2^-8
-mean|ref|).
+mean|ref|).  The other weight forms (K3 and K4 on plain bf16 weights,
+K7 on MIXED, W4, VQ and plain bf16 trees, K5-W4 and K5-VQ with an f32 x)
+hold the rules of their kernel's W8 form; their model forms equal L
+block launches bit for bit.
 """
 import numpy as np
 import pytest
@@ -505,25 +508,31 @@ def test_rwkv6_model_decode_equals_block_launches(cuda, wide6):
 
 
 def test_rwkv6_kernels_take_w8_only(cuda):
-    """K7 refuses W4 and VQ planes and a slab stack with a leaf it does not
-    know, on card tensors, before launching."""
+    """K7 takes every plane and plain bf16 weights now; what it still
+    refuses, on card tensors and before launching: a plain matrix in f32,
+    a W4 leaf whose nibbles pair two layers (PLANE_W4's time_maa_x) and a
+    slab stack with a leaf it does not know."""
+    from repro_torch.core.quant.policy import PLANE_W4
     from repro_torch.core.quant.serving import fuse_layer_stack
     model = get_model("rwkv6-7b", smoke=True)
     cfg = model.cfg
     st, x = _state6(cfg, (cfg.n_layers, 2), 10)
+    st0 = {k: v[0] for k, v in st.items()}
     before = (rwkv6_block_decode.launches, rwkv6_model_decode.launches)
-    for plane in ("w4", "vq"):
-        policy = PlanePolicy(default="w8",
-                             overrides=((r"\['ffn'\]\['wv'\]", plane),))
-        params = model.cast_params(pack_params(model.init_params(0, cuda),
-                                               policy))
-        stack = fuse_layer_stack(params["blocks"], cfg.n_layers)
-        with pytest.raises(TypeError, match="W8 planes only"):
-            rwkv6_model_decode(stack, st, x, cfg)
-        lp = _layer(broadcast_packed_scales(params["blocks"],
-                                            cfg.n_layers), 0)
-        with pytest.raises(TypeError, match="W8 planes only"):
-            rwkv6_block_decode(lp, {k: v[0] for k, v in st.items()}, x, cfg)
+    plain = model.cast_params(model.init_params(0, cuda))
+    att = {**plain["blocks"]["att"], "wg": plain["blocks"]["att"]["wg"].float()}
+    f32 = {**plain["blocks"], "att": att}
+    with pytest.raises(TypeError, match="att.wg is torch.float32"):
+        rwkv6_block_decode(_layer(f32, 0), st0, x, cfg)
+    with pytest.raises(TypeError, match="att.wg is float32"):
+        rwkv6_model_decode(fuse_layer_stack(f32, cfg.n_layers), st, x, cfg)
+    w4 = model.cast_params(pack_params(model.init_params(0, cuda), PLANE_W4))
+    lp = _layer(broadcast_packed_scales(w4["blocks"], cfg.n_layers), 0)
+    with pytest.raises(ValueError, match="time_maa_x.*pairs contraction"):
+        rwkv6_block_decode(lp, st0, x, cfg)
+    with pytest.raises(ValueError, match="time_maa_x.*pairs contraction"):
+        rwkv6_model_decode(fuse_layer_stack(w4["blocks"], cfg.n_layers), st,
+                           x, cfg)
     params = model.cast_params(pack_params(model.init_params(0, cuda)))
     extra = fuse_layer_stack(
         {**params["blocks"],
@@ -537,7 +546,8 @@ def test_rwkv6_kernels_take_w8_only(cuda):
 def test_rwkv6_raises_when_the_grid_cannot_launch(cuda):
     """A cooperative grid larger than the blocks resident at once (or
     empty) raises before launching; there is no smaller silent grid."""
-    from repro_torch.kernels.fused_decode import _coop_grid
+    from repro_torch.kernels.fused_decode import (
+        PLANE_IDS, RWKV6_MAT_KEYS, _coop_grid, _k7_info)
     from repro_torch.models.rwkv6 import prepare_fused_model_params
     model = get_model("rwkv6-7b", smoke=True)
     cfg = model.cfg
@@ -545,7 +555,9 @@ def test_rwkv6_raises_when_the_grid_cannot_launch(cuda):
     stack = prepare_fused_model_params(params, cfg)["blocks"]
     st, x = _state6(cfg, (cfg.n_layers, 2), 11)
     lp = _layers6(model, params)[0]
-    most = _coop_grid("model", None)
+    w8 = _k7_info([PLANE_IDS["w8"]] * len(RWKV6_MAT_KEYS),
+                  [None] * len(RWKV6_MAT_KEYS))
+    most = _coop_grid("model", None, w8, x.device)
     assert most >= torch.cuda.get_device_properties(0).multi_processor_count
     before = (rwkv6_block_decode.launches, rwkv6_model_decode.launches)
     for grid in (most + 1, 0):
@@ -1612,3 +1624,310 @@ def test_dpot_matmul_refuses_grad_and_bad_operands(cuda):
         ops.dpot_matmul_w4(x[:, :63].detach(), codes[:32], scale)
     with pytest.raises(TypeError):
         ops.dpot_matmul(x.detach().half(), codes, scale)
+
+
+# --- every weight form of the decode kernels: K3 and K4 on plain bf16
+# weights (exact and hw), K7 on MIXED, W4, VQ and plain bf16 trees, and
+# K5-W4 / K5-VQ with an f32 x.  Each holds its form's plain version by the
+# rule of the same kernel's other forms above; the model forms equal L
+# block launches bit for bit, and a lane's bits do not depend on B.
+
+from repro_torch.kernels.fused_prefill import (
+    dpot_w4_matmul_f32x, vq_matmul_f32x)
+
+
+def _plain_tree(cuda, arch="rwkv4-169m"):
+    model = get_model(arch, smoke=True)
+    return model, model.cast_params(model.init_params(0, cuda))
+
+
+@pytest.mark.parametrize("hw", [False, True], ids=["exact", "hw"])
+def test_rwkv4_block_decode_bf16(cuda, hw):
+    """K3 on layer 0 of a plain bf16 tree against its plain version (K3's
+    rule, or K3-hw's port_helpers rule under hw); a 2-lane tile and a lane
+    alone give their lanes' bits."""
+    from repro_torch.models.rwkv4 import _hw_numerics_with_tables
+    model, params = _plain_tree(cuda)
+    lp = _layer(params["blocks"], 0)
+    B, D = 4, model.cfg.d_model
+    st, x = _state(cuda, (B, D), 21)
+    luts = _luts(cuda) if hw else None
+    nm = _hw_numerics_with_tables(luts["exp"], luts["div"]) if hw else None
+    before = rwkv4_block_decode.launches
+    x2, new = rwkv4_block_decode(lp, st, x, bb=2, luts=luts)
+    torch.cuda.synchronize()
+    assert rwkv4_block_decode.launches == before + 1
+    x2_p, new_p = rwkv4_block_decode_plain(lp, st, x, nm, bb=2)
+    check = _close if hw else _spread
+    check(x2, x2_p)
+    for k in STATE_KEYS:
+        check(new[k], new_p[k])
+    lanes = 2 if hw else 1       # under hw a tile shares its A9 scales
+    one, one_st = rwkv4_block_decode(
+        lp, {k: v[2:2 + lanes] for k, v in st.items()}, x[2:2 + lanes],
+        luts=luts)
+    assert torch.equal(one, x2[2:2 + lanes])
+    assert all(torch.equal(one_st[k], new[k][2:2 + lanes])
+               for k in STATE_KEYS)
+
+
+@pytest.mark.parametrize("hw", [False, True], ids=["exact", "hw"])
+def test_model_decode_bf16_equals_block_launches(cuda, hw):
+    """K4 over a plain bf16 stack (no uint8 slab) equals L K3 launches bit
+    for bit and holds its plain version by the port_helpers rule."""
+    model, params = _plain_tree(cuda)
+    stack = prepare_fused_model_params(params, model.cfg, hw=hw)["blocks"]
+    assert "uint8" not in stack.slabs
+    L, B, D = model.cfg.n_layers, 4, model.cfg.d_model
+    st, x = _state(cuda, (L, B, D), 22)
+    before = rwkv4_model_decode.launches
+    x4, new4 = rwkv4_model_decode(stack, st, x)
+    aux = [a[0] for a in stack.aux]
+    x3, new3 = x, []
+    for l in range(L):
+        lp = unfuse_layer({k: s[l] for k, s in stack.slabs.items()}, aux,
+                          stack.manifest, stack.tdef)
+        luts = lp.pop("_luts", None)
+        x3, s3 = rwkv4_block_decode(lp, {k: st[k][l] for k in STATE_KEYS},
+                                    x3, luts=luts)
+        new3.append(s3)
+    torch.cuda.synchronize()
+    assert rwkv4_model_decode.launches == before + 1
+    assert torch.equal(x4, x3)
+    for k in STATE_KEYS:
+        assert torch.equal(new4[k], torch.stack([s[k] for s in new3]))
+    xp, newp = rwkv4_model_decode_plain(stack, st, x)
+    for o, r in [(x4, xp)] + [(new4[k], newp[k]) for k in STATE_KEYS]:
+        _close(o, r)
+
+
+def test_engine_rwkv4_bf16_model_path(cuda):
+    """ServingEngine(quantized=False, fused_decode="model",
+    fused_prefill=True) decodes through K4 on bf16 matrices (K2 in the
+    prefill) and serves each request as it would alone."""
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine("rwkv4-169m", smoke=True, quantized=False,
+                        fused_decode="model", fused_prefill=True,
+                        max_batch=4, prefill_chunk=4, device="cuda")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, eng.model.cfg.vocab, int(n)).tolist()
+               for n in (3, 9, 1, 6)]
+    counters = (wkv4_seq, rwkv4_model_decode)
+    before = [c.launches for c in counters]
+    handles = [eng.submit(p, max_new_tokens=5) for p in prompts]
+    eng.run()
+    assert all(c.launches > b for c, b in zip(counters, before))
+    for p, h in zip(prompts, handles):
+        solo = eng.submit(p, max_new_tokens=5)
+        eng.run()
+        assert solo.tokens == h.tokens
+
+
+# the rwkv6 trees of every form: (default plane, overrides), None plain;
+# PLANE_W4 pairs time_maa_x along the layer axis, so it stays W8 here
+K7_FORMS = {"mixed": ("w8", (
+    (r"\['att'\]\['wk'\]", "w4"), (r"\['ffn'\]\['wv'\]", "vq"),
+    (r"\['head'\]", "w4"))),
+    "w4": ("w4", ((r"time_maa_x", "w8"),)), "vq": ("vq", ()), "plain": None}
+
+
+def _k7_tree(cuda, form, cfg="rwkv6-7b"):
+    model = get_model(cfg, smoke=isinstance(cfg, str))
+    if K7_FORMS[form] is None:
+        return model, model.cast_params(model.init_params(0, cuda))
+    default, over = K7_FORMS[form]
+    return model, model.cast_params(pack_params(
+        model.init_params(0, cuda),
+        PlanePolicy(default=default, overrides=over)))
+
+
+@pytest.mark.parametrize("form", list(K7_FORMS))
+def test_rwkv6_forms_model_equals_block_launches(cuda, form):
+    """K7 on each form (smoke widths): K7-model equals L K7-block launches
+    bit for bit, each holds its plain version by the port_helpers rule,
+    and a lane alone (B 1) gives the bits it gives at B 8."""
+    from repro_torch.models.rwkv6 import prepare_fused_model_params
+    model, params = _k7_tree(cuda, form)
+    cfg = model.cfg
+    stack = prepare_fused_model_params(params, cfg)["blocks"]
+    st, x = _state6(cfg, (cfg.n_layers, 8), 23)
+    before = (rwkv6_model_decode.launches, rwkv6_block_decode.launches)
+    xm, newm = rwkv6_model_decode(stack, st, x, cfg)
+    xb, newb = x, []
+    for l, lp in enumerate(_layers6(model, params)):
+        st_l = {k: st[k][l] for k in STATE6}
+        out = rwkv6_block_decode(lp, st_l, xb, cfg)
+        ref = rwkv6_block_decode_plain(lp, st_l, xb, cfg)
+        for o, r in [(out[0], ref[0])] + [(out[1][k], ref[1][k])
+                                          for k in STATE6]:
+            _close(o, r)
+        xb, sb = out
+        newb.append(sb)
+    torch.cuda.synchronize()
+    assert (rwkv6_model_decode.launches, rwkv6_block_decode.launches) == (
+        before[0] + 1, before[1] + cfg.n_layers)
+    assert torch.equal(xm, xb)
+    for k in STATE6:
+        assert torch.equal(newm[k], torch.stack([s[k] for s in newb]))
+    xp, newp = rwkv6_model_decode_plain(stack, st, x, cfg)
+    for o, r in [(xm, xp)] + [(newm[k], newp[k]) for k in STATE6]:
+        _close(o, r)
+    one, one_st = rwkv6_model_decode(
+        stack, {k: v[:, 5:6] for k, v in st.items()}, x[5:6], cfg)
+    assert torch.equal(one[0], xm[5])
+    assert all(torch.equal(one_st[k][:, 0], newm[k][:, 5]) for k in STATE6)
+
+
+@pytest.fixture(scope="module")
+def wide6_mixed():
+    """rwkv6-7b at full width cut to two layers and a 256-token vocabulary,
+    MIXED planes (W4 att.wk, VQ ffn.wv) drawn on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import dataclasses
+    from repro_torch.core.quant.serving import pack_leaf
+    from repro_torch.tree import keystr
+    cfg = dataclasses.replace(get_model("rwkv6-7b").cfg, n_layers=2,
+                              vocab=256)
+    model = get_model(cfg)
+    params = model.init_params(0, "cuda", leaf_fn=lambda p, t: pack_leaf(
+        keystr(p), t, PlanePolicy(default="w8",
+                                  overrides=K7_FORMS["mixed"][1])))
+    return model, params
+
+
+def test_rwkv6_block_decode_mixed_wide(cuda, wide6_mixed):
+    """K7-block at full width on a MIXED layer against its plain version
+    by test_rwkv6_block_decode's rule (2^-6 of max|ref|, a mean gap within
+    1.25x the plain version's own CPU-vs-card gap); K7-model equals the
+    two K7-block launches bit for bit, and a lane alone its bits."""
+    from repro_torch.models.rwkv6 import prepare_fused_model_params
+    from repro_torch.tree import tree_map
+    model, params = wide6_mixed
+    cfg = model.cfg
+    layers = _layers6(model, params)
+    st, x = _state6(cfg, (cfg.n_layers, 8), 24)
+    st0 = {k: v[0] for k, v in st.items()}
+    out = rwkv6_block_decode(layers[0], st0, x, cfg)
+    ref = rwkv6_block_decode_plain(layers[0], st0, x, cfg)
+    cpu = lambda t: t.cpu()
+    on_cpu = rwkv6_block_decode_plain(tree_map(cpu, layers[0]),
+                                      tree_map(cpu, st0), cpu(x), cfg)
+    pick = lambda o, k: o[0] if k == "x" else o[1][k]
+    for k in ("x",) + STATE6:
+        r = pick(ref, k).float()
+        d = (pick(out, k).float() - r).abs()
+        dc = (pick(on_cpu, k).float().to(cuda) - r).abs()
+        assert float(d.max()) <= 2.0 ** -6 * float(r.abs().max()), k
+        assert float(d.mean()) <= 1.25 * float(dc.mean()) + \
+            2.0 ** -16 * float(r.abs().mean()), k
+    one, one_st = rwkv6_block_decode(
+        layers[0], {k: v[3:4] for k, v in st0.items()}, x[3:4], cfg)
+    assert torch.equal(one[0], out[0][3])
+    assert all(torch.equal(one_st[k][0], out[1][k][3]) for k in STATE6)
+    stack = prepare_fused_model_params(params, cfg)["blocks"]
+    xm, newm = rwkv6_model_decode(stack, st, x, cfg)
+    xb, newb = x, []
+    for l, lp in enumerate(layers):
+        xb, sb = rwkv6_block_decode(lp, {k: st[k][l] for k in STATE6}, xb,
+                                    cfg)
+        newb.append(sb)
+    assert torch.equal(xm, xb)
+    for k in STATE6:
+        assert torch.equal(newm[k], torch.stack([s[k] for s in newb]))
+
+
+def test_engine_rwkv6_mixed_model_path(cuda):
+    """The rwkv6 engine on MIXED planes: the prefill through K5, K5-W4,
+    K5-VQ and K6, the decode through K7-model (the head K5-W4), each
+    request served as it would be alone."""
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine("rwkv6-7b", smoke=True, quantized=True,
+                        plane_policy=PlanePolicy(
+                            default="w8", overrides=K7_FORMS["mixed"][1]),
+                        fused_decode="model", fused_prefill=True,
+                        max_batch=4, prefill_chunk=4, device="cuda")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, eng.model.cfg.vocab, int(n)).tolist()
+               for n in (3, 9, 1, 6)]
+    counters = (dpot_w8_matmul, dpot_w4_matmul, vq_matmul, wkv6_seq,
+                rwkv6_model_decode)
+    before = [c.launches for c in counters]
+    handles = [eng.submit(p, max_new_tokens=5) for p in prompts]
+    eng.run()
+    assert all(c.launches > b for c, b in zip(counters, before))
+    for p, h in zip(prompts, handles):
+        solo = eng.submit(p, max_new_tokens=5)
+        eng.run()
+        assert solo.tokens == h.tokens
+
+
+@pytest.mark.parametrize("M", [1, 8, 37, 128])
+@pytest.mark.parametrize("plane", ["w4", "vq"])
+def test_w4_vq_matmul_f32x(cuda, plane, M):
+    """K5-W4 and K5-VQ with an f32 x against their plain versions within
+    the f32 summation bound; the decode bit for bit on identity rows; a
+    row's bits do not depend on M; the bf16 forms refuse an f32 x."""
+    from repro_torch.core.quant.delta_pot import (
+        FORMAT_W4, dpot_pack_nibbles)
+    from repro_torch.core.quant.vq import vq_quantize
+    g = torch.Generator(device=cuda).manual_seed(31 + M)
+    K, N = 96, 203
+    w = torch.randn((K, N), generator=g, device=cuda)
+    if plane == "w4":
+        q = dpot_quantize(w, FORMAT_W4, axis=-1)
+        codes, aux = dpot_pack_nibbles(q), q.scale.reshape(-1)
+        leaf = {"packed4": codes, "scale": aux[None]}
+        fn, bf, plain = dpot_w4_matmul_f32x, dpot_w4_matmul, \
+            dpot_w4_matmul_plain
+    else:
+        codes, aux = vq_quantize(w, 256)
+        leaf = {"vq_idx": codes, "codebook": aux}
+        fn, bf, plain = vq_matmul_f32x, vq_matmul, vq_matmul_plain
+    x = torch.randn((M, K), generator=g, device=cuda)
+    before = (bf.launches, fn.launches)
+    out = fn(x, codes, aux)
+    torch.cuda.synchronize()
+    assert (bf.launches, fn.launches) == (before[0], before[1] + 1)
+    assert out.dtype == torch.float32
+    wd = unpack_leaf(leaf)
+    ref = plain(x, codes, aux)
+    bound = K * 2.0 ** -24 * (x.abs() @ wd.float().abs())
+    assert bool(((out - ref).abs() <= bound).all())
+    assert torch.equal(fn(torch.eye(K, device=cuda), codes, aux),
+                       wd.float())
+    assert torch.equal(fn(x[:1], codes, aux), out[:1])
+    with pytest.raises(TypeError):
+        bf(x, codes, aux)
+
+
+@pytest.mark.parametrize("plane", ["w4", "vq"])
+def test_prefill_chunk_hw_planes_on_card(cuda, plane):
+    """prefill_chunk(hw=True) on a PLANE_W4 / PLANE_VQ tree launches the
+    f32-x form once a layer (att.wo) and gives finite logits within the
+    port_helpers rule of its plain version on the card."""
+    from repro_torch.models import rwkv4
+    from repro_torch.tree import tree_map
+    model, packed = _packed(cuda, PlanePolicy(default=plane))
+    cfg = model.cfg
+    B, C = 4, 6
+    g = torch.Generator(device=cuda).manual_seed(25)
+    toks = torch.randint(0, cfg.vocab, (B, C), generator=g, device=cuda,
+                         dtype=torch.int32)
+    valid = torch.zeros((B, C), dtype=torch.bool, device=cuda)
+    for i, n in enumerate((C, 3, 0, 1)):
+        valid[i, :n] = True
+    f32x = dpot_w4_matmul_f32x if plane == "w4" else vq_matmul_f32x
+    before = f32x.launches
+    st0 = model.init_decode_state(B, 0, device=cuda)
+    st, lg = rwkv4.prefill_chunk(packed, st0, toks, valid, 0, cfg, hw=True)
+    torch.cuda.synchronize()
+    assert f32x.launches == before + cfg.n_layers
+    assert bool(torch.isfinite(lg.float()).all())
+    cpu = lambda t: t.cpu()
+    st_c, lg_c = rwkv4.prefill_chunk(tree_map(cpu, packed),
+                                     tree_map(cpu, st0), cpu(toks),
+                                     cpu(valid), 0, cfg, hw=True)
+    _close(lg[valid.any(1)], lg_c.to(cuda)[valid.any(1)])
+    for k in STATE_KEYS:
+        _close(st[k], st_c[k].to(cuda))

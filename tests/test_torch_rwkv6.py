@@ -127,27 +127,37 @@ def test_fuse_layer_stack_bitwise(models, packed):
         assert a.shape == b.shape and a.tobytes() == b.tobytes()
     cfg = tm.cfg
     D, F, H, N = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.rwkv_head_dim
-    vec_offs, mat_offs, scales = rwkv6_stack_table(stack, D, F, H, N)
+    vec_offs, mats = rwkv6_stack_table(stack, D, F, H, N)
     entries = dict(zip(stack.tdef, stack.manifest))
     assert vec_offs == [entries[p][2] for p in RWKV6_VEC_KEYS]
-    assert mat_offs == [entries[p + ("packed",)][2] for p in RWKV6_MAT_KEYS]
-    assert [s.numel() for s in scales] == [
+    assert [m.offset for m in mats] == [
+        entries[p + ("packed",)][2] for p in RWKV6_MAT_KEYS]
+    assert {(m.plane, m.slab) for m in mats} == {(0, "uint8")}
+    assert [m.aux.numel() for m in mats] == [
         D, D, N, 160, D, 64, D] + [D] * 6 + [F, D]
 
 
 def test_stack_table_raises_on_other_planes_and_leaves(models):
-    """K7 takes W8 planes only and no leaf it does not know: a W4 or VQ
-    plane, or an extra leaf, raises before anything launches."""
+    """K7 takes W4 and VQ planes beside W8 (att.wg's codes in the uint8
+    slab, its scale or codebook a shared aux leaf), but no leaf it does
+    not know: an extra leaf raises before anything launches."""
     _, tm, params = models
     cfg = tm.cfg
     dims = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.rwkv_head_dim)
-    for plane in ("w4", "vq"):
+    D = cfg.d_model
+    wg = RWKV6_MAT_KEYS.index(("att", "wg"))
+    for plane, aux in (("w4", D), ("vq", 256)):
         policy = PlanePolicy(default="w8",
                              overrides=((r"\['att'\]\['wg'\]", plane),))
         tp = tm.cast_params(t_pack(to_port(params), policy))
         stack = fuse_layer_stack(tp["blocks"], cfg.n_layers)
-        with pytest.raises(TypeError, match="W8 planes only"):
-            rwkv6_stack_table(stack, *dims)
+        _, mats = rwkv6_stack_table(stack, *dims)
+        entries = dict(zip(stack.tdef, stack.manifest))
+        key = {"w4": "packed4", "vq": "vq_idx"}[plane]
+        assert mats[wg].plane == {"w4": 1, "vq": 2}[plane]
+        assert mats[wg].offset == entries[("att", "wg", key)][2]
+        assert mats[wg].slab == "uint8" and mats[wg].aux.numel() == aux
+        assert all(m.plane == 0 for i, m in enumerate(mats) if i != wg)
     tp = tm.cast_params(t_pack(to_port(params)))
     extra = fuse_layer_stack(
         {**tp["blocks"], "_luts": {"exp": torch.zeros(1, 256)}},
