@@ -80,7 +80,8 @@ each prints its seconds and peak device memory (`phase_done` lines):
       wkv4_seq (K2-hw)         (8, 16, 768), prefix masks, the bf16 carry,
                                both tables: bit for bit
       dpot_w8_matmul_f32x      (128, 768, 768), att.wo: decode bit for bit,
-      (K5 f32-x)               outputs within K·2^-24·(|x| @ |w|)
+      (K5 f32-x)               outputs within K·2^-24·(|x| @ |w|); the
+                               ptxas lines of its f32-x instances
       rwkv4_block_decode       layer 0, B = 8, with the tables
       (K3-hw)
       rwkv4_model_decode       the 12 layers of the prepared hw stack; bit
@@ -176,8 +177,10 @@ each prints its seconds and peak device memory (`phase_done` lines):
       flash_attention (K13)    (B, S, H, KVH, d) = (8, 2048, 9, 3, 64)
                                causal bf16 (timed, SDPA beside it), S 512
                                and 600 (ragged), non-causal S 1000, d 96
-                               (H 32 = KVH) and d 128 (H 24, KVH 8) at
-                               B 2, S 1024, f32 at S 700; the lse each time
+                               (H 32 = KVH) and d 128 (H 24, KVH 8; timed,
+                               SDPA beside it) at B 2, S 1024, f32 at S
+                               700; the lse each time; the ptxas lines of
+                               the bf16 tensor-core instances
     Tolerance: bf16 outputs within one bf16 step (2^-7 |ref|), f32 within
     2^-22 |ref|, each plus the f32 summation bound (Skv + d + 8)·2^-24·
     (p @ |v|) / l of that output (`_attn_floor`): both sides compute in
@@ -336,6 +339,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -516,12 +520,13 @@ def phase_build():
 
 
 def _registers(usage, kernel):
-    """The ptxas lines of `kernel`'s entry functions: the entry, then its
-    register and spill lines."""
+    """The ptxas lines of the entry functions whose (mangled) name matches
+    the regular expression `kernel`: the entry, then its register and
+    spill lines."""
     out, keep = [], False
     for ln in usage:
         if "Compiling entry" in ln:
-            keep = kernel in ln
+            keep = re.search(kernel, ln) is not None
         if keep:
             out.append(ln)
     return out
@@ -1194,12 +1199,17 @@ F32X_AUX = {"w8": "scale", "w4": "scale", "vq": "codebook"}
 F32X_FN = {"w8": "dpot_w8_matmul", "w4": "dpot_w4_matmul", "vq": "vq_matmul"}
 
 
-def phase_k5_f32x(trees, cfg, flush):
+def phase_k5_f32x(trees, cfg, flush, usage):
     """K5's f32-activation forms at att.wo's prefill shape (128, 768, 768),
     each on layer 0's att.wo of a tree packed in its plane (W8, W4, VQ):
     the decode bit for bit (identity rows), each output within the f32
     summation bound K·2^-24·(|x| @ |w|) of the plain version.  One row a
-    plane."""
+    plane, the first with the ptxas lines of the f32-x instances of
+    chunk_mm_kernel.  bound_ms is the lesser of two least times for the
+    same function: its products as f32 FMAs at 67 TFLOP/s, or as the
+    three bf16 products a weight that the kernel runs (x split in three)
+    at 989 TFLOP/s; `bound_form` names which, `bound_by` whether the
+    operations or the bytes set it."""
     from repro_torch.core.quant.serving import CODES_KEY, unpack_leaf
     from repro_torch.device import exact_matmuls
     from repro_torch.kernels import fused_prefill as fp
@@ -1227,7 +1237,11 @@ def phase_k5_f32x(trees, cfg, flush):
                                  "passes the f32 summation bound")
         nbytes = (M * K * 4 + codes.numel() + aux.numel() * aux.element_size()
                   + M * N * 4)
-        bms, by = _bound(nbytes, 2.0 * M * N * K, PEAK_F32_FLOPS)
+        forms = {"f32 FMAs": _bound(nbytes, 2.0 * M * N * K, PEAK_F32_FLOPS),
+                 "three bf16 products": _bound(nbytes, 6.0 * M * N * K,
+                                               PEAK_BF16_FLOPS)}
+        form = min(forms, key=lambda f: forms[f][0])
+        bms, by = forms[form]
         w32 = w_bf.float()
         with exact_matmuls():
             lib = _time_ms(lambda: torch.matmul(x, w32), flush)
@@ -1235,7 +1249,10 @@ def phase_k5_f32x(trees, cfg, flush):
                "max_abs_err": float(d.max()), "decode_bit_exact": True,
                "kernel_ms": _time_ms(lambda: fn(x, codes, aux), flush),
                "plain_ms": _time_ms(lambda: plain(x, codes, aux), flush),
-               "library_ms": lib, "bound_ms": bms, "bound_by": by}
+               "library_ms": lib, "bound_ms": bms, "bound_by": by,
+               "bound_form": form}
+        if not rows:
+            row["ptxas"] = _registers(usage, r"chunk_mm_kernel.*Lb1EE")
         _line(row)
         rows.append(row)
     return rows
@@ -2217,15 +2234,16 @@ K13_SHAPES = (
 )
 
 
-def phase_k13(flush):
+def phase_k13(flush, usage):
     """K13 against its plain version at every shape of K13_SHAPES: bf16
     outputs within one bf16 step (|d| <= 2^-7 |ref|), f32 outputs within
     2^-22 |ref|, each plus the f32 summation bound `_attn_floor`; the lse
     within (Skv + d + 8)·2^-24·(1 + max|lse|).  Both sides compute in f32
     from the same inputs and differ only in the order of their sums.
-    Timed at the first shape, with F.scaled_dot_product_attention
-    (is_causal, enable_gqa) as the library yardstick, which the port never
-    calls."""
+    Timed at the first shape and at the bf16 d 128 one, with
+    F.scaled_dot_product_attention (is_causal, enable_gqa) as the library
+    yardstick, which the port never calls.  The first row carries the
+    ptxas lines of the bf16 tensor-core instances."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
@@ -2253,6 +2271,8 @@ def phase_k13(flush):
                "max_abs_err": float(dd.max()), "lse_max_abs_err": dl,
                "bound_ms": bms, "bound_by": by}
         if i == 0:
+            row["ptxas"] = _registers(usage, "flash_fwd_tc_kernel")
+        if i == 0 or (d == 128 and dt == torch.bfloat16):
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             row.update(
                 kernel_ms=_time_ms(
@@ -4016,7 +4036,7 @@ def main() -> int:
         SEED, DEV, leaf_fn=lambda p, t, pol=pol: pack_leaf(keystr(p), t, pol))
         for plane, pol in (("w4", PLANE_W4), ("vq", PLANE_VQ))}
     k5f = _timed("K5 f32-x", phase_k5_f32x, {"w8": w8, **packed4}, cfg,
-                 flush)
+                 flush, usage)
     by_path.update(_timed("hw prefill W4, VQ", phase_hw_prefill_planes,
                           block.model, packed4))
     del packed4
@@ -4149,7 +4169,7 @@ def main() -> int:
     # smollm-135m at full width and depth: K13, the prefill step through
     # it, and the KV-cache decode
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEV)
-    k13 = _timed("K13", phase_k13, flush)
+    k13 = _timed("K13", phase_k13, flush, usage)
     del flush
     smollm = _smollm(False)
     params = smollm.cast_params(smollm.init_params(SEED, DEV))

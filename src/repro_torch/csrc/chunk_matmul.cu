@@ -26,8 +26,8 @@
 //   * K is cut into slices (fused_prefill.py:chunk_matmul_plan, from K
 //     and N only) so the grid (N/128 column tiles × slices) has about two
 //     blocks for each of the 132 SMs, or one per 16 KB of codes; slices
-//     write f32 partials that a second pass sums in slice order and
-//     rounds once (no atomics);
+//     write f32 partials that a second pass sums in slice order (no
+//     atomics), then rounds once to bf16 or, for an f32 x, stores f32;
 //   * a 4-stage ring in shared memory holds code tiles (32 × 128 bytes)
 //     and x tiles, filled by 16-byte cp.async.cg copies that stay in
 //     flight while earlier stages are decoded and multiplied.  A plane
@@ -47,95 +47,76 @@
 // wgmma is not used: at these operation counts per byte the MMA stage is
 // not the limit (ROADMAP keeps it conditional on the readings).
 //
-// Batch invariance: out[m][n] is the same sequence of m16n8k16 steps over
-// each slice, k ascending, then the slices summed in order, whatever M
-// or the tile the row falls in; so a row's bits never depend on which
-// other rows share the call (the plan's slices do not depend on M).
+// The f32-x forms are instances of the same kernel.  Every decoded weight
+// is a bf16 value, and an f32 x is split, at the fragment, into three
+// bf16 pieces x0 + x1 + x2 (common.cuh: split_bf16x3, truncating, exact
+// for every x whose bits reach no lower than 2^-133); each piece times a
+// bf16 weight is exact in f32, so three MMAs on each decoded B fragment
+// form the f32 products x·w exactly, and only the order and rounding of
+// the f32 sums differ from the plain version (the bound K·2^-24·(|x|@|w|)
+// that the checks hold).  Their x ring holds f32 tiles (one ring, not
+// three bf16 ones: 80 KB at BM 128 against 120 KB; the split costs a few
+// integer ops a value).  Three products a weight triple the MMA work, 768
+// operations a code byte at M = 128, past the ridge: at att.wo's (128,
+// 768, 768) the operations bound is 0.46 µs against 0.41 µs of bytes,
+// both far under what 36 blocks' latency costs at that size.
 //
-// The f32-x forms keep a CUDA-core loop (an f32 x has no bf16 tensor-core
-// form that keeps its sum; TF32 would round x): out[m][n] accumulates
-// x[m][k]·w[k][n] with fmaf for k = 0..K-1 in order, the weight decoded by
-// the plane's policy (common.cuh: Decode, which K7 shares).
+// Batch invariance: out[m][n] is the same sequence of m16n8k16 steps over
+// each slice, k ascending (for an f32 x, the x0, x1, x2 steps of each k),
+// then the slices summed in order, whatever M or the tile the row falls
+// in; so a row's bits never depend on which other rows share the call
+// (the plan's slices do not depend on M).
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
 using repro::bf16;
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::ldmatrix_x4;
+using repro::ldmatrix_x4_trans;
+using repro::mma_bf16;
 
 constexpr int BN = 128;      // output columns per block
 constexpr int BK = 32;       // contraction rows per ring stage
 constexpr int STAGES = 4;    // ring depth
 constexpr int THREADS = 256;  // 8 warps
-constexpr int XS = BK + 8;   // x tile row stride in bf16 (ldmatrix rows
-                             // 80 B apart: no bank conflicts)
+constexpr int XS = BK + 8;   // x tile row stride in elements (bf16 rows
+                             // 80 B apart: ldmatrix without bank
+                             // conflicts; f32 rows 160 B: a half-warp's
+                             // 8-byte fragment loads hit 32 banks)
 constexpr int BS = BN + 8;   // decoded tile row stride in bf16 (272 B)
 constexpr int TCOPIES = 16;  // table copies: lanes l and l + 16 share one
 
 struct Args {
-  const bf16* x;
+  const void* x;          // (M, K) bf16, or f32 in the f32-x forms
   const uint8_t* codes;
   const float* scale;     // W8, W4: the (N,) channel scales
   const float* table;     // W8: (256,), W4: (16,) sign·level
   const bf16* codebook;   // VQ: (C,)
   float* ws;              // (slices, M, N) f32 partials when slices > 1
-  bf16* out;
+  void* out;              // (M, N) bf16, or f32 in the f32-x forms
   int C, M, K, N, slice_len;
   int x_vec;              // x rows are whole 16-byte chunks, aligned
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
+template <bool XF32>
+using XType = typename std::conditional<XF32, float, bf16>::type;
 
-// 16 bytes global -> shared, asynchronously; src_bytes 0 fills zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
+__device__ __forceinline__ void store_out(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16x16 bf16, row) · b (16x8 bf16, col), f32 accumulators
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 
 // four decoded weights -> one 8-byte store into the bf16 tile
 __device__ __forceinline__ void store4(bf16* dst, const float* v, bool ok) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(ok ? v[0] : 0.f, ok ? v[1] : 0.f);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(ok ? v[2] : 0.f, ok ? v[3] : 0.f);
   uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  u.x = repro::pack_bf16_rn(ok ? v[0] : 0.f, ok ? v[1] : 0.f);
+  u.y = repro::pack_bf16_rn(ok ? v[2] : 0.f, ok ? v[3] : 0.f);
   *reinterpret_cast<uint2*>(dst) = u;
 }
 
@@ -145,11 +126,11 @@ struct PlaneShape {
   static constexpr int code_rows = PLANE == repro::kPlaneW4 ? BK / 2 : BK;
 };
 
-template <int WM, int MT, int PLANE>
+template <int WM, int MT, int PLANE, bool XF32>
 constexpr size_t smem_bytes() {
   return PlaneShape<PLANE>::table * TCOPIES * sizeof(float) +
          STAGES * PlaneShape<PLANE>::code_rows * BN +
-         STAGES * (WM * MT * 16) * XS * sizeof(bf16) +
+         STAGES * (WM * MT * 16) * XS * sizeof(XType<XF32>) +
          2 * BK * BS * sizeof(bf16);
 }
 
@@ -159,23 +140,27 @@ constexpr size_t smem_bytes() {
 // the producer copies code rows in 16-byte chunks with cp.async (N % 16
 // == 0, a 16-byte aligned plane); else it loads bytes, a stage's loads
 // all in flight before any is stored.  x the same way, by a.x_vec.
-template <int WM, int MT, int PLANE, bool VEC>
-__global__ void __launch_bounds__(THREADS, WM == 1 ? 4 : 2)
+// XF32: x and out are f32 (the f32-x forms), x split at the fragment.
+template <int WM, int MT, int PLANE, bool VEC, bool XF32>
+__global__ void __launch_bounds__(THREADS, WM == 1 ? 4 : (XF32 ? 1 : 2))
 chunk_mm_kernel(const Args a) {
+  using XT = XType<XF32>;
   constexpr int WN = 8 / WM;
   constexpr int BM = WM * MT * 16;
   constexpr int WARP_N = BN / WN;
   constexpr int NT = WARP_N / 8;
   constexpr int TLEN = PlaneShape<PLANE>::table;
   constexpr int CROWS = PlaneShape<PLANE>::code_rows;
+  constexpr int XCHUNK = 16 / sizeof(XT);  // x elements a 16-byte copy
   static_assert(NT % 2 == 0, "B fragments load 16 columns at a time");
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* tab = reinterpret_cast<float*>(smem);
   uint8_t* cring = smem + TLEN * TCOPIES * sizeof(float);
-  bf16* xring = reinterpret_cast<bf16*>(cring + STAGES * CROWS * BN);
-  bf16* bdec = xring + STAGES * BM * XS;
+  XT* xring = reinterpret_cast<XT*>(cring + STAGES * CROWS * BN);
+  bf16* bdec = reinterpret_cast<bf16*>(xring + STAGES * BM * XS);
 
+  const XT* x = static_cast<const XT*>(a.x);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int M = a.M, K = a.K, N = a.N;
   const int n0 = blockIdx.x * BN;
@@ -187,7 +172,7 @@ chunk_mm_kernel(const Args a) {
 
   auto load_stage = [&](int slot, int k0) {
     uint8_t* cdst = cring + slot * CROWS * BN;
-    bf16* xdst = xring + slot * BM * XS;
+    XT* xdst = xring + slot * BM * XS;
     const int c0 = PLANE == repro::kPlaneW4 ? k0 / 2 : k0;
     const int cend = PLANE == repro::kPlaneW4 ? K / 2 : K;
     if constexpr (VEC) {
@@ -222,19 +207,22 @@ chunk_mm_kernel(const Args a) {
         *reinterpret_cast<uint32_t*>(cdst + 4 * (tid + q * THREADS)) = v[q];
     }
     if (a.x_vec) {
-      for (int c = tid; c < BM * (BK / 8); c += THREADS) {
-        const int r = c / (BK / 8), col = (c % (BK / 8)) * 8;
+      for (int c = tid; c < BM * (BK / XCHUNK); c += THREADS) {
+        const int r = c / (BK / XCHUNK), col = (c % (BK / XCHUNK)) * XCHUNK;
         const bool ok = m0 + r < M && k0 + col < K;
         cp_async16(xdst + r * XS + col,
-                   ok ? a.x + (size_t)(m0 + r) * K + k0 + col : a.x,
+                   ok ? x + (size_t)(m0 + r) * K + k0 + col : x,
                    ok ? 16 : 0);
       }
     } else {
       for (int i = tid; i < BM * BK; i += THREADS) {
         const int r = i / BK, col = i % BK;
-        xdst[r * XS + col] = m0 + r < M && k0 + col < K
-                                 ? a.x[(size_t)(m0 + r) * K + k0 + col]
-                                 : __float2bfloat16_rn(0.f);
+        const bool ok = m0 + r < M && k0 + col < K;
+        if constexpr (XF32)
+          xdst[r * XS + col] = ok ? x[(size_t)(m0 + r) * K + k0 + col] : 0.f;
+        else
+          xdst[r * XS + col] = ok ? x[(size_t)(m0 + r) * K + k0 + col]
+                                  : __float2bfloat16_rn(0.f);
       }
     }
   };
@@ -312,7 +300,7 @@ chunk_mm_kernel(const Args a) {
 
   // acc += x tile t · the decoded tile in src, k16 step by k16 step
   auto multiply = [&](int t, const bf16* src) {
-    const bf16* xs = xring + (t % STAGES) * BM * XS;
+    const XT* xs = xring + (t % STAGES) * BM * XS;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       uint32_t bfr[NT][2];
@@ -329,7 +317,34 @@ chunk_mm_kernel(const Args a) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         const int gt = wm * MT + mt;
-        if (gt < mtiles) {
+        if (gt >= mtiles) continue;
+        if constexpr (XF32) {
+          // the A fragment's 8 values of this lane (rows g, g + 8; columns
+          // 2c, 2c + 1, 2c + 8, 2c + 9), each split in three; piece p of
+          // all 8 forms the A fragment of the p-th product
+          const float* xr =
+              xs + (gt * 16 + (lane >> 2)) * XS + kk + 2 * (lane & 3);
+          const float2 v[4] = {
+              *reinterpret_cast<const float2*>(xr),
+              *reinterpret_cast<const float2*>(xr + 8 * XS),
+              *reinterpret_cast<const float2*>(xr + 8),
+              *reinterpret_cast<const float2*>(xr + 8 * XS + 8)};
+          uint32_t afr[3][4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            uint32_t lo[3], hi[3];
+            repro::split_bf16x3(v[r].x, lo);
+            repro::split_bf16x3(v[r].y, hi);
+#pragma unroll
+            for (int p = 0; p < 3; ++p)
+              afr[p][r] = repro::pack_bf16_bits(lo[p], hi[p]);
+          }
+#pragma unroll
+          for (int p = 0; p < 3; ++p)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+              mma_bf16(acc[mt][nt], afr[p], bfr[nt]);
+        } else {
           uint32_t afr[4];
           ldmatrix_x4(afr, xs + (gt * 16 + (lane & 15)) * XS + kk +
                                (lane >> 4) * 8);
@@ -361,6 +376,7 @@ chunk_mm_kernel(const Args a) {
   // the accumulators: (row g, cols 2c, 2c+1) and (row g + 8, the same)
   const int g = lane >> 2, c2 = (lane & 3) * 2;
   const bool partial = gridDim.y > 1;
+  XT* out = static_cast<XT*>(a.out);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     const int gt = wm * MT + mt;
@@ -378,56 +394,58 @@ chunk_mm_kernel(const Args a) {
           if (n < N) dst[0] = v0;
           if (n + 1 < N) dst[1] = v1;
         } else {
-          bf16* dst = a.out + (size_t)m * N + n;
-          if (n < N) dst[0] = __float2bfloat16_rn(v0);
-          if (n + 1 < N) dst[1] = __float2bfloat16_rn(v1);
+          XT* dst = out + (size_t)m * N + n;
+          if (n < N) store_out(dst, v0);
+          if (n + 1 < N) store_out(dst + 1, v1);
         }
       }
     }
   }
 }
 
-// out = bf16(ws[0] + ws[1] + ... + ws[S-1]), in that order
+// out = ws[0] + ws[1] + ... + ws[S-1], in that order, rounded once to bf16
+// or stored as f32
+template <typename OutT>
 __global__ void combine_slices_kernel(const float* __restrict__ ws,
-                                      bf16* __restrict__ out, size_t MN,
+                                      OutT* __restrict__ out, size_t MN,
                                       int S) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < MN;
        i += (size_t)gridDim.x * blockDim.x) {
     float s = ws[i];
     for (int t = 1; t < S; ++t) s += ws[t * MN + i];
-    out[i] = __float2bfloat16_rn(s);
+    store_out(out + i, s);
   }
 }
 
-template <int WM, int MT, int PLANE, bool VEC>
+template <int WM, int MT, int PLANE, bool VEC, bool XF32>
 cudaError_t launch_tile(const Args& a, dim3 grid, cudaStream_t s) {
-  constexpr size_t bytes = smem_bytes<WM, MT, PLANE>();
+  constexpr size_t bytes = smem_bytes<WM, MT, PLANE, XF32>();
   static int sized_on = -1;  // the device whose limit was raised last
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev != sized_on) {
-    e = cudaFuncSetAttribute(chunk_mm_kernel<WM, MT, PLANE, VEC>,
+    e = cudaFuncSetAttribute(chunk_mm_kernel<WM, MT, PLANE, VEC, XF32>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)bytes);
     if (e != cudaSuccess) return e;
     sized_on = dev;
   }
-  chunk_mm_kernel<WM, MT, PLANE, VEC><<<grid, THREADS, bytes, s>>>(a);
+  chunk_mm_kernel<WM, MT, PLANE, VEC, XF32><<<grid, THREADS, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
-template <int PLANE, bool VEC>
+template <int PLANE, bool VEC, bool XF32>
 cudaError_t launch_rows(const Args& a, dim3 grid, bool small,
                         cudaStream_t s) {
-  return small ? launch_tile<1, 1, PLANE, VEC>(a, grid, s)
-               : launch_tile<2, 4, PLANE, VEC>(a, grid, s);
+  return small ? launch_tile<1, 1, PLANE, VEC, XF32>(a, grid, s)
+               : launch_tile<2, 4, PLANE, VEC, XF32>(a, grid, s);
 }
 
 // The plan comes from fused_prefill.py:chunk_matmul_plan; it is checked
 // here against the tile this file compiles.  `vec` picks the producers:
 // bit 0 copies code rows by cp.async, bit 1 x rows.
-template <int PLANE>
+template <int PLANE, bool XF32>
 int launch(Args a, int bm, int bn, int bk, int slices, int vec,
            void* stream) {
   a.x_vec = (vec >> 1) & 1;
@@ -440,23 +458,24 @@ int launch(Args a, int bm, int bn, int bk, int slices, int vec,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool small = bm <= 16;
   const dim3 grid((N + BN - 1) / BN, slices, small ? 1 : (M + 127) / 128);
-  const cudaError_t e = vec & 1
-                            ? launch_rows<PLANE, true>(a, grid, small, s)
-                            : launch_rows<PLANE, false>(a, grid, small, s);
+  const cudaError_t e =
+      vec & 1 ? launch_rows<PLANE, true, XF32>(a, grid, small, s)
+              : launch_rows<PLANE, false, XF32>(a, grid, small, s);
   if (e != cudaSuccess || slices == 1) return static_cast<int>(e);
   const size_t MN = (size_t)M * N;
   const int blocks = (int)std::min<size_t>((MN + 255) / 256, 132 * 8);
-  combine_slices_kernel<<<blocks, 256, 0, s>>>(a.ws, a.out, MN, slices);
+  combine_slices_kernel<<<blocks, 256, 0, s>>>(
+      a.ws, static_cast<XType<XF32>*>(a.out), MN, slices);
   return static_cast<int>(cudaGetLastError());
 }
 
 Args make_args(const void* x, const void* codes, void* ws, void* out, int M,
                int K, int N, int slice_len) {
   Args a{};
-  a.x = static_cast<const bf16*>(x);
+  a.x = x;
   a.codes = static_cast<const uint8_t*>(codes);
   a.ws = static_cast<float*>(ws);
-  a.out = static_cast<bf16*>(out);
+  a.out = out;
   a.M = M;
   a.K = K;
   a.N = N;
@@ -464,66 +483,49 @@ Args make_args(const void* x, const void* codes, void* ws, void* out, int M,
   return a;
 }
 
-// K5 f32-x: one thread a column, TM rows a block, k in order with fmaf,
-// each weight decoded by the plane's policy (common.cuh: Decode), the
-// column's scale read once.
-constexpr int FX_TM = 16;  // rows of x a block
-constexpr int FX_BK = 64;  // K tile of x staged in shared memory
+template <bool XF32>
+int w8(const void* x, const void* wq, const void* scale, const void* table,
+       void* ws, void* out, int M, int K, int N, int bm, int bn, int bk,
+       int slice_len, int slices, int vec, void* stream) {
+  Args a = make_args(x, wq, ws, out, M, K, N, slice_len);
+  a.scale = static_cast<const float*>(scale);
+  a.table = static_cast<const float*>(table);
+  return launch<repro::kPlaneW8, XF32>(a, bm, bn, bk, slices, vec, stream);
+}
 
-template <int TM, int PLANE>
-__global__ void __launch_bounds__(BN)
-matmul_f32x_kernel(const float* __restrict__ x, const repro::Matrix w,
-                   float* __restrict__ out, int M, int K, int N) {
-  using Dec = repro::Decode<PLANE>;
-  __shared__ float xs[TM][FX_BK];
-  const int n = blockIdx.x * BN + threadIdx.x;
-  const int m0 = blockIdx.y * TM;
-  const bool col_ok = n < N;  // ragged N edge (V = 50277 is odd)
-  const float cp = col_ok ? Dec::col(w, n) : 0.f;
-  float acc[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) acc[i] = 0.f;
+template <bool XF32>
+int w4(const void* x, const void* wq4, const void* scale, const void* table,
+       void* ws, void* out, int M, int K, int N, int bm, int bn, int bk,
+       int slice_len, int slices, int vec, void* stream) {
+  if (K % 2) return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(x, wq4, ws, out, M, K, N, slice_len);
+  a.scale = static_cast<const float*>(scale);
+  a.table = static_cast<const float*>(table);
+  return launch<repro::kPlaneW4, XF32>(a, bm, bn, bk, slices, vec, stream);
+}
 
-  for (int k0 = 0; k0 < K; k0 += FX_BK) {
-    for (int i = threadIdx.x; i < TM * FX_BK; i += BN) {
-      const int r = i / FX_BK, c = i % FX_BK;
-      const int m = m0 + r, k = k0 + c;
-      xs[r][c] = (m < M && k < K) ? x[(size_t)m * K + k] : 0.f;
-    }
-    __syncthreads();
-    const int kn = min(FX_BK, K - k0);
-    if (col_ok) {
-#pragma unroll 4
-      for (int kk = 0; kk < kn; ++kk) {
-        const float wv = Dec::at(w, k0 + kk, n, N, cp);
-#pragma unroll
-        for (int i = 0; i < TM; ++i) acc[i] = fmaf(xs[i][kk], wv, acc[i]);
-      }
-    }
-    __syncthreads();
-  }
-  if (col_ok) {
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int m = m0 + i;
-      if (m < M) out[(size_t)m * N + n] = acc[i];
-    }
-  }
+template <bool XF32>
+int vq(const void* x, const void* idx, const void* codebook, int C, void* ws,
+       void* out, int M, int K, int N, int bm, int bn, int bk, int slice_len,
+       int slices, int vec, void* stream) {
+  if (C < 1 || C > 256) return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(x, idx, ws, out, M, K, N, slice_len);
+  a.codebook = static_cast<const bf16*>(codebook);
+  a.C = C;
+  return launch<repro::kPlaneVQ, XF32>(a, bm, bn, bk, slices, vec, stream);
 }
 
 }  // namespace
 
-// table: (256,) f32 sign·level (fused_prefill.py:decode_table); ws:
-// (slices, M, N) f32 when slices > 1
+// x (M, K) bf16 -> out (M, N) bf16.  table: (256,) f32 sign·level
+// (fused_prefill.py:decode_table); ws: (slices, M, N) f32 when slices > 1
 extern "C" int dpot_w8_matmul(const void* x, const void* wq, const void* scale,
                               const void* table, void* ws, void* out, int M,
                               int K, int N, int bm, int bn, int bk,
                               int slice_len, int slices, int vec,
                               void* stream) {
-  Args a = make_args(x, wq, ws, out, M, K, N, slice_len);
-  a.scale = static_cast<const float*>(scale);
-  a.table = static_cast<const float*>(table);
-  return launch<repro::kPlaneW8>(a, bm, bn, bk, slices, vec, stream);
+  return w8<false>(x, wq, scale, table, ws, out, M, K, N, bm, bn, bk,
+                   slice_len, slices, vec, stream);
 }
 
 // wq4 (K/2, N): contraction row k is nibble k & 1 of packed row k / 2;
@@ -533,61 +535,43 @@ extern "C" int dpot_w4_matmul(const void* x, const void* wq4,
                               void* out, int M, int K, int N, int bm, int bn,
                               int bk, int slice_len, int slices, int vec,
                               void* stream) {
-  if (K % 2) return static_cast<int>(cudaErrorInvalidValue);
-  Args a = make_args(x, wq4, ws, out, M, K, N, slice_len);
-  a.scale = static_cast<const float*>(scale);
-  a.table = static_cast<const float*>(table);
-  return launch<repro::kPlaneW4>(a, bm, bn, bk, slices, vec, stream);
+  return w4<false>(x, wq4, scale, table, ws, out, M, K, N, bm, bn, bk,
+                   slice_len, slices, vec, stream);
 }
 
+// idx (K, N) indices into codebook (C,) bf16, 1 <= C <= 256
 extern "C" int vq_matmul(const void* x, const void* idx, const void* codebook,
                          int C, void* ws, void* out, int M, int K, int N,
                          int bm, int bn, int bk, int slice_len, int slices,
                          int vec, void* stream) {
-  if (C < 1 || C > 256) return static_cast<int>(cudaErrorInvalidValue);
-  Args a = make_args(x, idx, ws, out, M, K, N, slice_len);
-  a.codebook = static_cast<const bf16*>(codebook);
-  a.C = C;
-  return launch<repro::kPlaneVQ>(a, bm, bn, bk, slices, vec, stream);
+  return vq<false>(x, idx, codebook, C, ws, out, M, K, N, bm, bn, bk,
+                   slice_len, slices, vec, stream);
 }
 
-namespace {
-
-// codes and aux: the plane's codes and its f32 scale or bf16 codebook
-template <int PLANE>
-int launch_f32x(const void* x, const void* codes, const void* aux, void* out,
-                int M, int K, int N, void* stream) {
-  if (M < 1 || K < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const repro::Matrix w{static_cast<const uint8_t*>(codes), aux, PLANE, 0};
-  const dim3 grid((N + BN - 1) / BN, (M + FX_TM - 1) / FX_TM);
-  matmul_f32x_kernel<FX_TM, PLANE>
-      <<<grid, BN, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(x), w, static_cast<float*>(out), M, K,
-          N);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// x (M, K) f32 -> out (M, N) f32
+// The f32-x forms: x (M, K) f32 -> out (M, N) f32, the same arguments
 extern "C" int dpot_w8_matmul_f32x(const void* x, const void* wq,
-                                   const void* scale, void* out, int M, int K,
-                                   int N, void* stream) {
-  return launch_f32x<repro::kPlaneW8>(x, wq, scale, out, M, K, N, stream);
+                                   const void* scale, const void* table,
+                                   void* ws, void* out, int M, int K, int N,
+                                   int bm, int bn, int bk, int slice_len,
+                                   int slices, int vec, void* stream) {
+  return w8<true>(x, wq, scale, table, ws, out, M, K, N, bm, bn, bk,
+                  slice_len, slices, vec, stream);
 }
 
-// wq4 (K/2, N), K even
 extern "C" int dpot_w4_matmul_f32x(const void* x, const void* wq4,
-                                   const void* scale, void* out, int M, int K,
-                                   int N, void* stream) {
-  if (K % 2) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_f32x<repro::kPlaneW4>(x, wq4, scale, out, M, K, N, stream);
+                                   const void* scale, const void* table,
+                                   void* ws, void* out, int M, int K, int N,
+                                   int bm, int bn, int bk, int slice_len,
+                                   int slices, int vec, void* stream) {
+  return w4<true>(x, wq4, scale, table, ws, out, M, K, N, bm, bn, bk,
+                  slice_len, slices, vec, stream);
 }
 
-// idx (K, N) indices into codebook (C,) bf16, 1 <= C <= 256
 extern "C" int vq_matmul_f32x(const void* x, const void* idx,
-                              const void* codebook, int C, void* out, int M,
-                              int K, int N, void* stream) {
-  if (C < 1 || C > 256) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_f32x<repro::kPlaneVQ>(x, idx, codebook, out, M, K, N, stream);
+                              const void* codebook, int C, void* ws,
+                              void* out, int M, int K, int N, int bm, int bn,
+                              int bk, int slice_len, int slices, int vec,
+                              void* stream) {
+  return vq<true>(x, idx, codebook, C, ws, out, M, K, N, bm, bn, bk,
+                  slice_len, slices, vec, stream);
 }

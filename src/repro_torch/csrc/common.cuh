@@ -69,6 +69,85 @@ __device__ __forceinline__ float bf16_lo(uint32_t w) {
   return __uint_as_float(w << 16);
 }
 
+// ---- Tensor-core building blocks (K5 and K13) ----------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes 0 fills zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a (16x16 bf16, row) · b (16x8 bf16, col), f32 accumulators.  The
+// m16n8k16 layouts, g = lane / 4 and c = lane % 4: a[0] holds A (g, 2c and
+// 2c+1), a[1] (g+8, 2c..), a[2] (g, 2c+8..), a[3] (g+8, 2c+8..), the
+// lower column in the low 16 bits; b[0] B (2c and 2c+1, g), b[1] (2c+8..,
+// g); d[0..1] D (g, 2c and 2c+1), d[2..3] (g+8, the same)
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two bf16 values in one word, the first in the low 16 bits (an MMA
+// fragment register): their bit patterns, and the two floats rounded.
+__device__ __forceinline__ uint32_t pack_bf16_bits(uint32_t lo,
+                                                   uint32_t hi) {
+  return (lo & 0xffffu) | (hi << 16);
+}
+__device__ __forceinline__ uint32_t pack_bf16_rn(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The truncating three-way split of an f32 into bf16 pieces, as bit
+// patterns: x0 is x with its low 16 bits cleared, x1 the same of x - x0,
+// x2 the high 16 bits of x - x0 - x1.  Each difference is exact, so
+// x0 + x1 + x2 == x for every finite x whose lowest set bit is at least
+// 2^-133 (bf16's least subnormal; every |x| >= 2^-110 qualifies); below
+// that, the pieces hold x cut toward zero to a multiple of 2^-133.  No
+// piece overflows.  kernels/fused_prefill.py:split_bf16x3 is its plain
+// twin.
+__device__ __forceinline__ void split_bf16x3(float x, uint32_t* p) {
+  const uint32_t u0 = __float_as_uint(x) & 0xffff0000u;
+  const float r1 = x - __uint_as_float(u0);
+  const uint32_t u1 = __float_as_uint(r1) & 0xffff0000u;
+  const float r2 = r1 - __uint_as_float(u1);
+  p[0] = u0 >> 16;
+  p[1] = u1 >> 16;
+  p[2] = __float_as_uint(r2) >> 16;
+}
+
 // σ(x) = 1 / (1 + exp(-x)) with each op rounded to bf16: how XLA expands
 // jax.nn.sigmoid on bf16, and what models/rwkv4.py:sigmoid computes.
 __device__ __forceinline__ float sigmoid_bf16(float x) {
@@ -110,8 +189,8 @@ struct Matrix {
   int aux_len;           // VQ: C, the codebook's entries (<= 256)
 };
 
-// The per-plane decode policies, one for each enum Plane, shared by K5's
-// f32-x loop (chunk_matmul.cu) and K7 (rwkv6_body.cuh).  col(m, n) is what
+// The per-plane decode policies, one for each enum Plane, used by K7
+// (rwkv6_body.cuh).  col(m, n) is what
 // column n's weights share (the f32 scale of W8 and W4), read once a
 // column; at(m, r, n, N, c) is weight (r, n) of an (R, N) matrix m, with
 // c = col(m, n), as unpack_leaf decodes it (a W4 byte holds rows r & ~1

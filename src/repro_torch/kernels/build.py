@@ -36,9 +36,9 @@ _F = ctypes.c_float
 # C entry points: argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
     "dpot_w8_matmul": [_P] * 6 + [_I] * 9 + [_P],
-    "dpot_w8_matmul_f32x": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "dpot_w4_matmul_f32x": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "vq_matmul_f32x": [_P, _P, _P, _I, _P, _I, _I, _I, _P],
+    "dpot_w8_matmul_f32x": [_P] * 6 + [_I] * 9 + [_P],
+    "dpot_w4_matmul_f32x": [_P] * 6 + [_I] * 9 + [_P],
+    "vq_matmul_f32x": [_P, _P, _P, _I, _P, _P] + [_I] * 9 + [_P],
     "dpot_w4_matmul": [_P] * 6 + [_I] * 9 + [_P],
     "vq_matmul": [_P, _P, _P, _I, _P, _P] + [_I] * 9 + [_P],
     "wkv4_seq": [_P] * 14 + [_I, _I, _I, _I, _P],
@@ -52,7 +52,7 @@ SIGNATURES = {
     "rwkv6_model_decode": [_PP, _I, _PL, _I, _PI] + [_I] * 8 + [_P],
     "rwkv6_block_decode_grid": [_PI, _PI, _PI],
     "rwkv6_model_decode_grid": [_PI, _PI, _PI],
-    "flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F, _P],
+    "flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F, _I, _P],
     "flash_attention_dq": [_P] * 7 + [_I] * 8 + [_F, _P],
     "flash_attention_dkv": [_P] * 8 + [_I] * 8 + [_F, _P],
     "fused_ce_fwd": [_P] * 4 + [_I] * 3 + [_P],

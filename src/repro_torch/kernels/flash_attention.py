@@ -7,7 +7,11 @@ kept on chip, and the log-sum-exp of each row that the backward needs
 (`_kernel`, `_kernel_fwd`); the backward recomputes p = exp(s - lse) tile
 by tile and runs the dq and dk/dv products (`_kernel_dq`, `_kernel_dkv`,
 launched by `_bwd_call`).  The CUDA kernels are `csrc/flash_attention.cu`
-and `csrc/flash_attention_bwd.cu`.
+and `csrc/flash_attention_bwd.cu`.  The bf16 forward runs both products
+on the tensor cores, q·kᵀ on the raw bf16 operands (exact products) and
+p·v with p split into two bf16 pieces, so p keeps nearly all its f32
+precision; the f32 forward and the backward run f32 FMAs on the CUDA
+cores (each header says what bounds it and how it is built).
 
 Layout at the public functions, as in JAX: q (B, Sq, H, d), k and v
 (B, Skv, KVH, d) with H % KVH == 0; query head h reads kv head
@@ -106,11 +110,13 @@ def _forward(q, k, v, causal: bool, return_lse: bool):
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
+    # rows copied in 16-byte chunks: whole chunks, on 16-byte addresses
+    vec = d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
     check(load_library().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), B, Sq, Skv, H, KVH, d,
         int(causal), int(q.dtype == torch.bfloat16),
-        ctypes.c_float(1.0 / math.sqrt(d)), stream_ptr(q)),
+        ctypes.c_float(1.0 / math.sqrt(d)), int(vec), stream_ptr(q)),
         "flash_attention")
     flash_attention.launches += 1
     return (out, lse) if return_lse else out

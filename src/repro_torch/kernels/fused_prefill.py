@@ -19,7 +19,11 @@ every prefill matmul (M = B·C) and for the prefill and decode heads (M =
 B).  `dpot_w8_matmul_f32x`, `dpot_w4_matmul_f32x` and `vq_matmul_f32x`
 are the three for an f32 x, returning f32 (the TPU kernels'
 `result_type(x, dt)`): under the hardware numerics att.wo's input is
-f32; they keep a CUDA-core loop.
+f32.  They are instances of the same kernel under the same plan: x is
+split into three bf16 pieces (`split_bf16x3` is the split's plain twin,
+for the tests), each multiplied by the bf16 weights on the tensor cores,
+so the f32 products are exact and only the order of the f32 sums
+differs from the plain version.
 
 A CPU tensor takes the plain version, `x @ unpack_leaf(leaf).to(bf16)`; a
 CUDA tensor launches the kernel or raises.
@@ -112,12 +116,32 @@ def decode_table(plane: str, device: torch.device) -> torch.Tensor:
 
 def _vector_loads(x: torch.Tensor, codes: torch.Tensor) -> int:
     """Which producers copy 16-byte chunks by cp.async: bit 0 the code
-    rows, bit 1 the x rows; each needs rows that are whole chunks, starting
-    on 16-byte addresses.  A plane that has not (rwkv4-169m's head, N =
-    50277) takes the kernel instance whose producer loads bytes."""
+    rows, bit 1 the x rows (bf16 or f32); each needs rows that are whole
+    chunks, starting on 16-byte addresses.  A plane that has not
+    (rwkv4-169m's head, N = 50277) takes the kernel instance whose
+    producer loads bytes."""
     K, N = x.shape[1], codes.shape[1]
     return (int(N % 16 == 0 and codes.data_ptr() % 16 == 0)
-            | int(K % 8 == 0 and x.data_ptr() % 16 == 0) << 1)
+            | int(K * x.element_size() % 16 == 0
+                  and x.data_ptr() % 16 == 0) << 1)
+
+
+def split_bf16x3(x: torch.Tensor):
+    """The f32-x kernels' split of an f32 x into three bf16 pieces
+    (`csrc/common.cuh:split_bf16x3`), in plain torch, for the tests: x0
+    is x with its low 16 bits cleared, x1 the same of x - x0, x2 the high
+    16 bits of x - x0 - x1, each returned as f32.  Each difference is
+    exact, so x0 + x1 + x2 == x in f32 for every finite x whose lowest set
+    bit is at least 2^-133 (bf16's least subnormal; every |x| >= 2^-110);
+    smaller bits are cut toward zero.  No piece overflows."""
+    def top16(t):
+        return (t.view(torch.int32) & -65536).view(torch.float32)
+    x = x.to(torch.float32)
+    x0 = top16(x)
+    r1 = x - x0
+    x1 = top16(r1)
+    x2 = top16(r1 - x1)
+    return x0, x1, x2
 
 
 @exact_matmuls()
@@ -142,33 +166,41 @@ def vq_matmul_plain(x: torch.Tensor, idx: torch.Tensor,
     return x @ w.to(x.dtype)
 
 
+# the x each C entry takes (its out is the same dtype)
+_X_DTYPE = {"dpot_w8_matmul": torch.bfloat16,
+            "dpot_w4_matmul": torch.bfloat16,
+            "vq_matmul": torch.bfloat16,
+            "dpot_w8_matmul_f32x": torch.float32,
+            "dpot_w4_matmul_f32x": torch.float32,
+            "vq_matmul_f32x": torch.float32}
+
+
 def _check_operands(name, x, codes, aux, k_rows: int, aux_dtype,
-                    aux_len: int | None, x_dtypes=(torch.bfloat16,)):
-    M, K = x.shape
-    Kc, N = codes.shape
-    if Kc != k_rows or (aux_len is not None and aux.numel() != aux_len):
+                    aux_len: int | None):
+    if codes.shape[0] != k_rows or (aux_len is not None
+                                    and aux.numel() != aux_len):
         raise ValueError(f"{name}: shapes x {tuple(x.shape)} codes "
                          f"{tuple(codes.shape)} aux {aux.numel()} do not "
                          "agree")
-    if (x.dtype not in x_dtypes or codes.dtype != torch.uint8
+    if (x.dtype != _X_DTYPE[name] or codes.dtype != torch.uint8
             or aux.dtype != aux_dtype):
-        raise TypeError(f"{name} takes {x_dtypes} x, uint8 codes, "
+        raise TypeError(f"{name} takes {_X_DTYPE[name]} x, uint8 codes, "
                         f"{aux_dtype} aux; got {x.dtype}, {codes.dtype}, "
                         f"{aux.dtype}")
     if not (codes.device == x.device == aux.device):
         raise ValueError(f"{name}: x, codes and aux must be on one device")
     if not codes.is_contiguous():
         raise ValueError(f"{name}: codes must be contiguous")
-    return M, K, N
 
 
 def _launch(entry: str, plane: str, x, codes, lead: tuple):
     """Launch one K5 form: `lead` are the entry's arguments between the
     codes and the workspace (the scale and the decode table, or the
-    codebook and its length)."""
+    codebook and its length).  The out is x's dtype: bf16, or f32 for the
+    f32-x forms."""
     M, K, N = x.shape[0], x.shape[1], codes.shape[1]
     plan = chunk_matmul_plan(M, K, N, plane)
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     ws = (torch.empty((plan.slices, M, N), dtype=torch.float32,
                       device=x.device) if plan.slices > 1 else None)
     check(getattr(load_library(), entry)(
@@ -179,18 +211,44 @@ def _launch(entry: str, plane: str, x, codes, lead: tuple):
     return out
 
 
+def _w8(entry: str, x, wq, scale):
+    scale = scale.reshape(-1)
+    _check_operands(entry, x, wq, scale, x.shape[1], torch.float32,
+                    wq.shape[1])
+    x, scale = x.contiguous(), scale.contiguous()
+    return _launch(entry, "w8", x, wq, (
+        scale.data_ptr(), decode_table("w8", x.device).data_ptr()))
+
+
+def _w4(entry: str, x, wq4, scale):
+    scale = scale.reshape(-1)
+    if x.shape[1] % 2:
+        raise ValueError(f"{entry}: K={x.shape[1]} must be even")
+    _check_operands(entry, x, wq4, scale, x.shape[1] // 2, torch.float32,
+                    wq4.shape[1])
+    x, scale = x.contiguous(), scale.contiguous()
+    return _launch(entry, "w4", x, wq4, (
+        scale.data_ptr(), decode_table("w4", x.device).data_ptr()))
+
+
+def _vq(entry: str, x, idx, codebook):
+    cb = codebook.reshape(-1)
+    _check_operands(entry, x, idx, cb, x.shape[1], torch.bfloat16, None)
+    C = cb.numel()
+    if not 1 <= C <= 256:
+        raise ValueError(f"{entry}: codebook of {C} entries; uint8 "
+                         "indices need 1..256")
+    x, cb = x.contiguous(), cb.contiguous()
+    return _launch(entry, "vq", x, idx, (cb.data_ptr(), C))
+
+
 def dpot_w8_matmul(x: torch.Tensor, wq: torch.Tensor,
                    scale: torch.Tensor) -> torch.Tensor:
     """x (M, K) bf16 @ W8 plane wq (K, N) uint8 with scale (..., N) f32
     -> (M, N) bf16, the codes decoded in-kernel."""
     if x.device.type == "cpu":
         return dpot_w8_matmul_plain(x, wq, scale)
-    scale = scale.reshape(-1)
-    _check_operands("dpot_w8_matmul", x, wq, scale, x.shape[1],
-                    torch.float32, wq.shape[1])
-    x, scale = x.contiguous(), scale.contiguous()
-    out = _launch("dpot_w8_matmul", "w8", x, wq, (
-        scale.data_ptr(), decode_table("w8", x.device).data_ptr()))
+    out = _w8("dpot_w8_matmul", x, wq, scale)
     dpot_w8_matmul.launches += 1
     return out
 
@@ -201,15 +259,7 @@ def dpot_w8_matmul_f32x(x: torch.Tensor, wq: torch.Tensor,
     f32, the bf16 weights promoted and the f32 sum not rounded."""
     if x.device.type == "cpu":
         return dpot_w8_matmul_plain(x, wq, scale)
-    scale = scale.reshape(-1)
-    M, K, N = _check_operands("dpot_w8_matmul_f32x", x, wq, scale,
-                              x.shape[1], torch.float32, wq.shape[1],
-                              (torch.float32,))
-    x, scale = x.contiguous(), scale.contiguous()
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    check(load_library().dpot_w8_matmul_f32x(
-        x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, K, N, stream_ptr(x)), "dpot_w8_matmul_f32x")
+    out = _w8("dpot_w8_matmul_f32x", x, wq, scale)
     dpot_w8_matmul_f32x.launches += 1
     return out
 
@@ -220,34 +270,8 @@ def dpot_w4_matmul(x: torch.Tensor, wq4: torch.Tensor,
     nibble of packed row k) with scale (..., N) f32 -> (M, N) bf16."""
     if x.device.type == "cpu":
         return dpot_w4_matmul_plain(x, wq4, scale)
-    scale = scale.reshape(-1)
-    if x.shape[1] % 2:
-        raise ValueError(f"dpot_w4_matmul: K={x.shape[1]} must be even")
-    _check_operands("dpot_w4_matmul", x, wq4, scale, x.shape[1] // 2,
-                    torch.float32, wq4.shape[1])
-    x, scale = x.contiguous(), scale.contiguous()
-    out = _launch("dpot_w4_matmul", "w4", x, wq4, (
-        scale.data_ptr(), decode_table("w4", x.device).data_ptr()))
+    out = _w4("dpot_w4_matmul", x, wq4, scale)
     dpot_w4_matmul.launches += 1
-    return out
-
-
-def vq_matmul(x: torch.Tensor, idx: torch.Tensor,
-              codebook: torch.Tensor) -> torch.Tensor:
-    """x (M, K) bf16 @ codebook[idx (K, N) uint8], codebook (..., C) bf16
-    with C <= 256 -> (M, N) bf16."""
-    if x.device.type == "cpu":
-        return vq_matmul_plain(x, idx, codebook)
-    cb = codebook.reshape(-1)
-    _check_operands("vq_matmul", x, idx, cb, x.shape[1], torch.bfloat16,
-                    None)
-    C = cb.numel()
-    if not 1 <= C <= 256:
-        raise ValueError(f"vq_matmul: codebook of {C} entries; uint8 "
-                         "indices need 1..256")
-    x, cb = x.contiguous(), cb.contiguous()
-    out = _launch("vq_matmul", "vq", x, idx, (cb.data_ptr(), C))
-    vq_matmul.launches += 1
     return out
 
 
@@ -257,18 +281,19 @@ def dpot_w4_matmul_f32x(x: torch.Tensor, wq4: torch.Tensor,
     f32, the bf16 weights promoted and the f32 sum not rounded."""
     if x.device.type == "cpu":
         return dpot_w4_matmul_plain(x, wq4, scale)
-    scale = scale.reshape(-1)
-    if x.shape[1] % 2:
-        raise ValueError(f"dpot_w4_matmul_f32x: K={x.shape[1]} must be even")
-    M, K, N = _check_operands("dpot_w4_matmul_f32x", x, wq4, scale,
-                              x.shape[1] // 2, torch.float32, wq4.shape[1],
-                              (torch.float32,))
-    x, scale = x.contiguous(), scale.contiguous()
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    check(load_library().dpot_w4_matmul_f32x(
-        x.data_ptr(), wq4.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, K, N, stream_ptr(x)), "dpot_w4_matmul_f32x")
+    out = _w4("dpot_w4_matmul_f32x", x, wq4, scale)
     dpot_w4_matmul_f32x.launches += 1
+    return out
+
+
+def vq_matmul(x: torch.Tensor, idx: torch.Tensor,
+              codebook: torch.Tensor) -> torch.Tensor:
+    """x (M, K) bf16 @ codebook[idx (K, N) uint8], codebook (..., C) bf16
+    with C <= 256 -> (M, N) bf16."""
+    if x.device.type == "cpu":
+        return vq_matmul_plain(x, idx, codebook)
+    out = _vq("vq_matmul", x, idx, codebook)
+    vq_matmul.launches += 1
     return out
 
 
@@ -278,18 +303,7 @@ def vq_matmul_f32x(x: torch.Tensor, idx: torch.Tensor,
     f32, the bf16 weights promoted and the f32 sum not rounded."""
     if x.device.type == "cpu":
         return vq_matmul_plain(x, idx, codebook)
-    cb = codebook.reshape(-1)
-    M, K, N = _check_operands("vq_matmul_f32x", x, idx, cb, x.shape[1],
-                              torch.bfloat16, None, (torch.float32,))
-    C = cb.numel()
-    if not 1 <= C <= 256:
-        raise ValueError(f"vq_matmul_f32x: codebook of {C} entries; uint8 "
-                         "indices need 1..256")
-    x, cb = x.contiguous(), cb.contiguous()
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    check(load_library().vq_matmul_f32x(
-        x.data_ptr(), idx.data_ptr(), cb.data_ptr(), C, out.data_ptr(),
-        M, K, N, stream_ptr(x)), "vq_matmul_f32x")
+    out = _vq("vq_matmul_f32x", x, idx, codebook)
     vq_matmul_f32x.launches += 1
     return out
 

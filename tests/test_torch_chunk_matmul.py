@@ -8,20 +8,34 @@ under random f32 scales.  `chunk_matmul_plan` cuts K into slices from K
 and N only (a row's bits must not depend on M): the slices tile K exactly,
 W4's are even, and at every main-path shape of rwkv4-169m and rwkv6-7b the
 grid has two blocks for each of the H100's 132 SMs, or one block per 16 KB
-of codes when the plane is smaller.  The kernel itself runs only on the
-card (tests/test_torch_cuda.py, chip_smoke.py).
+of codes when the plane is smaller.  The f32-x forms split x into three
+bf16 pieces on the card; `split_bf16x3`, the split's plain twin, is held
+here to its contract over every kind of finite f32 (hypothesis, with
+subnormals and ±FLT_MAX): each piece a bf16 value, and x0 + x1 + x2 == x
+in f32 wherever x's bits reach no lower than 2^-133, x cut toward zero
+below that.  The kernel itself runs only on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
 """
 import numpy as np
 import pytest
 import jax.numpy as jnp
 import torch
 
+try:
+    from hypothesis import example, given, settings, strategies as st
+except ImportError:  # pragma: no cover
+    from conftest import hypothesis_stubs
+    given, settings, st = hypothesis_stubs()
+
+    def example(*a, **k):
+        return lambda fn: fn
+
 from repro.core.quant.serving import unpack_leaf as j_unpack_leaf
 from repro_torch.configs.base import get_config
 from repro_torch.core.quant.serving import unpack_leaf
 from repro_torch.kernels.fused_prefill import (
     BLOCK_CODE_BYTES, CHUNK_BK, TARGET_BLOCKS, chunk_matmul_plan,
-    decode_table)
+    decode_table, split_bf16x3)
 from repro_torch.models.rwkv6 import MAA_RANK, TD_RANK
 
 CPU = torch.device("cpu")
@@ -126,3 +140,49 @@ def test_plan_fills_the_card(name):
         p = chunk_matmul_plan(M, K, N, plane)
         assert p.row_tiles == 1       # the plane is read once
         assert p.blocks >= want, (p, want)
+
+
+FLT_MAX = float(np.finfo(np.float32).max)
+GRID = 2.0 ** -133          # bf16's least subnormal
+
+
+def _split_ok(x: np.ndarray):
+    """split_bf16x3's contract on an f32 array of finite values."""
+    t = torch.from_numpy(x.astype(np.float32))
+    pieces = split_bf16x3(t)
+    for p in pieces:
+        bits = p.view(torch.int32)
+        assert bool(((bits & 0xFFFF) == 0).all())   # a bf16 value
+        assert bool(torch.isfinite(p).all())
+    total = (pieces[0] + pieces[1]) + pieces[2]       # in f32
+    x64 = t.double()
+    exact = torch.remainder(x64, GRID) == 0           # bits >= 2^-133
+    assert torch.equal(total[exact], t[exact])        # as values: -0 == 0
+    # below the grid: x cut toward zero to a multiple of 2^-133
+    cut = x64 - total.double()
+    assert bool((cut.abs() < GRID).all())
+    assert bool((cut * x64 >= 0).all())
+    assert bool((torch.remainder(total.double(), GRID) == 0).all())
+    # every normal |x| >= 2^-110 is exact
+    assert bool(exact[x64.abs() >= 2.0 ** -110].all())
+
+
+@settings(max_examples=500, deadline=None)
+@given(st.floats(width=32, allow_nan=False, allow_infinity=False,
+                 allow_subnormal=True))
+@example(FLT_MAX)
+@example(-FLT_MAX)
+@example(2.0 ** -149)
+@example(-(2.0 ** -126) * (1 + 2.0 ** -23))
+@example(2.0 ** -110 * (1 + 2.0 ** -23))
+@example(-0.0)
+def test_bf16x3_split_is_exact(x):
+    _split_ok(np.array([x], dtype=np.float32))
+
+
+def test_bf16x3_split_over_random_bits():
+    """2^20 random bit patterns (every exponent, both signs, subnormals)."""
+    bits = np.random.default_rng(0).integers(0, 2 ** 32, 2 ** 20,
+                                             dtype=np.uint64)
+    x = bits.astype(np.uint32).view(np.float32)
+    _split_ok(x[np.isfinite(x)])

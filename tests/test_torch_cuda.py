@@ -22,12 +22,13 @@ relative for f32) plus the f32 summation bound of each output, (Skv + d +
 8)·2^-24·(p @ |v|) / l (`_attn_floor`); its backward, K13-dq and K13-dkv,
 to `_bwd_bounds` (one step, the summation floor of what each gradient
 sums, and for bf16 dk and dv the plain version's per-head roundings), and
-bit for bit run to run.  K7 at B = 16 (two 8-lane tiles) equals two
-8-lane calls bit for bit.  The smollm-smoke train step on the card holds
-each gradient leaf within 1.25·√2x the CPU bf16 step's gap to an f32
-witness.  K10 (chunked WKV-6) holds y and the final state to
-`_wkv6_chunked_bound` (the f32 summation bound of each output over the
-whole sequence, and the log's last-bit term); K11 (LayerNorm) to one
+bit for bit run to run; a K13 row's bits do not depend on the batch.
+K7 at B = 16 (two 8-lane tiles) equals two 8-lane calls bit for bit.
+The smollm-smoke train step on the card holds each gradient leaf within
+1.25·√2x the CPU bf16 step's gap to an f32 witness.  K10 (chunked
+WKV-6) holds y and the final state to `_wkv6_chunked_bound` (the f32
+summation bound of each output over the whole sequence, and the log's
+last-bit term); K11 (LayerNorm) to one
 step of the output's type plus `_ln_floor` (the f32 sum-order bound of
 the row's mean, variance and rsqrt, carried to each output).  The RWKV
 smoke forwards on the card hold their logits to the plain path on the
@@ -657,14 +658,38 @@ def test_wkv4_seq_hw(cuda):
         assert torch.equal(o, r)
 
 
-@pytest.mark.parametrize("M", [1, 8, 37, 128])
-def test_dpot_w8_matmul_f32x(cuda, M):
+# K5 f32-x's cases: K = 96 (one slice), 98 (f32 x rows not whole 16-byte
+# chunks: the producer that loads elements; even, as W4 needs), 4160
+# (several slices, summed by the f32 combine pass), and an x of wide
+# exponent (`_f32x_x`); M = 200 spans two 128-row tiles
+F32X_M = [1, 8, 37, 128, 200]
+F32X_CASES = {"k96": (96, False), "k98": (98, False), "k4160": (4160, False),
+              "wide": (96, True)}
+
+
+def _f32x_x(M, K, wide, g, device):
+    """randn, or for `wide` randn · 2^e with e in [-60, 60] an entry and
+    every seventh entry below 2^-120 (bits under bf16's least subnormal,
+    which the kernel's split cuts: their share of each output is far
+    under the bound)."""
+    x = torch.randn((M, K), generator=g, device=device)
+    if wide:
+        e = torch.randint(-60, 61, (M, K), generator=g, device=device)
+        x = x * torch.exp2(e.float())
+        x.view(-1)[::7] = torch.randn((x.numel() + 6) // 7, generator=g,
+                                      device=device) * 2.0 ** -126
+    return x
+
+
+@pytest.mark.parametrize("case", list(F32X_CASES))
+@pytest.mark.parametrize("M", F32X_M)
+def test_dpot_w8_matmul_f32x(cuda, M, case):
     g = torch.Generator(device=cuda).manual_seed(13 + M)
-    K, N = 96, 203
+    (K, wide), N = F32X_CASES[case], 203
     q = dpot_quantize(torch.randn((K, N), generator=g, device=cuda),
                       FORMAT_W8, axis=-1)
     wq, scale = dpot_pack_int8(q), q.scale.reshape(-1)
-    x = torch.randn((M, K), generator=g, device=cuda)
+    x = _f32x_x(M, K, wide, g, cuda)
     before = (dpot_w8_matmul.launches, dpot_w8_matmul_f32x.launches)
     out = dpot_w8_matmul_f32x(x, wq, scale)
     torch.cuda.synchronize()
@@ -801,6 +826,16 @@ def _attn_ok(out, ref, floor):
     (1, 130, 130, 4, 4, 96, False, torch.float32),     # MHA, hd 96
     (1, 70, 150, 8, 2, 128, True, torch.bfloat16),     # Sq != Skv, hd 128
     (3, 1, 33, 6, 2, 24, True, torch.float32),         # one query row
+    # the bf16 tensor-core instance where it is fragile: d padded to k16
+    (2, 100, 100, 4, 2, 16, True, torch.bfloat16),
+    (2, 130, 130, 6, 3, 32, False, torch.bfloat16),
+    (1, 300, 300, 8, 4, 96, True, torch.bfloat16),
+    (1, 50, 50, 4, 2, 24, True, torch.bfloat16),       # rows by elements
+    (2, 40, 17, 6, 2, 64, False, torch.bfloat16),      # short Skv
+    (2, 40, 17, 6, 2, 16, True, torch.bfloat16),
+    (3, 1, 33, 6, 2, 64, True, torch.bfloat16),        # one query row
+    (3, 1, 90, 6, 2, 128, False, torch.bfloat16),
+    (1, 70, 300, 9, 3, 64, False, torch.bfloat16),     # Skv > Sq, full
 ])
 def test_flash_attention(cuda, B, Sq, Skv, H, KVH, d, causal, dtype):
     from repro_torch.kernels.flash_attention import (
@@ -820,6 +855,23 @@ def test_flash_attention(cuda, B, Sq, Skv, H, KVH, d, causal, dtype):
     assert float(dl.max()) <= (Skv + d + 8) * 2.0 ** -24 * (
         1.0 + float(lse_p.abs().max()))
     assert torch.equal(flash_attention(q, k, v, causal=causal), out)
+
+
+@pytest.mark.parametrize("d,causal", [(64, True), (128, False)])
+def test_flash_attention_rows_do_not_depend_on_batch(cuda, d, causal):
+    """out[b] and lse[b] of a B = 3 call equal the call on batch b alone,
+    bit for bit."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    g = torch.Generator(device=cuda).manual_seed(7 + d)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda).to(
+        torch.bfloat16)
+    q, k, v = rn(3, 300, 9, d), rn(3, 300, 3, d), rn(3, 300, 3, d)
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    for b in range(3):
+        ob, lb = flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                 causal=causal, return_lse=True)
+        assert torch.equal(ob, out[b:b + 1])
+        assert torch.equal(lb, lse[b:b + 1])
 
 
 def test_flash_attention_refusals(cuda):
@@ -1862,9 +1914,10 @@ def test_engine_rwkv6_mixed_model_path(cuda):
         assert solo.tokens == h.tokens
 
 
-@pytest.mark.parametrize("M", [1, 8, 37, 128])
+@pytest.mark.parametrize("case", list(F32X_CASES))
+@pytest.mark.parametrize("M", F32X_M)
 @pytest.mark.parametrize("plane", ["w4", "vq"])
-def test_w4_vq_matmul_f32x(cuda, plane, M):
+def test_w4_vq_matmul_f32x(cuda, plane, M, case):
     """K5-W4 and K5-VQ with an f32 x against their plain versions within
     the f32 summation bound; the decode bit for bit on identity rows; a
     row's bits do not depend on M; the bf16 forms refuse an f32 x."""
@@ -1872,7 +1925,7 @@ def test_w4_vq_matmul_f32x(cuda, plane, M):
         FORMAT_W4, dpot_pack_nibbles)
     from repro_torch.core.quant.vq import vq_quantize
     g = torch.Generator(device=cuda).manual_seed(31 + M)
-    K, N = 96, 203
+    (K, wide), N = F32X_CASES[case], 203
     w = torch.randn((K, N), generator=g, device=cuda)
     if plane == "w4":
         q = dpot_quantize(w, FORMAT_W4, axis=-1)
@@ -1884,7 +1937,7 @@ def test_w4_vq_matmul_f32x(cuda, plane, M):
         codes, aux = vq_quantize(w, 256)
         leaf = {"vq_idx": codes, "codebook": aux}
         fn, bf, plain = vq_matmul_f32x, vq_matmul, vq_matmul_plain
-    x = torch.randn((M, K), generator=g, device=cuda)
+    x = _f32x_x(M, K, wide, g, cuda)
     before = (bf.launches, fn.launches)
     out = fn(x, codes, aux)
     torch.cuda.synchronize()
