@@ -202,8 +202,11 @@ each prints its seconds and peak device memory (`phase_done` lines):
       flash_attention_dkv      plain backward and SDPA's backward less its
       (K13-dkv)                forward beside it, and run twice: bit for
                                bit), test_torch_flash.py's shapes in f32,
-                               phi3's d 96 (B2 S1024 H32) in bf16
-    Tolerance (`_bwd_bounds`): one step of the output's type plus the f32
+                               phi3's d 96 (B2 S1024 H32) and d 128 (B2
+                               S1024 H24 KVH8; timed as the train shape)
+                               in bf16; the ptxas lines of the bf16
+                               tensor-core instances
+    Tolerance (`bwd_bounds`): one step of the output's type plus the f32
     summation floor (rep·Sq + Skv + d + 8)·2^-24 times the magnitude of
     what each output sums, ds's own error carried through; for bf16 dk and
     dv also rep·2^-8 times the group's per-head magnitudes, since the
@@ -222,7 +225,10 @@ each prints its seconds and peak device memory (`phase_done` lines):
                step timed; then `train_model` for 3 AdamW steps, the
                counters again (3 x 60, 30, 30, 1, 1), finite losses, each step's
                ms, tokens/s and the peak device memory beside the step's
-               operations bound (`_train_ops`, ~23.1 TFLOP)
+               operations bound (`_train_ops`, ~23.1 TFLOP); one more
+               step split into the host's enqueue time, the whole step
+               and the device's span (events), and a profiled one for
+               the device's busy time and its 8 largest names
  9. rwkv4-169m's training at full width and depth:
       fused_cross_entropy      (rows, V) = (8192, 50277) (rwkv4's train
       (K12), _bwd (K12-bwd)    step) and (16384, 49152) (smollm's), bf16:
@@ -2429,8 +2435,8 @@ def phase_decode(params):
                              f"{gaps}")
 
 
-# K13's backward: test_torch_flash.py's shapes (f32), phi3's d = 96 and
-# smollm-135m's train shape (timed), both bf16
+# K13's backward: smollm-135m's train shape (timed), test_torch_flash.py's
+# shapes (f32), phi3's d = 96 and minitron's d = 128 (timed), both bf16
 K13_BWD_SHAPES = (
     (8, 2048, 9, 3, 64, True, torch.bfloat16),
     (2, 64, 4, 4, 32, True, torch.float32),
@@ -2440,54 +2446,8 @@ K13_BWD_SHAPES = (
     (1, 96, 9, 3, 64, True, torch.float32),
     (1, 48, 4, 4, 96, True, torch.float32),
     (2, 1024, 32, 32, 96, True, torch.bfloat16),
+    (2, 1024, 24, 8, 128, True, torch.bfloat16),
 )
-
-
-def _bwd_bounds(q, k, v, o, lse, do, causal, ref):
-    """Per output of (dq, dk, dv), the bound on |kernel - plain|: one step
-    of the output's type (2^-7 |ref| for bf16, 2^-22 for f32) plus the f32
-    summation floor (rep·Sq + Skv + d + 8)·2^-24 times the magnitude of the
-    terms each output sums (ds's own error carried through: p·(|do|@|v|ᵀ
-    + |D| + |dp - D|·(scale·|q|@|k|ᵀ + 1))), and, for bf16 dk and dv, the
-    plain version's rep per-head roundings and rep - 1 bf16 adds (JAX's
-    order), rep·2^-8 times the sum of the per-head magnitudes
-    (tests/test_torch_cuda.py holds the kernels to the same bound)."""
-    import math
-    from repro_torch.device import exact_matmuls
-    B, Sq, H, d = q.shape
-    Skv, KVH = k.shape[1], k.shape[2]
-    rep, scale = H // KVH, 1.0 / math.sqrt(d)
-    F = (rep * Sq + Skv + d + 8) * 2.0 ** -24
-    group = lambda t: t.reshape(B, Skv, KVH, rep, d).sum(dim=3)
-    with exact_matmuls():
-        q32, do32 = q.float(), do.float()
-        k32 = k.float().repeat_interleave(rep, dim=2)
-        v32 = v.float().repeat_interleave(rep, dim=2)
-        e = torch.einsum
-        s = e("bqhd,bkhd->bhqk", q32 * scale, k32)
-        keep = torch.ones_like(s, dtype=torch.bool)
-        if causal:
-            keep = (torch.arange(Skv, device=q.device)[None, :]
-                    <= torch.arange(Sq, device=q.device)[:, None])
-        p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
-        del s, keep
-        D = (do32 * o.float()).sum(-1).transpose(1, 2)[..., None]
-        dp = e("bqhd,bkhd->bhqk", do32, v32)
-        ms = scale * e("bqhd,bkhd->bhqk", q32.abs(), k32.abs())
-        a = p * (e("bqhd,bkhd->bhqk", do32.abs(), v32.abs()) + D.abs()
-                 + (dp - D).abs() * (ms + 1.0))
-        fl = [F * scale * e("bhqk,bkhd->bqhd", a, k32.abs()),
-              F * scale * group(e("bhqk,bqhd->bkhd", a, q32.abs())),
-              F * group(e("bhqk,bqhd->bkhd", p * (ms + 1.0), do32.abs()))]
-        del a, ms
-        if q.dtype == torch.bfloat16:
-            ds = p * (dp - D)
-            fl[1] = fl[1] + rep * 2.0 ** -8 * group(
-                scale * e("bhqk,bqhd->bkhd", ds, q32).abs())
-            fl[2] = fl[2] + rep * 2.0 ** -8 * group(
-                e("bhqk,bqhd->bkhd", p, do32).abs())
-    rel = 2.0 ** -7 if q.dtype == torch.bfloat16 else 2.0 ** -22
-    return [rel * r.float().abs() + f for r, f in zip(ref, fl)]
 
 
 def _bwd_bound(B, Sq, Skv, H, KVH, d, causal, elem, dots, outs):
@@ -2504,16 +2464,17 @@ def _bwd_bound(B, Sq, Skv, H, KVH, d, causal, elem, dots, outs):
     return _bound(nbytes, dots * 2.0 * d * pairs * B * H, peak)
 
 
-def phase_k13_bwd(flush):
+def phase_k13_bwd(flush, usage):
     """K13-dq and K13-dkv against the plain backward at every shape of
-    K13_BWD_SHAPES, within `_bwd_bounds`; the main shape run twice, bit for
-    bit; the two kernels timed there, with the plain backward and the
-    library's backward (torch.autograd.grad through
-    F.scaled_dot_product_attention(is_causal, enable_gqa) less its
-    forward), which the port never calls."""
+    K13_BWD_SHAPES, within `bwd_bounds`; the two kernels timed at the
+    train shape and at the bf16 d 128 one, each run twice there (bit for
+    bit), with the plain backward and the library's backward
+    (torch.autograd.grad through F.scaled_dot_product_attention(is_causal,
+    enable_gqa) less its forward), which the port never calls.  The first
+    row carries the ptxas lines of the bf16 tensor-core instances."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
-        _delta, flash_attention, flash_attention_bwd,
+        _delta, bwd_bounds, flash_attention, flash_attention_bwd,
         flash_attention_bwd_plain, flash_attention_dkv, flash_attention_dq)
     rows = []
     for i, (B, S, H, KVH, d, causal, dt) in enumerate(K13_BWD_SHAPES):
@@ -2525,7 +2486,7 @@ def phase_k13_bwd(flush):
         got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
         ref = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
         errs = []
-        for name, x, r, bnd in zip(("dq", "dk", "dv"), got, ref, _bwd_bounds(
+        for name, x, r, bnd in zip(("dq", "dk", "dv"), got, ref, bwd_bounds(
                 q, k, v, o, lse, do, causal, ref)):
             dd = (x.float() - r.float()).abs()
             if not bool((dd <= bnd).all()):
@@ -2539,10 +2500,12 @@ def phase_k13_bwd(flush):
                "max_abs_err": {"dq": errs[0], "dk": errs[1],
                                "dv": errs[2]}}
         if i == 0:
+            row["ptxas"] = _registers(usage, "flash_d(q|kv)_tc_kernel")
+        if i == 0 or (d == 128 and dt == torch.bfloat16):
             again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError("K13's backward is not bit for bit "
-                                     "repeatable at the main shape")
+                                     f"repeatable at {K13_BWD_SHAPES[i]}")
             delta = _delta(o, do)
             qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                           for t in (q, k, v))
@@ -2619,6 +2582,49 @@ def _train_ops(model, B, S):
             "attention": cfg.n_layers * attn}
 
 
+def _step_split(model, params, batch):
+    """One more train step, after a warm one, split: the host's time to
+    enqueue it (until the step function returns), the whole step (until
+    the loss is read back, as `train_model` times it) and the device's
+    span between events recorded around it; then a third step under
+    torch.profiler for the device's busy time (the sum of the device-side
+    events' time: kernels, memcpys, memsets; the host-side ops that launch
+    them also carry it and are not counted; None where the profiler sees
+    no device event) and the 8 names that take most of it.  The profiled step's host
+    times are not used: tracing slows the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import build_train_step
+    step_fn, _, (init_opt, _) = build_train_step(model)
+    opt = init_opt(params)
+    params, opt, m = step_fn(params, opt, batch)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    s.record()
+    params, opt, m = step_fn(params, opt, batch)
+    t1 = time.perf_counter()
+    e.record()
+    float(m["loss"])
+    t2 = time.perf_counter()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, opt, m = step_fn(params, opt, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    dev = [(k.key, k.self_device_time_total / 1e3)
+           for k in prof.key_averages() if k.device_type == DeviceType.CUDA]
+    busy = sum(ms for _, ms in dev)
+    return {"enqueue_ms": (t1 - t0) * 1e3, "step_ms": (t2 - t0) * 1e3,
+            "device_span_ms": s.elapsed_time(e),
+            "device_busy_ms": busy if dev else None,
+            "top_device_ms": [[n[:80], ms] for n, ms in
+                              sorted(dev, key=lambda x: -x[1])[:8]]}
+
+
 def phase_train():
     """smollm-135m's train step at full width and depth (L30 D576 H9 KVH3
     hd64 F1536 V49152), B = 8, S = 2048, SyntheticLM tokens, f32 master
@@ -2634,7 +2640,7 @@ def phase_train():
     Then `train_model` runs 3 steps with the counters set to 0 just before
     and read just after (3 x those); losses finite; the steps' ms,
     tokens/s and the peak device memory, beside the step's operations
-    bound."""
+    bound; then `_step_split` on the trained weights."""
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels.fused_ce import (
         fused_cross_entropy, fused_cross_entropy_bwd)
@@ -2719,14 +2725,19 @@ def phase_train():
     ops = _train_ops(flash, B, S)
     step_ms = [t * 1e3 for t in out["step_s"]]
     steady = sum(step_ms[1:]) / len(step_ms[1:])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = _step_split(flash, out["params"], {
+        k: torch.from_numpy(v).to(DEV) for k, v in SyntheticLM(
+            vocab=flash.cfg.vocab, seq_len=S, global_batch=B,
+            seed=SEED).batch(steps).items()})
     _line({"phase": "train", "arch": "smollm-135m", "B": B, "S": S,
            "steps": steps, "losses": out["losses"], "step_ms": step_ms,
            "plain_attention_step_ms": plain_ms,
            "train_tokens_per_s": B * S / (steady / 1e3),
-           "max_memory_allocated_gib":
-               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "max_memory_allocated_gib": peak,
            "launches": launches, "ops": ops,
-           "bound_ms": sum(ops.values()) / PEAK_BF16_FLOPS * 1e3})
+           "bound_ms": sum(ops.values()) / PEAK_BF16_FLOPS * 1e3,
+           "split": split})
     del out
     _release()
     return {"smollm-train": launches}
@@ -4179,7 +4190,7 @@ def main() -> int:
     _release()
     # smollm-135m's training: K13's backward, then the train step
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEV)
-    k13b = _timed("K13 backward", phase_k13_bwd, flush)
+    k13b = _timed("K13 backward", phase_k13_bwd, flush, usage)
     del flush
     _release()
     by_path.update(_timed("train smollm-135m", phase_train))

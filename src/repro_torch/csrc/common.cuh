@@ -82,6 +82,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes));
 }
+// 4 bytes global -> shared, asynchronously; src_bytes 0 fills zeros
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -128,6 +135,59 @@ __device__ __forceinline__ uint32_t pack_bf16_bits(uint32_t lo,
 __device__ __forceinline__ uint32_t pack_bf16_rn(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A fragment of a 16x16 tile whose f32 values sit in the C fragments
+// of two m16n8 products (c0: columns 0-7, c1: columns 8-15; the m16n8 C
+// layout is the A layout, FlashAttention-2's register reuse), in P bf16
+// pieces: piece 0 = bf16_rn(x), piece i = bf16_rn(x - the pieces before).
+// With P = 2, |x - hi - lo| <= 2^-17·|x| while x - hi is a normal f32,
+// and <= 2^-134 (half bf16's least subnormal) below that; hi is finite
+// for |x| < (2 - 2^-8)·2^127.
+// kernels/flash_attention.py:split_bf16x2 is the two-piece plain twin.
+template <int P>
+__device__ __forceinline__ void c_to_a_pieces(const float* c0,
+                                              const float* c1,
+                                              uint32_t (&a)[P][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    // A register r: columns 8·(r / 2) + 2c and +1, row g (r even) or g + 8
+    const float* c = (r >> 1) ? c1 : c0;
+    float x0 = c[2 * (r & 1)], x1 = c[2 * (r & 1) + 1];
+#pragma unroll
+    for (int pc = 0; pc < P; ++pc) {
+      a[pc][r] = pack_bf16_rn(x0, x1);
+      x0 -= bf16_lo(a[pc][r]);
+      x1 -= bf16_hi(a[pc][r]);
+    }
+  }
+}
+
+// Rows [r0, r0 + nrows) of one head of a (B, S, heads, d) bf16 tensor
+// (src at the head's first element, `row` elements a position), columns
+// [0, dpad), into a shared tile of row stride LD; rows past S and columns
+// past d as 0.  vec: 16-byte cp.async (d % 8 == 0, 16-byte aligned rows);
+// else element loads.  K13 and its backward stage every tile so.
+template <int LD>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          int r0, int nrows, int S,
+                                          long long row, int d, int dpad,
+                                          bool vec, int tid, int nthreads) {
+  if (vec) {
+    const int chunks = dpad / 8;
+    for (int i = tid; i < nrows * chunks; i += nthreads) {
+      const int r = i / chunks, c = (i % chunks) * 8;
+      const bool ok = r0 + r < S && c < d;
+      cp_async16(dst + r * LD + c, ok ? src + (r0 + r) * row + c : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < nrows * dpad; i += nthreads) {
+      const int r = i / dpad, c = i % dpad;
+      dst[r * LD + c] = r0 + r < S && c < d ? src[(r0 + r) * row + c]
+                                            : __float2bfloat16_rn(0.f);
+    }
+  }
 }
 
 // The truncating three-way split of an f32 into bf16 pieces, as bit

@@ -41,13 +41,13 @@
 //   * p·v keeps p's f32 precision: p is split into bf16 pieces straight
 //     from the score accumulators (their m16n8 layout is the A operand's,
 //     FlashAttention-2's register reuse), p_hi = bf16(p), p_lo = bf16(p -
-//     p_hi), and acc += p_hi·v + p_lo·v.  Two pieces leave |p - p_hi -
-//     p_lo| <= 2^-18·p, 64 units of 2^-24 against the (Skv + d + 8) units
-//     of the f32 summation floor that the checks allow, so only a
-//     contrived p below Skv + d + 8 = 64 could miss it; a third piece,
-//     bf16(p - p_hi - p_lo), would make the split exact, and no check has
-//     needed it.  Rounding p to bf16 once, as FlashAttention does, leaves
-//     up to 2^-9·p, 2^15 units.
+//     p_hi), and acc += p_hi·v + p_lo·v (`repro::c_to_a_pieces`).  Two
+//     pieces leave |p - p_hi - p_lo| <= 2^-17·p, 128 units of 2^-24
+//     against the (Skv + d + 8) units of the f32 summation floor that the
+//     checks allow, so only a short Skv + d + 8 < 128 could miss it; a
+//     third piece, bf16(p - p_hi - p_lo), would make the split exact, and
+//     no check has needed it.  Rounding p to bf16 once, as FlashAttention
+//     does, leaves up to 2^-8·p, 2^16 units.
 // wgmma and TMA are not used: the readings (PERF.md) decide whether a
 // later redesign takes them.
 //
@@ -79,33 +79,6 @@ constexpr int PIECES = 2;      // bf16 pieces of p in p·v
 template <int D>
 constexpr size_t tc_smem_bytes() {
   return sizeof(bf16) * 2 * 2 * BKV * (D + 8);
-}
-
-// rows [r0, r0 + nrows) of one head of a (B, S, heads, d) bf16 tensor
-// (src at the head's first element, `row` elements a position), columns
-// [0, dpad), into a tile of row stride LD; rows past S and columns past d
-// as 0.  vec: 16-byte cp.async (d % 8 == 0, aligned);
-// else element loads
-template <int LD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int r0, int nrows, int S,
-                                          long long row, int d, int dpad,
-                                          bool vec, int tid, int nthreads) {
-  if (vec) {
-    const int chunks = dpad / 8;
-    for (int i = tid; i < nrows * chunks; i += nthreads) {
-      const int r = i / chunks, c = (i % chunks) * 8;
-      const bool ok = r0 + r < S && c < d;
-      repro::cp_async16(dst + r * LD + c,
-                        ok ? src + (r0 + r) * row + c : src, ok ? 16 : 0);
-    }
-  } else {
-    for (int i = tid; i < nrows * dpad; i += nthreads) {
-      const int r = i / dpad, c = i % dpad;
-      dst[r * LD + c] = r0 + r < S && c < d ? src[(r0 + r) * row + c]
-                                            : __float2bfloat16_rn(0.f);
-    }
-  }
 }
 
 template <int D, int WARPS>
@@ -143,9 +116,12 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int ntiles = (kv_end + BKV - 1) / BKV;
 
   // the q tile into stage 1, k and v tile 0 into stage 0
-  load_tile<LD>(ks(1), qb, q0, BQ, Sq, qrow, d, dpad, vec, tid, NTHREADS);
-  load_tile<LD>(ks(0), kb, 0, BKV, Skv, krow, d, dpad, vec, tid, NTHREADS);
-  load_tile<LD>(vs(0), vb, 0, BKV, Skv, krow, d, dpad, vec, tid, NTHREADS);
+  repro::load_tile<LD>(ks(1), qb, q0, BQ, Sq, qrow, d, dpad, vec, tid,
+                       NTHREADS);
+  repro::load_tile<LD>(ks(0), kb, 0, BKV, Skv, krow, d, dpad, vec, tid,
+                       NTHREADS);
+  repro::load_tile<LD>(vs(0), vb, 0, BKV, Skv, krow, d, dpad, vec, tid,
+                       NTHREADS);
   repro::cp_async_commit();
   repro::cp_async_wait<0>();
   __syncthreads();
@@ -169,10 +145,10 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int t = 0; t < ntiles; ++t) {
     if (t + 1 < ntiles) {
       const int st = (t + 1) & 1;
-      load_tile<LD>(ks(st), kb, (t + 1) * BKV, BKV, Skv, krow, d, dpad, vec,
-                    tid, NTHREADS);
-      load_tile<LD>(vs(st), vb, (t + 1) * BKV, BKV, Skv, krow, d, dpad, vec,
-                    tid, NTHREADS);
+      repro::load_tile<LD>(ks(st), kb, (t + 1) * BKV, BKV, Skv, krow, d,
+                           dpad, vec, tid, NTHREADS);
+      repro::load_tile<LD>(vs(st), vb, (t + 1) * BKV, BKV, Skv, krow, d,
+                           dpad, vec, tid, NTHREADS);
     }
     repro::cp_async_commit();
     repro::cp_async_wait<1>();
@@ -252,18 +228,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kc = 0; kc < BKV / 16; ++kc) {
         uint32_t pa[PIECES][4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          // A register r: n-tile 2kc + r / 2, rows g (r even) or g + 8
-          float x0 = s[2 * kc + (r >> 1)][2 * (r & 1)];
-          float x1 = s[2 * kc + (r >> 1)][2 * (r & 1) + 1];
-#pragma unroll
-          for (int pc = 0; pc < PIECES; ++pc) {
-            pa[pc][r] = repro::pack_bf16_rn(x0, x1);
-            x0 -= repro::bf16_lo(pa[pc][r]);
-            x1 -= repro::bf16_hi(pa[pc][r]);
-          }
-        }
+        repro::c_to_a_pieces<PIECES>(s[2 * kc], s[2 * kc + 1], pa);
 #pragma unroll
         for (int dp = 0; dp < D / 16; ++dp) {
           if (dp >= dch) continue;

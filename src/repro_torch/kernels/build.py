@@ -53,8 +53,8 @@ SIGNATURES = {
     "rwkv6_block_decode_grid": [_PI, _PI, _PI],
     "rwkv6_model_decode_grid": [_PI, _PI, _PI],
     "flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F, _I, _P],
-    "flash_attention_dq": [_P] * 7 + [_I] * 8 + [_F, _P],
-    "flash_attention_dkv": [_P] * 8 + [_I] * 8 + [_F, _P],
+    "flash_attention_dq": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+    "flash_attention_dkv": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
     "fused_ce_fwd": [_P] * 4 + [_I] * 3 + [_P],
     "fused_ce_bwd": [_P] * 5 + [_I] * 4 + [_P],
     "fused_layernorm_bwd": [_P] * 7 + [_I] * 3 + [_F] + [_I] * 4 + [_P],

@@ -7,11 +7,13 @@ kept on chip, and the log-sum-exp of each row that the backward needs
 (`_kernel`, `_kernel_fwd`); the backward recomputes p = exp(s - lse) tile
 by tile and runs the dq and dk/dv products (`_kernel_dq`, `_kernel_dkv`,
 launched by `_bwd_call`).  The CUDA kernels are `csrc/flash_attention.cu`
-and `csrc/flash_attention_bwd.cu`.  The bf16 forward runs both products
-on the tensor cores, q·kᵀ on the raw bf16 operands (exact products) and
-p·v with p split into two bf16 pieces, so p keeps nearly all its f32
-precision; the f32 forward and the backward run f32 FMAs on the CUDA
-cores (each header says what bounds it and how it is built).
+and `csrc/flash_attention_bwd.cu`.  The bf16 kernels run every product
+on the tensor cores: q·kᵀ and dout·vᵀ on the raw bf16 operands (exact
+products), and each product with an f32 operand (p·v in the forward; ds·k,
+dsᵀ·q and pᵀ·dout in the backward) with that operand split into two bf16
+pieces (`split_bf16x2` is the split's plain twin), so p and ds keep nearly
+all their f32 precision; the f32 kernels run f32 FMAs on the CUDA cores
+(each header says what bounds it and how it is built).
 
 Layout at the public functions, as in JAX: q (B, Sq, H, d), k and v
 (B, Skv, KVH, d) with H % KVH == 0; query head h reads kv head
@@ -96,6 +98,25 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return out
 
 
+def split_bf16x2(x: torch.Tensor):
+    """The bf16 kernels' split of an f32 operand into two bf16 pieces
+    (`csrc/common.cuh:c_to_a_pieces`), in plain torch, for the tests: hi =
+    bf16(x), lo = bf16(x - hi), both rounded to nearest even and returned
+    as f32.  x - hi is exact, so |x - hi - lo| <= 2^-17·|x| while x - hi is
+    a normal f32, and <= 2^-134 (half bf16's least subnormal) below that;
+    hi is finite for |x| < (2 - 2^-8)·2^127."""
+    x = x.to(torch.float32)
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _vec_rows(*ts) -> bool:
+    """Whether the bf16 kernels may copy rows in 16-byte chunks: whole
+    chunks (d % 8 == 0), every tensor on a 16-byte address."""
+    return ts[0].shape[-1] % 8 == 0 and all(t.data_ptr() % 16 == 0
+                                            for t in ts)
+
+
 def _forward(q, k, v, causal: bool, return_lse: bool):
     """One forward: the plain version on the CPU, K13 on the card."""
     if q.device.type == "cpu":
@@ -110,13 +131,12 @@ def _forward(q, k, v, causal: bool, return_lse: bool):
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
-    # rows copied in 16-byte chunks: whole chunks, on 16-byte addresses
-    vec = d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
     check(load_library().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), B, Sq, Skv, H, KVH, d,
         int(causal), int(q.dtype == torch.bfloat16),
-        ctypes.c_float(1.0 / math.sqrt(d)), int(vec), stream_ptr(q)),
+        ctypes.c_float(1.0 / math.sqrt(d)), int(_vec_rows(q, k, v)),
+        stream_ptr(q)),
         "flash_attention")
     flash_attention.launches += 1
     return (out, lse) if return_lse else out
@@ -236,6 +256,53 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True):
             _group_sum(dv.to(v.dtype), rep))
 
 
+def bwd_bounds(q, k, v, o, lse, do, causal, ref):
+    """Per output of (dq, dk, dv), the bound on |kernel - plain|: one step
+    of the output's type (2^-7 |ref| for bf16, 2^-22 for f32) plus the f32
+    summation floor (rep·Sq + Skv + d + 8)·2^-24 times the magnitude of the
+    terms each output sums (ds's own error carried through: p·(|do|@|v|ᵀ
+    + |D| + |dp - D|·(scale·|q|@|k|ᵀ + 1))), and, for bf16 dk and dv, the
+    plain version's rep per-head roundings and rep - 1 bf16 adds (JAX's
+    order), rep·2^-8 times the sum of the per-head magnitudes.  The
+    checks of K13-dq and K13-dkv (tests/test_torch_cuda.py, chip_smoke.py)
+    and of their numerics on the CPU (tests/test_torch_flash.py) hold to
+    it; no kernel path calls it."""
+    B, Sq, H, d = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    rep, scale = H // KVH, 1.0 / math.sqrt(d)
+    F = (rep * Sq + Skv + d + 8) * 2.0 ** -24
+    group = lambda t: t.reshape(B, Skv, KVH, rep, d).sum(dim=3)
+    with exact_matmuls():
+        q32, do32 = q.float(), do.float()
+        k32 = k.float().repeat_interleave(rep, dim=2)
+        v32 = v.float().repeat_interleave(rep, dim=2)
+        e = torch.einsum
+        s = e("bqhd,bkhd->bhqk", q32 * scale, k32)
+        keep = torch.ones_like(s, dtype=torch.bool)
+        if causal:
+            keep = (torch.arange(Skv, device=q.device)[None, :]
+                    <= torch.arange(Sq, device=q.device)[:, None])
+        p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+        del s, keep
+        D = (do32 * o.float()).sum(-1).transpose(1, 2)[..., None]
+        dp = e("bqhd,bkhd->bhqk", do32, v32)
+        ms = scale * e("bqhd,bkhd->bhqk", q32.abs(), k32.abs())
+        a = p * (e("bqhd,bkhd->bhqk", do32.abs(), v32.abs()) + D.abs()
+                 + (dp - D).abs() * (ms + 1.0))
+        fl = [F * scale * e("bhqk,bkhd->bqhd", a, k32.abs()),
+              F * scale * group(e("bhqk,bqhd->bkhd", a, q32.abs())),
+              F * group(e("bhqk,bqhd->bkhd", p * (ms + 1.0), do32.abs()))]
+        del a, ms
+        if q.dtype == torch.bfloat16:
+            ds = p * (dp - D)
+            fl[1] = fl[1] + rep * 2.0 ** -8 * group(
+                scale * e("bhqk,bqhd->bkhd", ds, q32).abs())
+            fl[2] = fl[2] + rep * 2.0 ** -8 * group(
+                e("bhqk,bqhd->bkhd", p, do32).abs())
+    rel = 2.0 ** -7 if q.dtype == torch.bfloat16 else 2.0 ** -22
+    return [rel * r.float().abs() + f for r, f in zip(ref, fl)]
+
+
 def _bwd_args(q, k, v, do, lse, delta):
     """The backward kernels' leading pointers and dimensions, from
     contiguous operands."""
@@ -243,6 +310,14 @@ def _bwd_args(q, k, v, do, lse, delta):
     return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr()),
             (B, Sq, k.shape[1], H, k.shape[2], d))
+
+
+def _bwd_tail(q, k, v, do):
+    """The backward kernels' trailing arguments: is_bf16, scale, vec and
+    the stream."""
+    return (int(q.dtype == torch.bfloat16),
+            ctypes.c_float(1.0 / math.sqrt(q.shape[-1])),
+            int(_vec_rows(q, k, v, do)), stream_ptr(q))
 
 
 def _on_card(q, name: str):
@@ -264,9 +339,8 @@ def flash_attention_dq(q, k, v, o, lse, do, *, causal: bool = True,
     dq = torch.empty_like(q)
     ptrs, dims = _bwd_args(q, k, v, do, lse, delta)
     check(load_library().flash_attention_dq(
-        *ptrs, dq.data_ptr(), *dims, int(causal),
-        int(q.dtype == torch.bfloat16), ctypes.c_float(1.0 / math.sqrt(
-            q.shape[-1])), stream_ptr(q)), "flash_attention_dq")
+        *ptrs, dq.data_ptr(), *dims, int(causal), *_bwd_tail(q, k, v, do)),
+        "flash_attention_dq")
     flash_attention_dq.launches += 1
     return dq
 
@@ -290,8 +364,7 @@ def flash_attention_dkv(q, k, v, o, lse, do, *, causal: bool = True,
     ptrs, dims = _bwd_args(q, k, v, do, lse, delta)
     check(load_library().flash_attention_dkv(
         *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, int(causal),
-        int(q.dtype == torch.bfloat16), ctypes.c_float(1.0 / math.sqrt(
-            q.shape[-1])), stream_ptr(q)), "flash_attention_dkv")
+        *_bwd_tail(q, k, v, do)), "flash_attention_dkv")
     flash_attention_dkv.launches += 1
     return dk, dv
 

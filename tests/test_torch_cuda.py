@@ -20,9 +20,11 @@ the W4 and VQ decodes against unpack_leaf, and K4 against L launches of
 K3 are bit for bit.  K13 (flash attention) holds to one bf16 step (2^-22
 relative for f32) plus the f32 summation bound of each output, (Skv + d +
 8)·2^-24·(p @ |v|) / l (`_attn_floor`); its backward, K13-dq and K13-dkv,
-to `_bwd_bounds` (one step, the summation floor of what each gradient
+to `bwd_bounds` (one step, the summation floor of what each gradient
 sums, and for bf16 dk and dv the plain version's per-head roundings), and
-bit for bit run to run; a K13 row's bits do not depend on the batch.
+bit for bit run to run, on random inputs and where a few keys dominate
+each row; rows that are not 16-byte aligned (the element-load path) give
+the aligned call's bits; a K13 row's bits do not depend on the batch.
 K7 at B = 16 (two 8-lane tiles) equals two 8-lane calls bit for bit.
 The smollm-smoke train step on the card holds each gradient leaf within
 1.25·√2x the CPU bf16 step's gap to an f32 witness.  K10 (chunked
@@ -48,6 +50,7 @@ from repro_torch.core.quant.serving import (
     broadcast_packed_scales, pack_params, unpack_leaf)
 from repro_torch.core.quant.policy import PlanePolicy
 from repro_torch.core.quant.serving import unfuse_layer
+from repro_torch.kernels.flash_attention import bwd_bounds
 from repro_torch.kernels.fused_decode import (
     rwkv4_block_decode, rwkv4_block_decode_plain, rwkv4_model_decode,
     rwkv4_model_decode_plain)
@@ -830,7 +833,7 @@ def _attn_ok(out, ref, floor):
     (2, 100, 100, 4, 2, 16, True, torch.bfloat16),
     (2, 130, 130, 6, 3, 32, False, torch.bfloat16),
     (1, 300, 300, 8, 4, 96, True, torch.bfloat16),
-    (1, 50, 50, 4, 2, 24, True, torch.bfloat16),       # rows by elements
+    (1, 50, 50, 4, 2, 24, True, torch.bfloat16),       # a zero-filled chunk
     (2, 40, 17, 6, 2, 64, False, torch.bfloat16),      # short Skv
     (2, 40, 17, 6, 2, 16, True, torch.bfloat16),
     (3, 1, 33, 6, 2, 64, True, torch.bfloat16),        # one query row
@@ -975,50 +978,6 @@ def test_engine_rwkv6_sixteen_lanes(cuda):
 # --- K13's backward: K13-dq and K13-dkv ------------------------------------
 
 
-def _bwd_bounds(q, k, v, o, lse, do, causal, ref):
-    """Per output of (dq, dk, dv), the bound on |kernel - plain|: one step
-    of the output's type (2^-7 |ref| for bf16, 2^-22 for f32) plus the f32
-    summation floor (rep·Sq + Skv + d + 8)·2^-24 times the magnitude of the
-    terms each output sums (ds's own error carried through: p·(|do|@|v|ᵀ
-    + |D| + |dp - D|·(scale·|q|@|k|ᵀ + 1))), and, for bf16 dk and dv, the
-    plain version's rep per-head roundings and rep - 1 bf16 adds (JAX's
-    order), rep·2^-8 times the sum of the per-head magnitudes."""
-    import math
-    from repro_torch.device import exact_matmuls
-    B, Sq, H, d = q.shape
-    Skv, KVH = k.shape[1], k.shape[2]
-    rep, scale = H // KVH, 1.0 / math.sqrt(d)
-    F = (rep * Sq + Skv + d + 8) * 2.0 ** -24
-    group = lambda t: t.reshape(B, Skv, KVH, rep, d).sum(dim=3)
-    with exact_matmuls():
-        q32, do32 = q.float(), do.float()
-        k32 = k.float().repeat_interleave(rep, dim=2)
-        v32 = v.float().repeat_interleave(rep, dim=2)
-        e = lambda spec, a, b: torch.einsum(spec, a, b)
-        s = e("bqhd,bkhd->bhqk", q32 * scale, k32)
-        keep = torch.ones_like(s, dtype=torch.bool)
-        if causal:
-            keep = (torch.arange(Skv, device=q.device)[None, :]
-                    <= torch.arange(Sq, device=q.device)[:, None])
-        p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
-        D = (do32 * o.float()).sum(-1).transpose(1, 2)[..., None]
-        dp = e("bqhd,bkhd->bhqk", do32, v32)
-        ms = scale * e("bqhd,bkhd->bhqk", q32.abs(), k32.abs())
-        a = p * (e("bqhd,bkhd->bhqk", do32.abs(), v32.abs()) + D.abs()
-                 + (dp - D).abs() * (ms + 1.0))
-        fl = [F * scale * e("bhqk,bkhd->bqhd", a, k32.abs()),
-              F * scale * group(e("bhqk,bqhd->bkhd", a, q32.abs())),
-              F * group(e("bhqk,bqhd->bkhd", p * (ms + 1.0), do32.abs()))]
-        if q.dtype == torch.bfloat16:
-            ds = p * (dp - D)
-            fl[1] = fl[1] + rep * 2.0 ** -8 * group(
-                scale * e("bhqk,bqhd->bkhd", ds, q32).abs())
-            fl[2] = fl[2] + rep * 2.0 ** -8 * group(
-                e("bhqk,bqhd->bkhd", p, do32).abs())
-    rel = 2.0 ** -7 if q.dtype == torch.bfloat16 else 2.0 ** -22
-    return [rel * r.float().abs() + f for r, f in zip(ref, fl)]
-
-
 @pytest.mark.parametrize("B,Sq,Skv,H,KVH,d,causal,dtype", [
     (1, 512, 512, 9, 3, 64, True, torch.bfloat16),     # smollm's heads
     (2, 200, 200, 9, 3, 64, True, torch.bfloat16),     # ragged tiles
@@ -1026,9 +985,26 @@ def _bwd_bounds(q, k, v, o, lse, do, causal, ref):
     (1, 70, 150, 8, 2, 128, True, torch.bfloat16),     # Sq != Skv, hd 128
     (1, 150, 70, 6, 2, 32, True, torch.float32),       # keys past the rows
     (3, 1, 33, 6, 2, 24, False, torch.float32),        # one query row
+    # the bf16 tensor-core instances: Sq and Skv on both sides of the
+    # 64-row ring tile, causal and full
+    (2, 40, 130, 6, 2, 64, True, torch.bfloat16),
+    (1, 130, 40, 6, 2, 64, True, torch.bfloat16),
+    (2, 40, 130, 6, 3, 128, False, torch.bfloat16),
+    (1, 150, 70, 6, 3, 128, False, torch.bfloat16),
+    # ragged edges at d 64 and 128, rep 1 and rep 3
+    (2, 100, 100, 4, 4, 64, True, torch.bfloat16),
+    (1, 100, 100, 8, 8, 128, True, torch.bfloat16),
+    (1, 200, 200, 6, 2, 128, True, torch.bfloat16),
+    # d padded to k16 (16, 24, 32, 96); d 36 loads rows by elements
+    (2, 100, 100, 4, 2, 16, True, torch.bfloat16),
+    (2, 130, 130, 6, 3, 32, False, torch.bfloat16),
+    (1, 300, 300, 8, 4, 96, True, torch.bfloat16),
+    (1, 90, 90, 6, 2, 36, True, torch.bfloat16),
+    (2, 70, 70, 3, 3, 24, False, torch.bfloat16),
+    (3, 1, 33, 6, 2, 64, True, torch.bfloat16),        # one query row
 ])
 def test_flash_attention_bwd(cuda, B, Sq, Skv, H, KVH, d, causal, dtype):
-    """K13-dq and K13-dkv against the plain backward within `_bwd_bounds`;
+    """K13-dq and K13-dkv against the plain backward within `bwd_bounds`;
     deterministic bit for bit; through the autograd Function too."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
@@ -1044,7 +1020,7 @@ def test_flash_attention_bwd(cuda, B, Sq, Skv, H, KVH, d, causal, dtype):
     assert (flash_attention_dq.launches, flash_attention_dkv.launches) == (
         before[0] + 1, before[1] + 1)
     ref = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
-    bounds = _bwd_bounds(q, k, v, o, lse, do, causal, ref)
+    bounds = bwd_bounds(q, k, v, o, lse, do, causal, ref)
     for name, x, r, bnd in zip(("dq", "dk", "dv"), got, ref, bounds):
         assert x.dtype == dtype and x.shape == r.shape, name
         dd = (x.float() - r.float()).abs()
@@ -1056,6 +1032,81 @@ def test_flash_attention_bwd(cuda, B, Sq, Skv, H, KVH, d, causal, dtype):
     assert torch.equal(out.detach(), o)
     auto = torch.autograd.grad(out, (qg, kg, vg), do)
     assert all(torch.equal(a, b) for a, b in zip(auto, got))
+
+
+def test_flash_attention_bwd_unaligned_rows(cuda):
+    """q, k, v and dout contiguous but one element into their storage (rows
+    not 16-byte aligned): the kernels take the element-load path, which
+    stages the same tiles, so the forward and both backward kernels give
+    the aligned call's bits."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda).to(
+        torch.bfloat16)
+    for B, S, H, KVH, d in ((2, 150, 9, 3, 64), (1, 100, 8, 4, 128)):
+        q, k, v, do = rn(B, S, H, d), rn(B, S, KVH, d), rn(B, S, KVH, d), \
+            rn(B, S, H, d)
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        got = flash_attention_bwd(q, k, v, o, lse, do)
+        uq, uk, uv, udo = (_unaligned(t) for t in (q, k, v, do))
+        assert all(t.is_contiguous() and t.data_ptr() % 16
+                   for t in (uq, uk, uv, udo))
+        uo, ulse = flash_attention(uq, uk, uv, return_lse=True)
+        assert torch.equal(uo, o) and torch.equal(ulse, lse)
+        again = flash_attention_bwd(uq, uk, uv, _unaligned(o), lse, udo)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def _dominated(B, Sq, Skv, H, KVH, d, seed, device="cpu"):
+    """bf16 (q, k, v, dout) where a few keys take most of each row's
+    weight: every query leans on one direction u (|u| = 1) and keys 0,
+    Skv / 3 and 2·Skv / 3 lie along it, so their scores sit ~8 above the
+    others' N(0, 5); key 0 is in every causal row.  Drawn with numpy, as
+    tests/test_torch_flash.py draws its own."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, Sq, H, d))
+    k = rng.normal(size=(B, Skv, KVH, d))
+    v = rng.normal(size=(B, Skv, KVH, d))
+    do = rng.normal(size=(B, Sq, H, d))
+    u = rng.normal(size=d)
+    u /= np.linalg.norm(u)
+    q += 2.0 * np.sqrt(d) * u
+    for j in (0, Skv // 3, 2 * Skv // 3):
+        k[:, j] = 0.25 * k[:, j] + 4.0 * u
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(
+        device=device, dtype=torch.bfloat16) for a in (q, k, v, do))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KVH,d,causal", [
+    (2, 512, 512, 9, 3, 64, True),        # smollm's heads
+    (1, 300, 300, 8, 4, 96, True),
+    (1, 200, 200, 8, 2, 128, False),
+    (1, 130, 70, 6, 2, 64, True),
+])
+def test_flash_attention_dominated_keys(cuda, B, Sq, Skv, H, KVH, d,
+                                        causal):
+    """K13, K13-dq and K13-dkv on inputs where a few keys dominate each
+    row, against the plain versions: the forward within one bf16 step plus
+    `_attn_floor`, the lse as test_flash_attention, the backward within
+    `bwd_bounds`."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+    q, k, v, do = _dominated(B, Sq, Skv, H, KVH, d, Sq + d, cuda)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    ref, lse_p = flash_attention_plain(q, k, v, causal=causal,
+                                       return_lse=True)
+    _attn_ok(o, ref, _attn_floor(q, k, v, causal))
+    assert float((lse - lse_p).abs().max()) <= (Skv + d + 8) * 2.0 ** -24 \
+        * (1.0 + float(lse_p.abs().max()))
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    for name, x, r, bnd in zip(("dq", "dk", "dv"), got, want,
+                               bwd_bounds(q, k, v, o, lse, do, causal,
+                                           want)):
+        dd = (x.float() - r.float()).abs()
+        assert bool((dd <= bnd).all()), (name, float(dd.max()))
 
 
 def test_train_step_smollm_smoke_on_card(cuda):

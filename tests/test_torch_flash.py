@@ -21,7 +21,21 @@ gradient to bf16 and sum the H/KVH heads of a group in bf16 (JAX's
 `jnp.repeat` transpose, which XLA adds head after head, each add
 rounded), so a per-head value a few f32 ulps off can round to its
 neighbour and carry through the rep - 1 adds.
+
+The bf16 kernels' numerics, which run only on the card, are held here
+through plain twins: `split_bf16x2`, the two-piece bf16 split of p and ds,
+meets |x - hi - lo| <= 2^-17·|x| while x - hi is a normal f32 and 2^-134
+below that (hypothesis, with subnormals and ±FLT_MAX, and 2^20 random bit
+patterns; 2^-17 is reached); and a plain model of K13-dq and K13-dkv
+(exact bf16 products for t and dp, p = exp2(fma(t, c, -lse·log2(e))), p
+and ds in two pieces in the three products, the GQA group summed in f32
+and rounded once) stays within `bwd_bounds` of JAX's `_bwd_call`
+(interpret mode, its per-head gradients rounded and summed in bf16 as the
+custom VJP does) on random inputs and on inputs where a few keys dominate
+each row.
 """
+import math
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -29,11 +43,22 @@ import torch
 
 import jax
 
+try:
+    from hypothesis import example, given, settings, strategies as st
+except ImportError:  # pragma: no cover
+    from conftest import hypothesis_stubs
+    given, settings, st = hypothesis_stubs()
+
+    def example(*a, **k):
+        return lambda fn: fn
+
 from repro.kernels.flash_attention import _bwd_call, _fwd_call
 from repro.kernels.flash_attention import flash_attention as j_flash
+from repro_torch.device import exact_matmuls
 from repro_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
-    flash_attention_dkv, flash_attention_dq, flash_attention_plain)
+    _delta, _group_sum, bwd_bounds, flash_attention, flash_attention_bwd,
+    flash_attention_bwd_plain, flash_attention_dkv, flash_attention_dq,
+    flash_attention_plain, split_bf16x2)
 
 # tests/test_kernels.py's four shapes, then smollm-135m's head layout
 # (H 9, KVH 3, d 64) and phi3's d = 96, at a ragged length for the blocks
@@ -283,3 +308,144 @@ def test_bwd_wrapper_refusals():
         flash_attention_dq(q, k, v, o, lse.double(), o)
     assert (flash_attention_dq.launches,
             flash_attention_dkv.launches) == before
+
+
+# --- the bf16 backward kernels' numerics, through plain twins -------------
+
+FLT_MAX = float(np.finfo(np.float32).max)
+HI_MAX = (2.0 - 2.0 ** -8) * 2.0 ** 127      # hi finite below this
+
+
+def _split2_ok(x: np.ndarray):
+    """split_bf16x2's contract on an f32 array of finite values: two bf16
+    values, |x - hi - lo| <= 2^-17·|x| while x - hi is a normal f32, and
+    <= 2^-134 below that."""
+    t = torch.from_numpy(x.astype(np.float32))
+    t = t[t.double().abs() < HI_MAX]
+    hi, lo = split_bf16x2(t)
+    for piece in (hi, lo):
+        assert bool(((piece.view(torch.int32) & 0xFFFF) == 0).all())
+        assert bool(torch.isfinite(piece).all())
+    r = t - hi                                       # exact in f32
+    assert torch.equal(r.double(), t.double() - hi.double())
+    res = (t.double() - hi.double() - lo.double()).abs()
+    normal = r.double().abs() >= 2.0 ** -126
+    assert bool((res[normal] <= 2.0 ** -17 * t.double().abs()[normal])
+                .all())
+    assert bool((res[~normal] <= 2.0 ** -134).all())
+
+
+@settings(max_examples=500, deadline=None)
+@given(st.floats(width=32, allow_nan=False, allow_infinity=False,
+                 allow_subnormal=True))
+@example(FLT_MAX)
+@example(-FLT_MAX)
+@example(2.0 ** -149)
+@example(-(2.0 ** -126) * (1 + 2.0 ** -23))
+@example(1.0 + 2.0 ** -8 + 2.0 ** -23)
+@example(-0.0)
+def test_bf16x2_split_contract(x):
+    _split2_ok(np.array([x], dtype=np.float32))
+
+
+def test_bf16x2_split_over_random_bits():
+    """2^20 random bit patterns (every exponent, both signs, subnormals);
+    the bound is reached: x = 0x5a004040 leaves 2^-17.003·|x|, beyond
+    2^-18."""
+    bits = np.random.default_rng(1).integers(0, 2 ** 32, 2 ** 20,
+                                             dtype=np.uint64)
+    x = bits.astype(np.uint32).view(np.float32)
+    _split2_ok(x[np.isfinite(x)])
+    t = torch.tensor([0x5A004040], dtype=torch.int32).view(torch.float32)
+    hi, lo = split_bf16x2(t)
+    res = float((t.double() - hi.double() - lo.double()).abs() / t.double())
+    assert 2.0 ** -18 < res <= 2.0 ** -17
+
+
+def _dominated(B, S, H, KVH, d, seed):
+    """(q, k, v, dout), f32 numpy, where a few keys take most of each row's
+    weight: every query leans on one direction u (|u| = 1) and keys 0,
+    S / 3 and 2·S / 3 lie along it, so their scores sit ~8 above the
+    others' N(0, 5); key 0 is in every causal row (as
+    tests/test_torch_cuda.py draws them for the kernels)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, S, H, d))
+    k = rng.normal(size=(B, S, KVH, d))
+    v = rng.normal(size=(B, S, KVH, d))
+    do = rng.normal(size=(B, S, H, d))
+    u = rng.normal(size=d)
+    u /= np.linalg.norm(u)
+    q += 2.0 * np.sqrt(d) * u
+    for j in (0, S // 3, 2 * S // 3):
+        k[:, j] = 0.25 * k[:, j] + 4.0 * u
+    return tuple(a.astype(np.float32) for a in (q, k, v, do))
+
+
+@exact_matmuls()
+def _tc_bwd_model(q, k, v, o, lse, do, causal):
+    """The bf16 kernels' arithmetic (csrc/flash_attention_bwd.cu's
+    numerics contract) in plain torch, their sums in another order: t =
+    q·kᵀ and dp = dout·vᵀ on the raw bf16 values, p = exp2(fma(t, c,
+    -lse·log2(e))) with c = f32(scale·log2(e)) (the fma in f64, one f32
+    rounding), ds = p·(dp - D), p and ds as split_bf16x2's two pieces in
+    dq = scale·ds·k, dk = scale·dsᵀ·q and dv = pᵀ·dout, dk and dv summed
+    over each GQA group in f32, each output rounded once to bf16."""
+    B, Sq, H, d = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    rep = H // KVH
+    scale = np.float32(1.0 / math.sqrt(d))
+    log2e = np.float32(math.log2(math.e))
+    c = float(scale * log2e)
+    q32, do32 = q.float(), do.float()
+    k32 = k.float().repeat_interleave(rep, dim=2)
+    v32 = v.float().repeat_interleave(rep, dim=2)
+    e = torch.einsum
+    t = e("bqhd,bkhd->bhqk", q32, k32)
+    nl = -(lse * float(log2e))
+    p = torch.exp2((t.double() * c + nl.double()[..., None]).float())
+    if causal:
+        keep = torch.arange(Skv)[None, :] <= torch.arange(Sq)[:, None]
+        p = torch.where(keep, p, 0.0)
+    ds = p * (e("bqhd,bkhd->bhqk", do32, v32) - _delta(o, do)[..., None])
+    group = lambda x: x.reshape(B, Skv, KVH, rep, d).sum(dim=3)
+    (ph, pl), (sh, sl) = split_bf16x2(p), split_bf16x2(ds)
+    dq = e("bhqk,bkhd->bqhd", sh, k32) + e("bhqk,bkhd->bqhd", sl, k32)
+    dk = e("bhqk,bqhd->bkhd", sh, q32) + e("bhqk,bqhd->bkhd", sl, q32)
+    dv = e("bhqk,bqhd->bkhd", ph, do32) + e("bhqk,bqhd->bkhd", pl, do32)
+    bf = torch.bfloat16
+    return ((float(scale) * dq).to(bf), (float(scale) * group(dk)).to(bf),
+            group(dv).to(bf))
+
+
+@pytest.mark.parametrize("inputs", ["random", "dominated"])
+@pytest.mark.parametrize("B,S,H,KVH,d,causal,bq,bkv", [
+    (1, 128, 6, 2, 64, True, 64, 32),
+    (1, 96, 9, 3, 64, True, 32, 32),
+    (2, 64, 4, 4, 32, False, 32, 32),
+])
+def test_tc_bwd_model_matches_bwd_call(B, S, H, KVH, d, causal, bq, bkv,
+                                       inputs):
+    """The model of the bf16 kernels against JAX's `_bwd_call` on bf16
+    inputs (interpret mode; dq rounded once, each head's dk and dv rounded
+    and the group added in bf16, as `_flash_core_bwd` and `jnp.repeat`'s
+    transpose do), from JAX's own o and lse, within `bwd_bounds`."""
+    if inputs == "random":
+        q, k, v = _qkv(B, S, H, KVH, d, seed=10)
+        do = np.random.default_rng(11).normal(size=q.shape).astype(
+            np.float32)
+    else:
+        q, k, v, do = _dominated(B, S, H, KVH, d, seed=12)
+    jq, jk, jv, jdo = (np.asarray(jnp.asarray(a, jnp.bfloat16))
+                       for a in (q, k, v, do))
+    o, lse, dq, dk_h, dv_h = _jax_bwd(jq, jk, jv, jdo, causal, bq, bkv)
+    bf = torch.bfloat16
+    t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(bf)
+    tq, tk, tv, tdo, to = t(jq), t(jk), t(jv), t(jdo), t(o)
+    tlse = torch.from_numpy(np.array(lse))
+    rep = H // KVH
+    want = (t(dq), _group_sum(t(dk_h), rep), _group_sum(t(dv_h), rep))
+    got = _tc_bwd_model(tq, tk, tv, to, tlse, tdo, causal)
+    for name, g, w, bnd in zip(("dq", "dk", "dv"), got, want, bwd_bounds(
+            tq, tk, tv, to, tlse, tdo, causal, want)):
+        dd = (g.float() - w.float()).abs()
+        assert bool((dd <= bnd).all()), (name, float(dd.max()))

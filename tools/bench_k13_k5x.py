@@ -1,16 +1,21 @@
-"""Time K13 (the bf16 flash-attention forward of the PyTorch port) and K5's
-f32-x forms (W8, W4, VQ) on one CUDA card, beside their library calls.
+"""Time K13 (the bf16 flash-attention forward of the PyTorch port), its
+backward kernels K13-dq and K13-dkv, and K5's f32-x forms (W8, W4, VQ) on
+one CUDA card, beside their library calls.
 
 K13 runs at smollm-135m's prefill shape (B 8, S 2048, H 9, KVH 3, d 64,
 causal) and at the d 96 and d 128 layouts of `chip_smoke.py:K13_SHAPES`,
 with `F.scaled_dot_product_attention` (is_causal, enable_gqa) beside it;
-K5 f32-x at att.wo's (128, 768, 768) of rwkv4-169m on planes quantized
-from random weights, with `torch.matmul` in f32 beside it.  Each is timed
-as `chip_smoke.py` times it (L2 flushed, the host hidden behind a device
-sleep, CUDA events, mean of `--reps`) and checked against its plain
-version (`err`: max |kernel - plain|; `ok`: within the bound that
-`chip_smoke.py` holds).  The build's ptxas lines of the two kernels are
-printed first.  One JSON line per case.
+K13-dq and K13-dkv at the same three cases, beside SDPA's backward
+(torch.autograd.grad through it, less its forward), each held to the plain
+backward within `bwd_bounds` (taken from this checkout's
+`kernels/flash_attention.py`, so an older tree under `--src` is held to
+the same bound); K5 f32-x at att.wo's (128, 768, 768) of rwkv4-169m on
+planes quantized from random weights, with `torch.matmul` in f32 beside
+it.  Each is timed as `chip_smoke.py` times it (L2 flushed, the host
+hidden behind a device sleep, CUDA events, mean of `--reps`) and checked
+against its plain version (`err`: max |kernel - plain|; `ok`: within the
+bound that `chip_smoke.py` holds).  The build's ptxas lines of the K13
+and K5 kernels are printed first.  One JSON line per case.
 
 `--src` names the `src` directory whose `repro_torch` is timed (default:
 this checkout's), so one process per tree compares two versions of the
@@ -79,6 +84,59 @@ def bench_k13(case, flush, reps):
                 reps)}
 
 
+def _bwd_bounds():
+    """`bwd_bounds` from this checkout's kernels/flash_attention.py, loaded
+    by path: the tree under `--src` may predate it."""
+    import importlib.util
+    path = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+            / "kernels" / "flash_attention.py")
+    spec = importlib.util.spec_from_file_location("_bench_k13_bounds", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.bwd_bounds
+
+
+def bench_k13_bwd(case, flush, reps, bounds):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        _delta, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_dkv, flash_attention_dq)
+    B, S, H, KVH, d, causal = case
+    g = torch.Generator(device=DEV).manual_seed(SEED + 60)
+    rn = lambda *s: torch.randn(s, generator=g, device=DEV).to(
+        torch.bfloat16)
+    q, k, v, do = rn(B, S, H, d), rn(B, S, KVH, d), rn(B, S, KVH, d), \
+        rn(B, S, H, d)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    ref = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    ok, err = True, {}
+    for name, x, r, bnd in zip(("dq", "dk", "dv"), got, ref,
+                               bounds(q, k, v, o, lse, do, causal, ref)):
+        dd = (x.float() - r.float()).abs()
+        ok = ok and bool((dd <= bnd).all())
+        err[name] = float(dd.max())
+    del ref
+    delta = _delta(o, do)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    lib_fb = _time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot),
+                      flush, reps)
+    lib_f = _time_ms(sdpa, flush, reps)
+    return {"kernel": "K13-bwd", "B": B, "S": S, "H": H, "KVH": KVH,
+            "d": d, "causal": causal, "err": err, "ok": ok,
+            "dq_ms": _time_ms(lambda: flash_attention_dq(
+                q, k, v, o, lse, do, causal=causal, delta=delta), flush,
+                reps),
+            "dkv_ms": _time_ms(lambda: flash_attention_dkv(
+                q, k, v, o, lse, do, causal=causal, delta=delta), flush,
+                reps),
+            "library_ms": lib_fb - lib_f}
+
+
 def _plane(plane, K, N, g):
     """(codes, aux, the decoded bf16 weights) of a random plane."""
     from repro_torch.core.quant.delta_pot import (
@@ -144,13 +202,15 @@ def main() -> int:
     keep, lines = False, []
     for ln in log.splitlines():
         if "Compiling entry" in ln:
-            keep = "flash_fwd" in ln or "chunk_mm" in ln
+            keep = "flash_" in ln or "chunk_mm" in ln
         if keep and ("Compiling entry" in ln or "registers" in ln
                      or "spill" in ln):
             lines.append(ln.strip())
     print(json.dumps({"label": args.label, "ptxas": lines}), flush=True)
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEV)
     rows = [bench_k13(c, flush, args.reps) for c in K13_CASES]
+    bounds = _bwd_bounds()
+    rows += [bench_k13_bwd(c, flush, args.reps, bounds) for c in K13_CASES]
     rows += [bench_f32x(p, flush, args.reps) for p in ("w8", "w4", "vq")]
     for row in rows:
         print(json.dumps({"label": args.label, **row}), flush=True)
