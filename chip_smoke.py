@@ -286,13 +286,20 @@ each prints its seconds and peak device memory (`phase_done` lines):
                                rwkv4-169m MIXED's W4 att.wk (768 x 768)
                                and head (768 x 50277); K1 at bench_kernels'
                                (8, 1024, 1024) with f32 x.  The counted
-                               run calls each case once (9 K1, 12 K8)
+                               run calls each case once (9 K1, 12 K8).
+                               Both are the EXACT instances of K5's
+                               tensor-core kernel (csrc/chunk_matmul.cu):
+                               each row's bound is max(bytes / 3.35 TB/s,
+                               pieces·2·M·K·N / 989 TFLOP/s bf16), pieces
+                               the MMAs a weight (K1 2 or 6, K8 1 or 3 for
+                               a bf16 or f32 x), the f32 CUDA-core figure
+                               (2·M·K·N / 67 TFLOP/s) beside it
     Tolerances (`phase_k1_k8`): against the plain version on the card,
-    each output within K·2^-24·(|x| @ |w|) plus one step of its type, and
-    the decode bit for bit (identity rows: 128 rows of each plane, and
-    every code at its column scales); against the quantized step's own
-    bf16 product x @ unpack_leaf(leaf), within 2^-8·(|x| @ |w|) plus one
-    bf16 step.
+    each output within K·2^-24·(|x| @ |w|) plus one step of its type (each
+    row prints max |d| / that bound), and the decode bit for bit (identity
+    rows: 128 rows of each plane, and every code at its column scales);
+    against the quantized step's own bf16 product x @ unpack_leaf(leaf),
+    within 2^-8·(|x| @ |w|) plus one bf16 step.
 11. The other weight forms of the decode and prefill kernels (run where
     their weights are at hand: rwkv4 after phase 3 and in phase 4, the
     MIXED rwkv6 engine after phase 10's rwkv6 part, K7 on bf16 in phase 6
@@ -1258,7 +1265,8 @@ def phase_k5_f32x(trees, cfg, flush, usage):
                "library_ms": lib, "bound_ms": bms, "bound_by": by,
                "bound_form": form}
         if not rows:
-            row["ptxas"] = _registers(usage, r"chunk_mm_kernel.*Lb1EE")
+            row["ptxas"] = _registers(usage,
+                                      r"chunk_mm_kernel.*Lb1ELb0EE")
         _line(row)
         rows.append(row)
     return rows
@@ -3698,7 +3706,7 @@ def _k1k8_decode_exact(fn, plain_plane, codes, scale, w4, g):
                              "version")
 
 
-def phase_k1_k8(raw6, w4_rwkv4, flush):
+def phase_k1_k8(raw6, w4_rwkv4, flush, usage):
     """K1 (dpot_matmul) and K8 (dpot_matmul_w4) through the public entry
     point `repro_torch.kernels.ops`, on the operands of `_k1k8_planes`,
     M in {8, 128} with bf16 x (8 the serving matvec, 128 the quantized
@@ -3716,7 +3724,13 @@ def phase_k1_k8(raw6, w4_rwkv4, flush):
     sum within K·2^-24 (at most 2^-10.2 at K = 14336).  Times: the
     kernel L2-cold (`_time_ms`), the plain version and torch.matmul of
     x.float() on the pre-decoded f32 plane (TF32 off), 3 reps each,
-    beside max(bytes / 3.35 TB/s, 2·M·K·N / 67 TFLOP/s f32)."""
+    beside max(bytes / 3.35 TB/s, pieces·2·M·K·N / 989 TFLOP/s): the
+    kernels are K5's tensor-core kernel, one bf16 MMA for each piece of x
+    (one for bf16, three for f32) and of the weight (W8 two, W4 one).  The
+    f32 CUDA-core figure max(bytes, 2·M·K·N / 67 TFLOP/s) is printed
+    beside it (`f32_fma_bound_ms`), and each row's largest |d| over its
+    bound (`err_over_bound`).  The first row carries the ptxas lines of
+    the EXACT instances."""
     from repro_torch.core.quant.delta_pot import (
         FORMAT_W4, FORMAT_W8, dpot_dequantize, dpot_unpack_int8,
         dpot_unpack_nibbles)
@@ -3767,12 +3781,14 @@ def phase_k1_k8(raw6, w4_rwkv4, flush):
         if not bool((d <= bound).all()):
             raise AssertionError(f"{fn.__name__} {name} M={M}: max |d| "
                                  f"{float(d.max())} passes the bound")
+        over = float((d / bound).max())
         if (name, plane) not in checked:
             _k1k8_decode_exact(fn, plain_plane(w4), codes, scale, w4, g)
             checked.add((name, plane))
         row = {"kernel": fn.__name__, "operand": name, "M": M, "K": K,
                "N": N, "x": str(x.dtype).replace("torch.", ""),
-               "max_abs_err": float(d.max()), "decode_bit_exact": True}
+               "max_abs_err": float(d.max()), "err_over_bound": over,
+               "decode_bit_exact": True}
         if x.dtype == torch.bfloat16:
             leaf = {"packed4" if w4 else "packed": codes,
                     "scale": scale[None, :]}
@@ -3789,7 +3805,9 @@ def phase_k1_k8(raw6, w4_rwkv4, flush):
             del prod, dp, bp
         nbytes = (M * K * x.element_size() + codes.numel() + N * 4
                   + M * N * x.element_size())
-        bms, by = _bound(nbytes, 2.0 * M * K * N, PEAK_F32_FLOPS)
+        pieces = (1 if w4 else 2) * (1 if x.dtype == torch.bfloat16 else 3)
+        bms, by = _bound(nbytes, pieces * 2.0 * M * K * N, PEAK_BF16_FLOPS)
+        f32_bms, _ = _bound(nbytes, 2.0 * M * K * N, PEAK_F32_FLOPS)
         xf = x.float()
         with exact_matmuls():
             lib = _time_ms(lambda: torch.matmul(xf, w32), flush, reps=3)
@@ -3797,7 +3815,10 @@ def phase_k1_k8(raw6, w4_rwkv4, flush):
             "kernel_ms": _time_ms(lambda: fn(x, codes, scale), flush),
             "plain_ms": _time_ms(lambda: plain(x, codes, scale), flush,
                                  reps=3),
-            "library_ms": lib, "bound_ms": bms, "bound_by": by})
+            "library_ms": lib, "bound_ms": bms, "bound_by": by,
+            "mma_pieces": pieces, "f32_fma_bound_ms": f32_bms})
+        if not rows:   # the EXACT instances (K1's and K8's) of K5's kernel
+            row["ptxas"] = _registers(usage, r"chunk_mm_kernel.*Lb1EE")
         _line(row)
         rows.append(row)
         del ref, w32, mag, d, bound, xf
@@ -4106,7 +4127,7 @@ def main() -> int:
     _release()
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEV)
     k1k8, by_path["ops"] = _timed("K1, K8", phase_k1_k8, raw6, w4_rwkv4,
-                                  flush)
+                                  flush, usage)
     del flush, w4_rwkv4
     _release()
     by_path["rwkv6-quantized-step"] = _timed(
@@ -4383,7 +4404,7 @@ def main() -> int:
     # the ninth slice: K1 and K8 through kernels/ops.py
     for name, line in (("dpot_matmul", 68), ("dpot_matmul_w4", 124)):
         kernels.append(_kernel_row(
-            name, "src/repro_torch/csrc/dpot_matmul.cu",
+            name, "src/repro_torch/csrc/chunk_matmul.cu",
             f"src/repro/kernels/dpot_matmul.py:{line}",
             [r for r in k1k8 if r["kernel"] == name], launches(name, "ops"),
             summed + "; the operands in each phase line; library_ms is "

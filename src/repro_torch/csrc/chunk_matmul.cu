@@ -9,11 +9,18 @@
 //                        fused_prefill.py:102, :131 and :161 give
 //                        result_type(x, dt); the hardware numerics feed
 //                        att.wo an f32 activation
+// K1 and K8: out (M,N) = x (M,K) @ (sign·level(code)) · scale (N,), the
+// weights the f32 values sign·level·scale (no bf16 rounding), x f32 or
+// bf16 and out in x's type:
+//   dpot_matmul          W8 codes (K,N) u8, level 2^-q0 + 2^-(q0+Δq1)
+//   dpot_matmul_w4       W4 nibble pairs (K/2,N) u8, level 2^-Δq
 //
 // Replaces the TPU kernels kernels/fused_prefill.py:dpot_chunk_matmul
 // (_mm_kernel), w4_chunk_matmul (_mm_kernel_w4) and vq_chunk_matmul
-// (_mm_kernel_vq).  Used for every prefill chunk matmul (M = B·C = 128)
-// and for the prefill and decode heads (M = B = 8).
+// (_mm_kernel_vq), and kernels/dpot_matmul.py:dpot_matmul (_kernel,
+// _decode_w8) and dpot_matmul_w4 (_kernel_w4, _decode_w4).  K5 is used
+// for every prefill chunk matmul (M = B·C = 128) and for the prefill and
+// decode heads (M = B = 8); K1 and K8 are reached through kernels/ops.py.
 //
 // What bounds it on an H100: the uint8 codes.  At M <= 128 the product
 // does at most 2·M = 256 operations per code byte, under the card's ~295
@@ -22,7 +29,7 @@
 // not.  The design answers that:
 //   * one row tile covers every M <= 128 (BM = 16·ceil(M/16), rows past M
 //     skipped a 16-row MMA tile at a time), so each code byte is read
-//     from device memory once per call;
+//     from device memory once per call (more rows take more row tiles);
 //   * K is cut into slices (fused_prefill.py:chunk_matmul_plan, from K
 //     and N only) so the grid (N/128 column tiles × slices) has about two
 //     blocks for each of the 132 SMs, or one per 16 KB of codes; slices
@@ -61,11 +68,36 @@
 // 768, 768) the operations bound is 0.46 µs against 0.41 µs of bytes,
 // both far under what 36 blocks' latency costs at that size.
 //
+// K1 and K8 are the EXACT instances.  The scale is one per column, so it
+// factors out of the sum: out[m][n] = (Σ_k x[m][k]·sign·level[k][n])·
+// scale[n].  Every level is exact in bf16 pieces: a W4 level 2^-Δq is one
+// bf16 value; a W8 level is two powers of two, split into hi (the level
+// with its significand cut to bf16's 7 bits) and lo = level − hi (0 when
+// Δq1 <= 7, else sign·2^-(q0+Δq1)), both bf16.  Their tables
+// (fused_prefill.py:piece_table) hold each code's pieces as one word, hi
+// in the low 16 bits, with no scale; the decode only moves bits into one
+// bf16 tile a piece (W8 two, W4 one) and rounds nothing.  Each piece of x
+// times each piece of the weight is exact in f32, so a weight takes
+// (x pieces)·(weight pieces) MMAs: K1 2 with a bf16 x, 6 with an f32 x;
+// K8 1 and 3.  The f32 sum is multiplied by scale[n] once, after the last
+// slice (in the epilogue with one slice, in the combine pass with more),
+// and rounded once to x's type.  The products are exact, so only the
+// order and rounding of the f32 sums, and the scale's one rounding after
+// the sum instead of one per weight, differ from the plain version: the
+// bound K·2^-24·(|x|@|w|) plus one step of the output's type holds.
+// Identity rows give fl(level·scale), the plain version's weight, bit
+// for bit.  What bounds them on an H100 (NVIDIA H100 80GB HBM3, 700 W):
+// at M 8 the code plane's bytes (rwkv6-7b's head: 0.0805 ms W8, 0.0405
+// W4); at M 128 the larger of those bytes and pieces·2·M·K·N bf16
+// operations at 989 TFLOP/s (the head: 0.139 ms K1, 0.0695 K8, with a
+// bf16 x).
+//
 // Batch invariance: out[m][n] is the same sequence of m16n8k16 steps over
-// each slice, k ascending (for an f32 x, the x0, x1, x2 steps of each k),
-// then the slices summed in order, whatever M or the tile the row falls
-// in; so a row's bits never depend on which other rows share the call
-// (the plan's slices do not depend on M).
+// each slice, k ascending (for an f32 x, the x0, x1, x2 steps of each k;
+// within each, the weight's pieces in order), then the slices summed in
+// order, whatever M or the tile the row falls in; so a row's bits never
+// depend on which other rows share the call (the plan's slices do not
+// depend on M).
 #include <algorithm>
 #include <type_traits>
 
@@ -97,6 +129,8 @@ struct Args {
   const uint8_t* codes;
   const float* scale;     // W8, W4: the (N,) channel scales
   const float* table;     // W8: (256,), W4: (16,) sign·level
+  const uint32_t* pieces; // EXACT: (256,) or (16,) sign·level as bf16
+                          // pieces, hi in bits 15:0, lo in 31:16
   const bf16* codebook;   // VQ: (C,)
   float* ws;              // (slices, M, N) f32 partials when slices > 1
   void* out;              // (M, N) bf16, or f32 in the f32-x forms
@@ -120,18 +154,32 @@ __device__ __forceinline__ void store4(bf16* dst, const float* v, bool ok) {
   *reinterpret_cast<uint2*>(dst) = u;
 }
 
-template <int PLANE>
+// four piece words -> their bf16 piece HALF (0: bits 15:0, 1: 31:16), one
+// 8-byte store into the bf16 tile, no rounding
+template <int HALF>
+__device__ __forceinline__ void store_piece4(bf16* dst, const uint32_t* p,
+                                             bool ok) {
+  constexpr unsigned sel = HALF ? 0x7632u : 0x5410u;
+  uint2 u;
+  u.x = ok ? __byte_perm(p[0], p[1], sel) : 0u;
+  u.y = ok ? __byte_perm(p[2], p[3], sel) : 0u;
+  *reinterpret_cast<uint2*>(dst) = u;
+}
+
+template <int PLANE, bool EXACT>
 struct PlaneShape {
   static constexpr int table = PLANE == repro::kPlaneW4 ? 16 : 256;
   static constexpr int code_rows = PLANE == repro::kPlaneW4 ? BK / 2 : BK;
+  // bf16 pieces a decoded weight takes: two for an exact W8 level
+  static constexpr int pieces = EXACT && PLANE == repro::kPlaneW8 ? 2 : 1;
 };
 
-template <int WM, int MT, int PLANE, bool XF32>
+template <int WM, int MT, int PLANE, bool XF32, bool EXACT>
 constexpr size_t smem_bytes() {
-  return PlaneShape<PLANE>::table * TCOPIES * sizeof(float) +
-         STAGES * PlaneShape<PLANE>::code_rows * BN +
+  return PlaneShape<PLANE, EXACT>::table * TCOPIES * sizeof(float) +
+         STAGES * PlaneShape<PLANE, EXACT>::code_rows * BN +
          STAGES * (WM * MT * 16) * XS * sizeof(XType<XF32>) +
-         2 * BK * BS * sizeof(bf16);
+         2 * PlaneShape<PLANE, EXACT>::pieces * BK * BS * sizeof(bf16);
 }
 
 // One block: output rows [m0, m0 + BM) × columns [n0, n0 + BN), summed
@@ -141,7 +189,9 @@ constexpr size_t smem_bytes() {
 // == 0, a 16-byte aligned plane); else it loads bytes, a stage's loads
 // all in flight before any is stored.  x the same way, by a.x_vec.
 // XF32: x and out are f32 (the f32-x forms), x split at the fragment.
-template <int WM, int MT, int PLANE, bool VEC, bool XF32>
+// EXACT (K1, K8): the piece tables, one bf16 tile a piece, the scale
+// after the sum.
+template <int WM, int MT, int PLANE, bool VEC, bool XF32, bool EXACT>
 __global__ void __launch_bounds__(THREADS, WM == 1 ? 4 : (XF32 ? 1 : 2))
 chunk_mm_kernel(const Args a) {
   using XT = XType<XF32>;
@@ -149,8 +199,10 @@ chunk_mm_kernel(const Args a) {
   constexpr int BM = WM * MT * 16;
   constexpr int WARP_N = BN / WN;
   constexpr int NT = WARP_N / 8;
-  constexpr int TLEN = PlaneShape<PLANE>::table;
-  constexpr int CROWS = PlaneShape<PLANE>::code_rows;
+  constexpr int TLEN = PlaneShape<PLANE, EXACT>::table;
+  constexpr int CROWS = PlaneShape<PLANE, EXACT>::code_rows;
+  constexpr int BP = PlaneShape<PLANE, EXACT>::pieces;
+  constexpr int PIECE = BK * BS;  // a decoded tile's bf16 elements
   constexpr int XCHUNK = 16 / sizeof(XT);  // x elements a 16-byte copy
   static_assert(NT % 2 == 0, "B fragments load 16 columns at a time");
 
@@ -240,6 +292,8 @@ chunk_mm_kernel(const Args a) {
     float v = 0.f;
     if constexpr (PLANE == repro::kPlaneVQ)
       v = e < a.C ? repro::bf2f(a.codebook[e]) : 0.f;
+    else if constexpr (EXACT)
+      v = e < TLEN ? __uint_as_float(a.pieces[e]) : 0.f;
     else if (e < TLEN)
       v = a.table[e];
     for (int j = 0; j < min(32, TLEN - e0); ++j) {
@@ -252,12 +306,13 @@ chunk_mm_kernel(const Args a) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int n = n0 + 4 * lane + j;
-    sc[j] = PLANE != repro::kPlaneVQ && n < N ? a.scale[n] : 0.f;
+    sc[j] = PLANE != repro::kPlaneVQ && !EXACT && n < N ? a.scale[n] : 0.f;
   }
   const int tl = lane & (TCOPIES - 1);
 
-  // tile t's codes -> its bf16 weights in dst; each warp takes whole
-  // rows, a lane 4 columns (one u32)
+  // tile t's codes -> its bf16 weights in dst (an EXACT W8 tile: hi at
+  // dst, lo at dst + PIECE); each warp takes whole rows, a lane 4 columns
+  // (one u32)
   auto decode = [&](int t, bf16* dst) {
     const uint8_t* csrc = cring + (t % STAGES) * CROWS * BN;
     const int k0 = kb + t * BK;
@@ -266,7 +321,27 @@ chunk_mm_kernel(const Args a) {
       const int r = warp + 8 * i;
       const uint32_t w =
           *reinterpret_cast<const uint32_t*>(csrc + r * BN + 4 * lane);
-      if constexpr (PLANE == repro::kPlaneW4) {
+      if constexpr (EXACT && PLANE == repro::kPlaneW4) {
+        uint32_t lo[4], hi[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t b = (w >> (8 * j)) & 0xFFu;
+          lo[j] = __float_as_uint(tab[(b & 15u) * TCOPIES + tl]);
+          hi[j] = __float_as_uint(tab[(b >> 4) * TCOPIES + tl]);
+        }
+        const bool ok = k0 + 2 * r < K;
+        store_piece4<0>(dst + (2 * r) * BS + 4 * lane, lo, ok);
+        store_piece4<0>(dst + (2 * r + 1) * BS + 4 * lane, hi, ok);
+      } else if constexpr (EXACT) {
+        uint32_t p[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          p[j] = __float_as_uint(
+              tab[((w >> (8 * j)) & 0xFFu) * TCOPIES + tl]);
+        const bool ok = k0 + r < K;
+        store_piece4<0>(dst + r * BS + 4 * lane, p, ok);
+        store_piece4<1>(dst + PIECE + r * BS + 4 * lane, p, ok);
+      } else if constexpr (PLANE == repro::kPlaneW4) {
         float lo[4], hi[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -298,22 +373,25 @@ chunk_mm_kernel(const Args a) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
 
-  // acc += x tile t · the decoded tile in src, k16 step by k16 step
+  // acc += x tile t · the decoded tile (its BP pieces) in src, k16 step
+  // by k16 step
   auto multiply = [&](int t, const bf16* src) {
     const XT* xs = xring + (t % STAGES) * BM * XS;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t bfr[NT][2];
+      uint32_t bfr[BP][NT][2];
 #pragma unroll
-      for (int p = 0; p < NT / 2; ++p) {
-        uint32_t r4[4];
-        ldmatrix_x4_trans(r4, src + (kk + (lane & 15)) * BS + wn * WARP_N +
-                                  p * 16 + (lane >> 4) * 8);
-        bfr[2 * p][0] = r4[0];
-        bfr[2 * p][1] = r4[1];
-        bfr[2 * p + 1][0] = r4[2];
-        bfr[2 * p + 1][1] = r4[3];
-      }
+      for (int q = 0; q < BP; ++q)
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {
+          uint32_t r4[4];
+          ldmatrix_x4_trans(r4, src + q * PIECE + (kk + (lane & 15)) * BS +
+                                    wn * WARP_N + p * 16 + (lane >> 4) * 8);
+          bfr[q][2 * p][0] = r4[0];
+          bfr[q][2 * p][1] = r4[1];
+          bfr[q][2 * p + 1][0] = r4[2];
+          bfr[q][2 * p + 1][1] = r4[3];
+        }
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         const int gt = wm * MT + mt;
@@ -342,14 +420,19 @@ chunk_mm_kernel(const Args a) {
 #pragma unroll
           for (int p = 0; p < 3; ++p)
 #pragma unroll
-            for (int nt = 0; nt < NT; ++nt)
-              mma_bf16(acc[mt][nt], afr[p], bfr[nt]);
+            for (int q = 0; q < BP; ++q)
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt)
+                mma_bf16(acc[mt][nt], afr[p], bfr[q][nt]);
         } else {
           uint32_t afr[4];
           ldmatrix_x4(afr, xs + (gt * 16 + (lane & 15)) * XS + kk +
                                (lane >> 4) * 8);
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], afr, bfr[nt]);
+          for (int q = 0; q < BP; ++q)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+              mma_bf16(acc[mt][nt], afr, bfr[q][nt]);
         }
       }
     }
@@ -368,15 +451,20 @@ chunk_mm_kernel(const Args a) {
       if (tn < ntiles_k) load_stage(tn % STAGES, kb + tn * BK);
       cp_async_commit();
     }
-    if (t + 1 < ntiles_k) decode(t + 1, bdec + ((t + 1) & 1) * BK * BS);
-    multiply(t, bdec + (t & 1) * BK * BS);
+    if (t + 1 < ntiles_k) decode(t + 1, bdec + ((t + 1) & 1) * BP * PIECE);
+    multiply(t, bdec + (t & 1) * BP * PIECE);
   }
   cp_async_wait<0>();
 
-  // the accumulators: (row g, cols 2c, 2c+1) and (row g + 8, the same)
+  // the accumulators: (row g, cols 2c, 2c+1) and (row g + 8, the same);
+  // EXACT: a whole sum times its column's scale
   const int g = lane >> 2, c2 = (lane & 3) * 2;
   const bool partial = gridDim.y > 1;
   XT* out = static_cast<XT*>(a.out);
+  auto final_value = [&](float v, int n) {
+    if constexpr (EXACT) return v * a.scale[n];
+    return v;
+  };
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     const int gt = wm * MT + mt;
@@ -395,57 +483,61 @@ chunk_mm_kernel(const Args a) {
           if (n + 1 < N) dst[1] = v1;
         } else {
           XT* dst = out + (size_t)m * N + n;
-          if (n < N) store_out(dst, v0);
-          if (n + 1 < N) store_out(dst + 1, v1);
+          if (n < N) store_out(dst, final_value(v0, n));
+          if (n + 1 < N) store_out(dst + 1, final_value(v1, n + 1));
         }
       }
     }
   }
 }
 
-// out = ws[0] + ws[1] + ... + ws[S-1], in that order, rounded once to bf16
-// or stored as f32
+// out = ws[0] + ws[1] + ... + ws[S-1], in that order, times scale[n]
+// when a scale is given (K1, K8; none for K5), rounded once to bf16 or
+// stored as f32
 template <typename OutT>
 __global__ void combine_slices_kernel(const float* __restrict__ ws,
+                                      const float* __restrict__ scale,
                                       OutT* __restrict__ out, size_t MN,
-                                      int S) {
+                                      int N, int S) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < MN;
        i += (size_t)gridDim.x * blockDim.x) {
     float s = ws[i];
     for (int t = 1; t < S; ++t) s += ws[t * MN + i];
+    if (scale) s = s * scale[i % N];
     store_out(out + i, s);
   }
 }
 
-template <int WM, int MT, int PLANE, bool VEC, bool XF32>
+template <int WM, int MT, int PLANE, bool VEC, bool XF32, bool EXACT>
 cudaError_t launch_tile(const Args& a, dim3 grid, cudaStream_t s) {
-  constexpr size_t bytes = smem_bytes<WM, MT, PLANE, XF32>();
+  constexpr size_t bytes = smem_bytes<WM, MT, PLANE, XF32, EXACT>();
   static int sized_on = -1;  // the device whose limit was raised last
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev != sized_on) {
-    e = cudaFuncSetAttribute(chunk_mm_kernel<WM, MT, PLANE, VEC, XF32>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
+    e = cudaFuncSetAttribute(
+        chunk_mm_kernel<WM, MT, PLANE, VEC, XF32, EXACT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
     sized_on = dev;
   }
-  chunk_mm_kernel<WM, MT, PLANE, VEC, XF32><<<grid, THREADS, bytes, s>>>(a);
+  chunk_mm_kernel<WM, MT, PLANE, VEC, XF32, EXACT>
+      <<<grid, THREADS, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
-template <int PLANE, bool VEC, bool XF32>
+template <int PLANE, bool VEC, bool XF32, bool EXACT>
 cudaError_t launch_rows(const Args& a, dim3 grid, bool small,
                         cudaStream_t s) {
-  return small ? launch_tile<1, 1, PLANE, VEC, XF32>(a, grid, s)
-               : launch_tile<2, 4, PLANE, VEC, XF32>(a, grid, s);
+  return small ? launch_tile<1, 1, PLANE, VEC, XF32, EXACT>(a, grid, s)
+               : launch_tile<2, 4, PLANE, VEC, XF32, EXACT>(a, grid, s);
 }
 
 // The plan comes from fused_prefill.py:chunk_matmul_plan; it is checked
 // here against the tile this file compiles.  `vec` picks the producers:
 // bit 0 copies code rows by cp.async, bit 1 x rows.
-template <int PLANE, bool XF32>
+template <int PLANE, bool XF32, bool EXACT = false>
 int launch(Args a, int bm, int bn, int bk, int slices, int vec,
            void* stream) {
   a.x_vec = (vec >> 1) & 1;
@@ -459,13 +551,14 @@ int launch(Args a, int bm, int bn, int bk, int slices, int vec,
   const bool small = bm <= 16;
   const dim3 grid((N + BN - 1) / BN, slices, small ? 1 : (M + 127) / 128);
   const cudaError_t e =
-      vec & 1 ? launch_rows<PLANE, true, XF32>(a, grid, small, s)
-              : launch_rows<PLANE, false, XF32>(a, grid, small, s);
+      vec & 1 ? launch_rows<PLANE, true, XF32, EXACT>(a, grid, small, s)
+              : launch_rows<PLANE, false, XF32, EXACT>(a, grid, small, s);
   if (e != cudaSuccess || slices == 1) return static_cast<int>(e);
   const size_t MN = (size_t)M * N;
   const int blocks = (int)std::min<size_t>((MN + 255) / 256, 132 * 8);
   combine_slices_kernel<<<blocks, 256, 0, s>>>(
-      a.ws, static_cast<XType<XF32>*>(a.out), MN, slices);
+      a.ws, EXACT ? a.scale : nullptr, static_cast<XType<XF32>*>(a.out), MN,
+      N, slices);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -502,6 +595,22 @@ int w4(const void* x, const void* wq4, const void* scale, const void* table,
   a.scale = static_cast<const float*>(scale);
   a.table = static_cast<const float*>(table);
   return launch<repro::kPlaneW4, XF32>(a, bm, bn, bk, slices, vec, stream);
+}
+
+// K1 (W8) and K8 (W4): the EXACT instances; x_bf16 picks x's type
+template <int PLANE>
+int dpot(const void* x, const void* codes, const void* scale,
+         const void* pieces, void* ws, void* out, int M, int K, int N, int bm,
+         int bn, int bk, int slice_len, int slices, int vec, int x_bf16,
+         void* stream) {
+  if (PLANE == repro::kPlaneW4 && K % 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(x, codes, ws, out, M, K, N, slice_len);
+  a.scale = static_cast<const float*>(scale);
+  a.pieces = static_cast<const uint32_t*>(pieces);
+  return x_bf16
+             ? launch<PLANE, false, true>(a, bm, bn, bk, slices, vec, stream)
+             : launch<PLANE, true, true>(a, bm, bn, bk, slices, vec, stream);
 }
 
 template <bool XF32>
@@ -574,4 +683,29 @@ extern "C" int vq_matmul_f32x(const void* x, const void* idx,
                               void* stream) {
   return vq<true>(x, idx, codebook, C, ws, out, M, K, N, bm, bn, bk,
                   slice_len, slices, vec, stream);
+}
+
+// K1: x (M, K) bf16 (x_bf16 = 1) or f32 (0) @ W8 codes wq (K, N) with
+// scale (N,) f32 -> out (M, N) in x's type.  pieces: (256,) u32
+// (fused_prefill.py:piece_table); the plan and ws as K5's
+extern "C" int dpot_matmul(const void* x, const void* wq, const void* scale,
+                           const void* pieces, void* ws, void* out, int M,
+                           int K, int N, int bm, int bn, int bk,
+                           int slice_len, int slices, int vec, int x_bf16,
+                           void* stream) {
+  return dpot<repro::kPlaneW8>(x, wq, scale, pieces, ws, out, M, K, N, bm,
+                               bn, bk, slice_len, slices, vec, x_bf16,
+                               stream);
+}
+
+// K8: wq4 (K/2, N), contraction row k nibble k & 1 of packed row k / 2;
+// pieces (16,) u32
+extern "C" int dpot_matmul_w4(const void* x, const void* wq4,
+                              const void* scale, const void* pieces, void* ws,
+                              void* out, int M, int K, int N, int bm, int bn,
+                              int bk, int slice_len, int slices, int vec,
+                              int x_bf16, void* stream) {
+  return dpot<repro::kPlaneW4>(x, wq4, scale, pieces, ws, out, M, K, N, bm,
+                               bn, bk, slice_len, slices, vec, x_bf16,
+                               stream);
 }

@@ -59,8 +59,8 @@ SIGNATURES = {
     "fused_ce_bwd": [_P] * 5 + [_I] * 4 + [_P],
     "fused_layernorm_bwd": [_P] * 7 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
     "wkv4_seq_bwd": [_P] * 14 + [_I] * 3 + [_P],
-    "dpot_matmul": [_P] * 4 + [_I] * 4 + [_P],
-    "dpot_matmul_w4": [_P] * 4 + [_I] * 4 + [_P],
+    "dpot_matmul": [_P] * 6 + [_I] * 10 + [_P],
+    "dpot_matmul_w4": [_P] * 6 + [_I] * 10 + [_P],
 }
 
 

@@ -114,6 +114,22 @@ def decode_table(plane: str, device: torch.device) -> torch.Tensor:
                                                            fmt.ks)
 
 
+@functools.lru_cache(maxsize=None)
+def piece_table(plane: str, device: torch.device) -> torch.Tensor:
+    """K1's and K8's decode table (`csrc/chunk_matmul.cu`, the EXACT
+    instances): each code's sign·level, `decode_table`'s f32 value with no
+    scale, as two bf16 pieces in one int32 word, hi in bits 15:0 and lo in
+    31:16.  hi is the level with its significand cut to bf16's (the top
+    16 bits of the f32), lo = level - hi, exact.  A W8 level 2^-q0 +
+    2^-(q0+Δq1) is hi + lo exactly, lo nonzero only when Δq1 > 7; a W4
+    level 2^-Δq is hi alone.  Raises if a level needs a third piece."""
+    hi, lo, rest = split_bf16x3(decode_table(plane, device))
+    if bool((rest != 0).any()):
+        raise ValueError(f"a {plane} level is not two bf16 pieces")
+    # each piece's f32 bits have 15:0 clear: its bf16 bits are 31:16
+    return (hi.view(torch.int32) >> 16 & 0xFFFF) | lo.view(torch.int32)
+
+
 def _vector_loads(x: torch.Tensor, codes: torch.Tensor) -> int:
     """Which producers copy 16-byte chunks by cp.async: bit 0 the code
     rows, bit 1 the x rows (bf16 or f32); each needs rows that are whole
@@ -193,11 +209,11 @@ def _check_operands(name, x, codes, aux, k_rows: int, aux_dtype,
         raise ValueError(f"{name}: codes must be contiguous")
 
 
-def _launch(entry: str, plane: str, x, codes, lead: tuple):
-    """Launch one K5 form: `lead` are the entry's arguments between the
-    codes and the workspace (the scale and the decode table, or the
-    codebook and its length).  The out is x's dtype: bf16, or f32 for the
-    f32-x forms."""
+def launch_chunk_mm(entry: str, plane: str, x, codes, lead: tuple, tail=()):
+    """Launch one K5 form (or K1, K8): `lead` are the entry's arguments
+    between the codes and the workspace (the scale and the decode table,
+    or the codebook and its length), `tail` those before the stream.  The
+    out is x's dtype: bf16, or f32 for the f32-x forms."""
     M, K, N = x.shape[0], x.shape[1], codes.shape[1]
     plan = chunk_matmul_plan(M, K, N, plane)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
@@ -207,7 +223,7 @@ def _launch(entry: str, plane: str, x, codes, lead: tuple):
         x.data_ptr(), codes.data_ptr(), *lead,
         None if ws is None else ws.data_ptr(), out.data_ptr(), M, K, N,
         plan.bm, plan.bn, plan.bk, plan.slice_len, plan.slices,
-        _vector_loads(x, codes), stream_ptr(x)), entry)
+        _vector_loads(x, codes), *tail, stream_ptr(x)), entry)
     return out
 
 
@@ -216,7 +232,7 @@ def _w8(entry: str, x, wq, scale):
     _check_operands(entry, x, wq, scale, x.shape[1], torch.float32,
                     wq.shape[1])
     x, scale = x.contiguous(), scale.contiguous()
-    return _launch(entry, "w8", x, wq, (
+    return launch_chunk_mm(entry, "w8", x, wq, (
         scale.data_ptr(), decode_table("w8", x.device).data_ptr()))
 
 
@@ -227,7 +243,7 @@ def _w4(entry: str, x, wq4, scale):
     _check_operands(entry, x, wq4, scale, x.shape[1] // 2, torch.float32,
                     wq4.shape[1])
     x, scale = x.contiguous(), scale.contiguous()
-    return _launch(entry, "w4", x, wq4, (
+    return launch_chunk_mm(entry, "w4", x, wq4, (
         scale.data_ptr(), decode_table("w4", x.device).data_ptr()))
 
 
@@ -239,7 +255,7 @@ def _vq(entry: str, x, idx, codebook):
         raise ValueError(f"{entry}: codebook of {C} entries; uint8 "
                          "indices need 1..256")
     x, cb = x.contiguous(), cb.contiguous()
-    return _launch(entry, "vq", x, idx, (cb.data_ptr(), C))
+    return launch_chunk_mm(entry, "vq", x, idx, (cb.data_ptr(), C))
 
 
 def dpot_w8_matmul(x: torch.Tensor, wq: torch.Tensor,

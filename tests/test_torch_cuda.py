@@ -1630,11 +1630,14 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
 # --- K1 and K8: the Δ-PoT matmuls with f32 weights (kernels/dpot_matmul.py)
 #
 # Tolerance: each output within K·2^-24·(|x| @ |w|) of the plain version
-# (two f32 sums of the same products in other orders) plus one step of
-# the output's type at the larger of the two (each side rounds its f32
-# sum once); the decoded f32 plane, over every code, bit for bit (identity
-# rows pick it out); a row's result bit for bit whatever rows share the
-# call.
+# (the same exact products summed in f32 in other orders, the kernel's
+# scale applied once after the sum) plus one step of the output's type at
+# the larger of the two (each side rounds its f32 sum once); the decoded
+# f32 plane, over every code, bit for bit (identity rows pick it out); a
+# row's result bit for bit whatever rows share the call.  The shapes take
+# M past 128 (more row tiles), K not a multiple of the 32-row stage, N
+# not a multiple of the 128-column tile, and several K slices at M 128
+# (the combine pass applies the scale).
 
 from repro_torch.core.quant.delta_pot import (
     FORMAT_W4, dpot_dequantize, dpot_pack_nibbles, dpot_unpack_int8,
@@ -1645,7 +1648,8 @@ from repro_torch.kernels.dpot_matmul import (
 
 K1K8_SHAPES = [(1, 96, 203), (37, 96, 203), (8, 1024, 1024),
                (128, 4096, 4096), (8, 4096, 14336), (128, 14336, 4096),
-               (8, 4096, 65536), (128, 768, 50277)]
+               (8, 4096, 65536), (128, 768, 50277), (300, 1000, 515),
+               (300, 998, 515), (128, 3000, 512)]
 
 
 def _k1k8_operands(cuda, M, K, N, w4, dtype, seed):
@@ -1690,6 +1694,24 @@ def test_dpot_matmul_k1_k8(cuda, M, K, N, dtype, w4):
     _k1k8_within(out, plain(x, codes, scale), x,
                  _k1k8_plane(codes, scale, w4))
     assert torch.equal(fn(x[:1], codes, scale), out[:1])
+
+
+@pytest.mark.parametrize("w4", [False, True], ids=["k1", "k8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dpot_matmul_rows_bitwise_across_m(cuda, dtype, w4):
+    """At (300, 3000, 512), planned with several K slices, a row's bits do
+    not depend on the rows sharing the call: calls on 1, 8, 16, 17, 128
+    and 129 rows (both row tiles), on rows 128-299 and on the last ten
+    give the whole call's rows."""
+    from repro_torch.kernels.fused_prefill import chunk_matmul_plan
+    M, K, N = 300, 3000, 512
+    assert chunk_matmul_plan(M, K, N, "w4" if w4 else "w8").slices > 1
+    x, codes, scale = _k1k8_operands(cuda, M, K, N, w4, dtype, 11)
+    fn = ops.dpot_matmul_w4 if w4 else ops.dpot_matmul
+    out = fn(x, codes, scale)
+    for a, b in ((0, 1), (0, 8), (0, 16), (0, 17), (0, 128), (0, 129),
+                 (128, 300), (290, 300)):
+        assert torch.equal(fn(x[a:b], codes, scale), out[a:b]), (a, b)
 
 
 @pytest.mark.parametrize("w4", [False, True], ids=["k1", "k8"])

@@ -11,6 +11,14 @@ Tolerances, stated per check:
     K products in other orders: the Pallas kernel sums K blocks, torch its
     own order), plus one bf16 step at the larger of the two outputs for a
     bf16 x (each side rounds its f32 sum once).
+
+The CUDA kernels' arithmetic (`csrc/chunk_matmul.cu`, the EXACT
+instances) is modelled here in plain torch: each level as its bf16 pieces
+(`piece_table`: bit for bit the level, zero pieces for a zero level), x as
+its bf16 pieces, the exact products summed in f32 a slice of
+`chunk_matmul_plan` at a time, the slices in order, the scale after the
+sum.  The model is held to JAX's Pallas kernels by the same bound, and its
+identity rows to JAX's decoded plane bit for bit.
 """
 import numpy as np
 import pytest
@@ -28,8 +36,11 @@ from repro.kernels.dpot_matmul import (
 from repro_torch.bridge import to_torch
 from repro_torch.core.quant.delta_pot import (
     dpot_dequantize, dpot_unpack_int8, dpot_unpack_nibbles)
+from repro_torch.device import exact_matmuls
 from repro_torch.kernels.dpot_matmul import (
     dpot_matmul, dpot_matmul_plain, dpot_matmul_w4, dpot_matmul_w4_plain)
+from repro_torch.kernels.fused_prefill import (
+    chunk_matmul_plan, piece_table, split_bf16x3)
 
 # tests/test_kernels.py's four (M, K, N) and the TPU tiles it runs them at
 SHAPES = [(8, 128, 128, 8, 128, 128), (16, 256, 256, 8, 128, 128),
@@ -205,3 +216,117 @@ def test_ops_entry_point():
     for name in ("exp_kernel", "fused_cross_entropy", "sigmoid_kernel",
                  "wkv4_seq", "wkv6_chunked_kernel"):
         assert getattr(T, name) is getattr(ops, name)
+
+
+# --- the CUDA kernels' arithmetic: exact bf16 pieces, the scale after the sum
+
+def _pieces(plane):
+    """`piece_table(plane)` unpacked: (hi, lo) as f32 numpy arrays, one
+    entry a code (W8) or nibble (W4)."""
+    w = piece_table(plane, torch.device("cpu")).numpy().view(np.uint32)
+    return ((w & 0xFFFF) << 16).view(np.float32), \
+        (w & 0xFFFF0000).view(np.float32)
+
+
+def _kernel_model(x, codes, scale, w4):
+    """K1's (or K8's) result as the CUDA kernel forms it, in plain torch:
+    the weight's pieces from its code, x's pieces (a bf16 x is one, an f32
+    x three by `split_bf16x3`), every piece product summed in f32 a slice
+    of `chunk_matmul_plan` at a time, the slices added in order, then the
+    column scale, then one rounding to x's dtype."""
+    plane = "w4" if w4 else "w8"
+    c = codes.numpy().astype(np.int64)
+    if w4:
+        c = np.stack([c & 15, c >> 4], 1).reshape(2 * c.shape[0], -1)
+    ws = [torch.from_numpy(p[c]) for p in _pieces(plane)[:1 if w4 else 2]]
+    xs = ([x.float()] if x.dtype == torch.bfloat16
+          else list(split_bf16x3(x)))
+    M, K = x.shape
+    plan = chunk_matmul_plan(M, K, c.shape[1], plane)
+    total = None
+    with exact_matmuls():
+        for s in range(plan.slices):
+            k = slice(s * plan.slice_len, (s + 1) * plan.slice_len)
+            part = sum(xp[:, k] @ wp[k] for xp in xs for wp in ws)
+            total = part if total is None else total + part
+    return (total * scale).to(x.dtype)
+
+
+@pytest.mark.parametrize("w4", [False, True], ids=["w8", "w4"])
+def test_piece_table_is_the_level_exactly(w4):
+    """Every W8 code's hi and lo (every W4 nibble's level) are bf16 values
+    whose f32 sum is the sign·level that dpot_dequantize forms at scale 1
+    and that JAX's decode forms, bit for bit; a zero level (Δq0 = 0, or a
+    zero Δq) has zero pieces (its sign gives -0 on the plain side)."""
+    n = 16 if w4 else 256
+    hi, lo = _pieces("w4" if w4 else "w8")
+    for p in (hi, lo):
+        bf = torch.from_numpy(p).to(torch.bfloat16).float().numpy()
+        np.testing.assert_array_equal(bf.view(np.uint32), p.view(np.uint32))
+    codes = np.arange(n, dtype=np.uint8)[:, None]
+    one = np.ones(1, np.float32)
+    if w4:
+        assert not lo.any()
+        packed = codes[0::2] | (codes[1::2] << 4)
+        ref = dpot_dequantize(dpot_unpack_nibbles(
+            torch.from_numpy(packed), torch.from_numpy(one)[None], (3,)))
+        jref = np.asarray(jax.jit(_decode_w4)(jnp.asarray(packed),
+                                              jnp.asarray(one)[None]))
+    else:
+        ref = dpot_dequantize(dpot_unpack_int8(
+            torch.from_numpy(codes), torch.from_numpy(one)[None], (3, 4)))
+        jref = np.asarray(jax.jit(_decode_w8)(jnp.asarray(codes),
+                                              jnp.asarray(one)[None]))
+    ref = ref.numpy()[:, 0]
+    np.testing.assert_array_equal(ref.view(np.uint32),
+                                  jref[:, 0].view(np.uint32))
+    total = hi + lo
+    nz = ref != 0
+    np.testing.assert_array_equal(total[nz].view(np.uint32),
+                                  ref[nz].view(np.uint32))
+    assert not hi[~nz].any() and not lo[~nz].any()
+    if not w4:
+        # lo is nonzero exactly where Δq0 > 0 and Δq1 > 7
+        dq0, dq1 = codes[:, 0] & 7, (codes[:, 0] >> 3) & 15
+        np.testing.assert_array_equal(lo != 0, (dq0 > 0) & (dq1 > 7))
+
+
+@pytest.mark.parametrize("w4", [False, True], ids=["k1", "k8"])
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("M,K,N,bm,bn,bk", SHAPES)
+def test_kernel_model_matches_pallas(rng, M, K, N, bm, bn, bk, dt, w4):
+    """The model of the CUDA kernels' arithmetic against JAX's Pallas
+    dpot_matmul / dpot_matmul_w4 in interpret mode, within K·2^-24·(|x| @
+    |w|) (plus one bf16 step for a bf16 x)."""
+    jdt, tdt = DTYPES[dt]
+    x, wq, scale, mag = _operands(rng, M, K, N, jdt, w4=w4)
+    ref = (j_k8 if w4 else j_k1)(x, wq, scale, bm=bm, bn=bn, bk=bk,
+                                 interpret=True)
+    tx, twq, tsc = _port(x, wq, scale)
+    got = _kernel_model(tx, twq, tsc, w4)
+    assert got.dtype == tdt
+    _assert_within(ref, got, mag, K, dt == "bf16")
+
+
+@pytest.mark.parametrize("w4", [False, True], ids=["k1", "k8"])
+def test_kernel_model_identity_rows_give_the_plane(rng, w4):
+    """Identity rows (f32 x) through the model pick out JAX's decoded f32
+    plane bit for bit, for every code at random column scales (-0 of a
+    signed zero level compares equal to 0)."""
+    if w4:
+        codes, scale = _all_codes(rng, 16, 64)
+        codes = np.concatenate([codes[0::2] | (codes[1::2] << 4),
+                                codes[1::2] | (codes[0::2] << 4)])
+        jplane = np.asarray(jax.jit(_decode_w4)(jnp.asarray(codes),
+                                                jnp.asarray(scale)[None]))
+    else:
+        codes, scale = _all_codes(rng, 256, 128)
+        jplane = np.asarray(jax.jit(_decode_w8)(jnp.asarray(codes),
+                                                jnp.asarray(scale)[None]))
+    tc, ts = _port(codes, scale)
+    eye = torch.eye(jplane.shape[0])
+    got = _kernel_model(eye, tc, ts, w4).numpy()
+    np.testing.assert_array_equal(got, jplane)
+    nz = jplane != 0
+    np.testing.assert_array_equal(got[nz].view(np.uint32),
+                                  jplane[nz].view(np.uint32))
