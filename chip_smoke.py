@@ -22,7 +22,9 @@ each prints its seconds and peak device memory (`phase_done` lines):
       vq_matmul (K5-VQ)        M in {128, 8} x (3072, 768) (ffn.wv)
       wkv4_seq (K2)            (B, T, C) = (8, 16, 768), prefix masks
       rwkv4_block_decode (K3)  B = 8, D = 768, F = 3072, on layer 0 of the
-                               W8 tree and of the MIXED tree
+                               W8 tree and of the MIXED tree, on every
+                               resident block (the grid is printed) and
+                               bit for bit on grids of 1 and 7 blocks
       rwkv4_model_decode (K4)  B = 8, all 12 layers of the prepared MIXED
                                slabs; bit for bit equal to 12 K3 launches
     Each chunk matmul's decode is checked bit for bit: identity rows pick
@@ -82,8 +84,8 @@ each prints its seconds and peak device memory (`phase_done` lines):
       dpot_w8_matmul_f32x      (128, 768, 768), att.wo: decode bit for bit,
       (K5 f32-x)               outputs within K·2^-24·(|x| @ |w|); the
                                ptxas lines of its f32-x instances
-      rwkv4_block_decode       layer 0, B = 8, with the tables
-      (K3-hw)
+      rwkv4_block_decode       layer 0, B = 8, with the tables; bit for
+      (K3-hw)                  bit on grids of 1 and 7 blocks
       rwkv4_model_decode       the 12 layers of the prepared hw stack; bit
       (K4-hw)                  for bit equal to 12 K3-hw launches
     K9 and K2-hw are bit for bit: every operation is one IEEE rounding
@@ -821,6 +823,20 @@ def _k3_check(out, ref, where):
     return err, mean_rel
 
 
+def _k3_grids(call, out):
+    """K3 on grids of 1 and 7 blocks (`call(grid)`) against `out`, the
+    full grid's outputs, bit for bit; returns the full grid's blocks."""
+    from repro_torch.kernels.fused_decode import rwkv4_block_decode
+    full = rwkv4_block_decode.grid
+    for grid in (1, 7):
+        got = call(grid)
+        if not (torch.equal(got[0], out[0]) and all(
+                torch.equal(got[1][k], out[1][k]) for k in out[1])):
+            raise AssertionError(f"K3 on {grid} blocks differs from K3 on "
+                                 f"{full}")
+    return full
+
+
 def phase_k3(params, cfg, flush, planes="w8"):
     from repro_torch.core.quant.serving import (
         broadcast_packed_scales, cast_compute)
@@ -839,9 +855,10 @@ def phase_k3(params, cfg, flush, planes="w8"):
     st = {"att_x": rn().to(bf), "ffn_x": rn().to(bf),
           "wkv_a": rn().to(bf), "wkv_b": (rn().abs() + 0.5).to(bf),
           "wkv_o": (rn() - 1).to(bf)}
-    err, mean_rel = _k3_check(rwkv4_block_decode(lp, st, x),
-                              rwkv4_block_decode_plain(lp, st, x),
+    out = rwkv4_block_decode(lp, st, x)
+    err, mean_rel = _k3_check(out, rwkv4_block_decode_plain(lp, st, x),
                               f"layer 0 ({planes})")
+    grid = _k3_grids(lambda g: rwkv4_block_decode(lp, st, x, grid=g), out)
     # the layer's own tensors (codes, scales or codebook, vectors), then
     # x and the state in and out
     nbytes = (sum(t.numel() * t.element_size()
@@ -850,7 +867,8 @@ def phase_k3(params, cfg, flush, planes="w8"):
     ops = 2.0 * B * (5 * D * D + 2 * D * F)
     bms, by = _bound(nbytes, ops, PEAK_BF16_FLOPS)
     row = {"kernel": "rwkv4_block_decode", "planes": planes, "B": B, "D": D,
-           "F": F, "max_abs_err": err, "max_mean_rel_err": mean_rel,
+           "F": F, "grid": grid, "bitwise_equal_on_grids": [1, 7],
+           "max_abs_err": err, "max_mean_rel_err": mean_rel,
            "bytes": nbytes,
            "kernel_ms": _time_ms(lambda: rwkv4_block_decode(lp, st, x),
                                  flush),
@@ -1335,13 +1353,16 @@ def phase_k3_hw(params, cfg, flush):
         _to_cpu(lp), _to_cpu(st), x.cpu(),
         _hw_numerics_with_tables(cl["exp"], cl["div"]))
     rel, bound = _hw_check(out, ref, cpu, "K3-hw", 1.25)
+    grid = _k3_grids(
+        lambda g: rwkv4_block_decode(lp, st, x, luts=luts, grid=g), out)
     nbytes = (sum(t.numel() * t.element_size()
                   for _, t in leaves_with_path(lp))
               + 2 * 6 * B * D + 2 * 6 * B * D + 2 * 256 * 4)
     ops = 2.0 * B * (5 * D * D + 2 * D * F)
     bms, by = _bound(nbytes, ops, PEAK_BF16_FLOPS)
     row = {"kernel": "rwkv4_block_decode", "numerics": "hw", "planes": "w8",
-           "B": B, "D": D, "F": F,
+           "B": B, "D": D, "F": F, "grid": grid,
+           "bitwise_equal_on_grids": [1, 7],
            "max_abs_err": max(float((o.float() - r.float()).abs().max())
                               for o, r in zip((out[0], *out[1].values()),
                                               (ref[0], *ref[1].values()))),
@@ -4263,10 +4284,11 @@ def main() -> int:
         _kernel_row("wkv4_seq", "src/repro_torch/csrc/wkv4_seq.cu",
                     "src/repro/kernels/wkv4.py:101", [k2],
                     launches("wkv4_seq", "block")),
-        _kernel_row("rwkv4_block_decode",
-                    "src/repro_torch/csrc/rwkv4_block_decode.cu",
-                    "src/repro/kernels/fused_decode.py:77", [k3],
-                    launches("rwkv4_block_decode", "block")),
+        dict(_kernel_row("rwkv4_block_decode",
+                         "src/repro_torch/csrc/rwkv4_block_decode.cu",
+                         "src/repro/kernels/fused_decode.py:77", [k3],
+                         launches("rwkv4_block_decode", "block")),
+             grid=k3["grid"]),
         _kernel_row("rwkv4_model_decode",
                     "src/repro_torch/csrc/rwkv4_model_decode.cu",
                     "src/repro/kernels/fused_decode.py:182", [k4],
@@ -4302,11 +4324,11 @@ def main() -> int:
                     "src/repro/kernels/fused_prefill.py:84", k5f[:1],
                     launches("dpot_w8_matmul_f32x", "hw-block"),
                     "K5 with an f32 activation (att.wo under hw)"),
-        _kernel_row("rwkv4_block_decode[hw]",
-                    "src/repro_torch/csrc/rwkv4_block_decode.cu",
-                    "src/repro/kernels/fused_decode.py:77", [k3h],
-                    launches("rwkv4_block_decode", "hw-block"),
-                    "K3 with the _luts operands"),
+        dict(_kernel_row("rwkv4_block_decode[hw]",
+                         "src/repro_torch/csrc/rwkv4_block_decode.cu",
+                         "src/repro/kernels/fused_decode.py:77", [k3h],
+                         launches("rwkv4_block_decode", "hw-block"),
+                         "K3 with the _luts operands"), grid=k3h["grid"]),
         _kernel_row("rwkv4_model_decode[hw]",
                     "src/repro_torch/csrc/rwkv4_model_decode.cu",
                     "src/repro/kernels/fused_decode.py:182", [k4h],
@@ -4424,11 +4446,12 @@ def main() -> int:
                 if k in check}
     # the eleventh slice: the weight forms the earlier rows' kernels now take
     kernels += [
-        _kernel_row("rwkv4_block_decode[bf16]",
-                    "src/repro_torch/csrc/rwkv4_block_decode.cu",
-                    "src/repro/kernels/fused_decode.py:77", [k3bf],
-                    launches("rwkv4_block_decode", "rwkv4-bf16-block"),
-                    "K3 on plain bf16 weights (quantized=False), layer 0"),
+        dict(_kernel_row("rwkv4_block_decode[bf16]",
+                         "src/repro_torch/csrc/rwkv4_block_decode.cu",
+                         "src/repro/kernels/fused_decode.py:77", [k3bf],
+                         launches("rwkv4_block_decode", "rwkv4-bf16-block"),
+                         "K3 on plain bf16 weights (quantized=False), "
+                         "layer 0"), grid=k3bf["grid"]),
         _kernel_row("rwkv4_model_decode[bf16]",
                     "src/repro_torch/csrc/rwkv4_model_decode.cu",
                     "src/repro/kernels/fused_decode.py:182", [k4bf],

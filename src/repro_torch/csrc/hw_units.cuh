@@ -97,4 +97,17 @@ __device__ __forceinline__ float a9(float x, float scale) {
   return fminf(fmaxf(rintf(x / scale), -255.f), 255.f) * scale;
 }
 
+// a9's value with one multiply by rcp = 1 / scale in place of most
+// divisions: for |x·rcp| < 2^12, x·rcp lies within 2^-10 of RN(x / scale)
+// (two roundings of 2^-24 each), so both round to the same integer unless
+// x·rcp is within 2^-10 of a rounding boundary; there, and for large, NaN
+// or infinite quotients, the division is taken.  The same bits as a9.
+__device__ __forceinline__ float a9_rcp(float x, float scale, float rcp) {
+  const float q = x * rcp;
+  float n = rintf(q);
+  if (!(fabsf(q) < 4096.f && fabsf(q - n) < 0.5f - 0x1p-10f))
+    n = rintf(x / scale);
+  return fminf(fmaxf(n, -255.f), 255.f) * scale;
+}
+
 }  // namespace repro

@@ -1,6 +1,9 @@
-// The RWKV-4 layer decode body, shared by K3 (rwkv4_block_decode.cu, one
-// layer per launch) and K4 (rwkv4_model_decode.cu, every layer in one
-// launch), so that both run the same code and give the same bits.
+// The RWKV-4 layer decode body: K4 (rwkv4_model_decode.cu, every layer in
+// one launch) runs `layer` below on one block a tile; K3
+// (rwkv4_block_decode.cu, one layer a launch) runs rwkv4_grid.cuh's
+// grid-wide body, built from the same pieces here (the LayerNorm, the
+// mixes, the A9 steps, the decodes, dot_col's order of FMAs), so both
+// give the same bits.
 //
 // One call runs models/rwkv4.py:block_decode for one layer and one tile of
 // BB batch lanes:
@@ -33,8 +36,8 @@
 //          LUTs sit in shared memory beside the lanes.
 //
 // The residual x lives in shared memory in bf16 (X below): it enters
-// there and the body leaves the layer's output there, in place.  K3
-// copies it to device memory after one layer; K4 keeps it for the next.
+// there and the body leaves the layer's output there, in place; K4 keeps
+// it for the next layer.
 //
 // Each matrix arrives as a descriptor {codes, scale or codebook, plane}
 // (common.cuh: Matrix): a W8, W4 or VQ plane (core/quant/serving.py), or
@@ -155,15 +158,16 @@ __device__ __forceinline__ void dot_col(const TIn* in, int lane_stride, int K,
   }
 }
 
-// LayerNorm of each lane's row src (bf16, D) into dst and into the global
-// state output row; one warp per lane, fixed reduction order.
-template <int BB>
-__device__ void layernorm_lanes(const bf16* src, bf16* dst, int lane_stride,
-                                const bf16* g, const bf16* beta, int D,
-                                bf16* gout, int b0) {
+// LayerNorm of each of bb lanes' rows src (bf16, D) into dst and, unless
+// gout is null, into the global state output row; one warp per lane,
+// fixed reduction order, so every block that runs it gets the same bits.
+__device__ inline void layernorm_lanes_n(int bb, const bf16* src, bf16* dst,
+                                         int lane_stride, const bf16* g,
+                                         const bf16* beta, int D, bf16* gout,
+                                         int b0) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nwarps = blockDim.x / 32;
-  for (int b = warp; b < BB; b += nwarps) {
+  for (int b = warp; b < bb; b += nwarps) {
     const bf16* row = src + b * lane_stride;
     float s = 0.f, s2 = 0.f;
     for (int d = lane; d < D; d += 32) {
@@ -180,14 +184,21 @@ __device__ void layernorm_lanes(const bf16* src, bf16* dst, int lane_stride,
     const float var = s2 / (float)D - mu * mu;
     const float rs = rsqrtf(var + 1e-5f);
     bf16* out = dst + b * lane_stride;
-    bf16* gr = gout + (size_t)(b0 + b) * D;
+    bf16* gr = gout ? gout + (size_t)(b0 + b) * D : nullptr;
     for (int d = lane; d < D; d += 32) {
       const float v = (bf2f(row[d]) - mu) * rs * bf2f(g[d]) + bf2f(beta[d]);
       const bf16 h = __float2bfloat16_rn(v);
       out[d] = h;
-      gr[d] = h;
+      if (gr) gr[d] = h;
     }
   }
+}
+
+template <int BB>
+__device__ void layernorm_lanes(const bf16* src, bf16* dst, int lane_stride,
+                                const bf16* g, const bf16* beta, int D,
+                                bf16* gout, int b0) {
+  layernorm_lanes_n(BB, src, dst, lane_stride, g, beta, D, gout, b0);
 }
 
 // The PLANES a layer with these 7 matrix planes is compiled for: W8 or

@@ -9,9 +9,10 @@
 //
 // Grid: one block per tile of bb batch lanes (bb = B by default, at most
 // 8).  The block loops l = 0..L-1 over the layer body of rwkv4_body.cuh,
-// which K3 runs too.  The residual stays in shared memory in bf16 between
-// layers, where K3 writes it to device memory in bf16, so one K4 launch and
-// L K3 launches give the same bits.
+// whose every output K3's grid-wide body (rwkv4_grid.cuh) computes with
+// the same arithmetic.  The residual stays in shared memory in bf16
+// between layers, where K3 writes it to device memory in bf16, so one K4
+// launch and L K3 launches give the same bits.
 //
 // Weights: layer l's codes are row l of the uint8 slab (every matrix's
 // W8 bytes, W4 nibble pairs or VQ indices at a fixed offset), its vectors
@@ -30,9 +31,11 @@
 // What bounds it on an H100: the weight codes, 12 × 7,372,800 B at
 // rwkv4-169m with the mixed W8/W4/VQ planes (~90 MB with the vectors, the
 // aux leaves and the state in and out, ~27 µs at 3.35 TB/s).  At bb = B the
-// whole step runs on one SM, so it takes about L × K3's time: far from
-// that bound.  Splitting each layer's columns over many SMs with a
-// grid-wide barrier between phases is the later work that makes it fast.
+// whole step runs on one SM (27 ms at rwkv4-169m): far from that bound.
+// K3 now spreads a layer over every SM with the same arithmetic
+// (rwkv4_grid.cuh); looping that grid-wide body over the layers in one
+// launch, layer l+1's slices prefetched behind layer l, is the later work
+// that makes K4 fast.
 #include <algorithm>
 
 #include "rwkv4_body.cuh"

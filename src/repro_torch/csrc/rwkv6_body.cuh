@@ -8,8 +8,9 @@
 // below are separated by grid-wide barriers (cooperative_groups).  A
 // layer of rwkv6-7b reads 220 MB of W8 codes (440 MB of plain bf16
 // weights) and a lane's WKV state is
-// 64 x 64 x 64 values, so neither one block (K3's design) nor one SM's
-// shared memory can carry it.
+// 64 x 64 x 64 values, so neither one block (K4's design) nor one SM's
+// shared memory can carry it (K3, rwkv4_grid.cuh, spreads its smaller
+// layer over the card the same way).
 //   1. LN1 -> h (the new att_x), dx = att_x - h, xxx = h + dx·μ_x
 //   2. dmix = tanh(xxx @ maa_w1)                      (5·32 columns)
 //   3. the five deltas dmix_s @ maa_w2[s] and mixes

@@ -17,9 +17,11 @@ design answers that.
 Every form takes W8, W4 or VQ planes (`core/quant/serving.py`, a mixed
 policy's layer holding several) and plain bf16 weights (a tree that was
 never packed), as the JAX kernels take packed and plain trees; a plain
-matrix in another dtype raises.  K3 and K4 run a layer's batch tile on
-one thread block, under the exact numerics or the paper's hardware
-numerics (LUT exp and division, PWL σ, A9 activations):
+matrix in another dtype raises.  K3 spreads a layer over the whole card
+(a cooperative launch; `k3_plan` gives its split and shared memory) and
+K4 runs each layer's batch tile on one thread block, both under the exact
+numerics or the paper's hardware numerics (LUT exp and division, PWL σ,
+A9 activations), with the same arithmetic for every output:
 K3 takes the EXP and DIV tables as `luts=`, K4 finds them as the stack's
 `_luts` aux leaves (`prepare_fused_model_params(hw=True)`).  Under the
 hardware numerics the A9 scale spans the tile's lanes, so a tile of
@@ -70,8 +72,16 @@ PLANE_IDS = {"w8": 0, "w4": 1, "vq": 2, "bf16": 3}
 PLANE_NAMES = {v: k for k, v in PLANE_IDS.items()}
 MAX_BB = 8                  # batch lanes per block the kernels instantiate
 SMEM_BYTES = 232_448        # shared memory one H100 block may use (227 KB)
-HW_SCRATCH_BYTES = (512 + 3 * 33) * 4   # csrc/rwkv4_body.cuh: kHwScratch
 LUT_KEYS = ("exp", "div")   # the `_luts` operands, EXP and DIV tables
+# K3's grid-wide body (csrc/rwkv4_grid.cuh): columns a slice, rows a stage
+# of phase A (3x in the other phases), the most ring slots
+K3_WIDTH = 16               # columns a slice
+K3_STAGE_ROWS = 128
+K3_MAX_STAGES = 24
+K3_SCALE_BYTES = 64         # a slice's 16 f32 column scales, in its stage
+HW_SCRATCH_FLOATS = 512 + 3 * 33   # csrc/rwkv4_body.cuh: kHwScratch
+K3_STATIC_BYTES = 1024      # K3's static shared memory (its layer table)
+HW_SCRATCH_BYTES = HW_SCRATCH_FLOATS * 4
 
 
 def _mat_shapes(D: int, F: int):
@@ -148,6 +158,121 @@ def check_tile(B: int, bb: int, D: int, F: int, hw: bool = False):
             f"batch tile bb={bb} at D={D}, F={F} needs {need} B of shared "
             f"memory, over the {SMEM_BYTES} B (227 KB) a block may use; "
             "pass a smaller bb")
+
+
+# K3's phases (csrc/rwkv4_grid.cuh: enum Phase), each with its items'
+# matrices: (names, output width "D" or "F", contraction rows "D" or "F")
+K3_PHASES = (
+    ("A", (("att", "wr"), ("att", "wk"), ("att", "wv")), "D", "D"),
+    ("B", (("att", "wo"),), "D", "D"),
+    ("C", (("ffn", "wk"),), "F", "D"),
+    ("C", (("ffn", "wr"),), "D", "D"),
+    ("D", (("ffn", "wv"),), "D", "F"),
+)
+
+
+class K3Plan(NamedTuple):
+    """K3's split of a layer and a block's shared memory
+    (csrc/rwkv4_grid.cuh): slices of `width` = 16 columns, `row_bytes` of
+    codes a row (16 for a W8, W4 or VQ plane, 32 for bf16 weights);
+    stages of `kc` rows in phase A (three matrices) and 3·kc in the
+    others; a ring of `stages` slots; `smem` bytes a block.  It depends on
+    the widths, the weight form, the numerics and the tile, not on B or
+    the grid."""
+    width: int
+    row_bytes: int
+    kc: int
+    stages: int
+    smem: int
+    bb: int
+    D: int
+    F: int
+
+    def slices(self):
+        """Each phase's item columns, in item order within a tile:
+        [(phase, matrices, c0, c1)], phase C's ffn.wk slices before its
+        ffn.wr ones."""
+        out = []
+        for ph, mats, n, _ in K3_PHASES:
+            N = self.D if n == "D" else self.F
+            out += [(ph, mats, c0, min(c0 + self.width, N))
+                    for c0 in range(0, N, self.width)]
+        return out
+
+    def items(self, B: int, grid: int):
+        """The items of a B-lane launch on `grid` blocks, as the kernel
+        deals them: [(block, tile, phase, matrices, c0, c1)].  Item i of a
+        phase (tile-major over its slices) goes to block (i + off) mod
+        grid, off the items of the phases before.  Raises for a grid of no
+        blocks, which holds no phase."""
+        if not isinstance(grid, int) or grid < 1:
+            raise ValueError(f"K3: a grid of {grid} blocks cannot hold a "
+                             "phase; it takes at least one block")
+        tiles = B // self.bb
+        by_phase = {}
+        for sl in self.slices():
+            by_phase.setdefault(sl[0], []).append(sl)
+        out, before = [], 0
+        for ph in "ABCD":
+            sl = by_phase[ph]
+            for i in range(tiles * len(sl)):
+                _, mats, c0, c1 = sl[i % len(sl)]
+                out.append(((i + before) % grid, i // len(sl), ph, mats,
+                            c0, c1))
+            before += tiles * len(sl)
+        return out
+
+
+def _pad8(k: int) -> int:
+    """csrc/rwkv4_grid.cuh: pad8, a padded row in elements."""
+    return (k + 7) // 8 * 8 + 8
+
+
+def _k3_smem(bb, D, F, hw, kc, ns, rb) -> int:
+    """Bytes of shared memory a K3 block takes (csrc/rwkv4_grid.cuh:
+    layout): the ring (a stage's codes and its column scales a slot) and
+    its barriers, the tile's inputs and LN output, the layer's vectors,
+    two decoded f32 stages, phase A's sums, under hw the tables and
+    reduction room, and 128 bytes to align the base."""
+    LD, LF = _pad8(D), _pad8(F)
+    act = max(4 * LD * 2, LD * 4 if hw else 0, LF * 2)
+    W = K3_WIDTH
+    tile = max(3 * W * (kc + 4), W * (3 * kc + 4))
+    return (ns * _k3_slot(kc, rb) + K3_MAX_STAGES * 8 + bb * act
+            + len(VEC_KEYS) * LD * 2 + 2 * tile * 4 + 3 * W * bb * 4
+            + (HW_SCRATCH_FLOATS * 4 if hw else 0) + 128)
+
+
+def _k3_slot(kc: int, rb: int) -> int:
+    """A ring slot: 3·kc rows of rb bytes of codes, then 3 slices' scales,
+    rounded up to 128 bytes (csrc/rwkv4_grid.cuh: slot_bytes)."""
+    return -(-(3 * rb * kc + 3 * K3_SCALE_BYTES) // 128) * 128
+
+
+def k3_plan(D: int, F: int, bf16_weights: bool, hw: bool, bb: int
+            ) -> K3Plan:
+    """K3's plan for a layer of widths D, F (plain bf16 weights or
+    quantized planes), the numerics and a tile of bb lanes: stages of
+    K3_STAGE_ROWS rows (fewer, down to 16, where the tile's inputs leave
+    too little room) and as many ring slots as fit, up to K3_MAX_STAGES.
+    Raises when not even two slots of 16-row stages fit beside the tile's
+    inputs in one block's 227 KB (less the kernel's static table)."""
+    if not 1 <= bb <= MAX_BB:
+        raise ValueError(f"batch tile bb={bb} must lie in [1, {MAX_BB}]")
+    rb = K3_WIDTH * (2 if bf16_weights else 1)
+    kc = K3_STAGE_ROWS
+    while kc >= 16:
+        fixed = _k3_smem(bb, D, F, hw, kc, 0, rb)
+        ns = min(K3_MAX_STAGES, (SMEM_BYTES - K3_STATIC_BYTES - fixed)
+                 // _k3_slot(kc, rb))
+        if ns >= 2:
+            return K3Plan(K3_WIDTH, rb, kc, ns,
+                          _k3_smem(bb, D, F, hw, kc, ns, rb), bb, D, F)
+        kc //= 2
+    raise ValueError(
+        f"K3: a tile of bb={bb} lanes at D={D}, F={F} leaves no room for "
+        f"its weight stages in a block's {SMEM_BYTES} B (227 KB) of shared "
+        "memory; pass a smaller bb")
 
 
 def _vec(t, n: int, name: str):
@@ -276,12 +401,45 @@ def _luts_in(luts, device):
     return out
 
 
-def rwkv4_block_decode(lp, st, x, *, bb: int | None = None, luts=None):
+def _k3_vec(mats, rows, D: int, F: int) -> int:
+    """K3's load widths: bit 0 when every matrix's slice rows and scales
+    are 16-byte aligned (it copies them with 16-byte cp.async; else byte
+    by byte), bit 1 when D and F are multiples of 8 and every row operand
+    (x, the state, the vectors) is 16-byte aligned (16-byte loads; else
+    one value at a time)."""
+    codes = all(
+        not (N * (2 if plane == PLANE_IDS["bf16"] else 1) % 16
+             or c.data_ptr() % 16
+             or (plane in (PLANE_IDS["w8"], PLANE_IDS["w4"])
+                 and aux.data_ptr() % 16))
+        for (c, aux, plane), (_, N) in zip(mats, _mat_shapes(D, F)))
+    rows16 = (D % 8 == 0 and F % 8 == 0
+              and all(t.data_ptr() % 16 == 0 for t in rows))
+    return int(codes) | 2 * int(rows16)
+
+
+def _k3_scratch(B: int, D: int, F: int, tiles: int, device):
+    """K3's scratch in device memory, one buffer: y, x2, kk, rr, g and a
+    max per tile (csrc/rwkv4_grid.cuh: Scratch), each 256-byte aligned;
+    returns the buffer and the six pointers."""
+    sizes = (4 * B * D, 2 * B * D, 2 * B * F, 4 * B * D, 4 * B * D,
+             4 * tiles)
+    offs, total = [], 0
+    for n in sizes:
+        offs.append(total)
+        total += (n + 255) // 256 * 256
+    buf = torch.empty((total,), dtype=torch.uint8, device=device)
+    return buf, [buf.data_ptr() + o for o in offs]
+
+
+def rwkv4_block_decode(lp, st, x, *, bb: int | None = None, luts=None,
+                       grid: int | None = None):
     """One layer's decode step: lp the layer's params (compute-cast, plane
     leaves with a (1, N) scale or a codebook, or plain bf16 matrices), st
     the five (B, D) state leaves, x (B, D) bf16 -> (x2 (B, D), new
     state).  `luts`, the EXP and DIV tables {"exp", "div"} (256 f32 each),
-    selects the hardware numerics."""
+    selects the hardware numerics.  `grid` caps the cooperative grid
+    (default: every block that fits); the outputs do not depend on it."""
     if x.device.type == "cpu":
         return rwkv4_block_decode_plain(lp, st, x, _numerics(luts), bb=bb)
     if x.dtype != torch.bfloat16:
@@ -289,26 +447,46 @@ def rwkv4_block_decode(lp, st, x, *, bb: int | None = None, luts=None):
     B, D = x.shape
     F = _out_cols(lp["ffn"]["wk"], "ffn.wk")
     bb = default_bb(B) if bb is None else int(bb)
-    check_tile(B, bb, D, F, luts is not None)
+    if not 1 <= bb <= MAX_BB or B % bb:
+        raise ValueError(f"batch tile bb={bb} must divide B={B} and lie in "
+                         f"[1, {MAX_BB}]")
+    if D % 2 or F % 2:
+        raise ValueError(f"K3 takes even D and F, got {D}, {F}")
+    hw = luts is not None
     tabs = [None, None] if luts is None else _luts_in(luts, x.device)
     vecs = [_vec(_get(lp, p), D, ".".join(p)) for p in VEC_KEYS]
     mats = [_layer_matrix(_get(lp, p), shape, ".".join(p))
             for p, shape in zip(MAT_KEYS, _mat_shapes(D, F))]
+    ids = _k3_planes([m[2] for m in mats])
+    plan = k3_plan(D, F, ids[0] == PLANE_IDS["bf16"], hw, bb)
+    planes = (ctypes.c_int * len(mats))(*ids)
+    lib = load_library()
+    grid = _cooperative(
+        ("k3", tuple(ids), hw, plan.smem, x.device.index),
+        lambda c, m: lib.rwkv4_block_decode_grid(planes, int(hw), plan.smem,
+                                                 c, m), "K3", grid)
     states = _state_in(st, (B, D), "rwkv4_block_decode")
+    x = x.contiguous()
     outs = [torch.empty((B, D), dtype=torch.bfloat16, device=x.device)
             for _ in range(1 + len(STATE_KEYS))]
-    arr = _launch_ptrs([x.contiguous(), outs[0], *vecs,
+    scratch, sptrs = _k3_scratch(B, D, F, B // bb, x.device)
+    arr = _launch_ptrs([x, outs[0], *vecs,
                         *(m[0] for m in mats), *(m[1] for m in mats),
                         *states, *outs[1:]], tabs)
-    planes = (ctypes.c_int * len(mats))(*_k3_planes([m[2] for m in mats]))
-    check(load_library().rwkv4_block_decode(
-        arr, len(arr), planes, B, D, F, bb, stream_ptr(x)),
+    arr = (ctypes.c_void_p * (len(arr) + len(sptrs)))(*arr, *sptrs)
+    check(lib.rwkv4_block_decode(
+        arr, len(arr), planes, B, D, F, bb, plan.width, plan.kc,
+        plan.stages, plan.smem, grid,
+        _k3_vec(mats, [x, *vecs, *states, *outs], D, F), stream_ptr(x)),
         "rwkv4_block_decode")
     rwkv4_block_decode.launches += 1
+    rwkv4_block_decode.grid = grid
+    del scratch      # enqueued: the caching allocator orders its reuse
     return outs[0], dict(zip(STATE_KEYS, outs[1:]))
 
 
 rwkv4_block_decode.launches = 0
+rwkv4_block_decode.grid = None      # the blocks of the last launch
 
 
 class MatEntry(NamedTuple):
@@ -574,34 +752,38 @@ def _rwkv6_state(st, shapes, name: str):
     return out
 
 
-# (form, the 15 matrix planes, device index) -> the most K7 blocks of the
-# instance those planes select that are resident at once
+# a cooperative kernel instance's key -> the most of its blocks resident
+# at once on that device
 _COOP_GRIDS: dict = {}
 
 
-def _coop_grid(which: str, grid, info, device):
-    """The cooperative grid of K7's `which` form for the instance that the
-    matrix planes in `info` (`_k7_info`) select: the most blocks that fit
-    on the card at once (queried once per form, planes and device), or
-    `grid` when asked; raises if the device has no cooperative launch or
-    the grid would not fit."""
-    key = (which, tuple(info[:len(RWKV6_MAT_KEYS)]), device.index)
+def _cooperative(key, query, who: str, grid):
+    """A cooperative launch's grid: the most blocks that fit on the card at
+    once (`query(coop, most)`, the kernel instance's C query, asked once
+    per `key`), or `grid` when asked; raises if the device has no
+    cooperative launch or the grid would not fit."""
     if key not in _COOP_GRIDS:
         coop, most = ctypes.c_int(0), ctypes.c_int(0)
-        fn = getattr(load_library(), f"rwkv6_{which}_decode_grid")
-        check(fn(info, ctypes.byref(coop), ctypes.byref(most)),
-              f"rwkv6_{which}_decode_grid")
+        check(query(ctypes.byref(coop), ctypes.byref(most)), f"{who} grid")
         if not coop.value:
-            raise RuntimeError("K7 needs cooperative launch, which this "
+            raise RuntimeError(f"{who} needs cooperative launch, which this "
                                "device does not offer")
         _COOP_GRIDS[key] = most.value
     most = _COOP_GRIDS[key]
     grid = most if grid is None else int(grid)
     if not 1 <= grid <= most:
-        raise ValueError(f"K7 {which}: a cooperative grid of {grid} blocks "
-                         f"does not fit; at most {most} are resident at "
-                         "once")
+        raise ValueError(f"{who}: a cooperative grid of {grid} blocks does "
+                         f"not fit; at most {most} are resident at once")
     return grid
+
+
+def _coop_grid(which: str, grid, info, device):
+    """The cooperative grid of K7's `which` form for the instance that the
+    matrix planes in `info` (`_k7_info`) select (`_cooperative`)."""
+    fn = getattr(load_library(), f"rwkv6_{which}_decode_grid")
+    return _cooperative((which, tuple(info[:len(RWKV6_MAT_KEYS)]),
+                         device.index), lambda c, m: fn(info, c, m),
+                        f"K7 {which}", grid)
 
 
 def _rwkv6_scratch(D: int, F: int, device):

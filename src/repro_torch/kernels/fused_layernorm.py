@@ -26,14 +26,53 @@ CUDA tensor launches the kernels or raises.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels.build import check, load_library, stream_ptr
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# K11-bwd's blocks: each owns rows b, b + G, ... and one row of dγ/dβ
-# partials; a fixed G keeps the sums' order, and so their bits, fixed
-BWD_BLOCKS = 512
+# K11-bwd's blocks (two an SM on an H100): each owns a fixed set of rows
+# and one row of dγ/dβ partials; a fixed G keeps the sums' order, and so
+# their bits, fixed
+BWD_BLOCKS = 264
+# K11-bwd's instances (csrc/fused_layernorm.cu): warps a row, and chunks a
+# lane at most for 16-byte loads of bf16 (8 values a chunk) and f32 (4),
+# and for element loads (1)
+BWD_WARPS = (1, 2, 4, 8, 16)
+BWD_MAX_CHUNKS = {(torch.bfloat16, True): 3, (torch.float32, True): 4,
+                  (torch.bfloat16, False): 8, (torch.float32, False): 8}
+
+
+class BwdPlan(NamedTuple):
+    """K11-bwd's instance for a row of D: `warps` warps a row, each lane
+    holding `chunks` chunks of `per_chunk` values (16 bytes, or one
+    element), `values` = chunks·per_chunk in all; `rows` rows a block at a
+    time (the block's 32·max(8, warps) threads)."""
+    warps: int
+    chunks: int
+    per_chunk: int
+    values: int
+    rows: int
+
+
+def bwd_plan(D: int, dtype, vec: bool) -> BwdPlan:
+    """The fewest warps a row (a power of two up to 16) whose lanes hold
+    the row in registers, and the chunks a lane then needs.  Lane l of
+    warp part p holds columns ((c·warps + p)·32 + l)·per_chunk + q.
+    Raises for a row wider than 16 warps hold (12288 bf16 or 8192 f32
+    values in 16-byte loads, 4096 by elements)."""
+    per = (16 // torch.tensor([], dtype=dtype).element_size()) if vec else 1
+    most = BWD_MAX_CHUNKS[(dtype, bool(vec))]
+    chunks = -(-D // per)
+    for w in BWD_WARPS:
+        if chunks <= 32 * w * most:
+            n = -(-chunks // (32 * w))
+            return BwdPlan(w, n, per, n * per, max(8, w) // w)
+    raise ValueError(f"fused_layernorm_bwd: a row of D = {D} ({dtype}) is "
+                     f"wider than {BWD_WARPS[-1]} warps hold "
+                     f"({32 * BWD_WARPS[-1] * most * per} values)")
 
 
 def fused_layernorm_plain(x, gamma, beta, *, eps: float = 1e-5):
@@ -125,14 +164,16 @@ def fused_layernorm_bwd(x, gamma, beta, dy, *, eps: float = 1e-5):
     R = x.numel() // D
     if R == 0:
         return dx, dg.zero_(), db.zero_()
-    G = min(R, BWD_BLOCKS)
+    vec = _vec(D, x, dy, dx)
+    plan = bwd_plan(D, x.dtype, vec)
+    G = min(-(-R // plan.rows), BWD_BLOCKS)
     partial = torch.empty((G, 2, D), dtype=torch.float32, device=x.device)
     check(load_library().fused_layernorm_bwd(
         x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(),
         dg.data_ptr(), db.data_ptr(), partial.data_ptr(), R, D, G,
-        float(eps), int(x.dtype == torch.bfloat16),
+        plan.warps, plan.chunks, float(eps), int(x.dtype == torch.bfloat16),
         int(gamma.dtype == torch.bfloat16), int(beta.dtype == torch.bfloat16),
-        _vec(D, x, dy, dx), stream_ptr(x)), "fused_layernorm_bwd")
+        vec, stream_ptr(x)), "fused_layernorm_bwd")
     fused_layernorm_bwd.launches += 1
     return dx, dg, db
 

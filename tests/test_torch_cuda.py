@@ -25,7 +25,8 @@ sums, and for bf16 dk and dv the plain version's per-head roundings), and
 bit for bit run to run, on random inputs and where a few keys dominate
 each row; rows that are not 16-byte aligned (the element-load path) give
 the aligned call's bits; a K13 row's bits do not depend on the batch.
-K7 at B = 16 (two 8-lane tiles) equals two 8-lane calls bit for bit.
+K7 at B = 16 (two 8-lane tiles) equals two 8-lane calls bit for bit,
+and K3 on a grid of 1 or 7 blocks equals K3 on every resident block.
 The smollm-smoke train step on the card holds each gradient leaf within
 1.25·√2x the CPU bf16 step's gap to an f32 witness.  K10 (chunked
 WKV-6) holds y and the final state to `_wkv6_chunked_bound` (the f32
@@ -1463,7 +1464,7 @@ def _layernorm_grads(fn, x, gamma, beta, dy):
 
 
 @pytest.mark.parametrize("R,D", [(8192, 768), (64, 4096), (37, 768),
-                                 (5, 100), (3, 1)])
+                                 (5, 100), (3, 1), (256, 4096), (8192, 576)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_layernorm_bwd(cuda, R, D, dtype):
     """K11-bwd through the autograd Function against the plain version's
@@ -2057,3 +2058,75 @@ def test_prefill_chunk_hw_planes_on_card(cuda, plane):
     _close(lg[valid.any(1)], lg_c.to(cuda)[valid.any(1)])
     for k in STATE_KEYS:
         _close(st[k], st_c[k].to(cuda))
+
+
+# ---------------------------------------------------------------------------
+# K3 over the whole card: its bits do not depend on the grid
+# ---------------------------------------------------------------------------
+
+def _k3_layer(cuda, form, arch="rwkv4-169m", smoke=True):
+    """Layer 0 of a compute-cast tree packed W8 or MIXED, or plain bf16."""
+    model = get_model(arch, smoke=smoke)
+    params = model.init_params(0, cuda)
+    if form != "bf16":
+        params = pack_params(params, MIXED if form == "mixed" else None)
+    blocks = model.cast_params(params)["blocks"]
+    if form != "bf16":
+        blocks = broadcast_packed_scales(blocks, model.cfg.n_layers)
+    return model, _layer(blocks, 0)
+
+
+def _k3_grids_equal(lp, st, x, bb, luts, grids):
+    full = rwkv4_block_decode(lp, st, x, bb=bb, luts=luts)
+    for grid in grids:
+        got = rwkv4_block_decode(lp, st, x, bb=bb, luts=luts, grid=grid)
+        assert torch.equal(got[0], full[0]), grid
+        assert all(torch.equal(got[1][k], full[1][k]) for k in STATE_KEYS)
+    return full
+
+
+@pytest.mark.parametrize("bb", [8, 4])
+@pytest.mark.parametrize("hw", [False, True], ids=["exact", "hw"])
+@pytest.mark.parametrize("form", ["w8", "mixed", "bf16"])
+def test_rwkv4_block_decode_grid_invariant(cuda, form, hw, bb):
+    """K3 on 1, 7 and every resident block gives the same bits, for each
+    weight form, numerics and tile (B 8: one tile of 8, two of 4), and
+    holds its plain version by K3's rule (K3-hw's under hw)."""
+    from repro_torch.models.rwkv4 import _hw_numerics_with_tables
+    model, lp = _k3_layer(cuda, form)
+    B, D = 8, model.cfg.d_model
+    st, x = _state(cuda, (B, D), 31)
+    luts = _luts(cuda) if hw else None
+    x2, new = _k3_grids_equal(lp, st, x, bb, luts, (1, 7))
+    nm = _hw_numerics_with_tables(luts["exp"], luts["div"]) if hw else None
+    x2_p, new_p = rwkv4_block_decode_plain(lp, st, x, nm, bb=bb)
+    check = _close if hw else _spread
+    check(x2, x2_p)
+    for k in STATE_KEYS:
+        check(new[k], new_p[k])
+
+
+@pytest.mark.parametrize("hw", [False, True], ids=["exact", "hw"])
+def test_rwkv4_block_decode_full_width_grids(cuda, hw):
+    """At rwkv4-169m's widths (W8, B 8) K3 spreads over more than 100
+    blocks of an H100 and gives the bits of grids of 1 and 7 blocks."""
+    from repro_torch.kernels.fused_decode import _COOP_GRIDS
+    model, lp = _k3_layer(cuda, "w8", smoke=False)
+    st, x = _state(cuda, (8, model.cfg.d_model), 32)
+    _k3_grids_equal(lp, st, x, 8, _luts(cuda) if hw else None, (1, 7))
+    assert max(v for k, v in _COOP_GRIDS.items() if k[0] == "k3") > 100
+
+
+def test_rwkv4_block_decode_raises_when_the_grid_cannot_launch(cuda):
+    """A grid larger than the blocks resident at once (or empty) raises
+    before launching; there is no smaller silent grid."""
+    from repro_torch.kernels.fused_decode import _COOP_GRIDS
+    model, lp = _k3_layer(cuda, "w8")
+    st, x = _state(cuda, (4, model.cfg.d_model), 33)
+    rwkv4_block_decode(lp, st, x)
+    most = max(v for k, v in _COOP_GRIDS.items() if k[0] == "k3")
+    before = rwkv4_block_decode.launches
+    for grid in (most + 1, 0):
+        with pytest.raises(ValueError, match="cooperative grid"):
+            rwkv4_block_decode(lp, st, x, grid=grid)
+    assert rwkv4_block_decode.launches == before
