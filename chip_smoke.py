@@ -26,7 +26,11 @@ each prints its seconds and peak device memory (`phase_done` lines):
                                resident block (the grid is printed) and
                                bit for bit on grids of 1 and 7 blocks
       rwkv4_model_decode (K4)  B = 8, all 12 layers of the prepared MIXED
-                               slabs; bit for bit equal to 12 K3 launches
+                               slabs, on every resident block (one
+                               cooperative launch, the grid printed); bit
+                               for bit equal to 12 K3 launches and to
+                               itself on grids of 1 and 7 blocks; timed
+                               beside those 12 K3 launches
     Each chunk matmul's decode is checked bit for bit: identity rows pick
     out the decoded plane, which must equal unpack_leaf; its M 8 call's
     rows equal the M 128 call's first rows bit for bit.  One
@@ -87,7 +91,8 @@ each prints its seconds and peak device memory (`phase_done` lines):
       rwkv4_block_decode       layer 0, B = 8, with the tables; bit for
       (K3-hw)                  bit on grids of 1 and 7 blocks
       rwkv4_model_decode       the 12 layers of the prepared hw stack; bit
-      (K4-hw)                  for bit equal to 12 K3-hw launches
+      (K4-hw)                  for bit equal to 12 K3-hw launches and to
+                               itself on grids of 1 and 7 blocks
     K9 and K2-hw are bit for bit: every operation is one IEEE rounding
     (hw_units.cuh, -fmad=false) and no sum changes order.  K3-hw is held
     per output within 1.25x the worst relative gap its plain hw version
@@ -99,9 +104,10 @@ each prints its seconds and peak device memory (`phase_done` lines):
     card are two such orders (the reason for √2 is at HW_SPREAD).  Then
     the hw greedy run, the way serve_legacy wraps the step: 8 seeded
     prompts of 5-40 tokens through prefill_chunk(hw=True) in chunks of
-    16, then greedy_decode over 32 steps, once through
-    decode_step_fused(hw=True) (K3-hw) and once through the prepared
-    K4-hw form, each with its counters set to 0
+    16, then greedy_decode over 32 steps, through
+    decode_step_fused(hw=True) (K3-hw) and through the prepared K4-hw
+    form, each twice (block, model, model, block; a path's rate is over
+    its two runs), each run with its counters set to 0
     before and read after (K5, K5 f32-x, K2-hw, K9's σ and K3-hw or
     K4-hw must launch); the two paths' logits equal bit for bit.  Then
     teacher-forced hw logits (a 16-token prefill chunk, 32 K3-hw steps)
@@ -468,9 +474,10 @@ def _bound(nbytes: float, ops: float, peak: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def _time_ms(fn, flush, reps: int = REPS) -> float:
+def _time_ms(fn, flush, reps: int = REPS, sleeps: int = 1) -> float:
     """Device time of one call of `fn`, L2-cold, averaged over `reps`: a
-    512 MB memset flushes the L2, then a device-side sleep keeps the card
+    512 MB memset flushes the L2, then a device-side sleep (`sleeps` times
+    SLEEP_CYCLES, for a call that enqueues many launches) keeps the card
     busy while the host runs the wrapper and enqueues the launch, so the
     events bracket the device's work and not the host's."""
     fn()
@@ -478,7 +485,7 @@ def _time_ms(fn, flush, reps: int = REPS) -> float:
     total = 0.0
     for _ in range(reps):
         flush.zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(SLEEP_CYCLES * sleeps)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -837,6 +844,61 @@ def _k3_grids(call, out):
     return full
 
 
+def _k4_grids(stack, st, x, out):
+    """K4 on grids of 1 and 7 blocks against `out`, the full grid's
+    outputs, bit for bit; returns the full grid's blocks."""
+    from repro_torch.kernels.fused_decode import rwkv4_model_decode
+    full = rwkv4_model_decode.grid
+    for grid in (1, 7):
+        got = rwkv4_model_decode(stack, st, x, grid=grid)
+        if not (torch.equal(got[0], out[0]) and all(
+                torch.equal(got[1][k], out[1][k]) for k in out[1])):
+            raise AssertionError(f"K4 on {grid} blocks differs from K4 on "
+                                 f"{full}")
+    return full
+
+
+def _k4_against_k3(stack, st, x, out, flush, check=None):
+    """K4's outputs `out` against 12 K3 launches chained over the same
+    layers (the stack's `_luts` as K3's tables), bit for bit; `check(o3,
+    lp, st_l, x_l, l)` holds each K3 launch to its plain version.  Returns
+    the 12 launches' time (`_time_ms`, the layers unfused beforehand)."""
+    from repro_torch.core.quant.serving import unfuse_layer
+    from repro_torch.kernels.fused_decode import (
+        STATE_KEYS, rwkv4_block_decode)
+    aux = [a[0] for a in stack.aux]
+    layers = []
+    for l in range(stack.n_layers):
+        lp = unfuse_layer({k: s[l] for k, s in stack.slabs.items()}, aux,
+                          stack.manifest, stack.tdef)
+        layers.append((lp, lp.pop("_luts", None)))
+
+    def chain(check=None):
+        x3, new3 = x, []
+        for l, (lp, luts) in enumerate(layers):
+            st_l = {k: st[k][l] for k in STATE_KEYS}
+            o3 = rwkv4_block_decode(lp, st_l, x3, luts=luts)
+            if check is not None:
+                check(o3, lp, st_l, x3, l)
+            x3, s3 = o3
+            new3.append(s3)
+        return x3, new3
+    x3, new3 = chain(check)
+    if not (torch.equal(out[0], x3) and all(
+            torch.equal(out[1][k], torch.stack([s[k] for s in new3]))
+            for k in STATE_KEYS)):
+        raise AssertionError(f"K4 differs from {len(layers)} K3 launches")
+    return _time_ms(chain, flush, sleeps=len(layers))
+
+
+def _k4_plan(stack, D, F, hw):
+    """K4's plan at B = 8 (kernels/fused_decode.py:tile_plan)."""
+    from repro_torch.kernels.fused_decode import tile_plan
+    bf16 = "uint8" not in stack.slabs
+    p = tile_plan(8, 8, D, F, bf16, hw)
+    return {"kc": p.kc, "ns": p.stages, "smem": p.smem, "bb": p.bb}
+
+
 def phase_k3(params, cfg, flush, planes="w8"):
     from repro_torch.core.quant.serving import (
         broadcast_packed_scales, cast_compute)
@@ -887,10 +949,9 @@ def phase_k4(engine, flush, planes="mixed"):
     another form than MIXED, K4_*'s recipe applied to that form: 1.25x
     the gap its plain version reads between the CPU and the card in this
     run); its time beside the byte bound."""
-    from repro_torch.core.quant.serving import unfuse_layer
     from repro_torch.kernels.fused_decode import (
-        STATE_KEYS, rwkv4_block_decode, rwkv4_block_decode_plain,
-        rwkv4_model_decode, rwkv4_model_decode_plain)
+        STATE_KEYS, rwkv4_block_decode_plain, rwkv4_model_decode,
+        rwkv4_model_decode_plain)
     stack = engine.plan.prepared.decode["blocks"]
     cfg = engine.model.cfg
     L, B, D, F = cfg.n_layers, 8, cfg.d_model, cfg.d_ff
@@ -903,23 +964,15 @@ def phase_k4(engine, flush, planes="mixed"):
           "wkv_b": (rn(L, B, D).abs() + 0.5).to(bf),
           "wkv_o": (rn(L, B, D) - 1).to(bf)}
     x4, new4 = rwkv4_model_decode(stack, st, x)
-    aux = [a[0] for a in stack.aux]
-    x3, new3, k3_err, k3_mean = x, [], 0.0, 0.0
-    for l in range(L):
-        lp = unfuse_layer({k: s[l] for k, s in stack.slabs.items()}, aux,
-                          stack.manifest, stack.tdef)
-        st_l = {k: st[k][l] for k in STATE_KEYS}
-        out3 = rwkv4_block_decode(lp, st_l, x3)
-        e, m = _k3_check(out3, rwkv4_block_decode_plain(lp, st_l, x3),
+    grid = _k4_grids(stack, st, x, (x4, new4))
+    errs = {"max": 0.0, "mean": 0.0}
+
+    def held(o3, lp, st_l, x_l, l):
+        e, m = _k3_check(o3, rwkv4_block_decode_plain(lp, st_l, x_l),
                          f"layer {l} ({planes})")
-        k3_err, k3_mean = max(k3_err, e), max(k3_mean, m)
-        x3, s3 = out3
-        new3.append(s3)
-    same = torch.equal(x4, x3) and all(
-        torch.equal(new4[k], torch.stack([s[k] for s in new3]))
-        for k in STATE_KEYS)
-    if not same:
-        raise AssertionError("K4 differs from 12 K3 launches")
+        errs["max"], errs["mean"] = max(errs["max"], e), max(errs["mean"], m)
+    k3x12_ms = _k4_against_k3(stack, st, x, (x4, new4), flush, held)
+    k3_err, k3_mean = errs["max"], errs["mean"]
     from repro_torch.core.quant.serving import FusedLayerStack
     from repro_torch.tree import tree_map
     xp, newp = rwkv4_model_decode_plain(stack, st, x)
@@ -955,19 +1008,23 @@ def phase_k4(engine, flush, planes="mixed"):
               + 2 * B * D * 2)                              # x in, out
     ops = 2.0 * B * L * (5 * D * D + 2 * D * F)
     bms, by = _bound(nbytes, ops, PEAK_BF16_FLOPS)
+    kernel_ms = _time_ms(lambda: rwkv4_model_decode(stack, st, x), flush)
     row = {"kernel": "rwkv4_model_decode", "planes": planes, "L": L, "B": B,
-           "D": D, "F": F, "equals_k3_per_layer": True,
+           "D": D, "F": F, "grid": grid, "bitwise_equal_on_grids": [1, 7],
+           "plan": _k4_plan(stack, D, F, False),
+           "equals_k3_per_layer": True,
            "k3_per_layer_vs_plain": {"max_abs_err": k3_err,
                                      "max_mean_rel_err": k3_mean},
            "max_abs_err": err, "max_mean_rel_err": mean_rel,
            "gaps_to_plain": rel,
            "bounds": {"max_rel": bounds[0], "mean_rel": bounds[1]},
            "weight_bytes": w_bytes, "aux_bytes": aux_bytes, "bytes": nbytes,
-           "kernel_ms": _time_ms(lambda: rwkv4_model_decode(stack, st, x),
-                                 flush),
+           "kernel_ms": kernel_ms, "k3x12_ms": k3x12_ms,
+           "ratio_to_k3x12": kernel_ms / k3x12_ms,
            "plain_ms": _time_ms(
                lambda: rwkv4_model_decode_plain(stack, st, x), flush),
-           "library_ms": None, "bound_ms": bms, "bound_by": by}
+           "library_ms": None, "bound_ms": bms, "bound_by": by,
+           "ratio_to_bound": kernel_ms / bms}
     _line(row)
     return row
 
@@ -1381,26 +1438,14 @@ def phase_k4_hw(stack, cfg, flush):
     bit equal to 12 K3-hw launches, then against its plain hw version on
     the card within HW_SPREAD times the plain version's own CPU-vs-card
     gap."""
-    from repro_torch.core.quant.serving import FusedLayerStack, unfuse_layer
+    from repro_torch.core.quant.serving import FusedLayerStack
     from repro_torch.kernels.fused_decode import (
-        STATE_KEYS, rwkv4_block_decode, rwkv4_model_decode,
-        rwkv4_model_decode_plain)
+        rwkv4_model_decode, rwkv4_model_decode_plain)
     L, B, D, F = cfg.n_layers, 8, cfg.d_model, cfg.d_ff
     st, x = _hw_state(cfg, (L, B), SEED + 15)
     x4, new4 = rwkv4_model_decode(stack, st, x)
-    aux = [a[0] for a in stack.aux]
-    x3, new3 = x, []
-    for l in range(L):
-        lp = unfuse_layer({k: s[l] for k, s in stack.slabs.items()}, aux,
-                          stack.manifest, stack.tdef)
-        luts = lp.pop("_luts")
-        x3, s3 = rwkv4_block_decode(lp, {k: st[k][l] for k in STATE_KEYS},
-                                    x3, luts=luts)
-        new3.append(s3)
-    if not (torch.equal(x4, x3) and all(
-            torch.equal(new4[k], torch.stack([s[k] for s in new3]))
-            for k in STATE_KEYS)):
-        raise AssertionError("K4-hw differs from 12 K3-hw launches")
+    grid = _k4_grids(stack, st, x, (x4, new4))
+    k3x12_ms = _k4_against_k3(stack, st, x, (x4, new4), flush)
     ref = rwkv4_model_decode_plain(stack, st, x)
     cpu_stack = FusedLayerStack(_to_cpu(stack.slabs),
                                 tuple(a.cpu() for a in stack.aux),
@@ -1412,17 +1457,22 @@ def phase_k4_hw(stack, cfg, flush):
     nbytes = w_bytes + aux_bytes + 2 * 5 * L * B * D * 2 + 2 * B * D * 2
     ops = 2.0 * B * L * (5 * D * D + 2 * D * F)
     bms, by = _bound(nbytes, ops, PEAK_BF16_FLOPS)
+    kernel_ms = _time_ms(lambda: rwkv4_model_decode(stack, st, x), flush)
     row = {"kernel": "rwkv4_model_decode", "numerics": "hw", "planes": "w8",
-           "L": L, "B": B, "D": D, "F": F, "equals_k3_per_layer": True,
+           "L": L, "B": B, "D": D, "F": F, "grid": grid,
+           "bitwise_equal_on_grids": [1, 7],
+           "plan": _k4_plan(stack, D, F, True),
+           "equals_k3_per_layer": True,
            "max_abs_err": max(float((o.float() - r.float()).abs().max())
                               for o, r in zip((x4, *new4.values()),
                                               (ref[0], *ref[1].values()))),
            "gaps_to_plain": rel, "bounds": bound, "bytes": nbytes,
-           "kernel_ms": _time_ms(lambda: rwkv4_model_decode(stack, st, x),
-                                 flush),
+           "kernel_ms": kernel_ms, "k3x12_ms": k3x12_ms,
+           "ratio_to_k3x12": kernel_ms / k3x12_ms,
            "plain_ms": _time_ms(
                lambda: rwkv4_model_decode_plain(stack, st, x), flush),
-           "library_ms": None, "bound_ms": bms, "bound_by": by}
+           "library_ms": None, "bound_ms": bms, "bound_by": by,
+           "ratio_to_bound": kernel_ms / bms}
     _line(row)
     return row
 
@@ -1463,10 +1513,13 @@ def _hw_prefill(model, params, prompts, C):
 
 def phase_hw_greedy(params, prep, model):
     """8 lanes of seeded prompts (5-40 tokens) through prefill_chunk(hw)
-    in chunks of 16, then greedy_decode over 32 steps, once with
-    decode_step_fused(hw) (K3-hw per layer) and once with the prepared
-    K4-hw form; every counter of the path set to 0 before and read after
-    each; the two paths' logits bit for bit equal."""
+    in chunks of 16, then greedy_decode over 32 steps, with
+    decode_step_fused(hw) (K3-hw per layer) and with the prepared K4-hw
+    form, each path twice in the order block, model, model, block (one
+    run of ~0.3 s on the host's clock moves by a third from run to run:
+    a path's rate is over its two runs); every counter of the path set to
+    0 before and read after each run; the two paths' logits bit for bit
+    equal, and equal run to run."""
     from repro_torch.kernels.expsig import exp_kernel, sigmoid_kernel
     from repro_torch.kernels.fused_decode import (
         rwkv4_block_decode, rwkv4_model_decode)
@@ -1486,8 +1539,9 @@ def phase_hw_greedy(params, prep, model):
             p, s, t, pos, cfg, hw=True), params, rwkv4_block_decode),
         "hw-model": (lambda p, s, t, pos: rwkv4.decode_step_fused_model(
             p, s, t, pos, cfg, hw=True), prep, rwkv4_model_decode)}
-    out, by_path = {}, {}
-    for name, (step, p, decode_kernel) in paths.items():
+    out, by_path, took = {}, {}, {}
+    for name in ("hw-block", "hw-model", "hw-model", "hw-block"):
+        step, p, decode_kernel = paths[name]
         counters = common + (decode_kernel,)
         for fn in counters:
             fn.launches = 0
@@ -1505,12 +1559,18 @@ def phase_hw_greedy(params, prep, model):
                if f is not exp_kernel) == 0:
             raise AssertionError(f"{name}: a kernel never launched: "
                                  f"{launches}")
-        out[name] = (toks, torch.stack([last] + rec.logits))
+        run = (toks, torch.stack([last] + rec.logits))
+        if name in out and not all(map(torch.equal, out[name], run)):
+            raise AssertionError(f"{name}: two runs differ")
+        out[name] = run
         by_path[name] = launches
-        _line({"phase": "hw_greedy", "path": name, "lanes": 8,
-               "prompt_lens": [len(q) for q in prompts], "new_tokens": 32,
-               "seconds": seconds, "tokens_per_s": 8 * 32 / seconds,
-               "launches": launches})
+        took.setdefault(name, []).append(seconds)
+        if len(took[name]) == 2:
+            _line({"phase": "hw_greedy", "path": name, "lanes": 8,
+                   "prompt_lens": [len(q) for q in prompts],
+                   "new_tokens": 32, "seconds": took[name],
+                   "tokens_per_s": 2 * 8 * 32 / sum(took[name]),
+                   "launches": launches})
     (tb, lb), (tm_, lm) = out["hw-block"], out["hw-model"]
     if not (torch.equal(lb, lm) and torch.equal(tb, tm_)):
         raise AssertionError("the hw model path's logits differ from the "

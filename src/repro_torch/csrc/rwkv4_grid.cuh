@@ -1,16 +1,18 @@
-// The RWKV-4 layer decode spread over the whole card: the body of K3
-// (rwkv4_block_decode.cu), a cooperative launch of as many blocks as fit
-// at once, with grid-wide barriers only where a phase needs a whole
-// vector.  Each output keeps the arithmetic of rwkv4_body.cuh's one-block
-// layer (dot_col: fmaf over k = 0..K-1 in order from 0, the same bf16
-// roundings), so the bits are the one-block design's and do not depend on
-// the grid; only where the work runs changed.
+// The RWKV-4 decode spread over the whole card: the body of K3 (one layer
+// a launch, rwkv4_block_decode.cu) and K4 (every layer in one launch,
+// rwkv4_model_decode.cu), a cooperative launch of as many blocks as fit
+// at once that loops over the launch's layers, with grid-wide barriers
+// only where a phase needs a whole vector.  Every output is a chain
+// acc = fmaf(x[k], w[k], acc) over k = 0..K-1 in order from acc = 0, with
+// rwkv4_body.cuh's bf16 roundings, so the bits do not depend on the grid,
+// the tile or the number of layers a launch runs: one K4 launch and L K3
+// launches give the same bits.
 //
 // Work items are column slices of the layer's matrices (common.cuh:
 // Matrix), 16 columns: 16 bytes of codes a row for a W8, VQ or W4 plane
 // (a W4 byte pairs two rows), 32 for plain bf16 weights.  An item is one
-// tile of bb batch lanes × one slice.  The phases, items spread over the
-// grid:
+// tile of bb batch lanes × one slice.  The phases of a layer, items spread
+// over the grid:
 //   A. every block runs LN1 and the three token-shift mixes for the tile
 //      (and their A9 maxima under HW) itself; items: the r, k and v
 //      columns of a channel slice, then per channel the WKV-4 step, the
@@ -24,34 +26,41 @@
 //      spans the tile: each item adds its columns' maximum (atomicMax on
 //      the bits of a non-negative float, exact in any order) ->
 //      barrier, then E writes x.
-// Item i of phase p goes to block (i + off_p) mod G, off_p the items of
-// the phases before p, so the slices of consecutive phases land on
-// different blocks.  Each scratch vector is read with __ldcg, past the
-// L1, because other blocks write it between barriers.
+// A layer's output x is the next layer's input: between layers it is a
+// (B, D) bf16 row in device memory, rounded where a single layer writes
+// its x_out, and a barrier ends every layer but the last.  Item i of
+// phase p goes to block (i + off_p) mod G, off_p the items of the phases
+// before p, so the slices of consecutive phases land on different blocks;
+// every layer deals its items the same way.  Each vector that other
+// blocks write within the launch (the scratch, and the residual between
+// layers) is read with __ldcg, past the L1, whose lines may be stale.
 //
 // The weights on chip: a block's stages (an item's rows, kc at a time in
 // phase A's three matrices, 3·kc in the others, with the slices' column
-// scales) are copied into a ring of ns slots of shared memory with
-// 16-byte cp.async, all issued at launch where the ring holds them (every
-// block's share of a quantized rwkv4-169m layer does), else refilled as
-// stages are consumed, across phases and grid barriers.  Issuing is the
-// cost: a slice row is one 16-byte request, and requests queue with the
-// block's shared-memory traffic, so the copies go out once, before the
-// first phase's LayerNorm.  A stage is decoded once (the decode of
-// unpack_leaf: dpot_w8_decode, dpot_w4_decode, vq_decode, or the bf16
-// weights as they are) into an f32 tile, column major; two tiles let the
-// threads that own no chain decode stage k + 1 while the chains run
-// stage k, one barrier a stage, and each phase's first stage is decoded
-// before the grid barrier that opens the phase.  Rows not 16-byte
-// aligned (or a ragged last slice) take byte copies.
+// scales) are copied into a ring of ns slots of shared memory by the
+// tensor-copy unit, one box of a 3-D map (row bytes × rows × layers) a
+// matrix and stage.  The ring runs over the launch, not the layer: at
+// launch it holds the block's first ns stages (every block's share of a
+// quantized rwkv4-169m layer and the start of the next), and each stage
+// consumed frees a slot that the next stage in (layer, phase, item,
+// chunk) order takes, so layer l + 1's weights stream in behind layer l's
+// compute.  Issuing is the cost: a slice row is one 16-byte request, and
+// requests queue with the block's shared-memory traffic.  A stage is
+// decoded once (the decode of unpack_leaf: dpot_w8_decode,
+// dpot_w4_decode, vq_decode, or the bf16 weights as they are) into an f32
+// tile, column major; two tiles let the threads that own no chain decode
+// stage k + 1 while the chains run stage k, one barrier a stage, and each
+// phase's (and each layer's) first stage is decoded before the grid
+// barrier that opens it, beside the next layer's vectors.  Rows not
+// 16-byte aligned (or a ragged last slice) take byte copies.
 //
 // The arithmetic: a thread owns one (column, lane) chain (two lanes in
 // phase A, where three matrices leave few threads to decode), acc =
-// fmaf(x[b][k], w[k][c], acc) for k ascending from acc = 0, exactly
-// dot_col's sequence; the stage pads past K are zeros in both operands,
-// which leave acc unchanged (acc is never -0).  The floor is the longest
-// chain: ffn.wv's F FMAs (3072 at rwkv4-169m, ~7 µs at 4 cycles an FMA);
-// splitting K would remove it but changes the bits.
+// fmaf(x[b][k], w[k][c], acc) for k ascending from acc = 0; the stage
+// pads past K are zeros in both operands, which leave acc unchanged (acc
+// is never -0).  The floor is the longest chain: ffn.wv's F FMAs (3072 at
+// rwkv4-169m, ~7 µs at 4 cycles an FMA); splitting K would remove it but
+// changes the bits.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -132,7 +141,8 @@ __host__ __device__ inline Layout layout(int bb, int D, int F, bool hw,
 
 // The scratch vectors in device memory, (B, ·) each: y (f32; exact: the
 // bf16 value), x2, kk, rr (f32; exact: the bf16 σ), the gated FFN output g
-// and each tile's max |g| (hardware numerics).
+// and each layer's and tile's max |g| (hardware numerics; L · B/bb), and
+// the two residual rows that alternate between layers (null for one).
 struct Scratch {
   float* y;
   bf16* x2;
@@ -140,21 +150,22 @@ struct Scratch {
   float* rr;
   float* g;
   unsigned* gmax;
+  bf16* res[2];
 };
 
 struct Args {
-  CUtensorMap tmap[kNumMats];  // each matrix's codes as a 2-D byte tensor
-                               // (rows × row bytes), boxes of one slice ×
-                               // kc rows (kc / 2 byte rows for W4); set
-                               // where vec's bit 0 is
-  LayerWeights w;
-  LayerState st;
+  CUtensorMap tmap[kNumMats];  // each matrix's codes as a 3-D byte tensor
+                               // (row bytes × rows × layers), boxes of one
+                               // slice × kc rows (kc / 2 byte rows for
+                               // W4) × one layer; set where vec's bit 0 is
+  LayerWeights w;              // layer 0's, and the strides to layer l
+  LayerState st;               // layer 0's; layer l's lie l·B·D further
   Scratch s;
   const bf16* x;
   bf16* x_out;
   const float* exp_tab;  // null: exact numerics
   const float* div_tab;
-  int B, D, F, bb, kc, ns;
+  int L, B, D, F, bb, kc, ns;
   int vec;  // bit 0: every matrix's slice rows and scales are 16-byte
             // aligned (tensor and bulk copies; else byte copies); bit 1:
             // so are x, the state rows and the vectors, with D and F
@@ -186,14 +197,14 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, int parity) {
       : "memory");
   return done != 0;
 }
-// One box of a 2-D tensor map (x bytes into a row, row y) into shared
-// memory, its bytes counted on `bar`.
+// One box of a 3-D tensor map (x bytes into a row, row y, layer z) into
+// shared memory, its bytes counted on `bar`.
 __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
-                                        int x, int y, uint64_t* bar) {
+                                        int x, int y, int z, uint64_t* bar) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z),
       "r"(smem_u32(bar))
       : "memory");
 }
@@ -207,12 +218,22 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
+// The layer being run, in shared memory, where its pointers cost no
+// registers: its state rows, its residual in (x, or the previous layer's
+// output) and out (x_out for the last layer), its tiles' max |g|.
+struct Layer {
+  LayerState st;
+  const bf16* x;
+  bf16* x_out;
+  unsigned* gmax;
+};
+
 // The launch's item counts, and per phase its items' stages and this
 // block's first item (>= its items: none), computed once: the ring's
 // bookkeeping runs in every thread at every stage.  Item i of phase p goes
 // to block (i + off_p) mod G, off_p the items of the phases before p.
 struct Geo {
-  int G, tiles, kc, sd, nwk;  // sd: slices of a D-wide matrix
+  int L, G, tiles, kc, sd, nwk;  // sd: slices of a D-wide matrix
   int chA, chBC, chD;         // stages of an item of phase A, B or C, D
   int f[kNumPhases];          // first items (read with constant indices)
 };
@@ -232,6 +253,7 @@ __device__ __forceinline__ int first_item(const Geo& g, int p) {
 
 __device__ inline Geo make_geo(const Args& a) {
   Geo g;
+  g.L = a.L;
   g.G = gridDim.x;
   g.tiles = a.B / a.bb;
   g.kc = a.kc;
@@ -293,21 +315,22 @@ __device__ inline Item item_of(const Geo& g, const Args& a, int p, int i) {
   return it;
 }
 
-// A place in this block's sequence of stages: phase, item, stage; phase
-// == kNumPhases past the end.
+// A place in this block's sequence of stages over the launch: layer and
+// phase (as one count, which costs a register less), item, stage; layer
+// == L past the end.
 struct Cursor {
-  int p, i, chunk;
+  int lp, i, chunk;  // lp: layer · kNumPhases + phase
 };
 
 __device__ inline void settle(Cursor& c, const Geo& g) {
-  while (c.p < kNumPhases && c.i >= items(g, c.p)) {
-    ++c.p;
-    if (c.p < kNumPhases) c.i = first_item(g, c.p);
+  while (c.lp < g.L * kNumPhases && c.i >= items(g, c.lp % kNumPhases)) {
+    ++c.lp;
+    c.i = first_item(g, c.lp % kNumPhases);
   }
 }
 
 __device__ inline void advance(Cursor& c, const Geo& g) {
-  if (++c.chunk < chunks_of(g, c.p)) return;
+  if (++c.chunk < chunks_of(g, c.lp % kNumPhases)) return;
   c.chunk = 0;
   c.i += g.G;
   settle(c, g);
@@ -326,16 +349,18 @@ __device__ __forceinline__ float* slot_scales(U* slot, const Item& it) {
                                       it.nm);
 }
 
-// Copy stage `chunk` of item `it` into a slot: for each matrix, its byte
-// rows [r0, r0 + nrows) (W4: halved) of the slice from column c0, and its
-// 16 column scales (W8, W4) after the codes; the slot's barrier counts
-// them.  vec: thread t0 issues tensor boxes of kc rows (rows past the
-// matrix read as zeros) and a bulk copy of the scales; else the team
-// t0.. of nteam copies bytes (columns past N as zeros) and t0 arrives.
+// Copy stage `chunk` of item `it` of layer l into a slot: for each
+// matrix, its byte rows [r0, r0 + nrows) (W4: halved) of the slice from
+// column c0, and its 16 column scales (W8, W4; shared by the layers)
+// after the codes; the slot's barrier counts them.  vec: thread t0 issues
+// tensor boxes of kc rows (rows past the matrix read as zeros) and a bulk
+// copy of the scales; else the team t0.. of nteam copies bytes (columns
+// past N as zeros) and t0 arrives.
 template <int PLANES>
 __device__ void issue_stage(const Args& a, const LayerWeights& w,
-                            const Item& it, int chunk, unsigned char* slot,
-                            uint64_t* bar, bool vec, int t0, int nteam) {
+                            const Item& it, int l, int chunk,
+                            unsigned char* slot, uint64_t* bar, bool vec,
+                            int t0, int nteam) {
   constexpr int RB = row_bytes<PLANES>();
   const int r0 = chunk * it.rows;
   const int nrows = min(it.rows, it.K - r0);
@@ -361,7 +386,7 @@ __device__ void issue_stage(const Args& a, const LayerWeights& w,
       unsigned char* dst = slot + (size_t)mi * it.rows * RB;
       for (int r = 0; r < nrows / half; r += box)
         tma_box(dst + r * RB, &a.tmap[it.mat0 + mi], it.c0 * esz,
-                r0 / half + r, bar);
+                r0 / half + r, l, bar);
       if (plane <= kPlaneW4)
         bulk_copy(scales + mi * (kScaleBytes / 4),
                   static_cast<const float*>(m.aux) + it.c0, kScaleBytes,
@@ -376,8 +401,8 @@ __device__ void issue_stage(const Args& a, const LayerWeights& w,
     const int half = plane == kPlaneW4 ? 2 : 1;
     const int nbr = nrows / half;
     const size_t rowbytes = (size_t)it.N * esz;
-    const uint8_t* src =
-        m.codes + (size_t)(r0 / half) * rowbytes + (size_t)it.c0 * esz;
+    const uint8_t* src = m.codes + l * w.mat_stride[it.mat0 + mi] +
+                         (size_t)(r0 / half) * rowbytes + (size_t)it.c0 * esz;
     unsigned char* dst = slot + (size_t)mi * it.rows * RB;
     const size_t live = rowbytes - (size_t)it.c0 * esz;
     for (int i = me; i < nbr * RB; i += nteam) {
@@ -688,8 +713,9 @@ __device__ void zero_pads(T* rows, int bb, int LS, int n) {
 
 // A9 of N tensors of bb rows × n values in place (tensor j at buf +
 // j·tstride, rows of stride LS), each scale from its own max|v| over the
-// block: rwkv4_body.cuh's a9_tensors with the same bits (hw_units.cuh:
-// a9_rcp, a multiply where a9 divides), the N tensors' values taken
+// block, with hw_units.cuh's a9 bits (a9_rcp: a multiply where a9
+// divides), a bf16 tensor's dequantized value rounded to bf16
+// (`.astype(x.dtype)`), an f32 one's kept; the N tensors' values taken
 // together so their work overlaps.  Ends with a barrier.
 template <int N, typename T>
 __device__ __forceinline__ void a9_rows(T* buf, int tstride, int bb, int LS,
@@ -724,13 +750,13 @@ __device__ __forceinline__ void a9_rows(T* buf, int tstride, int bb, int LS,
   __syncthreads();
 }
 
-// This block's producer of ring stages: the next stage to issue, how many
-// it has issued and how many slots have been freed by their stage's
-// decode.  Stage k lands in slot k mod ns, whose barrier completes once a
-// use: phase parity (k / ns) & 1.
+// This block's ring of stages over the launch: the next stage to issue,
+// how many it has issued and how many it has consumed (decoded: their
+// slots are free).  Stage k (counted over every layer) lands in slot
+// k mod ns, whose barrier completes once a use: phase parity (k / ns) & 1.
 struct Ring {
   Cursor next;
-  int issued, freed;
+  int issued, consumed;
 };
 
 // Issue up to `most` stages into free slots (thread t0 issues tensor
@@ -740,12 +766,14 @@ __device__ void ring_fill(Ring& r, int most, const LayerWeights& w,
                           const Geo& g, const Args& a, unsigned char* slots,
                           uint64_t* bars, bool vec, int t0, int nteam) {
   const size_t sb = slot_bytes(a.kc, row_bytes<PLANES>());
-  for (int k = 0; k < most && r.next.p < kNumPhases &&
-                  r.issued < r.freed + a.ns;
+  for (int k = 0; k < most && r.next.lp < g.L * kNumPhases &&
+                  r.issued < r.consumed + a.ns;
        ++k) {
     const int slot = r.issued % a.ns;
     if (threadIdx.x >= t0)
-      issue_stage<PLANES>(a, w, item_of(g, a, r.next.p, r.next.i),
+      issue_stage<PLANES>(a, w, item_of(g, a, r.next.lp % kNumPhases,
+                                        r.next.i),
+                          r.next.lp / kNumPhases,
                           r.next.chunk, slots + slot * sb, bars + slot, vec,
                           t0, nteam);
     ++r.issued;
@@ -761,36 +789,44 @@ __device__ __forceinline__ void ring_wait(const Ring& r, uint64_t* bars,
   }
 }
 
-// One layer for every lane of the launch; the caller is a cooperative
+// Every layer of the launch for every lane; the caller is a cooperative
 // kernel of kThreads threads with `smem` of layout(...).total bytes, and
-// g (make_geo) in shared memory, where it costs no registers.
+// w, cur (layer 0's, which the loop moves on a layer at a time) and g
+// (make_geo) in shared memory, where they cost no registers.
 template <int PLANES, bool HW>
-__device__ void layer(const LayerWeights& w, const LayerState& st,
-                      const Geo& g, const Args& a, unsigned char* smem) {
+__device__ void run(const LayerWeights& w, Layer& cur, const Geo& g,
+                    const Args& a, unsigned char* smem) {
   constexpr int W = kWidth;
   cg::grid_group gridg = cg::this_grid();
   const int bb = a.bb, D = a.D, F = a.F;
-  const Layout L = layout(bb, D, F, HW, a.kc, a.ns, row_bytes<PLANES>());
+  const Layout lay = layout(bb, D, F, HW, a.kc, a.ns, row_bytes<PLANES>());
   smem += (128 - smem_u32(smem) % 128) % 128;
   const int LD = pad8(D), LF = pad8(F);
-  bf16* act = reinterpret_cast<bf16*>(smem + L.act);
-  float* actf = reinterpret_cast<float*>(smem + L.act);
+  bf16* act = reinterpret_cast<bf16*>(smem + lay.act);
+  float* actf = reinterpret_cast<float*>(smem + lay.act);
   bf16* H = act + 3 * bb * LD;  // the LN output (phases A and C)
-  bf16* vecs = reinterpret_cast<bf16*>(smem + L.vecs);
-  float* tiles = reinterpret_cast<float*>(smem + L.tile);
-  float* res = reinterpret_cast<float*>(smem + L.res);
-  unsigned char* slots = smem + L.slots;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  bf16* vecs = reinterpret_cast<bf16*>(smem + lay.vecs);
+  float* tiles = reinterpret_cast<float*>(smem + lay.tile);
+  float* res = reinterpret_cast<float*>(smem + lay.res);
+  unsigned char* slots = smem + lay.slots;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
   const size_t sb = slot_bytes(a.kc, row_bytes<PLANES>());
-  float* hws = reinterpret_cast<float*>(smem + L.hw);
+  float* hws = reinterpret_cast<float*>(smem + lay.hw);
   float* red = HW ? hws + kHwTabs : nullptr;
   const LutUnits units{hws, HW ? hws + 256 : nullptr};
   const int tid = threadIdx.x, nt = blockDim.x;
   const bool vec = (a.vec & 1) != 0, rows16 = (a.vec & 2) != 0;
   const Scratch& s = a.s;
+  auto vec_of = [&](int v) { return vecs + v * LD; };
+  // layer l's vectors into shared memory
+  auto stage_vecs = [&](int l) {
+    copy_rows(kNumVecs, D, rows16, false,
+              [&](int r) { return w.vec[r] + l * w.vec_stride; },
+              [&](int r) { return vecs + r * LD; });
+  };
 
-  // the ring: every stage it holds in flight from the start, then the
-  // layer's vectors (and under HW the tables) into shared memory
+  // the ring: the block's first ns stages in flight from the start, then
+  // layer 0's vectors (and under HW the tables) into shared memory
   if (tid < a.ns) mbar_init(bars + tid, 1);
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   __syncthreads();
@@ -800,227 +836,302 @@ __device__ void layer(const LayerWeights& w, const LayerState& st,
   if constexpr (HW) {
     stage_luts(hws, a.exp_tab, a.div_tab);
     if (blockIdx.x == 0)
-      for (int t = tid; t < g.tiles; t += nt) s.gmax[t] = 0u;
+      for (int t = tid; t < g.L * g.tiles; t += nt) s.gmax[t] = 0u;
   }
-  copy_rows(kNumVecs, D, rows16, false, [&](int r) { return w.vec[r]; },
-            [&](int r) { return vecs + r * LD; });
-  auto vec_of = [&](int v) { return vecs + v * LD; };
-  int consumed = 0;
-  bool ready = false;  // stage `consumed` already decoded into tile 0
+  const LayerState& st = cur.st;
+  stage_vecs(0);
+  bool ready = false;  // the next stage to consume is decoded in tile 0
 
-  for (int p = 0; p < kNumPhases; ++p) {
-    int cur = -1;  // the tile whose inputs act holds
-    for (int i = first_item(g, p); i < items(g, p); i += g.G) {
-      const Item it = item_of(g, a, p, i);
-      const int b0 = it.tile * bb;
-      __syncthreads();  // the last item's chains and epilogue are done
-      if (it.tile != cur) {
-        // the phase's inputs for this tile; the block with the tile's
-        // first slice writes the LN state rows
-        const bool owner = it.slice == 0;
-        if (p == kA || p == kC) {
-          // x (A) or x2 (C) into act region 2, the previous token's row
-          // into region 0, then LN into H and the mixes over regions 0..
-          bf16* X = act + 2 * bb * LD;
-          const bf16* xin = p == kA ? a.x : s.x2;
-          const bf16* prev = st.in[p == kA ? ATT_X : FFN_X];
-          copy_rows(2 * bb, D, rows16, p == kC,
-                    [&](int r) {
-                      return r < bb ? xin + (size_t)(b0 + r) * D
-                                    : prev + (size_t)(b0 + r - bb) * D;
-                    },
-                    [&](int r) {
-                      return r < bb ? X + r * LD : act + (r - bb) * LD;
-                    });
-          __syncthreads();
-          layernorm_lanes_n(bb, X, H, LD, vec_of(p == kA ? LN1_W : LN2_W),
-                            vec_of(p == kA ? LN1_B : LN2_B), D,
-                            owner ? st.out[p == kA ? ATT_X : FFN_X] : nullptr,
-                            b0);
-          __syncthreads();
-          const int nmix = p == kA ? 3 : 2;
-          const int vm = p == kA ? ATT_MIX_R : FFN_MIX_R;
-          for (int b = 0; b < bb; ++b)
-            for (int d = 2 * tid; d < D; d += 2 * nt) {  // D is even
-              const __nv_bfloat162 h =
-                  *reinterpret_cast<const __nv_bfloat162*>(H + b * LD + d);
-              const __nv_bfloat162 pv =
-                  *reinterpret_cast<const __nv_bfloat162*>(act + b * LD + d);
-              for (int j = 0; j < nmix; ++j)
-                *reinterpret_cast<__nv_bfloat162*>(act + (j * bb + b) * LD +
-                                                   d) =
-                    mix2(h, pv,
-                         *reinterpret_cast<const __nv_bfloat162*>(
-                             vec_of(vm + j) + d));
+  // the end of layer l's work in this block: layer l + 1's pointers
+  // taken, its vectors staged and its first stage decoded, while other
+  // blocks finish layer l (the caller's grid barrier then opens l + 1)
+  auto next_layer = [&](int l) {
+    __syncthreads();  // this block's work on layer l is done
+    if (tid < kNumState) {
+      const size_t BD = (size_t)a.B * D;
+      cur.st.in[tid] += BD;
+      cur.st.out[tid] += BD;
+    } else if (tid == kNumState) {
+      // layer l wrote res[l & 1]; layer l + 1 writes the other, or x_out
+      // (constant indices: a parameter indexed at run time lands on the
+      // stack)
+      cur.x = l & 1 ? s.res[1] : s.res[0];
+      cur.x_out = l + 2 == g.L ? a.x_out : l & 1 ? s.res[0] : s.res[1];
+      cur.gmax += g.tiles;
+    }
+    stage_vecs(l + 1);
+    if (first_item(g, kA) < items(g, kA)) {
+      ring_wait(ring, bars, a.ns, ring.consumed);
+      __syncthreads();  // its copies landed
+      decode_stage<PLANES>(w, item_of(g, a, kA, first_item(g, kA)), 0,
+                           slots + (ring.consumed % a.ns) * sb, tiles, 0,
+                           nt);
+      ready = true;
+    }
+  };
+
+  for (int l = 0; l < g.L; ++l) {
+    for (int p = 0; p < kNumPhases; ++p) {
+      int held = -1;  // the tile whose inputs act holds
+      for (int i = first_item(g, p); i < items(g, p); i += g.G) {
+        const Item it = item_of(g, a, p, i);
+        const int b0 = it.tile * bb;
+        __syncthreads();  // the last item's chains and epilogue are done
+        if (it.tile != held) {
+          // the phase's inputs for this tile; the block with the tile's
+          // first slice writes the LN state rows
+          const bool owner = it.slice == 0;
+          if (p == kA || p == kC) {
+            // x (A) or x2 (C) into act region 2, the previous token's row
+            // into region 0, then LN into H and the mixes over regions 0..
+            bf16* X = act + 2 * bb * LD;
+            const bf16* xp = p == kA ? cur.x : s.x2;
+            const bf16* prev = st.in[p == kA ? ATT_X : FFN_X];
+            copy_rows(2 * bb, D, rows16, true,
+                      [&](int r) {
+                        return r < bb ? xp + (size_t)(b0 + r) * D
+                                      : prev + (size_t)(b0 + r - bb) * D;
+                      },
+                      [&](int r) {
+                        return r < bb ? X + r * LD : act + (r - bb) * LD;
+                      });
+            __syncthreads();
+            layernorm_lanes_n(bb, X, H, LD, vec_of(p == kA ? LN1_W : LN2_W),
+                              vec_of(p == kA ? LN1_B : LN2_B), D,
+                              owner ? st.out[p == kA ? ATT_X : FFN_X]
+                                    : nullptr,
+                              b0);
+            __syncthreads();
+            const int nmix = p == kA ? 3 : 2;
+            const int vm = p == kA ? ATT_MIX_R : FFN_MIX_R;
+            for (int b = 0; b < bb; ++b)
+              for (int d = 2 * tid; d < D; d += 2 * nt) {  // D is even
+                const __nv_bfloat162 h =
+                    *reinterpret_cast<const __nv_bfloat162*>(H + b * LD + d);
+                const __nv_bfloat162 pv =
+                    *reinterpret_cast<const __nv_bfloat162*>(act + b * LD +
+                                                             d);
+                for (int j = 0; j < nmix; ++j)
+                  *reinterpret_cast<__nv_bfloat162*>(act + (j * bb + b) * LD +
+                                                     d) =
+                      mix2(h, pv,
+                           *reinterpret_cast<const __nv_bfloat162*>(
+                               vec_of(vm + j) + d));
+              }
+            zero_pads(act, nmix * bb, LD, D);
+            __syncthreads();
+            if constexpr (HW) {
+              if (p == kA)
+                a9_rows<3>(act, bb * LD, bb, LD, D, red);
+              else
+                a9_rows<2>(act, bb * LD, bb, LD, D, red);
             }
-          zero_pads(act, nmix * bb, LD, D);
-          __syncthreads();
-          if constexpr (HW) {
-            if (p == kA)
-              a9_rows<3>(act, bb * LD, bb, LD, D, red);
+          } else if (p == kB) {
+            if constexpr (HW) {
+              copy_f32_rows(actf, LD, s.y + (size_t)b0 * D, bb, D);
+              zero_pads(actf, bb, LD, D);
+            } else {
+              copy_f32_rows(act, LD, s.y + (size_t)b0 * D, bb, D);
+              zero_pads(act, bb, LD, D);
+            }
+            __syncthreads();
+            if constexpr (HW) a9_rows<1>(actf, 0, bb, LD, D, red);
+          } else {
+            copy_rows(bb, F, rows16, true,
+                      [&](int r) { return s.kk + (size_t)(b0 + r) * F; },
+                      [&](int r) { return act + r * LF; });
+            zero_pads(act, bb, LF, F);
+            __syncthreads();
+            if constexpr (HW) a9_rows<1>(act, 0, bb, LF, F, red);
+          }
+          held = it.tile;
+        }
+
+        // the chains: thread t < nchain owns matrix mi, column c0 + j and
+        // lps lanes from b (two in phase A when bb is even, so that more
+        // threads decode there); the others decode the next stage meanwhile
+        const int lps = p == kA && bb % 2 == 0 ? 2 : 1;
+        const int per = W * bb / lps;
+        const int nchain = it.nm * per;
+        const bool chainer = tid < nchain;
+        const int mi = tid / per, j = tid % per % W, b = tid % per / W * lps;
+        const int LS = p == kD ? LF : LD;
+        const int TS = it.rows + 4;
+        if (!ready) {  // stage 0, decoded by every thread
+          ring_wait(ring, bars, a.ns, ring.consumed);
+          __syncthreads();  // its copies landed
+          decode_stage<PLANES>(w, it, 0,
+                               slots + (ring.consumed % a.ns) * sb, tiles, 0,
+                               nt);
+        }
+        ready = false;
+        float acc = 0.f, acc1 = 0.f;
+        for (int ch = 0; ch < it.chunks; ++ch) {
+          const bool more = ch + 1 < it.chunks;
+          if (more) ring_wait(ring, bars, a.ns, ring.consumed + 1);
+          __syncthreads();  // stage ch decoded; stage ch + 1 landed; the
+                            // chains of stage ch - 1 are done
+          ++ring.consumed;  // stage ch's slot
+          ring_fill<PLANES>(ring, 3, w, g, a, slots, bars, vec, nchain,
+                            nt - nchain);
+          const float* now = tiles + (ch & 1) * lay.tile_elems;
+          if (chainer) {
+            const int r0 = ch * it.rows;
+            const int n = (min(it.rows, it.K - r0) + 7) / 8 * 8;
+            const float* wr = now + (size_t)(mi * W + j) * TS;
+            const bf16* xr =
+                act + ((size_t)(it.in0 + mi) * bb + b) * LS + r0;
+            const float* xf = actf + (size_t)b * LD + r0;
+            if (HW && p == kB && lps == 2)
+              chain2(xf, xf + LD, wr, n, acc, acc1);
+            else if (HW && p == kB)
+              acc = chain(xf, wr, n, acc);
+            else if (lps == 2)
+              chain2(xr, xr + LS, wr, n, acc, acc1);
             else
-              a9_rows<2>(act, bb * LD, bb, LD, D, red);
+              acc = chain(xr, wr, n, acc);
+          } else if (more) {
+            decode_stage<PLANES>(w, it, ch + 1,
+                                 slots + (ring.consumed % a.ns) * sb,
+                                 tiles + ((ch + 1) & 1) * lay.tile_elems,
+                                 nchain, nt - nchain);
           }
-        } else if (p == kB) {
-          if constexpr (HW) {
-            copy_f32_rows(actf, LD, s.y + (size_t)b0 * D, bb, D);
-            zero_pads(actf, bb, LD, D);
-          } else {
-            copy_f32_rows(act, LD, s.y + (size_t)b0 * D, bb, D);
-            zero_pads(act, bb, LD, D);
+        }
+
+        // the item's outputs
+        const int c = it.c0 + j;
+        if (p == kA) {
+          if (chainer) {
+            res[(mi * bb + b) * W + j] = acc;
+            if (lps == 2) res[(mi * bb + b + 1) * W + j] = acc1;
           }
           __syncthreads();
-          if constexpr (HW) a9_rows<1>(actf, 0, bb, LD, D, red);
-        } else {
-          copy_rows(bb, F, rows16, true,
-                    [&](int r) { return s.kk + (size_t)(b0 + r) * F; },
-                    [&](int r) { return act + r * LF; });
-          zero_pads(act, bb, LF, F);
-          __syncthreads();
-          if constexpr (HW) a9_rows<1>(act, 0, bb, LF, F, red);
-        }
-        cur = it.tile;
-      }
-
-      // the chains: thread t < nchain owns matrix mi, column c0 + j and
-      // lps lanes from b (two in phase A when bb is even, so that more
-      // threads decode there); the others decode the next stage meanwhile
-      const int lps = p == kA && bb % 2 == 0 ? 2 : 1;
-      const int per = W * bb / lps;
-      const int nchain = it.nm * per;
-      const bool chainer = tid < nchain;
-      const int mi = tid / per, j = tid % per % W, b = tid % per / W * lps;
-      const int LS = p == kD ? LF : LD;
-      const int TS = it.rows + 4;
-      if (!ready) {  // stage 0, decoded by every thread
-        ring_wait(ring, bars, a.ns, consumed);
-        __syncthreads();  // its copies landed
-        decode_stage<PLANES>(w, it, 0, slots + (consumed % a.ns) * sb, tiles,
-                             0, nt);
-      }
-      ready = false;
-      float acc = 0.f, acc1 = 0.f;
-      for (int ch = 0; ch < it.chunks; ++ch) {
-        const bool more = ch + 1 < it.chunks;
-        if (more) ring_wait(ring, bars, a.ns, consumed + 1);
-        __syncthreads();  // stage ch decoded; stage ch + 1 landed; the
-                          // chains of stage ch - 1 are done
-        ++ring.freed;     // stage ch's slot
-        ring_fill<PLANES>(ring, 3, w, g, a, slots, bars, vec, nchain,
-                          nt - nchain);
-        ++consumed;
-        const float* now = tiles + (ch & 1) * L.tile_elems;
-        if (chainer) {
-          const int r0 = ch * it.rows;
-          const int n = (min(it.rows, it.K - r0) + 7) / 8 * 8;
-          const float* wr = now + (size_t)(mi * W + j) * TS;
-          const bf16* xr = act + ((size_t)(it.in0 + mi) * bb + b) * LS + r0;
-          const float* xf = actf + (size_t)b * LD + r0;
-          if (HW && p == kB && lps == 2)
-            chain2(xf, xf + LD, wr, n, acc, acc1);
-          else if (HW && p == kB)
-            acc = chain(xf, wr, n, acc);
-          else if (lps == 2)
-            chain2(xr, xr + LS, wr, n, acc, acc1);
-          else
-            acc = chain(xr, wr, n, acc);
-        } else if (more) {
-          decode_stage<PLANES>(w, it, ch + 1, slots + (consumed % a.ns) * sb,
-                               tiles + ((ch + 1) & 1) * L.tile_elems, nchain,
-                               nt - nchain);
-        }
-      }
-
-      // the item's outputs
-      const int c = it.c0 + j;
-      if (p == kA) {
-        if (chainer) {
-          res[(mi * bb + b) * W + j] = acc;
-          if (lps == 2) res[(mi * bb + b + 1) * W + j] = acc1;
-        }
-        __syncthreads();
-        for (int e = tid; e < W * bb; e += nt) {
-          const int ce = it.c0 + e % W, be = e / W;
-          if (ce >= D) continue;
-          const float ar = res[(0 * bb + be) * W + e % W];
-          const float ak = res[(1 * bb + be) * W + e % W];
-          const float av = res[(2 * bb + be) * W + e % W];
-          const float wd = expf(bf2f(vec_of(TIME_DECAY)[ce]));
-          const float u = bf2f(vec_of(TIME_FIRST)[ce]);
-          const size_t gi = (size_t)(b0 + be) * D + ce;
-          float na, nb, no;
-          if constexpr (HW) {
-            const float out = wkv4_step(
-                bf2f(st.in[WKV_A][gi]), bf2f(st.in[WKV_B][gi]),
-                bf2f(st.in[WKV_O][gi]), bf16r(ak), bf16r(av), wd, u, &na,
-                &nb, &no, units);
-            s.y[gi] = sigmoid_pwl(bf16r(ar)) * bf16r(out);
-          } else {
-            const float out = wkv4_step(
-                bf2f(st.in[WKV_A][gi]), bf2f(st.in[WKV_B][gi]),
-                bf2f(st.in[WKV_O][gi]), bf16r(ak), bf16r(av), wd, u, &na,
-                &nb, &no);
-            const float sr = sigmoid_bf16(bf16r(ar));
-            s.y[gi] = bf16r(sr * bf16r(out));
+          for (int e = tid; e < W * bb; e += nt) {
+            const int ce = it.c0 + e % W, be = e / W;
+            if (ce >= D) continue;
+            const float ar = res[(0 * bb + be) * W + e % W];
+            const float ak = res[(1 * bb + be) * W + e % W];
+            const float av = res[(2 * bb + be) * W + e % W];
+            const float wd = expf(bf2f(vec_of(TIME_DECAY)[ce]));
+            const float u = bf2f(vec_of(TIME_FIRST)[ce]);
+            const size_t gi = (size_t)(b0 + be) * D + ce;
+            float na, nb, no;
+            if constexpr (HW) {
+              const float out = wkv4_step(
+                  bf2f(st.in[WKV_A][gi]), bf2f(st.in[WKV_B][gi]),
+                  bf2f(st.in[WKV_O][gi]), bf16r(ak), bf16r(av), wd, u, &na,
+                  &nb, &no, units);
+              s.y[gi] = sigmoid_pwl(bf16r(ar)) * bf16r(out);
+            } else {
+              const float out = wkv4_step(
+                  bf2f(st.in[WKV_A][gi]), bf2f(st.in[WKV_B][gi]),
+                  bf2f(st.in[WKV_O][gi]), bf16r(ak), bf16r(av), wd, u, &na,
+                  &nb, &no);
+              const float sr = sigmoid_bf16(bf16r(ar));
+              s.y[gi] = bf16r(sr * bf16r(out));
+            }
+            st.out[WKV_A][gi] = __float2bfloat16_rn(na);
+            st.out[WKV_B][gi] = __float2bfloat16_rn(nb);
+            st.out[WKV_O][gi] = __float2bfloat16_rn(no);
           }
-          st.out[WKV_A][gi] = __float2bfloat16_rn(na);
-          st.out[WKV_B][gi] = __float2bfloat16_rn(nb);
-          st.out[WKV_O][gi] = __float2bfloat16_rn(no);
-        }
-      } else if (chainer && c < it.N) {
-        for (int l = 0; l < lps; ++l) {  // the thread's lanes
-          const float sum = l ? acc1 : acc;
-          const size_t lane = (size_t)(b0 + b + l);
-          const size_t gi = lane * D + c;
-          if (p == kB) {
-            s.x2[gi] = __float2bfloat16_rn(bf2f(a.x[gi]) + bf16r(sum));
-          } else if (p == kC && it.mat0 == FFN_WK) {
-            const float t = fmaxf(bf16r(sum), 0.f);
-            s.kk[lane * F + c] = __float2bfloat16_rn(t * t);
-          } else if (p == kC) {
-            s.rr[gi] = HW ? sigmoid_pwl(bf16r(sum)) : sigmoid_bf16(bf16r(sum));
-          } else if constexpr (HW) {
-            const float gv = __ldcg(s.rr + gi) * bf16r(sum);
-            s.g[gi] = gv;
-            atomicMax(s.gmax + it.tile, __float_as_uint(fabsf(gv)));
-          } else {
-            const float ffn = bf16r(__ldcg(s.rr + gi) * bf16r(sum));
-            a.x_out[gi] = __float2bfloat16_rn(ldcgf(s.x2 + gi) + ffn);
+        } else if (chainer && c < it.N) {
+          for (int l2 = 0; l2 < lps; ++l2) {  // the thread's lanes
+            const float sum = l2 ? acc1 : acc;
+            const size_t lane = (size_t)(b0 + b + l2);
+            const size_t gi = lane * D + c;
+            if (p == kB) {
+              s.x2[gi] =
+                  __float2bfloat16_rn(ldcgf(cur.x + gi) + bf16r(sum));
+            } else if (p == kC && it.mat0 == FFN_WK) {
+              const float t = fmaxf(bf16r(sum), 0.f);
+              s.kk[lane * F + c] = __float2bfloat16_rn(t * t);
+            } else if (p == kC) {
+              s.rr[gi] =
+                  HW ? sigmoid_pwl(bf16r(sum)) : sigmoid_bf16(bf16r(sum));
+            } else if constexpr (HW) {
+              const float gv = __ldcg(s.rr + gi) * bf16r(sum);
+              s.g[gi] = gv;
+              atomicMax(cur.gmax + it.tile, __float_as_uint(fabsf(gv)));
+            } else {
+              const float ffn = bf16r(__ldcg(s.rr + gi) * bf16r(sum));
+              cur.x_out[gi] = __float2bfloat16_rn(ldcgf(s.x2 + gi) + ffn);
+            }
           }
         }
       }
-    }
-    if (p < kD || HW) {
-      // the next phase's first stage, decoded while other blocks finish
-      if (p < kD && first_item(g, p + 1) < items(g, p + 1)) {
-        ring_wait(ring, bars, a.ns, consumed);
-        __syncthreads();  // its copies landed; the tiles are free
-        decode_stage<PLANES>(
-            w, item_of(g, a, p + 1, first_item(g, p + 1)), 0,
-            slots + (consumed % a.ns) * sb, tiles, 0, nt);
-        ready = true;
+      if (p < kD) {
+        // the next phase's first stage, decoded while other blocks finish
+        if (first_item(g, p + 1) < items(g, p + 1)) {
+          ring_wait(ring, bars, a.ns, ring.consumed);
+          __syncthreads();  // its copies landed; the tiles are free
+          decode_stage<PLANES>(
+              w, item_of(g, a, p + 1, first_item(g, p + 1)), 0,
+              slots + (ring.consumed % a.ns) * sb, tiles, 0, nt);
+          ready = true;
+        }
+        gridg.sync();
+      } else if (HW) {
+        gridg.sync();  // every item's maximum is in
+      } else if (l + 1 < g.L) {
+        next_layer(l);
+        gridg.sync();  // x is whole for the next layer
       }
-      gridg.sync();
     }
-  }
 
-  // E (hardware numerics): the gated product's A9 over its tile, and the
-  // residual add, for the columns of this block's phase-D items
-  if constexpr (HW) {
-    for (int i = first_item(g, kD); i < items(g, kD); i += g.G) {
-      const Item it = item_of(g, a, kD, i);
-      for (int e = tid; e < W * bb; e += nt) {
-        const int c = it.c0 + e % W;
-        if (c >= D) continue;
-        const size_t gi = (size_t)(it.tile * bb + e / W) * D + c;
+    // E (hardware numerics): the gated product's A9 over its tile, and the
+    // residual add, for the columns of this block's phase-D items
+    if constexpr (HW) {
+      for (int i = first_item(g, kD); i < items(g, kD); i += g.G) {
+        const Item it = item_of(g, a, kD, i);
         const float scale =
-            a9_scale(__uint_as_float(__ldcg(s.gmax + it.tile)));
-        const float ffn = bf16r(a9_rcp(__ldcg(s.g + gi), scale, 1.f / scale));
-        a.x_out[gi] = __float2bfloat16_rn(ldcgf(s.x2 + gi) + ffn);
+            a9_scale(__uint_as_float(__ldcg(cur.gmax + it.tile)));
+        for (int e = tid; e < W * bb; e += nt) {
+          const int c = it.c0 + e % W;
+          if (c >= D) continue;
+          const size_t gi = (size_t)(it.tile * bb + e / W) * D + c;
+          const float ffn =
+              bf16r(a9_rcp(__ldcg(s.g + gi), scale, 1.f / scale));
+          cur.x_out[gi] = __float2bfloat16_rn(ldcgf(s.x2 + gi) + ffn);
+        }
+      }
+      if (l + 1 < g.L) {
+        next_layer(l);
+        gridg.sync();  // x is whole for the next layer
       }
     }
   }
 }
+
+// The kernel: K3 is its launch with L = 1, K4 with the stack's L.  The
+// tables are read from shared memory, as K7 reads its own: indexed at run
+// time, a parameter-space table lands on each thread's stack.  So is the
+// launch's geometry.
+template <int PLANES, bool HW>
+__global__ void __launch_bounds__(kThreads, 1)
+decode_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ LayerWeights w;
+  __shared__ Layer cur;
+  __shared__ Geo g;
+  if (threadIdx.x == 0) {
+    w = a.w;
+    cur = {a.st, a.x, a.L == 1 ? a.x_out : a.s.res[0], a.s.gmax};
+    g = make_geo(a);
+  }
+  __syncthreads();
+  run<PLANES, HW>(w, cur, g, a, smem);
+}
+
+// Host side (rwkv4_model_decode.cu).  Whether the device has cooperative
+// launch, and the largest grid of the instance for `planes` (planes_of)
+// and the numerics at `smem` bytes of shared memory a block that fits on
+// it at once.
+int max_grid(int planes, bool hw, int smem, int* coop, int* blocks);
+// Check the launch's sizes against the plan (`width`, a.kc, a.ns, `smem`:
+// kernels/fused_decode.py:k3_plan), encode each matrix's tensor map where
+// a.vec's bit 0 is, and launch `grid` blocks; returns a cudaError_t.
+int launch(Args& a, int planes, int width, int smem, int grid,
+           cudaStream_t stream);
 
 }  // namespace grid
 }  // namespace rwkv4

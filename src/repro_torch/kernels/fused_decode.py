@@ -6,20 +6,22 @@ Port of `repro/kernels/fused_decode.py`: `rwkv4_block_decode` and
 and `rwkv6_model_decode` replace `fused_model_decode`, each for its
 model's body.  Pallas traced the model's `block_decode` inside the
 kernel; CUDA cannot trace, so each body is written into
-`csrc/rwkv4_body.cuh` or `csrc/rwkv6_body.cuh`, which round to bf16 at
+`csrc/rwkv4_grid.cuh` or `csrc/rwkv6_body.cuh`, which round to bf16 at
 the places the JAX trace does, and which both forms of a model run: L
 block launches and one model launch give the same bits.  The TPU's
 "stream" and "resident" forms of the whole-model kernel compute the same
-bits too, and on Hopper collapse into one layer loop inside the launch.
-The sources' headers say what bounds each kernel on an H100 and how the
-design answers that.
+bits too, and on Hopper become one layer loop inside the launch (for
+RWKV-4 the stream form: each layer's weights copied in behind the layer
+before).  The sources' headers say what bounds each kernel on an H100 and
+how the design answers that.
 
 Every form takes W8, W4 or VQ planes (`core/quant/serving.py`, a mixed
 policy's layer holding several) and plain bf16 weights (a tree that was
 never packed), as the JAX kernels take packed and plain trees; a plain
 matrix in another dtype raises.  K3 spreads a layer over the whole card
 (a cooperative launch; `k3_plan` gives its split and shared memory) and
-K4 runs each layer's batch tile on one thread block, both under the exact
+K4 is the same kernel looping over every layer in one launch (its ring of
+weight stages crossing layers, `K3Plan.ring`), both under the exact
 numerics or the paper's hardware numerics (LUT exp and division, PWL σ,
 A9 activations), with the same arithmetic for every output:
 K3 takes the EXP and DIV tables as `luts=`, K4 finds them as the stack's
@@ -70,7 +72,7 @@ MAT_KEYS = (("att", "wr"), ("att", "wk"), ("att", "wv"), ("att", "wo"),
 # csrc/common.cuh: enum Plane ("bf16": plain weights, never packed)
 PLANE_IDS = {"w8": 0, "w4": 1, "vq": 2, "bf16": 3}
 PLANE_NAMES = {v: k for k, v in PLANE_IDS.items()}
-MAX_BB = 8                  # batch lanes per block the kernels instantiate
+MAX_BB = 8                  # batch lanes a tile of the kernels holds
 SMEM_BYTES = 232_448        # shared memory one H100 block may use (227 KB)
 LUT_KEYS = ("exp", "div")   # the `_luts` operands, EXP and DIV tables
 # K3's grid-wide body (csrc/rwkv4_grid.cuh): columns a slice, rows a stage
@@ -81,7 +83,6 @@ K3_MAX_STAGES = 24
 K3_SCALE_BYTES = 64         # a slice's 16 f32 column scales, in its stage
 HW_SCRATCH_FLOATS = 512 + 3 * 33   # csrc/rwkv4_body.cuh: kHwScratch
 K3_STATIC_BYTES = 1024      # K3's static shared memory (its layer table)
-HW_SCRATCH_BYTES = HW_SCRATCH_FLOATS * 4
 
 
 def _mat_shapes(D: int, F: int):
@@ -143,23 +144,6 @@ def default_bb(B: int, most: int = MAX_BB) -> int:
     return max(d for d in range(1, min(B, most) + 1) if B % d == 0)
 
 
-def check_tile(B: int, bb: int, D: int, F: int, hw: bool = False):
-    """Raise unless bb lanes divide B, lie in [1, MAX_BB] and their
-    intermediates, (6·D + F)·2 bytes a lane, or (7·D + F)·2 and the LUT
-    and reduction scratch under the hardware numerics, fit one block's
-    shared memory.  There is no silent smaller tile."""
-    if not 1 <= bb <= MAX_BB or B % bb:
-        raise ValueError(f"batch tile bb={bb} must divide B={B} and lie in "
-                         f"[1, {MAX_BB}]")
-    need = bb * ((7 if hw else 6) * D + F) * 2 + (HW_SCRATCH_BYTES if hw
-                                                  else 0)
-    if need > SMEM_BYTES:
-        raise ValueError(
-            f"batch tile bb={bb} at D={D}, F={F} needs {need} B of shared "
-            f"memory, over the {SMEM_BYTES} B (227 KB) a block may use; "
-            "pass a smaller bb")
-
-
 # K3's phases (csrc/rwkv4_grid.cuh: enum Phase), each with its items'
 # matrices: (names, output width "D" or "F", contraction rows "D" or "F")
 K3_PHASES = (
@@ -205,6 +189,11 @@ class K3Plan(NamedTuple):
         phase (tile-major over its slices) goes to block (i + off) mod
         grid, off the items of the phases before.  Raises for a grid of no
         blocks, which holds no phase."""
+        return [it[:2] + it[3:] for it in self._dealt(B, grid)]
+
+    def _dealt(self, B: int, grid: int):
+        """items() with each item's index in its phase:
+        [(block, tile, i, phase, matrices, c0, c1)]."""
         if not isinstance(grid, int) or grid < 1:
             raise ValueError(f"K3: a grid of {grid} blocks cannot hold a "
                              "phase; it takes at least one block")
@@ -217,9 +206,52 @@ class K3Plan(NamedTuple):
             sl = by_phase[ph]
             for i in range(tiles * len(sl)):
                 _, mats, c0, c1 = sl[i % len(sl)]
-                out.append(((i + before) % grid, i // len(sl), ph, mats,
+                out.append(((i + before) % grid, i // len(sl), i, ph, mats,
                             c0, c1))
             before += tiles * len(sl)
+        return out
+
+    def stage_order(self, B: int, grid: int, L: int = 1):
+        """Each block's weight stages over a launch of L layers, in the
+        order it consumes them (csrc/rwkv4_grid.cuh: Cursor, advance):
+        {block: [(layer, phase, item, chunk)]}, an item's rows kc at a
+        time in phase A, 3·kc in the others; every layer deals its items
+        alike.  A block with no item has no entry."""
+        per = {}
+        for block, _, i, ph, _, _, _ in self._dealt(B, grid):
+            K = self.F if ph == "D" else self.D
+            rows = self.kc if ph == "A" else 3 * self.kc
+            per.setdefault(block, []).append((ph, i, -(-K // rows)))
+        return {b: [(l, ph, i, ch) for l in range(L) for ph, i, n in its
+                    for ch in range(n)] for b, its in per.items()}
+
+    def ring(self, B: int, grid: int, L: int = 1, refill: int = 3):
+        """The twin of each block's ring of `stages` slots over a
+        launch (csrc/rwkv4_grid.cuh: Ring, ring_fill, run):
+        {block: [("issue" | "consume", stage, slot)]}.  At launch the
+        block issues as many of its stages as the ring holds; each stage
+        consumed (decoded, its slot freed) lets up to `refill` more be
+        issued into free slots, the next stage in (layer, phase, item,
+        chunk) order first, whatever its layer.  Stage k takes slot
+        k mod ns."""
+        out = {}
+        for block, seq in self.stage_order(B, grid, L).items():
+            ev, issued, consumed = [], 0, 0
+
+            def fill(most):
+                nonlocal issued
+                for _ in range(most):
+                    if (issued == len(seq)
+                            or issued >= consumed + self.stages):
+                        return
+                    ev.append(("issue", seq[issued], issued % self.stages))
+                    issued += 1
+            fill(self.stages)
+            for st in seq:
+                ev.append(("consume", st, consumed % self.stages))
+                consumed += 1
+                fill(refill)
+            out[block] = ev
         return out
 
 
@@ -241,6 +273,18 @@ def _k3_smem(bb, D, F, hw, kc, ns, rb) -> int:
     return (ns * _k3_slot(kc, rb) + K3_MAX_STAGES * 8 + bb * act
             + len(VEC_KEYS) * LD * 2 + 2 * tile * 4 + 3 * W * bb * 4
             + (HW_SCRATCH_FLOATS * 4 if hw else 0) + 128)
+
+
+def tile_plan(B: int, bb: int, D: int, F: int, bf16_weights: bool,
+              hw: bool) -> K3Plan:
+    """K3's and K4's plan for a batch of B lanes in tiles of bb: raises
+    unless bb divides B and lies in [1, MAX_BB], and unless `k3_plan` fits
+    the tile's inputs and two weight stages in one block's shared memory.
+    There is no silent smaller tile."""
+    if not 1 <= bb <= MAX_BB or B % bb:
+        raise ValueError(f"batch tile bb={bb} must divide B={B} and lie in "
+                         f"[1, {MAX_BB}]")
+    return k3_plan(D, F, bf16_weights, hw, bb)
 
 
 def _k3_slot(kc: int, rb: int) -> int:
@@ -402,28 +446,31 @@ def _luts_in(luts, device):
 
 
 def _k3_vec(mats, rows, D: int, F: int) -> int:
-    """K3's load widths: bit 0 when every matrix's slice rows and scales
-    are 16-byte aligned (it copies them with 16-byte cp.async; else byte
-    by byte), bit 1 when D and F are multiples of 8 and every row operand
-    (x, the state, the vectors) is 16-byte aligned (16-byte loads; else
-    one value at a time)."""
+    """K3's and K4's load widths: bit 0 when every matrix's slice rows,
+    layer stride and scales are 16-byte aligned (tensor and bulk copies;
+    else byte by byte), bit 1 when D and F are multiples of 8 and every
+    row operand (x, the state, the vectors, and their layer strides) is
+    16-byte aligned (16-byte loads; else one value at a time).  mats:
+    (codes address, layer stride in bytes, scale or codebook, plane id)
+    per matrix; rows: addresses and strides in bytes."""
     codes = all(
         not (N * (2 if plane == PLANE_IDS["bf16"] else 1) % 16
-             or c.data_ptr() % 16
+             or addr % 16 or stride % 16
              or (plane in (PLANE_IDS["w8"], PLANE_IDS["w4"])
                  and aux.data_ptr() % 16))
-        for (c, aux, plane), (_, N) in zip(mats, _mat_shapes(D, F)))
-    rows16 = (D % 8 == 0 and F % 8 == 0
-              and all(t.data_ptr() % 16 == 0 for t in rows))
+        for (addr, stride, aux, plane), (_, N) in zip(mats,
+                                                      _mat_shapes(D, F)))
+    rows16 = D % 8 == 0 and F % 8 == 0 and all(r % 16 == 0 for r in rows)
     return int(codes) | 2 * int(rows16)
 
 
-def _k3_scratch(B: int, D: int, F: int, tiles: int, device):
-    """K3's scratch in device memory, one buffer: y, x2, kk, rr, g and a
-    max per tile (csrc/rwkv4_grid.cuh: Scratch), each 256-byte aligned;
-    returns the buffer and the six pointers."""
+def _k3_scratch(B: int, D: int, F: int, tiles: int, device, L: int = 1):
+    """K3's and K4's scratch in device memory, one buffer: y, x2, kk, rr,
+    g, a max per layer and tile, and for more than one layer the two
+    residual rows (csrc/rwkv4_grid.cuh: Scratch), each 256-byte aligned;
+    returns the buffer and the pointers."""
     sizes = (4 * B * D, 2 * B * D, 2 * B * F, 4 * B * D, 4 * B * D,
-             4 * tiles)
+             4 * tiles * L) + ((2 * B * D,) * 2 if L > 1 else ())
     offs, total = [], 0
     for n in sizes:
         offs.append(total)
@@ -447,9 +494,6 @@ def rwkv4_block_decode(lp, st, x, *, bb: int | None = None, luts=None,
     B, D = x.shape
     F = _out_cols(lp["ffn"]["wk"], "ffn.wk")
     bb = default_bb(B) if bb is None else int(bb)
-    if not 1 <= bb <= MAX_BB or B % bb:
-        raise ValueError(f"batch tile bb={bb} must divide B={B} and lie in "
-                         f"[1, {MAX_BB}]")
     if D % 2 or F % 2:
         raise ValueError(f"K3 takes even D and F, got {D}, {F}")
     hw = luts is not None
@@ -458,7 +502,7 @@ def rwkv4_block_decode(lp, st, x, *, bb: int | None = None, luts=None,
     mats = [_layer_matrix(_get(lp, p), shape, ".".join(p))
             for p, shape in zip(MAT_KEYS, _mat_shapes(D, F))]
     ids = _k3_planes([m[2] for m in mats])
-    plan = k3_plan(D, F, ids[0] == PLANE_IDS["bf16"], hw, bb)
+    plan = tile_plan(B, bb, D, F, ids[0] == PLANE_IDS["bf16"], hw)
     planes = (ctypes.c_int * len(mats))(*ids)
     lib = load_library()
     grid = _cooperative(
@@ -477,7 +521,9 @@ def rwkv4_block_decode(lp, st, x, *, bb: int | None = None, luts=None,
     check(lib.rwkv4_block_decode(
         arr, len(arr), planes, B, D, F, bb, plan.width, plan.kc,
         plan.stages, plan.smem, grid,
-        _k3_vec(mats, [x, *vecs, *states, *outs], D, F), stream_ptr(x)),
+        _k3_vec([(c.data_ptr(), 0, aux, p) for c, aux, p in mats],
+                [t.data_ptr() for t in (x, *vecs, *states, *outs)], D, F),
+        stream_ptr(x)),
         "rwkv4_block_decode")
     rwkv4_block_decode.launches += 1
     rwkv4_block_decode.grid = grid
@@ -614,12 +660,37 @@ def stack_table(blocks: FusedLayerStack, D: int):
     return F, vec_offs, mats
 
 
+def k4_tensor_maps(blocks: FusedLayerStack, D: int, kc: int):
+    """Each matrix's 3-D tensor map over a slab stack, as
+    csrc/rwkv4_model_decode.cu:encode_matrix builds it: [{"slab": its
+    slab's dtype name, "base": the bytes into a slab row where layer 0's
+    codes (or bf16 weights) start, "dims": (row bytes, rows, layers),
+    "strides": (bytes a row, bytes a layer: the slab row), "box": (one
+    slice's row bytes, kc rows, one layer)}], W4 rows being nibble pairs
+    (K / 2 of them, boxes of kc / 2).  Stage r0.. of the slice from column
+    c0 of layer l is the box at (c0 · esize, r0 / half, l)."""
+    F, _, mats = stack_table(blocks, D)
+    out = []
+    for m, (K, N) in zip(mats, _mat_shapes(D, F)):
+        esz = 2 if m.plane == PLANE_IDS["bf16"] else 1
+        half = 2 if m.plane == PLANE_IDS["w4"] else 1
+        out.append({"slab": m.slab, "base": m.offset * esz,
+                    "dims": (N * esz, K // half, blocks.n_layers),
+                    "strides": (N * esz,
+                                blocks.slabs[m.slab].shape[1] * esz),
+                    "box": (K3_WIDTH * esz, kc // half, 1)})
+    return out
+
+
 def rwkv4_model_decode(blocks: FusedLayerStack, state, x, *,
-                       bb: int | None = None):
+                       bb: int | None = None, grid: int | None = None):
     """The whole L-layer decode step: blocks the slab form of the stacked
     layers (`fuse_layer_stack` of the compute-cast tree, packed or plain,
     with `_luts` for the hardware numerics), state the five (L, B, D)
-    leaves, x (B, D) bf16 -> (x out (B, D), new state)."""
+    leaves, x (B, D) bf16 -> (x out (B, D), new state).  One cooperative
+    launch of K3's kernel over the L layers, on K3's plan (`tile_plan`);
+    `grid` caps the grid (default: every block that fits), and the
+    outputs do not depend on it."""
     if not isinstance(blocks, FusedLayerStack):
         raise TypeError("rwkv4_model_decode takes a FusedLayerStack "
                         "(core/quant/serving.py:fuse_layer_stack)")
@@ -630,29 +701,55 @@ def rwkv4_model_decode(blocks: FusedLayerStack, state, x, *,
     B, D = x.shape
     L = blocks.n_layers
     F, vec_offs, mats = stack_table(blocks, D)
+    if D % 2 or F % 2:
+        raise ValueError(f"K4 takes even D and F, got {D}, {F}")
     luts = stack_luts(blocks)
+    hw = luts is not None
     bb = default_bb(B) if bb is None else int(bb)
-    check_tile(B, bb, D, F, luts is not None)
+    ids = [m.plane for m in mats]
+    plan = tile_plan(B, bb, D, F, ids[0] == PLANE_IDS["bf16"], hw)
+    planes = (ctypes.c_int * len(mats))(*ids)
+    lib = load_library()
+    grid = _cooperative(
+        ("k4", tuple(ids), hw, plan.smem, x.device.index),
+        lambda c, m: lib.rwkv4_block_decode_grid(planes, int(hw), plan.smem,
+                                                 c, m), "K4", grid)
     tabs = [None, None] if luts is None else _luts_in(luts, x.device)
     u8, b16 = _stack_slabs(blocks)
     states = _state_in(state, (L, B, D), "rwkv4_model_decode")
+    x = x.contiguous()
     x_out = torch.empty((B, D), dtype=torch.bfloat16, device=x.device)
     outs = [torch.empty((L, B, D), dtype=torch.bfloat16, device=x.device)
             for _ in STATE_KEYS]
-    arr = _launch_ptrs([x.contiguous(), x_out, u8, b16,
-                        *(m.aux for m in mats), *states, *outs], tabs)
+    scratch, sptrs = _k3_scratch(B, D, F, B // bb, x.device, L)
+    arr = _launch_ptrs([x, x_out, u8, b16, *(m.aux for m in mats), *states,
+                        *outs], tabs)
+    arr = (ctypes.c_void_p * (len(arr) + len(sptrs)))(*arr, *sptrs)
+    rows = {"uint8": 0 if u8 is None else u8.shape[1],
+            "bfloat16": b16.shape[1]}
     offs = (ctypes.c_longlong * (2 + len(vec_offs) + len(mats)))(
-        0 if u8 is None else u8.shape[1], b16.shape[1], *vec_offs,
-        *(m.offset for m in mats))
-    planes = (ctypes.c_int * len(mats))(*(m.plane for m in mats))
-    check(load_library().rwkv4_model_decode(
-        arr, len(arr), offs, len(offs), planes, L, B, D, F, bb,
-        stream_ptr(x)), "rwkv4_model_decode")
+        rows["uint8"], rows["bfloat16"], *vec_offs, *(m.offset for m in mats))
+    esz = {"uint8": 1, "bfloat16": 2}
+    slab_ptr = {"uint8": 0 if u8 is None else u8.data_ptr(),
+                "bfloat16": b16.data_ptr()}
+    vec = _k3_vec(
+        [(slab_ptr[m.slab] + m.offset * esz[m.slab],
+          rows[m.slab] * esz[m.slab], m.aux, m.plane) for m in mats],
+        [t.data_ptr() for t in (x, x_out, *states, *outs)]
+        + [b16.data_ptr() + 2 * o for o in vec_offs]
+        + [2 * rows["bfloat16"], 2 * B * D] + sptrs[-2:], D, F)
+    check(lib.rwkv4_model_decode(
+        arr, len(arr), offs, len(offs), planes, L, B, D, F, bb, plan.width,
+        plan.kc, plan.stages, plan.smem, grid, vec, stream_ptr(x)),
+        "rwkv4_model_decode")
     rwkv4_model_decode.launches += 1
+    rwkv4_model_decode.grid = grid
+    del scratch      # enqueued: the caching allocator orders its reuse
     return x_out, dict(zip(STATE_KEYS, outs))
 
 
 rwkv4_model_decode.launches = 0
+rwkv4_model_decode.grid = None      # the blocks of the last launch
 
 
 # ---------------------------------------------------------------------------

@@ -291,8 +291,8 @@ def _stack_has_luts(stack: FusedLayerStack) -> bool:
 
 def decode_step_fused_model(params, state, tokens, pos, cfg: ModelConfig, *,
                             hw: bool = False, bb: int | None = None):
-    """Kernel decode: ONE K4 launch runs every layer, the residual kept on
-    chip between them, and the head goes through K5.  `params` is the
+    """Kernel decode: ONE K4 launch runs every layer, the residual passed
+    between them as a bf16 row, and the head goes through K5.  `params` is the
     output of `prepare_fused_model_params` (the serving path; its `hw`
     must be this call's) or a raw tree, which is cast and fused here on
     every call.  `bb` is K4's batch tile (under hw each tile takes its own

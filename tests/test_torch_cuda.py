@@ -26,7 +26,8 @@ bit for bit run to run, on random inputs and where a few keys dominate
 each row; rows that are not 16-byte aligned (the element-load path) give
 the aligned call's bits; a K13 row's bits do not depend on the batch.
 K7 at B = 16 (two 8-lane tiles) equals two 8-lane calls bit for bit,
-and K3 on a grid of 1 or 7 blocks equals K3 on every resident block.
+and K3 and K4 on a grid of 1 or 7 blocks equal themselves on every
+resident block.
 The smollm-smoke train step on the card holds each gradient leaf within
 1.25·√2x the CPU bf16 step's gap to an f32 witness.  K10 (chunked
 WKV-6) holds y and the final state to `_wkv6_chunked_bound` (the f32
@@ -277,22 +278,34 @@ def test_rwkv4_block_decode_mixed(cuda, bb):
     assert torch.equal(x2, x2_full)
 
 
-def _model_case(cuda, which):
-    model, packed = _packed(cuda, None if which == "w8" else MIXED)
+def _k4_policy(which):
+    """The plane policy of a K4 test tree: W8, MIXED, all W4 or all VQ."""
+    from repro_torch.core.quant.policy import PLANE_VQ, PLANE_W4
+    return {"w8": None, "mixed": MIXED, "w4": PLANE_W4,
+            "vq": PLANE_VQ}[which]
+
+
+def _model_case(cuda, which, B=4):
+    model, packed = _packed(cuda, _k4_policy(which))
     stack = prepare_fused_model_params(packed, model.cfg)["blocks"]
-    L, B, D = model.cfg.n_layers, 4, model.cfg.d_model
+    L, D = model.cfg.n_layers, model.cfg.d_model
     st, x = _state(cuda, (L, B, D), 5)
     return stack, st, x
 
 
-@pytest.mark.parametrize("which", ["w8", "mixed"])
-def test_model_decode_equals_block_launches(cuda, which):
-    """One K4 launch equals L K3 launches on the same layers bit for bit
-    (the residual stays in bf16 between layers either way), and holds to
-    its plain version."""
+# K4's grids: one block, seven, and every block that fits (None)
+K4_GRIDS = [1, 7, None]
+
+
+@pytest.mark.parametrize("grid", K4_GRIDS)
+@pytest.mark.parametrize("which", ["w8", "mixed", "w4", "vq"])
+def test_model_decode_equals_block_launches(cuda, which, grid):
+    """One K4 launch, on any grid, equals L K3 launches on the same layers
+    bit for bit (the residual is rounded to bf16 between layers either
+    way), and holds to its plain version."""
     stack, st, x = _model_case(cuda, which)
     before = (rwkv4_model_decode.launches, rwkv4_block_decode.launches)
-    x4, new4 = rwkv4_model_decode(stack, st, x)
+    x4, new4 = rwkv4_model_decode(stack, st, x, grid=grid)
     aux = [a[0] for a in stack.aux]
     x3, new3 = x, []
     for l in range(stack.n_layers):
@@ -315,10 +328,10 @@ def test_model_decode_equals_block_launches(cuda, which):
 
 
 def test_model_decode_batch_invariance(cuda):
-    """K4 at bb in {1, 2, 4} and for a lone lane, bit for bit."""
-    stack, st, x = _model_case(cuda, "mixed")
-    full, full_st = rwkv4_model_decode(stack, st, x, bb=4)
-    for bb in (1, 2):
+    """K4 at bb in {1, 2, 4, 8} and for a lone lane, bit for bit."""
+    stack, st, x = _model_case(cuda, "mixed", B=8)
+    full, full_st = rwkv4_model_decode(stack, st, x, bb=8)
+    for bb in (1, 2, 4):
         got, got_st = rwkv4_model_decode(stack, st, x, bb=bb)
         assert torch.equal(got, full)
         assert all(torch.equal(got_st[k], full_st[k]) for k in STATE_KEYS)
@@ -331,8 +344,9 @@ def test_model_decode_batch_invariance(cuda):
 
 def test_model_decode_raises_on_oversized_bb(cuda):
     """A batch tile over 8 lanes, one that does not divide B, or one whose
-    intermediates pass 227 KB of shared memory raises before launching
-    (rwkv4-7b's widths, D 4096 and F 16384, at bb = 3)."""
+    inputs leave no room for K3's weight stages in 227 KB of shared memory
+    raises before launching (rwkv4-7b's widths, D 4096 and F 16384, at
+    bb = 4; bb = 1 runs)."""
     import dataclasses
     stack, st, x = _model_case(cuda, "mixed")
     before = rwkv4_model_decode.launches
@@ -343,10 +357,10 @@ def test_model_decode_raises_on_oversized_bb(cuda):
                               vocab=64)
     _, params = _packed(cuda, None, cfg)
     wide = prepare_fused_model_params(params, cfg)["blocks"]
-    st7, x7 = _state(cuda, (2, 3, cfg.d_model), 6)
+    st7, x7 = _state(cuda, (2, 4, cfg.d_model), 6)
     with pytest.raises(ValueError, match="shared memory"):
-        rwkv4_model_decode(wide, st7, x7, bb=3)
-    rwkv4_model_decode(wide, st7, x7, bb=1)   # 80 KB a lane fits
+        rwkv4_model_decode(wide, st7, x7, bb=4)
+    rwkv4_model_decode(wide, st7, x7, bb=1)   # 128-row stages, 8 slots
     torch.cuda.synchronize()
     assert rwkv4_model_decode.launches == before + 1
 
@@ -747,13 +761,17 @@ def test_rwkv4_block_decode_hw(cuda, bb):
                    for k in STATE_KEYS)
 
 
+@pytest.mark.parametrize("grid", K4_GRIDS)
+@pytest.mark.parametrize("which", ["w8", "mixed"])
 @pytest.mark.parametrize("bb", [2, 4])
-def test_model_decode_hw_equals_block_launches(cuda, bb):
-    model, packed = _packed(cuda, None)
+def test_model_decode_hw_equals_block_launches(cuda, bb, which, grid):
+    """K4-hw on any grid equals L K3-hw launches bit for bit (W8 and
+    MIXED planes, tiles of 2 and 4 lanes), and holds its plain version."""
+    model, packed = _packed(cuda, _k4_policy(which))
     stack = prepare_fused_model_params(packed, model.cfg, hw=True)["blocks"]
     L, B, D = model.cfg.n_layers, 4, model.cfg.d_model
     st, x = _state(cuda, (L, B, D), 15)
-    x4, new4 = rwkv4_model_decode(stack, st, x, bb=bb)
+    x4, new4 = rwkv4_model_decode(stack, st, x, bb=bb, grid=grid)
     aux = [a[0] for a in stack.aux]
     x3, new3 = x, []
     for l in range(L):
@@ -1797,17 +1815,19 @@ def test_rwkv4_block_decode_bf16(cuda, hw):
                for k in STATE_KEYS)
 
 
+@pytest.mark.parametrize("grid", K4_GRIDS)
 @pytest.mark.parametrize("hw", [False, True], ids=["exact", "hw"])
-def test_model_decode_bf16_equals_block_launches(cuda, hw):
-    """K4 over a plain bf16 stack (no uint8 slab) equals L K3 launches bit
-    for bit and holds its plain version by the port_helpers rule."""
+def test_model_decode_bf16_equals_block_launches(cuda, hw, grid):
+    """K4 over a plain bf16 stack (no uint8 slab), on any grid, equals L K3
+    launches bit for bit and holds its plain version by the port_helpers
+    rule."""
     model, params = _plain_tree(cuda)
     stack = prepare_fused_model_params(params, model.cfg, hw=hw)["blocks"]
     assert "uint8" not in stack.slabs
     L, B, D = model.cfg.n_layers, 4, model.cfg.d_model
     st, x = _state(cuda, (L, B, D), 22)
     before = rwkv4_model_decode.launches
-    x4, new4 = rwkv4_model_decode(stack, st, x)
+    x4, new4 = rwkv4_model_decode(stack, st, x, grid=grid)
     aux = [a[0] for a in stack.aux]
     x3, new3 = x, []
     for l in range(L):
@@ -2130,3 +2150,20 @@ def test_rwkv4_block_decode_raises_when_the_grid_cannot_launch(cuda):
         with pytest.raises(ValueError, match="cooperative grid"):
             rwkv4_block_decode(lp, st, x, grid=grid)
     assert rwkv4_block_decode.launches == before
+
+
+def test_model_decode_raises_when_the_grid_cannot_launch(cuda):
+    """K4: a grid larger than the blocks resident at once (or empty) raises
+    before launching; there is no smaller silent grid.  The full grid is
+    one block an SM."""
+    from repro_torch.kernels.fused_decode import _COOP_GRIDS
+    stack, st, x = _model_case(cuda, "w8")
+    rwkv4_model_decode(stack, st, x)
+    most = max(v for k, v in _COOP_GRIDS.items() if k[0] == "k4")
+    props = torch.cuda.get_device_properties(cuda)
+    assert rwkv4_model_decode.grid == most == props.multi_processor_count
+    before = rwkv4_model_decode.launches
+    for grid in (most + 1, 0):
+        with pytest.raises(ValueError, match="cooperative grid"):
+            rwkv4_model_decode(stack, st, x, grid=grid)
+    assert rwkv4_model_decode.launches == before

@@ -32,8 +32,8 @@ from repro_torch.core.quant.serving import unpack_params as t_unpack_params
 from repro_torch.core.wkv.wkv4 import WKV4State, wkv4_step
 from repro_torch.kernels.expsig import sigmoid_kernel
 from repro_torch.kernels.fused_decode import (
-    check_tile, rwkv4_block_decode, rwkv4_model_decode, stack_luts,
-    stack_table)
+    HW_SCRATCH_FLOATS, rwkv4_block_decode, rwkv4_model_decode, stack_luts,
+    stack_table, tile_plan)
 from repro_torch.kernels.fused_prefill import dpot_w8_matmul_f32x
 from repro_torch.kernels.wkv4 import wkv4_seq
 from repro_torch.launch import serve as t_serve
@@ -302,13 +302,18 @@ def test_prepared_hw_mismatch_raises(models):
 
 
 def test_hw_tile_needs_more_shared_memory():
-    """Under hw a lane takes (7·D + F)·2 bytes of shared memory (y, rr and
-    the gated FFN output are f32) and the block 2,444 more for the LUTs
-    and reductions: a tile that fits the exact numerics can pass 227 KB."""
-    check_tile(8, 8, 768, 3072, hw=True)           # 169M: 137,612 B
-    check_tile(4, 4, 2560, 12288)                  # exact: 221,184 B
-    with pytest.raises(ValueError, match="shared memory"):
-        check_tile(4, 4, 2560, 12288, hw=True)     # 244,108 B
+    """Under hw a K3 or K4 block takes 2,444 B more shared memory (the LUTs
+    and reductions; the f32 y fits the room of the tile's four bf16 input
+    rows), which K3's plan takes from the ring of weight stages: at
+    rwkv4-169m and bb 8 both numerics hold 17 slots, 2,444 B apart; at
+    rwkv4-7b's widths and bb 3 the hw block holds one slot fewer."""
+    ex = tile_plan(8, 8, 768, 3072, False, False)
+    hw = tile_plan(8, 8, 768, 3072, False, True)
+    assert (hw.kc, hw.stages) == (ex.kc, ex.stages) == (128, 17)
+    assert hw.smem - ex.smem == HW_SCRATCH_FLOATS * 4 == 2444
+    ex = tile_plan(3, 3, 4096, 16384, False, False)
+    hw = tile_plan(3, 3, 4096, 16384, False, True)
+    assert (ex.kc, ex.stages, hw.kc, hw.stages) == (64, 4, 64, 3)
 
 
 def test_hw_wrappers_cpu_are_plain(models, rng):

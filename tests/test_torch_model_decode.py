@@ -26,8 +26,8 @@ from repro_torch.core.quant.serving import (
     FusedLayerStack, fuse_layer_stack, pack_params as t_pack,
     unpack_params as t_unpack_params)
 from repro_torch.kernels.fused_decode import (
-    MAX_BB, SMEM_BYTES, check_tile, rwkv4_model_decode,
-    rwkv4_model_decode_plain, stack_table)
+    MAX_BB, SMEM_BYTES, rwkv4_model_decode, rwkv4_model_decode_plain,
+    stack_table, tile_plan)
 from repro_torch.models.registry import get_model as t_get_model
 from repro_torch.models.rwkv4 import STATE_KEYS, prepare_fused_model_params
 
@@ -187,15 +187,19 @@ def test_stack_table_raises_on_per_layer_scales(models):
 
 
 def test_check_tile_raises_on_oversized_bb():
-    """bb lanes must divide B, lie in [1, 8] and fit 227 KB of shared
-    memory: rwkv4-7b (D 4096, F 16384) takes 80 KB a lane, so bb = 3
-    raises where bb = 2 fits; there is no silent smaller tile."""
-    check_tile(8, 8, 768, 3072)                 # 169M at bb = 8: 123 KB
-    check_tile(4, 2, 4096, 16384)
+    """bb lanes must divide B, lie in [1, 8] and leave room beside their
+    inputs for two weight stages of K3's plan in 227 KB of shared memory
+    (`tile_plan`, K4's tile rule as K3's): rwkv4-7b (D 4096, F 16384)
+    takes 32 KB of inputs a lane, so bb = 4 raises where bb = 3 fits (64-row
+    stages, four slots) and bb = 1 fits; there is no silent smaller tile."""
+    assert tile_plan(8, 8, 768, 3072, False, False).stages == 17   # 169M
+    tile_plan(4, 2, 4096, 16384, False, False)
+    assert tile_plan(3, 3, 4096, 16384, False, False)[2:4] == (64, 4)
+    assert tile_plan(3, 1, 4096, 16384, False, False).kc == 128
     with pytest.raises(ValueError, match="shared memory"):
-        check_tile(3, 3, 4096, 16384)
+        tile_plan(4, 4, 4096, 16384, False, False)
     with pytest.raises(ValueError, match="divide"):
-        check_tile(8, 3, 768, 3072)
+        tile_plan(8, 3, 768, 3072, False, False)
     with pytest.raises(ValueError, match="divide"):
-        check_tile(16, 16, 64, 256)
+        tile_plan(16, 16, 64, 256, False, False)
     assert MAX_BB == 8 and SMEM_BYTES == 232_448
