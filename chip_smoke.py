@@ -153,10 +153,11 @@ each prints its seconds and peak device memory (`phase_done` lines):
                                D without vector loads; timed at (32768,
                                4096) bf16 with F.layer_norm beside it
       wkv6_chunked_kernel      K10_SHAPES (one chunk; several; T = 96, the
-      (K10)                    chunk halving to 32; N = 16; strong decay),
+      (K10)                    chunk halving to 32; N = 16; strong decay;
+                               the forward's types at B1 T4096 H64 N64),
                                then rwkv6-7b's layer-0 operands at B1
                                T32768 H64 N64 (timed; bit for bit run to
-                               run)
+                               run; one call is three CUDA launches)
     Tolerances: K11 one step of the output's type plus the f32 sum-order
     bound `_ln_floor`; K10 y and the final state within `_k10_bound`,
     (8·G + 2C + 2N + 16)·2^-24 of each output's magnitude (the plain
@@ -2839,13 +2840,15 @@ def phase_train():
 
 # K10's shapes (B, T, H, N, s0, decay shift, bf16 r/k/v): a chunk, several
 # chunks of the real head size, a ragged T (the chunk halves to 32), the
-# smoke model's N = 16, and strong decay, where e^L underflows to 0
+# smoke model's N = 16, strong decay, where e^L underflows to 0, and the
+# forward's types (bf16 r, k, v; f32 w) at a mid size
 K10_SHAPES = (
     (1, 64, 1, 64, False, 0.0, False),
     (2, 256, 4, 64, True, 0.0, False),
     (2, 96, 4, 64, True, 0.0, True),
     (2, 128, 4, 16, True, 0.0, True),
     (1, 256, 4, 64, True, 3.0, False),
+    (1, 4096, 64, 64, False, 0.0, True),
 )
 # K11's shapes (rows, D, dtype): rwkv6-7b's forward rows at B1 S32768 (the
 # first, timed), rwkv4-169m's at B8 S1024, in both types, then ragged row
@@ -2923,6 +2926,53 @@ def _k10_cost(r, w, s0):
     return nbytes, ops
 
 
+def _k10_two_level_ops(r, v):
+    """The work of K10's two-level form (`csrc/wkv6_chunked.cu`) on these
+    shapes: (CUDA-core operations, bf16 tensor-core flops).  Per chunk of C
+    tokens and head: 7·N per strictly-lower pair inside the 16-row diagonal
+    blocks (the exact pairwise exponents), ~15·C·N elementwise (log,
+    cumsum, decays, bonus) plus 3·C·N for the rows' and 3·N per earlier key
+    of each sub-chunk for the keys' factored decays, and 2N² for the state
+    update; the products ΔS_g and (r e^Lprev) @ S (2·C·N² each), the
+    factored blocks below the diagonal and att @ v (2N a pair), each
+    counted once per bf16 piece product the kernel runs: six for f32 x
+    f32, three for f32 x a bf16 v (six for an f32 v)."""
+    from repro_torch.kernels.wkv6 import chunk_length
+    B, T, H, N = r.shape
+    C = chunk_length(T)
+    chunks = B * H * (T // C)
+    n_sub = -(-C // 16)
+    lens = [min(16, C - 16 * a) for a in range(n_sub)]
+    pairs = C * (C - 1) // 2
+    diag = sum(x * (x - 1) // 2 for x in lens)
+    keys = sum(16 * a for a in range(n_sub))
+    pv = 3 if v.dtype == torch.bfloat16 else 6
+    cuda_ops = chunks * (7 * N * diag + 15 * C * N + 3 * C * N
+                         + 3 * N * keys + 2 * N * N)
+    mma_flops = chunks * 2 * N * (C * N * (pv + 6) + 6 * (pairs - diag)
+                                  + pv * pairs)
+    return cuda_ops, mma_flops
+
+
+def _k10_bound_ms(r, v, w, s0):
+    """K10's least time and its parts: the larger of its bytes
+    (`_k10_cost`) over 3.35 TB/s and the two-level form's CUDA-core
+    operations at the f32 rate plus its piece products at the bf16
+    tensor-core rate (`_k10_two_level_ops`); beside it the one-level form's
+    operations (`_k10_cost`) at the f32 rate, the bound before K10 ran its
+    products on the tensor cores."""
+    nbytes, ops = _k10_cost(r, w, s0)
+    cuda_ops, mma_flops = _k10_two_level_ops(r, v)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (cuda_ops / PEAK_F32_FLOPS + mma_flops / PEAK_BF16_FLOPS) * 1e3
+    return {"bytes": nbytes, "ops": cuda_ops, "mma_flops": mma_flops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops,
+            "one_level_ops": ops,
+            "one_level_f32_bound_ms": ops / PEAK_F32_FLOPS * 1e3}
+
+
 def _k10_check(what, r, k, v, w, u, s0, flush=None):
     """K10 against its plain version within `_k10_bound`; timed (the plain
     version once, it takes ~1 s at B1 T32768) when `flush` is given."""
@@ -2936,8 +2986,6 @@ def _k10_check(what, r, k, v, w, u, s0, flush=None):
     ok = bool((dy <= by).all()) and bool((dS <= bS).all()) and bool(
         torch.isfinite(y).all()) and bool(torch.isfinite(S).all())
     B, T, H, N = r.shape
-    nbytes, ops = _k10_cost(r, w, s0)
-    bms, by_ = _bound(nbytes, ops, PEAK_F32_FLOPS)
     row = {"kernel": "wkv6_chunked_kernel", "what": what, "B": B, "T": T,
            "H": H, "N": N, "C": chunk_length(T), "s0": s0 is not None,
            "rkv_dtype": str(r.dtype), "max_abs_err": float(
@@ -2947,8 +2995,8 @@ def _k10_check(what, r, k, v, w, u, s0, flush=None):
            # outputs' magnitude, against the bound's factor `rel`
            "y_err_per_mag": float((dy * rel / by.clamp(min=1e-30)).max()),
            "S_err_per_mag": float((dS * rel / bS.clamp(min=1e-30)).max()),
-           "bound_rel": rel, "within_bound": ok, "bytes": nbytes, "ops": ops,
-           "bound_ms": bms, "bound_by": by_, "library_ms": None}
+           "bound_rel": rel, "within_bound": ok,
+           **_k10_bound_ms(r, v, w, s0), "library_ms": None}
     if flush is not None:
         row["kernel_ms"] = _time_ms(
             lambda: wkv6_chunked_kernel(r, k, v, w, u, s0), flush)
@@ -4407,7 +4455,8 @@ def main() -> int:
         "src/repro/kernels/wkv6.py:74", k10[-1:],
         launches("wkv6_chunked_kernel", "rwkv6-forward"),
         "K10, timed on rwkv6-7b's layer-0 operands at B1 T32768 H64 N64 "
-        "(bf16 r, k, v; f32 w); the other shapes are checked only")
+        "(bf16 r, k, v; f32 w); the other shapes are checked only; a "
+        "launch counted here is one wrapper call, three CUDA launches")
     k10_row["max_abs_err"] = max(r["max_abs_err"] for r in k10)
     k10_row["shapes"] = [[r[k] for k in ("B", "T", "H", "N")] for r in k10]
     k11_row = _kernel_row(

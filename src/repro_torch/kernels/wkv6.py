@@ -8,13 +8,16 @@ mask and the `carry_dtype` snap of the chunked prefill.  Its CUDA kernel
 is `csrc/wkv6_seq.cu`.
 
 K10 is the port of `wkv6_pallas` (`_kernel`): the chunked WKV-6 of the
-whole-sequence forward, one head's state on chip across all chunks of C
-tokens, each chunk an inter-chunk product against the state, the exact
-pairwise decays masked strictly lower before the exp, the u-bonus and
-the state update (the one-level scheme; `core/wkv/wkv6.py:wkv6_chunked`
-is JAX's two-level form of the same function).  Its CUDA kernel is
-`csrc/wkv6_chunked.cu`.  Each source's header says what bounds it on an
-H100 and how its design answers that.
+whole-sequence forward over chunks of C tokens, each chunk an inter-chunk
+product against the carried state, the exact pairwise decays masked
+strictly lower before the exp, the u-bonus and the state update (the
+one-level scheme, `wkv6_chunked_plain`; `core/wkv/wkv6.py:wkv6_chunked`
+is JAX's two-level form of the same function).  Its CUDA source
+`csrc/wkv6_chunked.cu` spreads every head's chunks over the card in three
+launches (`k10_plan`): the chunks' state increments, the in-order state
+recurrence, and the chunks' outputs, whose products run on the tensor
+cores in exact bf16 pieces through sub-chunks of 16.  Each source's header says what bounds it on an H100 and how its
+design answers that.
 
 The initial state may be f32 or the bf16 pool state itself: bf16 -> f32
 is exact, so the kernel reads the pool's bf16 bytes and widens them on
@@ -28,7 +31,7 @@ theirs (`kernels/build.py:WAITS`).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -161,12 +164,57 @@ def wkv6_chunked_plain(r, k, v, w, u, s0=None, *, chunk: int = 64):
     return torch.stack(ys, dim=1).reshape(B, T, H, N), S
 
 
+K10_SUB = 16            # a sub-chunk: one m16n8k16 row block
+K10_STATE_THREADS = 128  # launch A's block
+K10_SCAN_THREADS = 256   # launch B's block
+K10_OUT_THREADS = 256    # launch C's block
+
+
+class K10Plan(NamedTuple):
+    """What one K10 call launches (`csrc/wkv6_chunked.cu`)."""
+    C: int                # the chunk, `chunk_length(T, chunk)`
+    G: int                # chunks a sequence
+    Cp: int               # C padded to whole sub-chunks (rows >= C zero)
+    n_sub: int            # sub-chunks of K10_SUB rows a chunk
+    passes: tuple         # (name, blocks, threads, shared bytes), in order
+    workspace_bytes: int  # ΔS_g / S_(g-1) and e^Ltot_g of every chunk
+
+
+def k10_plan(B: int, T: int, H: int, N: int, chunk: int = 64, *,
+             rkv_bytes: int = 2) -> K10Plan:
+    """K10's launches for (B, T, H, N): A (`chunk_state_kernel`, a block a
+    chunk: L and ΔS_g = (k e^(Ltot-L))ᵀ v), B (`state_scan_kernel`, a
+    thread a (b, h, n, m) chain over the G chunks in order) and C
+    (`chunk_output_kernel`, a block a chunk: y).  The passes are the twin
+    of the source's `plan_of` (shared bytes as its `smem_state` /
+    `smem_output`; PV: v's pieces, 1 for bf16 r, k, v and 3 for f32),
+    held to it on the card by its C query `wkv6_chunked_plan`."""
+    C = chunk_length(T, chunk)
+    G = T // C
+    Cp = -(-C // K10_SUB) * K10_SUB
+    n_sub = Cp // K10_SUB
+    pv = 1 if rkv_bytes == 2 else 3
+    chunks = B * H * G
+    smem_a = 2 * Cp * (N + 4) * 4 + pv * Cp * (N + 8) * 2
+    smem_c = 4 * Cp * (N + 8) * 4 + max(3 * N * (N + 8) * 2,
+                                        Cp * (Cp + 8) * 4) \
+        + pv * Cp * (N + 8) * 2 + (N + Cp) * 4
+    scan = B * H * N * N
+    passes = (
+        ("chunk_state", chunks, K10_STATE_THREADS, smem_a),
+        ("state_scan", -(-scan // K10_SCAN_THREADS), K10_SCAN_THREADS, 0),
+        ("chunk_output", chunks, K10_OUT_THREADS, smem_c),
+    )
+    return K10Plan(C, G, Cp, n_sub, passes, 4 * chunks * (N * N + N))
+
+
 def wkv6_chunked_kernel(r, k, v, w, u, s0=None, *, chunk: int = 64):
     """r, k, v (B, T, H, N) f32 or bf16 (one type); w (B, T, H, N) f32 or
     bf16; u (H, N); s0 (B, H, N, N) f32 or None (zeros) -> (y (B, T, H, N)
     f32, final S (B, H, N, N) f32), over chunks of `chunk_length(T,
     chunk)` tokens.  On the card N must be 16, 32 or 64 and the chunk at
-    most 64."""
+    most 64; one call is three CUDA launches (`k10_plan`) and counts one,
+    with a workspace of `k10_plan(...).workspace_bytes`."""
     if r.device.type == "cpu":
         return wkv6_chunked_plain(r, k, v, w, u, s0, chunk=chunk)
     refuse_grad("wkv6_chunked_kernel", r, k, v, w, u, s0)
@@ -189,18 +237,25 @@ def wkv6_chunked_kernel(r, k, v, w, u, s0=None, *, chunk: int = 64):
     if any(t.device != r.device for t in (k, v, w, u)) or (
             s0 is not None and s0.device != r.device):
         raise ValueError("wkv6_chunked_kernel: operands on other devices")
-    r, k, v, w = (t.contiguous() for t in (r, k, v, w))
+    # the kernels read 16-byte vectors: a view off a 16-byte boundary is
+    # copied to one that starts on it
+    r, k, v, w = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                  else t.clone(memory_format=torch.contiguous_format)
+                  for t in (r, k, v, w))
     u = u.to(torch.float32).contiguous()
     if s0 is not None:
         s0 = s0.to(torch.float32).contiguous()
     y = torch.empty((B, T, H, N), dtype=torch.float32, device=r.device)
     sf = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    plan = k10_plan(B, T, H, N, chunk)
+    ws = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
+                     device=r.device)
     check(load_library().wkv6_chunked(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
         u.data_ptr(), None if s0 is None else s0.data_ptr(), y.data_ptr(),
-        sf.data_ptr(), B, T, H, N, C, int(r.dtype == torch.bfloat16),
-        int(w.dtype == torch.bfloat16), stream_ptr(r)),
-        "wkv6_chunked_kernel")
+        sf.data_ptr(), ws.data_ptr(), B, T, H, N, C,
+        int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
+        stream_ptr(r)), "wkv6_chunked_kernel")
     wkv6_chunked_kernel.launches += 1
     return y, sf
 

@@ -1202,7 +1202,7 @@ def _wkv6_chunked_bound(r, k, v, w, u, s0, chunk=64):
     return rel * mag[0], rel * mag[1]
 
 
-# (B, T, H, N, s0, decay shift, bf16 r/k/v)
+# (B, T, H, N, s0, decay shift, bf16 r/k/v; "w": bf16 r, k, v and w)
 K10_CASES = [
     (1, 64, 1, 64, False, 0.0, False),
     (2, 256, 4, 64, True, 0.0, False),
@@ -1210,6 +1210,11 @@ K10_CASES = [
     (2, 128, 4, 16, True, 0.0, True),     # the smoke model's head size
     (1, 128, 2, 32, False, 0.5, True),
     (1, 128, 4, 64, True, 3.0, False),    # strong decay: e^L underflows
+    (1, 4096, 64, 64, False, 0.0, True),  # the forward's types, mid size
+    (1, 256, 4, 64, True, 0.0, "w"),      # a bf16 w
+    (3, 96, 4, 64, True, 0.0, True),      # B 3, ragged C 32
+    (1, 100, 2, 16, True, 0.0, False),    # C 4: one padded sub-chunk
+    (2, 40, 2, 32, False, 0.0, True),     # C 40: three sub-chunks, padded
 ]
 
 
@@ -1220,6 +1225,8 @@ def test_wkv6_chunked(cuda, B, T, H, N, with_s0, shift, bf):
     dt = torch.bfloat16 if bf else torch.float32
     r, k, v = (rn(B, T, H, N).to(dt) for _ in range(3))
     w = torch.exp(-torch.exp(0.5 * rn(B, T, H, N) + shift))
+    if bf == "w":
+        w = w.to(torch.bfloat16)
     u, s0 = 0.5 * rn(H, N), rn(B, H, N, N) if with_s0 else None
     before = wkv6_chunked_kernel.launches
     y, S = wkv6_chunked_kernel(r, k, v, w, u, s0)
@@ -1246,6 +1253,26 @@ def test_wkv6_chunked_refusals(cuda):
         wkv6_chunked_kernel(*(rn(1, 256, 2, 16) for _ in range(4)),
                             rn(2, 16), chunk=128)
     assert wkv6_chunked_kernel.launches == before
+
+
+@pytest.mark.parametrize("B,T,H,N,bf", [
+    (1, 32768, 64, 64, True), (1, 4096, 64, 64, False), (3, 96, 4, 64, True),
+    (1, 100, 2, 16, False), (2, 40, 2, 32, True), (1, 1, 2, 16, False)])
+def test_wkv6_chunked_plan_is_the_source(cuda, B, T, H, N, bf):
+    """`k10_plan`'s passes, which the CPU plan tests hold to the card's
+    limits, are the blocks, threads and shared bytes that the C entry
+    launches (`wkv6_chunked_plan`, from the same `plan_of` as the launch)."""
+    import ctypes
+
+    from repro_torch.kernels.build import check, load_library
+    from repro_torch.kernels.wkv6 import k10_plan
+    out = (ctypes.c_int * 9)()
+    check(load_library().wkv6_chunked_plan(B, T, H, N, chunk_length(T),
+                                           int(bf), out),
+          "wkv6_chunked_plan")
+    plan = k10_plan(B, T, H, N, rkv_bytes=2 if bf else 4)
+    assert [tuple(out[3 * i:3 * i + 3]) for i in range(3)] == \
+        [p[1:] for p in plan.passes]
 
 
 def _ln_floor(x, gamma, beta, eps=1e-5):
