@@ -537,9 +537,14 @@ def phase_build():
     usage = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln
              or "Compiling entry" in ln]
+    _BUILD_USAGE[:] = usage
     _line({"phase": "build", "seconds": time.perf_counter() - t0,
            "ptxas": usage})
     return usage
+
+
+# the build's ptxas lines (phase_build), for rows that print a kernel's
+_BUILD_USAGE: list = []
 
 
 def _registers(usage, kernel):
@@ -1835,6 +1840,23 @@ def _k7_ops(cfg, B, L=1):
     return L * B * (2.0 * macs + 7.0 * H * N * N)
 
 
+def _k7_block_bytes(lp, st, x) -> int:
+    """The bytes one K7-block call must move: the layer's own tensors
+    (codes, scales or codebooks, vectors), x in and out, the state in and
+    out."""
+    from repro_torch.tree import leaves_with_path
+    w = sum(t.numel() * t.element_size() for _, t in leaves_with_path(lp))
+    return w + 2 * x.numel() * x.element_size() + 2 * _state6_bytes(st)
+
+
+def _k7_model_bytes(stack, st, x) -> int:
+    """The bytes one K7-model call must move: the slabs, the shared scales
+    and codebooks, the state in and out, x in and out."""
+    w = sum(t.numel() * t.element_size() for t in stack.slabs.values())
+    aux = sum(a.numel() * a.element_size() for a in stack.aux)
+    return w + aux + 2 * _state6_bytes(st) + 2 * x.numel() * x.element_size()
+
+
 def _cpu_plain_block(lp, st, x, cfg):
     """K7-block's plain version on the CPU, the result back on the card."""
     from repro_torch.kernels.fused_decode import rwkv6_block_decode_plain
@@ -1907,11 +1929,9 @@ def phase_k7_block(engine, flush, usage):
         raise AssertionError("K7-block: a lane alone differs from the batch")
     _k7_sixteen(lambda s, xx: rwkv6_block_decode(lp, s, xx, cfg),
                 rwkv6_block_decode, cfg, (), "K7-block")
-    # the layer's own tensors (codes, scales, vectors), x in and out, the
-    # state in and out
     w_bytes = sum(t.numel() * t.element_size()
                   for _, t in leaves_with_path(lp))
-    nbytes = w_bytes + 2 * B * cfg.d_model * 2 + 2 * _state6_bytes(st)
+    nbytes = _k7_block_bytes(lp, st, x)
     bms, by = _bound(nbytes, _k7_ops(cfg, B), PEAK_BF16_FLOPS)
     row = {"kernel": "rwkv6_block_decode", "model": cfg.name, "B": B,
            "D": cfg.d_model, "F": cfg.d_ff, "H": cfg.n_heads,
@@ -1924,7 +1944,7 @@ def phase_k7_block(engine, flush, usage):
            "plain_ms": _time_ms(
                lambda: rwkv6_block_decode_plain(lp, st, x, cfg), flush, 3),
            "library_ms": None, "bound_ms": bms, "bound_by": by,
-           "ptxas": _registers(usage, "rwkv6_block_decode_kernel")}
+           "ptxas": _registers(usage, "rwkv6_decode_kernel")}
     _line(row)
     return row
 
@@ -1994,8 +2014,7 @@ def phase_k7_model(engine, flush, usage):
                                              f"model, {L} layers", on_cpu)
     w_bytes = sum(s.numel() * s.element_size() for s in stack.slabs.values())
     aux_bytes = sum(a.numel() * a.element_size() for a in stack.aux)
-    nbytes = (w_bytes + aux_bytes + 2 * _state6_bytes(st)
-              + 2 * B * cfg.d_model * 2)
+    nbytes = _k7_model_bytes(stack, st, x)
     bms, by = _bound(nbytes, _k7_ops(cfg, B, L), PEAK_BF16_FLOPS)
     row = {"kernel": "rwkv6_model_decode", "model": cfg.name, "L": L,
            "B": B, "D": cfg.d_model, "F": cfg.d_ff, "H": cfg.n_heads,
@@ -2010,7 +2029,7 @@ def phase_k7_model(engine, flush, usage):
            "plain_ms": _time_ms(
                lambda: rwkv6_model_decode_plain(stack, st, x, cfg), flush, 2),
            "library_ms": None, "bound_ms": bms, "bound_by": by,
-           "ptxas": _registers(usage, "rwkv6_model_decode_kernel")}
+           "ptxas": _registers(usage, "rwkv6_decode_kernel")}
     _line(row)
     return row
 
@@ -2196,10 +2215,8 @@ def phase_k7_form(model, raw, stack, flush, form):
                                 F32X_AUX[plane]: aux.reshape(1, -1)})
             _decode_windows(getattr(fp, F32X_FN[plane] + "_f32x"), codes,
                             aux, w_bf)
-    state_bytes = lambda sd: sum(t.numel() * t.element_size()
-                                 for t in sd.values())
     w0 = sum(t.numel() * t.element_size() for _, t in leaves_with_path(lp))
-    b_bytes = w0 + 2 * B * cfg.d_model * 2 + 2 * state_bytes(st0)
+    b_bytes = _k7_block_bytes(lp, st0, x)
     bms, by = _bound(b_bytes, _k7_ops(cfg, B), PEAK_BF16_FLOPS)
     block = {"kernel": "rwkv6_block_decode", "planes": form,
              "model": cfg.name, "B": B, "D": cfg.d_model, "F": cfg.d_ff,
@@ -2212,12 +2229,12 @@ def phase_k7_form(model, raw, stack, flush, form):
                  lambda: rwkv6_block_decode(lp, st0, x, cfg), flush),
              "plain_ms": _time_ms(
                  lambda: rwkv6_block_decode_plain(lp, st0, x, cfg), flush, 3),
-             "library_ms": None, "bound_ms": bms, "bound_by": by}
+             "library_ms": None, "bound_ms": bms, "bound_by": by,
+             "ptxas": _registers(_BUILD_USAGE, "rwkv6_decode_kernel")}
     _line(block)
     w_bytes = sum(t.numel() * t.element_size() for t in stack.slabs.values())
     aux_bytes = sum(a.numel() * a.element_size() for a in stack.aux)
-    m_bytes = w_bytes + aux_bytes + 2 * state_bytes(st) + \
-        2 * B * cfg.d_model * 2
+    m_bytes = _k7_model_bytes(stack, st, x)
     bms, by = _bound(m_bytes, _k7_ops(cfg, B, L), PEAK_BF16_FLOPS)
     mrow = {"kernel": "rwkv6_model_decode", "planes": form,
             "model": cfg.name, "L": L, "B": B, "D": cfg.d_model,
@@ -2230,7 +2247,8 @@ def phase_k7_form(model, raw, stack, flush, form):
             "plain_ms": _time_ms(
                 lambda: rwkv6_model_decode_plain(stack, st, x, cfg), flush,
                 2),
-            "library_ms": None, "bound_ms": bms, "bound_by": by}
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "ptxas": _registers(_BUILD_USAGE, "rwkv6_decode_kernel")}
     _line(mrow)
     return block, mrow
 

@@ -4,62 +4,33 @@
 // Replaces the TPU kernel kernels/fused_decode.py:fused_block_decode with
 // the RWKV-6 body (models/rwkv6.py:block_decode, exact numerics) written
 // into the kernel: Pallas traced the block function, CUDA cannot.  The
-// body is rwkv6_body.cuh, shared with K7-model (rwkv6_model_decode.cu),
-// so one launch per layer and one launch for all layers give the same
-// bits.
+// kernel is rwkv6_body.cuh's, launched on one layer by the launch that
+// K7-model shares (rwkv6_model_decode.cu), so one launch per layer and one
+// launch for all layers give the same bits.
 //
-// Grid: a cooperative launch of as many 512-thread blocks as fit on the
-// card at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor × SMs, or
-// fewer when the caller asks), the layer's ten phases separated by
-// grid-wide barriers; the body's header says how each phase is split.
+// Grid: a cooperative launch of one 384-thread block an SM (8 consumer
+// warps and 4 producer warps; the ring, the x buffer and the decode table
+// fill most of the SM's shared memory), or fewer blocks when the caller
+// asks; the layer's seven phases are separated by the consumers' own
+// grid barriers.  The body's header says how each phase is dealt.
 //
 // What bounds it on an H100: bytes.  One rwkv6-7b layer at batch 8 reads
 // 219,967,488 B of W8 codes and 4,325,376 B of bf16 state (read once,
 // written once), ≈ 228.6 MB, ≥ 68 µs at 3.35 TB/s, against ~3.5 GFLOP
-// (W4 halves its matrices' bytes; plain bf16 weights double them).  Each
-// code byte is read once per step for all 8 lanes and decoded in
-// registers.  This first design runs CUDA-core FMA loops and pays ten
-// grid barriers a layer; wgmma, TMA and the barrier count are later work.
+// (W4 halves its matrices' bytes; plain bf16 weights double them).  The
+// design before this one (CUDA-core FMA loops over weights read one L2
+// round trip a row, ten grid barriers) took 0.648 ms W8, 0.627 MIXED,
+// 0.456 bf16 on "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md §6, PR 21 run
+// 8); this one streams every block's weights through a ring of
+// asynchronous copies into tensor-core MMAs, with seven barriers a layer,
+// and takes 0.294 ms W8, 0.331 MIXED, 0.331 bf16 on the same card (PR 28
+// run 27; rwkv6_body.cuh's header says what binds it).
 #include "rwkv6_body.cuh"
 
 namespace {
 
 using repro::bf16;
 namespace R6 = repro::rwkv6;
-
-struct BlockArgs {
-  R6::LayerWeights w;
-  R6::LayerState st;
-  R6::Dims dims;
-  R6::Scratch s;
-  const bf16* x;
-  bf16* x_out;
-};
-
-// The layer's table (its 15 matrix descriptors and state pointers) is read
-// from shared memory, as K7-model reads it: read through a reference to
-// the kernel parameters it cost 4% at W8 and 50% on mixed planes, per
-// launch (PERF.md §6, K7).
-template <int PLANES>
-__global__ void __launch_bounds__(R6::kThreads)
-rwkv6_block_decode_kernel(const BlockArgs a) {
-  extern __shared__ float smem[];
-  __shared__ R6::LayerWeights w;
-  __shared__ R6::LayerState st;
-  if (threadIdx.x == 0) {
-    w = a.w;
-    st = a.st;
-  }
-  __syncthreads();
-  R6::layer<PLANES>(w, st, a.dims, a.s, a.x, a.x_out, smem);
-}
-
-// The instance for a layer of these planes (R6::planes_of).
-auto kernel_for(const int* planes) {
-  return R6::planes_of(planes) == repro::kPlaneW8
-             ? rwkv6_block_decode_kernel<repro::kPlaneW8>
-             : rwkv6_block_decode_kernel<R6::kPlaneAny>;
-}
 
 constexpr int kNumPtrs =
     2 + R6::kNumVecs + 2 * R6::kNumMats + 2 * R6::kNumState + 1;
@@ -72,11 +43,11 @@ extern "C" long long rwkv6_decode_scratch_bytes(int D, int F) {
 }
 
 // Whether the device has cooperative launch, and the largest grid of
-// K7-block's instance for these matrix planes (mats, the first 15 ints of
-// the launch's) that fits on it at once.
+// K7's instance for these matrix planes (mats, the first 15 ints of the
+// launch's) that fits on it at once.
 extern "C" int rwkv6_block_decode_grid(const int* mats, int* coop,
                                        int* max_blocks) {
-  return R6::max_grid(kernel_for(mats), coop, max_blocks);
+  return R6::max_grid(mats, coop, max_blocks);
 }
 
 // ptrs (kNumPtrs device pointers): x (B,D), x_out (B,D), the 9 vectors in
@@ -89,29 +60,37 @@ extern "C" int rwkv6_block_decode(const void* const* ptrs, int n_ptrs,
                                   const int* mats, int B, int D, int F, int H,
                                   int N, int grid, void* stream) {
   if (n_ptrs != kNumPtrs || B < 1 || B > R6::kLanes || H * N != D ||
-      R6::kThreads % N != 0 || D % 4 || F % 4 || grid < 1)
+      R6::kConsumers % N != 0 || D % 4 || F % 4 || grid < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  BlockArgs a;
+  R6::Net a;
   int i = 0;
   a.x = static_cast<const bf16*>(ptrs[i++]);
   a.x_out = static_cast<bf16*>(const_cast<void*>(ptrs[i++]));
   for (int v = 0; v < R6::kNumVecs; ++v)
-    a.w.vec[v] = static_cast<const bf16*>(ptrs[i++]);
+    a.vec[v] = static_cast<const bf16*>(ptrs[i++]);
+  a.vec_layer = 0;
   for (int m = 0; m < R6::kNumMats; ++m) {
     if (!R6::valid_matrix(mats[m], mats[R6::kNumMats + m]))
       return static_cast<int>(cudaErrorInvalidValue);
-    a.w.mat[m].codes = static_cast<const uint8_t*>(ptrs[i++]);
-    a.w.mat[m].plane = mats[m];
-    a.w.mat[m].aux_len = mats[R6::kNumMats + m];
+    a.mat[m] = static_cast<const uint8_t*>(ptrs[i++]);
+    a.mat_layer[m] = 0;
+    a.plane[m] = mats[m];
+    a.aux_len[m] = mats[R6::kNumMats + m];
   }
-  for (int m = 0; m < R6::kNumMats; ++m) a.w.mat[m].aux = ptrs[i++];
+  for (int m = 0; m < R6::kNumMats; ++m) a.aux[m] = ptrs[i++];
+  for (int k = 0; k < R6::kNumState; ++k) {
+    a.st_in[k] = static_cast<const bf16*>(ptrs[i++]);
+    a.st_layer[k] = 0;
+  }
   for (int k = 0; k < R6::kNumState; ++k)
-    a.st.in[k] = static_cast<const bf16*>(ptrs[i++]);
-  for (int k = 0; k < R6::kNumState; ++k)
-    a.st.out[k] = static_cast<bf16*>(const_cast<void*>(ptrs[i++]));
+    a.st_out[k] = static_cast<bf16*>(const_cast<void*>(ptrs[i++]));
   R6::carve(static_cast<unsigned char*>(const_cast<void*>(ptrs[i++])), D, F,
             &a.s);
-  a.dims = {B, D, F, H, N};
-  return R6::launch(kernel_for(mats), a, grid,
-                    static_cast<cudaStream_t>(stream));
+  a.L = 1;
+  a.B = B;
+  a.D = D;
+  a.F = F;
+  a.H = H;
+  a.N = N;
+  return R6::launch(mats, a, grid, static_cast<cudaStream_t>(stream));
 }

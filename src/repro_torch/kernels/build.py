@@ -54,6 +54,7 @@ SIGNATURES = {
     "rwkv6_model_decode": [_PP, _I, _PL, _I, _PI] + [_I] * 8 + [_P],
     "rwkv6_block_decode_grid": [_PI, _PI, _PI],
     "rwkv6_model_decode_grid": [_PI, _PI, _PI],
+    "rwkv6_decode_plan": [_PI] + [_I] * 6 + [_PI],
     "flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F, _I, _P],
     "flash_attention_dq": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
     "flash_attention_dkv": [_P] * 8 + [_I] * 8 + [_F, _I, _P],

@@ -31,7 +31,9 @@ bb < B lanes gives other bits than the whole batch, exactly as the TPU
 kernel body, which sees one tile, does (`fused_decode.py:249-252`); the
 plain versions split the batch into the same tiles.  K7 spreads each
 rwkv6-7b layer (220 MB of W8 codes) over the whole card as a cooperative
-launch with grid-wide barriers between its phases, under the exact
+launch of one block an SM, each block streaming its strips of weights
+through a ring of asynchronous copies into tensor-core products, with
+seven grid barriers a layer (`k7_plan` gives its plan), under the exact
 numerics (the JAX package has no RWKV-6 hardware numerics).  A W4 leaf
 must pair rows within a layer: `pack_leaf` pairs a (L, D) leaf such as
 time_maa_x along the layer axis, which K7 refuses, as the JAX fused paths
@@ -786,11 +788,11 @@ def _rwkv6_dims(cfg, x):
         raise ValueError(f"x (B, {D}) does not match {cfg.name}'s "
                          f"D = {cfg.d_model} = H·N")
     N = cfg.rwkv_head_dim
-    # a head's N threads tile K7's 512-thread blocks; codes load 4 bytes
-    # at a time
-    if 512 % N or D % 4 or cfg.d_ff % 4:
-        raise ValueError(f"K7 needs N | 512 and D, F multiples of 4; got "
-                         f"N {N}, D {D}, F {cfg.d_ff}")
+    # a head's N threads tile K7's consumer threads; codes are copied 4
+    # bytes at a time at least
+    if (32 * K7_WARPS) % N or D % 4 or cfg.d_ff % 4:
+        raise ValueError(f"K7 needs N | {32 * K7_WARPS} and D, F multiples "
+                         f"of 4; got N {N}, D {D}, F {cfg.d_ff}")
     return B, D, cfg.d_ff, cfg.n_heads, N
 
 
@@ -807,9 +809,198 @@ def _rwkv6_tile(B: int, bb):
     return bb
 
 
-# bytes K7 reads at a time from a matrix of each form (4 columns of codes,
-# or of bf16 weights), to which its codes must be aligned
-K7_ALIGN = {"w8": 4, "w4": 4, "vq": 4, "bf16": 8}
+# K7's launch plan (csrc/rwkv6_body.cuh): its block (8 consumer warps and
+# 4 producer warps), the ring of weight stages, the x buffer, the K slices
+# of maa_w1, the decode table (256 entries x 16 bank copies), the barriers
+# a layer; K7_STATIC_BYTES bounds the kernel's static shared tables (its
+# Net and Layer: ptxas reports 1408 bytes)
+K7_THREADS = 384
+K7_WARPS = 8
+K7_SLOTS = 4
+K7_SLOT_ROWS = 512
+K7_ROW_BYTES = 32
+K7_SLOT_BYTES = K7_SLOT_ROWS * K7_ROW_BYTES
+K7_X_ROWS = 4096
+K7_SLICE_ROWS = 256
+K7_TAB_WORDS = 256 * 16
+K7_BARRIERS_PER_LAYER = 7
+K7_STATIC_BYTES = 1536
+# the phases with matvec items, in order (the WKV phase D between C and
+# E has none), and each one's jobs: (matrix, first row, rows K, columns N,
+# K sliced), K and N as functions of (D, F)
+K7_PHASES = ("A", "B", "C", "E", "F", "G")
+_MAA_RANK, _TD_RANK = 32, 64
+
+
+def _k7_jobs(p: str, D: int, F: int):
+    idx = {".".join(k): i for i, k in enumerate(RWKV6_MAT_KEYS)}
+    if p == "A":
+        return ((idx["att.maa_w1"], 0, D, 5 * _MAA_RANK, True),)
+    if p == "B":
+        return tuple((idx["att.maa_w2"], j * _MAA_RANK, _MAA_RANK, D, False)
+                     for j in range(5))
+    if p == "C":
+        return tuple((idx[f"att.{w}"], 0, D, D, False)
+                     for w in ("wr", "wk", "wv", "wg")) + (
+            (idx["att.td_w1"], 0, D, _TD_RANK, False),)
+    if p == "E":
+        return ((idx["att.wo"], 0, D, D, False),)
+    if p == "F":
+        return ((idx["ffn.wr"], 0, D, D, False),
+                (idx["ffn.wk"], 0, D, F, False))
+    return ((idx["ffn.wv"], 0, F, D, False),)
+
+
+class K7Item(NamedTuple):
+    """One work item: strip `strip` (columns [col0, col0 + ncols), clipped
+    to N) of job `job` of its phase, rows [k0, k1) of that job's matrix
+    rows (its K slice), `stages` ring stages."""
+    job: int
+    mat: int
+    plane: int
+    strip: int
+    slice: int
+    k0: int
+    k1: int
+    col0: int
+    ncols: int
+    K: int
+    N: int
+    stages: int
+
+
+class K7Plan(NamedTuple):
+    """K7's launch plan at (D, F, H, N), B lanes and `grid` blocks: the
+    twin of csrc/rwkv6_body.cuh:plan_of, which the C query
+    `rwkv6_decode_plan` reports in `ints()`'s order."""
+    D: int
+    F: int
+    H: int
+    N: int
+    B: int
+    grid: int
+    planes: tuple
+    threads: int
+    warps: int
+    slots: int
+    slot_bytes: int
+    x_rows: int
+    slice_rows: int
+    smem: int
+    barriers_per_layer: int
+    items: tuple            # per phase of K7_PHASES
+    stages: int             # a layer's stages over the grid
+    stages_max_block: int   # the most one block takes a layer
+    wkv_items: int          # (lane, head) items of phase D
+    wkv_items_max_block: int
+    offsets: tuple          # ring, x, table, partial sums, slot scales,
+                            # barriers, stats
+
+    def phase_items(self, phase: str):
+        """Every item of `phase`, in the kernel's order."""
+        out = []
+        for j, (m, row0, K, N, sliced) in enumerate(
+                _k7_jobs(phase, self.D, self.F)):
+            plane = self.planes[m]
+            cols = 32
+            # a slot holds K7_SLOT_ROWS strip rows of codes, half as many
+            # of bf16 weights (64-byte rows)
+            slot_rows = K7_SLOT_ROWS // (2 if plane == PLANE_IDS["bf16"]
+                                         else 1)
+            S = -(-K // K7_SLICE_ROWS) if sliced else 1
+            kpr = 2 if plane == PLANE_IDS["w4"] else 1
+            for t in range(-(-N // cols)):
+                for sl in range(S):
+                    k0 = sl * K7_SLICE_ROWS if sliced else 0
+                    k1 = min(K, k0 + K7_SLICE_ROWS) if sliced else K
+                    rows = (k1 - k0) // kpr
+                    out.append(K7Item(j, m, plane, t, sl, k0, k1, t * cols,
+                                      cols, K, N,
+                                      max(1, -(-rows // slot_rows))))
+        return out
+
+    def block_range(self, total: int, b: int):
+        return total * b // self.grid, total * (b + 1) // self.grid
+
+    def block_items(self, phase: str, b: int):
+        """Block b's items of `phase` (a contiguous range)."""
+        items = self.phase_items(phase)
+        lo, hi = self.block_range(len(items), b)
+        return items[lo:hi]
+
+    def ints(self):
+        return (self.threads, self.warps, self.slots, self.slot_bytes,
+                self.x_rows, self.slice_rows, self.smem,
+                self.barriers_per_layer, *self.items, self.stages,
+                self.stages_max_block, self.wkv_items,
+                self.wkv_items_max_block, *self.offsets)
+
+
+def k7_planes(form, n: int = 15) -> tuple:
+    """The 15 matrix plane ids of a K7 layer form: "w8", "bf16", "mixed"
+    (W4 att.wk, VQ ffn.wv, the rest W8, as the serving engines' MIXED
+    policy) or a sequence of plane names or ids."""
+    if form in ("w8", "bf16"):
+        return (PLANE_IDS[form],) * n
+    if form == "mixed":
+        pl = [PLANE_IDS["w8"]] * n
+        pl[RWKV6_MAT_KEYS.index(("att", "wk"))] = PLANE_IDS["w4"]
+        pl[RWKV6_MAT_KEYS.index(("ffn", "wv"))] = PLANE_IDS["vq"]
+        return tuple(pl)
+    return tuple(PLANE_IDS[p] if isinstance(p, str) else int(p)
+                 for p in form)
+
+
+def k7_plan(D: int, F: int, H: int, N: int, form="w8", grid: int = 132,
+            B: int = 8) -> K7Plan:
+    """K7's plan (`K7Plan`): items of each phase dealt in contiguous
+    ranges over `grid` blocks, each item a strip of 32 columns whose rows
+    stream through the ring in stages of K7_SLOT_BYTES (K7_SLOT_ROWS rows
+    of codes, half as many of plain bf16 weights); maa_w1 cut along K into
+    K7_SLICE_ROWS slices; the shared memory a block needs."""
+    planes = k7_planes(form)
+    per_block = [0] * grid
+    items = []
+    plan = K7Plan(D, F, H, N, B, grid, planes, K7_THREADS, K7_WARPS,
+                  K7_SLOTS, K7_SLOT_BYTES, K7_X_ROWS, K7_SLICE_ROWS, 0,
+                  K7_BARRIERS_PER_LAYER, (), 0, 0, B * H, -(-B * H // grid),
+                  ())
+    for p in K7_PHASES:
+        its = plan.phase_items(p)
+        items.append(len(its))
+        for b in range(grid):
+            lo, hi = plan.block_range(len(its), b)
+            per_block[b] += sum(it.stages for it in its[lo:hi])
+    ring = 0
+    x = K7_SLOTS * K7_SLOT_BYTES
+    tab = x + K7_X_ROWS * MAX_BB * 2
+    red = tab + K7_TAB_WORDS * 4
+    scl = red + 2 * K7_WARPS * 32 * MAX_BB * 4
+    bars = scl + K7_SLOTS * 32 * 4
+    stats = bars + 2 * K7_SLOTS * 8
+    smem = stats + 2 * MAX_BB * 4
+    return plan._replace(smem=smem, items=tuple(items),
+                         stages=sum(per_block),
+                         stages_max_block=max(per_block),
+                         offsets=(ring, x, tab, red, scl, bars, stats))
+
+
+def k7_plan_of_source(D: int, F: int, H: int, N: int, form="w8",
+                      grid: int = 132, B: int = 8) -> tuple:
+    """The plan the kernel's source reports (the C query
+    `rwkv6_decode_plan`), in `K7Plan.ints()`'s order: held to `k7_plan`
+    by the on-card tests."""
+    planes = k7_planes(form)
+    mats = (ctypes.c_int * len(planes))(*planes)
+    out = (ctypes.c_int * 25)()
+    check(load_library().rwkv6_decode_plan(mats, D, F, H, N, B, grid, out),
+          "rwkv6_decode_plan")
+    return tuple(out)
+
+
+# bytes K7's producers copy at a time at least (rows 16-byte aligned take
+# 16-byte copies), to which every matrix's codes or weights must be aligned
+K7_ALIGN = 4
 
 
 def _k7_info(planes, auxes):
@@ -830,7 +1021,7 @@ def rwkv6_layer_table(lp, D: int, F: int, H: int, N: int):
     for path, shape in zip(RWKV6_MAT_KEYS, _rwkv6_mat_shapes(D, F, H, N)):
         name = ".".join(path)
         m = _layer_matrix(_get(lp, path), shape, name)
-        need = K7_ALIGN[PLANE_NAMES[m[2]]]
+        need = K7_ALIGN
         if m[0].data_ptr() % need:
             raise ValueError(f"{name}: K7 reads {need} bytes of it at a "
                              f"time; it must be {need}-byte aligned")

@@ -994,6 +994,142 @@ def test_engine_rwkv6_sixteen_lanes(cuda):
             assert solo.tokens == h.tokens
 
 
+# --- K7's launch plan and its new edges -------------------------------------
+
+
+@pytest.mark.parametrize("form", ["w8", "mixed", "bf16"])
+def test_rwkv6_decode_plan_is_the_source(cuda, form):
+    """K7's launch plan has one owner, the source's plan_of: the C query
+    reports it, and k7_plan (the CPU tests' twin) equals it at rwkv6-7b's,
+    the smoke and a ragged width, on 1, 37 and 132 blocks, B 1 and 8."""
+    from repro_torch.kernels.fused_decode import k7_plan, k7_plan_of_source
+    for D, F, H, N in ((4096, 14336, 64, 64), (64, 128, 4, 16),
+                       (80, 176, 5, 16)):
+        for grid in (1, 37, 132):
+            for B in (1, 8):
+                assert k7_plan(D, F, H, N, form, grid, B).ints() == \
+                    k7_plan_of_source(D, F, H, N, form, grid, B)
+
+
+def _k7_smoke(cuda, policy=None, **widths):
+    """An rwkv6 smoke model (two layers; `widths` replace the config's)
+    packed under `policy` (None: all W8), drawn on the card."""
+    import dataclasses
+    from repro_torch.core.quant.serving import pack_leaf
+    from repro_torch.tree import keystr
+    cfg = dataclasses.replace(get_model("rwkv6-7b", smoke=True).cfg,
+                              **widths)
+    model = get_model(cfg)
+    params = model.init_params(3, cuda, leaf_fn=lambda p, t: pack_leaf(
+        keystr(p), t, policy))
+    return model, params
+
+
+def _k7_holds(model, params, B, seed):
+    """K7-block on layer 0 against its plain version (the K7 rule of
+    test_rwkv6_block_decode), bit for bit on 1, 37 and every resident block
+    and for each lane alone; K7-model equals L K7-block launches."""
+    from repro_torch.models.rwkv6 import prepare_fused_model_params
+    from repro_torch.tree import tree_map
+    cfg = model.cfg
+    layers = _layers6(model, params)
+    st, x = _state6(cfg, (cfg.n_layers, B), seed)
+    st0 = {k: v[0] for k, v in st.items()}
+    x2, new = rwkv6_block_decode(layers[0], st0, x, cfg)
+    ref = rwkv6_block_decode_plain(layers[0], st0, x, cfg)
+    cpu = lambda t: t.cpu()
+    on_cpu = rwkv6_block_decode_plain(tree_map(cpu, layers[0]),
+                                      tree_map(cpu, st0), cpu(x), cfg)
+    pick = lambda out, k: out[0] if k == "x" else out[1][k]
+    for k in ("x",) + STATE6:
+        r = pick(ref, k).float()
+        d = (pick((x2, new), k).float() - r).abs()
+        dc = (pick(on_cpu, k).float().to(x.device) - r).abs()
+        assert float(d.max()) <= 2.0 ** -6 * float(r.abs().max()), k
+        assert float(d.mean()) <= 1.25 * float(dc.mean()) + \
+            2.0 ** -16 * float(r.abs().mean()), k
+    from repro_torch.kernels.fused_decode import (
+        _coop_grid, _k7_info, rwkv6_layer_table)
+    D, F, H, N = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.rwkv_head_dim
+    mats = rwkv6_layer_table(layers[0], D, F, H, N)
+    most = _coop_grid("block", None,
+                      _k7_info([m[2] for m in mats], [m[1] for m in mats]),
+                      x.device)
+    for grid in (1, 37, most):
+        xg, sg = rwkv6_block_decode(layers[0], st0, x, cfg, grid=grid)
+        assert torch.equal(xg, x2), grid
+        assert all(torch.equal(sg[k], new[k]) for k in STATE6), grid
+    for i in range(B):
+        one, one_st = rwkv6_block_decode(
+            layers[0], {k: v[i:i + 1] for k, v in st0.items()}, x[i:i + 1],
+            cfg)
+        assert torch.equal(one[0], x2[i])
+        assert all(torch.equal(one_st[k][0], new[k][i]) for k in STATE6)
+    stack = prepare_fused_model_params(params, cfg)["blocks"]
+    xm, newm = rwkv6_model_decode(stack, st, x, cfg)
+    xb, newb = x, []
+    for l, lp in enumerate(layers):
+        xb, sb = rwkv6_block_decode(lp, {k: st[k][l] for k in STATE6}, xb,
+                                    cfg)
+        newb.append(sb)
+    assert torch.equal(xm, xb)
+    for k in STATE6:
+        assert torch.equal(newm[k], torch.stack([s[k] for s in newb]))
+
+
+def test_rwkv6_ragged_strips(cuda):
+    """D 80 and F 176, no multiple of K7's 32-column strips (the last strip
+    of every matrix half empty), all W8."""
+    model, params = _k7_smoke(cuda, d_model=80, d_ff=176, n_heads=5)
+    _k7_holds(model, params, 8, 21)
+
+
+def test_rwkv6_w4_and_a_short_codebook(cuda):
+    """A W4 att.wk and ffn.wk and a VQ ffn.wv of 37 codebook entries
+    (fewer than the 256 a code byte can name), the rest W8."""
+    policy = PlanePolicy(default="w8", vq_codes=37, overrides=(
+        (r"\['att'\]\['wk'\]", "w4"), (r"\['ffn'\]\['wk'\]", "w4"),
+        (r"\['ffn'\]\['wv'\]", "vq")))
+    model, params = _k7_smoke(cuda, policy)
+    _k7_holds(model, params, 6, 22)
+
+
+@pytest.mark.parametrize("B", list(range(1, 9)))
+def test_rwkv6_block_decode_every_batch(cuda, wide6, B):
+    """At full width, K7-block on B lanes (1 to 8) gives the bits of the
+    same lanes of an 8-lane call."""
+    model, params = wide6
+    cfg = model.cfg
+    lp = _layers6(model, params)[0]
+    st, x = _state6(cfg, (8,), 23)
+    x8, new8 = rwkv6_block_decode(lp, st, x, cfg)
+    xb, newb = rwkv6_block_decode(lp, {k: v[:B] for k, v in st.items()},
+                                  x[:B], cfg)
+    assert torch.equal(xb, x8[:B])
+    assert all(torch.equal(newb[k], new8[k][:B]) for k in STATE6)
+
+
+@pytest.mark.parametrize("grid", ["one", "thirty-seven", "all"])
+def test_rwkv6_model_decode_any_grid(cuda, wide6, grid):
+    """At full width, K7-model on 1, 37 or every resident block gives the
+    default grid's bits."""
+    from repro_torch.kernels.fused_decode import (
+        PLANE_IDS, RWKV6_MAT_KEYS, _coop_grid, _k7_info)
+    from repro_torch.models.rwkv6 import prepare_fused_model_params
+    model, params = wide6
+    cfg = model.cfg
+    stack = prepare_fused_model_params(params, cfg)["blocks"]
+    st, x = _state6(cfg, (cfg.n_layers, 8), 24)
+    xm, newm = rwkv6_model_decode(stack, st, x, cfg)
+    w8 = _k7_info([PLANE_IDS["w8"]] * len(RWKV6_MAT_KEYS),
+                  [None] * len(RWKV6_MAT_KEYS))
+    g = {"one": 1, "thirty-seven": 37,
+         "all": _coop_grid("model", None, w8, x.device)}[grid]
+    xg, newg = rwkv6_model_decode(stack, st, x, cfg, grid=g)
+    assert torch.equal(xg, xm)
+    assert all(torch.equal(newg[k], newm[k]) for k in STATE6)
+
+
 # --- K13's backward: K13-dq and K13-dkv ------------------------------------
 
 
