@@ -547,6 +547,14 @@ def phase_build():
 _BUILD_USAGE: list = []
 
 
+def _k2_ptxas(hw, mask, snap):
+    """The ptxas lines of K2's instances for one form (both copy widths:
+    csrc/wkv4_seq.cu's template <HW, VEC, MASK, SNAP>)."""
+    b = lambda f: f"Lb{int(f)}E"
+    return _registers(_BUILD_USAGE, "wkv4_seq_kernelI" + b(hw) + "Lb.E"
+                      + b(mask) + b(snap))
+
+
 def _registers(usage, kernel):
     """The ptxas lines of the entry functions whose (mangled) name matches
     the regular expression `kernel`: the entry, then its register and
@@ -815,7 +823,8 @@ def phase_k2(cfg, flush):
            "max_abs_err": err,
            "kernel_ms": _time_ms(lambda: wkv4_seq(*args, **kw), flush),
            "plain_ms": _time_ms(lambda: wkv4_seq_plain(*args, **kw), flush),
-           "library_ms": None, "bound_ms": bms, "bound_by": by}
+           "library_ms": None, "bound_ms": bms, "bound_by": by,
+           "ptxas": _k2_ptxas(False, True, True)}
     _line(row)
     return row
 
@@ -1284,7 +1293,8 @@ def phase_k2_hw(cfg, flush):
            "max_abs_err": err, "bit_exact": True,
            "kernel_ms": _time_ms(lambda: wkv4_seq(*args, **kw), flush),
            "plain_ms": _time_ms(lambda: wkv4_seq_plain(*args, **kw), flush),
-           "library_ms": None, "bound_ms": bms, "bound_by": by}
+           "library_ms": None, "bound_ms": bms, "bound_by": by,
+           "ptxas": _k2_ptxas(True, True, True)}
     _line(row)
     return row
 
@@ -3274,7 +3284,8 @@ def _k2_fwd_check(model, params, toks, hw, flush):
            "kernel_ms": _time_ms(lambda: wkv4_seq(*args, **kw), flush),
            "plain_ms": _time_ms(lambda: wkv4_seq_plain(*args, **kw), flush,
                                 reps=1),
-           "library_ms": None, "bound_ms": bms, "bound_by": by}
+           "library_ms": None, "bound_ms": bms, "bound_by": by,
+           "ptxas": _k2_ptxas(hw, False, False)}
     _line(row)
     return row
 
@@ -3559,7 +3570,7 @@ def phase_k2_bwd(layer0, flush):
     mean|ref| (tests/test_torch_cuda.py:test_wkv4_seq_bwd says why); twice,
     bit for bit.  Timed: the kernel L2-cold, the plain autograd backward
     once (a loop over T); no library call computes it."""
-    from repro_torch.kernels.wkv4 import wkv4_seq, wkv4_seq_bwd, \
+    from repro_torch.kernels.wkv4 import k2_plan, wkv4_seq, wkv4_seq_bwd, \
         wkv4_seq_plain
     k, v, w, u, a0, b0, o0 = layer0
     B, T, C = k.shape
@@ -3581,8 +3592,9 @@ def phase_k2_bwd(layer0, flush):
     repeat = all(torch.equal(a, b) for a, b in zip(again, got))
     del again
     # the function's bytes: k, v, gy read, gk, gv written, w, u read, gw,
-    # gu written; the (y, den, n) of every step that the kernel writes and
-    # reads back is its design's, reported beside as scratch_bytes
+    # gu written; the (a, b, o) checkpoints that the kernel writes at the
+    # start of every chunk and reads back are its design's, reported
+    # beside as scratch_bytes
     nbytes = 4 * (5 * B * T * C + 4 * C)
     bms, by = _bound(nbytes, 60.0 * B * T * C, PEAK_F32_FLOPS)
     row = {"kernel": "wkv4_seq_bwd", "what": "rwkv4-169m layer 0, train",
@@ -3593,7 +3605,8 @@ def phase_k2_bwd(layer0, flush):
                lambda: wkv4_seq_bwd(k, v, w, u, a0, b0, o0, gy), flush),
            "plain_ms": _grad_ms(y_ref, ref_ins, gy, flush, reps=1),
            "library_ms": None, "bound_ms": bms, "bound_by": by,
-           "scratch_bytes": 2 * 4 * 3 * B * T * C}
+           "scratch_bytes": 2 * k2_plan(B, T, C).checkpoint_bytes,
+           "ptxas": _registers(_BUILD_USAGE, "wkv4_bwd_kernel")}
     _line(row)
     if not (ok and repeat):
         raise AssertionError(f"K2-bwd: {errs}, bit repeat {repeat}")
@@ -3697,7 +3710,9 @@ def phase_rwkv4_train():
     Then `train_model` for 3 steps, the counters again (3x), finite
     losses, each step's ms, tokens/s and the peak device memory beside the
     step's operations bound; then the trained params through an
-    AsyncCheckpointer into the checkout's build/ and back, bit for bit.
+    AsyncCheckpointer into the checkout's build/ and back, bit for bit;
+    then one more step split by `_step_split` (host enqueue, device span
+    and busy time, the 8 kernels that take most of it).
     Returns the path's launches."""
     import shutil
     from repro_torch.checkpoint import AsyncCheckpointer, restore_checkpoint
@@ -3770,13 +3785,14 @@ def phase_rwkv4_train():
     equal = all(torch.equal(a, b) for (_, a), (_, b) in zip(
         leaves_with_path(out["params"]), leaves_with_path(back)))
     shutil.rmtree(ck_dir, ignore_errors=True)
+    split = _step_split(model, out["params"], _train_batch(model.cfg))
     _line({"phase": "train", "arch": "rwkv4-169m", "B": B, "S": S,
            "steps": steps, "losses": out["losses"], "step_ms": step_ms,
            "train_tokens_per_s": B * S / (steady / 1e3),
            "max_memory_allocated_gib": peak, "launches": launches,
            "ops": ops, "bound_ms": sum(ops.values()) / PEAK_BF16_FLOPS * 1e3,
            "checkpoint": {"bit_equal": equal, "save_return_s": save_s,
-                          "save_restore_s": ck_s}})
+                          "save_restore_s": ck_s}, "split": split})
     if not equal:
         raise AssertionError("the checkpoint round trip changed a bit")
     del out, back

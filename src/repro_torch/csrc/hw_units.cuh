@@ -4,7 +4,8 @@
 //                from the 256-entry EXP LUT
 //   sigmoid_pwl  the 4-segment PWL σ with dyadic slopes
 //   div_lut      x / y from the 16×16 DIV LUT after frexp normalization,
-//                2^(ex − ey) by ldexpf (exact), saturating at y = 0
+//                2^(ex − ey) by pow2_rn (ldexpf(1, n) without its
+//                branches), saturating at y = 0
 //   a9_scale/a9  the 9-bit fake quant of one value, given its tensor's
 //                max |x|: scale = amax · fl(1/255), code = rint(x / scale)
 //                clipped to ±255, value = code · scale
@@ -31,6 +32,17 @@ constexpr float kA9Recip = 0x1.010102p-8f;    // fl(1/255)
 // exact 2^e for integer e in [-126, 127]
 __device__ __forceinline__ float pow2_bits(int e) {
   return __int_as_float((e + 127) << 23);
+}
+
+// 2^n rounded once to f32, as ldexpf(1.f, n) returns it: a normal for n in
+// [-126, 127], a subnormal for n in [-149, -127], 0 below (2^-150 is a tie
+// that rounds to the even 0), inf above; from the bits, with no branch
+// (ldexpf branches on |n|, which would keep a caller's steps apart)
+__device__ __forceinline__ float pow2_rn(int n) {
+  const int m = min(max(n, -150), 128);
+  const unsigned sub = m >= -149 ? 1u << max(m + 149, 0) : 0u;
+  return __uint_as_float(m >= -126 ? static_cast<unsigned>(m + 127) << 23
+                                   : sub);
 }
 
 __device__ __forceinline__ float exp_lut(float x, const float* tab) {
@@ -70,7 +82,7 @@ __device__ __forceinline__ float div_lut(float x, float y, const float* tab) {
   const int iy = min(max(static_cast<int>((my - 1.f) * 16.f), 0), 15);
   // 2^(ex - ey) rounded once (0, subnormal or inf outside the normals),
   // then the product rounded once, as frac · exp2(ex - ey) in f32
-  float q = tab[ix * 16 + iy] * ldexpf(1.f, ex - ey);
+  float q = tab[ix * 16 + iy] * pow2_rn(ex - ey);
   if (ay <= 0.f) q = 32768.f;  // saturate on y = 0
   if (ax <= 0.f) q = 0.f;
   return sign * q;

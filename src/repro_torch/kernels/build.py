@@ -41,7 +41,9 @@ SIGNATURES = {
     "vq_matmul_f32x": [_P, _P, _P, _I, _P, _P] + [_I] * 9 + [_P],
     "dpot_w4_matmul": [_P] * 6 + [_I] * 9 + [_P],
     "vq_matmul": [_P, _P, _P, _I, _P, _P] + [_I] * 9 + [_P],
-    "wkv4_seq": [_P] * 14 + [_I, _I, _I, _I, _P],
+    "wkv4_seq": [_P] * 14 + [_I] * 6 + [_P],
+    "wkv4_plan": [_I] * 7 + [_PL],
+    "wkv4_div_fast": [_P] * 5 + [_LL, _P],
     "expsig": [_P, _P, _P, _LL, _I, _I, _P],
     "rwkv4_block_decode": [_PP, _I, _PI] + [_I] * 10 + [_P],
     "rwkv4_block_decode_grid": [_PI, _I, _I, _PI, _PI],
@@ -61,7 +63,7 @@ SIGNATURES = {
     "fused_ce_fwd": [_P] * 4 + [_I] * 3 + [_P],
     "fused_ce_bwd": [_P] * 5 + [_I] * 4 + [_P],
     "fused_layernorm_bwd": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
-    "wkv4_seq_bwd": [_P] * 14 + [_I] * 3 + [_P],
+    "wkv4_seq_bwd": [_P] * 14 + [_I] * 4 + [_P],
     "dpot_matmul": [_P] * 6 + [_I] * 10 + [_P],
     "dpot_matmul_w4": [_P] * 6 + [_I] * 10 + [_P],
 }

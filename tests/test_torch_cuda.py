@@ -1746,6 +1746,137 @@ def test_wkv4_seq_bwd(cuda, B, T, C, zero_state):
     assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
+# K2's and K2-bwd's plan cases: the train and forward shape, ragged C (37)
+# with T no multiple of the tile or Lc, T 1, and C a multiple of 4 but
+# not of 32 (the 16-byte copies' ragged warp)
+K2_CASES = [(8, 1024, 768), (3, 100, 37), (2, 1, 37), (4, 33, 160)]
+
+
+@pytest.mark.parametrize("B,T,C", K2_CASES)
+@pytest.mark.parametrize("hw", [False, True])
+def test_k2_plan_is_the_source(cuda, B, T, C, hw):
+    """`k2_plan`, which the CPU plan tests hold to the card's limits, is
+    the source's plan (the C query `wkv4_plan`, from the same `plan_of`
+    as both launches), at the defaults and at other tiles, blocks and
+    chunks."""
+    import ctypes
+
+    from repro_torch.kernels.build import check, load_library
+    from repro_torch.kernels.wkv4 import K2Plan, k2_plan
+    for tile, warps, chunk in ((None, None, None), (7, 3, 16), (64, 2, 64)):
+        out = (ctypes.c_longlong * len(K2Plan._fields))()
+        check(load_library().wkv4_plan(B, T, C, int(hw), tile or 0,
+                                       warps or 0, chunk or 0, out),
+              "wkv4_plan")
+        assert tuple(out) == tuple(k2_plan(B, T, C, hw=hw, tile=tile,
+                                           warps=warps, chunk=chunk))
+
+
+@pytest.mark.parametrize("spread", ["wide", "near_one", "k2"])
+def test_wkv4_div_fast_is_the_division(cuda, spread):
+    """K2's and K2-bwd's branch-free division (`csrc/wkv4_common.cuh:
+    div_rn_fast`) equals the compiled `/` bit for bit wherever it says its
+    operands are in range (|x|, |y| in [2^-47, 2^48)), and says so exactly
+    there:
+    2^24 random pairs, exponents over ±60 (`wide`), divisors within a few
+    ulps of powers of two and dividends near multiples of them, where
+    rounding is hardest (`near_one`), or K2's own numerators and
+    denominators (`k2`: a bf16 state, N(0, 1) k and v)."""
+    from repro_torch.kernels.build import check, load_library, stream_ptr
+    n = 1 << 24
+    g = torch.Generator(device=cuda).manual_seed(len(spread))
+    rn = lambda: torch.randn(n, generator=g, device=cuda)
+    sign = lambda: torch.where(rn() < 0, -1.0, 1.0)
+    if spread == "wide":
+        e = lambda: torch.randint(-60, 61, (n,), generator=g, device=cuda)
+        x = sign() * (1 + torch.rand(n, generator=g, device=cuda)) * \
+            torch.exp2(e().float())
+        y = sign() * (1 + torch.rand(n, generator=g, device=cuda)) * \
+            torch.exp2(e().float())
+    elif spread == "near_one":
+        ulp = torch.randint(-4, 5, (n,), generator=g, device=cuda).float()
+        y = sign() * (1 + ulp * 2.0 ** -23) * torch.exp2(
+            torch.randint(-8, 9, (n,), generator=g, device=cuda).float())
+        m = torch.randint(1, 1 << 20, (n,), generator=g, device=cuda)
+        x = (m.float() + (rn() * 2.0 ** -20)) * y
+    else:
+        A, Bu = torch.rand(n, generator=g, device=cuda), torch.exp(-rn().abs())
+        a = rn().to(torch.bfloat16).float()
+        b = (rn().abs() + 0.5).to(torch.bfloat16).float()
+        x, y = A * a + Bu * rn(), A * b + Bu
+    q, ref = torch.empty_like(x), torch.empty_like(x)
+    inr = torch.empty(n, dtype=torch.int8, device=cuda)
+    check(load_library().wkv4_div_fast(x.data_ptr(), y.data_ptr(),
+                                       q.data_ptr(), inr.data_ptr(),
+                                       ref.data_ptr(), n, stream_ptr(x)),
+          "wkv4_div_fast")
+    ex = (x.view(torch.int32) >> 23) & 255
+    ey = (y.view(torch.int32) >> 23) & 255
+    want = (ex >= 80) & (ex <= 174) & (ey >= 80) & (ey <= 174)
+    assert torch.equal(inr.bool(), want)
+    assert int(want.sum()) > n // 4
+    ok = inr.bool()
+    assert torch.equal(q[ok].view(torch.int32), ref[ok].view(torch.int32))
+
+
+def _k2_form(cuda, B, T, C, form, seed):
+    """K2's operands and keywords: `exact` (the forward's call), `masked`
+    (prefix masks, the bf16 carry, a bf16 pool state) or `hw` (masked with
+    the LUT tables)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda)
+    bf = lambda t: t.to(torch.bfloat16).float()
+    args = (2 * rn(B, T, C), rn(B, T, C), torch.exp(0.5 * rn(C)),
+            0.5 * rn(C), bf(rn(B, C)), bf(rn(B, C).abs() + 0.5),
+            bf(rn(B, C) - 1))
+    if form == "exact":
+        return args, {}
+    valid = torch.zeros((B, T), dtype=torch.bool, device=cuda)
+    for i in range(B):
+        valid[i, :(T, T // 2, 0, 1)[i % 4]] = True
+    kw = {"valid": valid, "carry_dtype": "bfloat16"}
+    return args, {**kw, **_hw_tabs(cuda)} if form == "hw" else kw
+
+
+@pytest.mark.parametrize("B,T,C", K2_CASES)
+@pytest.mark.parametrize("form", ["exact", "masked", "hw"])
+def test_wkv4_seq_plan_invariant(cuda, B, T, C, form):
+    """K2's outputs do not depend on its ring stage (tile) or block
+    (warps), bit for bit; against the plain version by the module's K2
+    rule (hw: bit for bit), at ragged C and T (T no multiple of the tile,
+    T 1)."""
+    args, kw = _k2_form(cuda, B, T, C, form, B * T + C)
+    y, fin = wkv4_seq(*args, **kw)
+    for tile, warps in ((1, 1), (7, 3), (64, 2), (16, 8)):
+        y2, fin2 = wkv4_seq(*args, **kw, tile=tile, warps=warps)
+        assert torch.equal(y2, y), (tile, warps)
+        assert all(torch.equal(a, b) for a, b in zip(fin2, fin))
+    y_p, fin_p = wkv4_seq_plain(*args, **kw)
+    for o, r in zip((y, *fin), (y_p, *fin_p)):
+        if form == "hw":
+            assert torch.equal(o, r)
+        else:
+            _elementwise(o, r)
+
+
+@pytest.mark.parametrize("B,T,C", K2_CASES + [(2, 50, 64)])
+def test_wkv4_seq_bwd_chunk_invariant(cuda, B, T, C):
+    """K2-bwd's outputs do not depend on Lc (16, 64 and, where T <= 64, one
+    chunk of T steps), bit for bit, from the zero state (even cases) or a
+    random one; held to the plain version of its passes as
+    `test_wkv4_seq_bwd` holds them."""
+    ops_ = _wkv4_case(cuda, B, T, C, B % 2 == 0, B * T + C + 1)
+    got = wkv4_seq_bwd(*ops_)
+    for chunk in (16, 64) + ((T,) if T <= 64 else ()):
+        again = wkv4_seq_bwd(*ops_, chunk=chunk)
+        assert all(torch.equal(a, b) for a, b in zip(again, got)), chunk
+    twin = wkv4_seq_bwd_plain(*ops_)
+    for name, a, t in zip("kvwu", got, twin):
+        assert bool(torch.isfinite(a).all()), name
+        assert float((a - t).abs().max()) <= 2.0 ** -18 * float(
+            t.abs().max()), name
+
+
 def test_train_step_rwkv4_smoke_on_card(cuda):
     """One train step of rwkv4 smoke (L2 D64, B 2, S 64) on the card: K11
     2L + 2 + 2L (remat's recompute) and K11-bwd 2L + 2, K2 2L and K2-bwd L,

@@ -338,6 +338,35 @@ def test_wkv4_bwd_function_matches_jax_autodiff(monkeypatch, k_scale):
         assert mx <= 1e-5 and mean <= 1e-5, (name, mx, mean)
 
 
+@pytest.mark.parametrize("chunk", [1, 5, 16])
+@pytest.mark.parametrize("k_scale", [1.0, 8.0])
+def test_wkv4_bwd_plain_chunked_matches_jax_autodiff(k_scale, chunk):
+    """K2-bwd's plain version with its reverse pass in chunks of `chunk`
+    steps (each recomputed from a checkpoint, as the kernel runs it)
+    against JAX's autodiff of `wkv4_scan` from the zero state, on the
+    inputs of `test_wkv4_bwd_function_matches_jax_autodiff` (B 2 T 24
+    C 16, T no multiple of 5 or 16), with its tolerance: gk, gv, gw, gu
+    within 1e-5 of each output's max and mean magnitude."""
+    from repro.core.wkv.wkv4 import wkv4_scan
+    rng = np.random.default_rng(int(k_scale))
+    B, T, C = 2, 24, 16
+    k = (k_scale * rng.standard_normal((B, T, C))).astype(np.float32)
+    v = rng.standard_normal((B, T, C)).astype(np.float32)
+    w = np.exp(0.5 * rng.standard_normal(C)).astype(np.float32)
+    u = rng.standard_normal(C).astype(np.float32)
+    gy = rng.standard_normal((B, T, C)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: wkv4_scan(*a)[0], *map(jnp.asarray,
+                                                        (k, v, w, u)))
+    ref = vjp(jnp.asarray(gy))
+    a0, b0 = torch.zeros(B, C), torch.zeros(B, C)
+    o0 = torch.full((B, C), -1e38)
+    got = K2.wkv4_seq_bwd_plain(*map(torch.from_numpy, (k, v, w, u)), a0,
+                                b0, o0, torch.from_numpy(gy), chunk=chunk)
+    for name, (mx, mean) in zip(("gk", "gv", "gw", "gu"),
+                                _bwd_gaps(got, ref)):
+        assert mx <= 1e-5 and mean <= 1e-5, (name, mx, mean)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_layernorm_bwd_function_matches_jax_autodiff(monkeypatch, dtype):
     """K11's autograd Function on CPU tensors (its backward
