@@ -133,7 +133,8 @@ each prints its seconds and peak device memory (`phase_done` lines):
     Tolerances: K5 elementwise as above, its floor the f32 summation bound
     K·2^-24·(|x| @ |w|) (at K = 4096 the order alone moves near-zero
     outputs past 2^-20 max|ref|); K6's final state bit for bit (its update
-    has no sum), y elementwise; K7-block per output within K7B_* (layer 0
+    has no sum), y elementwise against the plain version and bit for bit
+    against the in-order reference (`wkv6_seq_inorder`); K7-block per output within K7B_* (layer 0
     and each of the 32 launches K7-model is held to), 1.25x the worst the
     plain version alone reads between the CPU and the card (a bf16 rounding
     of a 14336-term sum flips under another summation order); K7-model
@@ -179,7 +180,8 @@ each prints its seconds and peak device memory (`phase_done` lines):
                RWKV6_FWD_BOUNDS of the plain path and the f32 witness; at
                S 40, K6 32 and no K10, and K6 on layer 0's operands there
                (B2 T40 H64 N64, zero f32 state, no mask) against its
-               plain version, as in phase 5
+               plain version and the in-order reference, as in phase 5,
+               and timed
  7. smollm-135m, the dense transformer, at full width and depth (L30
     D576 H9 KVH3 hd64 F1536 V49152, RMSNorm, SwiGLU, RoPE, tied), bf16
     weights drawn on the card from the seed:
@@ -1779,36 +1781,70 @@ def _state6_bytes(st) -> int:
     return sum(t.numel() * t.element_size() for t in st.values())
 
 
-def phase_k6(flush):
-    """K6 at the prefill's shape, (B, T, H, N) = (8, 16, 64, 64), prefix
-    masks, the bf16 pool state in and the bf16 carry: the final state bit
-    for bit against the plain version (its update has no sum), y within
-    K2's elementwise rule (it sums n in another order)."""
-    from repro_torch.kernels.wkv6 import wkv6_seq, wkv6_seq_plain
-    B, T, H, N = 8, 16, 64, 64
-    g = torch.Generator(device=DEV).manual_seed(SEED + 8)
+K6_PREFIXES = (16, 9, 0, 1, 16, 5, 12, 16)   # phase_k6's valid prefixes
+
+
+def _k6_operands(B, T, H, N, seed, prefixes=None):
+    """K6's operands as the prefill hands them: N(0, 1) r, k, v, w =
+    exp(-exp(N(0, 1/4))), u = N(0, 1/4), a bf16 pool state; the valid
+    mask from `prefixes` (each row's count of leading valid steps; every
+    step where None) and the bf16 carry."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
     rn = lambda *s: torch.randn(s, generator=g, device=DEV)
     args = (rn(B, T, H, N), rn(B, T, H, N), rn(B, T, H, N),
             torch.exp(-torch.exp(0.5 * rn(B, T, H, N))), 0.5 * rn(H, N),
             rn(B, H, N, N).to(torch.bfloat16))
     valid = torch.zeros((B, T), dtype=torch.bool, device=DEV)
-    for i, n in enumerate((16, 9, 0, 1, 16, 5, 12, 16)):
-        valid[i, :n] = True
-    kw = {"valid": valid, "carry_dtype": "bfloat16"}
+    for i in range(B):
+        valid[i, :T if prefixes is None else prefixes[i]] = True
+    return args, {"valid": valid, "carry_dtype": "bfloat16"}
+
+
+def _k6_bound(B, T, H, N, s0_bytes, masked):
+    """K6's bytes (r, k, v, w, y f32; u; the state in at s0_bytes and out
+    in f32; valid) and its bound, bytes at 3.35 TB/s or its 7 f32
+    operations a term at 67 TFLOP/s: (nbytes, bound_ms, bound_by)."""
+    nbytes = (4 * 5 * B * T * H * N + 4 * H * N
+              + (s0_bytes + 4) * B * H * N * N + (4 * B * T if masked else 0))
+    return (nbytes, *_bound(nbytes, 7.0 * B * T * H * N * N,
+                            PEAK_F32_FLOPS))
+
+
+def _k6_check(args, kw, what):
+    """K6 against its plain version, the final state bit for bit (its
+    update has no sum) and y within K2's elementwise rule (the plain
+    version's einsum sums n in its own order), and y bit for bit against
+    the in-order reference (`wkv6_seq_inorder`: n in order from +0, eager
+    ops).  Returns (y's max |d| to the plain version, the outputs)."""
+    from repro_torch.kernels.wkv6 import (
+        wkv6_seq, wkv6_seq_inorder, wkv6_seq_plain)
     y, sf = wkv6_seq(*args, **kw)
     y_p, sf_p = wkv6_seq_plain(*args, **kw)
     ok, err = _elementwise_ok(y, y_p)
     if not ok:
-        raise AssertionError(f"K6 y: max |d| {err}")
+        raise AssertionError(f"K6 {what} y: max |d| {err}")
     if not torch.equal(sf, sf_p):
-        raise AssertionError("K6 final state differs from the plain version")
-    D = H * N
-    # r, k, v, w, y f32; u; the bf16 state in, the f32 state out; valid
-    nbytes = (4 * 5 * B * T * D + 4 * H * N + (2 + 4) * B * H * N * N
-              + 4 * B * T)
-    bms, by = _bound(nbytes, 7.0 * B * T * H * N * N, PEAK_F32_FLOPS)
+        raise AssertionError(f"K6 {what}: final state differs from the "
+                             "plain version")
+    y_o, sf_o = wkv6_seq_inorder(*args, **kw)
+    if not (torch.equal(y.view(torch.int32), y_o.view(torch.int32))
+            and torch.equal(sf_o, sf_p)):
+        raise AssertionError(f"K6 {what} y: not the in-order reference's "
+                             f"bits (max |d| {float((y - y_o).abs().max())})")
+    return err, (y, sf)
+
+
+def phase_k6(flush):
+    """K6 at the prefill's shape, (B, T, H, N) = (8, 16, 64, 64), prefix
+    masks, the bf16 pool state in and the bf16 carry (`_k6_check`)."""
+    from repro_torch.kernels.wkv6 import wkv6_seq, wkv6_seq_plain
+    B, T, H, N = 8, 16, 64, 64
+    args, kw = _k6_operands(B, T, H, N, SEED + 8, K6_PREFIXES)
+    err, _ = _k6_check(args, kw, "prefill shape")
+    nbytes, bms, by = _k6_bound(B, T, H, N, 2, True)
     row = {"kernel": "wkv6_seq", "B": B, "T": T, "H": H, "N": N,
-           "max_abs_err": err, "state_bit_exact": True, "bytes": nbytes,
+           "max_abs_err": err, "state_bit_exact": True,
+           "y_inorder_bit_exact": True, "bytes": nbytes,
            "kernel_ms": _time_ms(lambda: wkv6_seq(*args, **kw), flush),
            "plain_ms": _time_ms(lambda: wkv6_seq_plain(*args, **kw), flush),
            "library_ms": None, "bound_ms": bms, "bound_by": by}
@@ -3328,25 +3364,22 @@ def phase_rwkv4_forward(model, params, hw, flush):
 def _k6_fwd_check(model, params, toks):
     """K6 on rwkv6-7b layer 0's operands as the forward hands them at a
     length that is no multiple of the chunk (B2 T40 H64 N64: r, k, v
-    widened from bf16, the zero f32 state, no valid mask, the f32 carry)
-    against its plain version on the same inputs: the final state bit for
-    bit, y within phase_k6's elementwise rule (phase_k6's reasons)."""
+    widened from bf16, the zero f32 state, no valid mask, the f32 carry),
+    held as phase_k6 holds it (`_k6_check`), and timed."""
     from repro_torch.kernels.wkv6 import wkv6_seq, wkv6_seq_plain
     r, k, v, w, u = _rwkv6_layer0_operands(model, params, toks)
     B, T, H, N = r.shape
     args = (r.float(), k.float(), v.float(), w, u,
             torch.zeros((B, H, N, N), dtype=torch.float32, device=DEV))
-    y, sf = wkv6_seq(*args)
-    y_p, sf_p = wkv6_seq_plain(*args)
-    ok, err = _elementwise_ok(y, y_p)
-    if not ok:
-        raise AssertionError(f"K6 forward shape y: max |d| {err}")
-    if not torch.equal(sf, sf_p):
-        raise AssertionError("K6 forward shape: final state differs from "
-                             "the plain version")
+    err, _ = _k6_check(args, {}, "forward shape")
+    _, bms, by = _k6_bound(B, T, H, N, 4, False)
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEV)
     row = {"kernel": "wkv6_seq", "what": "rwkv6-7b layer 0, forward S40",
            "B": B, "T": T, "H": H, "N": N, "max_abs_err": err,
-           "state_bit_exact": True}
+           "state_bit_exact": True, "y_inorder_bit_exact": True,
+           "kernel_ms": _time_ms(lambda: wkv6_seq(*args), flush),
+           "plain_ms": _time_ms(lambda: wkv6_seq_plain(*args), flush),
+           "bound_ms": bms, "bound_by": by}
     _line(row)
     return row
 

@@ -49,6 +49,8 @@ SIGNATURES = {
     "rwkv4_block_decode_grid": [_PI, _I, _I, _PI, _PI],
     "rwkv4_model_decode": [_PP, _I, _PL, _I, _PI] + [_I] * 11 + [_P],
     "wkv6_seq": [_P] * 9 + [_I] * 6 + [_P],
+    "wkv6_seq_plan": [_I] * 4 + [_PL],
+    "wkv6_snap_check": [_P, _P],
     "wkv6_chunked": [_P] * 9 + [_I] * 7 + [_P],
     "wkv6_chunked_plan": [_I] * 6 + [_PI],
     "fused_layernorm": [_P] * 4 + [_I, _I, _F] + [_I] * 4 + [_P],

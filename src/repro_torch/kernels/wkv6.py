@@ -5,7 +5,12 @@ K6 is the port of `repro/kernels/wkv6.py:wkv6_seq_pallas` (`_seq_kernel`):
 the exact per-step `wkv6_step` recurrence over a prompt chunk, each head's
 (N, N) state kept on chip for the whole window, with the `valid` commit
 mask and the `carry_dtype` snap of the chunked prefill.  Its CUDA kernel
-is `csrc/wkv6_seq.cu`.
+is `csrc/wkv6_seq.cu`: a block a (b, h) pair, each state column in the
+registers of one or two threads, the window's operands staged in a ring of
+shared-memory tiles (`k6_plan`, the twin of the source's `plan_of`).  Its
+y sums n in order from +0, as `wkv6_seq_inorder` does with eager ops, so
+the two agree bit for bit; the plain version's einsum sums in its own
+order.
 
 K10 is the port of `wkv6_pallas` (`_kernel`): the chunked WKV-6 of the
 whole-sequence forward over chunks of C tokens, each chunk an inter-chunk
@@ -42,10 +47,10 @@ from repro_torch.kernels.build import (
 _CARRY = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
 
-def wkv6_seq_plain(r, k, v, w, u, s0, *, valid=None,
-                   carry_dtype: Optional[str] = None):
-    """The plain version: T calls of `wkv6_step`, each committed only where
-    `valid`, the carry snapped through `carry_dtype` after every step."""
+def _seq_loop(r, k, v, w, u, s0, valid, carry_dtype, y_of):
+    """T calls of `wkv6_step`, each committed only where `valid`, the carry
+    snapped through `carry_dtype` after every step; each step's y from
+    `y_of(S, r_t, k_t, v_t, u, wkv6_step's y)`."""
     snap_dt = _CARRY[carry_dtype]
     snap = (lambda t: t) if snap_dt is None else \
         (lambda t: t.to(snap_dt).to(torch.float32))
@@ -53,18 +58,92 @@ def wkv6_seq_plain(r, k, v, w, u, s0, *, valid=None,
     ys = []
     for t in range(r.shape[1]):
         new, y = wkv6_step(S, r[:, t], k[:, t], v[:, t], w[:, t], u)
-        ys.append(y)
+        ys.append(y_of(S, r[:, t], k[:, t], v[:, t], u, y))
         if valid is not None:
             new = torch.where(valid[:, t, None, None, None] != 0, new, S)
         S = snap(new)
     return torch.stack(ys, dim=1), S
 
 
+def wkv6_seq_plain(r, k, v, w, u, s0, *, valid=None,
+                   carry_dtype: Optional[str] = None):
+    """The plain version: T calls of `wkv6_step`, each committed only where
+    `valid`, the carry snapped through `carry_dtype` after every step."""
+    return _seq_loop(r, k, v, w, u, s0, valid, carry_dtype,
+                     lambda S, rt, kt, vt, u_, y: y)
+
+
+def _y_inorder(S, rt, kt, vt, u, _):
+    y = torch.zeros_like(vt, dtype=torch.float32)
+    for n in range(rt.shape[-1]):
+        kv = kt[..., n, None] * vt
+        y = y + rt[..., n, None] * (S[..., n, :] + u[:, n, None] * kv)
+    return y
+
+
+def wkv6_seq_inorder(r, k, v, w, u, s0, *, valid=None,
+                     carry_dtype: Optional[str] = None):
+    """The plain version's state with y in K6's order: each step's y =
+    ((+0 + t_0) + t_1) + ... over n, t_n = r[n]·(S[n] + u[n]·(k[n]·v)),
+    one eager multiply or add at a time, so its bits are the kernel's."""
+    return _seq_loop(r, k, v, w, u, s0, valid, carry_dtype, _y_inorder)
+
+
+# The plan's constants (csrc/wkv6_seq.cu, which owns them)
+K6_MAX_N = 64
+K6_TILE = 4             # steps a ring stage
+K6_STAGES = 6           # ring stages a block
+K6_LANES = 2            # lanes a column (a ragged N: one)
+K6_MIN_BLOCKS = 4       # blocks an SM holds (the source's launch bounds)
+K6_MAX_SMEM = 232448    # the most shared memory a block may take
+
+
+class K6Plan(NamedTuple):
+    """A K6 call's launch (`csrc/wkv6_seq.cu:Plan`, field for field)."""
+    blocks: int    # one a (b, h) pair
+    threads: int   # np·lanes: thread j·np + m holds rows j·rows .. of
+                   # column m, j steps behind lane 0
+    lanes: int     # threads a state column
+    rows: int      # rows of the column a thread holds, np / lanes
+    np: int        # the instance's rows: N, or 64 for a ragged N
+    tile: int      # steps a ring stage
+    stages: int    # ring stages
+    smem: int      # dynamic shared bytes a block: the ring, the running
+                   # sums the lanes hand on (2, lanes - 1, np), u (np)
+                   # and the initial state (N, N)
+    ragged: int    # 1 where N is not 16, 32 or 64
+
+
+def k6_stage_floats(np_: int) -> int:
+    """Floats of one ring stage: the tile's r, k, w, v rows, then its
+    valid flags."""
+    return 4 * K6_TILE * np_ + K6_TILE
+
+
+def k6_plan(B: int, T: int, H: int, N: int) -> K6Plan:
+    """K6's launch for (B, T, H, N): the twin of the source's `plan_of`,
+    held to it on the card by its C query `wkv6_seq_plan`.  A column takes
+    K6_LANES lanes, a ragged N one.  Raises ValueError where the source
+    refuses."""
+    if not (B >= 1 and T >= 1 and H >= 1 and 1 <= N <= K6_MAX_N):
+        raise ValueError(f"k6_plan: (B, T, H, N) {(B, T, H, N)} out of "
+                         f"range (N <= {K6_MAX_N})")
+    ragged = N not in (16, 32, 64)
+    np_ = K6_MAX_N if ragged else N
+    q = 1 if ragged else K6_LANES
+    plan = K6Plan(B * H, np_ * q, q, np_ // q, np_, K6_TILE, K6_STAGES,
+                  4 * (K6_STAGES * k6_stage_floats(np_) + 2 * (q - 1) * np_
+                       + np_ + N * N), int(ragged))
+    if plan.blocks > 2 ** 31 - 1 or plan.smem > K6_MAX_SMEM:
+        raise ValueError(f"k6_plan: {plan} does not fit the card")
+    return plan
+
+
 def wkv6_seq(r, k, v, w, u, s0, *, valid=None,
              carry_dtype: Optional[str] = None):
     """r, k, v, w (B, T, H, N) f32; u (H, N) f32; s0 (B, H, N, N) f32 or
     bf16; valid (B, T) or None -> (y (B, T, H, N) f32, S (B, H, N, N)
-    f32)."""
+    f32).  On the card the launch is `k6_plan`'s."""
     if carry_dtype not in _CARRY:
         raise ValueError(f"carry_dtype {carry_dtype!r}: expected one of "
                          f"{sorted(c for c in _CARRY if c)} or None")
@@ -83,6 +162,7 @@ def wkv6_seq(r, k, v, w, u, s0, *, valid=None,
     if any(t.shape != r.shape for t in (k, v, w)) or u.shape != (H, N) \
             or s0.shape != (B, H, N, N):
         raise ValueError("wkv6_seq: operand shapes do not agree")
+    k6_plan(B, T, H, N)
     ops = [t.contiguous() for t in ops]
     s0 = s0.contiguous()
     vmask = None

@@ -98,7 +98,9 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    """The (head_dim / 2,) f32 inverse frequencies on `device`, which the
+    caller names (the tensor's it rotates)."""
     half = head_dim // 2
     i = torch.arange(half, dtype=torch.float32, device=device)
     return 1.0 / (theta ** (i / half))

@@ -394,7 +394,8 @@ def test_engine_model_path(cuda):
 from repro_torch.kernels.fused_decode import (
     rwkv6_block_decode, rwkv6_block_decode_plain, rwkv6_model_decode,
     rwkv6_model_decode_plain)
-from repro_torch.kernels.wkv6 import wkv6_seq, wkv6_seq_plain
+from repro_torch.kernels.wkv6 import (
+    wkv6_seq, wkv6_seq_inorder, wkv6_seq_plain)
 
 STATE6 = ("att_x", "ffn_x", "wkv_s")
 
@@ -402,9 +403,9 @@ STATE6 = ("att_x", "ffn_x", "wkv_s")
 @pytest.mark.parametrize("carry", ["bfloat16", None])
 def test_wkv6_seq(cuda, carry):
     """K6 against its plain version: the state bit for bit (its update has
-    no sum), y by K2's elementwise rule (it sums n in another order); the
-    bf16 pool state reads as its f32 widening; the empty lane keeps its
-    state."""
+    no sum), y by K2's elementwise rule (it sums n in another order) and
+    bit for bit against the in-order reference; the bf16 pool state reads
+    as its f32 widening; the empty lane keeps its state."""
     g = torch.Generator(device=cuda).manual_seed(7)
     B, T, H, N = 4, 9, 8, 64
     rn = lambda *s: torch.randn(s, generator=g, device=cuda)
@@ -424,6 +425,90 @@ def test_wkv6_seq(cuda, carry):
     assert torch.equal(sf, sf_p)
     assert torch.equal(y, y32) and torch.equal(sf, sf32)
     assert torch.equal(sf[2], s0[2].float())
+    y_o, _ = wkv6_seq_inorder(*args, s0, valid=valid, carry_dtype=carry)
+    assert torch.equal(y.view(torch.int32), y_o.view(torch.int32))
+
+
+def test_wkv6_snap_is_bf16r(cuda):
+    """K6's snap (`csrc/wkv6_seq.cu:snap`, one cvt.rn.bf16x2.f32 of (x,
+    0)) gives bf16r's bits for every one of the 2^32 f32 bit patterns,
+    NaNs, infinities and subnormals included."""
+    from repro_torch.kernels.build import check, load_library, stream_ptr
+    out = torch.tensor([0, -1], dtype=torch.int64, device=cuda)
+    check(load_library().wkv6_snap_check(out.data_ptr(), stream_ptr(out)),
+          "wkv6_snap_check")
+    bad, first = out.tolist()
+    assert bad == 0, f"{bad} patterns differ, the least {first & 0xffffffff:#x}"
+
+
+# K6's plan cases: the prefill chunk, the forward at S 40, B 1, wide B,
+# the smoke heads and a ragged N
+K6_CASES = [(8, 16, 64, 64), (2, 40, 64, 64), (1, 7, 64, 64),
+            (16, 16, 64, 64), (4, 9, 8, 16), (3, 5, 4, 32), (2, 6, 3, 37)]
+
+
+@pytest.mark.parametrize("B,T,H,N", K6_CASES)
+def test_k6_plan_is_the_source(cuda, B, T, H, N):
+    """`k6_plan`, which the CPU plan tests hold to the card's limits, is
+    the source's plan (the C query `wkv6_seq_plan`, from the same
+    `plan_of` as the launch)."""
+    import ctypes
+
+    from repro_torch.kernels.build import check, load_library
+    from repro_torch.kernels.wkv6 import K6Plan, k6_plan
+    out = (ctypes.c_longlong * len(K6Plan._fields))()
+    check(load_library().wkv6_seq_plan(B, T, H, N, out), "wkv6_seq_plan")
+    assert tuple(out) == tuple(k6_plan(B, T, H, N))
+
+
+def _k6_case(cuda, B, T, H, N, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda)
+    args = (rn(B, T, H, N), rn(B, T, H, N), rn(B, T, H, N),
+            torch.exp(-torch.exp(0.5 * rn(B, T, H, N))), 0.5 * rn(H, N),
+            rn(B, H, N, N).to(torch.bfloat16))
+    valid = torch.zeros((B, T), dtype=torch.bool, device=cuda)
+    for i in range(B):
+        valid[i, :(T, 3, 0, 1)[i % 4]] = True
+    return args, valid
+
+
+@pytest.mark.parametrize("B,T,H,N", K6_CASES)
+@pytest.mark.parametrize("form", ["masked", "masked-f32", "plain"])
+def test_wkv6_seq_bits(cuda, B, T, H, N, form):
+    """K6 gives the in-order reference's y and the plain version's state
+    bit for bit at the lanes its plan takes (`K6_CASES` reach each), under
+    the mask and the bf16 carry (from the bf16 pool state, or from an f32
+    state off the bf16 grid, which a window whose first step is not valid
+    snaps there) or neither, and on operands whose rows are not 16-byte
+    aligned (the 4-byte copies)."""
+    args, valid = _k6_case(cuda, B, T, H, N, B * T + N)
+    if form == "masked-f32":
+        g = torch.Generator(device=cuda).manual_seed(N)
+        args = args[:5] + (torch.randn(args[5].shape, generator=g,
+                                       device=cuda),)
+    kw = {} if form == "plain" else {"valid": valid,
+                                     "carry_dtype": "bfloat16"}
+    y_o, s_p = wkv6_seq_inorder(*args, **kw)
+    _, s_p2 = wkv6_seq_plain(*args, **kw)
+    assert torch.equal(s_p, s_p2)
+    y, sf = wkv6_seq(*args, **kw)
+    assert torch.equal(y.view(torch.int32), y_o.view(torch.int32))
+    assert torch.equal(sf, s_p)
+    # r, k, v, w one float past a 16-byte boundary
+    off = [_unaligned(t) for t in args[:4]]
+    y, sf = wkv6_seq(*off, *args[4:], **kw)
+    assert torch.equal(y.view(torch.int32), y_o.view(torch.int32))
+    assert torch.equal(sf, s_p)
+
+
+def test_wkv6_seq_refusals(cuda):
+    """N past 64 raises before a launch."""
+    before = wkv6_seq.launches
+    big, _ = _k6_case(cuda, 1, 2, 1, 65, 0)
+    with pytest.raises(ValueError):
+        wkv6_seq(*big)
+    assert wkv6_seq.launches == before
 
 
 @pytest.fixture(scope="module")

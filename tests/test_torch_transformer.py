@@ -177,6 +177,16 @@ def test_apply_norm(kind):
     assert_close(want, TL.apply_norm(tlp["ln1"], tx, kind), kind)
 
 
+@pytest.mark.parametrize("head_dim,theta", [(64, 10_000.0), (128, 1e6)])
+def test_rope_freqs(head_dim, theta):
+    """The inverse frequencies on the device the caller names, as JAX's."""
+    got = TL.rope_freqs(head_dim, theta, device="cpu")
+    assert got.device.type == "cpu" and got.dtype == torch.float32
+    assert_close(exact_jit(lambda: JL.rope_freqs(head_dim, theta))(), got)
+    with pytest.raises(TypeError):
+        TL.rope_freqs(head_dim, theta)
+
+
 def test_apply_rope():
     jx, tx = _x((2, 40, 3, 16), seed=1)
     pos = np.arange(40) + 7

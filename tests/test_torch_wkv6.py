@@ -25,7 +25,8 @@ from repro.kernels.common import exact_jit
 from repro_torch.core.wkv.wkv6 import wkv6_init_state
 from repro_torch.core.wkv.wkv6 import wkv6_scan as t_scan
 from repro_torch.core.wkv.wkv6 import wkv6_step as t_step
-from repro_torch.kernels.wkv6 import wkv6_seq, wkv6_seq_plain
+from repro_torch.kernels.wkv6 import (
+    wkv6_seq, wkv6_seq_inorder, wkv6_seq_plain)
 
 B, T, H, N = 4, 7, 4, 16
 PREFIX = (T, 3, 0, 1)      # full, partial, no valid token, single
@@ -119,6 +120,34 @@ def test_wkv6_seq_plain_matches_masked_step_loop(rng, carry):
         _close_f32(jfin, tfin, "state")
     else:
         assert_close(jfin, tfin, "state")
+
+
+@pytest.mark.parametrize("carry", ["bfloat16", None])
+def test_wkv6_seq_inorder_matches_plain_state_and_jax(rng, carry):
+    """The in-order reference (K6's y order: n in order from +0, eager
+    ops) carries the plain version's state bit for bit; its y sits within
+    F32_RTOL of JAX's `core/wkv` scan without a mask or snap, and of the
+    JAX step loop with them (the port_helpers rule for the snapped
+    state)."""
+    inp = _inputs(rng)
+    t = _torch(inp)
+    args = [t[n] for n in ("r", "k", "v", "w", "u", "s0")]
+    valid = torch.from_numpy(_valid())
+    ty, tfin = wkv6_seq_inorder(*args, valid=valid, carry_dtype=carry)
+    py, pfin = wkv6_seq_plain(*args, valid=valid, carry_dtype=carry)
+    assert torch.equal(tfin, pfin)
+    _close_f32(py, ty, "y against the plain version")
+    jy, jfin = _jax_masked_loop(inp, _valid(), carry)
+    _close_f32(jy, ty, "y against the JAX step loop")
+    if carry is None:
+        _close_f32(jfin, tfin, "state")
+    else:
+        assert_close(jfin, tfin, "state")
+    seq = [inp[n] for n in ("r", "k", "v", "w", "u")]
+    jy, jfin = exact_jit(j_scan)(*seq, jnp.asarray(inp["s0"]))
+    ty, tfin = wkv6_seq_inorder(*args)
+    _close_f32(jy, ty, "y against JAX's scan")
+    _close_f32(jfin, tfin, "state against JAX's scan")
 
 
 def test_wkv6_seq_takes_the_bf16_pool_state(rng):

@@ -59,13 +59,13 @@ def _smoke():
     return mod
 
 
-def _ptxas(log: str):
-    """The ptxas lines of the kernels in wkv4_seq.cu and wkv4_bwd.cu, and
-    the most registers and spill bytes among them."""
+def _ptxas(log: str, sources=("wkv4_seq.cu", "wkv4_bwd.cu")):
+    """The ptxas lines of the kernels in `sources` (K2's and K2-bwd's by
+    default), and the most registers and spill bytes among them."""
     keep, lines = False, []
     for ln in log.splitlines():
         if ln.startswith("== "):
-            keep = ln.strip() in ("== wkv4_seq.cu", "== wkv4_bwd.cu")
+            keep = ln.strip()[3:] in sources
             continue
         if keep and ("Compiling entry" in ln or "registers" in ln
                      or "spill" in ln):
@@ -174,15 +174,15 @@ def run_tree(args) -> int:
     return 0 if all(r.get("repeatable", True) for r in rows) else 1
 
 
-def run_ab(args) -> int:
-    """parent, change, change, parent: one process a run; then each case's
-    mean per tree and whether the trees' hashes agree."""
+def run_ab(args, script=__file__) -> int:
+    """parent, change, change, parent: one process of `script` a run; then
+    each case's mean per tree and whether the trees' hashes agree."""
     order = (("parent", args.parent), ("change", args.src),
              ("change", args.src), ("parent", args.parent))
     times, shas, rc = {}, {}, 0
     for label, src in order:
         out = subprocess.run(
-            [sys.executable, __file__, "--src", src, "--label", label,
+            [sys.executable, script, "--src", src, "--label", label,
              "--reps", str(args.reps)], capture_output=True, text=True)
         sys.stdout.write(out.stdout)
         sys.stderr.write(out.stderr[-4000:])
