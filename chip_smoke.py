@@ -346,14 +346,49 @@ each prints its seconds and peak device memory (`phase_done` lines):
       rwkv6 bf16               K7 on phase 6's bf16 tree as MIXED (its slab
                                stack built there, 15 GB, and dropped before
                                K10), one step through each kernel path
-12. The `kernels` JSON line (thirty-three entries: the nine kernels, then
+12. The rest of the engine, plan and registry (run where their weights
+    are at hand):
+      engine runs   every phase-3-style engine run (`phase_engine`) now
+                    attaches fresh ServingCounters and asserts their counts
+                    (8 admitted and finished, 256 decode tokens, the
+                    prompts' sum of prefill tokens, 8 TTFT samples) and
+                    trace_counts {"decode": 1, "prefill": 1}; its line
+                    carries TTFT, inter-token latency and occupancy
+      all logits    prefill_chunk_logits against prefill_chunk on the W8
+                    trees of rwkv4-169m (after phase 3) and rwkv6-7b
+                    (after phase 5), B 8, C 16, prefix masks: row
+                    n_valid - 1 and the states bit for bit, invalid rows
+                    zero; the head's K5 alone at M 128 timed beside its
+                    plain version and torch.matmul
+      state dtype   an rwkv4-169m per-op engine with an f32 pool serves 8
+                    requests, each equal to itself served alone; an f32
+                    state on each fused path raises in build_plan with
+                    every serving counter at 0 (after phase 10's rwkv4
+                    part), then greedy_decode with sample_temp 0.8: the
+                    same generator seed, the same tokens; temperature 0,
+                    the greedy stream
+      truncated     rwkv6-7b's model-path engine cut to 4 of 32 layers
+                    (truncate_params): one prefill chunk (K5 + K6) and 8
+                    K7-model steps give truncate_state of the full
+                    model's state, bit for bit
+      serve trained phase 9's trained and checkpoint-restored rwkv4-169m
+                    tree through ServingEngine(params=, quantized=True,
+                    fused_decode="model", fused_prefill=True): the plan
+                    serves the trained codes (a leaf's checksum), the
+                    engine run (K5, K2, K4), teacher-forced logits within
+                    TF_BOUNDS["model"], then one request cancelled after
+                    4 ticks: outcome "cancelled", the others' streams
+                    unchanged
+13. The `kernels` JSON line (thirty-three entries: the nine kernels, then
     K9 and the hardware-numerics forms of K2, K5, K3 and K4, then K13,
     K13-dq and K13-dkv, then K10 and K11, then K12, K12-bwd, K2-bwd and
     K11-bwd, then K1 and K8, then phase 11's forms: K3 and K4 on bf16,
     K5-W4 and K5-VQ f32-x, K7-block and K7-model on MIXED and on bf16;
     the entries of K2, K2-hw and K6 carry their forward-shape checks under
     "forward_check", their errors in max_abs_err and their shapes in
-    shapes), the card's name and power limit, and the last line {"ok":
+    shapes; K5's entry carries the head at M 128 of both models under
+    "all_logits_head"), the card's name and power limit, and the last
+    line {"ok":
     true, "device": {...}}.
 
 Weights are random, from a seed.  Imports nothing of JAX.
@@ -1046,18 +1081,43 @@ def phase_k4(engine, flush, planes="mixed"):
     return row
 
 
-def phase_engine(engine, counters, path):
-    V = engine.model.cfg.vocab
+def _engine_prompts(V):
     rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, V, int(n)).tolist()
-               for n in rng.integers(5, 41, 8)]
+    return [rng.integers(0, V, int(n)).tolist()
+            for n in rng.integers(5, 41, 8)]
+
+
+def phase_engine(engine, counters, path):
+    """8 seeded requests (5-40-token prompts, 32 new tokens) through an
+    engine with fresh `ServingCounters`, every counter in `counters` set
+    to 0 just before the run and read just after: each kernel launched,
+    the snapshot's counts (8 admitted and finished, 256 decode tokens, the
+    prompts' sum of prefill tokens, 8 TTFT samples), each program built
+    once, and each stream equal to the same request served alone.  Its
+    tokens_per_s is decode tokens over the run's wall time."""
+    from repro_torch.runtime.monitor import ServingCounters
+    V = engine.model.cfg.vocab
+    prompts = _engine_prompts(V)
+    engine.counters = engine.scheduler.counters = ServingCounters()
     for fn in counters:
         fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     handles = [engine.submit(p, max_new_tokens=32) for p in prompts]
-    stats = engine.run()
+    snap = engine.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel never launched: {launches}")
+    want = {"admitted": 8, "finished": 8, "cancelled": 0,
+            "decode_tokens": 256, "prefill_tokens": sum(map(len, prompts))}
+    got = {k: snap[k] for k in want}
+    if got != want or len(engine.counters.ttft_s) != 8:
+        raise AssertionError(f"{path}: counters {got} (want {want}), "
+                             f"{len(engine.counters.ttft_s)} TTFT samples")
+    if engine.trace_counts != {"decode": 1, "prefill": 1}:
+        raise AssertionError(f"trace_counts {engine.trace_counts}")
     streams = [h.tokens for h in handles]
     for s in streams:
         if len(s) != 32 or not all(0 <= t < V for t in s):
@@ -1068,10 +1128,18 @@ def phase_engine(engine, counters, path):
         if h.tokens != streams[i]:
             raise AssertionError(f"request {i}: batched stream differs from "
                                  f"serving it alone")
+    if engine.trace_counts != {"decode": 1, "prefill": 1}:
+        raise AssertionError(f"trace_counts {engine.trace_counts}")
     _line({"phase": "engine", "path": path, "requests": 8, "new_tokens": 32,
            "prompt_lens": [len(p) for p in prompts],
-           "tokens_per_s": stats["tokens_per_s"], "seconds": stats["seconds"],
-           "ticks": stats["ticks"], "launches": launches,
+           "tokens_per_s": snap["decode_tokens"] / seconds,
+           "seconds": seconds, "ticks": snap["ticks"], "launches": launches,
+           "counters": {k: snap[k] for k in (
+               "admitted", "finished", "prefill_tokens", "decode_tokens",
+               "mean_ttft_s", "ttft_p50_s", "ttft_p99_s", "mean_itl_s",
+               "itl_p50_s", "itl_p99_s", "mean_latency_s",
+               "mean_active_slots", "peak_active_slots")},
+           "trace_counts": engine.trace_counts,
            "solo_equals_batched": True})
     return launches
 
@@ -1130,7 +1198,7 @@ def _gap(out, ref):
                                   .float().mean())}
 
 
-def phase_teacher_forced(engine):
+def phase_teacher_forced(engine, label=None):
     """Kernel path vs the plain per-op path on the card, on the same tokens
     (8 lanes: a 16-token prefill chunk, then 32 decode steps), both held
     against an f32 witness of the same model, with the plain path on the
@@ -1175,7 +1243,8 @@ def phase_teacher_forced(engine):
                            and gp["argmax_agree"] >= tb["argmax_f32"])
     ok = (near_f32(kf) and kp["mean_rel"] <= tb["mean_rel_plain"]
           and kp["max_abs"] <= tb["max_rel_plain"] * max_ref)
-    _line({"phase": "teacher_forced", "path": path, "steps": S + 1,
+    _line({"phase": "teacher_forced", "path": path,
+           **({"label": label} if label else {}), "steps": S + 1,
            "lanes": B, "max_abs_f32": max_f32, "gaps": gaps,
            "bounds": {"kernel_vs_f32": {
                           "mean_rel": tb["mean_rel_f32"],
@@ -3746,7 +3815,8 @@ def phase_rwkv4_train():
     AsyncCheckpointer into the checkout's build/ and back, bit for bit;
     then one more step split by `_step_split` (host enqueue, device span
     and busy time, the 8 kernels that take most of it).
-    Returns the path's launches."""
+    Returns the path's launches, the model and the restored tree (served
+    by `phase_serve_trained`)."""
     import shutil
     from repro_torch.checkpoint import AsyncCheckpointer, restore_checkpoint
     from repro_torch.launch.steps import loss_and_grads
@@ -3828,9 +3898,9 @@ def phase_rwkv4_train():
                           "save_restore_s": ck_s}, "split": split})
     if not equal:
         raise AssertionError("the checkpoint round trip changed a bit")
-    del out, back
+    del out
     _release()
-    return {"rwkv4-train": launches}
+    return {"rwkv4-train": launches}, model, back
 
 
 # --- the ninth slice: K1 and K8 through kernels/ops.py, the quantized serve
@@ -4141,6 +4211,324 @@ def phase_serve_legacy_quantized():
     return launches
 
 
+# --- the twenty-first slice: a given tree, the counters, cancel, f32
+# --- state, the truncated models and the all-position prefill logits
+
+def _serving_counters():
+    """The launch counters of every kernel a serving path can reach."""
+    from repro_torch.kernels.fused_decode import (
+        rwkv4_block_decode, rwkv4_model_decode, rwkv6_block_decode,
+        rwkv6_model_decode)
+    from repro_torch.kernels.fused_prefill import (
+        dpot_w4_matmul, dpot_w8_matmul, vq_matmul)
+    from repro_torch.kernels.wkv4 import wkv4_seq
+    from repro_torch.kernels.wkv6 import wkv6_seq
+    return (dpot_w8_matmul, dpot_w4_matmul, vq_matmul, wkv4_seq, wkv6_seq,
+            rwkv4_block_decode, rwkv4_model_decode, rwkv6_block_decode,
+            rwkv6_model_decode)
+
+
+def _leaf_sum(t) -> int:
+    """A checksum of a leaf: the sum of its bytes."""
+    return int(t.contiguous().view(torch.uint8).sum(dtype=torch.int64))
+
+
+def phase_serve_trained(model, restored):
+    """The tree `phase_rwkv4_train` trained and restored from its
+    checkpoint, served through `ServingEngine(params=restored,
+    quantized=True, fused_decode="model", fused_prefill=True)` with fresh
+    ServingCounters: the packed raw tree holds the trained weights (a
+    leaf's codes are pack_leaf of the trained leaf, not of the seed's),
+    `phase_engine`'s run (K5, K2 and K4 launched, the counts, built once,
+    solo equal to batched), teacher-forced logits within
+    TF_BOUNDS["model"]; then the 8 requests again with request 3
+    cancelled after 4 ticks: its outcome "cancelled", the snapshot's
+    cancelled 1 and finished 7, every other stream unchanged.  Returns
+    the run's launches."""
+    from repro_torch.core.quant.serving import pack_leaf
+    from repro_torch.kernels.fused_decode import rwkv4_model_decode
+    from repro_torch.kernels.fused_prefill import dpot_w8_matmul
+    from repro_torch.kernels.wkv4 import wkv4_seq
+    from repro_torch.runtime.monitor import ServingCounters
+    from repro_torch.serving import ServingEngine
+    t0 = time.perf_counter()
+    engine = ServingEngine(model, params=restored, quantized=True,
+                           fused_decode="model", fused_prefill=True,
+                           max_batch=8, prefill_chunk=16,
+                           counters=ServingCounters(), device=DEV)
+    build_s = time.perf_counter() - t0
+    key = "['blocks']['att']['wr']"
+    served = engine.plan.prepared.raw["blocks"]["att"]["wr"]["packed"]
+    trained = pack_leaf(key, restored["blocks"]["att"]["wr"])["packed"]
+    seeded = pack_leaf(key, model.init_params(SEED, DEV)["blocks"]["att"][
+        "wr"])["packed"]
+    sums = {"served": _leaf_sum(served), "trained": _leaf_sum(trained),
+            "seed": _leaf_sum(seeded)}
+    if not torch.equal(served, trained) or torch.equal(served, seeded):
+        raise AssertionError(f"the plan does not serve the trained tree: "
+                             f"{sums}")
+    del trained, seeded
+    if engine.plan.build_config["from_seed"]:
+        raise AssertionError("build_config says the weights are the seed's")
+    launches = phase_engine(engine, (dpot_w8_matmul, wkv4_seq,
+                                     rwkv4_model_decode), "serve-trained")
+    phase_teacher_forced(engine, label="trained rwkv4-169m W8")
+    # cancel request 3 after 4 ticks: the others' streams stay as they were
+    prompts = _engine_prompts(model.cfg.vocab)
+    handles = [engine.submit(p, max_new_tokens=32) for p in prompts]
+    engine.run()
+    ref = [h.tokens for h in handles]
+    engine.counters = engine.scheduler.counters = ServingCounters()
+    handles = [engine.submit(p, max_new_tokens=32) for p in prompts]
+    for _ in range(4):
+        engine.step()
+    victim = handles[3]
+    n_before = len(victim.tokens)
+    if not engine.cancel(victim) or engine.cancel(victim):
+        raise AssertionError("cancel: the request was not in flight once")
+    snap = engine.run()
+    others = [h.tokens for i, h in enumerate(handles) if i != 3]
+    ok = (victim.outcome == "cancelled" and victim.tokens == ref[3][
+        :n_before] and snap["cancelled"] == 1 and snap["finished"] == 7
+        and others == [t for i, t in enumerate(ref) if i != 3]
+        and all(h.outcome == "finished" for i, h in enumerate(handles)
+                if i != 3))
+    _line({"phase": "serve_trained", "arch": model.cfg.name,
+           "engine_build_s": build_s, "leaf_checksums": sums,
+           "build_config": engine.plan.build_config,
+           "launches": launches, "trace_counts": engine.trace_counts,
+           "cancel": {"victim_tokens": n_before,
+                      "outcome": victim.outcome,
+                      "cancelled": snap["cancelled"],
+                      "finished": snap["finished"],
+                      "others_unchanged": others == [
+                          t for i, t in enumerate(ref) if i != 3]},
+           "ok": ok})
+    if not ok:
+        raise AssertionError("cancelling a request moved another stream, "
+                             "or its outcome or counts are wrong")
+    return launches
+
+
+def phase_truncated6(engine):
+    """rwkv6-7b at full width cut to its first 4 of 32 layers:
+    `model.truncated(4)` on `truncate_params(packed, 4)` runs one prefill
+    chunk (B 8, C 16; K5 + K6) and 8 decode steps on K7-model (its slabs
+    prepared from the truncated tree), every serving counter set to 0
+    just before and read just after; its state must equal
+    `truncate_state` of the full model's state after the same tokens (the
+    engine's prepared forms, K7-model over 32 layers), bit for bit."""
+    model, prep = engine.model, engine.plan.prepared
+    depth, B, C, steps = 4, 8, 16, 8
+    toks = torch.randint(0, model.cfg.vocab, (B, C + steps), device=DEV,
+                         dtype=torch.int32,
+                         generator=torch.Generator(device=DEV).manual_seed(
+                             SEED + 21))
+    valid = torch.ones((B, C), dtype=torch.bool, device=DEV)
+
+    def run(m, prefill, decode):
+        with torch.inference_mode():
+            s = m.init_decode_state(B, 0, device=DEV)
+            s, _ = m.prefill_chunk(prefill, s, toks[:, :C], valid)
+            for j in range(C, C + steps):
+                _, s = m.decode_step_fused_model(decode, s,
+                                                 toks[:, j:j + 1], 0)
+        torch.cuda.synchronize()
+        return s
+    full = run(model, prep.prefill, prep.decode)
+    tm = model.truncated(depth)
+    tp = model.truncate_params(prep.raw, depth)
+    t0 = time.perf_counter()
+    t_prefill = tm.prepare_path_params(tm.prefill_paths()["chunked"], tp)
+    t_decode = tm.prepare_fused_model_params(tp)
+    prep_s = time.perf_counter() - t0
+    counters = _serving_counters()
+    for fn in counters:
+        fn.launches = 0
+    cut = run(tm, t_prefill, t_decode)
+    launches = {fn.__name__: fn.launches for fn in counters
+                if fn.launches}
+    want = model.truncate_state(full, depth)
+    equal = {k: bool(torch.equal(cut[k], want[k])) for k in cut}
+    shapes = {k: list(cut[k].shape) for k in cut}
+    ok = all(equal.values()) and all(
+        launches.get(n, 0) > 0 for n in ("dpot_w8_matmul", "wkv6_seq",
+                                         "rwkv6_model_decode"))
+    _line({"phase": "truncated6", "arch": model.cfg.name, "depth": depth,
+           "of": model.cfg.n_layers, "B": B, "C": C, "decode_steps": steps,
+           "prepare_s": prep_s, "launches": launches, "state_shapes": shapes,
+           "state_bits_equal": equal, "ok": ok})
+    if not ok:
+        raise AssertionError(f"truncated rwkv6 state differs from the full "
+                             f"model's first layers: {equal}, {launches}")
+    return {"truncated6": launches}
+
+
+ALL_LOGITS_LENS = (16, 16, 9, 1, 0, 16, 5, 12)
+
+
+def phase_all_logits(engine, label, flush):
+    """`prefill_chunk_logits` against `prefill_chunk` on an engine's
+    prepared W8 tree (B 8, C 16, prefix masks ALL_LOGITS_LENS, a fresh
+    state), every serving counter set to 0 just before the all-position
+    call and read just after: row n_valid - 1 equal to the last-valid
+    logits bit for bit, invalid rows zero, the states equal bit for bit.
+    Then the head's K5 alone at M 128 (the all-position head's shape) on
+    a seeded x, beside its plain version and torch.matmul on the decoded
+    plane, and both chunk calls timed (`_time_ms`)."""
+    from repro_torch.core.quant.serving import unpack_leaf
+    from repro_torch.device import exact_matmuls
+    from repro_torch.kernels.fused_prefill import (
+        dpot_w8_matmul, dpot_w8_matmul_plain)
+    model, prep = engine.model, engine.plan.prepared
+    B, C = 8, 16
+    g = torch.Generator(device=DEV).manual_seed(SEED + 23)
+    toks = torch.randint(0, model.cfg.vocab, (B, C), device=DEV,
+                         dtype=torch.int32, generator=g)
+    lens = torch.tensor(ALL_LOGITS_LENS, device=DEV)
+    valid = torch.arange(C, device=DEV)[None, :] < lens[:, None]
+    state = model.init_decode_state(B, 0, device=DEV)
+
+    def last():
+        with torch.inference_mode():
+            return model.prefill_chunk(prep.prefill, state, toks, valid)
+
+    def rows():
+        with torch.inference_mode():
+            return model.prefill_chunk_logits(prep.prefill, state, toks,
+                                              valid)
+    s1, l1 = last()
+    counters = _serving_counters()
+    for fn in counters:
+        fn.launches = 0
+    s2, l2 = rows()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters if fn.launches}
+    rows_equal = all(bool(torch.equal(l2[b, n - 1], l1[b, 0]))
+                     for b, n in enumerate(ALL_LOGITS_LENS) if n)
+    invalid_zero = not bool(l2[~valid].any())
+    states_equal = all(bool(torch.equal(s1[k], s2[k])) for k in s1)
+    finite = bool(torch.isfinite(l2.float()).all())
+    head = prep.prefill["head"]
+    wq, scale = head["packed"], head["scale"].reshape(-1)
+    K, N = wq.shape
+    M = B * C
+    x = torch.randn((M, K), generator=g, device=DEV).to(torch.bfloat16)
+    w_bf = unpack_leaf({"packed": wq, "scale": scale.reshape(1, -1)})
+    out = dpot_w8_matmul(x, wq, scale)
+    ok_k5, err = _elementwise_ok(out, dpot_w8_matmul_plain(x, wq, scale),
+                                 _sum_order_floor(x, w_bf))
+    bms, by = _bound(M * K * 2 + K * N + N * 4 + M * N * 2,
+                     2.0 * M * N * K, PEAK_BF16_FLOPS)
+    with exact_matmuls():
+        lib = _time_ms(lambda: torch.matmul(x, w_bf), flush)
+    k5 = {"kernel": "dpot_w8_matmul", "matrix": "head", "M": M, "K": K,
+          "N": N, "max_abs_err": err,
+          "kernel_ms": _time_ms(lambda: dpot_w8_matmul(x, wq, scale), flush),
+          "plain_ms": _time_ms(
+              lambda: dpot_w8_matmul_plain(x, wq, scale), flush),
+          "library_ms": lib, "bound_ms": bms, "bound_by": by}
+    ok = (rows_equal and invalid_zero and states_equal and finite and ok_k5
+          and launches.get("dpot_w8_matmul", 0) > 0)
+    _line({"phase": "all_logits", "model": label, "B": B, "C": C,
+           "n_valid": list(ALL_LOGITS_LENS), "launches": launches,
+           "last_row_bits_equal": rows_equal, "invalid_rows_zero":
+           invalid_zero, "states_bits_equal": states_equal,
+           "chunk_ms": _time_ms(last, flush),
+           "all_logits_chunk_ms": _time_ms(rows, flush),
+           "head_k5": k5, "ok": ok})
+    if not ok:
+        raise AssertionError(f"all-position logits {label}: rows equal "
+                             f"{rows_equal}, invalid zero {invalid_zero}, "
+                             f"states equal {states_equal}, K5 {ok_k5}")
+    return {"all-logits " + label: launches}, k5
+
+
+def phase_state_dtype():
+    """An f32 pool: an rwkv4-169m per-op engine (plain weights from the
+    seed, state_dtype=torch.float32) serves 8 requests on the card (5-40
+    token prompts, 8 new tokens), its pool f32 and each stream equal to
+    the request served alone; then build_plan with an f32 state on each
+    fused path raises ValueError with every serving counter still 0."""
+    from repro_torch.serving import ServingEngine, build_plan
+    eng = ServingEngine("rwkv4-169m", smoke=False, max_batch=8,
+                        prefill_chunk=16, state_dtype=torch.float32,
+                        device=DEV)
+    dtypes = sorted({str(v.dtype) for v in eng.pool.state.values()})
+    prompts = _engine_prompts(eng.model.cfg.vocab)
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, max_new_tokens=8) for p in prompts]
+    snap = eng.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    solo_ok = True
+    for p, h in zip(prompts, handles):
+        one = eng.submit(p, max_new_tokens=8)
+        eng.run()
+        solo_ok &= one.tokens == h.tokens
+    del eng
+    _release()
+    counters = _serving_counters()
+    for fn in counters:
+        fn.launches = 0
+    raised = {}
+    for kw in (dict(fused_decode="model"), dict(fused_decode="block"),
+               dict(fused_prefill=True)):
+        try:
+            build_plan("rwkv4-169m", smoke=False, quantized=True,
+                       state_dtype=torch.float32, device=DEV, **kw)
+            raised[str(kw)] = False
+        except ValueError:
+            raised[str(kw)] = True
+    after = {fn.__name__: fn.launches for fn in counters}
+    ok = (dtypes == ["torch.float32"] and solo_ok and all(raised.values())
+          and not any(after.values()) and snap["decode_tokens"] == 64
+          and snap["finished"] == 8)
+    _line({"phase": "state_dtype", "arch": "rwkv4-169m", "path": "per_op",
+           "pool_dtypes": dtypes, "requests": 8, "new_tokens": 8,
+           "seconds": seconds, "tokens_per_s": snap["decode_tokens"] / seconds,
+           "solo_equals_batched": solo_ok, "fused_f32_raises": raised,
+           "launches_after_raises": after, "ok": ok})
+    if not ok:
+        raise AssertionError("f32 state: pool, streams or the fused-path "
+                             "refusal wrong")
+
+
+def phase_greedy_sample(params, model):
+    """greedy_decode on rwkv4-169m (per-op decode_step, B 4, 16 tokens)
+    with sample_temp=0.8: two runs from generators of one seed give the
+    same tokens; sample_temp=0 with a generator gives the greedy stream."""
+    from repro_torch.launch.serve import greedy_decode
+    B, n = 4, 16
+    first = torch.randint(0, model.cfg.vocab, (B, 1), device=DEV,
+                          dtype=torch.int32,
+                          generator=torch.Generator(device=DEV).manual_seed(
+                              SEED + 25))
+
+    def run(**kw):
+        st = model.init_decode_state(B, 0, device=DEV)
+        return greedy_decode(model, params, st, first, n, **kw)[0]
+    gen = lambda: torch.Generator(device=DEV).manual_seed(SEED + 26)
+    t0 = time.perf_counter()
+    a = run(sample_temp=0.8, rng=gen())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    b = run(sample_temp=0.8, rng=gen())
+    greedy = run()
+    zero = run(sample_temp=0.0, rng=gen())
+    ok = (torch.equal(a, b) and torch.equal(zero, greedy)
+          and bool(((a >= 0) & (a < model.cfg.vocab)).all()))
+    _line({"phase": "greedy_sample", "arch": model.cfg.name, "B": B,
+           "tokens": n, "sample_temp": 0.8, "ms_per_step": ms,
+           "same_seed_same_tokens": bool(torch.equal(a, b)),
+           "temp0_equals_greedy": bool(torch.equal(zero, greedy)),
+           "sampled_differs_from_greedy": not bool(torch.equal(a, greedy)),
+           "ok": ok})
+    if not ok:
+        raise AssertionError("sampled greedy_decode is not reproducible, or "
+                             "sample_temp=0 is not the greedy stream")
+
+
 # the order of a phase row's dimensions in a `kernels` entry's shapes
 _SHAPE_KEYS = ("M", "K", "N", "L", "B", "T", "C", "D", "F", "H", "S", "KVH",
                "d")
@@ -4204,7 +4592,7 @@ def main() -> int:
         dpot_w4_matmul, dpot_w8_matmul, vq_matmul)
     from repro_torch.kernels.wkv4 import wkv4_seq
     from repro_torch.kernels.wkv6 import wkv6_seq
-    from repro_torch.core.quant.serving import pack_leaf
+    from repro_torch.core.quant.serving import pack_leaf, unpack_params
     from repro_torch.models.rwkv4 import prepare_fused_model_params
     from repro_torch.serving import ServingEngine
     from repro_torch.tree import keystr
@@ -4241,6 +4629,9 @@ def main() -> int:
                          rwkv4_model_decode), "model")}
     _timed("teacher forced block", phase_teacher_forced, block)
     _timed("teacher forced model", phase_teacher_forced, model)
+    paths, head4 = _timed("all logits rwkv4-169m", phase_all_logits, block,
+                          "rwkv4-169m W8", flush)
+    by_path.update(paths)
     # rwkv4-169m on plain bf16 weights (quantized=False): K3 and K4 on bf16
     # matrices, the model-path engine, one block-path step
     plain4 = ServingEngine("rwkv4-169m", fused_decode="model",
@@ -4281,6 +4672,10 @@ def main() -> int:
         128, "rwkv4-169m")
     by_path["serve-legacy-quantized"] = _timed(
         "serve_legacy quantized", phase_serve_legacy_quantized)
+    # an f32 pool on the per-op path, and greedy_decode's sampling
+    _timed("state dtype", phase_state_dtype)
+    _timed("greedy sample", phase_greedy_sample, unpack_params(w8),
+           block.model)
     w4_rwkv4 = {
         "rwkv4-169m att.wk (MIXED W4)": {
             "packed4": mixed["blocks"]["att"]["wk"]["packed4"][0].clone(),
@@ -4316,6 +4711,13 @@ def main() -> int:
         "engine rwkv6-model", phase_engine, eng6,
         (dpot_w8_matmul, wkv6_seq, rwkv6_model_decode), "rwkv6-model")
     _timed("teacher forced rwkv6-model", phase_teacher_forced6, eng6, refs6)
+    # the all-position head and the depth-truncated model on its tree
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    paths, head6 = _timed("all logits rwkv6-7b", phase_all_logits, eng6,
+                          "rwkv6-7b W8", flush)
+    by_path.update(paths)
+    del flush
+    by_path.update(_timed("truncated rwkv6-7b", phase_truncated6, eng6))
     # the engine's packed W8 tree outlives the engine: K1 and K8 through
     # kernels/ops.py on its matrices, then the quantized serve step on it
     raw6, model6 = eng6.plan.prepared.raw, eng6.model
@@ -4422,7 +4824,13 @@ def main() -> int:
     k11b = _timed("K11-bwd", phase_k11_bwd, ln1, flush)
     del ln1, wkv, flush
     _release()
-    by_path.update(_timed("train rwkv4-169m", phase_rwkv4_train))
+    paths, m4t, restored = _timed("train rwkv4-169m", phase_rwkv4_train)
+    by_path.update(paths)
+    # the trained and restored tree served through the engine
+    by_path["serve-trained"] = _timed("serve trained rwkv4-169m",
+                                      phase_serve_trained, m4t, restored)
+    del restored
+    _release()
 
     def launches(name, main_path):
         return {"main": by_path[main_path][name],
@@ -4440,6 +4848,8 @@ def main() -> int:
             launches("dpot_w8_matmul", "rwkv6-block")).items()
         if k in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err",
                  "shapes")}
+    # the head alone at M 128, the shape of prefill_chunk_logits' head
+    k5_row["all_logits_head"] = {"rwkv4-169m": head4, "rwkv6-7b": head6}
     # K5-W4 and K5-VQ at rwkv6-7b's MIXED shapes, beside their rwkv4 rows
     planes_rows = []
     for name, rows in (("dpot_w4_matmul", w4_rows), ("vq_matmul", vq_rows)):

@@ -69,15 +69,25 @@ def sequential_decode(model, params, prompt: list[int], n_new: int,
 
 @torch.inference_mode()
 def greedy_decode(model, params, state, first_token, n_tokens: int,
-                  start_pos: int = 0):
-    """Argmax-chain `n_tokens` tokens from `first_token` (B, 1) int32
-    through `model.decode_step`, the seed's host loop.  Returns (tokens
-    (B, n_tokens + 1), the state)."""
+                  start_pos: int = 0, *, sample_temp: float = 0.0,
+                  rng: torch.Generator | None = None):
+    """Chain `n_tokens` tokens from `first_token` (B, 1) int32 through
+    `model.decode_step`, the seed's host loop: the argmax, or with
+    `sample_temp > 0` and `rng` (a `torch.Generator` on the state's
+    device) a draw from softmax(logits / sample_temp) by
+    `torch.multinomial`, so the same generator seed gives the same tokens
+    (not JAX's PRNG bits).  Returns (tokens (B, n_tokens + 1), the
+    state)."""
     tok, out, pos = first_token, [first_token], start_pos
     for _ in range(n_tokens):
         logits, state = model.decode_step(params, state, tok, pos)
-        tok = torch.argmax(logits[:, -1].float(), dim=-1)[:, None].to(
-            torch.int32)
+        last = logits[:, -1].float()
+        if sample_temp > 0 and rng is not None:
+            tok = torch.multinomial(torch.softmax(last / sample_temp, -1),
+                                    1, generator=rng)
+        else:
+            tok = torch.argmax(last, dim=-1)[:, None]
+        tok = tok.to(torch.int32)
         pos += 1
         out.append(tok)
     return torch.cat(out, dim=1), state
@@ -154,25 +164,33 @@ def serve(arch: str, *, smoke: bool = False, batch: int = 8,
           fused: str | None = None, fused_prefill: bool = False,
           device: str = "cuda"):
     """`batch` concurrent greedy requests (seeded prompts, weights from
-    seed 0) through the engine; prints the run's throughput and returns
-    the handles."""
+    seed 0) through the engine; prints the run's throughput (tokens over
+    its wall time) and the counters' snapshot, and returns the handles."""
     from repro_torch.serving import ServingEngine
     engine = ServingEngine(arch, smoke=smoke, max_batch=batch,
                            quantized=quantized, fused_decode=fused,
                            fused_prefill=fused_prefill, device=device)
     rng = np.random.default_rng(0)
     vocab = engine.model.cfg.vocab
+    t0 = time.perf_counter()
     handles = [engine.submit(rng.integers(0, vocab, prompt_len).tolist(),
                              max_new_tokens=n_tokens)
                for _ in range(batch)]
-    stats = engine.run()
+    snap = engine.run()
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    dt = time.perf_counter() - t0
     name = torch.cuda.get_device_name(engine.device) \
         if engine.device.type == "cuda" else "cpu"
     print(f"{arch}{' (smoke)' if smoke else ''} on {name}: {batch} requests "
           f"x {n_tokens} tokens ({weights_label(engine.plan.prepared.raw)} "
           f"weights, decode={fused or 'per_op'}, "
           f"prefill={'chunked' if fused_prefill else 'per_op'}) — "
-          f"{stats['tokens_per_s']:.1f} tok/s over {stats['ticks']} ticks")
+          f"{snap['decode_tokens'] / dt:.1f} tok/s over {snap['ticks']} "
+          f"ticks, TTFT {snap['mean_ttft_s'] * 1e3:.0f} ms, latency "
+          f"{snap['mean_latency_s'] * 1e3:.0f} ms")
+    for k, v in snap.items():
+        print(f"  {k}: {v:.3f}" if isinstance(v, float) else f"  {k}: {v}")
     return handles
 
 

@@ -5,7 +5,10 @@ rwkv6-7b and the dense transformers).
 (rwkv4, rwkv6 or transformer) with its config; `loss_fn` is the
 causal-LM loss the train step differentiates.  The serving paths are
 rows of the `DECODE_PATHS` / `PREFILL_PATHS` tables: a path exists iff
-the module ships its entry.
+the module ships its entry.  `DRAFT_PATHS` names the truncated-stack
+drafter (`Model.truncated`, `truncate_params`, `truncate_state`), which
+item 6's speculative decode and item 8c's depth-truncated training stand
+on.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from repro_torch.configs.base import ModelConfig, get_config, smoke_config
 from repro_torch.core.quant.serving import cast_compute
 from repro_torch.kernels.fused_ce import fused_cross_entropy
 from repro_torch.models import param as PM
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +56,29 @@ PREFILL_PATHS = (
     # K6 (rwkv6); rwkv6 pre-decodes its element-wise planes once
     PathDescriptor("chunked", "prefill_chunk",
                    prepare="prepare_prefill_params"),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class DraftDescriptor:
+    """One self-speculative drafter.
+
+    The "truncated" drafter is the first `depth` layers of the same model:
+    layer l's state transition depends only on the layers below it, so the
+    truncated stack's state is exactly the full model's first `depth`
+    layer slices (`Model.truncate_state`), never a second pool.
+
+    name  — plan key ("truncated")
+    entry — module attribute the draft loop chains per proposed token
+    depth — default layers kept (None: half the stack, at least one)
+    """
+    name: str
+    entry: str = "decode_step"
+    depth: int | None = None
+
+
+DRAFT_PATHS = (
+    DraftDescriptor("truncated"),
 )
 
 
@@ -118,6 +145,71 @@ class Model:
         return {d.name: d for d in PREFILL_PATHS
                 if hasattr(self.module, d.entry)}
 
+    def draft_paths(self) -> dict[str, DraftDescriptor]:
+        """The drafters this model can run: the "truncated" one needs the
+        per-op decode step on a position-free state, a stacked `blocks`
+        tree (layer axis first) and a `layers` axis in every state leaf."""
+        if not (hasattr(self.module, "decode_step")
+                and self.position_free_decode):
+            return {}
+        try:
+            self.decode_state_layer_axes()
+        except (ValueError, AttributeError):
+            return {}
+        if "blocks" not in self.spec():
+            return {}
+        return {d.name: d for d in DRAFT_PATHS}
+
+    def truncated(self, depth: int) -> "Model":
+        """The first-`depth`-layers model: the same module, its config with
+        `n_layers=depth`."""
+        if not 1 <= depth <= self.cfg.n_layers:
+            raise ValueError(
+                f"draft depth {depth} outside [1, {self.cfg.n_layers}] "
+                f"for {self.cfg.name}")
+        return Model(cfg=dataclasses.replace(self.cfg, n_layers=depth),
+                     module=self.module)
+
+    def truncate_params(self, params, depth: int):
+        """The first `depth` layers of the stacked `blocks` tree (views of
+        its leaves); the embedding, outer norms and head are the full
+        tree's tensors, aliased, not copied.  Packed trees too: code and
+        scale planes carry the layer axis first."""
+        return {**params,
+                "blocks": tree_map(lambda t: t[:depth], params["blocks"])}
+
+    def decode_state_layer_axes(self) -> list[int]:
+        """Position of the layer axis in every state leaf, in sorted-key
+        order (as `decode_state_batch_axes`)."""
+        axes = self.decode_state_axes()
+        return [axes[k].index("layers") for k in sorted(axes)]
+
+    def truncate_state(self, state, depth: int):
+        """The first `depth` layer slices of a decode-state tree (views):
+        the truncated model's state."""
+        axes = dict(zip(sorted(state), self.decode_state_layer_axes()))
+        return {k: v.narrow(axes[k], 0, depth) for k, v in state.items()}
+
+    @property
+    def has_decode(self) -> bool:
+        return "per_op" in self.decode_paths()
+
+    @property
+    def has_fused_decode(self) -> bool:
+        """The model ships `decode_step_fused` (K3 or K7 per layer)."""
+        return "block" in self.decode_paths()
+
+    @property
+    def has_fused_model_decode(self) -> bool:
+        """The model ships `decode_step_fused_model` (one K4 or K7 launch
+        for every layer)."""
+        return "model" in self.decode_paths()
+
+    @property
+    def has_fused_prefill(self) -> bool:
+        """The model ships the chunked `prefill_chunk` (K5 + K2 or K6)."""
+        return "chunked" in self.prefill_paths()
+
     def init_decode_state(self, batch: int, max_len: int = 0,
                           dtype=torch.bfloat16, device="cuda"):
         return self.module.init_decode_state(self.cfg, batch, max_len, dtype,
@@ -165,15 +257,23 @@ class Model:
         return self.module.prefill_chunk(params, state, tokens, valid, 0,
                                          self.cfg)
 
+    def prefill_chunk_logits(self, params, state, tokens, valid):
+        """`prefill_chunk` with the head over every position: tokens (B, K)
+        with a prefix validity mask -> (new_state, logits (B, K, V)), row k
+        the logits after token k (the head through K5 at M = B·K); invalid
+        positions give zero logits and leave the state untouched."""
+        return self.module.prefill_chunk(params, state, tokens, valid, 0,
+                                         self.cfg, all_logits=True)
+
     # -- per-slot decode-state contract (serving engine) -------------------
     @property
     def position_free_decode(self) -> bool:
         return bool(getattr(self.module, "DECODE_POS_FREE", False))
 
-    def init_slot_state(self, n_slots: int = 1, dtype=torch.bfloat16,
-                        device="cuda"):
+    def init_slot_state(self, n_slots: int = 1, max_len: int = 0,
+                        dtype=torch.bfloat16, device="cuda"):
         """Decode state for a slot pool: the batch axis is the slot axis."""
-        return self.init_decode_state(n_slots, 0, dtype, device)
+        return self.init_decode_state(n_slots, max_len, dtype, device)
 
     def decode_state_batch_axes(self) -> list[int]:
         """Position of the slot axis in every state leaf, in sorted-key

@@ -197,9 +197,10 @@ def block_decode(lp, st, x, nm=_Std):
     h = L.apply_norm(lp["ln1"], x)
     p = lp["att"]
     mix = lambda m: nm.act_q(h * p[m] + att_x * (1.0 - p[m]))
-    r = mix("time_mix_r") @ p["wr"]
-    k = mix("time_mix_k") @ p["wk"]
-    v = mix("time_mix_v") @ p["wv"]
+    # an f32 state makes the mixes f32 (JAX's promotion); _mm widens
+    r = _mm(mix("time_mix_r"), p["wr"])
+    k = _mm(mix("time_mix_k"), p["wk"])
+    v = _mm(mix("time_mix_v"), p["wv"])
     w = torch.exp(p["time_decay"].to(f32))
     new_wkv, out = wkv4_step(wkv, k.to(f32), v.to(f32), w,
                              p["time_first"].to(f32), exp=nm.exp,
@@ -209,9 +210,9 @@ def block_decode(lp, st, x, nm=_Std):
     h2 = L.apply_norm(lp["ln2"], x2)
     p = lp["ffn"]
     mix2 = lambda m: nm.act_q(h2 * p[m] + ffn_x * (1.0 - p[m]))
-    rr = nm.sigmoid(mix2("time_mix_r") @ p["wr"])
-    kk = torch.square(torch.relu(mix2("time_mix_k") @ p["wk"]))
-    ffn = nm.act_q(rr * (nm.act_q(kk) @ p["wv"]))
+    rr = nm.sigmoid(_mm(mix2("time_mix_r"), p["wr"]))
+    kk = torch.square(torch.relu(_mm(mix2("time_mix_k"), p["wk"])))
+    ffn = nm.act_q(rr * _mm(nm.act_q(kk), p["wv"]))
     new_st = {"att_x": h.to(att_x.dtype),
               "ffn_x": h2.to(ffn_x.dtype),
               "wkv_a": new_wkv.a.to(st["wkv_a"].dtype),
@@ -368,10 +369,16 @@ def block_prefill(lp, st, x, valid, nm=_Std, *, hw: bool = False):
 
 @exact_matmuls()
 def prefill_chunk(params, state, tokens, valid, pos, cfg: ModelConfig, *,
-                  hw: bool = False):
+                  hw: bool = False, all_logits: bool = False):
     """Chunked prefill: tokens (B, C) with a per-slot PREFIX validity mask
     (B, C) -> (new_state, last-valid logits (B, 1, V)).  Lanes with no
-    valid token keep their state and return zero logits."""
+    valid token keep their state and return zero logits.
+
+    `all_logits=True` scores every position instead -> (new_state,
+    (B, C, V)): after ln_f the head runs over the whole chunk, K5 at
+    M = B·C, and invalid positions give zero logits.  Row n_valid - 1
+    equals the last-valid logits bit for bit: ln_f runs at the last-valid
+    row's shape, and K5's row bits do not depend on M."""
     del pos
     nm = _chunk_numerics(hw)
     dt = getattr(torch, cfg.dtype)
@@ -385,6 +392,16 @@ def prefill_chunk(params, state, tokens, valid, pos, cfg: ModelConfig, *,
                               {k: state[k][i] for k in STATE_KEYS}, x, valid,
                               nm, hw=hw)
         new.append(st)
+    if all_logits:
+        # ln_f a position at a time, at the (B, 1, D) shape of the last-
+        # valid row below: a CUDA reduction's order depends on how many
+        # rows it reduces, so one norm over all B·C rows could move a
+        # row's bits; the head is one K5 call at M = B·C
+        xf = torch.cat([L.apply_norm(params["ln_f"], x[:, j:j + 1])
+                        for j in range(x.shape[1])], dim=1)
+        logits = chunk_matmul(xf, params["head"], dt)
+        return _stack_states(new), torch.where(
+            valid[:, :, None], logits, torch.zeros_like(logits))
     n_valid = valid.to(torch.int32).sum(dim=1)
     xl = gather_last_valid(x, (n_valid - 1).clamp(min=0))[:, None]
     xl = L.apply_norm(params["ln_f"], xl)

@@ -333,12 +333,15 @@ def block_prefill(lp, st, x, valid, cfg: ModelConfig):
 
 
 @exact_matmuls()
-def prefill_chunk(params, state, tokens, valid, pos, cfg: ModelConfig):
+def prefill_chunk(params, state, tokens, valid, pos, cfg: ModelConfig, *,
+                  all_logits: bool = False):
     """Chunked prefill: tokens (B, C) with a per-slot PREFIX validity mask
     (B, C) -> (new_state, last-valid logits (B, 1, V)).  Lanes with no
     valid token keep their state and return zero logits.  Takes the
     output of `prepare_prefill_params` (the serving path) or a raw tree,
-    whose element-wise leaves are decoded here on every call."""
+    whose element-wise leaves are decoded here on every call.
+    `all_logits=True` scores every position -> (new_state, (B, C, V)), as
+    rwkv4's `prefill_chunk` does."""
     del pos
     dt = getattr(torch, cfg.dtype)
     params = cast_compute(prepare_prefill_params(params, cfg), dt)
@@ -351,6 +354,16 @@ def prefill_chunk(params, state, tokens, valid, pos, cfg: ModelConfig):
                               {k: state[k][i] for k in STATE_KEYS}, x,
                               valid, cfg)
         new.append(st)
+    if all_logits:
+        # ln_f a position at a time, at the (B, 1, D) shape of the last-
+        # valid row below: a CUDA reduction's order depends on how many
+        # rows it reduces, so one norm over all B·C rows could move a
+        # row's bits; the head is one K5 call at M = B·C
+        xf = torch.cat([L.apply_norm(params["ln_f"], x[:, j:j + 1])
+                        for j in range(x.shape[1])], dim=1)
+        logits = chunk_matmul(xf, params["head"], dt)
+        return _stack_states(new), torch.where(
+            valid[:, :, None], logits, torch.zeros_like(logits))
     n_valid = valid.to(torch.int32).sum(dim=1)
     xl = gather_last_valid(x, (n_valid - 1).clamp(min=0))[:, None]
     xl = L.apply_norm(params["ln_f"], xl)

@@ -1,4 +1,5 @@
 """Host-side runtime monitors (port of `repro/runtime/`)."""
-from repro_torch.runtime.monitor import StragglerDetector
+from repro_torch.runtime.monitor import (ServingCounters, StragglerDetector,
+                                         percentile)
 
-__all__ = ["StragglerDetector"]
+__all__ = ["ServingCounters", "StragglerDetector", "percentile"]

@@ -1,6 +1,6 @@
 """Continuous-batching scheduler: admission, chunked prefill, batched decode
 (port of `repro/serving/scheduler.py`; no SLO layer, prefix cache,
-speculation, faults, snapshots or sentinels yet).
+speculation, faults, snapshots or sentinels yet: ROADMAP Queue 1 item 6).
 
 One `tick()`:
   1. ADMITS queued requests into free pool slots (FIFO),
@@ -11,7 +11,11 @@ One `tick()`:
      an active-slot mask selecting which lanes' states commit.
 
 Inactive lanes are computed but their state is never committed, so a lane
-mid-prefill or free is never disturbed by decode traffic.
+mid-prefill or free is never disturbed by decode traffic.  `evict(rid)`
+cancels a queued or in-flight request and frees its slot.  With a
+`ServingCounters` attached, the scheduler calls its hooks where JAX's
+does: on_enqueue, on_admit, on_prefill, on_token(first=), on_finish,
+on_cancel and on_tick.
 
 There is no path demotion: a failing kernel raises out of `tick()`, it is
 never replaced by its plain twin behind the caller's back.
@@ -37,6 +41,9 @@ class Request:
 
 
 PREFILL, DECODE = "prefill", "decode"
+# a request's outcome, passed to on_finish (JAX's "shed" and "deadline"
+# come with the SLO layer, item 6)
+FINISHED, CANCELLED = "finished", "cancelled"
 
 
 @dataclasses.dataclass
@@ -95,19 +102,23 @@ class Scheduler:
                fresh (S,) bool)
         -> (new_pool_state, last_logits (S,1,V))
 
-    `on_token(req, tok)` fires per emitted token, `on_finish(req)` when a
-    request retires.
+    `on_token(req, tok)` fires per emitted token, `on_finish(req,
+    outcome)` when a request leaves, with outcome "finished" or
+    "cancelled"; `counters` (a `ServingCounters`, or None) takes the
+    telemetry hooks.
     """
 
     def __init__(self, pool, decode_fn: Callable, prefill_fn: Callable, *,
-                 prefill_chunk: int, on_token: Optional[Callable] = None,
+                 prefill_chunk: int, counters=None,
+                 on_token: Optional[Callable] = None,
                  on_finish: Optional[Callable] = None):
         self.pool = pool
         self.decode_fn = decode_fn
         self.prefill_fn = prefill_fn
         self.prefill_chunk = int(prefill_chunk)
+        self.counters = counters
         self.on_token = on_token or (lambda req, tok: None)
-        self.on_finish = on_finish or (lambda req: None)
+        self.on_finish = on_finish or (lambda req, outcome: None)
         self.queue: collections.deque[Request] = collections.deque()
         self.slots: dict[int, _Slot] = {}
         self.ticks = 0
@@ -119,6 +130,8 @@ class Scheduler:
             raise ValueError("max_new_tokens must be >= 1 (the first token "
                              "is sampled from the prompt's last logits)")
         self.queue.append(req)
+        if self.counters is not None:
+            self.counters.on_enqueue(req.rid)
 
     def tick(self) -> bool:
         """One scheduling round; returns True while work remains."""
@@ -126,6 +139,9 @@ class Scheduler:
         self._admit()
         self._prefill_tick()
         self._decode_tick()
+        if self.counters is not None:
+            self.counters.on_tick(active=len(self.slots),
+                                  queued=len(self.queue))
         return bool(self.queue or self.slots)
 
     def run(self):
@@ -133,12 +149,31 @@ class Scheduler:
         while self.tick():
             pass
 
+    def evict(self, rid: int) -> bool:
+        """Cancel an in-flight or queued request and free its slot; counted
+        as a cancellation, not a completion (no latency sample).  False
+        when no such request is queued or in flight."""
+        for slot, meta in list(self.slots.items()):
+            if meta.req.rid == rid:
+                self._retire(slot, meta, outcome=CANCELLED)
+                return True
+        for req in self.queue:
+            if req.rid == rid:
+                self.queue.remove(req)
+                if self.counters is not None:
+                    self.counters.on_cancel(rid)
+                self.on_finish(req, CANCELLED)
+                return True
+        return False
+
     def _admit(self):
         while self.queue and self.pool.n_free:
             req = self.queue.popleft()
             slot = self.pool.acquire()
             self.slots[slot] = _Slot(req=req,
                                      rng=np.random.default_rng(req.seed))
+            if self.counters is not None:
+                self.counters.on_admit(req.rid)
 
     def _prefill_tick(self):
         prefilling = [(s, m) for s, m in self.slots.items()
@@ -162,6 +197,8 @@ class Scheduler:
         for slot, meta in prefilling:
             meta.fresh = False
             meta.n_prefilled += parts[slot]
+            if self.counters is not None:
+                self.counters.on_prefill(meta.req.rid, parts[slot])
             if meta.n_prefilled == len(meta.req.prompt):
                 # the last prompt token's logits give the first generated
                 # token; the slot joins the decode batch from now on
@@ -195,12 +232,21 @@ class Scheduler:
             req, tok = meta.req, int(tok)
             meta.generated.append(tok)
             meta.next_token = tok
+            if self.counters is not None:
+                self.counters.on_token(req.rid,
+                                       first=len(meta.generated) == 1)
             self.on_token(req, tok)
             if (len(meta.generated) >= req.max_new_tokens or
                     (req.eos_token is not None and tok == req.eos_token)):
                 self._retire(slot, meta)
 
-    def _retire(self, slot: int, meta: _Slot):
+    def _retire(self, slot: int, meta: _Slot, *, outcome: str = FINISHED):
+        """Release `slot` and report `meta.req` with `outcome`."""
         del self.slots[slot]
         self.pool.release(slot)
-        self.on_finish(meta.req)
+        if self.counters is not None:
+            if outcome == CANCELLED:
+                self.counters.on_cancel(meta.req.rid)
+            else:
+                self.counters.on_finish(meta.req.rid)
+        self.on_finish(meta.req, outcome)

@@ -15,14 +15,18 @@ import torch
 
 
 class SlotStatePool:
-    """Preallocated `max_slots`-wide decode state + free-list admission."""
+    """Preallocated `max_slots`-wide decode state + free-list admission.
+    `max_len` and `dtype` (any float dtype) go to the model's
+    `init_slot_state`, as in JAX's pool; the recurrent models ignore
+    `max_len` (O(1) state)."""
 
-    def __init__(self, model, max_slots: int, *, dtype=torch.bfloat16,
-                 device="cuda"):
+    def __init__(self, model, max_slots: int, *, max_len: int = 0,
+                 dtype=torch.bfloat16, device="cuda"):
         self.model = model
         self.max_slots = int(max_slots)
-        self.state = model.init_slot_state(self.max_slots, dtype, device)
-        self._fresh = model.init_slot_state(1, dtype, device)
+        self.state = model.init_slot_state(self.max_slots, max_len, dtype,
+                                           device)
+        self._fresh = model.init_slot_state(1, max_len, dtype, device)
         # the slot axis of every leaf (axis 1 of rwkv4's (L, B, D) and of
         # rwkv6's (L, B, D) and (L, B, H, N, N))
         axes = model.decode_state_axes()

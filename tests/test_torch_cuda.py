@@ -2546,3 +2546,162 @@ def test_model_decode_raises_when_the_grid_cannot_launch(cuda):
         with pytest.raises(ValueError, match="cooperative grid"):
             rwkv4_model_decode(stack, st, x, grid=grid)
     assert rwkv4_model_decode.launches == before
+
+
+# --- the rest of the engine, plan and registry: a given tree, the counters,
+# --- cancel, f32 state, truncated models, all-position prefill logits
+
+def _all_counters():
+    from repro_torch.kernels.fused_decode import (
+        rwkv6_block_decode, rwkv6_model_decode)
+    from repro_torch.kernels.wkv6 import wkv6_seq
+    return (dpot_w8_matmul, dpot_w4_matmul, vq_matmul, wkv4_seq, wkv6_seq,
+            rwkv4_block_decode, rwkv4_model_decode, rwkv6_block_decode,
+            rwkv6_model_decode)
+
+
+@pytest.mark.parametrize("arch", ["rwkv4-169m", "rwkv6-7b"])
+def test_all_logits_last_row_is_prefill_chunk(cuda, arch):
+    """prefill_chunk_logits on a W8 tree: the head is one K5 call at
+    M = B·C; row n_valid - 1 equals prefill_chunk's logits bit for bit,
+    invalid rows are zero and the states equal bit for bit."""
+    from repro_torch.serving import build_plan
+    plan = build_plan(arch, smoke=True, quantized=True, fused_prefill=True,
+                      device="cuda")
+    model, params = plan.model, plan.prepared.prefill
+    lens = (6, 3, 0, 1)
+    B, C = len(lens), 6
+    g = torch.Generator(device=cuda).manual_seed(41)
+    toks = torch.randint(0, model.cfg.vocab, (B, C), device=cuda,
+                         dtype=torch.int32, generator=g)
+    valid = torch.arange(C, device=cuda)[None, :] < torch.tensor(
+        lens, device=cuda)[:, None]
+    state = model.init_decode_state(B, 0, device=cuda)
+    s1, last = model.prefill_chunk(params, state, toks, valid)
+    before = dpot_w8_matmul.launches
+    s2, rows = model.prefill_chunk_logits(params, state, toks, valid)
+    assert dpot_w8_matmul.launches > before
+    for b, n in enumerate(lens):
+        if n:
+            assert torch.equal(rows[b, n - 1], last[b, 0])
+    assert not rows[~valid].any()
+    for k in s1:
+        assert torch.equal(s1[k], s2[k])
+
+
+def test_truncated_model_decode_state_is_the_full_models(cuda):
+    """rwkv6 smoke at 3 layers cut to its first 2 (a one-layer stack keeps
+    its shared scales in its slabs, which K7's table does not take): one
+    prefill chunk (K5 + K6) and 4 K7-model steps on truncate_params give
+    truncate_state of the full model's state after the same tokens, bit
+    for bit."""
+    import dataclasses
+    from repro_torch.kernels.fused_decode import rwkv6_model_decode
+    from repro_torch.serving import build_plan
+    model = get_model(dataclasses.replace(
+        get_model("rwkv6-7b", smoke=True).cfg, n_layers=3))
+    plan = build_plan(model, quantized=True, fused_decode="model",
+                      fused_prefill=True, device="cuda")
+    prep = plan.prepared
+    B, C, depth = 4, 6, 2
+    toks = torch.randint(0, model.cfg.vocab, (B, C + 4), device=cuda,
+                         dtype=torch.int32,
+                         generator=torch.Generator(device=cuda).manual_seed(
+                             43))
+    valid = torch.ones((B, C), dtype=torch.bool, device=cuda)
+
+    def run(m, prefill, decode):
+        s = m.init_decode_state(B, 0, device=cuda)
+        s, _ = m.prefill_chunk(prefill, s, toks[:, :C], valid)
+        for j in range(C, C + 4):
+            _, s = m.decode_step_fused_model(decode, s, toks[:, j:j + 1], 0)
+        return s
+    full = run(model, prep.prefill, prep.decode)
+    tm = model.truncated(depth)
+    tp = model.truncate_params(prep.raw, depth)
+    before = rwkv6_model_decode.launches
+    cut = run(tm, tm.prepare_path_params(tm.prefill_paths()["chunked"], tp),
+              tm.prepare_fused_model_params(tp))
+    assert rwkv6_model_decode.launches == before + 4
+    want = model.truncate_state(full, depth)
+    for k in cut:
+        assert torch.equal(cut[k], want[k]), k
+
+
+def test_f32_state_on_a_fused_path_raises_before_a_launch(cuda):
+    from repro_torch.serving import ServingEngine, build_plan
+    counters = _all_counters()
+    before = [c.launches for c in counters]
+    for kw in (dict(fused_decode="model"), dict(fused_decode="block"),
+               dict(fused_prefill=True)):
+        with pytest.raises(ValueError, match="bf16 state"):
+            build_plan("rwkv4-169m", smoke=True, quantized=True,
+                       state_dtype=torch.float32, device="cuda", **kw)
+    assert [c.launches for c in counters] == before
+    # the per-op path serves an f32 pool on the card
+    eng = ServingEngine("rwkv4-169m", smoke=True, max_batch=2,
+                        prefill_chunk=4, state_dtype=torch.float32,
+                        device="cuda")
+    assert all(v.dtype == torch.float32 for v in eng.pool.state.values())
+    h = eng.submit([1, 2, 3, 4, 5], max_new_tokens=4)
+    eng.run()
+    assert h.outcome == "finished" and len(h.tokens) == 4
+
+
+def test_a_given_tree_on_the_cpu_raises_for_a_cuda_plan(cuda):
+    from repro_torch.serving import build_plan
+    model = get_model("rwkv4-169m", smoke=True)
+    tree = model.init_params(0, "cpu")
+    with pytest.raises(ValueError, match=r"params\['blocks'\]"):
+        build_plan(model, tree, quantized=True, fused_decode="model",
+                   device="cuda")
+
+
+def test_engine_serves_a_given_tree_with_counters_and_cancel(cuda):
+    """A given tree through the model path (K5 + K2 + K4): the packed raw
+    tree is pack_params of it, the counters count the run, each program is
+    built once, and cancelling one request leaves the others' streams as
+    they were."""
+    from repro_torch.runtime.monitor import ServingCounters
+    from repro_torch.serving import ServingEngine
+    model = get_model("rwkv4-169m", smoke=True)
+    tree = model.init_params(7, "cuda")
+    eng = ServingEngine(model, params=tree, quantized=True,
+                        fused_decode="model", fused_prefill=True,
+                        max_batch=4, prefill_chunk=4,
+                        counters=ServingCounters(), device="cuda")
+    ref = pack_params(tree)
+    assert torch.equal(eng.plan.prepared.raw["head"]["packed"],
+                       ref["head"]["packed"])
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, model.cfg.vocab, int(n)).tolist()
+               for n in (3, 9, 1, 6)]
+    counters = (dpot_w8_matmul, wkv4_seq, rwkv4_model_decode)
+    before = [c.launches for c in counters]
+    hs = [eng.submit(p, max_new_tokens=5) for p in prompts]
+    snap = eng.run()
+    assert all(c.launches > b for c, b in zip(counters, before))
+    assert (snap["admitted"], snap["finished"], snap["decode_tokens"],
+            snap["prefill_tokens"]) == (4, 4, 20, 19)
+    assert eng.trace_counts == {"decode": 1, "prefill": 1}
+    again = [eng.submit(p, max_new_tokens=5) for p in prompts]
+    eng.step()
+    assert eng.cancel(again[1]) and again[1].outcome == "cancelled"
+    snap = eng.run()
+    assert snap["cancelled"] == 1
+    assert [h.tokens for i, h in enumerate(again) if i != 1] == \
+        [h.tokens for i, h in enumerate(hs) if i != 1]
+
+
+def test_greedy_decode_sampling_on_the_card(cuda):
+    from repro_torch.launch.serve import greedy_decode
+    model = get_model("rwkv4-169m", smoke=True)
+    params = model.cast_params(model.init_params(0, "cuda"))
+    first = torch.tensor([[1], [2]], dtype=torch.int32, device=cuda)
+    run = lambda **kw: greedy_decode(
+        model, params, model.init_decode_state(2, 0, device=cuda), first, 8,
+        **kw)[0]
+    gen = lambda: torch.Generator(device=cuda).manual_seed(5)
+    a, b = run(sample_temp=0.8, rng=gen()), run(sample_temp=0.8, rng=gen())
+    assert torch.equal(a, b)
+    assert torch.equal(run(sample_temp=0.0, rng=gen()), run())

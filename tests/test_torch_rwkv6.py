@@ -440,7 +440,7 @@ def test_engine_solo_equals_batched(path):
     eng = _engine(path)
     prompts = _prompts(6, eng.model.cfg.vocab, 4)
     handles = [eng.submit(p, max_new_tokens=5) for p in prompts]
-    assert eng.run()["tokens"] == 30
+    assert eng.run()["decode_tokens"] == 30
     for p, h in zip(prompts, handles):
         solo = eng.submit(p, max_new_tokens=5)
         eng.run()

@@ -44,7 +44,7 @@ def test_engine_solo_equals_batched(path):
     prompts = _prompts(6, eng.model.cfg.vocab)
     handles = [eng.submit(p, max_new_tokens=6) for p in prompts]
     stats = eng.run()
-    assert stats["tokens"] == 36 and all(h.done for h in handles)
+    assert stats["decode_tokens"] == 36 and all(h.done for h in handles)
     for p, h in zip(prompts, handles):
         solo = eng.submit(p, max_new_tokens=6)
         eng.run()
@@ -237,7 +237,7 @@ def test_model_path_solo_equals_batched():
     eng = _model_engine()
     prompts = _prompts(6, eng.model.cfg.vocab, seed=2)
     handles = [eng.submit(p, max_new_tokens=6) for p in prompts]
-    assert eng.run()["tokens"] == 36
+    assert eng.run()["decode_tokens"] == 36
     for p, h in zip(prompts, handles):
         solo = eng.submit(p, max_new_tokens=6)
         eng.run()
