@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card proof that the PyTorch/CUDA port serves RWKV-4 (exact and
 hardware numerics) and RWKV-6 on every weight form (W8, W4, VQ and mixed
-planes, plain bf16), and the dense transformer smollm-135m, runs
+planes, plain bf16), with its prefix cache and self-speculative decode,
+and the dense transformer smollm-135m, runs
 the RWKV whole-sequence forward, trains smollm-135m and rwkv4-169m, and
 runs the quantized serve step and the Δ-PoT matmuls of its public kernel
 entry point, through its kernels.
@@ -379,7 +380,38 @@ each prints its seconds and peak device memory (`phase_done` lines):
                     TF_BOUNDS["model"], then one request cancelled after
                     4 ticks: outcome "cancelled", the others' streams
                     unchanged
-13. The `kernels` JSON line (thirty-three entries: the nine kernels, then
+13. The prefix cache and self-speculative decode (run after the all-
+    logits phases, on the engines' own weight draws through `_replan`):
+      prefix cache  rwkv4-169m MIXED, model path, chunked prefill, 8
+                    slots, chunk 16: 8 requests sharing a 64-token prefix
+                    after a warm-up request: 8 hits, cached_tokens 512,
+                    prefill_tokens the suffixes' sum, streams bit for bit
+                    a cacheless engine's, K4, K5 and K2 launched,
+                    trace_counts 1 / 1, check_state; device_slots 1 and
+                    host_slots 8 (spills, host hits, the same streams); a
+                    W8 engine sharing the cache gets no hit.  rwkv6-7b W8
+                    model path: a second request resumes a 32-token
+                    prefix, bit for bit; one lane state's bytes
+      speculative   rwkv4-169m MIXED model path, phase_engine's 8 requests
+                    × 32 tokens, k 1, 2, 4 at draft depth 6 (K4 on the
+                    truncated stack): identity (a) (the real drafter's
+                    stream equal to an all-reject and an all-accept
+                    stub's, greedy and sampled at 0.8), JAX's
+                    trace_counts, drafted = accepted + rejected, the
+                    rollback snapshot intact after every draft and verify;
+                    a request cancelled from its own on_token mid-tick;
+                    aligned weights (att.wo, ffn.wv zero past layer 0),
+                    depth 1 (K3), k 4: acceptance >= 0.9; a cache hit then
+                    speculation; identity (c): verify rows teacher-forced
+                    within TF_BOUNDS["model"]; finding (d): k 1 against k
+                    4 streams, and op by op where one window of 4 and four
+                    of 1 first differ; K2 at T 1, 2, 4 and the head's K5-W4
+                    at M 8·k against their plain versions; tokens/s at
+                    each k beside the plain engine's; the verify logits'
+                    host copy.  rwkv6-7b W8 model path, k 4, depth 16
+                    (K7-model on 16 layers): identity (a) with the reject
+                    stub, trace_counts, K6 at T 1, 2, 4
+14. The `kernels` JSON line (thirty-three entries: the nine kernels, then
     K9 and the hardware-numerics forms of K2, K5, K3 and K4, then K13,
     K13-dq and K13-dkv, then K10 and K11, then K12, K12-bwd, K2-bwd and
     K11-bwd, then K1 and K8, then phase 11's forms: K3 and K4 on bf16,
@@ -387,7 +419,9 @@ each prints its seconds and peak device memory (`phase_done` lines):
     the entries of K2, K2-hw and K6 carry their forward-shape checks under
     "forward_check", their errors in max_abs_err and their shapes in
     shapes; K5's entry carries the head at M 128 of both models under
-    "all_logits_head"), the card's name and power limit, and the last
+    "all_logits_head", K5-W4's the MIXED head at M 8·k under
+    "verify_head", K2's and K6's the verify windows under
+    "verify_windows"), the card's name and power limit, and the last
     line {"ok":
     true, "device": {...}}.
 
@@ -993,20 +1027,22 @@ def phase_k3(params, cfg, flush, planes="w8"):
     return row
 
 
-def phase_k4(engine, flush, planes="mixed"):
+def phase_k4(engine, flush, planes="mixed", stack=None, role=None):
     """K4 on the model-path engine's prepared slabs (MIXED planes, or
-    plain bf16 weights) at B = 8: bit for bit equal to 12 K3 launches over
-    the same layers, each K3 launch within K3_* of K3's plain version on
-    the same inputs, and K4 within K4_* of its own plain version (on
-    another form than MIXED, K4_*'s recipe applied to that form: 1.25x
-    the gap its plain version reads between the CPU and the card in this
-    run); its time beside the byte bound."""
+    plain bf16 weights; or `stack`, another stack of the engine's model,
+    such as the drafter's truncated one) at B = 8: bit for bit equal to L
+    K3 launches over the same layers, each K3 launch within K3_* of K3's
+    plain version on the same inputs, and K4 within K4_* of its own plain
+    version (on another form than MIXED, K4_*'s recipe applied to that
+    form: 1.25x the gap its plain version reads between the CPU and the
+    card in this run); its time beside the byte bound."""
     from repro_torch.kernels.fused_decode import (
         STATE_KEYS, rwkv4_block_decode_plain, rwkv4_model_decode,
         rwkv4_model_decode_plain)
-    stack = engine.plan.prepared.decode["blocks"]
+    if stack is None:
+        stack = engine.plan.prepared.decode["blocks"]
     cfg = engine.model.cfg
-    L, B, D, F = cfg.n_layers, 8, cfg.d_model, cfg.d_ff
+    L, B, D, F = stack.n_layers, 8, cfg.d_model, cfg.d_ff
     g = torch.Generator(device=DEV).manual_seed(SEED + 4)
     rn = lambda *s: torch.randn(s, generator=g, device=DEV)
     bf = torch.bfloat16
@@ -1023,7 +1059,7 @@ def phase_k4(engine, flush, planes="mixed"):
         e, m = _k3_check(o3, rwkv4_block_decode_plain(lp, st_l, x_l),
                          f"layer {l} ({planes})")
         errs["max"], errs["mean"] = max(errs["max"], e), max(errs["mean"], m)
-    k3x12_ms = _k4_against_k3(stack, st, x, (x4, new4), flush, held)
+    k3xL_ms = _k4_against_k3(stack, st, x, (x4, new4), flush, held)
     k3_err, k3_mean = errs["max"], errs["mean"]
     from repro_torch.core.quant.serving import FusedLayerStack
     from repro_torch.tree import tree_map
@@ -1061,7 +1097,8 @@ def phase_k4(engine, flush, planes="mixed"):
     ops = 2.0 * B * L * (5 * D * D + 2 * D * F)
     bms, by = _bound(nbytes, ops, PEAK_BF16_FLOPS)
     kernel_ms = _time_ms(lambda: rwkv4_model_decode(stack, st, x), flush)
-    row = {"kernel": "rwkv4_model_decode", "planes": planes, "L": L, "B": B,
+    row = {"kernel": "rwkv4_model_decode", "planes": planes,
+           **({"role": role} if role else {}), "L": L, "B": B,
            "D": D, "F": F, "grid": grid, "bitwise_equal_on_grids": [1, 7],
            "plan": _k4_plan(stack, D, F, False),
            "equals_k3_per_layer": True,
@@ -1071,8 +1108,8 @@ def phase_k4(engine, flush, planes="mixed"):
            "gaps_to_plain": rel,
            "bounds": {"max_rel": bounds[0], "mean_rel": bounds[1]},
            "weight_bytes": w_bytes, "aux_bytes": aux_bytes, "bytes": nbytes,
-           "kernel_ms": kernel_ms, "k3x12_ms": k3x12_ms,
-           "ratio_to_k3x12": kernel_ms / k3x12_ms,
+           "kernel_ms": kernel_ms, f"k3x{L}_ms": k3xL_ms,
+           f"ratio_to_k3x{L}": kernel_ms / k3xL_ms,
            "plain_ms": _time_ms(
                lambda: rwkv4_model_decode_plain(stack, st, x), flush),
            "library_ms": None, "bound_ms": bms, "bound_by": by,
@@ -1532,7 +1569,7 @@ def phase_k4_hw(stack, cfg, flush):
     st, x = _hw_state(cfg, (L, B), SEED + 15)
     x4, new4 = rwkv4_model_decode(stack, st, x)
     grid = _k4_grids(stack, st, x, (x4, new4))
-    k3x12_ms = _k4_against_k3(stack, st, x, (x4, new4), flush)
+    k3xL_ms = _k4_against_k3(stack, st, x, (x4, new4), flush)
     ref = rwkv4_model_decode_plain(stack, st, x)
     cpu_stack = FusedLayerStack(_to_cpu(stack.slabs),
                                 tuple(a.cpu() for a in stack.aux),
@@ -1554,8 +1591,8 @@ def phase_k4_hw(stack, cfg, flush):
                               for o, r in zip((x4, *new4.values()),
                                               (ref[0], *ref[1].values()))),
            "gaps_to_plain": rel, "bounds": bound, "bytes": nbytes,
-           "kernel_ms": kernel_ms, "k3x12_ms": k3x12_ms,
-           "ratio_to_k3x12": kernel_ms / k3x12_ms,
+           "kernel_ms": kernel_ms, f"k3x{L}_ms": k3xL_ms,
+           f"ratio_to_k3x{L}": kernel_ms / k3xL_ms,
            "plain_ms": _time_ms(
                lambda: rwkv4_model_decode_plain(stack, st, x), flush),
            "library_ms": None, "bound_ms": bms, "bound_by": by,
@@ -4529,6 +4566,1008 @@ def phase_greedy_sample(params, model):
                              "sample_temp=0 is not the greedy stream")
 
 
+# ---------------------------------------------------------------------------
+# The recurrent-state prefix cache and self-speculative decode
+# ---------------------------------------------------------------------------
+
+
+def _sync():
+    if DEV == "cuda" and torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _replan(plan, raw=None, k=None, depth=None):
+    """A new ExecutionPlan on `plan`'s paths and prepared forms (or on the
+    packed tree `raw`, its path forms prepared here), speculative with a
+    window of `k` and a drafter of `depth` layers (default half the stack)
+    when `k` is given: engines on one weight draw, each with its own
+    programs and trace_counts."""
+    from repro_torch.serving.plan import (ExecutionPlan, SpeculativePath,
+                                          prepare_draft)
+    model, prep = plan.model, plan.prepared
+    if raw is not None:
+        prep = dataclasses.replace(
+            prep, raw=raw,
+            decode=model.prepare_path_params(plan.decode_desc, raw),
+            prefill=model.prepare_path_params(plan.prefill_desc, raw))
+    sp = None
+    if k is not None:
+        depth = max(1, model.cfg.n_layers // 2) if depth is None else depth
+        sp = SpeculativePath(k=k, draft_depth=depth,
+                             desc=model.draft_paths()["truncated"])
+        prep = dataclasses.replace(prep, draft=None if k == 1 else
+                                   prepare_draft(model, plan.decode_desc.name,
+                                                 prep.raw, depth))
+    return ExecutionPlan(model, prep, plan.decode_desc, plan.prefill_desc,
+                         prefill_chunk=plan.prefill_chunk,
+                         max_len=plan.max_len, state_dtype=plan.state_dtype,
+                         device=plan.device, speculative=sp)
+
+
+def _serve(engine, prompts, n_new, *, temperature=0.0, counters=(),
+           sequential=False):
+    """Serve `prompts` (request i seeded SEED + 100 + i) with fresh
+    ServingCounters (the cache's too), every counter in `counters` set to
+    0 just before and read just after: (streams, snapshot, seconds,
+    launches, handles).  `sequential` serves each request alone, one
+    after the other."""
+    from repro_torch.runtime.monitor import ServingCounters
+    c = ServingCounters()
+    engine.counters = engine.scheduler.counters = c
+    if engine.prefix_cache is not None:
+        engine.prefix_cache.counters = c
+    for fn in counters:
+        fn.launches = 0
+    _sync()
+    t0 = time.perf_counter()
+    hs = []
+    for i, p in enumerate(prompts):
+        hs.append(engine.submit(p, max_new_tokens=n_new,
+                                temperature=temperature, seed=SEED + 100 + i))
+        if sequential:
+            engine.run()
+    snap = engine.run()
+    _sync()
+    seconds = time.perf_counter() - t0
+    return ([h.tokens for h in hs], snap, seconds,
+            {fn.__name__: fn.launches for fn in counters}, hs)
+
+
+def _stub_drafter(engine, streams, kind):
+    """Replace the engine's drafter by a stub that knows each request's
+    stream (`streams`, in submission order from the engine's next rid):
+    "accept" drafts the continuation, "reject" the next token + 1 mod V,
+    "ragged" accepts on even slots and rejects on odd ones.  Returns the
+    real drafter, to put back.  The CPU tests use it too."""
+    sched, S = engine.scheduler, engine.pool.max_slots
+    km1, V, base = engine.speculative - 1, engine.model.cfg.vocab, \
+        engine._next_rid
+    real = sched.draft_fn
+
+    def draft(state, toks):
+        out = np.zeros((S, km1), np.int32)
+        for slot, meta in sched.slots.items():
+            if meta.phase != "decode":
+                continue
+            s, g = streams[meta.req.rid - base], len(meta.generated)
+            if kind == "accept" or (kind == "ragged" and slot % 2 == 0):
+                out[slot] = [s[min(g + i, len(s) - 1)] for i in range(km1)]
+            else:
+                out[slot] = (s[min(g, len(s) - 1)] + 1) % V
+        return out
+    sched.draft_fn = draft
+    return real
+
+
+def _snapshot_guard(engine):
+    """Wrap the engine's drafter and verifier: the rollback snapshot (the
+    pool state a tick's draft and first verify read) is cloned when first
+    seen and compared with its clone after each draft and verify call of
+    the tick.  Returns the record {"ticks", "checks", "intact"}.  The
+    on-card tests use it too."""
+    sched = engine.scheduler
+    draft, verify = sched.draft_fn, sched.verify_fn
+    rec, saved = {"ticks": 0, "checks": 0, "intact": True}, {}
+
+    def keep(state):
+        if saved.get("ref") is not state:
+            saved["ref"] = state
+            saved["copy"] = {k: v.clone() for k, v in state.items()}
+            rec["ticks"] += 1
+
+    def check():
+        rec["checks"] += 1
+        rec["intact"] &= all(torch.equal(saved["ref"][k], v)
+                             for k, v in saved["copy"].items())
+
+    def d(state, toks):
+        keep(state)
+        out = draft(state, toks)
+        check()
+        return out
+
+    def v(state, window, valid):
+        if state is sched._spec_snapshot:
+            keep(state)
+        out = verify(state, window, valid)
+        check()
+        return out
+    if draft is not None:
+        sched.draft_fn = d
+    sched.verify_fn = v
+    return rec
+
+
+def _spec_counts(k, rolled_back=True):
+    """JAX's trace_counts of a speculative engine after serving."""
+    want = {"decode": 0, "prefill": 1, "verify": 1,
+            "rollback": int(k > 1 and rolled_back)}
+    if k > 1:
+        want["draft"] = 1
+    return want
+
+
+def _first_diff(a, b):
+    """(request, position) of the first token where two stream lists
+    differ, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        for j, (s, t) in enumerate(zip(x, y)):
+            if s != t:
+                return [i, j]
+        if len(x) != len(y):
+            return [i, min(len(x), len(y))]
+    return None
+
+
+def _k2_windows(cfg, flush):
+    """K2 at the verify windows' shapes, B 8, T 1, 2, 4 (prefix masks), the
+    bf16 pool state in and the bf16 carry, against its plain version."""
+    from repro_torch.kernels.wkv4 import wkv4_seq, wkv4_seq_plain
+    rows = []
+    for T in (1, 2, 4):
+        B, C = 8, cfg.d_model
+        g = torch.Generator(device=DEV).manual_seed(SEED + 40 + T)
+        rn = lambda *s: torch.randn(s, generator=g, device=DEV)
+        k, v = rn(B, T, C), rn(B, T, C)
+        w, u = torch.exp(0.5 * rn(C)), 0.5 * rn(C)
+        bf = lambda t: t.to(torch.bfloat16).float()
+        args = (k, v, w, u, bf(rn(B, C)), bf(rn(B, C).abs() + 0.5),
+                bf(rn(B, C) - 1))
+        valid = torch.zeros((B, T), dtype=torch.bool, device=DEV)
+        for i, n in enumerate((T, T - 1, 0, 1, T, T, T // 2, T)):
+            valid[i, :n] = True
+        kw = {"valid": valid, "carry_dtype": "bfloat16"}
+        y, fin = wkv4_seq(*args, **kw)
+        y_p, fin_p = wkv4_seq_plain(*args, **kw)
+        err = 0.0
+        for name, o, r in zip(("y", "a", "b", "o"), (y, *fin),
+                              (y_p, *fin_p)):
+            ok, e = _elementwise_ok(o, r)
+            if not ok:
+                raise AssertionError(f"K2 T {T} {name}: max |d| {e}")
+            err = max(err, e)
+        nbytes = 4 * (3 * B * T * C + 2 * C + 6 * B * C) + 4 * B * T
+        bms, by = _bound(nbytes, 20.0 * B * T * C, PEAK_F32_FLOPS)
+        row = {"kernel": "wkv4_seq", "role": "verify window", "B": B,
+               "T": T, "C": C, "max_abs_err": err,
+               "kernel_ms": _time_ms(lambda: wkv4_seq(*args, **kw), flush),
+               "plain_ms": _time_ms(lambda: wkv4_seq_plain(*args, **kw),
+                                    flush),
+               "library_ms": None, "bound_ms": bms, "bound_by": by}
+        _line(row)
+        rows.append(row)
+    return rows
+
+
+def _k6_windows(flush):
+    """K6 at the verify windows' shapes, (B, T, H, N) = (8, 1 / 2 / 4, 64,
+    64), prefix masks, the bf16 pool state and carry (`_k6_check`)."""
+    from repro_torch.kernels.wkv6 import wkv6_seq, wkv6_seq_plain
+    rows = []
+    for T in (1, 2, 4):
+        B, H, N = 8, 64, 64
+        args, kw = _k6_operands(B, T, H, N, SEED + 50 + T,
+                                (T, T - 1, 0, 1, T, T, T // 2, T))
+        err, _ = _k6_check(args, kw, f"verify window T {T}")
+        nbytes, bms, by = _k6_bound(B, T, H, N, 2, True)
+        row = {"kernel": "wkv6_seq", "role": "verify window", "B": B,
+               "T": T, "H": H, "N": N, "max_abs_err": err,
+               "state_bit_exact": True, "y_inorder_bit_exact": True,
+               "kernel_ms": _time_ms(lambda: wkv6_seq(*args, **kw), flush),
+               "plain_ms": _time_ms(lambda: wkv6_seq_plain(*args, **kw),
+                                    flush),
+               "library_ms": None, "bound_ms": bms, "bound_by": by}
+        _line(row)
+        rows.append(row)
+    return rows
+
+
+def _head_windows(head, S, ks, flush):
+    """The head's K5 (its plane's form) at the verify heads' M = S·k,
+    against its plain version, beside torch.matmul on the decoded plane."""
+    from repro_torch.core.quant.serving import leaf_plane, unpack_leaf
+    from repro_torch.device import exact_matmuls
+    from repro_torch.kernels import fused_prefill as fp
+    plane = leaf_plane(head)
+    fn, plain, codes = {
+        "w8": (fp.dpot_w8_matmul, fp.dpot_w8_matmul_plain, "packed"),
+        "w4": (fp.dpot_w4_matmul, fp.dpot_w4_matmul_plain, "packed4")}[plane]
+    wq, scale = head[codes], head["scale"].reshape(-1)
+    w_bf = unpack_leaf(head)
+    K, N = w_bf.shape
+    g = torch.Generator(device=DEV).manual_seed(SEED + 60)
+    rows = []
+    for k in ks:
+        M = S * k
+        x = torch.randn((M, K), generator=g, device=DEV).to(torch.bfloat16)
+        ok, err = _elementwise_ok(fn(x, wq, scale), plain(x, wq, scale),
+                                  _sum_order_floor(x, w_bf))
+        if not ok:
+            raise AssertionError(f"K5 head {plane} M {M}: max |d| {err}")
+        nbytes = M * K * 2 + wq.numel() + N * 4 + M * N * 2
+        bms, by = _bound(nbytes, 2.0 * M * N * K, PEAK_BF16_FLOPS)
+        with exact_matmuls():
+            lib = _time_ms(lambda: torch.matmul(x, w_bf), flush)
+        row = {"kernel": fn.__name__, "matrix": "head", "role":
+               "verify head", "M": M, "K": K, "N": N, "max_abs_err": err,
+               "kernel_ms": _time_ms(lambda: fn(x, wq, scale), flush),
+               "plain_ms": _time_ms(lambda: plain(x, wq, scale), flush),
+               "library_ms": lib, "bound_ms": bms, "bound_by": by}
+        _line(row)
+        rows.append(row)
+    return rows
+
+
+def _logits_to_host_ms(S, k, V, reps=10):
+    """The host copy a speculative tick makes of its verify logits: (S, k,
+    V) bf16 on the card to f32 numpy, ms a copy (host clock, synced)."""
+    t = torch.zeros((S, k, V), dtype=torch.bfloat16, device=DEV)
+    t.float().cpu().numpy()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        t.float().cpu().numpy()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _prefix_traffic(V, prefix_len, seed):
+    """A shared `prefix_len`-token prefix, a warm-up prompt (the prefix and
+    one token) and 8 prompts of the prefix and 5-40 tokens of their own."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, V, prefix_len).tolist()
+    warm = prefix + rng.integers(0, V, 1).tolist()
+    prompts = [prefix + rng.integers(0, V, int(n)).tolist()
+               for n in rng.integers(5, 41, 8)]
+    return prefix, warm, prompts
+
+
+def phase_prefix_cache(model_engine, w8_engine):
+    """The prefix cache on rwkv4-169m's MIXED model path (K4, K5 + K2; 8
+    slots, chunk 16): 8 requests sharing a 64-token prefix, each with 5-40
+    tokens of its own, × 32 new tokens, after a warm-up request (the
+    prefix and one token) that publishes the prefix's boundary states.
+    Asserts 8 hits, cached_tokens 8 × 64, prefill_tokens the suffixes'
+    sum, the streams bit for bit a cacheless engine's, K4, K5 and K2
+    launched, trace_counts {"decode": 1, "prefill": 1}, check_state; then
+    the same requests one after the other with device_slots 1 and
+    host_slots 8 (spills and host hits, the streams unchanged); then a W8
+    block-path engine sharing the cache gets no hit from the MIXED
+    entries.  Prints the mean TTFT with and without the cache."""
+    from repro_torch.kernels.fused_decode import rwkv4_model_decode
+    from repro_torch.kernels.fused_prefill import (
+        dpot_w4_matmul, dpot_w8_matmul, vq_matmul)
+    from repro_torch.kernels.wkv4 import wkv4_seq
+    from repro_torch.serving import PrefixCacheConfig, ServingEngine
+    plan = model_engine.plan
+    V = plan.model.cfg.vocab
+    prefix, warm, prompts = _prefix_traffic(V, 64, SEED + 30)
+    suffix = sum(len(p) - len(prefix) for p in prompts)
+    counters = (dpot_w8_matmul, dpot_w4_matmul, vq_matmul, wkv4_seq,
+                rwkv4_model_decode)
+    # the cacheless reference on its own plan: warm-up, then the 8
+    plain = ServingEngine(plan.model, plan=_replan(plan), max_batch=8,
+                          device=DEV)
+    (w_ref,), _, _, _, _ = _serve(plain, [warm], 32)
+    ref, snap0, _, _, _ = _serve(plain, prompts, 32)
+    cached = ServingEngine(plan.model, plan=_replan(plan), max_batch=8,
+                           prefix_cache=True, device=DEV)
+    cache = cached.prefix_cache
+    (w_got,), _, _, _, _ = _serve(cached, [warm], 32)
+    got, snap, seconds, launches, _ = _serve(cached, prompts, 32,
+                                             counters=counters)
+    cache.check_state()
+    want = {"cache_hits": 8, "cache_misses": 0,
+            "cached_tokens": 8 * len(prefix), "prefill_tokens": suffix,
+            "finished": 8}
+    counts = {k: snap[k] for k in want}
+    main_ok = (counts == want and got == ref and w_got == w_ref
+               and min(launches.values()) > 0
+               and cached.trace_counts == {"decode": 1, "prefill": 1})
+    # the spill tier: one device slot, the requests one after the other
+    spill = ServingEngine(plan.model, plan=_replan(plan), max_batch=8,
+                          prefix_cache=PrefixCacheConfig(device_slots=1,
+                                                         host_slots=8),
+                          device=DEV)
+    _serve(spill, [warm], 32)
+    s_got, s_snap, _, _, _ = _serve(spill, prompts, 32, sequential=True)
+    spill.prefix_cache.check_state()
+    s_stats = spill.prefix_cache.snapshot()
+    spill_ok = (s_got == ref and s_stats["spills"] > 0
+                and s_stats["host_hits"] > 0 and s_snap["cache_hits"] == 8)
+    # a W8 engine sharing the MIXED entries' cache: another variant
+    w8 = ServingEngine(plan.model, plan=_replan(w8_engine.plan), max_batch=8,
+                       prefix_cache=cache, device=DEV)
+    _, w8_snap, _, _, _ = _serve(w8, prompts, 4)
+    variants = [str(e.plan.cache_variant()) for e in (cached, w8)]
+    iso_ok = (w8_snap["cache_hits"] == 0 and w8_snap["cache_misses"] == 8
+              and variants[0] != variants[1])
+    cache.check_state()
+    ok = main_ok and spill_ok and iso_ok
+    _line({"phase": "prefix_cache", "arch": plan.model.cfg.name,
+           "planes": "MIXED", "decode": plan.decode_desc.name,
+           "prefill": plan.prefill_desc.name, "slots": 8,
+           "chunk": plan.prefill_chunk, "prefix": len(prefix),
+           "suffix_lens": [len(p) - len(prefix) for p in prompts],
+           "new_tokens": 32, "counts": counts, "want": want,
+           "streams_bit_equal": got == ref and w_got == w_ref,
+           "launches": launches, "trace_counts": cached.trace_counts,
+           "mean_ttft_s": {"cache": snap["mean_ttft_s"],
+                           "no_cache": snap0["mean_ttft_s"]},
+           "mean_cache_probe_s": snap["mean_cache_probe_s"],
+           "mean_state_copy_s": snap["mean_state_copy_s"],
+           "tokens_per_s": snap["decode_tokens"] / seconds,
+           "cache": cache.snapshot(),
+           "spill": {"stats": s_stats, "cache_hits": s_snap["cache_hits"],
+                     "streams_bit_equal": s_got == ref},
+           "w8_shared": {"variants": variants,
+                         "cache_hits": w8_snap["cache_hits"],
+                         "cache_misses": w8_snap["cache_misses"]},
+           "ok": ok})
+    if not ok:
+        raise AssertionError(f"prefix cache: main {main_ok}, spill "
+                             f"{spill_ok}, variant isolation {iso_ok}")
+    return {"prefix-cache": launches}
+
+
+def phase_prefix_cache6(engine):
+    """The prefix cache on rwkv6-7b's W8 model path (K7-model, K5 + K6):
+    two requests sharing a 32-token prefix, served one after the other;
+    the second hits and streams the uncached engine's tokens bit for bit.
+    Prints one lane state's bytes."""
+    from repro_torch.kernels.fused_decode import rwkv6_model_decode
+    from repro_torch.kernels.fused_prefill import dpot_w8_matmul
+    from repro_torch.kernels.wkv6 import wkv6_seq
+    from repro_torch.serving import ServingEngine
+    plan = engine.plan
+    V = plan.model.cfg.vocab
+    rng = np.random.default_rng(SEED + 31)
+    prefix = rng.integers(0, V, 32).tolist()
+    prompts = [prefix + rng.integers(0, V, n).tolist() for n in (5, 9)]
+    counters = (dpot_w8_matmul, wkv6_seq, rwkv6_model_decode)
+    ref, _, _, _, _ = _serve(engine, prompts, 16, sequential=True)
+    cached = ServingEngine(plan.model, plan=_replan(plan), max_batch=8,
+                           prefix_cache=True, device=DEV)
+    got, snap, seconds, launches, _ = _serve(cached, prompts, 16,
+                                             counters=counters,
+                                             sequential=True)
+    cached.prefix_cache.check_state()
+    lane = cached.pool.read_slot(0)
+    lane_bytes = sum(t.numel() * t.element_size() for t in lane.values())
+    ok = (got == ref and snap["cache_hits"] == 1
+          and snap["cached_tokens"] == 32 and min(launches.values()) > 0)
+    _line({"phase": "prefix_cache6", "arch": plan.model.cfg.name,
+           "planes": "W8", "decode": plan.decode_desc.name, "prefix": 32,
+           "suffix_lens": [5, 9], "new_tokens": 16,
+           "cache_hits": snap["cache_hits"],
+           "cached_tokens": snap["cached_tokens"],
+           "streams_bit_equal": got == ref, "launches": launches,
+           "lane_state_bytes": lane_bytes,
+           "lane_state_shapes": {k: list(v.shape) for k, v in lane.items()},
+           "mean_state_copy_s": snap["mean_state_copy_s"],
+           "cache": cached.prefix_cache.snapshot(), "ok": ok})
+    if not ok:
+        raise AssertionError(f"rwkv6 prefix cache: hits "
+                             f"{snap['cache_hits']}, equal {got == ref}, "
+                             f"launches {launches}")
+    return {"prefix-cache6": launches}
+
+
+def _zero_tail(leaf, depth):
+    """A matmul leaf whose layers >= depth decode to exact zeros: W8 / W4
+    codes 0; VQ indices of a codebook entry set to 0 (the entry nearest 0,
+    which layers < depth keep using as 0); a plain tensor zeroed."""
+    from repro_torch.core.quant.serving import CODES_KEY, leaf_plane
+    plane = leaf_plane(leaf)
+    if plane is None:
+        out = leaf.clone()
+        out[depth:] = 0
+        return out
+    out = {k: v.clone() for k, v in leaf.items()}
+    if plane == "vq":
+        z = int(out["codebook"].float().abs().argmin())
+        out["codebook"].view(-1)[z] = 0
+        out["vq_idx"][depth:] = z
+    else:
+        out[CODES_KEY[plane]][depth:] = 0
+    return out
+
+
+def _aligned_tree(raw, depth):
+    """bench_speculative's aligned weights on a packed tree: att.wo and
+    ffn.wv decode to zero for layers >= depth, so those blocks add nothing
+    to the residual and a depth-layer drafter predicts the full model."""
+    b = raw["blocks"]
+    blocks = {**b, "att": {**b["att"], "wo": _zero_tail(b["att"]["wo"],
+                                                        depth)},
+              "ffn": {**b["ffn"], "wv": _zero_tail(b["ffn"]["wv"], depth)}}
+    return {**raw, "blocks": blocks}
+
+
+def _verify_teacher_forced(engine, ks, refs=None):
+    """Identity (c): the verifier's rows teacher-forced (8 lanes: a
+    16-token prefill chunk, then 32 tokens in windows of k through
+    prefill_chunk_logits) against the plain bf16 path and the f32 witness
+    of phase_teacher_forced (rwkv4), or of phase_teacher_forced6 (`refs`,
+    its tokens, plain path and witness, kept for rwkv6), within TF_BOUNDS
+    of the engine's path.  Also returns, for finding (d), each k's rows,
+    the state at each window's start and the 32 teacher-forced tokens."""
+    model, cfg = engine.model, engine.model.cfg
+    prep = engine.plan.prepared
+    B, C, S = 8, 16, 32
+    if refs is None:
+        g = torch.Generator(device=DEV).manual_seed(SEED + 7)
+        toks = torch.randint(0, cfg.vocab, (B, C + S), generator=g,
+                             device=DEV, dtype=torch.int32)
+        ref = _plain_logits(model, prep.raw, toks, C)
+        f32 = _plain_logits(model, prep.raw, toks, C, torch.float32)
+        tb = TF_BOUNDS[prep.decode_path]
+    else:
+        toks, ref, f32 = refs["toks"], refs["ref"], refs["f32"]
+        tb = TF_BOUNDS["rwkv6-" + prep.decode_path]
+    max_f32, max_ref = float(f32.abs().max()), float(ref.abs().max())
+    out, rows, starts = {}, {}, {}
+    for k in ks:
+        starts[k] = []
+        with torch.inference_mode():
+            s = model.init_decode_state(B, 0, device=DEV)
+            s, lg = model.prefill_chunk(
+                prep.prefill, s, toks[:, :C],
+                torch.ones((B, C), dtype=torch.bool, device=DEV))
+            seq = [lg]
+            for w in range(C, C + S, k):
+                starts[k].append(s)
+                s, r = model.prefill_chunk_logits(
+                    prep.prefill, s, toks[:, w:w + k],
+                    torch.ones((B, k), dtype=torch.bool, device=DEV))
+                seq += [r[:, j:j + 1] for j in range(k)]
+        lg = torch.stack(seq).float()
+        rows[k] = lg
+        kf, kp = _gap(lg, f32), _gap(lg, ref)
+        ok = (kf["mean_rel"] <= tb["mean_rel_f32"]
+              and kf["max_abs"] <= tb["max_rel_f32"] * max_f32
+              and kf["argmax_agree"] >= tb["argmax_f32"]
+              and kp["mean_rel"] <= tb["mean_rel_plain"]
+              and kp["max_abs"] <= tb["max_rel_plain"] * max_ref
+              and bool(torch.isfinite(lg).all()))
+        out[k] = {"verify_vs_f32": kf, "verify_vs_plain": kp,
+                  "within_bound": ok}
+    return out, (rows, starts, toks[:, C:]), {
+        "mean_rel_f32": tb["mean_rel_f32"],
+                       "max_abs_f32": tb["max_rel_f32"] * max_f32,
+                       "argmax_f32": tb["argmax_f32"],
+                       "mean_rel_plain": tb["mean_rel_plain"],
+                       "max_abs_plain": tb["max_rel_plain"] * max_ref}
+
+
+def _window_ops(engine, s0, win):
+    """Finding (d) op by op: from state `s0`, the verify program over the
+    window `win` (B, k) against k windows of 1, compared bit for bit: the
+    whole verify (rows and state), then each layer's block (x and every
+    state leaf) up to the first that differs, and there each op with that
+    layer's own inputs: ln1's and ln2's rows, each matrix's K5 rows (M 8·k
+    against M 8) and K2 over T k against k steps of T 1; with no layer
+    differing, ln_f's and the head's rows on the last layer's output."""
+    from repro_torch.core.quant.serving import (broadcast_packed_scales,
+                                                cast_compute)
+    from repro_torch.kernels.fused_prefill import chunk_matmul, shifted_prev
+    from repro_torch.kernels.wkv4 import wkv4_seq
+    from repro_torch.models import layers as L
+    from repro_torch.models.rwkv4 import (STATE_KEYS, _chunk_numerics,
+                                          _layer, block_prefill)
+    model, cfg = engine.model, engine.model.cfg
+    dt, f32 = getattr(torch, cfg.dtype), torch.float32
+    prep = engine.plan.prepared.prefill
+    p = cast_compute(prep, dt)
+    blocks = broadcast_packed_scales(p["blocks"], cfg.n_layers)
+    B, k = win.shape
+    ones = lambda n: torch.ones((B, n), dtype=torch.bool, device=DEV)
+    eq = lambda a, b: bool(torch.equal(a, b))
+    nm = _chunk_numerics(False)
+    per_pos = lambda f, a: all(eq(f(a)[:, j:j + 1], f(a[:, j:j + 1]))
+                               for j in range(k))
+    out = {"k": k}
+    with torch.inference_mode():
+        s1, rows = model.prefill_chunk_logits(prep, s0, win, ones(k))
+        rs, cur = [], s0
+        for j in range(k):
+            cur, rj = model.prefill_chunk_logits(prep, cur, win[:, j:j + 1],
+                                                 ones(1))
+            rs.append(rj)
+        out["verify_rows"] = eq(rows, torch.cat(rs, 1))
+        out["verify_state"] = {n: eq(s1[n], cur[n]) for n in s1}
+        x = L.apply_norm(p["ln0"], p["embed"][win.long()].to(dt))
+        out["first_layer_differing"] = None
+        for layer in range(cfg.n_layers):
+            lp = _layer(blocks, layer)
+            st = {n: s0[n][layer] for n in STATE_KEYS}
+            xo, so = block_prefill(lp, st, x, ones(k), nm)
+            xs, cur = [], st
+            for j in range(k):
+                xj, cur = block_prefill(lp, cur, x[:, j:j + 1], ones(1), nm)
+                xs.append(xj)
+            diff = {"x": not eq(xo, torch.cat(xs, 1)),
+                    **{n: not eq(so[n], cur[n]) for n in so}}
+            if any(diff.values()):
+                out["first_layer_differing"] = layer
+                out["outputs_differing"] = [n for n, d in diff.items() if d]
+                break
+            x = xo
+        if out["first_layer_differing"] is None:
+            xf = L.apply_norm(p["ln_f"], x)
+            out["ops_after_the_layers"] = {
+                "ln_f": per_pos(lambda a: L.apply_norm(p["ln_f"], a), x),
+                "k5_head": per_pos(
+                    lambda a: chunk_matmul(a, p["head"], dt), xf)}
+            return out
+        h = L.apply_norm(lp["ln1"], x)
+        ops = {"ln1": per_pos(lambda a: L.apply_norm(lp["ln1"], a), x),
+               "ln2": per_pos(lambda a: L.apply_norm(lp["ln2"], a), x)}
+        for grp, names in (("att", ("wr", "wk", "wv", "wo")),
+                           ("ffn", ("wr", "wk"))):
+            for n in names:
+                ops[f"k5_{grp}_{n}"] = per_pos(
+                    lambda a, w=lp[grp][n]: chunk_matmul(a, w, dt), h)
+        kf = torch.relu(chunk_matmul(h, lp["ffn"]["wk"], dt))
+        ops["k5_ffn_wv"] = per_pos(
+            lambda a: chunk_matmul(a, lp["ffn"]["wv"], dt), kf)
+        pa = lp["att"]
+        hx = shifted_prev(h.to(st["att_x"].dtype), st["att_x"], ones(k))
+        mix = lambda m: nm.act_q(h * pa[m] + hx * (1.0 - pa[m]))
+        kk = chunk_matmul(mix("time_mix_k"), pa["wk"], dt).to(f32)
+        vv = chunk_matmul(mix("time_mix_v"), pa["wv"], dt).to(f32)
+        w, u = torch.exp(pa["time_decay"].to(f32)), pa["time_first"].to(f32)
+        abc = [st[n].to(f32) for n in ("wkv_a", "wkv_b", "wkv_o")]
+        y, fin = wkv4_seq(kk, vv, w, u, *abc, valid=ones(k),
+                          carry_dtype="bfloat16")
+        ys, cur = [], abc
+        for j in range(k):
+            yj, cur = wkv4_seq(kk[:, j:j + 1], vv[:, j:j + 1], w, u, *cur,
+                               valid=ones(1), carry_dtype="bfloat16")
+            ys.append(yj)
+        ops["k2_y"] = eq(y, torch.cat(ys, 1))
+        ops["k2_state"] = all(eq(a, b) for a, b in zip(fin, cur))
+        out["ops_at_first_layer"] = ops
+    return out
+
+
+def _finding_d(engine, streams, rows, starts, toks):
+    """Finding (d): the k 1, 2 and 4 streams compared, the teacher-forced
+    rows of k 1 against k 2 and 4 (the first differing row's window, lanes
+    and position), and `_window_ops` from the k 4 path's state at the
+    start of the first window of 4 whose rows differ from four of 1 (or
+    of the last window when none differs)."""
+    out = {"k1_equals_k4_streams": streams[1] == streams[4],
+           "k1_k4_first_diff": _first_diff(streams[1], streams[4]),
+           "k1_equals_k2_streams": streams[1] == streams[2]}
+    first = None
+    for k in (2, 4):
+        d = (rows[1] != rows[k]).any(dim=-1)[..., 0]   # (1 + S, B)
+        where = torch.nonzero(d)
+        key = f"teacher_forced_rows_k1_vs_k{k}"
+        if not len(where):
+            out[key] = {"equal": True}
+            continue
+        i = int(where[0, 0])                 # row i: after token C + i - 1
+        out[key] = {"equal": False, "rows_differing": int(d.sum()),
+                    "first_row": i, "lanes": torch.nonzero(
+                        d[i])[:, 0].tolist()}
+        if k == 4:
+            first = (i - 1) // 4
+    w = len(starts[4]) - 1 if first is None else first
+    same = all(torch.equal(starts[4][w][n], starts[1][4 * w][n])
+               for n in starts[4][w])
+    out["window_probe"] = {"window": w, "start_states_equal": same,
+                           **_window_ops(engine, starts[4][w],
+                                         toks[:, 4 * w:4 * w + 4])}
+    return out
+
+
+def _drafter_tokens(spec, depth, state, tok):
+    """`draft_fn(8)`'s tokens from `state` after `tok`, beside the greedy
+    chain of the truncated tree's block path (K3 / K7-block a layer, its
+    weights prepared from `truncate_params` apart from the drafter's
+    slabs) and one step's state of the drafter's own form
+    (`prepared.draft`) with that of the full model's decode form: the
+    drafted tokens and the first step's logits equal bit for bit, and the
+    drafter's state `truncate_state` of the full model's, bit for bit."""
+    from repro_torch.serving.plan import prepare_draft
+    plan = spec.plan
+    model, prep = plan.model, plan.prepared
+    tm = model.truncated(depth)
+    block = prepare_draft(model, "block", prep.raw, depth)
+    with torch.inference_mode():
+        _, full = model.decode_step_fused_model(prep.decode, state, tok, 0)
+        lg_d, cut = tm.decode_step_fused_model(
+            prep.draft, model.truncate_state(state, depth), tok, 0)
+        st, t, chain, first = model.truncate_state(state, depth), tok, [], None
+        for _ in range(plan.speculative.k - 1):
+            lg, st = tm.decode_step_fused(block, st, t, 0)
+            first = lg if first is None else first
+            t = torch.argmax(lg[:, 0].float(), dim=-1).to(torch.int32)[:, None]
+            chain.append(t)
+    drafted = plan.draft_fn(8)(state, tok)
+    _sync()
+    want = model.truncate_state(full, depth)
+    return {"state_bits_equal_full_models": {
+                k: bool(torch.equal(cut[k], want[k])) for k in cut},
+            "first_logits_equal_block_path": bool(torch.equal(lg_d, first)),
+            "tokens_equal_block_chain": bool(torch.equal(
+                drafted, torch.cat(chain, 1))),
+            "drafted": drafted.tolist()}
+
+
+def _served_state(engine, seed):
+    """A state after one 16-token prefill chunk on 8 lanes (the engine's
+    prefill form) and the next token."""
+    model, prep = engine.model, engine.plan.prepared
+    B, C = 8, 16
+    toks = torch.randint(0, model.cfg.vocab, (B, C + 1), device=DEV,
+                         dtype=torch.int32,
+                         generator=torch.Generator(device=DEV).manual_seed(
+                             seed))
+    with torch.inference_mode():
+        s = model.init_decode_state(B, 0, device=DEV)
+        s, _ = model.prefill_chunk(
+            prep.prefill, s, toks[:, :C],
+            torch.ones((B, C), dtype=torch.bool, device=DEV))
+    return s, toks[:, C:]
+
+
+def _drafter4(engine, spec, flush):
+    """The rwkv4 drafter of the speculative engine `spec`: phase_k4's
+    checks on its truncated stack's slabs (`prepared.draft`, L = the
+    draft depth: bit for bit that many K3 launches, each within K3_* of
+    its plain version, K4 within K4_* of its own, timed beside its
+    bound), then `_drafter_tokens` from a served state.  Returns K4's row
+    at that depth."""
+    plan = spec.plan
+    depth = plan.speculative.draft_depth
+    row = phase_k4(spec, flush, stack=plan.prepared.draft["blocks"],
+                   role="drafter")
+    state, tok = _served_state(engine, SEED + 33)
+    rec = _drafter_tokens(spec, depth, state, tok)
+    ok = (all(rec["state_bits_equal_full_models"].values())
+          and rec["first_logits_equal_block_path"]
+          and rec["tokens_equal_block_chain"])
+    _line({"phase": "drafter", "arch": plan.model.cfg.name, "depth": depth,
+           "of": plan.model.cfg.n_layers, "k": plan.speculative.k, **rec,
+           "ok": ok})
+    if not ok:
+        raise AssertionError(f"rwkv4 drafter at depth {depth}: {rec}")
+    return row
+
+
+def _drafter6(engine, spec, flush):
+    """The rwkv6 drafter of the speculative engine `spec`: K7-model on its
+    truncated stack's slabs (`prepared.draft`, L = the draft depth) at
+    B = 8, bit for bit equal to L K7-block launches on the full engine's
+    first L layers (unfused from the full slabs), each within K7B_* of its
+    plain version on its own inputs; the gaps to K7-model's own plain
+    version at that depth, both timed beside the bound; then
+    `_drafter_tokens` from a served state.  Returns K7-model's row at that
+    depth."""
+    from repro_torch.core.quant.serving import unfuse_layer
+    from repro_torch.kernels.fused_decode import (
+        rwkv6_block_decode, rwkv6_block_decode_plain, rwkv6_model_decode,
+        rwkv6_model_decode_plain)
+    plan = spec.plan
+    cfg, depth = plan.model.cfg, plan.speculative.draft_depth
+    stack, full = plan.prepared.draft["blocks"], \
+        engine.plan.prepared.decode["blocks"]
+    L, B = stack.n_layers, 8
+    st, x = _state6(cfg, (L, B), SEED + 12)
+    xm, newm = rwkv6_model_decode(stack, st, x, cfg)
+    aux = [a[0] for a in full.aux]
+    xb, newb, kb_err, kb_mean = x, [], 0.0, 0.0
+    for l in range(L):
+        lp = unfuse_layer({k: s[l] for k, s in full.slabs.items()}, aux,
+                          full.manifest, full.tdef)
+        st_l = {k: st[k][l] for k in STATE6}
+        out = rwkv6_block_decode(lp, st_l, xb, cfg)
+        e, m, _, _ = _k7_check(out, rwkv6_block_decode_plain(lp, st_l, xb,
+                                                             cfg),
+                               f"drafter block, layer {l}")
+        kb_err, kb_mean = max(kb_err, e), max(kb_mean, m)
+        xb = out[0]
+        newb.append(out[1])
+    if not (torch.equal(xm, xb) and all(
+            torch.equal(newm[k], torch.stack([s[k] for s in newb]))
+            for k in STATE6)):
+        raise AssertionError(f"K7-model on the drafter's {L} layers differs "
+                             f"from {L} K7-block launches on the full slabs")
+    ref = rwkv6_model_decode_plain(stack, st, x, cfg)
+    err = max(float((o.float() - r.float()).abs().max()) for o, r in zip(
+        (xm, *(newm[k] for k in STATE6)), (ref[0], *(ref[1][k]
+                                                     for k in STATE6))))
+    bms, by = _bound(_k7_model_bytes(stack, st, x), _k7_ops(cfg, B, L),
+                     PEAK_BF16_FLOPS)
+    row = {"kernel": "rwkv6_model_decode", "role": "drafter",
+           "model": cfg.name, "L": L, "B": B, "D": cfg.d_model,
+           "F": cfg.d_ff, "H": cfg.n_heads,
+           "equals_block_per_layer_of_the_full_slabs": True,
+           "block_per_layer_vs_plain": {"max_abs_err": kb_err,
+                                        "max_mean_rel_err": kb_mean},
+           "max_abs_err": err, "gaps": _rel_gaps((xm, newm), ref),
+           "kernel_ms": _time_ms(
+               lambda: rwkv6_model_decode(stack, st, x, cfg), flush),
+           "plain_ms": _time_ms(
+               lambda: rwkv6_model_decode_plain(stack, st, x, cfg), flush, 2),
+           "library_ms": None, "bound_ms": bms, "bound_by": by}
+    _line(row)
+    del ref
+    state, tok = _served_state(engine, SEED + 34)
+    rec = _drafter_tokens(spec, depth, state, tok)
+    ok = (all(rec["state_bits_equal_full_models"].values())
+          and rec["first_logits_equal_block_path"]
+          and rec["tokens_equal_block_chain"])
+    _line({"phase": "drafter", "arch": cfg.name, "depth": depth,
+           "of": cfg.n_layers, "k": plan.speculative.k, **rec, "ok": ok})
+    if not ok:
+        raise AssertionError(f"rwkv6 drafter at depth {depth}: {rec}")
+    return row
+
+
+def phase_speculative(engine, flush):
+    """Self-speculative decode on rwkv4-169m's MIXED model path (chunked
+    prefill), the 8 requests of phase_engine × 32 new tokens, k 1, 2 and
+    4 at the default draft depth (6 of 12 layers).  For each k: identity
+    (a), greedy and seeded-sampled (temperature 0.8), the real drafter's
+    stream equal bit for bit to an all-reject and an all-accept stub's;
+    trace_counts JAX's; drafted == accepted + rejected; K5, K2 and (k > 1)
+    K4 on the truncated stack launched; the rollback snapshot intact
+    after every draft and verify.  Then: a request cancelled from its own
+    on_token mid-tick (outcome "cancelled", nothing in flight, the other
+    streams unchanged); aligned weights (att.wo, ffn.wv zero past layer
+    0) with draft depth 1, k 4 (the drafter on K3): acceptance >= 0.9; a
+    cache hit followed by speculative decode; identity (c) and finding
+    (d); K2 at T 1, 2, 4 and the head's K5 at M 8·k against their plain
+    versions; the k 4 drafter held at its depth (`_drafter4`); tokens/s
+    at each k beside the plain engine's."""
+    from repro_torch.kernels.fused_decode import (rwkv4_block_decode,
+                                                  rwkv4_model_decode)
+    from repro_torch.kernels.fused_prefill import (
+        dpot_w4_matmul, dpot_w8_matmul, vq_matmul)
+    from repro_torch.kernels.wkv4 import wkv4_seq
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.plan import draft_path
+    plan = engine.plan
+    model, V = plan.model, plan.model.cfg.vocab
+    depth = max(1, model.cfg.n_layers // 2)
+    # the drafter's kernel: K4 on the truncated stack, K3 on one layer
+    drafter = {"model": "rwkv4_model_decode", "block": "rwkv4_block_decode"}[
+        draft_path(plan.decode_desc.name, depth)]
+    prompts = _engine_prompts(V)
+    counters = (dpot_w8_matmul, dpot_w4_matmul, vq_matmul, wkv4_seq,
+                rwkv4_model_decode, rwkv4_block_decode)
+    plain = ServingEngine(model, plan=_replan(plan), max_batch=8, device=DEV)
+    base, p_snap, p_s, _, _ = _serve(plain, prompts, 32)
+    by_k, runs, streams, paths = {}, {}, {}, {}
+    engines = {}
+    for k in (1, 2, 4):
+        eng = engines[k] = ServingEngine(model, plan=_replan(plan, k=k),
+                                         max_batch=8, device=DEV)
+        guard = _snapshot_guard(eng)
+        got, snap, secs, launches, _ = _serve(eng, prompts, 32,
+                                              counters=counters)
+        sched = eng.scheduler
+        sched.verify_fn = eng.plan.verify_fn(8)
+        if k > 1:
+            sched.draft_fn = eng.plan.draft_fn(8)
+        streams[k] = got
+        paths[f"speculative-k{k}"] = launches
+        sampled, s_snap, _, _, _ = _serve(eng, prompts, 32, temperature=0.8)
+        ident = {}
+        for kind in ("reject", "accept") if k > 1 else ():
+            for temp, want in ((0.0, got), (0.8, sampled)):
+                real = _stub_drafter(eng, want, kind)
+                st, _, _, _, _ = _serve(eng, prompts, 32, temperature=temp)
+                sched.draft_fn = real
+                ident[f"{kind}_t{temp}"] = st == want
+        tc = dict(eng.trace_counts)
+        ok = (all(ident.values()) and guard["intact"] and guard["checks"] > 0
+              and tc == _spec_counts(k)
+              and snap["drafted_tokens"] == snap["accepted_tokens"]
+              + snap["rejected_tokens"]
+              and all(launches[n] > 0 for n in (
+                  "dpot_w8_matmul", "dpot_w4_matmul", "vq_matmul",
+                  "wkv4_seq"))
+              and (launches[drafter] > 0) == (k > 1)
+              and snap["finished"] == 8 and snap["decode_tokens"] == 256)
+        by_k[k] = {"identity_a": ident, "snapshot": guard,
+                   "trace_counts": tc, "launches": launches,
+                   "ticks": snap["ticks"],
+                   "drafted": snap["drafted_tokens"],
+                   "accepted": snap["accepted_tokens"],
+                   "rejected": snap["rejected_tokens"],
+                   "acceptance_rate": snap["acceptance_rate"],
+                   "tokens_per_s": snap["decode_tokens"] / secs,
+                   "mean_itl_s": snap["mean_itl_s"],
+                   "equals_plain_engine": got == base,
+                   "sampled_acceptance_rate": s_snap["acceptance_rate"],
+                   "ok": ok}
+        runs[k] = ok
+    # the k 4 engine's drafter: K4 on the truncated stack, held at its depth
+    k4_draft = _drafter4(engine, engines[4], flush)
+    # a request cancelled from its own on_token during a speculative tick
+    eng = engines[4]
+    sched = eng.scheduler
+    hs = [eng.submit(p, max_new_tokens=32, seed=SEED + 100 + i)
+          for i, p in enumerate(prompts)]
+    victim, orig, fired = hs[3], sched.on_token, []
+
+    def on_token(req, tok):
+        orig(req, tok)
+        if (req.rid == victim.rid and not fired and len(victim.tokens) >= 5
+                and sched._spec_snapshot is not None):
+            fired.append(len(victim.tokens))
+            eng.cancel(victim)
+    sched.on_token = on_token
+    eng.run()
+    sched.on_token = orig
+    cancel = {"fired_at": fired, "outcome": victim.outcome,
+              "victim_prefix": victim.tokens == streams[4][3][
+                  :len(victim.tokens)],
+              "snapshot_none": sched._spec_snapshot is None,
+              "inflight_empty": sched._spec_inflight == {},
+              "others_unchanged": [h.tokens for i, h in enumerate(hs)
+                                   if i != 3] ==
+              [s for i, s in enumerate(streams[4]) if i != 3],
+              "slots_free": eng.pool.n_free == 8}
+    cancel_ok = bool(fired) and victim.outcome == "cancelled" and all(
+        v for k_, v in cancel.items() if k_ not in ("fired_at", "outcome"))
+    # aligned weights: the depth-1 drafter (K3 on layer 0) against 12 layers
+    aligned = _aligned_tree(plan.prepared.raw, 1)
+    a_plain = ServingEngine(model, plan=_replan(plan, raw=aligned),
+                            max_batch=8, device=DEV)
+    a_base, _, _, _, _ = _serve(a_plain, prompts, 32)
+    a_spec = ServingEngine(model, plan=_replan(plan, raw=aligned, k=4,
+                                               depth=1),
+                           max_batch=8, device=DEV)
+    a_got, a_snap, _, a_launch, _ = _serve(a_spec, prompts, 32,
+                                           counters=counters)
+    aligned_rec = {"acceptance_rate": a_snap["acceptance_rate"],
+                   "drafted": a_snap["drafted_tokens"],
+                   "accepted": a_snap["accepted_tokens"],
+                   "launches": a_launch,
+                   "equals_plain_engine": a_got == a_base}
+    aligned_ok = (a_snap["acceptance_rate"] >= 0.9
+                  and a_launch["rwkv4_block_decode"] > 0)
+    # a cache hit, then speculative decode: the uncached run's tokens
+    rng = np.random.default_rng(SEED + 32)
+    pre = rng.integers(0, V, 32).tolist()
+    two = [pre + [3], pre + rng.integers(0, V, 7).tolist()]
+    c_ref, _, _, _, _ = _serve(engines[4], two, 16, sequential=True)
+    c_eng = ServingEngine(model, plan=_replan(plan, k=4), max_batch=8,
+                          prefix_cache=True, device=DEV)
+    c_got, c_snap, _, _, _ = _serve(c_eng, two, 16, sequential=True)
+    cache_ok = c_got == c_ref and c_snap["cache_hits"] == 1
+    # identity (c), finding (d)
+    tf, (rows, starts, tf_toks), bounds = _verify_teacher_forced(
+        engine, (1, 2, 4))
+    tf_ok = all(v["within_bound"] for v in tf.values())
+    finding = _finding_d(engine, streams, rows, starts, tf_toks)
+    finding["plain_engine_equals_k1"] = base == streams[1]
+    k2w = _k2_windows(model.cfg, flush)
+    head = _head_windows(plan.prepared.prefill["head"], 8, (1, 2, 4), flush)
+    host_ms = {k: _logits_to_host_ms(8, k, V) for k in (1, 2, 4)}
+    ok = all(runs.values()) and cancel_ok and aligned_ok and cache_ok \
+        and tf_ok
+    _line({"phase": "speculative", "arch": model.cfg.name, "planes": "MIXED",
+           "decode": plan.decode_desc.name, "prefill": plan.prefill_desc.name,
+           "requests": 8, "new_tokens": 32, "draft_depth": depth,
+           "drafter_kernel": drafter,
+           "plain_engine": {"tokens_per_s": p_snap["decode_tokens"] / p_s,
+                            "ticks": p_snap["ticks"],
+                            "mean_itl_s": p_snap["mean_itl_s"]},
+           "by_k": by_k, "cancel_in_own_on_token": cancel,
+           "aligned_depth1_k4": aligned_rec,
+           "cache_hit_then_speculative": {
+               "streams_bit_equal": c_got == c_ref,
+               "cache_hits": c_snap["cache_hits"]},
+           "identity_c": tf, "identity_c_bounds": bounds,
+           "finding_d": finding, "logits_to_host_ms": host_ms,
+           "ok": ok})
+    if not ok:
+        raise AssertionError(
+            f"speculative: runs {runs}, cancel {cancel_ok}, aligned "
+            f"{aligned_ok} ({a_snap['acceptance_rate']}), cache {cache_ok}, "
+            f"identity (c) {tf_ok}")
+    paths["speculative-aligned"] = a_launch
+    return paths, k2w, head, k4_draft
+
+
+def phase_speculative6(engine, flush, refs):
+    """Self-speculative decode on rwkv6-7b's W8 model path: k 4, draft
+    depth 16 (K7-model on 16 of 32 layers drafts, K5 at M 32 and K6 over
+    the window verify), 4 requests × 16 new tokens: identity (a) with an
+    all-reject stub, trace_counts JAX's, drafted == accepted + rejected,
+    every kernel launched, the snapshot intact; the drafter held at its
+    depth (`_drafter6`); identity (c) at k 4 against phase_teacher_forced6's
+    plain path and witness (`refs`); K6 at T 1, 2, 4 against its plain
+    version; tokens/s beside the plain engine's."""
+    from repro_torch.kernels.fused_decode import (rwkv6_block_decode,
+                                                  rwkv6_model_decode)
+    from repro_torch.kernels.fused_prefill import dpot_w8_matmul
+    from repro_torch.kernels.wkv6 import wkv6_seq
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.plan import draft_path
+    plan = engine.plan
+    model, V = plan.model, plan.model.cfg.vocab
+    depth = model.cfg.n_layers // 2           # 16 of rwkv6-7b's 32
+    drafter = {"model": rwkv6_model_decode, "block": rwkv6_block_decode}[
+        draft_path(plan.decode_desc.name, depth)].__name__
+    prompts = _engine_prompts(V)[:4]
+    counters = (dpot_w8_matmul, wkv6_seq, rwkv6_model_decode,
+                rwkv6_block_decode)
+    base, p_snap, p_s, _, _ = _serve(engine, prompts, 16)
+    t0 = time.perf_counter()
+    eng = ServingEngine(model, plan=_replan(plan, k=4, depth=depth),
+                        max_batch=8, device=DEV)
+    _sync()
+    prep_s = time.perf_counter() - t0
+    guard = _snapshot_guard(eng)
+    got, snap, secs, launches, _ = _serve(eng, prompts, 16,
+                                          counters=counters)
+    sched = eng.scheduler
+    sched.verify_fn, sched.draft_fn = eng.plan.verify_fn(8), \
+        eng.plan.draft_fn(8)
+    real = _stub_drafter(eng, got, "reject")
+    rej, _, _, _, _ = _serve(eng, prompts, 16)
+    sched.draft_fn = real
+    tc = dict(eng.trace_counts)
+    k7_draft = _drafter6(engine, eng, flush)
+    tf, _, bounds = _verify_teacher_forced(engine, (4,), refs)
+    tf_ok = tf[4]["within_bound"]
+    k6w = _k6_windows(flush)
+    ok = (rej == got and tc == _spec_counts(4) and guard["intact"] and tf_ok
+          and guard["checks"] > 0
+          and snap["drafted_tokens"] == snap["accepted_tokens"]
+          + snap["rejected_tokens"] and snap["decode_tokens"] == 64
+          and all(launches[n] > 0 for n in ("dpot_w8_matmul", "wkv6_seq",
+                                            drafter)))
+    _line({"phase": "speculative6", "arch": model.cfg.name, "planes": "W8",
+           "decode": plan.decode_desc.name, "k": 4, "draft_depth": depth,
+           "drafter_kernel": drafter,
+           "requests": 4, "new_tokens": 16, "draft_prepare_s": prep_s,
+           "identity_a_reject": rej == got, "trace_counts": tc,
+           "snapshot": guard, "launches": launches, "ticks": snap["ticks"],
+           "drafted": snap["drafted_tokens"],
+           "accepted": snap["accepted_tokens"],
+           "rejected": snap["rejected_tokens"],
+           "acceptance_rate": snap["acceptance_rate"],
+           "tokens_per_s": snap["decode_tokens"] / secs,
+           "plain_engine_tokens_per_s": p_snap["decode_tokens"] / p_s,
+           "equals_plain_engine": got == base,
+           "identity_c": tf, "identity_c_bounds": bounds,
+           "logits_to_host_ms": _logits_to_host_ms(8, 4, V), "ok": ok})
+    if not ok:
+        raise AssertionError(f"rwkv6 speculative: reject stub equal "
+                             f"{rej == got}, trace_counts {tc}, snapshot "
+                             f"{guard}, launches {launches}, identity (c) "
+                             f"{tf_ok}")
+    return {"speculative6": launches}, k6w, k7_draft
+
+
 # the order of a phase row's dimensions in a `kernels` entry's shapes
 _SHAPE_KEYS = ("M", "K", "N", "L", "B", "T", "C", "D", "F", "H", "S", "KVH",
                "d")
@@ -4632,6 +5671,12 @@ def main() -> int:
     paths, head4 = _timed("all logits rwkv4-169m", phase_all_logits, block,
                           "rwkv4-169m W8", flush)
     by_path.update(paths)
+    # the prefix cache and self-speculative decode on the MIXED model path
+    by_path.update(_timed("prefix cache rwkv4-169m", phase_prefix_cache,
+                          model, block))
+    paths, k2w, head_w, k4d = _timed("speculative rwkv4-169m",
+                                     phase_speculative, model, flush)
+    by_path.update(paths)
     # rwkv4-169m on plain bf16 weights (quantized=False): K3 and K4 on bf16
     # matrices, the model-path engine, one block-path step
     plain4 = ServingEngine("rwkv4-169m", fused_decode="model",
@@ -4718,6 +5763,12 @@ def main() -> int:
     by_path.update(paths)
     del flush
     by_path.update(_timed("truncated rwkv6-7b", phase_truncated6, eng6))
+    by_path.update(_timed("prefix cache rwkv6-7b", phase_prefix_cache6, eng6))
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    paths, k6w, k7d = _timed("speculative rwkv6-7b", phase_speculative6,
+                             eng6, flush, refs6)
+    by_path.update(paths)
+    del flush
     # the engine's packed W8 tree outlives the engine: K1 and K8 through
     # kernels/ops.py on its matrices, then the quantized serve step on it
     raw6, model6 = eng6.plan.prepared.raw, eng6.model
@@ -4865,6 +5916,8 @@ def main() -> int:
             if k in ("launches", "ms", "plain_ms", "bound_ms", "library_ms",
                      "max_abs_err", "shapes")}
         planes_rows.append(entry)
+    # the verify head (MIXED: W4) at M = 8·k, k 1, 2, 4
+    planes_rows[0]["verify_head"] = head_w
     kernels = [k5_row, *planes_rows,
         _kernel_row("wkv4_seq", "src/repro_torch/csrc/wkv4_seq.cu",
                     "src/repro/kernels/wkv4.py:101", [k2],
@@ -5009,6 +6062,29 @@ def main() -> int:
         entry["max_abs_err"] = max(r["max_abs_err"] for r in (
             k12 if entry["name"] == "fused_cross_entropy" else bwd_rows))
     kernels[-1]["shapes"] = [[k11b["R"], k11b["D"]]]
+    # K2 and K6 over the verify windows (T 1, 2, 4), held in the speculative
+    # phases: their errors joined, their rows beside
+    for entry in kernels:
+        rows = {"wkv4_seq": k2w, "wkv6_seq": k6w}.get(entry["name"])
+        if rows is not None:
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       *(r["max_abs_err"] for r in rows))
+            entry["shapes"] += [[r[k] for k in _SHAPE_KEYS if k in r]
+                                for r in rows]
+            entry["verify_windows"] = [
+                {k: r[k] for k in ("T", "kernel_ms", "plain_ms", "bound_ms",
+                                   "bound_by")} for r in rows]
+    # K4 and K7-model on the drafters' truncated stacks (L 6 and L 16),
+    # held in the speculative phases: their errors joined, their rows beside
+    for entry in kernels:
+        row = {"rwkv4_model_decode": k4d,
+               "rwkv6_model_decode": k7d}.get(entry["name"])
+        if row is not None:
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       row["max_abs_err"])
+            entry["shapes"].append([row[k] for k in _SHAPE_KEYS if k in row])
+            entry["drafter"] = {k: row[k] for k in (
+                "L", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}
     # the ninth slice: K1 and K8 through kernels/ops.py
     for name, line in (("dpot_matmul", 68), ("dpot_matmul_w4", 124)):
         kernels.append(_kernel_row(

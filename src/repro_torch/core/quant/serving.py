@@ -356,6 +356,10 @@ class PreparedParams:
                 `FusedLayerStack` slabs; == raw for the others)
       prefill — the form the prefill path consumes
       decode_path / prefill_path — the paths that produced the forms
+      draft   — the speculative drafter's weights: the first
+                `draft_depth` layers in the form the decode path takes
+                (the "model" path's slabs of the truncated stack, the
+                truncated tree for the others); None without speculation
     """
     raw: Any
     decode: Any
@@ -363,3 +367,4 @@ class PreparedParams:
     quantized: bool = False
     decode_path: str = "per_op"
     prefill_path: str = "per_op"
+    draft: Any = None

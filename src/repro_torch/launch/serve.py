@@ -2,7 +2,9 @@
 
     python -m repro_torch.launch.serve --arch {rwkv4-169m,rwkv6-7b} \
         --quantized --fused {block,model} --fused-prefill [--batch 8] \
-        [--tokens 32] [--smoke] [--device cuda|cpu]
+        [--tokens 32] [--smoke] [--device cuda|cpu] \
+        [--prefix-cache [--prefix-cache-slots N] \
+         [--prefix-cache-host-slots N]] [--speculative K [--draft-depth D]]
     python -m repro_torch.launch.serve --legacy [--arch smollm-135m] \
         [--hw-numerics] [--smoke] [--batch 4] [--tokens 32] \
         [--device cuda|cpu]
@@ -17,6 +19,14 @@ matmul weight Δ-PoT W8, without it they read the plain bf16 weights;
 per-tensor planes (W4, VQ) are chosen through
 `ServingEngine(plane_policy=)`, as in the JAX package.  The device
 defaults to "cuda" and raises without a GPU.
+
+`--prefix-cache` turns on the recurrent-state prefix cache (device tier
+`--prefix-cache-slots` lane states over `--prefix-cache-host-slots` host
+copies); the demo traffic then shares one system prompt, served once
+first, so that the other requests resume from its cached state, and the
+cache's snapshot is printed.  `--speculative K` decodes K tokens a tick
+at most: the first `--draft-depth` layers (default half) draft K-1 on the
+decode path's kernel, one chunk-shaped verify call scores the window.
 
 `--legacy` is the seed's serving mode (`serve_legacy`): one fixed batch
 of random first tokens, the per-op `decode_step` in a host loop
@@ -162,20 +172,38 @@ def weights_label(params) -> str:
 def serve(arch: str, *, smoke: bool = False, batch: int = 8,
           n_tokens: int = 32, quantized: bool = False, prompt_len: int = 8,
           fused: str | None = None, fused_prefill: bool = False,
-          device: str = "cuda"):
+          prefix_cache: bool = False, cache_slots: int = 64,
+          cache_host_slots: int = 256, speculative: int | None = None,
+          draft_depth: int | None = None, device: str = "cuda"):
     """`batch` concurrent greedy requests (seeded prompts, weights from
     seed 0) through the engine; prints the run's throughput (tokens over
-    its wall time) and the counters' snapshot, and returns the handles."""
-    from repro_torch.serving import ServingEngine
+    its wall time) and the counters' snapshot, and returns the handles.
+    With `prefix_cache` every prompt starts with one shared system prompt
+    (a warm-up request serves it first, since boundary states publish
+    when their request finishes) and the cache's snapshot is printed;
+    `speculative` is the verify window K."""
+    from repro_torch.serving import PrefixCacheConfig, ServingEngine
+    cache = PrefixCacheConfig(device_slots=cache_slots,
+                              host_slots=cache_host_slots) \
+        if prefix_cache else None
     engine = ServingEngine(arch, smoke=smoke, max_batch=batch,
                            quantized=quantized, fused_decode=fused,
-                           fused_prefill=fused_prefill, device=device)
+                           fused_prefill=fused_prefill,
+                           speculative=speculative, draft_depth=draft_depth,
+                           prefix_cache=cache, device=device)
     rng = np.random.default_rng(0)
     vocab = engine.model.cfg.vocab
+    shared = []
+    if prefix_cache:
+        shared = rng.integers(0, vocab, max(engine.plan.prefill_chunk,
+                                            prompt_len)).tolist()
+        engine.submit(shared + [int(rng.integers(0, vocab))],
+                      max_new_tokens=1)
+        engine.run()
     t0 = time.perf_counter()
-    handles = [engine.submit(rng.integers(0, vocab, prompt_len).tolist(),
-                             max_new_tokens=n_tokens)
-               for _ in range(batch)]
+    handles = [engine.submit(
+        shared + rng.integers(0, vocab, prompt_len).tolist(),
+        max_new_tokens=n_tokens) for _ in range(batch)]
     snap = engine.run()
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
@@ -185,12 +213,18 @@ def serve(arch: str, *, smoke: bool = False, batch: int = 8,
     print(f"{arch}{' (smoke)' if smoke else ''} on {name}: {batch} requests "
           f"x {n_tokens} tokens ({weights_label(engine.plan.prepared.raw)} "
           f"weights, decode={fused or 'per_op'}, "
-          f"prefill={'chunked' if fused_prefill else 'per_op'}) — "
+          f"prefill={'chunked' if fused_prefill else 'per_op'}"
+          f"{f', speculative={speculative}' if speculative else ''}) — "
           f"{snap['decode_tokens'] / dt:.1f} tok/s over {snap['ticks']} "
           f"ticks, TTFT {snap['mean_ttft_s'] * 1e3:.0f} ms, latency "
           f"{snap['mean_latency_s'] * 1e3:.0f} ms")
     for k, v in snap.items():
         print(f"  {k}: {v:.3f}" if isinstance(v, float) else f"  {k}: {v}")
+    if engine.prefix_cache is not None:
+        print("prefix cache:")
+        for k, v in engine.prefix_cache.snapshot().items():
+            print(f"  {k}: {v:.3f}" if isinstance(v, float)
+                  else f"  {k}: {v}")
     return handles
 
 
@@ -208,6 +242,20 @@ def main(argv=None):
                     "(block: K3, K7) or one for all layers (model: K4, K7)")
     ap.add_argument("--fused-prefill", action="store_true",
                     help="chunked prefill through kernels K5 and K2 / K6")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="recurrent-state prefix cache: repeated prompt "
+                    "prefixes resume from cached chunk-boundary states "
+                    "(the same tokens); the demo shares a system prompt")
+    ap.add_argument("--prefix-cache-slots", type=int, default=64,
+                    help="device-tier cache entries (lane states)")
+    ap.add_argument("--prefix-cache-host-slots", type=int, default=256,
+                    help="host spill-tier entries; 0 disables spilling")
+    ap.add_argument("--speculative", type=int, default=None, metavar="K",
+                    help="self-speculative decode: a truncated-stack "
+                    "drafter proposes K-1 tokens a tick, one chunk-shaped "
+                    "verify call scores the window")
+    ap.add_argument("--draft-depth", type=int, default=None, metavar="D",
+                    help="layers the drafter keeps (default: half)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--legacy", action="store_true",
                     help="the seed's fixed-batch per-op decode loop")
@@ -223,7 +271,11 @@ def main(argv=None):
     serve(args.arch, smoke=args.smoke, batch=args.batch,
           n_tokens=args.tokens, quantized=args.quantized,
           prompt_len=args.prompt_len, fused=args.fused,
-          fused_prefill=args.fused_prefill, device=args.device)
+          fused_prefill=args.fused_prefill, prefix_cache=args.prefix_cache,
+          cache_slots=args.prefix_cache_slots,
+          cache_host_slots=args.prefix_cache_host_slots,
+          speculative=args.speculative, draft_depth=args.draft_depth,
+          device=args.device)
 
 
 if __name__ == "__main__":

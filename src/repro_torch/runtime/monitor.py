@@ -3,11 +3,13 @@
   ServingCounters   — the serving engine's telemetry: tokens/s, TTFT with
                       its prefill decomposition, inter-token latency,
                       per-request latency, p50/p90/p99 in `snapshot()`,
-                      cancellations and slot occupancy.  The hooks of the
-                      features not ported yet (prefix cache, speculative
-                      decode, SLO admission, snapshots, path demotion)
-                      exist with their fields and keys, and nothing calls
-                      them (ROADMAP Queue 1 item 6).
+                      cancellations, slot occupancy, the prefix cache's
+                      hits, copies and tiers and speculative decode's
+                      acceptance.  The hooks of the features not ported
+                      yet (SLO admission, snapshots, cache errors) and of
+                      path demotion, which the port never makes, exist
+                      with their fields and keys, and nothing calls them
+                      (ROADMAP Queue 1 item 6).
   StragglerDetector — per-host step-duration EMA; flags hosts slower than
                       `threshold` x the fleet median.
 
@@ -63,7 +65,7 @@ class ServingCounters:
         # tick to "prefill" would make a cache hit look like prefill work.
         self.prefill_ticks: list[int] = []
         self.prefill_s: list[float] = []
-        # prefix-cache telemetry (the cache is item 6): probe
+        # prefix-cache telemetry (serving/prefix_cache.py): probe
         # outcomes + token accounting from the scheduler, eviction/spill
         # flow from the cache itself
         self.cache_hits = 0
@@ -75,7 +77,7 @@ class ServingCounters:
         self.cache_probe_s: list[float] = []
         self.state_copy_s: list[float] = []
         self._admit_overhead: dict[int, float] = {}  # rid -> probe+copy s
-        # self-speculative decode telemetry (item 6's speculative
+        # self-speculative decode telemetry (the scheduler's speculative
         # tick): drafted counts every token the drafter proposed,
         # accepted the ones the verifier confirmed AND the lane consumed,
         # rejected the rest — acceptance_rate = accepted / drafted is the
@@ -225,8 +227,9 @@ class ServingCounters:
         self.backpressured += 1
 
     def on_cache_error(self):
-        """A prefix-cache probe/insert raised; serving degraded to a miss
-        instead of dying — counted so faults are observable."""
+        """JAX's hook for a prefix-cache probe or insert that raised and
+        degraded to a miss; in the port such an error raises (the fault
+        drills that count it wait for item 6), so nothing calls it."""
         self.cache_errors += 1
 
     def on_budget_defer(self, n_tokens: int):

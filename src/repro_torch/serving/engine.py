@@ -1,12 +1,14 @@
 """Serving engine front end: submit(prompt) -> token stream (port of
-`repro/serving/engine.py`; the prefix cache, speculative decode, SLO
-admission, snapshots and fault drills wait for ROADMAP Queue 1 item 6).
+`repro/serving/engine.py`; SLO admission, snapshots and fault drills wait
+for ROADMAP Queue 1 item 6).
 
 Wires the slotted state pool and the scheduler to an `ExecutionPlan`,
-which owns path selection, weight preparation and the two programs
-(decode step, prefill chunk).  The engine's job is request lifecycle:
-handles, streaming, cancellation, the scheduler callbacks and the
-`ServingCounters` telemetry `run()` returns.
+which owns path selection, weight preparation and the programs (decode
+step, prefill chunk, and the drafter, verifier and rollback under
+self-speculative decode).  The engine builds the prefix cache, when asked
+for one, and owns request lifecycle: handles, streaming, cancellation,
+the scheduler callbacks and the `ServingCounters` telemetry `run()`
+returns.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from repro_torch.core.quant.policy import PlanePolicy
 from repro_torch.models.registry import Model
 from repro_torch.runtime.monitor import ServingCounters
 from repro_torch.serving.plan import STATE_DTYPE, ExecutionPlan, build_plan
+from repro_torch.serving.prefix_cache import PrefixCache, PrefixCacheConfig
 from repro_torch.serving.scheduler import FINISHED, Request, Scheduler
 from repro_torch.serving.state_pool import SlotStatePool
 
@@ -71,10 +74,21 @@ class ServingEngine:
     fused_decode  — False (per-op plain path) | "block" (K3 or K7 per
                     layer) | "model" (one K4 or K7 launch for all layers)
     fused_prefill — False (per-op loop) | True (chunked: K5 + K2 or K6)
+    speculative   — k >= 1: self-speculative decode, a k-token verify
+                    window a tick (the drafter on the decode path's
+                    kernel over the first `draft_depth` layers, the
+                    verifier the chunked prefill with the head at every
+                    position, or the per-op loop)
+    draft_depth   — the drafter's layers (default: half the stack)
     plan          — a pre-built ExecutionPlan; it overrides every path,
-                    weight and pool-dtype argument above
+                    weight, speculation and pool-dtype argument above
     counters      — the `ServingCounters` the scheduler reports to (a new
                     one when omitted); `run()` returns its snapshot
+    prefix_cache  — None / False (off) | True (default sizes) | a
+                    `PrefixCacheConfig` | a shared `PrefixCache`, whose
+                    chunk must equal the plan's prefill_chunk.  Entries
+                    file under `plan.cache_variant()`; a resumed request
+                    streams the uncached tokens bit for bit
     device        — "cuda" (default) or "cpu"; without a GPU "cuda" raises
     """
 
@@ -85,9 +99,11 @@ class ServingEngine:
                  plane_policy: PlanePolicy | None = None,
                  fused_decode: bool | str | None = False,
                  fused_prefill: bool = False, seed: int = 0,
+                 speculative: Optional[int] = None,
+                 draft_depth: Optional[int] = None,
                  plan: Optional[ExecutionPlan] = None,
                  counters: Optional[ServingCounters] = None,
-                 device="cuda"):
+                 prefix_cache=None, device="cuda"):
         if plan is None:
             plan = build_plan(model, params, smoke=smoke,
                               quantized=quantized,
@@ -96,7 +112,8 @@ class ServingEngine:
                               fused_prefill=fused_prefill,
                               prefill_chunk=prefill_chunk, max_len=max_len,
                               state_dtype=state_dtype, seed=seed,
-                              device=device)
+                              speculative=speculative,
+                              draft_depth=draft_depth, device=device)
         self.plan = plan
         self.model = plan.model
         self.device = plan.device
@@ -106,17 +123,50 @@ class ServingEngine:
                                   max_len=plan.max_len,
                                   dtype=plan.state_dtype,
                                   device=plan.device)
+        self.prefix_cache = self._build_cache(prefix_cache)
+        sp = plan.speculative
+        self.speculative = 0 if sp is None else sp.k
         self.scheduler = Scheduler(
             self.pool, plan.decode_fn(max_batch), plan.prefill_fn(max_batch),
             prefill_chunk=plan.prefill_chunk, counters=self.counters,
-            on_token=self._on_token, on_finish=self._on_finish)
+            on_token=self._on_token, on_finish=self._on_finish,
+            prefix_cache=self.prefix_cache,
+            cache_variant=None if self.prefix_cache is None
+            else plan.cache_variant(),
+            speculative=self.speculative,
+            draft_fn=plan.draft_fn(max_batch)
+            if sp is not None and sp.k > 1 else None,
+            verify_fn=plan.verify_fn(max_batch) if sp is not None else None,
+            rollback_fn=plan.rollback_fn(max_batch)
+            if sp is not None else None)
         self._handles: dict[int, RequestHandle] = {}
         self._next_rid = 0
 
+    def _build_cache(self, prefix_cache) -> Optional[PrefixCache]:
+        """The `prefix_cache=` argument as a cache whose chunk is the
+        plan's (cached boundaries must be tick boundaries, or a resumed
+        suffix would chunk differently from a full prefill)."""
+        if prefix_cache is None or prefix_cache is False:
+            return None
+        if isinstance(prefix_cache, PrefixCache):
+            if prefix_cache.chunk != self.plan.prefill_chunk:
+                raise ValueError(
+                    f"shared prefix cache has chunk={prefix_cache.chunk} but "
+                    f"the plan prefills in chunks of {self.plan.prefill_chunk}"
+                    " — boundary states would not land on tick boundaries")
+            cache = prefix_cache
+        else:
+            cfg = prefix_cache if isinstance(prefix_cache, PrefixCacheConfig) \
+                else PrefixCacheConfig()
+            cache = PrefixCache(self.plan.prefill_chunk, config=cfg)
+        if cache.counters is None:
+            cache.counters = self.counters
+        return cache
+
     @property
     def trace_counts(self) -> dict:
-        """The plan's build counts: {"decode": 1, "prefill": 1} after any
-        amount of serving."""
+        """The plan's program counts: {"decode": 1, "prefill": 1} after any
+        amount of serving (each program counted at its first call)."""
         return self.plan.trace_counts
 
     def submit(self, prompt: list[int],

@@ -5,7 +5,8 @@ independent sequences' O(1) states; the model's batch axis is the slot
 axis.  Host bookkeeping is a free list: `acquire` takes the lowest free
 slot, `release` returns it.  Lane resets on the hot path happen inside the
 prefill call (its fresh-slot mask); `read_slot` / `write_slot` /
-`reset_slot` serve per-request work and tests.
+`reset_slot` serve per-request work (the prefix cache's capture and
+install) and tests.
 """
 from __future__ import annotations
 
@@ -59,10 +60,19 @@ class SlotStatePool:
                 for k, v in self.state.items()}
 
     def write_slot(self, slot: int, lane_state: Any):
-        """Install a batch-1 state tree into slot `slot` (in place)."""
-        for k, v in self.state.items():
-            v.narrow(self._axis[k], slot, 1).copy_(lane_state[k])
+        """Install a batch-1 state tree into slot `slot` (in place; the
+        programs' outputs are inference tensors, written in that mode)."""
+        with torch.inference_mode():
+            for k, v in self.state.items():
+                v.narrow(self._axis[k], slot, 1).copy_(lane_state[k])
 
     def reset_slot(self, slot: int):
         """Restore slot `slot` to the fresh (just-initialized) state."""
         self.write_slot(slot, self._fresh)
+
+    def sync(self):
+        """Wait for the pool's pending device work (the scheduler times a
+        cache install's copy with it)."""
+        dev = next(iter(self.state.values())).device
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)

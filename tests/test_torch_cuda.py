@@ -42,6 +42,8 @@ K7 on MIXED, W4, VQ and plain bf16 trees, K5-W4 and K5-VQ with an f32 x)
 hold the rules of their kernel's W8 form; their model forms equal L
 block launches bit for bit.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -2705,3 +2707,171 @@ def test_greedy_decode_sampling_on_the_card(cuda):
     a, b = run(sample_temp=0.8, rng=gen()), run(sample_temp=0.8, rng=gen())
     assert torch.equal(a, b)
     assert torch.equal(run(sample_temp=0.0, rng=gen()), run())
+
+
+# ---------------------------------------------------------------------------
+# The prefix cache and self-speculative decode on the card: the verify
+# windows' K2 and K6 shapes, the host tier's round trip, identities (a) and
+# (b), and the rollback snapshot
+# ---------------------------------------------------------------------------
+
+from repro_torch.serving import PrefixCache, PrefixCacheConfig
+from repro_torch.serving.prefix_cache import CacheVariant
+
+
+@pytest.mark.parametrize("T", [1, 2, 4])
+def test_wkv4_seq_verify_windows(cuda, T):
+    """K2 at the verify windows' T (B 8, prefix masks, a bf16 pool state
+    and carry) against its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(40 + T)
+    B, C = 8, 768
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda)
+    bf = lambda t: t.to(torch.bfloat16).float()
+    args = (rn(B, T, C), rn(B, T, C), torch.exp(0.5 * rn(C)), 0.5 * rn(C),
+            bf(rn(B, C)), bf(rn(B, C).abs() + 0.5), bf(rn(B, C) - 1))
+    valid = torch.zeros((B, T), dtype=torch.bool, device=cuda)
+    for i, n in enumerate((T, T - 1, 0, 1, T, T, T // 2, T)):
+        valid[i, :n] = True
+    y, fin = wkv4_seq(*args, valid=valid, carry_dtype="bfloat16")
+    y_p, fin_p = wkv4_seq_plain(*args, valid=valid, carry_dtype="bfloat16")
+    for o, r in zip((y, *fin), (y_p, *fin_p)):
+        _elementwise(o, r)
+    for o, a0 in zip(fin, args[4:]):      # the empty lane keeps its state
+        assert torch.equal(o[2], a0[2])
+
+
+@pytest.mark.parametrize("T", [1, 2, 4])
+def test_wkv6_seq_verify_windows(cuda, T):
+    """K6 at the verify windows' T (B 8, H 64, N 64, prefix masks, a bf16
+    pool state and carry): the state bit for bit with the plain version, y
+    by K2's rule and bit for bit against the in-order reference."""
+    g = torch.Generator(device=cuda).manual_seed(50 + T)
+    B, H, N = 8, 64, 64
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda)
+    args = (rn(B, T, H, N), rn(B, T, H, N), rn(B, T, H, N),
+            torch.exp(-torch.exp(0.5 * rn(B, T, H, N))), 0.5 * rn(H, N),
+            rn(B, H, N, N).to(torch.bfloat16))
+    valid = torch.zeros((B, T), dtype=torch.bool, device=cuda)
+    for i, n in enumerate((T, T - 1, 0, 1, T, T, T // 2, T)):
+        valid[i, :n] = True
+    y, sf = wkv6_seq(*args, valid=valid, carry_dtype="bfloat16")
+    y_p, sf_p = wkv6_seq_plain(*args, valid=valid, carry_dtype="bfloat16")
+    _elementwise(y, y_p)
+    assert torch.equal(sf, sf_p)
+    y_o, _ = wkv6_seq_inorder(*args, valid=valid, carry_dtype="bfloat16")
+    assert torch.equal(y.view(torch.int32), y_o.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prefix_cache_host_tier_round_trip(cuda, dtype):
+    """A lane state spilled to the host tier and promoted back (and one
+    handed out by a lease while it stays on the host) keeps its bits."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    lane = lambda: {k: torch.randn((2, 1, 96), generator=g, device=cuda)
+                    .to(dtype) for k in ("att_x", "wkv_a")}
+    var = CacheVariant("a", "fp", "exact", "chunked")
+    cache = PrefixCache(4, config=PrefixCacheConfig(device_slots=1,
+                                                    host_slots=2))
+    a, b = lane(), lane()
+    want = {k: v.clone() for k, v in a.items()}
+    pa, pb = [1, 2, 3, 4, 5], [6, 7, 8, 9, 10]
+    assert cache.insert(var, pa, 4, a) and cache.insert(var, pb, 4, b)
+    assert cache.n_host == 1 and cache.stats["spills"] == 1
+    assert all(v.device.type == "cpu" for v in cache._host[next(iter(
+        cache._host))].state.values())
+    held = cache.probe(var, pb)         # pins the device slot: no promotion
+    lease = cache.probe(var, pa)
+    assert cache.stats["host_hits"] == 1 and cache.n_host == 1
+    got = lease.state
+    assert all(torch.equal(got[k], want[k]) and got[k].device.type == cuda.type
+               for k in want)
+    lease.release()
+    held.release()
+    lease = cache.probe(var, pa)        # promoted this time
+    assert cache.n_device == 1 and cache.stats["host_hits"] == 2
+    got = lease.state
+    assert all(torch.equal(got[k], want[k]) and got[k].device.type == cuda.type
+               for k in want)
+    lease.release()
+    cache.check_state()
+
+
+def _spec_prompts(vocab, lens=(5, 9, 3, 12)):
+    r = np.random.default_rng(7)
+    return [r.integers(0, vocab, n).tolist() for n in lens]
+
+
+@functools.lru_cache(maxsize=None)
+def _smoke():
+    """chip_smoke.py as a module (its serving helpers), loaded by path."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "_cuda_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _spec_serve(eng, prompts, n_new=12, temperature=0.0, sequential=False):
+    """chip_smoke's `_serve`: (streams, snapshot)."""
+    return _smoke()._serve(eng, prompts, n_new, temperature=temperature,
+                           sequential=sequential)[:2]
+
+
+@pytest.mark.parametrize("arch,decode", [("rwkv4-169m", "model"),
+                                         ("rwkv4-169m", "block"),
+                                         ("rwkv6-7b", "model")])
+def test_speculative_stream_does_not_depend_on_the_drafter(cuda, arch,
+                                                           decode):
+    """Identity (a): for a fixed k the real drafter, an all-reject and an
+    all-accept stub give the same tokens bit for bit, greedy and sampled;
+    the rollback snapshot is untouched by the draft and verify calls."""
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(arch, smoke=True, quantized=True,
+                        plane_policy=MIXED if arch == "rwkv4-169m" else None,
+                        fused_decode=decode, fused_prefill=True, max_batch=4,
+                        prefill_chunk=4, speculative=3, device=cuda)
+    prompts = _spec_prompts(eng.model.cfg.vocab)
+    sched, smoke = eng.scheduler, _smoke()
+    draft, verify = sched.draft_fn, sched.verify_fn
+    seen = smoke._snapshot_guard(eng)
+    greedy, snap = _spec_serve(eng, prompts)
+    sched.draft_fn, sched.verify_fn = draft, verify
+    assert seen["checks"] > 0 and seen["intact"]
+    assert snap["drafted_tokens"] == snap["accepted_tokens"] + \
+        snap["rejected_tokens"]
+    sampled, _ = _spec_serve(eng, prompts, temperature=0.8)
+    for kind in ("reject", "accept"):
+        for temp, want in ((0.0, greedy), (0.8, sampled)):
+            real = smoke._stub_drafter(eng, want, kind)
+            got, _ = _spec_serve(eng, prompts, temperature=temp)
+            sched.draft_fn = real
+            assert got == want, (kind, temp)
+    assert eng.trace_counts == {"decode": 0, "prefill": 1, "verify": 1,
+                                "rollback": 1, "draft": 1}
+
+
+@pytest.mark.parametrize("arch", ["rwkv4-169m", "rwkv6-7b"])
+@pytest.mark.parametrize("slots", [8, 1], ids=["device", "host"])
+def test_cached_resume_streams_the_uncached_tokens(cuda, arch, slots):
+    """Identity (b): requests resumed from cache hits, from the device
+    tier or (one device slot) the host tier, stream the same tokens bit
+    for bit as the same engine without a cache."""
+    from repro_torch.serving import ServingEngine
+    kw = dict(smoke=True, quantized=True, fused_decode="model",
+              fused_prefill=True, max_batch=4, prefill_chunk=4, device=cuda)
+    r = np.random.default_rng(3)
+    V = get_model(arch, smoke=True).cfg.vocab
+    prefix = r.integers(0, V, 8).tolist()
+    prompts = [prefix + r.integers(0, V, n).tolist() for n in (1, 6, 5, 3)]
+    ref, _ = _spec_serve(ServingEngine(arch, **kw), prompts,
+                         sequential=True)
+    eng = ServingEngine(arch, prefix_cache=PrefixCacheConfig(
+        device_slots=slots, host_slots=8), **kw)
+    got, snap = _spec_serve(eng, prompts, sequential=True)
+    assert got == ref
+    assert snap["cache_hits"] == 3 and snap["cached_tokens"] == 24
+    if slots == 1:
+        assert eng.prefix_cache.stats["host_hits"] > 0
+    eng.prefix_cache.check_state()
