@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card proof that the PyTorch/CUDA port serves RWKV-4 (exact and
 hardware numerics) and RWKV-6 on every weight form (W8, W4, VQ and mixed
-planes, plain bf16), with its prefix cache and self-speculative decode,
+planes, plain bf16), with its prefix cache, self-speculative decode, SLO
+layer, crash-safe snapshots and fault drills,
 and the dense transformer smollm-135m, runs
 the RWKV whole-sequence forward, trains smollm-135m and rwkv4-169m, and
 runs the quantized serve step and the Δ-PoT matmuls of its public kernel
@@ -411,7 +412,32 @@ each prints its seconds and peak device memory (`phase_done` lines):
                     host copy.  rwkv6-7b W8 model path, k 4, depth 16
                     (K7-model on 16 layers): identity (a) with the reject
                     stub, trace_counts, K6 at T 1, 2, 4
-14. The `kernels` JSON line (thirty-three entries: the nine kernels, then
+14. The SLO layer, crash-safe snapshots and fault drills, on rwkv4-169m's
+    MIXED model path at full width (K4, K5 / -W4 / -VQ, K2; 8 slots,
+    chunk 16), run after the speculative phase; each drill against the
+    streams of a run that never crashed or was never poisoned, bit for bit:
+      crash resume  phase_engine's 8 requests × 32 tokens (odd ones
+                    sampled), a snapshot every 2 ticks, EngineCrash at tick
+                    3, ServingEngine.restore (the plan rebuilt from the
+                    seed, its weights' checksums verified), drain; the same
+                    with k 2 (K4 drafting on 6 layers, K5 + K2 verifying)
+                    and with the prefix cache (64-token shared prefix);
+                    a child process (`chip_smoke.py --crash-child DIR
+                    TICK`, its output kept apart) SIGKILLed at tick 17 by
+                    `crash_at_tick` "sigkill", restored by this process
+      faults        a lane poisoned with NaN at tick 4, quarantined by the
+                    sentinel and replayed; a burst of 12 past max_queue 4
+                    under backpressure (8 refused) and under shed (8
+                    shed); deadlines on a fake clock (4 evicted, the other
+                    4 streams unchanged)
+      given weights after phase 9: the trained tree served with params=,
+                    crashed at tick 5, restored with params= (without it
+                    ValueError, with the seed's weights IntegrityError)
+    Each line carries K4 / K5 / K2 launches, the snapshot save time (the
+    synchronous part: a capture, and the join of the previous background
+    write) and one capture alone, the bytes on disk, the restore time, the
+    weights' checksum time and the card's name and power limit.
+15. The `kernels` JSON line (thirty-three entries: the nine kernels, then
     K9 and the hardware-numerics forms of K2, K5, K3 and K4, then K13,
     K13-dq and K13-dkv, then K10 and K11, then K12, K12-bwd, K2-bwd and
     K11-bwd, then K1 and K8, then phase 11's forms: K3 and K4 on bf16,
@@ -433,9 +459,11 @@ import dataclasses
 import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -5569,6 +5597,450 @@ def phase_speculative6(engine, flush, refs):
 
 
 # the order of a phase row's dimensions in a `kernels` entry's shapes
+# --- the SLO layer, crash-safe snapshots and fault drills ------------------------
+
+_CARD: list = []
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    if not _CARD:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True)
+        _CARD.append(smi.stdout.strip().splitlines()[0])
+    return _CARD[0]
+
+
+def _mixed_model_kw() -> dict:
+    """The arguments of main's rwkv4-169m MIXED model-path engine (the
+    SIGKILL drill's child builds the same engine from them)."""
+    from repro_torch.core.quant.policy import PlanePolicy
+    return dict(smoke=False, quantized=True, fused_prefill=True, max_batch=8,
+                prefill_chunk=16, seed=SEED, device=DEV, fused_decode="model",
+                plane_policy=PlanePolicy(default="w8",
+                                         overrides=MIXED_OVERRIDES))
+
+
+def _drill_counters():
+    """The launch counters of the MIXED model path: K5, K5-W4, K5-VQ, K2
+    and K4."""
+    from repro_torch.kernels.fused_decode import rwkv4_model_decode
+    from repro_torch.kernels.fused_prefill import (
+        dpot_w4_matmul, dpot_w8_matmul, vq_matmul)
+    from repro_torch.kernels.wkv4 import wkv4_seq
+    return (dpot_w8_matmul, dpot_w4_matmul, vq_matmul, wkv4_seq,
+            rwkv4_model_decode)
+
+
+def _counted_run(counters, fn):
+    """fn() with every counter set to 0 just before and read just after:
+    (fn's result, the counts)."""
+    for c in counters:
+        c.launches = 0
+    out = fn()
+    _sync()
+    return out, {c.__name__: c.launches for c in counters}
+
+
+def _drill_traffic(engine, prompts, n_new=32):
+    """Submit `prompts` × `n_new` tokens: even requests greedy, odd ones
+    sampled at 0.8 from their own seeds (a resume must restore their
+    generators mid-stream)."""
+    return [engine.submit(p, max_new_tokens=n_new,
+                          temperature=0.8 if i % 2 else 0.0,
+                          seed=SEED + 100 + i)
+            for i, p in enumerate(prompts)]
+
+
+def _oracle_streams(engine, prompts, warm=None):
+    """The streams of a run that never crashes (a warm-up first)."""
+    if warm is not None:
+        engine.submit(warm, max_new_tokens=32)
+        engine.run()
+    hs = _drill_traffic(engine, prompts)
+    engine.run()
+    _sync()
+    return [h.tokens for h in hs]
+
+
+def _build_dir() -> Path:
+    """The checkout's `build/` (gitignored), where the drills' snapshot
+    directories go."""
+    d = Path(__file__).resolve().parent / "build"
+    d.mkdir(exist_ok=True)
+    return d
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def _restore_and_drain(directory, hs, counters, **kw):
+    """ServingEngine.restore(directory) (timed), then drain it with the
+    counters set to 0 just before: (every request's stream — a restored
+    handle's resumed + tokens, else the pre-crash handle's —, the
+    restored engine, restore seconds, the drain's launches)."""
+    from repro_torch.serving import ServingEngine
+    _sync()
+    t0 = time.perf_counter()
+    restored = ServingEngine.restore(str(directory), snapshot=None, **kw)
+    _sync()
+    restore_s = time.perf_counter() - t0
+    handles, tick = restored.handles, restored.scheduler._tick_no
+    _, launches = _counted_run(counters, restored.run)
+    streams = [handles[h.rid].resumed + handles[h.rid].tokens
+               if h.rid in handles else h.tokens for h in hs]
+    return streams, restored, restore_s, launches, tick
+
+
+def _k4_k5(launches) -> bool:
+    """K4 and one of K5 / K5-W4 launched."""
+    return launches["rwkv4_model_decode"] > 0 and (
+        launches["dpot_w8_matmul"] + launches["dpot_w4_matmul"]) > 0
+
+
+def _crash_drill(name, make_engine, prompts, oracle, directory, crash,
+                 counters, warm=None, **restore_kw):
+    """One in-process crash drill: an engine (`make_engine(fault_injector=,
+    snapshot=)`) serves `prompts` (after `warm`, served to completion)
+    with a snapshot every 2 ticks and raises EngineCrash at the top of the
+    `crash`-th tick of that traffic; `ServingEngine.restore` rebuilds it
+    from the newest committed snapshot and drains it.  Every stream must
+    equal `oracle` bit for bit, and K4 and K5 must launch both before the
+    crash and after the restore.  Returns the drill's record."""
+    from repro_torch.runtime.monitor import (EngineCrash,
+                                             ServingFaultInjector)
+    from repro_torch.serving import EngineSnapshot, SnapshotConfig
+    inj = ServingFaultInjector()
+    eng = make_engine(fault_injector=inj,
+                      snapshot=SnapshotConfig(str(directory), every=2))
+    if warm is not None:
+        eng.submit(warm, max_new_tokens=32)
+        eng.run()
+    crash += eng.scheduler._tick_no
+    inj.schedule[crash] = [("crash_at_tick", None)]
+    hs = _drill_traffic(eng, prompts)
+    crashed = False
+
+    def serve():
+        nonlocal crashed
+        try:
+            eng.run()
+        except EngineCrash:
+            crashed = True
+    _, before = _counted_run(counters, serve)
+    eng.snapshot_manager.wait()
+    save_s = list(eng.counters.snapshot_wall_s)
+    # the capture alone (a save also joins the previous background write)
+    _sync()
+    t0 = time.perf_counter()
+    EngineSnapshot.capture(eng, eng.scheduler._tick_no)
+    capture_s = time.perf_counter() - t0
+    streams, restored, restore_s, after, tick = _restore_and_drain(
+        directory, hs, counters, **restore_kw)
+    ok = (crashed and streams == oracle
+          and restored.counters.restores == 1
+          and restored.pool.n_free == restored.pool.max_slots
+          and _k4_k5(before) and _k4_k5(after))
+    rec = {"drill": name, "crash_tick": crash, "restored_at_tick": tick,
+           "resumed_lanes": restored.counters.resumed_lanes,
+           "streams_bit_equal": streams == oracle,
+           "first_diff": _first_diff(streams, oracle),
+           "launches_before_crash": before, "launches_after_restore": after,
+           "snapshots_written": len(save_s),
+           "snapshot_save_s": {"mean": sum(save_s) / max(len(save_s), 1),
+                               "max": max(save_s, default=0.0)},
+           "capture_s": capture_s,
+           "snapshot_bytes": _dir_bytes(Path(directory)),
+           "restore_s": restore_s, "ok": ok}
+    del restored, eng
+    return rec
+
+
+def _crash_child(directory: str, tick: int) -> int:
+    """The SIGKILL drill's child process: main's MIXED model-path engine,
+    snapshots every 2 ticks into `directory`, phase_engine's traffic, and
+    `crash_at_tick` "sigkill" at the top of tick `tick`.  Returns only if
+    the kill did not fire."""
+    from repro_torch.runtime.monitor import ServingFaultInjector
+    from repro_torch.serving import ServingEngine, SnapshotConfig
+    inj = ServingFaultInjector(schedule={tick: [("crash_at_tick",
+                                                 "sigkill")]})
+    eng = ServingEngine("rwkv4-169m", **_mixed_model_kw(), fault_injector=inj,
+                        snapshot=SnapshotConfig(directory, every=2))
+    _drill_traffic(eng, _engine_prompts(eng.model.cfg.vocab))
+    eng.run()
+    return 3
+
+
+def phase_crash_resume(engine):
+    """Crash-safe serving on rwkv4-169m's MIXED model path at full width
+    (K4 every decode tick; K5, K5-W4, K5-VQ and K2 every prefill chunk;
+    8 slots, chunk 16), phase_engine's 8 requests × 32 tokens, even ones
+    greedy, odd ones sampled at 0.8.  Four drills, each against the
+    streams of a run that never crashed, bit for bit:
+      in-process    snapshots every 2 ticks, EngineCrash at the top of
+                    tick 3 (mid-prefill), ServingEngine.restore (the plan
+                    rebuilt from the seed, its checksums verified), drain;
+      speculative   the same with k 2 (the drafter K4 on 6 layers, K5 + K2
+                    verifying), crash at tick 9;
+      prefix cache  a warm-up request, then 8 requests sharing a 64-token
+                    prefix, crash 3 ticks into them: the cache comes back
+                    from the snapshot and the streams are the cached run's;
+      SIGKILL       a child process (this script, `--crash-child`) builds
+                    the same engine, serves the same traffic and is
+                    SIGKILLed by `crash_at_tick` "sigkill" at tick 17; its
+                    output is kept out of this script's; the parent
+                    restores the directory it left.
+    Each drill's line: K4 / K5 / K2 launches before the crash and after
+    the restore, the snapshot save time (the synchronous part: a capture
+    and the join of the previous background write) and one capture
+    alone, the bytes on disk, the restore time; the phase line adds the
+    weights' checksum time and the card.  Returns the launches by
+    drill."""
+    import tempfile
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.snapshot import param_checksums
+    plan = engine.plan
+    V = plan.model.cfg.vocab
+    prompts = _engine_prompts(V)
+    counters = _drill_counters()
+    root = Path(tempfile.mkdtemp(prefix="crash_resume_", dir=_build_dir()))
+    t0 = time.perf_counter()
+    param_checksums(plan.prepared)
+    checksum_s = time.perf_counter() - t0
+    oracle = _oracle_streams(ServingEngine(plan.model, plan=plan,
+                                           max_batch=8, device=DEV), prompts)
+
+    def on(p):
+        return lambda **kw: ServingEngine(p.model, plan=p, max_batch=8,
+                                          device=DEV, **kw)
+    drills = [_crash_drill("in-process", on(plan), prompts, oracle,
+                           root / "inproc", 3, counters)]
+    depth = max(1, plan.model.cfg.n_layers // 2)     # 6 of 12
+    spec = _replan(plan, k=2, depth=depth)
+    spec.build_config = {**plan.build_config, "speculative": 2,
+                         "draft_depth": depth}
+    s_oracle = _oracle_streams(on(spec)(), prompts)
+    drills.append(_crash_drill("speculative", on(spec), prompts, s_oracle,
+                               root / "spec", 9, counters))
+    del spec
+    prefix, warm, c_prompts = _prefix_traffic(V, 64, SEED + 30)
+    cached = lambda **kw: on(plan)(prefix_cache=True, **kw)
+    c_oracle = _oracle_streams(cached(), c_prompts, warm=warm)
+    drills.append(_crash_drill("prefix cache", cached, c_prompts, c_oracle,
+                               root / "cache", 3, counters, warm=warm))
+    # SIGKILL: the kernels are built, so the child only loads them
+    kill_dir = root / "sigkill"
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--crash-child",
+         str(kill_dir), "17"], capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    from repro_torch.serving import load_snapshot
+    step, _ = load_snapshot(str(kill_dir))
+    # every request is still in flight at ticks 14-16 (32 new tokens
+    # each), so the restored handles hold every stream
+    hs = [types.SimpleNamespace(rid=i, tokens=[]) for i in range(8)]
+    streams, restored, restore_s, after, _ = _restore_and_drain(
+        kill_dir, hs, counters)
+    # the kill may tear tick 16's write (its thread still writing): the
+    # restore then takes tick 14's, as a torn write must
+    kill_ok = (child.returncode == -9 and step in (14, 16)
+               and streams == oracle
+               and restored.counters.resumed_lanes == 8 and _k4_k5(after))
+    drills.append({"drill": "SIGKILL", "crash_tick": 17,
+                   "child_returncode": child.returncode,
+                   "child_seconds": child_s, "child_stderr_tail":
+                   None if kill_ok else child.stderr[-2000:],
+                   "restored_step": step,
+                   "resumed_lanes": restored.counters.resumed_lanes,
+                   "streams_bit_equal": streams == oracle,
+                   "first_diff": _first_diff(streams, oracle),
+                   "launches_after_restore": after,
+                   "snapshot_bytes": _dir_bytes(kill_dir),
+                   "restore_s": restore_s, "ok": kill_ok})
+    del restored
+    shutil.rmtree(root)
+    for d in drills:
+        _line({"phase": "crash_resume", **d})
+    ok = all(d["ok"] for d in drills)
+    _line({"phase": "crash_resume", "arch": plan.model.cfg.name,
+           "planes": "MIXED", "decode": plan.decode_desc.name,
+           "prefill": plan.prefill_desc.name, "slots": 8,
+           "chunk": plan.prefill_chunk, "checksum_s": checksum_s,
+           "checksummed_planes": len(param_checksums(plan.prepared)),
+           "drills_ok": {d["drill"]: d["ok"] for d in drills},
+           "card": _card(), "ok": ok})
+    if not ok:
+        raise AssertionError(
+            "crash resume: " + ", ".join(d["drill"] for d in drills
+                                         if not d["ok"]) + " failed")
+    return {f"crash-{d['drill'].replace(' ', '-').lower()}":
+            d["launches_after_restore"] for d in drills}
+
+
+def phase_faults(engine):
+    """The sentinel, the overload policies and deadlines on rwkv4-169m's
+    MIXED model path at full width:
+      quarantine    sentinel_every 1, `corrupt_state_leaf` on request 3 at
+                    tick 4: the lane is quarantined (counted once) and the
+                    request replayed; every stream equals the clean run's
+                    bit for bit, no slot leaks;
+      backpressure  max_queue 4, 12 requests submitted before a tick: 4
+                    accepted, 8 refused with Overloaded (no handle left),
+                    the 4 finish; backpressured 8;
+      shed          max_queue 4, 12 requests of priority i // 4: each
+                    more urgent arrival sheds the youngest least urgent
+                    queued request: 8 shed, 4 (priority 2) finish;
+      deadline      a fake clock; requests 0-3 with a 5 s deadline, 4-7
+                    with none; after 4 ticks the clock moves 10 s: 0-3 end
+                    "deadline" with their slots freed, 4-7 finish with the
+                    clean run's streams bit for bit.
+    Each with its K4 / K5 / K2 launches and the counters' outcomes."""
+    from repro_torch.runtime.monitor import (ServingCounters,
+                                             ServingFaultInjector)
+    from repro_torch.serving import (AdmissionPolicy, Overloaded,
+                                     ServingEngine, ServingSLO)
+    plan = engine.plan
+    prompts = _engine_prompts(plan.model.cfg.vocab)
+    counters = _drill_counters()
+    eng = lambda **kw: ServingEngine(plan.model, plan=plan, max_batch=8,
+                                     device=DEV, **kw)
+    oracle = _oracle_streams(eng(), prompts)
+    recs = {}
+    # quarantine and replay
+    inj = ServingFaultInjector(schedule={4: [("corrupt_state_leaf", 3)]})
+    q = eng(fault_injector=inj, sentinel_every=1)
+    hs = _drill_traffic(q, prompts)
+    _, launches = _counted_run(counters, q.run)
+    streams = [h.tokens for h in hs]
+    recs["quarantine"] = {
+        "fired": [list(f) for f in inj.fired],
+        "quarantined_lanes": q.counters.quarantined_lanes,
+        "streams_bit_equal": streams == oracle,
+        "first_diff": _first_diff(streams, oracle),
+        "replayed_resumed": hs[3].resumed, "launches": launches,
+        "ok": (q.counters.quarantined_lanes == 1 and streams == oracle
+               and hs[3].resumed == [] and q.pool.n_free == 8
+               and min(launches.values()) > 0)}
+    # the overload policies: a burst of 12 before the first tick
+    for policy in ("backpressure", "shed"):
+        o = eng(slo=ServingSLO(admission=AdmissionPolicy(
+            max_queue=4, overload=policy)))
+        hs, refused = [], 0
+        for i in range(12):
+            try:
+                hs.append(o.submit(prompts[i % 8], max_new_tokens=8,
+                                   priority=i // 4 if policy == "shed"
+                                   else 0))
+            except Overloaded:
+                refused += 1
+        _, launches = _counted_run(counters, o.run)
+        outcomes = {}
+        for h in hs:
+            outcomes[h.outcome] = outcomes.get(h.outcome, 0) + 1
+        snap = o.counters.snapshot()
+        want = ({"finished": 4} if policy == "backpressure"
+                else {"finished": 4, "shed": 8})
+        recs[policy] = {
+            "submitted": 12, "refused": refused, "outcomes": outcomes,
+            "handles_left": len(o.handles),
+            "counters": {k: snap[k] for k in ("finished", "shed",
+                                              "backpressured")},
+            "launches": launches,
+            "ok": (outcomes == want and refused == (
+                8 if policy == "backpressure" else 0)
+                and snap["backpressured"] == refused
+                and snap["shed"] == want.get("shed", 0)
+                and snap["finished"] == 4 and not o.handles
+                and o.pool.n_free == 8)}
+    # deadlines on a fake clock
+    clock = types.SimpleNamespace(t=0.0)
+    d = eng(counters=ServingCounters(clock=lambda: clock.t))
+    hs = [d.submit(p, max_new_tokens=32, temperature=0.8 if i % 2 else 0.0,
+                   seed=SEED + 100 + i, deadline_s=5.0 if i < 4 else None)
+          for i, p in enumerate(prompts)]
+
+    def run_deadline():
+        for _ in range(4):
+            d.step()
+        clock.t += 10.0
+        d.run()
+    _, launches = _counted_run(counters, run_deadline)
+    snap = d.counters.snapshot()
+    recs["deadline"] = {
+        "outcomes": [h.outcome for h in hs],
+        "counters": {k: snap[k] for k in ("finished", "deadline_evicted")},
+        "survivors_bit_equal": [h.tokens for h in hs[4:]] == oracle[4:],
+        "launches": launches,
+        "ok": ([h.outcome for h in hs] == ["deadline"] * 4 + ["finished"] * 4
+               and snap["deadline_evicted"] == 4 and snap["finished"] == 4
+               and [h.tokens for h in hs[4:]] == oracle[4:]
+               and d.pool.n_free == 8)}
+    for name, rec in recs.items():
+        _line({"phase": "faults", "drill": name, **rec})
+    ok = all(r["ok"] for r in recs.values())
+    _line({"phase": "faults", "arch": plan.model.cfg.name, "planes": "MIXED",
+           "drills_ok": {k: r["ok"] for k, r in recs.items()},
+           "card": _card(), "ok": ok})
+    if not ok:
+        raise AssertionError("fault drills: " + ", ".join(
+            k for k, r in recs.items() if not r["ok"]) + " failed")
+    return {"quarantine": recs["quarantine"]["launches"]}
+
+
+def phase_restore_trained(model, restored):
+    """Crash and restore with given weights: phase 9's trained and
+    checkpoint-restored rwkv4-169m tree served through
+    ServingEngine(params=, quantized=True, fused_decode="model",
+    fused_prefill=True) (`build_config["from_seed"]` False), an
+    EngineCrash at tick 5, then: restore without params= raises
+    ValueError, with the seed's weights IntegrityError, with the trained
+    tree the streams of a run that never crashed, bit for bit."""
+    import tempfile
+    from repro_torch.serving import IntegrityError, ServingEngine
+    d = Path(tempfile.mkdtemp(prefix="restore_trained_", dir=_build_dir()))
+    engine = ServingEngine(model, params=restored, quantized=True,
+                           fused_decode="model", fused_prefill=True,
+                           max_batch=8, prefill_chunk=16, device=DEV)
+    plan = engine.plan
+    prompts = _engine_prompts(model.cfg.vocab)
+    oracle = _oracle_streams(engine, prompts)
+    counters = _drill_counters()
+    make = lambda **kw: ServingEngine(model, plan=plan, max_batch=8,
+                                      device=DEV, **kw)
+    refusals = {}
+    try:
+        ServingEngine.restore(str(d))
+    except FileNotFoundError:
+        refusals["empty"] = "FileNotFoundError"
+    rec = _crash_drill("given weights", make, prompts, oracle, d, 5,
+                       counters, params=restored)
+    try:
+        ServingEngine.restore(str(d))
+    except ValueError as e:
+        refusals["no params"] = type(e).__name__
+    try:
+        ServingEngine.restore(str(d), params=model.init_params(SEED, DEV))
+    except IntegrityError as e:
+        refusals["seed weights"] = type(e).__name__
+    _release()
+    shutil.rmtree(d)
+    ok = rec["ok"] and refusals == {"empty": "FileNotFoundError",
+                                    "no params": "ValueError",
+                                    "seed weights": "IntegrityError"}
+    _line({"phase": "restore_trained", **rec,
+           "from_seed": plan.build_config["from_seed"],
+           "refusals": refusals, "card": _card(), "ok": ok})
+    if not ok:
+        raise AssertionError(f"restore with given weights: {rec}, "
+                             f"{refusals}")
+    return rec["launches_after_restore"]
+
+
 _SHAPE_KEYS = ("M", "K", "N", "L", "B", "T", "C", "D", "F", "H", "S", "KVH",
                "d")
 
@@ -5623,6 +6095,8 @@ def main() -> int:
         print(f"chip_smoke: no port package under {src}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    if sys.argv[1:2] == ["--crash-child"]:
+        return _crash_child(sys.argv[2], int(sys.argv[3]))
     from repro_torch.core.quant.policy import PLANE_VQ, PLANE_W4, PlanePolicy
     from repro_torch.kernels.fused_decode import (
         rwkv4_block_decode, rwkv4_model_decode, rwkv6_block_decode,
@@ -5642,10 +6116,7 @@ def main() -> int:
                   max_batch=8, prefill_chunk=16, seed=SEED, device=DEV)
     # rwkv4-169m: the block path (W8) and the model path (MIXED planes)
     block = ServingEngine("rwkv4-169m", fused_decode="block", **common)
-    model = ServingEngine(
-        "rwkv4-169m", fused_decode="model",
-        plane_policy=PlanePolicy(default="w8", overrides=MIXED_OVERRIDES),
-        **common)
+    model = ServingEngine("rwkv4-169m", **_mixed_model_kw())
     cfg = block.model.cfg
     w8, mixed = block.plan.prepared.raw, model.plan.prepared.raw
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEV)
@@ -5677,6 +6148,10 @@ def main() -> int:
     paths, k2w, head_w, k4d = _timed("speculative rwkv4-169m",
                                      phase_speculative, model, flush)
     by_path.update(paths)
+    # crash-safe snapshots, the sentinel and the SLO layer on the same path
+    by_path.update(_timed("crash resume rwkv4-169m", phase_crash_resume,
+                          model))
+    by_path.update(_timed("fault drills rwkv4-169m", phase_faults, model))
     # rwkv4-169m on plain bf16 weights (quantized=False): K3 and K4 on bf16
     # matrices, the model-path engine, one block-path step
     plain4 = ServingEngine("rwkv4-169m", fused_decode="model",
@@ -5880,6 +6355,8 @@ def main() -> int:
     # the trained and restored tree served through the engine
     by_path["serve-trained"] = _timed("serve trained rwkv4-169m",
                                       phase_serve_trained, m4t, restored)
+    by_path["restore-trained"] = _timed("restore trained rwkv4-169m",
+                                        phase_restore_trained, m4t, restored)
     del restored
     _release()
 
@@ -6154,10 +6631,7 @@ def main() -> int:
     ]
     _line({"phase_done": "all", "seconds": time.perf_counter() - t_start})
     _line({"kernels": kernels})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(_card(), flush=True)
     _line({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})

@@ -24,6 +24,7 @@ and writes the files on a background thread.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -40,9 +41,14 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
+def _is_dataclass(x) -> bool:
+    return dataclasses.is_dataclass(x) and not isinstance(x, type)
+
+
 def _flatten(tree, path=""):
     """[(keystr, leaf)] in JAX's flatten order: dict keys sorted, NamedTuple
-    fields and sequence items in order, None an empty subtree."""
+    and dataclass fields and sequence items in order, None an empty
+    subtree."""
     if tree is None:
         return []
     if isinstance(tree, dict):
@@ -51,6 +57,9 @@ def _flatten(tree, path=""):
     if _is_namedtuple(tree):
         return [kv for f in tree._fields for kv in _flatten(
             getattr(tree, f), f"{path}.{f}")]
+    if _is_dataclass(tree):
+        return [kv for f in dataclasses.fields(tree) for kv in _flatten(
+            getattr(tree, f.name), f"{path}.{f.name}")]
     if isinstance(tree, (list, tuple)):
         return [kv for i, x in enumerate(tree) for kv in _flatten(
             x, f"{path}[{i}]")]
@@ -66,6 +75,10 @@ def _unflatten(like, leaves):
     if _is_namedtuple(like):
         return type(like)(*(_unflatten(getattr(like, f), leaves)
                             for f in like._fields))
+    if _is_dataclass(like):
+        return type(like)(**{f.name: _unflatten(getattr(like, f.name),
+                                                leaves)
+                             for f in dataclasses.fields(like)})
     if isinstance(like, (list, tuple)):
         return type(like)(_unflatten(x, leaves) for x in like)
     return next(leaves)

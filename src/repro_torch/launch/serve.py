@@ -4,7 +4,11 @@
         --quantized --fused {block,model} --fused-prefill [--batch 8] \
         [--tokens 32] [--smoke] [--device cuda|cpu] \
         [--prefix-cache [--prefix-cache-slots N] \
-         [--prefix-cache-host-slots N]] [--speculative K [--draft-depth D]]
+         [--prefix-cache-host-slots N]] [--speculative K [--draft-depth D]] \
+        [--max-queue N [--overload backpressure|shed]] [--prefill-budget T] \
+        [--deadline S] [--sentinel-every N] \
+        [--snapshot-dir DIR [--snapshot-every N] [--resume] \
+         [--supervise [--max-restarts N]]]
     python -m repro_torch.launch.serve --legacy [--arch smollm-135m] \
         [--hw-numerics] [--smoke] [--batch 4] [--tokens 32] \
         [--device cuda|cpu]
@@ -27,6 +31,19 @@ first, so that the other requests resume from its cached state, and the
 cache's snapshot is printed.  `--speculative K` decodes K tokens a tick
 at most: the first `--draft-depth` layers (default half) draft K-1 on the
 decode path's kernel, one chunk-shaped verify call scores the window.
+
+The SLO layer: `--max-queue N` bounds the admission queue, and a full one
+refuses a submission with a typed `Overloaded` (`--overload backpressure`,
+reported and counted) or drops the least urgent queued request (`shed`);
+`--prefill-budget T` caps the prompt tokens prefilled per tick while lanes
+decode; `--deadline S` evicts requests still running S seconds after
+their submission.  `--sentinel-every N` sweeps the pool for NaN/Inf lanes
+every N ticks and replays a poisoned request.  Crash safety:
+`--snapshot-dir DIR` writes a tick-boundary snapshot every
+`--snapshot-every` ticks, `--resume` restores the newest committed one and
+drains it (a fresh start when there is none), and `--supervise` runs the
+serve command in a child process and relaunches it with `--resume` after
+an abnormal exit, at most `--max-restarts` times.
 
 `--legacy` is the seed's serving mode (`serve_legacy`): one fixed batch
 of random first tokens, the per-op `decode_step` in a host loop
@@ -169,28 +186,71 @@ def weights_label(params) -> str:
                                 for p in ("w8", "w4", "vq") if p in counts)
 
 
+def _print_snapshot(snap: dict):
+    for k, v in snap.items():
+        print(f"  {k}: {v:.3f}" if isinstance(v, float) else f"  {k}: {v}")
+
+
 def serve(arch: str, *, smoke: bool = False, batch: int = 8,
           n_tokens: int = 32, quantized: bool = False, prompt_len: int = 8,
           fused: str | None = None, fused_prefill: bool = False,
           prefix_cache: bool = False, cache_slots: int = 64,
           cache_host_slots: int = 256, speculative: int | None = None,
-          draft_depth: int | None = None, device: str = "cuda"):
+          draft_depth: int | None = None, max_queue: int = 0,
+          overload: str = "backpressure", prefill_budget: int = 0,
+          deadline_s: float | None = None, snapshot_dir: str | None = None,
+          snapshot_every: int = 8, sentinel_every: int = 0,
+          resume: bool = False, device: str = "cuda"):
     """`batch` concurrent greedy requests (seeded prompts, weights from
     seed 0) through the engine; prints the run's throughput (tokens over
     its wall time) and the counters' snapshot, and returns the handles.
     With `prefix_cache` every prompt starts with one shared system prompt
     (a warm-up request serves it first, since boundary states publish
     when their request finishes) and the cache's snapshot is printed;
-    `speculative` is the verify window K."""
-    from repro_torch.serving import PrefixCacheConfig, ServingEngine
+    `speculative` is the verify window K.  `max_queue`, `overload`,
+    `prefill_budget` and `deadline_s` configure the SLO layer (the
+    defaults: unbounded, unlimited, no deadline); a submission the full
+    queue refuses is reported and counted.  `snapshot_dir` writes a
+    snapshot every `snapshot_every` ticks; with `resume` the newest
+    committed one is restored and drained instead (a fresh start when
+    there is none).  `sentinel_every` turns on the NaN/Inf sentinel."""
+    from repro_torch.serving import (AdmissionPolicy, Overloaded,
+                                     PrefixCacheConfig, ServingEngine,
+                                     ServingSLO, SnapshotConfig)
+    if resume and snapshot_dir:
+        try:
+            engine = ServingEngine.restore(snapshot_dir)
+        except FileNotFoundError:
+            print(f"no committed snapshot under {snapshot_dir!r} — "
+                  "starting fresh")
+        else:
+            handles = list(engine.handles.values())
+            print(f"resumed {len(handles)} request(s) from "
+                  f"{snapshot_dir!r} at tick {engine.scheduler._tick_no}")
+            snap = engine.run()
+            if engine.snapshot_manager is not None:
+                engine.snapshot_manager.wait()
+            done = sum(len(h.resumed) + len(h.tokens) for h in handles)
+            print(f"{arch}: resumed run drained — {done} tokens across "
+                  f"{len(handles)} stream(s) (resumed + continued)")
+            _print_snapshot(snap)
+            return handles
     cache = PrefixCacheConfig(device_slots=cache_slots,
                               host_slots=cache_host_slots) \
         if prefix_cache else None
+    slo = ServingSLO(prefill_budget=prefill_budget,
+                     default_deadline_s=deadline_s,
+                     admission=AdmissionPolicy(max_queue=max_queue,
+                                               overload=overload))
     engine = ServingEngine(arch, smoke=smoke, max_batch=batch,
                            quantized=quantized, fused_decode=fused,
                            fused_prefill=fused_prefill,
                            speculative=speculative, draft_depth=draft_depth,
-                           prefix_cache=cache, device=device)
+                           prefix_cache=cache, slo=slo,
+                           snapshot=None if snapshot_dir is None else
+                           SnapshotConfig(directory=snapshot_dir,
+                                          every=snapshot_every),
+                           sentinel_every=sentinel_every, device=device)
     rng = np.random.default_rng(0)
     vocab = engine.model.cfg.vocab
     shared = []
@@ -201,13 +261,25 @@ def serve(arch: str, *, smoke: bool = False, batch: int = 8,
                       max_new_tokens=1)
         engine.run()
     t0 = time.perf_counter()
-    handles = [engine.submit(
-        shared + rng.integers(0, vocab, prompt_len).tolist(),
-        max_new_tokens=n_tokens) for _ in range(batch)]
+    # admission happens in ticks, so every submission lands in the queue
+    # first: a --max-queue below the batch meets backpressure here
+    handles, refused = [], 0
+    for _ in range(batch):
+        prompt = shared + rng.integers(0, vocab, prompt_len).tolist()
+        try:
+            handles.append(engine.submit(prompt, max_new_tokens=n_tokens))
+        except Overloaded as exc:
+            refused += 1
+            print(f"backpressured: {exc}")
     snap = engine.run()
+    if engine.snapshot_manager is not None:
+        engine.snapshot_manager.wait()
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     dt = time.perf_counter() - t0
+    if refused:
+        print(f"{refused}/{batch} submissions backpressured (--max-queue "
+              f"{max_queue}, --overload {overload})")
     name = torch.cuda.get_device_name(engine.device) \
         if engine.device.type == "cuda" else "cpu"
     print(f"{arch}{' (smoke)' if smoke else ''} on {name}: {batch} requests "
@@ -218,14 +290,39 @@ def serve(arch: str, *, smoke: bool = False, batch: int = 8,
           f"{snap['decode_tokens'] / dt:.1f} tok/s over {snap['ticks']} "
           f"ticks, TTFT {snap['mean_ttft_s'] * 1e3:.0f} ms, latency "
           f"{snap['mean_latency_s'] * 1e3:.0f} ms")
-    for k, v in snap.items():
-        print(f"  {k}: {v:.3f}" if isinstance(v, float) else f"  {k}: {v}")
+    _print_snapshot(snap)
     if engine.prefix_cache is not None:
         print("prefix cache:")
-        for k, v in engine.prefix_cache.snapshot().items():
-            print(f"  {k}: {v:.3f}" if isinstance(v, float)
-                  else f"  {k}: {v}")
+        _print_snapshot(engine.prefix_cache.snapshot())
     return handles
+
+
+def supervise(argv: list[str], *, max_restarts: int = 3) -> int:
+    """The restart-and-resume supervisor: run the serve CLI
+    (`python -m repro_torch.launch.serve` with `argv` less `--supervise`)
+    in a child process and, after any abnormal exit (an injected crash, a
+    SIGKILL, an out-of-memory kill), relaunch it with `--resume`, so that
+    it restores the newest committed snapshot and continues every stream.
+    Gives up after `max_restarts` abnormal exits and returns the child's
+    last exit code (0 once a run ends normally)."""
+    import subprocess
+    import sys
+    args = [a for a in argv if a != "--supervise"]
+    rc = 0
+    for attempt in range(max_restarts + 1):
+        rc = subprocess.call([sys.executable, "-m",
+                              "repro_torch.launch.serve", *args])
+        if rc == 0:
+            return 0
+        if attempt == max_restarts:
+            print(f"supervisor: giving up after {max_restarts} restarts "
+                  f"(last rc={rc})")
+            return rc
+        print(f"supervisor: serve exited rc={rc}; restarting with "
+              f"--resume ({attempt + 1}/{max_restarts})")
+        if "--resume" not in args:
+            args.append("--resume")
+    return rc
 
 
 def main(argv=None):
@@ -256,6 +353,39 @@ def main(argv=None):
                     "verify call scores the window")
     ap.add_argument("--draft-depth", type=int, default=None, metavar="D",
                     help="layers the drafter keeps (default: half)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bounded admission queue, 0 = unbounded; a full "
+                    "queue backpressures (typed Overloaded with a retry "
+                    "hint) or sheds, per --overload")
+    ap.add_argument("--overload", default="backpressure",
+                    choices=["backpressure", "shed"],
+                    help="full-queue behaviour: refuse the arrival, or "
+                    "drop the least urgent queued request")
+    ap.add_argument("--prefill-budget", type=int, default=0,
+                    help="prompt tokens prefilled per tick while lanes "
+                    "decode (0 = unlimited): bounds the inter-token "
+                    "latency a prefill burst adds")
+    ap.add_argument("--deadline", type=float, default=None, metavar="S",
+                    help="default per-request deadline in seconds; a "
+                    "request past it is evicted with outcome 'deadline'")
+    ap.add_argument("--snapshot-dir", default=None, metavar="DIR",
+                    help="write a tick-boundary engine snapshot into DIR "
+                    "every --snapshot-every ticks (atomic commits, "
+                    "background writes)")
+    ap.add_argument("--snapshot-every", type=int, default=8,
+                    help="snapshot cadence in scheduler ticks")
+    ap.add_argument("--sentinel-every", type=int, default=0,
+                    help="NaN/Inf lane sweep every N ticks (0 = off); a "
+                    "poisoned lane's request is requeued and replayed")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest committed snapshot from "
+                    "--snapshot-dir and drain it (fresh start if none)")
+    ap.add_argument("--supervise", action="store_true",
+                    help="run serve in a child process and relaunch it "
+                    "with --resume after an abnormal exit (needs "
+                    "--snapshot-dir)")
+    ap.add_argument("--max-restarts", type=int, default=3,
+                    help="the supervisor's restart budget")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--legacy", action="store_true",
                     help="the seed's fixed-batch per-op decode loop")
@@ -263,6 +393,14 @@ def main(argv=None):
                     help="the paper's LUT/PWL/A9 numerics (rwkv4; implies "
                     "--legacy)")
     args = ap.parse_args(argv)
+    if args.supervise:
+        import sys
+        if not args.snapshot_dir:
+            ap.error("--supervise needs --snapshot-dir (nothing to "
+                     "resume from otherwise)")
+        raise SystemExit(supervise(
+            sys.argv[1:] if argv is None else list(argv),
+            max_restarts=args.max_restarts))
     if args.legacy or args.hw_numerics:
         serve_legacy(args.arch, smoke=args.smoke, batch=args.batch,
                      n_tokens=args.tokens, quantized=args.quantized,
@@ -275,6 +413,11 @@ def main(argv=None):
           cache_slots=args.prefix_cache_slots,
           cache_host_slots=args.prefix_cache_host_slots,
           speculative=args.speculative, draft_depth=args.draft_depth,
+          max_queue=args.max_queue, overload=args.overload,
+          prefill_budget=args.prefill_budget, deadline_s=args.deadline,
+          snapshot_dir=args.snapshot_dir,
+          snapshot_every=args.snapshot_every,
+          sentinel_every=args.sentinel_every, resume=args.resume,
           device=args.device)
 
 

@@ -4,17 +4,22 @@
                       its prefill decomposition, inter-token latency,
                       per-request latency, p50/p90/p99 in `snapshot()`,
                       cancellations, slot occupancy, the prefix cache's
-                      hits, copies and tiers and speculative decode's
-                      acceptance.  The hooks of the features not ported
-                      yet (SLO admission, snapshots, cache errors) and of
-                      path demotion, which the port never makes, exist
-                      with their fields and keys, and nothing calls them
-                      (ROADMAP Queue 1 item 6).
+                      hits, copies and tiers, speculative decode's
+                      acceptance, the SLO layer's outcomes (shed,
+                      deadline, backpressure, budget deferrals), cache
+                      errors, snapshots, restores and quarantines.  The
+                      hook of path demotion, which the port never makes,
+                      exists with its fields and keys, and nothing calls
+                      it.
+  EngineCrash, ServingFaultInjector
+                    — the serving fault drills: a tick-indexed schedule
+                      of faults the scheduler applies at the top of a
+                      tick (`repro_torch.serving.scheduler`).
   StragglerDetector — per-host step-duration EMA; flags hosts slower than
                       `threshold` x the fleet median.
 
-The heartbeat monitor and the fault injectors wait for item 6 and the
-training drill (item 8c).
+The training fault injector, its supervisor and the heartbeat monitor
+wait for the training drill (ROADMAP Queue 1 item 8c).
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import collections
 import dataclasses
 import math
 import time
-from typing import Callable
+from typing import Any, Callable
 
 
 def percentile(xs: list, q: float) -> float:
@@ -86,7 +91,7 @@ class ServingCounters:
         self.accepted_tokens = 0
         self.rejected_tokens = 0
         self.spec_ticks = 0             # per-lane window walks, not ticks
-        # SLO-layer telemetry (item 6's admission layer): per-token inter-token
+        # SLO-layer telemetry (serving/slo.py): per-token inter-token
         # latency samples (gap between a lane's consecutive emitted
         # tokens — THE user-visible jitter the prefill budget bounds),
         # explicit-overload outcome counters, and robustness counters.
@@ -97,7 +102,7 @@ class ServingCounters:
         self.backpressured = 0
         self.cache_errors = 0
         self.budget_deferred_tokens = 0
-        # crash-safety telemetry (item 6's snapshots): snapshot writes
+        # crash-safety telemetry (serving/snapshot.py): snapshot writes
         # and their synchronous capture wall time, restores and the lanes
         # they resumed, sentinel quarantines, integrity-checksum failures,
         # and fused-path demotions, which the port never makes (a failing
@@ -227,9 +232,12 @@ class ServingCounters:
         self.backpressured += 1
 
     def on_cache_error(self):
-        """JAX's hook for a prefix-cache probe or insert that raised and
-        degraded to a miss; in the port such an error raises (the fault
-        drills that count it wait for item 6), so nothing calls it."""
+        """A prefix-cache probe or insert failed and degraded to a miss.
+        The port degrades exactly two kinds: the injected
+        `cache_probe_error` drill and the cache's own typed
+        `CacheStorageError` (an entry whose stored state does not match
+        what was inserted).  Any other exception, a CUDA error above all,
+        raises out of `Scheduler.tick()` and is never counted here."""
         self.cache_errors += 1
 
     def on_budget_defer(self, n_tokens: int):
@@ -341,7 +349,7 @@ class ServingCounters:
             "path_fallbacks": self.path_fallbacks,
         }
 
-    # -- snapshot/restore (for item 6's engine snapshots) -------------------------
+    # -- snapshot/restore (serving/snapshot.py) ----------------------------
 
     _COUNTER_FIELDS = (
         "prefill_tokens", "decode_tokens", "ticks", "admitted", "finished",
@@ -395,6 +403,60 @@ class ServingCounters:
                                for r, n in state["_prefill_ticks"].items()}
         self._admit_overhead = {int(r): v
                                 for r, v in state["_admit_overhead"].items()}
+
+
+class EngineCrash(RuntimeError):
+    """The injected in-process serving crash (`crash_at_tick`): raised at
+    the top of the scheduled tick, before any of its work — the crash
+    point every committed snapshot must be consistent with."""
+
+    def __init__(self, tick: int):
+        super().__init__(f"injected engine crash at tick {tick}")
+        self.tick = tick
+
+
+@dataclasses.dataclass
+class ServingFaultInjector:
+    """Tick-indexed fault schedule for the serving scheduler, which drains
+    `pop(tick)` at the top of each tick and applies the faults:
+
+      ("cache_probe_error", None) — the next prefix-cache probe fails; the
+          scheduler degrades it to a counted miss and holds no lease.
+      ("evict", rid)              — evict `rid` at the top of the tick
+          (queued or in flight): mid-prefill cancellation.
+      ("evict_on_token", rid)     — evict `rid` from inside its next token
+          emission, i.e. mid-tick or mid-speculation.
+      ("deadline", rid)           — expire `rid`'s deadline now, whether
+          or not it had one.
+      ("crash_at_tick", None|"raise"|"sigkill") — kill the engine at the
+          top of the tick: raise `EngineCrash` (default), or SIGKILL the
+          process ("sigkill": nothing gets to flush).
+      ("torn_snapshot_write", None) — leave what a crash mid-save leaves:
+          a partial `.tmp-step_X` without its COMMIT marker, which restore
+          must skip.
+      ("corrupt_state_leaf", rid) — fill `rid`'s lane state with NaN; the
+          sentinel sweep must quarantine and requeue it.
+
+    `fired` records (tick, kind, payload) of every fault delivered."""
+
+    schedule: dict[int, list[tuple[str, Any]]] = \
+        dataclasses.field(default_factory=dict)
+    enabled: bool = True
+    fired: list[tuple[int, str, Any]] = \
+        dataclasses.field(default_factory=list)
+
+    KINDS = ("cache_probe_error", "evict", "evict_on_token", "deadline",
+             "crash_at_tick", "torn_snapshot_write", "corrupt_state_leaf")
+
+    def pop(self, tick: int) -> list[tuple[str, Any]]:
+        if not self.enabled:
+            return []
+        faults = self.schedule.pop(tick, [])
+        for kind, _ in faults:
+            if kind not in self.KINDS:
+                raise ValueError(f"unknown serving fault kind {kind!r}")
+        self.fired.extend((tick, k, p) for k, p in faults)
+        return list(faults)
 
 
 class StragglerDetector:

@@ -1,6 +1,5 @@
 """Serving engine front end: submit(prompt) -> token stream (port of
-`repro/serving/engine.py`; SLO admission, snapshots and fault drills wait
-for ROADMAP Queue 1 item 6).
+`repro/serving/engine.py`).
 
 Wires the slotted state pool and the scheduler to an `ExecutionPlan`,
 which owns path selection, weight preparation and the programs (decode
@@ -8,7 +7,10 @@ step, prefill chunk, and the drafter, verifier and rollback under
 self-speculative decode).  The engine builds the prefix cache, when asked
 for one, and owns request lifecycle: handles, streaming, cancellation,
 the scheduler callbacks and the `ServingCounters` telemetry `run()`
-returns.
+returns.  Around it sit the SLO layer (`slo=`: priorities, deadlines, a
+bounded queue, the prefill budget), the fault drills (`fault_injector=`),
+the NaN/Inf sentinel (`sentinel_every=`) and crash safety (`snapshot=`
+and `ServingEngine.restore`, `repro_torch.serving.snapshot`).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.runtime.monitor import ServingCounters
 from repro_torch.serving.plan import STATE_DTYPE, ExecutionPlan, build_plan
 from repro_torch.serving.prefix_cache import PrefixCache, PrefixCacheConfig
 from repro_torch.serving.scheduler import FINISHED, Request, Scheduler
+from repro_torch.serving.slo import ServingSLO
 from repro_torch.serving.state_pool import SlotStatePool
 
 
@@ -36,11 +39,18 @@ class SamplingParams:
 
 class RequestHandle:
     """Live view of one submitted request; tokens stream in as generated.
-    `outcome` is None while in flight, then "finished" or "cancelled"."""
+
+    `outcome` is None while in flight and then one of "finished",
+    "cancelled", "shed" (dropped by the overload policy: resubmit) or
+    "deadline" (evicted past its deadline).  A handle that
+    `ServingEngine.restore` registers carries the tokens generated before
+    the crash in `resumed`, so the request's whole stream is
+    `resumed + tokens`; `resumed` is [] on a fresh submit."""
 
     def __init__(self, request: Request):
         self.request = request
         self.tokens: list[int] = []        # everything generated so far
+        self.resumed: list[int] = []
         self.done = False
         self.outcome: Optional[str] = None
         self._pending: collections.deque[int] = collections.deque()
@@ -89,7 +99,26 @@ class ServingEngine:
                     chunk must equal the plan's prefill_chunk.  Entries
                     file under `plan.cache_variant()`; a resumed request
                     streams the uncached tokens bit for bit
+    slo           — a `ServingSLO`: priority, aging, deadline and
+                    cache-aware admission, the per-tick prefill budget
+                    (a lane quota, `ExecutionPlan.prefill_quota`), a
+                    bounded queue with `Overloaded` backpressure or
+                    shedding, and `run()`'s hang watchdog; the default
+                    keeps an unbounded FIFO queue with no deadlines
+    fault_injector — a `ServingFaultInjector` for fault drills (cache
+                    probe errors, evictions mid-prefill and
+                    mid-speculation, forced deadlines, crashes and
+                    SIGKILL, torn snapshot writes, poisoned lanes)
+    snapshot      — a `SnapshotConfig` (or a directory, at the default
+                    cadence): tick-boundary snapshots; `restore(dir)`
+                    resumes every stream bit for bit
+    sentinel_every — every N ticks (0 = off) one sweep flags lanes holding
+                    NaN or Inf; such a lane is quarantined and its request
+                    replayed from scratch
     device        — "cuda" (default) or "cpu"; without a GPU "cuda" raises
+
+    There is no path demotion: a program that raises inside a tick raises
+    out of `step()` / `run()` at its first failure.
     """
 
     def __init__(self, model: Model | str, *, params: Any = None,
@@ -103,7 +132,9 @@ class ServingEngine:
                  draft_depth: Optional[int] = None,
                  plan: Optional[ExecutionPlan] = None,
                  counters: Optional[ServingCounters] = None,
-                 prefix_cache=None, device="cuda"):
+                 prefix_cache=None, slo: Optional[ServingSLO] = None,
+                 fault_injector=None, snapshot=None,
+                 sentinel_every: int = 0, device="cuda"):
         if plan is None:
             plan = build_plan(model, params, smoke=smoke,
                               quantized=quantized,
@@ -126,6 +157,7 @@ class ServingEngine:
         self.prefix_cache = self._build_cache(prefix_cache)
         sp = plan.speculative
         self.speculative = 0 if sp is None else sp.k
+        self.slo = slo if slo is not None else ServingSLO()
         self.scheduler = Scheduler(
             self.pool, plan.decode_fn(max_batch), plan.prefill_fn(max_batch),
             prefill_chunk=plan.prefill_chunk, counters=self.counters,
@@ -138,9 +170,32 @@ class ServingEngine:
             if sp is not None and sp.k > 1 else None,
             verify_fn=plan.verify_fn(max_batch) if sp is not None else None,
             rollback_fn=plan.rollback_fn(max_batch)
-            if sp is not None else None)
+            if sp is not None else None,
+            slo=self.slo,
+            prefill_quota=plan.prefill_quota(self.slo.prefill_budget,
+                                             max_batch)
+            if self.slo.prefill_budget > 0 else None,
+            fault_injector=fault_injector, sentinel_every=sentinel_every,
+            on_requeue=self._on_requeue)
         self._handles: dict[int, RequestHandle] = {}
         self._next_rid = 0
+        self.snapshot_manager = None
+        if snapshot is not None and snapshot is not False:
+            from repro_torch.serving.snapshot import SnapshotConfig
+            self._attach_snapshots(
+                snapshot if isinstance(snapshot, SnapshotConfig)
+                else SnapshotConfig(directory=str(snapshot)))
+
+    def _attach_snapshots(self, config, *, reference=None):
+        """Wire tick-boundary snapshots (`config`, a SnapshotConfig) into
+        the scheduler's `after_tick` hook and the torn-write drill into
+        `on_torn_snapshot`; `reference` is the weights' checksums when the
+        caller has just verified them (a restore)."""
+        from repro_torch.serving.snapshot import SnapshotManager
+        self.snapshot_manager = SnapshotManager(self, config,
+                                                reference=reference)
+        self.scheduler.after_tick = self.snapshot_manager.maybe_save
+        self.scheduler.on_torn_snapshot = self.snapshot_manager.write_torn
 
     def _build_cache(self, prefix_cache) -> Optional[PrefixCache]:
         """The `prefix_cache=` argument as a cache whose chunk is the
@@ -170,9 +225,15 @@ class ServingEngine:
         return self.plan.trace_counts
 
     def submit(self, prompt: list[int],
-               sampling: Optional[SamplingParams] = None,
+               sampling: Optional[SamplingParams] = None, *,
+               priority: int = 0, deadline_s: Optional[float] = None,
                **kw) -> RequestHandle:
-        """Queue a request; `kw` overrides SamplingParams fields."""
+        """Queue a request; `kw` overrides SamplingParams fields.
+        `priority` and `deadline_s` are the SLO fields
+        (`repro_torch.serving.slo`).  With a bounded queue a full queue
+        raises `Overloaded` (the request was NOT accepted and leaves no
+        handle behind) or, under the shed policy, drops a strictly less
+        urgent queued request (its handle ends with outcome "shed")."""
         sp = sampling or SamplingParams()
         if kw:
             sp = dataclasses.replace(sp, **kw)
@@ -180,10 +241,17 @@ class ServingEngine:
         req = Request(rid=rid, prompt=[int(t) for t in prompt],
                       max_new_tokens=sp.max_new_tokens,
                       temperature=sp.temperature, seed=sp.seed,
-                      eos_token=sp.eos_token)
-        self.scheduler.enqueue(req)
+                      eos_token=sp.eos_token, priority=priority,
+                      deadline_s=deadline_s)
         handle = RequestHandle(req)
+        # registered before enqueue (a shed victim's on_finish fires inside
+        # it and needs its own handle), dropped if THIS request is refused
         self._handles[rid] = handle
+        try:
+            self.scheduler.enqueue(req)
+        except BaseException:
+            self._handles.pop(rid, None)
+            raise
         return handle
 
     def cancel(self, handle: RequestHandle) -> bool:
@@ -203,7 +271,8 @@ class ServingEngine:
         return self.scheduler.tick()
 
     def run(self) -> dict:
-        """Drive until drained; returns the counters' snapshot."""
+        """Drive until drained (with the scheduler's hang watchdog,
+        `ServingSLO.max_idle_ticks`); returns the counters' snapshot."""
         self.scheduler.run()
         return self.counters.snapshot()
 
@@ -237,3 +306,23 @@ class ServingEngine:
         h = self._handles.pop(req.rid)
         h.outcome = outcome
         h.done = True
+
+    def _on_requeue(self, req: Request):
+        """Quarantine callback: the request replays from scratch, so its
+        handle forgets what the poisoned lane emitted; the replay delivers
+        the same stream again."""
+        h = self._handles.get(req.rid)
+        if h is not None:
+            h.tokens.clear()
+            h.resumed = []
+            h._pending.clear()
+
+    @classmethod
+    def restore(cls, directory: str, **kw) -> "ServingEngine":
+        """Rebuild an engine from its newest committed snapshot and
+        continue every stream bit for bit: each handle's `resumed` holds
+        the pre-crash tokens, so `resumed + tokens` equals the stream of a
+        run that never crashed.  Keywords: `restore_engine`'s (params,
+        step, snapshot, fault_injector, verify_params, device)."""
+        from repro_torch.serving.snapshot import restore_engine
+        return restore_engine(directory, **kw)

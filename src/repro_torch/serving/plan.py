@@ -172,6 +172,20 @@ class ExecutionPlan:
                             prefill=self.prefill_desc.name,
                             state_dtype=_dtype_name(self.state_dtype))
 
+    def prefill_quota(self, budget_tokens: int, batch: int) -> int:
+        """The per-tick prefill LANE quota for a token budget (the SLO
+        layer's `prefill_budget`).  The prefill program's shape is (batch,
+        prefill_chunk) whatever the load, so a budget cannot shrink a call:
+        it only chooses how many lanes' validity rows are filled.  The
+        budget rounds down to whole chunks with a floor of one lane, so
+        prefill always progresses; the program keys never see it, so
+        budgeted serving runs the same programs (`trace_counts` stays 1).
+        0 = unlimited: the whole batch."""
+        if budget_tokens <= 0:
+            return int(batch)
+        return max(1, min(int(batch),
+                          int(budget_tokens) // self.prefill_chunk))
+
     def _program(self, key: tuple, count: str, build):
         """The program of `key`, built once; `trace_counts[count]` goes up
         at its first call."""

@@ -29,8 +29,15 @@ The scheduler probes on admit, captures chunk-boundary states after each
 prefill tick and publishes them when the request finishes
 (`repro_torch.serving.scheduler`).  A resumed request runs the same chunk
 programs from the same state bits at the same chunk boundaries, so its
-stream equals the uncached one bit for bit.  A probe or insert that
-raises, raises: nothing here degrades to a miss.
+stream equals the uncached one bit for bit.
+
+  * TYPED STORAGE FAULTS — every entry records its state's leaves, shapes
+    and dtypes when it is inserted or adopted; an entry found to no longer
+    match them, when a probe hits it or an insert spills it, is dropped
+    and raises `CacheStorageError`.  The scheduler degrades that error
+    (and its own injected probe fault) to a counted miss or a dropped
+    insert; any other exception the cache meets, a CUDA error above all,
+    propagates.
 """
 from __future__ import annotations
 
@@ -42,6 +49,19 @@ from typing import Any, Callable, Optional
 import numpy as np
 
 DEVICE, HOST = "device", "host"
+
+
+class CacheStorageError(RuntimeError):
+    """The cache's own storage fault: a cached entry whose stored lane
+    state no longer has the leaves, shapes and dtypes it was inserted
+    with.  The one error of the cache that the scheduler degrades to a
+    miss (`ServingCounters.cache_errors`)."""
+
+
+def _signature(state: dict) -> tuple:
+    """(leaf, shape, dtype) of every leaf of a lane state, sorted."""
+    return tuple(sorted((k, tuple(v.shape), str(v.dtype))
+                        for k, v in state.items()))
 
 
 def default_chunk_hash(prev: bytes, tokens: tuple) -> bytes:
@@ -81,6 +101,7 @@ class _Entry:
     state: Any                      # {leaf: tensor} on the device / the CPU
     tier: str = DEVICE
     refcount: int = 0
+    signature: tuple = ()           # _signature(state) when stored
 
 
 def _to_host(state: dict) -> dict:
@@ -188,27 +209,55 @@ class PrefixCache:
 
     # -- probe -------------------------------------------------------------
 
+    @staticmethod
+    def _damaged(entry: _Entry) -> Optional[CacheStorageError]:
+        """The error for an entry whose stored state no longer matches
+        what was inserted, or None when it does."""
+        if _signature(entry.state) == entry.signature:
+            return None
+        return CacheStorageError(
+            f"prefix-cache entry of {entry.n_tokens} tokens ({entry.tier} "
+            f"tier) holds {_signature(entry.state)}, not the "
+            f"{entry.signature} it was inserted with")
+
+    def _check_stored(self, key: tuple, entry: _Entry):
+        """Raise `CacheStorageError` for a damaged entry, dropping it when
+        no lease pins it."""
+        err = self._damaged(entry)
+        if err is None:
+            return
+        if entry.refcount == 0:
+            (self._device if entry.tier == DEVICE else self._host).pop(key)
+        raise err
+
     def probe(self, variant: CacheVariant, prompt,
               digests: Optional[dict] = None) -> Optional[StateLease]:
         """The longest cached proper prefix of `prompt` under `variant`,
         as a lease, or None.  A whole-prompt hit is never served: the
-        first generated token needs the last prompt token's logits."""
+        first generated token needs the last prompt token's logits.  A hit
+        whose stored state is damaged raises `CacheStorageError`."""
         for _, key in self._lookup(variant, prompt, digests):
             entry = self._device.get(key)
             if entry is not None and self._tokens_match(entry, prompt,
                                                         key[1]):
+                self._check_stored(key, entry)
                 self._device.move_to_end(key)
                 self.stats["hits"] += 1
                 return StateLease(entry, self.device)
             entry = self._host.get(key)
             if entry is not None and self._tokens_match(entry, prompt,
                                                         key[1]):
+                self._check_stored(key, entry)
                 self.stats["hits"] += 1
                 self.stats["host_hits"] += 1
                 # pinned before promoting: the promotion's room-making only
                 # evicts unleased entries, so the hit is never its victim
                 lease = StateLease(entry, self.device)
-                self._promote(key, entry)
+                try:
+                    self._promote(key, entry)
+                except CacheStorageError:
+                    lease.release()         # no lease outlives a failure
+                    raise
                 return lease
         self.stats["misses"] += 1
         return None
@@ -244,7 +293,8 @@ class PrefixCache:
         """Insert the lane state holding tokens [0, n) of `prompt` into the
         device tier.  Write-once: a key present in either tier is never
         overwritten.  False when rejected (present, misaligned, or every
-        device entry leased)."""
+        device entry leased); `CacheStorageError` when making room finds
+        a damaged entry."""
         if n % self.chunk or not 0 < n <= len(prompt):
             return False
         digest = (digests if digests is not None
@@ -261,7 +311,8 @@ class PrefixCache:
         if self.device is None:
             self.device = next(iter(state.values())).device
         self._device[key] = _Entry(key=key, tokens=tuple(prompt[:n]),
-                                   n_tokens=int(n), state=state)
+                                   n_tokens=int(n), state=state,
+                                   signature=_signature(state))
         self.stats["inserts"] += 1
         if self.counters is not None:
             self.counters.on_cache_insert()
@@ -280,6 +331,10 @@ class PrefixCache:
             self.stats["evictions"] += 1
             if self.counters is not None:
                 self.counters.on_cache_evict()
+            err = self._damaged(entry)
+            if err is not None:             # never spill a damaged state
+                self.stats["drops"] += 1
+                raise err
             if self._make_host_room():
                 entry.state = _to_host(entry.state)
                 entry.tier = HOST
@@ -344,7 +399,8 @@ class PrefixCache:
             key = self._key(variant, n, digest)
             tier = rec["tier"]
             entry = _Entry(key=key, tokens=tuple(tokens), n_tokens=n,
-                           state=state, tier=tier)
+                           state=state, tier=tier,
+                           signature=_signature(state))
             if tier == DEVICE:
                 if self.device is None:
                     self.device = next(iter(state.values())).device

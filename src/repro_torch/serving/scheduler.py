@@ -1,58 +1,88 @@
-"""Continuous-batching scheduler: admission, chunked prefill, batched decode
-(port of `repro/serving/scheduler.py`; no SLO layer, faults, snapshots or
-sentinels yet: ROADMAP Queue 1 item 6).
+"""Continuous-batching scheduler: admission, chunked prefill, batched
+decode, the SLO layer, fault drills and the NaN/Inf sentinel (port of
+`repro/serving/scheduler.py`).
 
 One `tick()`:
-  1. ADMITS queued requests into free pool slots (FIFO) and, with a prefix
-     cache, probes it: the longest cached proper prefix's state is written
-     into the slot and only the suffix is prefilled (the slot starts at
-     n_prefilled = hit length, its fresh reset suppressed),
-  2. advances EVERY prefilling slot by up to one prompt chunk in ONE
+  0. drains the fault injector's schedule for this tick (`_apply_faults`),
+     sweeps the pool for non-finite lanes every `sentinel_every` ticks
+     (`_sentinel_sweep`, quarantining and requeueing them) and evicts
+     requests past their deadline (`_expire_deadlines`),
+  1. ADMITS queued requests into free pool slots, highest effective
+     priority first (class + aging), then the longest cached prefix, then
+     FIFO (`_pop_next`); with a prefix cache it probes it: the longest
+     cached proper prefix's state is written into the slot and only the
+     suffix is prefilled (the slot starts at n_prefilled = hit length,
+     its fresh reset suppressed),
+  2. advances the prefilling slots by up to one prompt chunk in ONE
      prefill call, with a per-slot-per-token validity mask and a
      fresh-slot mask that resets newly admitted lanes inside the call;
-     with a cache, a lane now holding a chunk boundary not yet cached
-     stages a copy of its state, published when the request finishes,
+     while any lane decodes, the prefill budget (a lane quota) may defer
+     the least urgent lanes to a later tick; with a cache, a lane now
+     holding a chunk boundary not yet cached stages a copy of its state,
+     published when the request finishes,
   3. runs ONE decode step over the whole pool for all DECODE slots, with
      an active-slot mask selecting which lanes' states commit, or, under
-     speculation, the draft -> verify -> accept tick (`_spec_tick`).
+     speculation, the draft -> verify -> accept tick (`_spec_tick`),
+  4. calls `after_tick(tick)` (the snapshot cadence) with every boundary
+     invariant holding: no speculation in flight, no lease held, every
+     lane's state committed.
 
 Inactive lanes are computed but their state is never committed, so a lane
 mid-prefill or free is never disturbed by decode traffic.  `evict(rid)`
 cancels a queued or in-flight request and frees its slot, from inside an
 `on_token` callback too.  With a `ServingCounters` attached, the scheduler
-calls its hooks where JAX's does: on_enqueue, on_admit, on_cache_probe,
-on_prefill, on_token(first=), on_speculate, on_finish, on_cancel and
-on_tick.  A cache probe or insert that raises, raises.
+calls its hooks where JAX's does.  `enqueue` bounds the queue: a full one
+raises `Overloaded` or sheds a strictly less urgent request
+(`repro_torch.serving.slo`); `run()` raises `SchedulerHang` after
+`max_idle_ticks` ticks without progress.
 
-There is no path demotion: a failing kernel raises out of `tick()`, it is
-never replaced by its plain twin behind the caller's back.
+Two kinds of cache trouble degrade to a counted miss: the injected
+`cache_probe_error` and the cache's own `CacheStorageError`.  There is no
+path demotion: any other failure, a failing kernel above all, raises out
+of `tick()` at once and is never replaced by its plain twin behind the
+caller's back.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
+import signal
 import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.runtime.monitor import EngineCrash
+from repro_torch.serving.prefix_cache import CacheStorageError
+from repro_torch.serving.slo import (SHED, Overloaded, SchedulerHang,
+                                     ServingSLO)
+
 
 @dataclasses.dataclass
 class Request:
-    """One generation request (host-side; tokens are python ints)."""
+    """One generation request (host-side; tokens are python ints).
+
+    priority   — admission class, higher = more urgent (ties FIFO); also
+                 the shed-victim order under overload
+    deadline_s — seconds from enqueue until the request is evicted with
+                 outcome "deadline" (None = ServingSLO.default_deadline_s,
+                 itself None by default: no deadline)"""
     rid: int
     prompt: list[int]
     max_new_tokens: int = 16
     temperature: float = 0.0
     seed: int = 0
     eos_token: Optional[int] = None
+    priority: int = 0
+    deadline_s: Optional[float] = None
 
 
 PREFILL, DECODE = "prefill", "decode"
-# a request's outcome, passed to on_finish (JAX's "shed" and "deadline"
-# come with the SLO layer, item 6)
-FINISHED, CANCELLED = "finished", "cancelled"
+# a request's outcome, passed to on_finish
+FINISHED, CANCELLED, SHED_OUT, DEADLINE = \
+    "finished", "cancelled", "shed", "deadline"
 
 
 @dataclasses.dataclass
@@ -74,6 +104,21 @@ class _Slot:
     # speculation: the drafts of the current tick's window (cleared at
     # emission or eviction; never output until the verifier confirms one)
     drafted: list[int] = dataclasses.field(default_factory=list)
+    # SLO: the admission sequence number (the budget's tiebreak) and the
+    # absolute deadline taken over from the queue entry
+    seq: int = 0
+    deadline_t: Optional[float] = None
+
+
+@dataclasses.dataclass
+class _Queued:
+    """Host metadata for one QUEUED request: its enqueue order and tick
+    (FIFO and aging), absolute deadline, and the prompt's cache digests
+    (hashed once, so admission peeks never re-hash)."""
+    seq: int
+    enqueue_tick: int
+    deadline_t: Optional[float] = None
+    digests: Optional[dict] = None
 
 
 def sample_token(logits_row: np.ndarray, temperature: float,
@@ -160,8 +205,19 @@ class Scheduler:
     `prefix_cache` (a PrefixCache) and `cache_variant` (the plan's
     CacheVariant) come together.  `on_token(req, tok)` fires per emitted
     token, `on_finish(req, outcome)` when a request leaves, with outcome
-    "finished" or "cancelled"; `counters` (a `ServingCounters`, or None)
-    takes the telemetry hooks.
+    "finished", "cancelled", "shed" or "deadline"; `counters` (a
+    `ServingCounters`, or None) takes the telemetry hooks.
+
+    `slo` (a ServingSLO) adds admission control: priority, aging,
+    deadline and cache-aware selection, a bounded queue with `Overloaded`
+    backpressure or shedding, a per-tick prefill lane quota
+    (`prefill_quota`: the engine's `ExecutionPlan.prefill_quota`; left
+    None it is derived from `slo.prefill_budget` the same way) and the
+    `run()` watchdog.  `fault_injector` (a ServingFaultInjector) is
+    drained at the top of every tick.  `sentinel_every` (0 = off) sweeps
+    the pool for non-finite lanes every N ticks; a flagged lane is
+    quarantined, `on_requeue(req)` lets the engine reset its handle, and
+    the request replays from scratch.
     """
 
     def __init__(self, pool, decode_fn: Callable, prefill_fn: Callable, *,
@@ -172,7 +228,11 @@ class Scheduler:
                  speculative: int = 0,
                  draft_fn: Optional[Callable] = None,
                  verify_fn: Optional[Callable] = None,
-                 rollback_fn: Optional[Callable] = None):
+                 rollback_fn: Optional[Callable] = None,
+                 slo: Optional[ServingSLO] = None,
+                 prefill_quota: Optional[int] = None,
+                 fault_injector=None, sentinel_every: int = 0,
+                 on_requeue: Optional[Callable] = None):
         self.pool = pool
         self.decode_fn = decode_fn
         self.prefill_fn = prefill_fn
@@ -197,6 +257,32 @@ class Scheduler:
         self._spec_inflight: dict[int, _Slot] = {}
         self.on_token = on_token or (lambda req, tok: None)
         self.on_finish = on_finish or (lambda req, outcome: None)
+        self.slo = slo if slo is not None else ServingSLO()
+        if prefill_quota is not None:
+            self._prefill_quota: Optional[int] = int(prefill_quota)
+        elif self.slo.prefill_budget > 0:
+            self._prefill_quota = max(
+                1, self.slo.prefill_budget // self.prefill_chunk)
+        else:
+            self._prefill_quota = None
+        self.fault_injector = fault_injector
+        self.sentinel_every = int(sentinel_every)
+        self.on_requeue = on_requeue or (lambda req: None)
+        # tick-boundary hooks, set by the engine: `after_tick(tick)` after
+        # counters.on_tick (the snapshot cadence); `on_torn_snapshot(tick)`
+        # for the torn-write fault drill
+        self.after_tick: Optional[Callable] = None
+        self.on_torn_snapshot: Optional[Callable] = None
+        self._tick_no = 0
+        self._seq = 0
+        self._queued: dict[int, _Queued] = {}
+        self._has_deadlines = False
+        # admissions + prefill tokens + emitted tokens + retirements,
+        # sheds and quarantines: the run() watchdog's progress measure
+        self._progress = 0
+        # armed faults (ServingFaultInjector)
+        self._fail_next_probe = False
+        self._evict_on_token: set[int] = set()
         # the cache's chunk must equal prefill_chunk (the engine checks):
         # cached boundaries are tick boundaries
         self.prefix_cache = prefix_cache
@@ -205,25 +291,59 @@ class Scheduler:
             raise ValueError("prefix_cache needs a cache_variant")
         self.queue: collections.deque[Request] = collections.deque()
         self.slots: dict[int, _Slot] = {}
-        # the prompt digests of queued requests, hashed at enqueue
-        self._digests: dict[int, Optional[dict]] = {}
-        self.ticks = 0
+
+    # -- public ------------------------------------------------------------
 
     def enqueue(self, req: Request):
+        """Queue a request for admission.  With a bounded queue
+        (`AdmissionPolicy.max_queue`) a full queue either raises
+        `Overloaded` (backpressure: the request was NOT accepted) or sheds
+        the least urgent queued request when it is strictly less urgent
+        than this one (else this one is backpressured)."""
         if not req.prompt:
             raise ValueError("empty prompt")
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1 (the first token "
                              "is sampled from the prompt's last logits)")
-        self._digests[req.rid] = (self.prefix_cache.digests(req.prompt)
-                                  if self.prefix_cache is not None else None)
+        pol = self.slo.admission
+        if pol.max_queue and len(self.queue) >= pol.max_queue:
+            if pol.overload == SHED:
+                victim = self._shed_victim(req)
+                if victim is None:
+                    self._backpressure()
+                self._shed(victim)
+            else:
+                self._backpressure()
+        self._push(req)
+
+    def _push(self, req: Request):
+        """Append `req` to the queue with a fresh sequence number, enqueue
+        tick, deadline and digests (enqueue, and a quarantine's requeue,
+        which bypasses the bounds)."""
+        deadline_s = (req.deadline_s if req.deadline_s is not None
+                      else self.slo.default_deadline_s)
+        qm = _Queued(
+            seq=self._next_seq(), enqueue_tick=self._tick_no,
+            deadline_t=(None if deadline_s is None
+                        else self._now() + deadline_s),
+            digests=(self.prefix_cache.digests(req.prompt)
+                     if self.prefix_cache is not None else None))
+        if qm.deadline_t is not None:
+            self._has_deadlines = True
+        self._queued[req.rid] = qm
         self.queue.append(req)
         if self.counters is not None:
             self.counters.on_enqueue(req.rid)
 
     def tick(self) -> bool:
-        """One scheduling round; returns True while work remains."""
-        self.ticks += 1
+        """One scheduling round; returns True while work remains.  Ticks
+        are numbered from 1 (the fault injector's schedule is keyed on
+        this number and drained at the top of the tick)."""
+        self._tick_no += 1
+        if self.fault_injector is not None:
+            self._apply_faults()
+        self._sentinel_sweep()
+        self._expire_deadlines()
         self._admit()
         self._prefill_tick()
         if self.spec_k:
@@ -233,12 +353,32 @@ class Scheduler:
         if self.counters is not None:
             self.counters.on_tick(active=len(self.slots),
                                   queued=len(self.queue))
+        if self.after_tick is not None:
+            self.after_tick(self._tick_no)
         return bool(self.queue or self.slots)
 
-    def run(self):
-        """Tick until no work remains."""
+    def run(self, *, max_idle_ticks: Optional[int] = None):
+        """Tick until no work remains.  The watchdog: `max_idle_ticks`
+        (default `ServingSLO.max_idle_ticks`; 0 disables it) ticks in a
+        row with work left and no progress (no admission, prefill token,
+        emitted token or retirement) raise `SchedulerHang` with the
+        scheduler's state, e.g. when a leaked slot leaves queued work
+        unadmittable."""
+        limit = (self.slo.max_idle_ticks if max_idle_ticks is None
+                 else max_idle_ticks)
+        idle, last = 0, self._progress
         while self.tick():
-            pass
+            if self._progress != last:
+                idle, last = 0, self._progress
+                continue
+            idle += 1
+            if limit and idle >= limit:
+                phases = collections.Counter(
+                    m.phase for m in self.slots.values())
+                raise SchedulerHang(
+                    idle_ticks=idle, queued=len(self.queue),
+                    active=len(self.slots), n_free=self.pool.n_free,
+                    phases=dict(phases))
 
     def evict(self, rid: int) -> bool:
         """Cancel an in-flight or queued request and free its slot; counted
@@ -250,21 +390,208 @@ class Scheduler:
                 return True
         for req in list(self.queue):
             if req.rid == rid:
-                self.queue.remove(req)
-                self._digests.pop(rid, None)
+                self._dequeue(req)
                 if self.counters is not None:
                     self.counters.on_cancel(rid)
                 self.on_finish(req, CANCELLED)
                 return True
         return False
 
+    # -- SLO layer ---------------------------------------------------------
+
+    def _backpressure(self):
+        if self.counters is not None:
+            self.counters.on_backpressure()
+        raise Overloaded(queue_depth=len(self.queue),
+                         max_queue=self.slo.admission.max_queue,
+                         retry_after_s=self._retry_after())
+
+    def _retry_after(self) -> float:
+        """`Overloaded`'s hint: the mean finished-request latency times the
+        queue-lengths of work ahead of a new arrival per slot (0.0 before
+        any request has finished)."""
+        c = self.counters
+        if c is None or not getattr(c, "latency_s", None):
+            return 0.0
+        mean_lat = sum(c.latency_s) / len(c.latency_s)
+        return mean_lat * (len(self.queue) + 1) / max(self.pool.max_slots, 1)
+
+    def _eff_priority(self, req: Request, qm: _Queued) -> int:
+        """Class + aging: one level per `aging_ticks` ticks queued."""
+        aging = self.slo.admission.aging_ticks
+        bonus = (self._tick_no - qm.enqueue_tick) // aging if aging else 0
+        return req.priority + bonus
+
+    def _shed_victim(self, incoming: Request) -> Optional[Request]:
+        """The least urgent queued request (the youngest on ties: it has
+        waited least) if strictly less urgent than `incoming`, else
+        None."""
+        best, best_key = None, None
+        for r in self.queue:
+            qm = self._queued[r.rid]
+            key = (self._eff_priority(r, qm), -qm.seq)
+            if best is None or key < best_key:
+                best, best_key = r, key
+        if best is not None and best_key[0] < incoming.priority:
+            return best
+        return None
+
+    def _shed(self, req: Request):
+        self._dequeue(req)
+        self._progress += 1
+        if self.counters is not None:
+            self.counters.on_shed(req.rid)
+        self.on_finish(req, SHED_OUT)
+
+    def _dequeue(self, req: Request):
+        self.queue.remove(req)
+        self._queued.pop(req.rid, None)
+
+    def _next_seq(self) -> int:
+        s = self._seq
+        self._seq += 1
+        return s
+
+    def _expire_deadlines(self):
+        """Evict every queued or in-flight request past its deadline
+        (outcome "deadline").  An in-flight lane leaves through `_retire`
+        (slot released, drafts dropped); like a cancelled one, it
+        publishes none of its captured boundary states."""
+        if not self._has_deadlines:
+            return
+        now = self._now()
+        for slot, meta in list(self.slots.items()):
+            if meta.deadline_t is not None and now >= meta.deadline_t:
+                self._retire(slot, meta, outcome=DEADLINE)
+        expired = [r for r in self.queue
+                   if (qm := self._queued[r.rid]).deadline_t is not None
+                   and now >= qm.deadline_t]
+        for r in expired:
+            self._dequeue(r)
+            self._progress += 1
+            if self.counters is not None:
+                self.counters.on_deadline_evict(r.rid)
+            self.on_finish(r, DEADLINE)
+
+    # -- fault drills --------------------------------------------------------
+
+    def _apply_faults(self):
+        """Apply this tick's `ServingFaultInjector` faults (its docstring
+        lists the kinds)."""
+        for kind, payload in self.fault_injector.pop(self._tick_no):
+            if kind == "cache_probe_error":
+                self._fail_next_probe = True
+            elif kind == "evict":
+                self.evict(int(payload))
+            elif kind == "evict_on_token":
+                self._evict_on_token.add(int(payload))
+            elif kind == "deadline":
+                self._force_deadline(int(payload))
+            elif kind == "crash_at_tick":
+                # die at the top of the tick, before any of its work: every
+                # committed snapshot is consistent with this crash point
+                if payload == "sigkill":
+                    os.kill(os.getpid(), signal.SIGKILL)
+                raise EngineCrash(self._tick_no)
+            elif kind == "torn_snapshot_write":
+                if self.on_torn_snapshot is not None:
+                    self.on_torn_snapshot(self._tick_no)
+            elif kind == "corrupt_state_leaf":
+                for slot, m in self.slots.items():
+                    if m.req.rid == int(payload):
+                        self.pool.poison_slot(slot)
+                        break
+
+    def _force_deadline(self, rid: int):
+        """Expire `rid`'s deadline now (whether or not it had one): this
+        tick's deadline sweep evicts it."""
+        for meta in self.slots.values():
+            if meta.req.rid == rid:
+                meta.deadline_t = float("-inf")
+                self._has_deadlines = True
+                return
+        qm = self._queued.get(rid)
+        if qm is not None:
+            qm.deadline_t = float("-inf")
+            self._has_deadlines = True
+
+    def _check_token_fault(self, rid: int):
+        """The "evict_on_token" drill: evict `rid` from inside its own
+        token emission.  Callers re-check slot membership right after."""
+        if rid in self._evict_on_token:
+            self._evict_on_token.discard(rid)
+            self.evict(rid)
+
+    # -- sentinel and quarantine --------------------------------------------
+
+    def _sentinel_sweep(self):
+        """Every `sentinel_every` ticks: one finiteness sweep over the
+        pool (`SlotStatePool.lane_finite`); every occupied lane holding a
+        NaN or Inf is quarantined.  Free lanes may hold stale values and
+        are not judged."""
+        if (not self.sentinel_every or not self.slots
+                or self._tick_no % self.sentinel_every):
+            return
+        ok = self.pool.lane_finite()
+        if ok is None:              # no floating leaf: nothing to judge
+            return
+        for slot in [s for s in self.slots if not ok[s]]:
+            self._quarantine(slot, self.slots[slot])
+
+    def _quarantine(self, slot: int, meta: _Slot):
+        """Evict a poisoned lane and requeue its request for a clean
+        replay: its staged cache inserts and drafts are dropped (a
+        poisoned lane never publishes), the slot is released (the next
+        admission resets it in-call), the engine resets the request's
+        handle (`on_requeue`), and the request re-enters the queue past
+        the admission bounds, with a fresh generator and deadline at its
+        admission.  Decode is deterministic, so the replay streams what an
+        unpoisoned run would have."""
+        req = meta.req
+        meta.pending_inserts.clear()
+        meta.drafted.clear()
+        self._spec_inflight.pop(req.rid, None)
+        del self.slots[slot]
+        self.pool.release(slot)
+        self._progress += 1
+        if self.counters is not None:
+            self.counters.on_quarantine(req.rid)
+        self.on_requeue(req)
+        self._push(req)
+
+    # -- phases ------------------------------------------------------------
+
+    def _pop_next(self) -> Request:
+        """Admission's choice: the highest effective priority (class +
+        aging), then the longest cached prefix
+        (`AdmissionPolicy.prefer_cache_hits`, a side-effect-free
+        `PrefixCache.hit_length` peek over the enqueue-time digests), then
+        FIFO.  With equal priorities and no cache hits this is FIFO."""
+        if len(self.queue) == 1:
+            return self.queue.popleft()
+        peek = (self.prefix_cache is not None
+                and self.slo.admission.prefer_cache_hits)
+        best, best_key = None, None
+        for r in self.queue:
+            qm = self._queued[r.rid]
+            hit = (self.prefix_cache.hit_length(
+                self.cache_variant, r.prompt, qm.digests) if peek else 0)
+            key = (self._eff_priority(r, qm), hit, -qm.seq)
+            if best is None or key > best_key:
+                best, best_key = r, key
+        self.queue.remove(best)
+        return best
+
     def _admit(self):
         while self.queue and self.pool.n_free:
-            req = self.queue.popleft()
+            req = self._pop_next()
+            qm = self._queued.pop(req.rid)
             slot = self.pool.acquire()
             meta = _Slot(req=req, rng=np.random.default_rng(req.seed),
-                         digests=self._digests.pop(req.rid, None))
+                         seq=qm.seq, deadline_t=qm.deadline_t,
+                         digests=qm.digests)
             self.slots[slot] = meta
+            self._progress += 1
             if self.counters is not None:
                 self.counters.on_admit(req.rid)
             if self.prefix_cache is not None:
@@ -280,13 +607,28 @@ class Scheduler:
         the copy's time is the copy's).  The slot then starts mid-prefill
         with `fresh=False`, so the next prefill call advances the restored
         state.  Probe and copy times go to `on_cache_probe`, apart from
-        the prefill time."""
+        the prefill time.
+
+        Two faults degrade to a miss, counted in `cache_errors`, with no
+        lease held: the injected `cache_probe_error` and the cache's own
+        `CacheStorageError`.  The lane then prefills from scratch.  Any
+        other exception, a CUDA error above all, raises out of `tick()`."""
         req = meta.req
         if meta.digests is None:
             meta.digests = self.prefix_cache.digests(req.prompt)
         t0 = self._now()
-        lease = self.prefix_cache.probe(self.cache_variant, req.prompt,
-                                        meta.digests)
+        try:
+            if self._fail_next_probe:
+                self._fail_next_probe = False
+                raise CacheStorageError("injected cache-probe failure")
+            lease = self.prefix_cache.probe(self.cache_variant, req.prompt,
+                                            meta.digests)
+        except CacheStorageError:
+            if self.counters is not None:
+                self.counters.on_cache_error()
+                self.counters.on_cache_probe(req.rid, hit=False,
+                                             probe_s=self._now() - t0)
+            return
         t_probe = self._now() - t0
         if lease is None:
             if self.counters is not None:
@@ -323,6 +665,25 @@ class Scheduler:
         if not prefilling:
             return
         S, C = self.pool.max_slots, self.prefill_chunk
+        quota = self._prefill_quota
+        if (quota is not None and quota < len(prefilling)
+                and any(m.phase == DECODE for m in self.slots.values())):
+            # the prefill budget: while lanes decode, only `quota`
+            # prefilling lanes join this call — highest priority, then
+            # earliest deadline, then admission order.  The (S, C) program
+            # is the same (deferred lanes keep empty validity rows); with
+            # no lane decoding there is no inter-token latency to protect
+            prefilling.sort(key=lambda sm: (
+                -sm[1].req.priority,
+                sm[1].deadline_t if sm[1].deadline_t is not None
+                else float("inf"),
+                sm[1].seq))
+            deferred = prefilling[quota:]
+            prefilling = prefilling[:quota]
+            if self.counters is not None and deferred:
+                self.counters.on_budget_defer(sum(
+                    min(len(m.req.prompt) - m.n_prefilled, C)
+                    for _, m in deferred))
         toks = np.zeros((S, C), np.int32)
         valid = np.zeros((S, C), bool)
         fresh = np.zeros((S,), bool)
@@ -339,6 +700,7 @@ class Scheduler:
         for slot, meta in prefilling:
             meta.fresh = False
             meta.n_prefilled += parts[slot]
+            self._progress += parts[slot]
             if self.counters is not None:
                 self.counters.on_prefill(meta.req.rid, parts[slot])
             if self.prefix_cache is not None:
@@ -445,12 +807,14 @@ class Scheduler:
                 consumed[slot] = j + 1
                 meta.generated.append(tok)
                 meta.next_token = tok
+                self._progress += 1
                 if self.counters is not None:
                     self.counters.on_token(
                         req.rid, first=len(meta.generated) == 1)
                 self.on_token(req, tok)
+                self._check_token_fault(req.rid)
                 if slot not in self.slots or self.slots[slot] is not meta:
-                    break   # evicted by its own token callback
+                    break   # evicted by its own token callback or a fault
                 if (len(meta.generated) >= req.max_new_tokens or
                         (req.eos_token is not None and
                          tok == req.eos_token)):
@@ -475,34 +839,46 @@ class Scheduler:
             req, tok = meta.req, int(tok)
             meta.generated.append(tok)
             meta.next_token = tok
+            self._progress += 1
             if self.counters is not None:
                 self.counters.on_token(req.rid,
                                        first=len(meta.generated) == 1)
             self.on_token(req, tok)
+            self._check_token_fault(req.rid)
             if slot not in self.slots or self.slots[slot] is not meta:
-                continue    # evicted by its token callback
+                continue    # evicted by its token callback or a fault
             if (len(meta.generated) >= req.max_new_tokens or
                     (req.eos_token is not None and tok == req.eos_token)):
                 self._retire(slot, meta)
 
     def _retire(self, slot: int, meta: _Slot, *, outcome: str = FINISHED):
-        """Release `slot` and report `meta.req` with `outcome`.  Only a
-        finished request publishes its captured boundary states (write-
-        once: the cache keeps the first state of a key); a cancelled one
-        drops them, and its drafts and in-flight marker with them."""
+        """Release `slot` and report `meta.req` with `outcome` ("finished",
+        "cancelled" or "deadline"; a queued request leaves as "shed" or
+        "cancelled" without reaching here).  Only a finished request
+        publishes its captured boundary states (write-once: the cache
+        keeps the first state of a key); an insert that fails with the
+        cache's `CacheStorageError` is counted and dropped, any other
+        error raises.  Drafts and the in-flight marker go with the lane."""
         if outcome == FINISHED and self.prefix_cache is not None:
             for n, state in meta.pending_inserts:
-                self.prefix_cache.insert(self.cache_variant,
-                                         meta.req.prompt, n, state,
-                                         meta.digests)
+                try:
+                    self.prefix_cache.insert(self.cache_variant,
+                                             meta.req.prompt, n, state,
+                                             meta.digests)
+                except CacheStorageError:
+                    if self.counters is not None:
+                        self.counters.on_cache_error()
         meta.pending_inserts.clear()
         meta.drafted.clear()
         self._spec_inflight.pop(meta.req.rid, None)
         del self.slots[slot]
         self.pool.release(slot)
+        self._progress += 1
         if self.counters is not None:
             if outcome == CANCELLED:
                 self.counters.on_cancel(meta.req.rid)
+            elif outcome == DEADLINE:
+                self.counters.on_deadline_evict(meta.req.rid)
             else:
                 self.counters.on_finish(meta.req.rid)
         self.on_finish(meta.req, outcome)

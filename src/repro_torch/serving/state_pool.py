@@ -6,12 +6,18 @@ axis.  Host bookkeeping is a free list: `acquire` takes the lowest free
 slot, `release` returns it.  Lane resets on the hot path happen inside the
 prefill call (its fresh-slot mask); `read_slot` / `write_slot` /
 `reset_slot` serve per-request work (the prefix cache's capture and
-install) and tests.
+install) and tests.  `lane_finite` is the NaN/Inf sentinel's one sweep
+over the pool, `poison_slot` the `corrupt_state_leaf` fault drill's.
+
+The pool is written in place (`write_slot`), between ticks too, so a
+reader that must see the pool as it was at a tick boundary (a snapshot)
+takes its own copy.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 
@@ -69,6 +75,28 @@ class SlotStatePool:
     def reset_slot(self, slot: int):
         """Restore slot `slot` to the fresh (just-initialized) state."""
         self.write_slot(slot, self._fresh)
+
+    def lane_finite(self) -> Optional[np.ndarray]:
+        """The NaN/Inf sentinel: a (max_slots,) bool numpy array, True
+        where every floating state element of that lane is finite; None
+        when no leaf is floating.  One reduction per leaf on the pool's
+        device, combined there, and one host read for the sweep."""
+        ok = None
+        for k, v in self.state.items():
+            if not v.is_floating_point():
+                continue
+            ax = self._axis[k]
+            lane = torch.isfinite(v).movedim(ax, 0).reshape(
+                v.shape[ax], -1).all(dim=1)
+            ok = lane if ok is None else ok & lane
+        return None if ok is None else ok.cpu().numpy()
+
+    def poison_slot(self, slot: int, value: float = float("nan")):
+        """Overwrite every floating leaf of lane `slot` with `value` (the
+        `corrupt_state_leaf` fault drill); integer leaves stay."""
+        lane = {k: torch.full_like(v, value) if v.is_floating_point()
+                else v for k, v in self.read_slot(slot).items()}
+        self.write_slot(slot, lane)
 
     def sync(self):
         """Wait for the pool's pending device work (the scheduler times a

@@ -2875,3 +2875,78 @@ def test_cached_resume_streams_the_uncached_tokens(cuda, arch, slots):
     if slots == 1:
         assert eng.prefix_cache.stats["host_hits"] > 0
     eng.prefix_cache.check_state()
+
+
+# --- crash-safe snapshots and the sentinel (the SLO layer's slice) ---------------
+
+def _drill_kw(cuda):
+    return dict(smoke=True, quantized=True, plane_policy=MIXED,
+                fused_decode="model", fused_prefill=True, max_batch=4,
+                prefill_chunk=4, device=cuda)
+
+
+def _drill_traffic(eng, arch):
+    V = get_model(arch, smoke=True).cfg.vocab
+    r = np.random.default_rng(5)
+    return [eng.submit(r.integers(0, V, n).tolist(), max_new_tokens=8,
+                       temperature=0.8 if i % 2 else 0.0, seed=40 + i)
+            for i, n in enumerate((3, 9, 6, 13))]
+
+
+@pytest.mark.parametrize("arch", ["rwkv4-169m", "rwkv6-7b"])
+@pytest.mark.parametrize("crash", [3, 6])
+@pytest.mark.parametrize("spec", [None, 2], ids=["plain", "speculative"])
+def test_crash_resume_is_bit_for_bit_on_the_card(cuda, arch, crash, spec,
+                                                 tmp_path):
+    """K4 / K7-model decode, K5 + K2 / K6 prefill (and verify): a crash at
+    the top of a tick, a restore rebuilt from the seed, and every stream
+    equals the run that never crashed, bit for bit."""
+    from repro_torch.runtime.monitor import (EngineCrash,
+                                             ServingFaultInjector)
+    from repro_torch.serving import ServingEngine, SnapshotConfig
+    kw = dict(_drill_kw(cuda), speculative=spec)
+    ref = ServingEngine(arch, **kw)
+    want = _drill_traffic(ref, arch)
+    ref.run()
+    inj = ServingFaultInjector(schedule={crash: [("crash_at_tick", None)]})
+    eng = ServingEngine(arch, fault_injector=inj,
+                        snapshot=SnapshotConfig(str(tmp_path), every=2), **kw)
+    hs = _drill_traffic(eng, arch)
+    with pytest.raises(EngineCrash):
+        eng.run()
+    eng.snapshot_manager.wait()
+    restored = ServingEngine.restore(str(tmp_path), snapshot=None)
+    assert restored.plan.device.type == cuda.type
+    handles = restored.handles
+    restored.run()
+    got = [handles[h.rid].resumed + handles[h.rid].tokens
+           if h.rid in handles else h.tokens for h in hs]
+    assert got == [h.tokens for h in want]
+
+
+@pytest.mark.parametrize("arch", ["rwkv4-169m", "rwkv6-7b"])
+def test_quarantine_replay_is_bit_for_bit_on_the_card(cuda, arch):
+    """A lane poisoned with NaN is quarantined by the sentinel (one sweep
+    on the card) and replayed beside the other lanes: every stream equals
+    the clean run's bit for bit, and no slot leaks."""
+    from repro_torch.runtime.monitor import ServingFaultInjector
+    from repro_torch.serving import ServingEngine
+    ref = ServingEngine(arch, **_drill_kw(cuda))
+    want = _drill_traffic(ref, arch)
+    ref.run()
+    inj = ServingFaultInjector(schedule={3: [("corrupt_state_leaf", 1)]})
+    eng = ServingEngine(arch, fault_injector=inj, sentinel_every=1,
+                        **_drill_kw(cuda))
+    hs = _drill_traffic(eng, arch)
+    eng.run()
+    assert eng.counters.quarantined_lanes == 1
+    assert [h.tokens for h in hs] == [h.tokens for h in want]
+    assert eng.pool.n_free == eng.pool.max_slots
+
+
+def test_lane_finite_on_the_card(cuda):
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine("rwkv4-169m", **_drill_kw(cuda))
+    assert eng.pool.lane_finite().tolist() == [True] * 4
+    eng.pool.poison_slot(2, float("inf"))
+    assert eng.pool.lane_finite().tolist() == [True, True, False, True]

@@ -132,10 +132,9 @@ def test_serving_counters_match_jax():
 
 def test_build_plan_and_engine_signatures_match_jax():
     """build_plan and ServingEngine take JAX's arguments in JAX's order,
-    apart from those of the features not ported yet (mesh, SLOs,
-    snapshots, fault drills, path demotion) and the port's `device`."""
-    later = {"mesh", "slo", "fault_injector", "snapshot", "sentinel_every",
-             "path_fallback", "path_fault_limit"}
+    apart from the mesh (not ported yet), path demotion (which the port
+    never makes) and the port's `device`."""
+    later = {"mesh", "path_fallback", "path_fault_limit"}
     for jf, tf in ((j_build_plan, build_plan),
                    (JEngine.__init__, ServingEngine.__init__)):
         jn = [n for n in inspect.signature(jf).parameters if n not in later]

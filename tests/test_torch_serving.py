@@ -202,7 +202,12 @@ def test_port_imports_no_jax_and_no_repro():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     kernels = ROOT / "src" / "repro_torch" / "kernels"
-    assert {kernels / "fused_layernorm.py", kernels / "wkv6.py"} <= set(files)
+    serving = ROOT / "src" / "repro_torch" / "serving"
+    assert {kernels / "fused_layernorm.py", kernels / "wkv6.py",
+            serving / "slo.py", serving / "snapshot.py",
+            serving / "scheduler.py", serving / "state_pool.py",
+            ROOT / "src" / "repro_torch" / "runtime" / "monitor.py",
+            ROOT / "src" / "repro_torch" / "launch" / "serve.py"} <= set(files)
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
