@@ -4,8 +4,8 @@ hardware numerics) and RWKV-6 on every weight form (W8, W4, VQ and mixed
 planes, plain bf16), with its prefix cache, self-speculative decode, SLO
 layer, crash-safe snapshots and fault drills,
 and the dense transformer smollm-135m, runs
-the RWKV whole-sequence forward, trains smollm-135m and rwkv4-169m, and
-runs the quantized serve step and the Δ-PoT matmuls of its public kernel
+the RWKV whole-sequence forward, trains smollm-135m, rwkv4-169m and
+rwkv6-7b (4 of its 32 layers at full width), and runs the quantized serve step and the Δ-PoT matmuls of its public kernel
 entry point, through its kernels.
 
     python3 chip_smoke.py            (from the root of a checkout, one GPU)
@@ -447,9 +447,36 @@ each prints its seconds and peak device memory (`phase_done` lines):
     shapes; K5's entry carries the head at M 128 of both models under
     "all_logits_head", K5-W4's the MIXED head at M 8·k under
     "verify_head", K2's and K6's the verify windows under
-    "verify_windows"), the card's name and power limit, and the last
-    line {"ok":
+    "verify_windows"; then, from phase 16, K10-bwd and K6-bwd: thirty-five
+    entries), the card's name and power limit, and the last line {"ok":
     true, "device": {...}}.
+16. rwkv6-7b's training at full width (D 4096, H 64, N 64, F 14336, V
+    65536), cut to 4 of its 32 layers (f32 masters, gradients and AdamW
+    moments of the full depth need ~120 GB), run last:
+      wkv6_chunked_bwd         layer 0's WKV operands of the train step
+      (K10-bwd)                (B4 T1024 H64 N64, bf16 r, k, v, f32 w,
+                               the zero state) and an f32 instance: through
+                               the autograd Function against the plain
+                               version of its passes on the card, per
+                               output max 2^-10 (bf16 outputs 2^-7) and
+                               mean 2^-13 of the magnitude of what it sums,
+                               plus a log's last bit (`_wkv6_bwd_ok`); bit
+                               for bit run to run; timed beside the plain
+                               version and its bound
+      wkv6_seq_bwd (K6-bwd)    the same at B2 T40 H64 N64 (f32), the K6
+                               route's step
+    Then:
+      train    step 0 through `loss_and_grads` at B 4, S 1024, every
+               counter set to 0 just before and read just after (K11 18,
+               K11-bwd 10, K10 8, K10-bwd 4, K12 1, K12-bwd 1); loss and
+               gradients per leaf against the plain path (the plain
+               versions of K10, K11 and K12 on the card, timed) and an f32
+               witness within RWKV6_TRAIN_BOUNDS; `train_model` for 3
+               AdamW steps, the counters again (3x), each step's ms,
+               tokens/s and peak memory beside the step's operations bound;
+               one more step split (`_step_split`); then step 0 at B 2, S
+               40 (K6 8, K6-bwd 4, no K10), its gradients finite and as
+               near the f32 witness as 1.25·√2 times the plain path's.
 
 Weights are random, from a seed.  Imports nothing of JAX.
 """
@@ -3350,10 +3377,11 @@ def _path_counters():
     from repro_torch.kernels.fused_layernorm import (
         fused_layernorm, fused_layernorm_bwd)
     from repro_torch.kernels.wkv4 import wkv4_seq, wkv4_seq_bwd
-    from repro_torch.kernels.wkv6 import wkv6_chunked_kernel, wkv6_seq
+    from repro_torch.kernels.wkv6 import (
+        wkv6_chunked_bwd, wkv6_chunked_kernel, wkv6_seq, wkv6_seq_bwd)
     return (fused_layernorm, fused_layernorm_bwd, wkv4_seq, wkv4_seq_bwd,
             fused_cross_entropy, fused_cross_entropy_bwd, sigmoid_kernel,
-            wkv6_chunked_kernel, wkv6_seq)
+            wkv6_chunked_kernel, wkv6_seq, wkv6_chunked_bwd, wkv6_seq_bwd)
 
 
 def _counted(fn, want, what):
@@ -3700,10 +3728,10 @@ def phase_k12(flush):
     return rows
 
 
-def _rwkv4_train_model(dtype="bfloat16"):
+def _rwkv4_train_model():
     from repro_torch.models.registry import get_model
     cfg = get_model("rwkv4-169m").cfg
-    return get_model(dataclasses.replace(cfg, dtype=dtype))
+    return get_model(dataclasses.replace(cfg, dtype="bfloat16"))
 
 
 def _train_batch(cfg, step=0):
@@ -3866,6 +3894,60 @@ def _rwkv4_train_ops(model, B, S):
             "remat": 2.0 * n_blocks * T}
 
 
+def _train_gaps(model, params, batch, kernel_out, f32_per_step=None):
+    """Step 0's loss and gradients through the kernels (`kernel_out`, the
+    counted run's), the plain path (the plain versions on the card, timed)
+    and the f32 witness (the f32 config, the plain versions): (losses,
+    gaps per leaf, plain ms, whether every kernel gradient is finite).
+    With `f32_per_step`, also the f32 config through the kernels, counted
+    by `_counted` to launch those kernels (gaps "f32_kernel_vs_f32", its
+    loss a fourth loss), and the witness's own conditioning: the f32
+    config, plain versions, on the master weights rounded to the compute
+    dtype and nothing else rounded ("rounded_weights_vs_f32")."""
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.tree import leaves_with_path, tree_map
+    (loss_k, _), g_k = kernel_out
+    m32 = type(model)(cfg=dataclasses.replace(model.cfg, dtype="float32"),
+                      module=model.module)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _PlainKernels():
+        (loss_p, _), g_p = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        (loss_w, _), g_w = loss_and_grads(m32, params, batch)
+    losses = [float(x) for x in (loss_k, loss_p, loss_w)]
+    gaps = {"kernel_vs_f32": _grad_gaps(g_k, g_w),
+            "plain_vs_f32": _grad_gaps(g_p, g_w),
+            "kernel_vs_plain": _grad_gaps(g_k, g_p)}
+    for who, x, ref in (("kernel_vs_f32", losses[0], losses[2]),
+                        ("plain_vs_f32", losses[1], losses[2]),
+                        ("kernel_vs_plain", losses[0], losses[1])):
+        gaps[who]["loss"] = abs(x - ref) / abs(ref)
+    finite = all(bool(torch.isfinite(g).all())
+                 for _, g in leaves_with_path(g_k))
+    del g_p
+    if f32_per_step is not None:
+        ((loss_f, _), g_f), _ = _counted(
+            lambda: loss_and_grads(m32, params, batch), f32_per_step,
+            "the f32 step through the kernels")
+        losses.append(float(loss_f))
+        gaps["f32_kernel_vs_f32"] = _grad_gaps(g_f, g_w)
+        gaps["f32_kernel_vs_f32"]["loss"] = abs(
+            losses[3] - losses[2]) / abs(losses[2])
+        finite = finite and all(bool(torch.isfinite(g).all())
+                                for _, g in leaves_with_path(g_f))
+        del g_f
+        rounded = tree_map(lambda t: t.float(), model.cast_params(params))
+        with _PlainKernels():
+            (loss_r, _), g_r = loss_and_grads(m32, rounded, batch)
+        gaps["rounded_weights_vs_f32"] = _grad_gaps(g_r, g_w)
+        gaps["rounded_weights_vs_f32"]["loss"] = abs(
+            float(loss_r) - losses[2]) / abs(losses[2])
+        del g_r, rounded
+    return losses, gaps, plain_ms, finite
+
+
 def phase_rwkv4_train():
     """rwkv4-169m's training at full width and depth (L12 D768 F3072
     V50277), B 8, S 1024, SyntheticLM tokens, f32 master weights from the
@@ -3893,30 +3975,12 @@ def phase_rwkv4_train():
     per_step = _rwkv4_train_per_step(L)
     params = model.init_params(SEED, DEV)
     batch = _train_batch(model.cfg)
-    (loss_k, _), g_k = _counted(
-        lambda: loss_and_grads(model, params, batch), per_step,
-        "rwkv4 train step 0")[0]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with _PlainKernels():
-        (loss_p, _), g_p = loss_and_grads(model, params, batch)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        (loss_w, _), g_w = loss_and_grads(_rwkv4_train_model("float32"),
-                                          params, batch)
-    losses = [float(x) for x in (loss_k, loss_p, loss_w)]
+    out, _ = _counted(lambda: loss_and_grads(model, params, batch),
+                      per_step, "rwkv4 train step 0")
+    losses, gaps, plain_ms, finite = _train_gaps(model, params, batch, out)
+    del out
     if not all(np.isfinite(losses)):
         raise AssertionError(f"rwkv4 step 0 losses not finite: {losses}")
-    gaps = {"kernel_vs_f32": _grad_gaps(g_k, g_w),
-            "plain_vs_f32": _grad_gaps(g_p, g_w),
-            "kernel_vs_plain": _grad_gaps(g_k, g_p)}
-    for who, x, ref in (("kernel_vs_f32", losses[0], losses[2]),
-                        ("plain_vs_f32", losses[1], losses[2]),
-                        ("kernel_vs_plain", losses[0], losses[1])):
-        gaps[who]["loss"] = abs(x - ref) / abs(ref)
-    finite = all(bool(torch.isfinite(g).all())
-                 for _, g in leaves_with_path(g_k))
-    del g_k, g_p, g_w
     bounds = RWKV4_TRAIN_BOUNDS
     bad = {(w, n): gaps[w][n] for w in bounds for n in bounds[w]
            if gaps[w][n] > bounds[w][n]}
@@ -3966,6 +4030,398 @@ def phase_rwkv4_train():
     del out
     _release()
     return {"rwkv4-train": launches}, model, back
+
+
+# ---------------------------------------------------------------------------
+# rwkv6-7b's training at full width, cut in depth: K10-bwd and K6-bwd on
+# layer 0's operands, the train step through them
+# ---------------------------------------------------------------------------
+
+# rwkv6-7b at depth 4 of 32 (the one-card memory cut: ~1.42 B params, ~23
+# GB of f32 masters, gradients and AdamW moments), B 4, S 1024 (K10), and
+# the K6 route's short step at B 2, S 40 (no multiple of the chunk)
+RWKV6_TRAIN_L, RWKV6_TRAIN_B, RWKV6_TRAIN_S = 4, 4, 1024
+RWKV6_SHORT_B, RWKV6_SHORT_S = 2, 40
+# rwkv6's train step 0 (phase_rwkv6_train), TRAIN_BOUNDS' recipe: per leaf
+# mean |d| / mean |ref|, 1.25x what the plain path (the plain versions of
+# K10, K11 and K12 on the card) read against the f32 witness in its first
+# run on an H100 (PERF.md §6), and 1.25·√2x that for the kernel
+# path against the plain one.  The loss is one number, its gap a chance
+# like a leaf's max (RWKV4_TRAIN_BOUNDS' reasoning for the max: two bf16
+# paths each a bf16 noise distance from the witness may sit √2 apart), so
+# it is held within 1.25·√2x against the witness too (a factor chosen
+# after the kernel path read 1.55x the plain one's 4.5e-5 there).  At 4096
+# wide every bf16 path's gradients sit far from the f32 witness (mean gaps
+# 0.3-4.4, u's 21): this random init's gradient is ill-conditioned, and
+# the witness itself moves most of that far on its weights rounded to bf16
+# ("rounded_weights_vs_f32" in `_train_gaps`).  So these catch a gross
+# fault only; the f32 step through the kernels is held tightly
+# (RWKV6_TRAIN_F32_BOUNDS), and K10-bwd and K6-bwd per output in their
+# phases.
+RWKV6_TRAIN_PLAIN = {
+    "blocks.att.ln_x.bias": 0.66711, "blocks.att.ln_x.scale": 0.6503,
+    "blocks.att.maa_w1": 2.2043, "blocks.att.maa_w2": 1.9794,
+    "blocks.att.td_w1": 0.4961, "blocks.att.td_w2": 0.32269,
+    "blocks.att.time_decay": 0.31895, "blocks.att.time_faaaa": 21.293,
+    "blocks.att.time_maa": 2.4447, "blocks.att.time_maa_x": 2.6944,
+    "blocks.att.wg": 0.67161, "blocks.att.wk": 0.81749,
+    "blocks.att.wo": 0.62675, "blocks.att.wr": 0.87346,
+    "blocks.att.wv": 0.68523, "blocks.ffn.time_mix_k": 0.95074,
+    "blocks.ffn.time_mix_r": 0.85632, "blocks.ffn.wk": 0.54264,
+    "blocks.ffn.wr": 0.63695, "blocks.ffn.wv": 0.27395,
+    "blocks.ln1.bias": 3.915, "blocks.ln1.scale": 3.4594,
+    "blocks.ln2.bias": 0.42289, "blocks.ln2.scale": 0.75788,
+    "embed": 0.47872, "head": 0.015909, "ln0.bias": 3.1744,
+    "ln0.scale": 4.3661, "ln_f.bias": 0.0020398, "ln_f.scale": 0.0099271,
+    "loss": 4.5141e-05}
+RWKV6_TRAIN_BOUNDS = {
+    "kernel_vs_f32": {n: (1.25 * 2 ** 0.5 if n == "loss" else 1.25) * v
+                      for n, v in RWKV6_TRAIN_PLAIN.items()},
+    "kernel_vs_plain": {n: 1.25 * 2 ** 0.5 * v
+                        for n, v in RWKV6_TRAIN_PLAIN.items()}}
+# the f32 config's step 0 through the kernels (K10 / K6 and their
+# backwards on f32 r, k, v; K11 and K12 on f32) against the f32 witness
+# (the same config, the plain versions), per leaf and the loss, at S 1024
+# and at S 40: the same recipe on the first reading (PR 34 run 4), each
+# reading at least 2^-24, f32 rounding that the model's conditioning
+# carries into the gradients.  A zeroed gradient reads 1, a flipped one 2.
+RWKV6_TRAIN_F32_READ = {
+    1024: {
+        "blocks.att.ln_x.bias": 2.2098e-05,
+        "blocks.att.ln_x.scale": 3.9801e-05, "blocks.att.maa_w1": 5.2354e-05,
+        "blocks.att.maa_w2": 5.1151e-05, "blocks.att.td_w1": 6.5106e-05,
+        "blocks.att.td_w2": 5.2437e-05, "blocks.att.time_decay": 5.1566e-05,
+        "blocks.att.time_faaaa": 0.0002479, "blocks.att.time_maa": 5.28e-05,
+        "blocks.att.time_maa_x": 5.8257e-05, "blocks.att.wg": 4.0963e-05,
+        "blocks.att.wk": 5.6934e-05, "blocks.att.wo": 4.0189e-05,
+        "blocks.att.wr": 5.745e-05, "blocks.att.wv": 4.0644e-05,
+        "blocks.ffn.time_mix_k": 3.7737e-05,
+        "blocks.ffn.time_mix_r": 3.7402e-05, "blocks.ffn.wk": 3.2372e-05,
+        "blocks.ffn.wr": 3.4098e-05, "blocks.ffn.wv": 1.8613e-05,
+        "blocks.ln1.bias": 6.7228e-05, "blocks.ln1.scale": 6.3292e-05,
+        "blocks.ln2.bias": 1.5527e-05, "blocks.ln2.scale": 3.2395e-05,
+        "embed": 4.0435e-05, "head": 2.6695e-06, "ln0.bias": 4.3744e-05,
+        "ln0.scale": 6.2499e-05, "ln_f.bias": 1.9819e-07,
+        "ln_f.scale": 1.5568e-06, "loss": 0.0},
+    40: {
+        "blocks.att.ln_x.bias": 4.2776e-05,
+        "blocks.att.ln_x.scale": 3.1085e-05, "blocks.att.maa_w1": 5.5951e-05,
+        "blocks.att.maa_w2": 4.7432e-05, "blocks.att.td_w1": 2.4911e-05,
+        "blocks.att.td_w2": 1.9656e-05, "blocks.att.time_decay": 1.9393e-05,
+        "blocks.att.time_faaaa": 0.00013813,
+        "blocks.att.time_maa": 5.3866e-05,
+        "blocks.att.time_maa_x": 6.4793e-05, "blocks.att.wg": 3.1198e-05,
+        "blocks.att.wk": 3.045e-05, "blocks.att.wo": 2.9947e-05,
+        "blocks.att.wr": 3.1002e-05, "blocks.att.wv": 3.1443e-05,
+        "blocks.ffn.time_mix_k": 3.7816e-05,
+        "blocks.ffn.time_mix_r": 3.7429e-05, "blocks.ffn.wk": 3.16e-05,
+        "blocks.ffn.wr": 3.3785e-05, "blocks.ffn.wv": 2.8324e-05,
+        "blocks.ln1.bias": 6.9653e-05, "blocks.ln1.scale": 6.4533e-05,
+        "blocks.ln2.bias": 3.6801e-05, "blocks.ln2.scale": 3.6636e-05,
+        "embed": 3.5739e-05, "head": 2.1185e-06, "ln0.bias": 7.6533e-05,
+        "ln0.scale": 7.4048e-05, "ln_f.bias": 1.4219e-07,
+        "ln_f.scale": 2.2036e-06, "loss": 0.0}}
+RWKV6_TRAIN_F32_BOUNDS = {
+    S: {n: (1.25 * 2 ** 0.5 if n == "loss" else 1.25) * max(v, 2.0 ** -24)
+        for n, v in read.items()}
+    for S, read in RWKV6_TRAIN_F32_READ.items()}
+
+
+def _rwkv6_train_model():
+    from repro_torch.models.registry import get_model
+    cfg = get_model("rwkv6-7b").cfg
+    return get_model(dataclasses.replace(cfg, n_layers=RWKV6_TRAIN_L,
+                                         dtype="bfloat16"))
+
+
+def _rwkv6_batch(cfg, B, S, step=0):
+    from repro_torch.data import SyntheticLM
+    return {k: torch.from_numpy(v).to(DEV) for k, v in SyntheticLM(
+        vocab=cfg.vocab, seq_len=S, global_batch=B, seed=SEED).batch(
+            step).items()}
+
+
+def _wkv6_bwd_ok(got, ref, mag, w, C, bf16_outputs):
+    """Each output of a WKV-6 backward against its plain version on the
+    card: max |d| <= (2^-10 + λ)·max M and mean |d| <= (2^-13 + λ)·mean M,
+    M the output's magnitude (the plain passes on |r|, |k|, |v|, |u|,
+    |dy|, every term positive: the sum of its absolute terms), 2^-10 and
+    2^-13 K2-bwd's (f32 sums of up to C·N terms, and of G chunks' state
+    gradients, in another order: ~(C + N + G)·2^-24 ~ 2^-16 of M), λ =
+    2C·2^-23·max|log w| for a log a last bit apart on the two sides,
+    which moves every L after it (the forward's `_k10_bound`).  The first
+    `bf16_outputs` outputs are bf16, each side rounding its f32 value
+    once: their max may move by one bf16 step, 2^-7 of M.  Returns (ok,
+    {name: {"max_abs", "max_per_mag", "mean_per_mag"}})."""
+    lam = 2 * C * 2.0 ** -23 * float(
+        torch.log(torch.clamp(w.float(), min=1e-38)).abs().max())
+    errs, ok = {}, True
+    for i, (name, a, b, m) in enumerate(zip(("dr", "dk", "dv", "dw", "du"),
+                                            got, ref, mag)):
+        d = (a.float() - b.float()).abs()
+        m = m.float()
+        mx = (2.0 ** -7 if i < bf16_outputs else 2.0 ** -10) + lam
+        errs[name] = {"max_abs": float(d.max()),
+                      "max_per_mag": float(d.max() / m.max()),
+                      "mean_per_mag": float(d.mean() / m.mean())}
+        ok = ok and bool(torch.isfinite(a).all()) and bool(
+            d.max() <= mx * m.max()) and bool(
+            d.mean() <= (2.0 ** -13 + lam) * m.mean())
+    return ok, errs
+
+
+def _k10_bwd_cost(B, T, H, N, C, rkv_bytes, w_bytes):
+    """(bytes, operations) of the chunked WKV-6 backward: r, k, v, w, dy
+    and the chunk states S_(g-1) read, dr, dk, dv, dw written, once each
+    (u and du are small); per chunk and column the products (r e^Lp)ᵀ dy,
+    S dy, G v and Gᵀ (k e^(Ltot - L)) (C·N each), VD (C²), the pairwise
+    terms of A, dr, dk and dv (4·C(C-1)/2) and the dw walk (2·C(C-1)/2)
+    at 2 operations a multiply-add, and C(C-1)/2 exponentials at one: the
+    table E[t, i] = e^(Lp_t - L_i), i < t, which dr, dk, A and the walk
+    share."""
+    G = T // C
+    elems = B * T * H * N
+    nbytes = 3 * 2 * elems * rkv_bytes + 2 * elems * w_bytes \
+        + 4 * elems + 4 * B * H * G * N * N
+    macs = 4 * C * N + C * C + 6 * C * (C - 1) // 2
+    ops = B * H * G * N * (2.0 * macs + C * (C - 1) // 2)
+    return nbytes, ops
+
+
+def phase_k10_bwd(layer0, flush):
+    """K10-bwd on layer 0's WKV operands of rwkv6-7b's train step (B4 T1024
+    H64 N64: bf16 r, k, v, f32 w, the zero state) and on an f32 instance
+    of them, with a seeded N(0, 1) output gradient: through the autograd
+    Function (K10 once, K10-bwd once) against the plain version of its
+    passes on the card within `_wkv6_bwd_ok`; again from the forward's
+    workspace, bit for bit.  Timed (the bf16 instance): the kernel
+    L2-cold beside the plain version once and the bound; no library call
+    computes it."""
+    from repro_torch.kernels.wkv6 import (
+        _chunked_forward, wkv6_chunked_bwd, wkv6_chunked_bwd_plain,
+        wkv6_chunked_kernel)
+    r, k, v, w, u = layer0
+    B, T, H, N = r.shape
+    dy = torch.randn((B, T, H, N), device=DEV,
+                     generator=torch.Generator(device=DEV).manual_seed(
+                         SEED + 93))
+    rows = []
+    for rkv in (r, r.float()):
+        ops_ = (rkv, k.to(rkv.dtype), v.to(rkv.dtype), w, u)
+        ins = [t.clone().requires_grad_() for t in ops_]
+        n0 = (wkv6_chunked_kernel.launches, wkv6_chunked_bwd.launches)
+        y, _ = wkv6_chunked_kernel(*ins)
+        got = torch.autograd.grad(y, ins, dy)
+        torch.cuda.synchronize()
+        launched = (wkv6_chunked_kernel.launches - n0[0],
+                    wkv6_chunked_bwd.launches - n0[1])
+        del y, ins
+        ref = wkv6_chunked_bwd_plain(*ops_, dy)
+        mag = wkv6_chunked_bwd_plain(*(t.abs() for t in ops_[:3]), w,
+                                     u.abs(), dy.abs())
+        bf = 3 if rkv.dtype == torch.bfloat16 else 0
+        ok, errs = _wkv6_bwd_ok(got, ref, mag, w, 64, bf)
+        del ref, mag
+        ws = _chunked_forward(*ops_)[2]
+        call = lambda: wkv6_chunked_bwd(*ops_, dy, workspace=ws)
+        again = call()
+        repeat = all(torch.equal(a, b) for a, b in zip(again, got))
+        del again, got
+        nbytes, ops = _k10_bwd_cost(B, T, H, N, 64, rkv.element_size(), 4)
+        bms, by = _bound(nbytes, ops, PEAK_F32_FLOPS)
+        row = {"kernel": "wkv6_chunked_bwd",
+               "what": "rwkv6-7b layer 0, train", "B": B, "T": T, "H": H,
+               "N": N, "C": 64, "rkv_dtype": str(rkv.dtype),
+               "launches_fwd_bwd": launched,
+               "max_abs_err": max(e["max_abs"] for e in errs.values()),
+               "errors": errs, "within_bound": ok, "bit_repeat": repeat,
+               "bytes": nbytes, "ops": ops, "bound_ms": bms, "bound_by": by,
+               "library_ms": None,
+               "ptxas": _registers(_BUILD_USAGE, "chunk_grad_kernelILi64")}
+        if bf:
+            row["kernel_ms"] = _time_ms(call, flush)
+            row["plain_ms"] = _time_ms(
+                lambda: wkv6_chunked_bwd_plain(*ops_, dy), flush, reps=1)
+        _line(row)
+        del ws
+        if not (ok and repeat and launched == (1, 1)):
+            raise AssertionError(f"K10-bwd {rkv.dtype}: {errs}, bit repeat "
+                                 f"{repeat}, launches {launched}")
+        rows.append(row)
+    return rows
+
+
+def phase_k6_bwd(layer0, flush):
+    """K6-bwd on layer 0's WKV operands of the K6 route's train step (B2
+    T40 H64 N64: r, k, v widened from bf16, f32 w, the zero f32 state)
+    with a seeded N(0, 1) output gradient: through the autograd Function
+    (K6 once, K6-bwd once) against the plain version of its passes on the
+    card within `_wkv6_bwd_ok` (all f32); again, bit for bit; timed beside
+    the plain version (a loop over T) and the bound.  `_time_ms`'s floor
+    of ~5 µs (the dirty L2 its flush leaves) is part of the reading: the
+    function's bound is 4.4 µs."""
+    from repro_torch.kernels.wkv6 import (
+        wkv6_seq, wkv6_seq_bwd, wkv6_seq_bwd_plain)
+    r, k, v, w, u = layer0
+    B, T, H, N = r.shape
+    ops_ = (r.float(), k.float(), v.float(), w, u)
+    s0 = torch.zeros((B, H, N, N), device=DEV)
+    dy = torch.randn((B, T, H, N), device=DEV,
+                     generator=torch.Generator(device=DEV).manual_seed(
+                         SEED + 94))
+    ins = [t.clone().requires_grad_() for t in ops_]
+    n0 = (wkv6_seq.launches, wkv6_seq_bwd.launches)
+    y, _ = wkv6_seq(*ins, s0)
+    got = torch.autograd.grad(y, ins, dy)
+    torch.cuda.synchronize()
+    launched = (wkv6_seq.launches - n0[0], wkv6_seq_bwd.launches - n0[1])
+    ref = wkv6_seq_bwd_plain(*ops_, s0, dy)
+    mag = wkv6_seq_bwd_plain(*(t.abs() for t in ops_[:3]), w, u.abs(), s0,
+                             dy.abs())
+    ok, errs = _wkv6_bwd_ok(got, ref, mag, torch.ones(1), 1, 0)
+    call = lambda: wkv6_seq_bwd(*ops_, s0, dy)
+    repeat = all(torch.equal(a, b) for a, b in zip(call(), got))
+    # r, k, v, w, dy read and dr, dk, dv, dw written, f32; per step and
+    # (n, m): the state's update w·S + k·v 3, dr's S dy 2, dk's G v 2,
+    # dv's Gᵀ k 2, dw's S ⊙ G 2 and G's update w·G + r·dy 3, 14 operations
+    # (the bonus terms u k (v·dy) are O(N) a step)
+    bms, by = _bound(9 * 4 * B * T * H * N, 14.0 * B * T * H * N * N,
+                     PEAK_F32_FLOPS)
+    row = {"kernel": "wkv6_seq_bwd", "what": "rwkv6-7b layer 0, train S40",
+           "B": B, "T": T, "H": H, "N": N, "launches_fwd_bwd": launched,
+           "max_abs_err": max(e["max_abs"] for e in errs.values()),
+           "errors": errs, "within_bound": ok, "bit_repeat": repeat,
+           "kernel_ms": _time_ms(call, flush),
+           "plain_ms": _time_ms(
+               lambda: wkv6_seq_bwd_plain(*ops_, s0, dy), flush, reps=1),
+           "library_ms": None, "bound_ms": bms, "bound_by": by,
+           "ptxas": _registers(_BUILD_USAGE, "seq_bwd_kernelILi64")}
+    _line(row)
+    if not (ok and repeat and launched == (1, 1)):
+        raise AssertionError(f"K6-bwd: {errs}, bit repeat {repeat}, "
+                             f"launches {launched}")
+    return row
+
+
+def _rwkv6_train_per_step(L, chunked=True):
+    """Launches of one rwkv6 train step under remat: K11 at ln0, ln_f and
+    twice a layer, again in each layer's recompute; K10 (or K6) once a
+    layer and again in the recompute; each backward once per forward
+    call."""
+    fwd, bwd = ("wkv6_chunked_kernel", "wkv6_chunked_bwd") if chunked \
+        else ("wkv6_seq", "wkv6_seq_bwd")
+    return {"fused_layernorm": 4 * L + 2, "fused_layernorm_bwd": 2 * L + 2,
+            fwd: 2 * L, bwd: L, "fused_cross_entropy": 1,
+            "fused_cross_entropy_bwd": 1}
+
+
+def _rwkv6_train_ops(model, B, S):
+    """6·N·T for the products (N the weights in products: per layer wr,
+    wk, wv, wg, wo, the ddlerp and decay low-rank matrices, the channel
+    mix, as `_rwkv6_fwd_ops` counts them, and the head) and 2·N_blocks·T
+    for remat's re-forward of the blocks."""
+    cfg = model.cfg
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    n_blocks = cfg.n_layers * (6 * D * D + 2 * 5 * 32 * D + 2 * 64 * D
+                               + 2 * D * F)
+    T = B * S
+    return {"matmuls": 6.0 * (n_blocks + D * V) * T,
+            "remat": 2.0 * n_blocks * T}
+
+
+def phase_rwkv6_train():
+    """rwkv6-7b's training at full width (D 4096, H 64, N 64, F 14336, V
+    65536) cut to 4 of its 32 layers, B 4, S 1024, SyntheticLM tokens, f32
+    master weights from the seed, AdamW, remat, bf16 compute.  Step 0
+    (`loss_and_grads`) with every counter set to 0 just before and read
+    just after (`_rwkv6_train_per_step`: K11 18, K11-bwd 10, K10 8,
+    K10-bwd 4, K12 1, K12-bwd 1); its loss and gradients per leaf against
+    the plain path and the f32 witness (`_train_gaps`) within
+    RWKV6_TRAIN_BOUNDS.  Then `train_model` for 3 steps, the counters
+    again (3x), finite losses, each step's ms, tokens/s and the peak
+    device memory beside the step's operations bound, and one more step
+    split by `_step_split`.  Then the K6 route: step 0 at B 2, S 40 (K6 8,
+    K6-bwd 4), finite gradients, each leaf's mean gap to the f32 witness
+    within 1.25·√2 times the plain path's own (the recipe read in the
+    same run).  At both lengths the f32 config also runs step 0 through
+    the kernels (the same launches), each leaf and the loss within
+    RWKV6_TRAIN_F32_BOUNDS of the f32 witness, and the witness is rerun
+    on the weights rounded to bf16 (`_train_gaps`).  Returns the paths'
+    launches."""
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import train_model
+    B, S, steps = RWKV6_TRAIN_B, RWKV6_TRAIN_S, 3
+    model = _rwkv6_train_model()
+    L = model.cfg.n_layers
+    per_step = _rwkv6_train_per_step(L)
+    params = model.init_params(SEED, DEV)
+    batch = _rwkv6_batch(model.cfg, B, S)
+    out, _ = _counted(lambda: loss_and_grads(model, params, batch),
+                      per_step, "rwkv6 train step 0")
+    losses, gaps, plain_ms, finite = _train_gaps(model, params, batch, out,
+                                                 f32_per_step=per_step)
+    del out
+    bounds = {**RWKV6_TRAIN_BOUNDS,
+              "f32_kernel_vs_f32": RWKV6_TRAIN_F32_BOUNDS[S]}
+    bad = {(w, n): gaps[w][n] for w in bounds for n in bounds[w]
+           if gaps[w][n] > bounds[w][n]}
+    _line({"phase": "train_step0", "arch": "rwkv6-7b", "L": L, "B": B,
+           "S": S, "losses": {"kernels": losses[0], "plain": losses[1],
+                              "f32": losses[2], "f32_kernels": losses[3]},
+           "launches": per_step, "plain_step_ms": plain_ms, "gaps": gaps,
+           "bounds": bounds, "within_bound": not bad})
+    if bad or not finite or not all(np.isfinite(losses)):
+        raise AssertionError(f"rwkv6 train step 0 out of bounds: {bad}, "
+                             f"finite gradients {finite}, losses {losses}")
+    del params, batch
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = _counted(
+        lambda: train_model(model, steps=steps, global_batch=B, seq_len=S,
+                            seed=SEED, device=DEV, log_every=1),
+        {n: steps * c for n, c in per_step.items()}, "rwkv6 train")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"rwkv6 train losses: {out['losses']}")
+    ops = _rwkv6_train_ops(model, B, S)
+    step_ms = [t * 1e3 for t in out["step_s"]]
+    steady = sum(step_ms[1:]) / len(step_ms[1:])
+    split = _step_split(model, out["params"], _rwkv6_batch(model.cfg, B, S))
+    _line({"phase": "train", "arch": "rwkv6-7b", "L": L, "B": B, "S": S,
+           "params": model.param_count(), "steps": steps,
+           "losses": out["losses"], "step_ms": step_ms,
+           "train_tokens_per_s": B * S / (steady / 1e3),
+           "max_memory_allocated_gib": peak, "launches": launches,
+           "ops": ops, "bound_ms": sum(ops.values()) / PEAK_BF16_FLOPS * 1e3,
+           "split": split})
+    del out
+    _release()
+    # the K6 route: S 40 is no multiple of the chunk
+    Bs, Ss = RWKV6_SHORT_B, RWKV6_SHORT_S
+    per40 = _rwkv6_train_per_step(L, chunked=False)
+    params = model.init_params(SEED, DEV)
+    short = _rwkv6_batch(model.cfg, Bs, Ss)
+    out, launches40 = _counted(
+        lambda: loss_and_grads(model, params, short), per40,
+        "rwkv6 train step 0 S40")
+    losses40, gaps40, plain40_ms, finite40 = _train_gaps(
+        model, params, short, out, f32_per_step=per40)
+    del out
+    bad40 = {n: g for n, g in gaps40["kernel_vs_f32"].items()
+             if g > 1.25 * 2 ** 0.5 * gaps40["plain_vs_f32"][n]}
+    bad40.update({("f32", n): gaps40["f32_kernel_vs_f32"][n]
+                  for n, b in RWKV6_TRAIN_F32_BOUNDS[Ss].items()
+                  if gaps40["f32_kernel_vs_f32"][n] > b})
+    _line({"phase": "train_step0", "arch": "rwkv6-7b", "route": "K6",
+           "L": L, "B": Bs, "S": Ss, "losses": losses40,
+           "launches": launches40, "plain_step_ms": plain40_ms,
+           "gaps": gaps40, "within_bound": not bad40, "finite": finite40})
+    if bad40 or not finite40 or not all(np.isfinite(losses40)):
+        raise AssertionError(f"rwkv6 S40 step 0: {bad40}, finite "
+                             f"{finite40}, losses {losses40}")
+    del params, short
+    _release()
+    return {"rwkv6-train": launches, "rwkv6-train-s40": launches40}
 
 
 # --- the ninth slice: K1 and K8 through kernels/ops.py, the quantized serve
@@ -6359,6 +6815,21 @@ def main() -> int:
                                         phase_restore_trained, m4t, restored)
     del restored
     _release()
+    # rwkv6-7b's training at full width, 4 of its 32 layers: K10-bwd and
+    # K6-bwd on layer 0's operands of its train steps, then the steps
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    m6t = _rwkv6_train_model()
+    cast6 = m6t.cast_params(m6t.init_params(SEED, DEV))
+    wkv10, wkv6 = (_rwkv6_layer0_operands(m6t, cast6, _rwkv6_batch(
+        m6t.cfg, b, s_)["tokens"]) for b, s_ in (
+            (RWKV6_TRAIN_B, RWKV6_TRAIN_S), (RWKV6_SHORT_B, RWKV6_SHORT_S)))
+    del cast6
+    _release()
+    k10b = _timed("K10-bwd", phase_k10_bwd, wkv10, flush)
+    k6b = _timed("K6-bwd", phase_k6_bwd, wkv6, flush)
+    del wkv10, wkv6, flush
+    _release()
+    by_path.update(_timed("train rwkv6-7b", phase_rwkv6_train))
 
     def launches(name, main_path):
         return {"main": by_path[main_path][name],
@@ -6629,6 +7100,30 @@ def main() -> int:
                     launches("rwkv6_model_decode", "rwkv6-bf16-model"),
                     "K7-model on plain bf16 weights"),
     ]
+    # the twenty-fourth slice: rwkv6's backward kernels, launches from the
+    # 3-step rwkv6 run (K10-bwd) and its S 40 step (K6-bwd)
+    k10b_row = _kernel_row(
+        "wkv6_chunked_bwd", "src/repro_torch/csrc/wkv6_chunked_bwd.cu",
+        "src/repro/core/wkv/wkv6.py:58", k10b[:1],
+        launches("wkv6_chunked_bwd", "rwkv6-train"),
+        "K10-bwd: no TPU kernel, the backward XLA derives from "
+        "wkv6_chunked; timed on rwkv6-7b's layer-0 operands of the train "
+        "step (B4 T1024 H64 N64, bf16 r, k, v; f32 w), the f32 instance "
+        "checked only; a launch counted here is one wrapper call, four "
+        "CUDA launches; plain_ms the plain version of its passes")
+    k10b_row["max_abs_err"] = max(r["max_abs_err"] for r in k10b)
+    k10b_row["shapes"] = [[r[k] for k in ("B", "T", "H", "N")]
+                          + [r["rkv_dtype"]] for r in k10b]
+    kernels += [
+        k10b_row,
+        _kernel_row("wkv6_seq_bwd", "src/repro_torch/csrc/wkv6_seq_bwd.cu",
+                    "src/repro/core/wkv/wkv6.py:38", [k6b],
+                    launches("wkv6_seq_bwd", "rwkv6-train-s40"),
+                    "K6-bwd: no TPU kernel, the backward XLA derives from "
+                    "wkv6_scan; timed on rwkv6-7b's layer-0 operands of the "
+                    "S 40 train step (B2 T40 H64 N64, f32); _time_ms's ~5 "
+                    "us floor is part of the reading; two CUDA launches a "
+                    "call; plain_ms the plain version of its passes")]
     _line({"phase_done": "all", "seconds": time.perf_counter() - t_start})
     _line({"kernels": kernels})
     print(_card(), flush=True)

@@ -66,6 +66,8 @@ SIGNATURES = {
     "fused_ce_bwd": [_P] * 5 + [_I] * 4 + [_P],
     "fused_layernorm_bwd": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
     "wkv4_seq_bwd": [_P] * 14 + [_I] * 4 + [_P],
+    "wkv6_chunked_bwd": [_P] * 13 + [_I] * 7 + [_P],
+    "wkv6_seq_bwd": [_P] * 13 + [_I] * 4 + [_P],
     "dpot_matmul": [_P] * 6 + [_I] * 10 + [_P],
     "dpot_matmul_w4": [_P] * 6 + [_I] * 10 + [_P],
 }
@@ -150,18 +152,14 @@ def check(err: int, name: str):
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
-WAITS = ("rwkv6's gradients on the card wait for backward kernels of K10 "
-         "and K6, with rwkv6 training (ROADMAP Queue 1 item 10: rwkv6-7b "
-         "with f32 masters and AdamW needs more than one card)")
-
 HW_UNTRAINED = ("the hardware numerics are not trained (JAX's loss_fn "
                 "runs the standard ones)")
 
 
-def refuse_grad(name: str, *tensors, why: str = WAITS):
+def refuse_grad(name: str, *tensors, why: str):
     """Raise where a kernel with no backward would be asked for gradients:
     grad mode on and an operand that requires grad.  `why` says what the
-    gradient waits for.  The plain versions on CPU tensors stay
+    gradient waits for, or which calls a backward kernel covers.  The plain versions on CPU tensors stay
     differentiable; a CUDA call never falls back to them."""
     import torch
     if torch.is_grad_enabled() and any(

@@ -29,10 +29,24 @@ is exact, so the kernel reads the pool's bf16 bytes and widens them on
 chip instead of taking an f32 copy.  The final state is f32 (snapped
 through bf16 when the carry is bf16), as the JAX kernel returns it.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises, also when grad mode is on and an operand requires grad: the
-kernels have no backward yet, and rwkv6's training on the card waits for
-theirs (`kernels/build.py:WAITS`).
+Their backward kernels replace no TPU kernel: JAX lets XLA
+differentiate `core/wkv/wkv6.py:wkv6_chunked` and `wkv6_scan`.  K10-bwd
+(`csrc/wkv6_chunked_bwd.cu`, `wkv6_chunked_bwd`) takes the forward's
+workspace, which holds S_(g-1) of every chunk, and K6-bwd
+(`csrc/wkv6_seq_bwd.cu`, `wkv6_seq_bwd`) walks the steps backward from
+checkpoints of the state every K6_BWD_WINDOW steps; each source's header
+derives the gradients.  On the card, with grad mode on and an operand
+that requires grad, the forward's own call runs through an autograd
+Function (`_WKV6Chunked`, `_WKV6Seq`) whose backward is that kernel: K10
+from an initial state that takes no gradient, K6 from one too, without a
+valid mask or a carry snap.  Any other call under grad raises before it
+launches (`OWN_CALLS`): the prefill's masked and snapped K6 is never
+trained, as JAX trains from a zero carry.
+
+A CPU tensor takes the plain version, which autograd differentiates;
+`wkv6_chunked_bwd` and `wkv6_seq_bwd` on CPU tensors are the backward
+kernels' plain versions, the same passes in torch ops, chunk by chunk and
+window by window.  A CUDA tensor launches the kernels or raises.
 """
 from __future__ import annotations
 
@@ -43,6 +57,12 @@ import torch
 from repro_torch.core.wkv.wkv6 import wkv6_step
 from repro_torch.kernels.build import (
     check, load_library, refuse_grad, stream_ptr)
+
+OWN_CALLS = ("K10-bwd and K6-bwd differentiate the whole-sequence "
+             "forward's own calls: from an initial state that takes no "
+             "gradient (f32 for K6), without a valid mask or a carry "
+             "snap (the prefill's masked, snapped K6 is never trained: "
+             "JAX trains from a zero carry)")
 
 _CARRY = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
@@ -139,18 +159,12 @@ def k6_plan(B: int, T: int, H: int, N: int) -> K6Plan:
     return plan
 
 
-def wkv6_seq(r, k, v, w, u, s0, *, valid=None,
-             carry_dtype: Optional[str] = None):
-    """r, k, v, w (B, T, H, N) f32; u (H, N) f32; s0 (B, H, N, N) f32 or
-    bf16; valid (B, T) or None -> (y (B, T, H, N) f32, S (B, H, N, N)
-    f32).  On the card the launch is `k6_plan`'s."""
-    if carry_dtype not in _CARRY:
-        raise ValueError(f"carry_dtype {carry_dtype!r}: expected one of "
-                         f"{sorted(c for c in _CARRY if c)} or None")
+def _seq_forward(r, k, v, w, u, s0, *, valid=None,
+                 carry_dtype: Optional[str] = None):
+    """One forward: the plain version on the CPU, K6 on the card."""
     if r.device.type == "cpu":
         return wkv6_seq_plain(r, k, v, w, u, s0, valid=valid,
                               carry_dtype=carry_dtype)
-    refuse_grad("wkv6_seq", r, k, v, w, u, s0)
     B, T, H, N = r.shape
     ops = [r, k, v, w, u]
     if any(t.dtype != torch.float32 or t.device != r.device for t in ops):
@@ -181,6 +195,143 @@ def wkv6_seq(r, k, v, w, u, s0, *, valid=None,
     return y, sf
 
 
+# K6-bwd (csrc/wkv6_seq_bwd.cu, which owns them)
+K6_BWD_WINDOW = 32      # steps between checkpoints of the state
+K6_BWD_HEAD_DIMS = (16, 32, 64)
+
+
+def _seq_state_step(S, kt, vt, wt):
+    """wkv6_step's state update, its ops in order: w·S + k⊗v."""
+    return wt[..., :, None] * S + kt[..., :, None] * vt[..., None, :]
+
+
+def wkv6_seq_bwd_plain(r, k, v, w, u, s0, dy, *,
+                       window: Optional[int] = None):
+    """K6-bwd's passes in torch ops (the derivation is in
+    `csrc/wkv6_seq_bwd.cu`): the state forward from s0, kept at the start
+    of every window of `window` steps (default K6_BWD_WINDOW); then the
+    windows from the last, each window's states S_(t-1) recomputed from
+    its checkpoint (the forward's update, so the forward's bits) and its
+    steps walked backward, carrying G_t = dS_t from G_T = 0:
+      dr_t = (S_(t-1) + u·(k_t ⊗ v_t)) dy_t,  dk_t = u·r_t (v_t·dy_t) +
+      G_t v_t,  dv_t = (Σ r_t u k_t) dy_t + G_tᵀ k_t,  dw_t = rowsum(
+      S_(t-1) ⊙ G_t),  du += r_t k_t (v_t·dy_t),  G_(t-1) = w_t ⊙rows G_t
+      + r_t ⊗ dy_t;
+    du summed over the batch in order.  -> (dr, dk, dv, dw (B, T, H, N),
+    du (H, N)), all f32."""
+    f32 = torch.float32
+    r, k, v, w, u, dy = (t.to(f32) for t in (r, k, v, w, u, dy))
+    T = r.shape[1]
+    W = window or K6_BWD_WINDOW
+    S = s0.to(f32)
+    ckpt = []
+    for t in range(T):
+        if t % W == 0:
+            ckpt.append(S)
+        S = _seq_state_step(S, k[:, t], v[:, t], w[:, t])
+    G = torch.zeros_like(S)
+    du = torch.zeros_like(r[:, 0])
+    out = [[None] * T for _ in range(4)]
+    for j in range(len(ckpt) - 1, -1, -1):
+        t0, t1 = j * W, min(T, (j + 1) * W)
+        S, prev = ckpt[j], []
+        for t in range(t0, t1):
+            prev.append(S)
+            S = _seq_state_step(S, k[:, t], v[:, t], w[:, t])
+        for t in range(t1 - 1, t0 - 1, -1):
+            Sp = prev[t - t0]
+            rt, kt, vt, wt, gt = (x[:, t] for x in (r, k, v, w, dy))
+            vdy = (vt * gt).sum(-1, keepdim=True)
+            X = Sp + u[:, :, None] * (kt[..., :, None] * vt[..., None, :])
+            out[0][t] = torch.einsum("bhnm,bhm->bhn", X, gt)
+            out[1][t] = u * rt * vdy + torch.einsum("bhnm,bhm->bhn", G, vt)
+            out[2][t] = (rt * u * kt).sum(-1, keepdim=True) * gt + \
+                torch.einsum("bhnm,bhn->bhm", G, kt)
+            out[3][t] = (Sp * G).sum(-1)
+            du = du + rt * kt * vdy
+            G = wt[..., :, None] * G + rt[..., :, None] * gt[..., None, :]
+    du_sum = torch.zeros_like(u)
+    for b in range(du.shape[0]):
+        du_sum = du_sum + du[b]
+    return (*(torch.stack(o, dim=1) for o in out), du_sum)
+
+
+def wkv6_seq_bwd(r, k, v, w, u, s0, dy):
+    """(dr, dk, dv, dw, du) of K6's y from the f32 initial state s0 (which
+    takes no gradient), without a valid mask or a carry snap, for the
+    output gradient dy (B, T, H, N) f32: the plain passes on the CPU,
+    K6-bwd on the card, whose N must be 16, 32 or 64."""
+    if r.device.type == "cpu":
+        return wkv6_seq_bwd_plain(r, k, v, w, u, s0, dy)
+    B, T, H, N = r.shape
+    ops = [r, k, v, w, u, s0, dy]
+    if any(t.dtype != torch.float32 or t.device != r.device for t in ops):
+        raise TypeError("wkv6_seq_bwd takes f32 r, k, v, w, u, s0, dy on "
+                        "one device")
+    if any(t.shape != r.shape for t in (k, v, w, dy)) or \
+            u.shape != (H, N) or s0.shape != (B, H, N, N):
+        raise ValueError("wkv6_seq_bwd: operand shapes do not agree")
+    if N not in K6_BWD_HEAD_DIMS:
+        raise ValueError(f"wkv6_seq_bwd: head dim {N} not in "
+                         f"{K6_BWD_HEAD_DIMS}")
+    ops = [t.contiguous() for t in ops]
+    f32 = dict(dtype=torch.float32, device=r.device)
+    grads = [torch.empty((B, T, H, N), **f32) for _ in range(4)]
+    du = torch.empty((H, N), **f32)
+    n_win = -(-T // K6_BWD_WINDOW)
+    scratch = torch.empty(B * H * ((n_win + K6_BWD_WINDOW) * N * N + N),
+                          **f32)
+    check(load_library().wkv6_seq_bwd(
+        *(t.data_ptr() for t in ops), *(g.data_ptr() for g in grads),
+        du.data_ptr(), scratch.data_ptr(), B, T, H, N, stream_ptr(r)),
+        "wkv6_seq_bwd")
+    wkv6_seq_bwd.launches += 1
+    return (*grads, du)
+
+
+wkv6_seq_bwd.launches = 0
+
+
+class _WKV6Seq(torch.autograd.Function):
+    """K6 with its backward, for the forward's own call: the forward keeps
+    its operands; the backward is `wkv6_seq_bwd`.  The final state carries
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        y, sf = _seq_forward(r, k, v, w, u, s0)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.mark_non_differentiable(sf)
+        return y, sf
+
+    @staticmethod
+    def backward(ctx, dy, _):
+        return (*wkv6_seq_bwd(*ctx.saved_tensors, dy.contiguous()), None)
+
+
+def wkv6_seq(r, k, v, w, u, s0, *, valid=None,
+             carry_dtype: Optional[str] = None):
+    """r, k, v, w (B, T, H, N) f32; u (H, N) f32; s0 (B, H, N, N) f32 or
+    bf16; valid (B, T) or None -> (y (B, T, H, N) f32, S (B, H, N, N)
+    f32).  On the card the launch is `k6_plan`'s; under grad the
+    forward's own call (no valid, no carry snap, an f32 s0 that takes no
+    gradient, N 16, 32 or 64) runs through `_WKV6Seq`."""
+    if carry_dtype not in _CARRY:
+        raise ValueError(f"carry_dtype {carry_dtype!r}: expected one of "
+                         f"{sorted(c for c in _CARRY if c)} or None")
+    ops = (r, k, v, w, u, s0)
+    if r.device.type != "cpu" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in ops):
+        if valid is None and _CARRY[carry_dtype] is None and \
+                s0.dtype == torch.float32 and not s0.requires_grad and \
+                r.shape[-1] in K6_BWD_HEAD_DIMS:
+            return _WKV6Seq.apply(r, k, v, w, u, s0)
+        refuse_grad("wkv6_seq", *ops, why=OWN_CALLS + "; K6-bwd takes an "
+                    f"f32 s0 and N in {K6_BWD_HEAD_DIMS}")
+    return _seq_forward(r, k, v, w, u, s0, valid=valid,
+                        carry_dtype=carry_dtype)
+
+
 wkv6_seq.launches = 0
 
 
@@ -202,6 +353,18 @@ def chunk_length(T: int, chunk: int = 64) -> int:
     return C
 
 
+def _cum_logs(w5):
+    """w (B, G, C, H, N) f32 -> (L, Lprev): the inclusive cumsum of log
+    max(w, 1e-38) over each chunk in order of the positions (the kernels'
+    order), and L - log w."""
+    logw = torch.log(torch.clamp(w5, min=1e-38))
+    cum = [logw[:, :, 0]]
+    for c in range(1, w5.shape[2]):
+        cum.append(cum[-1] + logw[:, :, c])
+    L = torch.stack(cum, dim=2)
+    return L, L - logw
+
+
 def wkv6_chunked_plain(r, k, v, w, u, s0=None, *, chunk: int = 64):
     """The plain version, K10's one-level algorithm in torch: log max(w,
     1e-38), its inclusive cumsum L over each chunk taken in order of the
@@ -215,12 +378,7 @@ def wkv6_chunked_plain(r, k, v, w, u, s0=None, *, chunk: int = 64):
     f32 = torch.float32
     resh = lambda x: x.to(f32).reshape(B, G, C, H, N)
     rs, ks, vs = resh(r), resh(k), resh(v)
-    logw = torch.log(torch.clamp(resh(w), min=1e-38))
-    cum = [logw[:, :, 0]]
-    for c in range(1, C):
-        cum.append(cum[-1] + logw[:, :, c])
-    L = torch.stack(cum, dim=2)                       # (B, G, C, H, N)
-    Lprev = L - logw
+    L, Lprev = _cum_logs(resh(w))
     u32 = u.to(f32)
     S = torch.zeros((B, H, N, N), dtype=f32, device=r.device) \
         if s0 is None else s0.to(f32)
@@ -288,16 +446,12 @@ def k10_plan(B: int, T: int, H: int, N: int, chunk: int = 64, *,
     return K10Plan(C, G, Cp, n_sub, passes, 4 * chunks * (N * N + N))
 
 
-def wkv6_chunked_kernel(r, k, v, w, u, s0=None, *, chunk: int = 64):
-    """r, k, v (B, T, H, N) f32 or bf16 (one type); w (B, T, H, N) f32 or
-    bf16; u (H, N); s0 (B, H, N, N) f32 or None (zeros) -> (y (B, T, H, N)
-    f32, final S (B, H, N, N) f32), over chunks of `chunk_length(T,
-    chunk)` tokens.  On the card N must be 16, 32 or 64 and the chunk at
-    most 64; one call is three CUDA launches (`k10_plan`) and counts one,
-    with a workspace of `k10_plan(...).workspace_bytes`."""
+def _chunked_forward(r, k, v, w, u, s0=None, *, chunk: int = 64):
+    """One forward -> (y, final S, workspace): the plain version on the
+    CPU (no workspace), K10 on the card, whose workspace then holds
+    S_(g-1) and e^Ltot_g of every chunk (`k10_plan`)."""
     if r.device.type == "cpu":
-        return wkv6_chunked_plain(r, k, v, w, u, s0, chunk=chunk)
-    refuse_grad("wkv6_chunked_kernel", r, k, v, w, u, s0)
+        return (*wkv6_chunked_plain(r, k, v, w, u, s0, chunk=chunk), None)
     B, T, H, N = r.shape
     if r.dtype not in _K10_DTYPES or k.dtype != r.dtype or \
             v.dtype != r.dtype or w.dtype not in _K10_DTYPES:
@@ -317,11 +471,7 @@ def wkv6_chunked_kernel(r, k, v, w, u, s0=None, *, chunk: int = 64):
     if any(t.device != r.device for t in (k, v, w, u)) or (
             s0 is not None and s0.device != r.device):
         raise ValueError("wkv6_chunked_kernel: operands on other devices")
-    # the kernels read 16-byte vectors: a view off a 16-byte boundary is
-    # copied to one that starts on it
-    r, k, v, w = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
-                  else t.clone(memory_format=torch.contiguous_format)
-                  for t in (r, k, v, w))
+    r, k, v, w = _aligned(r, k, v, w)
     u = u.to(torch.float32).contiguous()
     if s0 is not None:
         s0 = s0.to(torch.float32).contiguous()
@@ -337,7 +487,202 @@ def wkv6_chunked_kernel(r, k, v, w, u, s0=None, *, chunk: int = 64):
         int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
         stream_ptr(r)), "wkv6_chunked_kernel")
     wkv6_chunked_kernel.launches += 1
-    return y, sf
+    return y, sf, ws
+
+
+def _aligned(*ts):
+    """The kernels read 16-byte vectors: a view off a 16-byte boundary is
+    copied to one that starts on it."""
+    return [t if t.is_contiguous() and t.data_ptr() % 16 == 0
+            else t.clone(memory_format=torch.contiguous_format) for t in ts]
+
+
+def wkv6_chunked_bwd_plain(r, k, v, w, u, dy, s0=None, *, chunk: int = 64):
+    """K10-bwd's passes in torch ops (the derivation is in
+    `csrc/wkv6_chunked_bwd.cu`), over the chunks of `wkv6_chunked_plain`:
+    the states S_(g-1) by K10's own chain (launches A and B); the state
+    gradients G_g = dS_g by the reverse chain from G = 0, dS_(g-1) =
+    e^Ltot ⊙rows G_g + (r e^Lprev)ᵀ dy; then chunk by chunk, with the
+    exact pairwise decays E[t, i] = e^(Lprev_t - L_i) (i < t) and VD[t, i]
+    = v_i·dy_t,
+      dr_t = e^Lprev_t (S dy_t) + Σ_(i<t) k_i E[t, i] VD[t, i]
+             + u k_t VD[t, t]
+      dk_i = Σ_(t>i) r_t E[t, i] VD[t, i] + e^(Ltot - L_i) (G v_i)
+             + u r_i VD[i, i]
+      dv_i = Σ_(t>i) A[t, i] dy_t + (Σ r_i u k_i) dy_i + Gᵀ (k_i
+             e^(Ltot - L_i)),  A[t, i] = Σ_n r_t k_i E[t, i]
+      dw_s = Σ_(t>s) r_t e^(Lprev_t - L_s) X_s[t] + e^(Ltot - L_s) Y_s
+    where w >= 1e-38 (torch's clamp gradient), else 0: X_s[t] = (S_(s-1)
+    dy_t) and Y_s = rowsum(S_(s-1) ⊙ G) over the chunk's running state,
+    walked forward from X_0[t] = S dy_t, Y_0 = rowsum(S ⊙ G) by X_(s+1) =
+    w_s X_s + k_s VD[:, s] and Y_(s+1) = w_s Y_s + k_s (G v_s), w_s =
+    e^(log max(w, 1e-38)): dℓ / w with its one factor w_s divided out, so
+    no term cancels another (the reverse-cumsum form of dℓ does, under
+    strong decay).  du is the sum of r_t k_t VD[t, t] over the chunks and
+    the batch, in order.  -> (dr, dk, dv in r's dtype, dw in w's, du
+    (H, N) f32), each rounded once from f32, as autograd of
+    `wkv6_chunked_plain` rounds them.  On |r|, |k|, |v|, |u|, |dy| every
+    term is positive, and each output the magnitude of what it sums."""
+    B, T, H, N = r.shape
+    C = chunk_length(T, chunk)
+    G = T // C
+    f32 = torch.float32
+    resh = lambda x: x.to(f32).reshape(B, G, C, H, N)
+    rs, ks, vs, dys, w32 = (resh(x) for x in (r, k, v, dy, w))
+    u32 = u.to(f32)
+    L, Lp = _cum_logs(w32)
+    ew = torch.exp(torch.log(torch.clamp(w32, min=1e-38)))
+    Ltot = L[:, :, -1]                                 # (B, G, H, N)
+    eLt = torch.exp(Ltot)[..., None]
+    S = torch.zeros((B, H, N, N), dtype=f32, device=r.device) \
+        if s0 is None else s0.to(f32)
+    Sprev = []
+    for g in range(G):
+        Sprev.append(S)
+        dS = torch.einsum("bchn,bchm->bhnm",
+                          ks[:, g] * torch.exp(Ltot[:, g, None] - L[:, g]),
+                          vs[:, g])
+        S = eLt[:, g] * S + dS
+    Gd = torch.zeros_like(S)
+    Gs = [None] * G
+    for g in range(G - 1, -1, -1):
+        Gs[g] = Gd
+        Gd = eLt[:, g] * Gd + torch.einsum(
+            "bchn,bchm->bhnm", rs[:, g] * torch.exp(Lp[:, g]), dys[:, g])
+    mask = torch.tril(torch.ones((C, C), dtype=torch.bool,
+                                 device=r.device), diagonal=-1)
+    outs = [[] for _ in range(4)]
+    du = []
+    for g in range(G):
+        rc, kc, vc, dyc, Lc, Lpc = (x[:, g] for x in (rs, ks, vs, dys, L,
+                                                        Lp))
+        Sg, Gg = Sprev[g], Gs[g]
+        D = Lpc[:, :, None] - Lc[:, None, :]           # (B, Ct, Ci, H, N)
+        E = torch.exp(torch.where(mask[None, :, :, None, None], D, -1e30))
+        VD = torch.einsum("bihm,bthm->btih", vc, dyc)  # (B, Ct, Ci, H)
+        vdy = (vc * dyc).sum(-1, keepdim=True)         # VD's diagonal
+        ef = torch.exp(Ltot[:, g, None] - Lc)          # e^(Ltot - L)
+        SD = torch.einsum("bhnm,bthm->bthn", Sg, dyc)
+        GV = torch.einsum("bhnm,bihm->bihn", Gg, vc)
+        dr = torch.exp(Lpc) * SD + torch.einsum(
+            "btihn,bihn,btih->bthn", E, kc, VD)
+        dk = torch.einsum("btihn,bthn,btih->bihn", E, rc, VD) + ef * GV
+        A = torch.einsum("bthn,bihn,btihn->btih", rc, kc, E)
+        dv = torch.einsum("btih,bthm->bihm", A, dyc) + torch.einsum(
+            "bihn,bhnm->bihm", kc * ef, Gg)
+        X, Y = SD, (Sg * Gg).sum(-1)
+        dw = [None] * C
+        for s_ in range(C):
+            later = rc[:, s_ + 1:] * torch.exp(
+                Lpc[:, s_ + 1:] - Lc[:, s_:s_ + 1])
+            dw[s_] = (later * X[:, s_ + 1:]).sum(1) + torch.exp(
+                Ltot[:, g] - Lc[:, s_]) * Y
+            e_s = ew[:, g, s_]
+            X = e_s[:, None] * X + kc[:, s_:s_ + 1] * VD[:, :, s_, :, None]
+            Y = e_s * Y + kc[:, s_] * GV[:, s_]
+        outs[0].append(dr + u32 * kc * vdy)
+        outs[1].append(dk + u32 * rc * vdy)
+        outs[2].append(dv + (rc * u32 * kc).sum(-1, keepdim=True) * dyc)
+        outs[3].append(torch.stack(dw, dim=1))
+        du.append((rc * kc * vdy).sum(1))              # (B, H, N)
+    dr, dk, dv, dw = (torch.stack(o, dim=1).reshape(B, T, H, N)
+                      for o in outs)
+    dw = torch.where(w.to(f32) >= 1e-38, dw, torch.zeros_like(dw))
+    du_sum = torch.zeros((H, N), dtype=f32, device=r.device)
+    for g in range(G):
+        for b in range(B):
+            du_sum = du_sum + du[g][b]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du_sum)
+
+
+def wkv6_chunked_bwd(r, k, v, w, u, dy, s0=None, *, chunk: int = 64,
+                     workspace=None):
+    """(dr, dk, dv, dw, du) of K10's y from the initial state s0 (zeros
+    when None; it takes no gradient) for the output gradient dy
+    (B, T, H, N) f32: the plain passes on the CPU (s0 used, `workspace`
+    not), K10-bwd on the card, which reads S_(g-1) and e^Ltot_g from the
+    forward's `workspace` (the third output of `_chunked_forward`) and
+    four launches, counted as one.  dr, dk, dv in r's
+    dtype, dw in w's, du (H, N) f32, as `wkv6_chunked_bwd_plain`."""
+    if r.device.type == "cpu":
+        return wkv6_chunked_bwd_plain(r, k, v, w, u, dy, s0, chunk=chunk)
+    B, T, H, N = r.shape
+    if workspace is None:
+        raise ValueError("wkv6_chunked_bwd takes the forward's workspace "
+                         "on the card")
+    if r.dtype not in _K10_DTYPES or k.dtype != r.dtype or \
+            v.dtype != r.dtype or w.dtype not in _K10_DTYPES or \
+            dy.dtype != torch.float32:
+        raise TypeError("wkv6_chunked_bwd takes r, k, v of one type, w f32 "
+                        "or bf16 and dy f32")
+    if any(t.shape != r.shape for t in (k, v, w, dy)) or \
+            u.shape != (H, N) or N not in K10_HEAD_DIMS:
+        raise ValueError("wkv6_chunked_bwd: operand shapes do not agree "
+                         f"or head dim {N} not in {K10_HEAD_DIMS}")
+    C = chunk_length(T, chunk)
+    plan = k10_plan(B, T, H, N, chunk)
+    if C > K10_MAX_CHUNK or workspace.dtype != torch.float32 or \
+            workspace.numel() * 4 != plan.workspace_bytes:
+        raise ValueError("wkv6_chunked_bwd: chunk or workspace does not "
+                         "fit the call")
+    r, k, v, w, dy = _aligned(r, k, v, w, dy)
+    u = u.to(torch.float32).contiguous()
+    grads = [torch.empty_like(t) for t in (r, k, v, w)]
+    du = torch.empty((H, N), dtype=torch.float32, device=r.device)
+    scratch = torch.empty_like(workspace)   # G_g, then du's partial sums
+    check(load_library().wkv6_chunked_bwd(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        u.data_ptr(), dy.data_ptr(), workspace.data_ptr(),
+        *(g.data_ptr() for g in grads), du.data_ptr(), scratch.data_ptr(),
+        B, T, H, N, C, int(r.dtype == torch.bfloat16),
+        int(w.dtype == torch.bfloat16), stream_ptr(r)), "wkv6_chunked_bwd")
+    wkv6_chunked_bwd.launches += 1
+    return (*grads, du)
+
+
+wkv6_chunked_bwd.launches = 0
+
+
+class _WKV6Chunked(torch.autograd.Function):
+    """K10 with its backward, for the forward's own call: the forward
+    keeps its operands and its workspace (S_(g-1) of every chunk); the
+    backward is `wkv6_chunked_bwd`.  The final state carries no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0, chunk):
+        y, sf, ws = _chunked_forward(r, k, v, w, u, s0, chunk=chunk)
+        ctx.save_for_backward(r, k, v, w, u, s0, ws)
+        ctx.chunk = chunk
+        ctx.mark_non_differentiable(sf)
+        return y, sf
+
+    @staticmethod
+    def backward(ctx, dy, _):
+        r, k, v, w, u, s0, ws = ctx.saved_tensors
+        dr, dk, dv, dw, du = wkv6_chunked_bwd(
+            r, k, v, w, u, dy.contiguous(), s0, chunk=ctx.chunk,
+            workspace=ws)
+        return dr, dk, dv, dw, du.to(u.dtype), None, None
+
+
+def wkv6_chunked_kernel(r, k, v, w, u, s0=None, *, chunk: int = 64):
+    """r, k, v (B, T, H, N) f32 or bf16 (one type); w (B, T, H, N) f32 or
+    bf16; u (H, N); s0 (B, H, N, N) f32 or None (zeros) -> (y (B, T, H, N)
+    f32, final S (B, H, N, N) f32), over chunks of `chunk_length(T,
+    chunk)` tokens.  On the card N must be 16, 32 or 64 and the chunk at
+    most 64; one call is three CUDA launches (`k10_plan`) and counts one,
+    with a workspace of `k10_plan(...).workspace_bytes`.  Under grad the
+    forward's own call (an s0 that takes no gradient) runs through
+    `_WKV6Chunked`, which keeps the workspace for `wkv6_chunked_bwd`."""
+    if r.device.type != "cpu" and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (r, k, v, w, u, s0)):
+        if s0 is not None and s0.requires_grad:
+            refuse_grad("wkv6_chunked_kernel", r, k, v, w, u, s0,
+                        why=OWN_CALLS)
+        return _WKV6Chunked.apply(r, k, v, w, u, s0, chunk)
+    return _chunked_forward(r, k, v, w, u, s0, chunk=chunk)[:2]
 
 
 wkv6_chunked_kernel.launches = 0

@@ -6,16 +6,22 @@ without a mesh).
         --steps 2 [--batch 8] [--seq 128] [--device cuda|cpu] \
         [--ckpt-dir DIR]
 
-rwkv4 trains with its WKV through K2 and K2-bwd, its LayerNorms through
-K11 and K11-bwd; every model's loss goes through K12 and K12-bwd; the
-dense transformers' attention through K13 and its backward when the
-model's cfg has use_flash_kernel (call `train_model` on such a model, or
-build the step with `build_step_for_cell(..., cfg_overrides=
-{"use_flash_kernel": True})`).  rwkv6 trains on the CPU only: on the card
-K10 and K6 have no backward yet.  With `ckpt_dir` the params are saved
-every `ckpt_every` steps and, with `resume`, restored from the latest
-committed step, as JAX's launcher does (the optimizer state starts
-fresh); the CLI saves every 50 steps, as JAX's does.  The device
+rwkv4 trains with its WKV through K2 and K2-bwd, rwkv6 with its WKV
+through K10 and K10-bwd (or K6 and K6-bwd where the sequence takes no
+chunks: S <= 64 or S % 64 != 0), both with their LayerNorms through K11
+and K11-bwd; every model's loss goes through K12 and K12-bwd; the dense
+transformers' attention through K13 and its backward when the model's
+cfg has use_flash_kernel (call `train_model` on such a model, or build
+the step with `build_step_for_cell(..., cfg_overrides=
+{"use_flash_kernel": True})`).  rwkv6-7b's full depth with f32 masters
+and AdamW needs ~120 GB, more than one card holds: on one card train it
+cut in depth, `train_model(get_model("rwkv6-7b").truncated(4),
+global_batch=4, seq_len=1024)` (~23 GB of masters, gradients and
+moments).  With
+`ckpt_dir` the params are saved every `ckpt_every` steps and, with
+`resume`, restored from the latest committed step, as JAX's launcher
+does (the optimizer state starts fresh); the CLI saves every 50 steps,
+as JAX's does.  The device
 defaults to "cuda" and raises without a GPU.
 """
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""RWKV-6 "Finch" (arXiv:2404.05892), serving paths (port of
-`repro/models/rwkv6.py`).
+"""RWKV-6 "Finch" (arXiv:2404.05892), serving and training paths (port
+of `repro/models/rwkv6.py`).
 
 Block = TimeMix (ddlerp token shift -> r/k/v/w/g projections ->
 multi-head WKV-6 recurrence -> GroupNorm -> SiLU(g) gate) + ChannelMix
@@ -16,9 +16,11 @@ Entry points, all on (B, ...) tensors with the JAX tree paths:
   decode_step_fused_model  — kernel K7 for all layers, the head through K5
   prefill_chunk            — chunk matmuls through K5, the WKV scan via K6
   forward                  — logits over a whole sequence (the prefill
-                             step): the WKV through K10 (S % chunk == 0 and
-                             S > chunk) or K6, the LayerNorms through K11,
-                             the matmuls plain torch
+                             and train steps): the WKV through K10 (S %
+                             chunk == 0 and S > chunk) or K6, and under
+                             grad through K10-bwd or K6-bwd, the
+                             LayerNorms through K11 (K11-bwd), the matmuls
+                             plain torch
 
 Eager torch rounds every bf16 op, the rounding rule `exact_jit` pins for
 JAX, so the plain path follows the JAX trace op for op.  Two places need
@@ -397,7 +399,11 @@ def _time_mix_seq(p, x, cfg: ModelConfig, chunk: int):
     """TimeMix over a whole sequence x (B, S, D) from a zero carry: the
     operands, the WKV — K10 where S % chunk == 0 and S > chunk, else the
     exact sequential K6, as JAX picks `wkv6_chunked` or `wkv6_scan` —
-    cast to r's dtype, GroupNorm and the gate."""
+    cast to r's dtype, GroupNorm and the gate.  Both WKV calls are the
+    kernels' own forward calls (a zero initial state that takes no
+    gradient, no mask, no snap), so under grad on the card they run
+    through their autograd Functions, whose backward is K10-bwd or
+    K6-bwd."""
     B, S, D = x.shape
     H, N = cfg.n_heads, cfg.rwkv_head_dim
     f32 = torch.float32
@@ -436,9 +442,10 @@ def forward(params, batch: dict, cfg: ModelConfig, *, chunk: int = 64):
     ln_f and the head, every token shift from a zero carry.  With grad
     enabled and cfg.remat, each layer runs under a non-reentrant
     `checkpoint`, as JAX's `jax.checkpoint(body)`.  CPU tensors train
-    through the plain versions; on the card, under grad with an operand
-    that requires it, K10 or K6 raises (no backward kernel yet: rwkv6's
-    training waits for theirs and for ROADMAP Queue 1 item 10)."""
+    through the plain versions, which autograd differentiates; on the card
+    the WKV's gradients come from K10-bwd or K6-bwd and the LayerNorms'
+    from K11-bwd (each forward call under remat runs twice, its backward
+    once)."""
     dt = getattr(torch, cfg.dtype)
     x = params["embed"][batch["tokens"].long()].to(dt)
     x = L.layernorm_kernel(params["ln0"], x)

@@ -1604,9 +1604,12 @@ def test_rwkv_forward_smoke_on_card(cuda, monkeypatch, arch, S, hw):
 def test_rwkv_forward_refuses_grad_on_card(cuda):
     """With grad enabled and params that require grad, what has no backward
     kernel raises on the card before it launches, and never takes the plain
-    versions: rwkv6's forward at K10 (naming item 10, after ln0 and ln1
-    went through K11), rwkv4's hw forward at K2-hw, and K10, K6, K9, K2
-    with the LUT tables or a valid mask alone."""
+    versions: rwkv4's hw forward at K2-hw, K10 and K6 from an initial state
+    that requires grad, K6 from a bf16 one, with a valid mask or a carry
+    snap, and K9, K2
+    with the LUT tables or a valid mask alone.  rwkv6's forward itself goes
+    through K10 and its autograd Function (K10-bwd, K6-bwd cover the
+    forward's own calls)."""
     from repro_torch.tree import tree_map
     grad = lambda p: tree_map(lambda t: t.requires_grad_(), p)
     model6 = get_model("rwkv6-7b", smoke=True)
@@ -1614,24 +1617,34 @@ def test_rwkv_forward_refuses_grad_on_card(cuda):
     toks = torch.zeros((1, 128), dtype=torch.int32, device=cuda)
     counters = (wkv4_seq, wkv6_chunked_kernel, wkv6_seq, sigmoid_kernel)
     before = [c.launches for c in counters]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        model6.forward(params6, {"tokens": toks})
+    logits, _ = model6.forward(params6, {"tokens": toks})
+    assert logits.requires_grad
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [0, model6.cfg.n_layers, 0, 0]
+    before = [c.launches for c in counters]
     model4 = get_model("rwkv4-169m", smoke=True)
     params4 = grad(model4.init_params(0, cuda))
     with pytest.raises(NotImplementedError, match="hardware numerics"):
         model4.forward(params4, {"tokens": toks[:, :8]}, hw=True)
     rq = torch.randn((1, 64, 2, 16), device=cuda, requires_grad=True)
     rn = lambda *s: torch.randn(s, device=cuda)
+    s0g = torch.zeros((1, 2, 16, 16), device=cuda, requires_grad=True)
     luts = {"exp_table": lut_tensor("exp", cuda),
             "div_table": lut_tensor("div", cuda)}
     k2 = lambda **kw: wkv4_seq(rq.reshape(1, 64, 32), rn(1, 64, 32),
                                rn(32), rn(32), rn(1, 32), rn(1, 32),
                                rn(1, 32), **kw)
+    k6 = lambda s0, **kw: wkv6_seq(rq, rq, rq, rn(1, 64, 2, 16), rn(2, 16),
+                                   s0, **kw)
+    own = "initial state that takes no gradient"
     for call, why in (
             (lambda: wkv6_chunked_kernel(rq, rq, rq, rn(1, 64, 2, 16),
-                                         rn(2, 16)), "item 10"),
-            (lambda: wkv6_seq(rq, rq, rq, rn(1, 64, 2, 16), rn(2, 16),
-                              rn(1, 2, 16, 16)), "item 10"),
+                                         rn(2, 16), s0g), own),
+            (lambda: k6(s0g), own),
+            (lambda: k6(rn(1, 2, 16, 16).to(torch.bfloat16)), own),
+            (lambda: k6(rn(1, 2, 16, 16),
+                        valid=torch.ones((1, 64), device=cuda)), own),
+            (lambda: k6(rn(1, 2, 16, 16), carry_dtype="bfloat16"), own),
             (lambda: sigmoid_kernel(rq), "hardware numerics"),
             (lambda: k2(**luts), "hardware numerics"),
             (lambda: k2(valid=torch.ones((1, 64), device=cuda)),
@@ -1993,6 +2006,183 @@ def test_train_step_rwkv4_smoke_on_card(cuda):
     L = base.cfg.n_layers
     assert [c.launches - b for c, b in zip(counters, before)] == \
         [4 * L + 2, 2 * L + 2, 2 * L, L, 1, 1]
+    step, _, (init_opt, _) = build_train_step(base)
+    p_card = on(params)
+    p_card, _, metrics = step(p_card, init_opt(p_card), on(batch))
+    assert bool(torch.isfinite(metrics["loss"]))
+    wit, cpu = dict(leaves_with_path(g_wit)), dict(leaves_with_path(g_cpu))
+    for path, g in leaves_with_path(g_card):
+        w = wit[path].float()
+        gap = lambda x: float((x.float().cpu() - w).abs().mean()
+                              / w.abs().mean())
+        assert gap(g) <= 1.25 * 2 ** 0.5 * gap(cpu[path]), path
+
+
+# --- rwkv6's training: K10-bwd and K6-bwd -----------------------------------
+
+from repro_torch.kernels.wkv6 import (
+    _chunked_forward, wkv6_chunked_bwd, wkv6_chunked_bwd_plain,
+    wkv6_seq_bwd, wkv6_seq_bwd_plain)
+
+
+def _wkv6_bwd_case(cuda, B, T, H, N, dtype, seed, shift=0.0):
+    """r, k, v (dtype), w f32 = exp(-exp(x + shift)), u, dy f32, from a
+    seeded generator on the card."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n = lambda *s: torch.randn(s, generator=g, device=cuda)
+    r, k, v = (n(B, T, H, N).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(n(B, T, H, N) + shift))
+    return r, k, v, w, n(H, N), n(B, T, H, N)
+
+
+def _bwd_ok(got, ref, mag, w, C, bf16_outputs=0):
+    """Per output: max |d| <= (2^-10 + λ)·max M and mean |d| <= (2^-13 +
+    λ)·mean M, M the output's magnitude (the plain passes on |r|, |k|,
+    |v|, |u|, |dy|: the sum of its absolute terms), λ = 2C·2^-23·max|log
+    w| for a log a last bit apart moving every L after it (the forward's
+    `_wkv6_chunked_bound`).  The first `bf16_outputs` outputs are bf16,
+    each side rounding its f32 value once: their max may move by one bf16
+    step, 2^-7 of M."""
+    lam = 2 * C * 2.0 ** -23 * float(
+        torch.log(torch.clamp(w.float(), min=1e-38)).abs().max())
+    for i, (a, b, m) in enumerate(zip(got, ref, mag)):
+        d = (a.float() - b.float()).abs()
+        m = m.float()
+        mx = (2.0 ** -7 if i < bf16_outputs else 2.0 ** -10) + lam
+        assert bool(torch.isfinite(a).all()), i
+        assert float(d.max()) <= mx * float(m.max()), (i, float(d.max()))
+        assert float(d.mean()) <= (2.0 ** -13 + lam) * float(m.mean()), i
+
+
+def _abs_ops(r, k, v, w, u, dy):
+    return r.abs(), k.abs(), v.abs(), w, u.abs(), dy.abs()
+
+
+@pytest.mark.parametrize("N", [16, 32, 64])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B,T,H,chunk", [(2, 256, 4, 64), (1, 96, 2, 64),
+                                          (2, 128, 2, 16)])
+def test_wkv6_chunked_bwd(cuda, B, T, H, chunk, dtype, N):
+    """K10-bwd through the autograd Function (K10 once, K10-bwd once)
+    against K10-bwd's plain version on the card within `_bwd_ok` (each f32
+    sum in another order; T 96 takes chunks of 32); twice, bit for bit."""
+    dt = getattr(torch, dtype)
+    r, k, v, w, u, dy = _wkv6_bwd_case(cuda, B, T, H, N, dt, B * T + N)
+    before = (wkv6_chunked_kernel.launches, wkv6_chunked_bwd.launches)
+    ins = [t.clone().requires_grad_() for t in (r, k, v, w, u)]
+    y, _ = wkv6_chunked_kernel(*ins, chunk=chunk)
+    got = torch.autograd.grad(y, ins, dy)
+    torch.cuda.synchronize()
+    assert (wkv6_chunked_kernel.launches - before[0],
+            wkv6_chunked_bwd.launches - before[1]) == (1, 1)
+    assert [g.dtype for g in got] == [dt] * 3 + [torch.float32] * 2
+    ref = wkv6_chunked_bwd_plain(r, k, v, w, u, dy, chunk=chunk)
+    mag = wkv6_chunked_bwd_plain(*_abs_ops(r, k, v, w, u, dy), chunk=chunk)
+    _bwd_ok(got, ref, mag, w, chunk_length(T, chunk),
+            3 if dt == torch.bfloat16 else 0)
+    ws = _chunked_forward(r, k, v, w, u, chunk=chunk)[2]
+    again = wkv6_chunked_bwd(r, k, v, w, u, dy, chunk=chunk, workspace=ws)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_wkv6_chunked_bwd_strong_decay(cuda):
+    """Strong decay (w = exp(-exp(x + 3)), most e^L underflow in a chunk):
+    K10-bwd stays finite and within `_bwd_ok` of its plain version, whose
+    dw walks the chunk's running state (no dℓ / w)."""
+    r, k, v, w, u, dy = _wkv6_bwd_case(cuda, 1, 128, 4, 64, torch.float32,
+                                       7, shift=3.0)
+    ws = _chunked_forward(r, k, v, w, u)[2]
+    got = wkv6_chunked_bwd(r, k, v, w, u, dy, workspace=ws)
+    ref = wkv6_chunked_bwd_plain(r, k, v, w, u, dy)
+    mag = wkv6_chunked_bwd_plain(*_abs_ops(r, k, v, w, u, dy))
+    _bwd_ok(got, ref, mag, w, 64)
+
+
+@pytest.mark.parametrize("form", ["s0", "bf16_w"])
+def test_wkv6_chunked_bwd_forms(cuda, form):
+    """The forms the forward's own call does not take, through the
+    Function: a random initial state that takes no gradient (the
+    workspace then holds the states from it), and a bf16 w (its gradient
+    in bf16), against the plain version within `_bwd_ok` (B2 T256 H4
+    N64, bf16 r, k, v)."""
+    r, k, v, w, u, dy = _wkv6_bwd_case(cuda, 2, 256, 4, 64, torch.bfloat16,
+                                       11)
+    s0 = None
+    if form == "s0":
+        s0 = torch.randn((2, 4, 64, 64), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(
+                             12))
+    else:
+        w = w.to(torch.bfloat16)
+    ins = [t.clone().requires_grad_() for t in (r, k, v, w, u)]
+    y, _ = wkv6_chunked_kernel(*ins, s0)
+    got = torch.autograd.grad(y, ins, dy)
+    assert got[3].dtype == w.dtype
+    ref = wkv6_chunked_bwd_plain(r, k, v, w, u, dy, s0)
+    mag = wkv6_chunked_bwd_plain(*_abs_ops(r, k, v, w, u, dy),
+                                 None if s0 is None else s0.abs())
+    _bwd_ok(got, ref, mag, w, 64, 4 if form == "bf16_w" else 3)
+
+
+@pytest.mark.parametrize("N", [16, 32, 64])
+@pytest.mark.parametrize("B,T,H", [(2, 40, 4), (1, 100, 2), (2, 1, 2)])
+def test_wkv6_seq_bwd(cuda, B, T, H, N):
+    """K6-bwd through the autograd Function (K6 once, K6-bwd once) against
+    K6-bwd's plain version on the card, per output max |d| <= 2^-10 and
+    mean |d| <= 2^-13 of its magnitude (f32 sums of N terms and of up to
+    T decayed steps in another order); T 100 ends in a ragged window, T 1
+    is a lone step; twice, bit for bit."""
+    r, k, v, w, u, dy = _wkv6_bwd_case(cuda, B, T, H, N, torch.float32,
+                                       B * T + N + 1)
+    s0 = torch.zeros((B, H, N, N), device=cuda)
+    before = (wkv6_seq.launches, wkv6_seq_bwd.launches)
+    ins = [t.clone().requires_grad_() for t in (r, k, v, w, u)]
+    y, _ = wkv6_seq(*ins, s0)
+    got = torch.autograd.grad(y, ins, dy, allow_unused=True)
+    torch.cuda.synchronize()
+    assert (wkv6_seq.launches - before[0],
+            wkv6_seq_bwd.launches - before[1]) == (1, 1)
+    ref = wkv6_seq_bwd_plain(r, k, v, w, u, s0, dy)
+    mag = wkv6_seq_bwd_plain(*_abs_ops(r, k, v, w, u, dy)[:5], s0,
+                             dy.abs())
+    _bwd_ok(got, ref, mag, torch.ones(1), 1)
+    again = wkv6_seq_bwd(r, k, v, w, u, s0, dy)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("S", [128, 40])
+def test_train_step_rwkv6_smoke_on_card(cuda, S):
+    """One train step of rwkv6 smoke (L2 D64 H4 N16, B 2) on the card: at
+    S 128 K10 2L (remat's recompute) and K10-bwd L, at S 40 K6 2L and
+    K6-bwd L; K11 4L + 2 and K11-bwd 2L + 2; K12 and K12-bwd once; a
+    finite loss; each leaf's gradient no farther from an f32 witness (the
+    f32 config on the same weights, on the CPU) than 1.25·√2 times the CPU
+    bf16 step's own gap to it, as the rwkv4 step is held."""
+    import dataclasses
+    from repro_torch.launch.steps import build_train_step, loss_and_grads
+    from repro_torch.tree import leaves_with_path, tree_map
+    base = get_model("rwkv6-7b", smoke=True)
+    f32m = type(base)(cfg=dataclasses.replace(base.cfg, dtype="float32"),
+                      module=base.module)
+    params = base.init_params(0, "cpu")
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, base.cfg.vocab, (2, S + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).int(),
+             "labels": torch.from_numpy(toks[:, 1:]).int(),
+             "mask": torch.ones((2, S))}
+    on = lambda t: tree_map(lambda a: a.to(cuda), t)
+    (_, _), g_wit = loss_and_grads(f32m, params, batch)
+    (_, _), g_cpu = loss_and_grads(base, params, batch)
+    counters = (fused_layernorm, fused_layernorm_bwd, wkv6_chunked_kernel,
+                wkv6_chunked_bwd, wkv6_seq, wkv6_seq_bwd,
+                fused_cross_entropy, fused_cross_entropy_bwd)
+    before = [c.launches for c in counters]
+    (_, _), g_card = loss_and_grads(base, on(params), on(batch))
+    torch.cuda.synchronize()
+    L = base.cfg.n_layers
+    wkv = [2 * L, L, 0, 0] if S == 128 else [0, 0, 2 * L, L]
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [4 * L + 2, 2 * L + 2, *wkv, 1, 1]
     step, _, (init_opt, _) = build_train_step(base)
     p_card = on(params)
     p_card, _, metrics = step(p_card, init_opt(p_card), on(batch))

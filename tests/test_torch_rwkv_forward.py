@@ -328,19 +328,29 @@ def test_prefill_step_for_cell(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_refuses_rwkv(arch):
-    """The launcher trains both RWKV archs on the CPU now; what stays
-    refused is rwkv6's gradient on the card, where K10 and K6 have no
-    backward kernel (meta tensors stand in for the card: the refusal comes
-    before anything is built) — rwkv4's goes to K2-bwd."""
+    """The launcher trains both RWKV archs on the CPU; what stays refused
+    on the card is a gradient K10-bwd and K6-bwd do not cover: K10 or K6
+    from an initial state that requires grad, K6 with a valid mask
+    (meta tensors stand in for the card: the refusal comes before
+    anything is built).  The forward's own calls go on to the kernels
+    (the build raises here), as rwkv4's K2 goes to K2-bwd."""
     out = train(arch, steps=1, global_batch=1, seq_len=8, device="cpu")
     assert np.isfinite(out["losses"]).all()
     meta = lambda *s: torch.empty(s, device="meta")
     g = meta(2, 32).requires_grad_()
     rkvw = [meta(1, 128, 2, 32) for _ in range(4)]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        (K6_10.wkv6_chunked_kernel if arch == "rwkv6-7b"
-         else K6_10.wkv6_seq)(*rkvw, g, *(() if arch == "rwkv6-7b"
-                                           else (meta(1, 2, 32, 32),)))
+    s0g = meta(1, 2, 32, 32).requires_grad_()
+    wkv = K6_10.wkv6_chunked_kernel if arch == "rwkv6-7b" else \
+        K6_10.wkv6_seq
+    with pytest.raises(NotImplementedError,
+                       match="initial state that takes no gradient"):
+        if arch == "rwkv6-7b":
+            wkv(*rkvw, g, s0g)
+        else:
+            wkv(*rkvw, g, meta(1, 2, 32, 32), valid=meta(1, 128))
+    with pytest.raises(RuntimeError):
+        wkv(*rkvw, g, *(() if arch == "rwkv6-7b"
+                        else (meta(1, 2, 32, 32),)))
 
 
 def test_plain_versions_stay_differentiable():
@@ -363,11 +373,12 @@ def test_plain_versions_stay_differentiable():
 def test_new_wrappers_raise_off_cpu():
     """K10 and K11 on tensors that are not on the CPU go to their kernels
     or raise (meta tensors stand in for a device: without nvcc the build
-    raises); under grad with an operand that requires it, K10, K6, K9 and
-    K2 with the LUT tables raise NotImplementedError naming what their
-    gradient waits for before anything is built, and never take the plain
-    versions, while K11 and K2's own call go on to their kernels and
-    backward kernels (the build raises)."""
+    raises); under grad with an operand that requires it, K10 and K6 from
+    an initial state that requires grad, K9 and K2 with the LUT tables
+    raise NotImplementedError naming what their gradient needs before
+    anything is built, and never take the plain versions, while K11's,
+    K2's, K10's and K6's own calls go on to their kernels and backward
+    kernels (the build raises)."""
     meta = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt,
                                                     device="meta")
     counters = (wkv6_chunked_kernel, fused_layernorm)
@@ -382,17 +393,21 @@ def test_new_wrappers_raise_off_cpu():
     k2 = lambda **kw: K2.wkv4_seq(meta(1, 8, 64), meta(1, 8, 64), g,
                                   meta(64), meta(1, 64), meta(1, 64),
                                   meta(1, 64), **kw)
+    s0g = meta(1, 2, 16, 16).requires_grad_()
+    own = "initial state that takes no gradient"
     calls = (
-        (lambda: wkv6_chunked_kernel(*rkvw(), g.view(4, 16)), "item 10"),
-        (lambda: K6_10.wkv6_seq(*rkvw(), g.view(4, 16),
-                                meta(1, 4, 16, 16)), "item 10"),
+        (lambda: wkv6_chunked_kernel(*rkvw(), g.view(4, 16)[:2], s0g), own),
+        (lambda: K6_10.wkv6_seq(*rkvw(), g.view(4, 16)[:2], s0g), own),
         (lambda: k2(exp_table=meta(256), div_table=meta(256)),
          "hardware numerics"),
         (lambda: expsig.sigmoid_kernel(g), "hardware numerics"))
     for call, why in calls:
         with pytest.raises(NotImplementedError, match=why):
             call()
-    for call in (k2, lambda: fused_layernorm(meta(4, 64), g, meta(64))):
+    for call in (k2, lambda: fused_layernorm(meta(4, 64), g, meta(64)),
+                 lambda: wkv6_chunked_kernel(*rkvw(), g.view(4, 16)[:2]),
+                 lambda: K6_10.wkv6_seq(*rkvw(), g.view(4, 16)[:2],
+                                        meta(1, 2, 16, 16))):
         with pytest.raises(RuntimeError):
             call()
     with torch.no_grad():   # without grad mode they go on to the build

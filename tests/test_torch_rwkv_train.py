@@ -259,10 +259,13 @@ class _Spy:
         return self.fn(*a, **kw)
 
 
-def _spies(monkeypatch):
+def _spies(monkeypatch, arch="rwkv4-169m"):
     spies = {}
-    for mod, name in ((K2, "_forward"), (K2, "wkv4_seq_bwd"),
-                      (K11, "_forward"), (K11, "fused_layernorm_bwd"),
+    wkv = ((K2, "_forward"), (K2, "wkv4_seq_bwd")) \
+        if arch == "rwkv4-169m" else (
+            (K6_10, "_chunked_forward"), (K6_10, "wkv6_chunked_bwd"),
+            (K6_10, "_seq_forward"), (K6_10, "wkv6_seq_bwd"))
+    for mod, name in (*wkv, (K11, "_forward"), (K11, "fused_layernorm_bwd"),
                       (REG, "fused_cross_entropy")):
         spy = _Spy(getattr(mod, name))
         monkeypatch.setattr(mod, name, spy)
@@ -270,30 +273,40 @@ def _spies(monkeypatch):
     return spies
 
 
-@pytest.mark.parametrize("mode", ["train", "no_remat", "no_grad"])
+@pytest.mark.parametrize("mode", [
+    "train", "no_remat", "no_grad", "rwkv6-train", "rwkv6-no_remat",
+    "rwkv6-no_grad", "rwkv6-S40-train"])
 def test_grad_routing_through_backward_kernels(monkeypatch, mode):
     """rwkv4's train step runs K2 twice a layer (the forward and its
     recompute under remat), K11 2L + 2 + 2L times, and its loss through
-    K12 once; without remat K2 and K11 run once each.  On the CPU autograd
-    differentiates their plain versions, so K2-bwd and K11-bwd are never
-    called (on the card the step launches them once per forward call:
-    tests/test_torch_cuda.py:test_train_step_rwkv4_smoke_on_card)."""
-    spies = _spies(monkeypatch)
-    tm = _t("rwkv4-169m", remat=mode != "no_remat")
+    K12 once; without remat K2 and K11 run once each.  rwkv6's ("rwkv6-"
+    modes) runs K10 in K2's place at S 128 and K6 at S 40 (no multiple of
+    the chunk), as often.  On the CPU autograd differentiates their plain
+    versions, so K2-bwd, K10-bwd, K6-bwd and K11-bwd are never called (on
+    the card the step launches them once per forward call:
+    tests/test_torch_cuda.py:test_train_step_rwkv4_smoke_on_card and
+    test_train_step_rwkv6_smoke_on_card)."""
+    arch = "rwkv6-7b" if mode.startswith("rwkv6") else "rwkv4-169m"
+    spies = _spies(monkeypatch, arch)
+    tm = _t(arch, remat=not mode.endswith("no_remat"))
     params = tm.init_params(0, "cpu")
-    _, tb = _batch(64)
+    S = 40 if "S40" in mode else 64 if arch == "rwkv4-169m" else 128
+    _, tb = _batch(S)
     L = tm.cfg.n_layers
-    if mode == "no_grad":
+    if mode.endswith("no_grad"):
         with torch.no_grad():
             tm.forward(params, tb)
-        want = (L, 0, 2 * L + 2, 0, 0)
+        fwd, ln, ce = L, 2 * L + 2, 0
     else:
         step, _, (init_opt, _) = build_train_step(tm)
         step(params, init_opt(params), tb)
-        rec = mode == "train"
-        want = ((2 if rec else 1) * L, 0,
-                2 * L + 2 + (2 * L if rec else 0), 0, 1)
-    assert tuple(s.calls for s in spies.values()) == want, spies.keys()
+        rec = mode.endswith("train")
+        fwd, ln, ce = ((2 if rec else 1) * L,
+                       2 * L + 2 + (2 * L if rec else 0), 1)
+    wkv = (fwd, 0) if arch == "rwkv4-169m" else \
+        (0, 0, fwd, 0) if S == 40 else (fwd, 0, 0, 0)
+    assert tuple(s.calls for s in spies.values()) == (*wkv, ln, 0, ce), \
+        spies.keys()
 
 
 def _bwd_gaps(got, ref):
@@ -407,28 +420,39 @@ def test_layernorm_bwd_function_matches_jax_autodiff(monkeypatch, dtype):
 
 def test_refusals_that_stay():
     """Under grad, on a tensor off the CPU (meta tensors stand in for the
-    card, where nothing is built here), K10 and K6 raise naming item 10,
-    K9 and K2 with the LUT tables or a valid mask raise naming the
-    hardware numerics, before anything is built; K2's and K11's own calls
-    go on to their kernels (the build raises RuntimeError here)."""
+    card, where nothing is built here), what K10-bwd and K6-bwd do not
+    cover raises naming the calls they do, before anything is built: K6
+    with a valid mask, with a carry snap, with a bf16 initial state or
+    with one that requires grad, K10 with such a state; K9 and K2 with the LUT tables or
+    a valid mask raise naming the hardware numerics.  The forward's own
+    calls of K10, K6, K2 and K11 go on to their kernels (the build raises
+    RuntimeError here)."""
     meta = lambda *s: torch.empty(s, device="meta")
     g = meta(64).requires_grad_()
     rkvw = lambda: [meta(1, 128, 2, 16) for _ in range(4)]
+    u = meta(2, 16).requires_grad_()
+    s0g = meta(1, 2, 16, 16).requires_grad_()
     k2 = lambda **kw: K2.wkv4_seq(meta(1, 8, 64), meta(1, 8, 64), g,
                                   meta(64), meta(1, 64), meta(1, 64),
                                   meta(1, 64), **kw)
+    k6 = lambda s0=None, **kw: K6_10.wkv6_seq(
+        *rkvw(), u, meta(1, 2, 16, 16) if s0 is None else s0, **kw)
+    own = "initial state that takes no gradient"
     for call, why in (
-            (lambda: K6_10.wkv6_chunked_kernel(*rkvw(), g.view(2, 32)),
-             "item 10"),
-            (lambda: K6_10.wkv6_seq(*rkvw(), g.view(2, 32),
-                                    meta(1, 2, 16, 16)), "item 10"),
+            (lambda: K6_10.wkv6_chunked_kernel(*rkvw(), u, s0g), own),
+            (lambda: k6(valid=meta(1, 128)), own),
+            (lambda: k6(carry_dtype="bfloat16"), own),
+            (lambda: k6(s0g), own),
+            (lambda: k6(torch.empty((1, 2, 16, 16), dtype=torch.bfloat16,
+                                    device="meta")), own),
             (lambda: expsig.sigmoid_kernel(g), "hardware numerics"),
             (lambda: k2(exp_table=meta(256), div_table=meta(256)),
              "hardware numerics"),
             (lambda: k2(valid=meta(1, 8)), "valid mask")):
         with pytest.raises(NotImplementedError, match=why):
             call()
-    for call in (k2, lambda: K11.fused_layernorm(meta(4, 64), g, meta(64))):
+    for call in (k2, lambda: K11.fused_layernorm(meta(4, 64), g, meta(64)),
+                 lambda: K6_10.wkv6_chunked_kernel(*rkvw(), u), k6):
         with pytest.raises(RuntimeError):
             call()
 
