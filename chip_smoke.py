@@ -4188,6 +4188,60 @@ def _k10_bwd_cost(B, T, H, N, C, rkv_bytes, w_bytes):
     return nbytes, ops
 
 
+def _k10_bwd_two_level_ops(B, T, H, N, rkv_bytes):
+    """The work of K10-bwd's two-level form (`csrc/wkv6_chunked_bwd.cu`)
+    on these shapes: (CUDA-core operations, bf16 tensor-core flops).  Per
+    chunk of C tokens and column: 13 for each strictly-lower pair inside
+    the 16-row diagonal blocks (its decay, one product of the running
+    e^l, shared by dr, dk, A and the dw walk: r E, k E, their products
+    with X, VD and k, and X's update), ~24 a row (log w and e^l, the decay
+    products D' and D'', R' and K'', the walk's Q̃, dw, dk, dr and du terms)
+    and 2N for rowsum(S ⊙ G).  The products, each counted once per bf16
+    piece product the kernel runs (f32 x f32: three with bf16 r, k, v,
+    whose operands go in as two pieces, six with f32 r, k, v, three
+    pieces; f32 x v: two with a bf16 v, six with an f32 v): (r e^Lp)ᵀ dy,
+    VD for i <= t, S dy, XI's VD K' and A's blocks below the diagonal (one
+    each a pair across sub-chunks), P̃_b over the keys up to sub-chunk b's
+    end (VDᵀ R''_b over the rows past it, v (E_b G)ᵀ over N), Aᵀ dy over
+    every pair and (K'' E_b) G."""
+    from repro_torch.kernels.wkv6 import chunk_length
+    C = chunk_length(T)
+    chunks = B * H * (T // C)
+    ns = -(-C // 16)
+    lens = [min(16, C - 16 * b) for b in range(ns)]
+    diag = sum(x * (x - 1) // 2 for x in lens)
+    pairs = C * (C - 1) // 2
+    off = pairs - diag
+    keys = [min(16 * (b + 1), C) for b in range(ns)]
+    rows = [C - k for k in keys]
+    ff, fv = (3, 2) if rkv_bytes == 2 else (6, 6)
+    cuda_ops = chunks * N * (13 * diag + 24 * C + 2 * N)
+    macs = (ff * C * N * N + fv * N * (pairs + C) + ff * C * N * N
+            + ff * N * off + ff * N * sum(k * r for k, r in zip(keys, rows))
+            + fv * N * N * sum(keys) + ff * N * off + ff * N * pairs
+            + ff * C * N * N)
+    return cuda_ops, chunks * 2 * macs
+
+
+def _k10_bwd_bound_ms(B, T, H, N, C, rkv_bytes, w_bytes):
+    """K10-bwd's least time and its parts: the larger of its bytes
+    (`_k10_bwd_cost`) over 3.35 TB/s and the two-level form's CUDA-core
+    operations at the f32 rate plus its piece products at the bf16
+    tensor-core rate (`_k10_bwd_two_level_ops`); beside it the one-level
+    form's operations (`_k10_bwd_cost`) at the f32 rate, the bound before
+    K10-bwd ran its products on the tensor cores."""
+    nbytes, ops = _k10_bwd_cost(B, T, H, N, C, rkv_bytes, w_bytes)
+    cuda_ops, mma_flops = _k10_bwd_two_level_ops(B, T, H, N, rkv_bytes)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (cuda_ops / PEAK_F32_FLOPS + mma_flops / PEAK_BF16_FLOPS) * 1e3
+    return {"bytes": nbytes, "ops": cuda_ops, "mma_flops": mma_flops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops,
+            "one_level_ops": ops,
+            "one_level_f32_bound_ms": ops / PEAK_F32_FLOPS * 1e3}
+
+
 def phase_k10_bwd(layer0, flush):
     """K10-bwd on layer 0's WKV operands of rwkv6-7b's train step (B4 T1024
     H64 N64: bf16 r, k, v, f32 w, the zero state) and on an f32 instance
@@ -4195,8 +4249,9 @@ def phase_k10_bwd(layer0, flush):
     Function (K10 once, K10-bwd once) against the plain version of its
     passes on the card within `_wkv6_bwd_ok`; again from the forward's
     workspace, bit for bit.  Timed (the bf16 instance): the kernel
-    L2-cold beside the plain version once and the bound; no library call
-    computes it."""
+    L2-cold beside the plain version once and the bound
+    (`_k10_bwd_bound_ms`: bytes or the two-level form's work, the
+    one-level f32 figure beside it); no library call computes it."""
     from repro_torch.kernels.wkv6 import (
         _chunked_forward, wkv6_chunked_bwd, wkv6_chunked_bwd_plain,
         wkv6_chunked_kernel)
@@ -4227,17 +4282,16 @@ def phase_k10_bwd(layer0, flush):
         again = call()
         repeat = all(torch.equal(a, b) for a, b in zip(again, got))
         del again, got
-        nbytes, ops = _k10_bwd_cost(B, T, H, N, 64, rkv.element_size(), 4)
-        bms, by = _bound(nbytes, ops, PEAK_F32_FLOPS)
         row = {"kernel": "wkv6_chunked_bwd",
                "what": "rwkv6-7b layer 0, train", "B": B, "T": T, "H": H,
                "N": N, "C": 64, "rkv_dtype": str(rkv.dtype),
                "launches_fwd_bwd": launched,
                "max_abs_err": max(e["max_abs"] for e in errs.values()),
                "errors": errs, "within_bound": ok, "bit_repeat": repeat,
-               "bytes": nbytes, "ops": ops, "bound_ms": bms, "bound_by": by,
+               **_k10_bwd_bound_ms(B, T, H, N, 64, rkv.element_size(), 4),
                "library_ms": None,
-               "ptxas": _registers(_BUILD_USAGE, "chunk_grad_kernelILi64")}
+               "ptxas": _registers(_BUILD_USAGE,
+                                   "(chunk|state)_grad_kernelILi64")}
         if bf:
             row["kernel_ms"] = _time_ms(call, flush)
             row["plain_ms"] = _time_ms(

@@ -68,6 +68,8 @@ SIGNATURES = {
     "wkv4_seq_bwd": [_P] * 14 + [_I] * 4 + [_P],
     "wkv6_chunked_bwd": [_P] * 13 + [_I] * 7 + [_P],
     "wkv6_seq_bwd": [_P] * 13 + [_I] * 4 + [_P],
+    "wkv6_chunked_bwd_plan": [_I] * 6 + [_PI],
+    "wkv6_seq_bwd_plan": [_I] * 4 + [_PL],
     "dpot_matmul": [_P] * 6 + [_I] * 10 + [_P],
     "dpot_matmul_w4": [_P] * 6 + [_I] * 10 + [_P],
 }

@@ -196,8 +196,37 @@ def _seq_forward(r, k, v, w, u, s0, *, valid=None,
 
 
 # K6-bwd (csrc/wkv6_seq_bwd.cu, which owns them)
-K6_BWD_WINDOW = 32      # steps between checkpoints of the state
+K6_BWD_WINDOW = 8       # steps between checkpoints of the state: a group
 K6_BWD_HEAD_DIMS = (16, 32, 64)
+K6_BWD_ROW_LANES = 4    # threads a state row, N / 4 columns each
+
+
+class K6BwdPlan(NamedTuple):
+    """A K6-bwd call's launch (`csrc/wkv6_seq_bwd.cu:plan_of`)."""
+    blocks: int          # one a (b, h) pair
+    threads: int         # 4N: thread 4n + j holds columns j·N/4 .. of row n
+    window: int          # steps a group: one checkpoint, one barrier
+    smem: int            # dynamic shared bytes: the group's states (then
+                         # its G), two buffers of a group's r, k, v, w, dy
+                         # (the next staged while this one is worked on),
+                         # the bonus's terms and sums
+    scratch_floats: int  # the checkpoints, then du's partials
+
+
+def k6_bwd_plan(B: int, T: int, H: int, N: int) -> K6BwdPlan:
+    """K6-bwd's launch for (B, T, H, N): the twin of the source's
+    `plan_of`, held to it on the card by its C query `wkv6_seq_bwd_plan`.
+    Raises ValueError where the source refuses."""
+    if not (B >= 1 and T >= 1 and H >= 1 and N in K6_BWD_HEAD_DIMS):
+        raise ValueError(f"k6_bwd_plan: (B, T, H, N) {(B, T, H, N)} out of "
+                         f"range (N in {K6_BWD_HEAD_DIMS})")
+    W, lanes = K6_BWD_WINDOW, K6_BWD_ROW_LANES
+    smem = 4 * (W * N * N + 2 * 5 * W * N + W * N + W)
+    plan = K6BwdPlan(B * H, lanes * N, W, smem,
+                     B * H * (-(-T // W) * N * N + N))
+    if plan.blocks > 2 ** 31 - 1 or plan.smem > K6_MAX_SMEM:
+        raise ValueError(f"k6_bwd_plan: {plan} does not fit the card")
+    return plan
 
 
 def _seq_state_step(S, kt, vt, wt):
@@ -271,16 +300,12 @@ def wkv6_seq_bwd(r, k, v, w, u, s0, dy):
     if any(t.shape != r.shape for t in (k, v, w, dy)) or \
             u.shape != (H, N) or s0.shape != (B, H, N, N):
         raise ValueError("wkv6_seq_bwd: operand shapes do not agree")
-    if N not in K6_BWD_HEAD_DIMS:
-        raise ValueError(f"wkv6_seq_bwd: head dim {N} not in "
-                         f"{K6_BWD_HEAD_DIMS}")
+    plan = k6_bwd_plan(B, T, H, N)
     ops = [t.contiguous() for t in ops]
     f32 = dict(dtype=torch.float32, device=r.device)
     grads = [torch.empty((B, T, H, N), **f32) for _ in range(4)]
     du = torch.empty((H, N), **f32)
-    n_win = -(-T // K6_BWD_WINDOW)
-    scratch = torch.empty(B * H * ((n_win + K6_BWD_WINDOW) * N * N + N),
-                          **f32)
+    scratch = torch.empty(plan.scratch_floats, **f32)
     check(load_library().wkv6_seq_bwd(
         *(t.data_ptr() for t in ops), *(g.data_ptr() for g in grads),
         du.data_ptr(), scratch.data_ptr(), B, T, H, N, stream_ptr(r)),
@@ -444,6 +469,75 @@ def k10_plan(B: int, T: int, H: int, N: int, chunk: int = 64, *,
         ("chunk_output", chunks, K10_OUT_THREADS, smem_c),
     )
     return K10Plan(C, G, Cp, n_sub, passes, 4 * chunks * (N * N + N))
+
+
+# K10-bwd (csrc/wkv6_chunked_bwd.cu, which owns them)
+K10_BWD_STATE_THREADS = 128  # launch 1's block: (r e^Lp)ᵀ dy
+K10_BWD_SCAN_THREADS = 256   # launch 2's: the state gradients' chains
+K10_BWD_GRAD_THREADS = 256   # launch 3's: a chunk's gradients
+K10_BWD_SUM_THREADS = 128    # launch 4's: du's sum
+
+
+class K10BwdPlan(NamedTuple):
+    """What one K10-bwd call launches (`csrc/wkv6_chunked_bwd.cu`)."""
+    C: int                # the chunk, `chunk_length(T, chunk)`
+    G: int                # chunks a sequence
+    Cp: int               # C padded to whole sub-chunks (rows >= C zero)
+    n_sub: int            # sub-chunks of K10_SUB rows a chunk
+    passes: tuple         # (name, blocks, threads, shared bytes), in order
+    scratch_bytes: int    # the state gradients G_g, then du's partials
+
+
+def k10_bwd_pieces(rkv_bytes: int) -> int:
+    """The bf16 pieces an f32 operand of K10-bwd's products takes: two
+    (the rounded split, `kernels/flash_attention.py:split_bf16x2`) when r,
+    k, v are bf16, whose gradients round to bf16; three (the exact split,
+    `kernels/fused_prefill.py:split_bf16x3`) for f32 r, k, v."""
+    return 2 if rkv_bytes == 2 else 3
+
+
+def k10_bwd_smem(N: int, Cp: int, pieces: int) -> tuple:
+    """Launch 1's and launch 3's dynamic shared bytes (the source's
+    `smem_state` and `smem_grad`).  Launch 1: r e^Lp and log w as f32
+    tiles of row stride N + 4, dy in `pieces` bf16 tiles of stride N + 8.
+    Launch 3, f32 throughout (v is read from device memory): R', K'', dy
+    (later XI, then dy again) of stride N + 8 and PT (S_(g-1), then P̃'s
+    own rows, then G_g: max(Cp, N) rows) of stride N + 8, VD (later A) of
+    stride Cp + 8, and per column the sub-chunk decays, e^Lb, the c
+    factors, σ, ρ, rowsum(S ⊙ G), u and du's partials, and A's diagonal
+    blocks in two halves of the columns."""
+    ns = Cp // K10_SUB
+    state = 2 * Cp * (N + 4) * 4 + pieces * Cp * (N + 8) * 2
+    small = N * (4 * ns + ns * (ns + 1) // 2 + ns * ns + 2) \
+        + 2 * ns * K10_SUB * K10_SUB
+    grad = 4 * ((3 * Cp + max(Cp, N)) * (N + 8) + Cp * (Cp + 8) + small)
+    return state, grad
+
+
+def k10_bwd_plan(B: int, T: int, H: int, N: int, chunk: int = 64, *,
+                 rkv_bytes: int = 2) -> K10BwdPlan:
+    """K10-bwd's launches for (B, T, H, N): 1 (`state_grad_kernel`, a block
+    a chunk: (r e^Lp)ᵀ dy on the tensor cores), 2 (`grad_scan_kernel`, a
+    thread a (b, h, n, m) chain over the chunks from the last), 3
+    (`chunk_grad_kernel`, a block a chunk: dr, dk, dv, dw, du's partials)
+    and 4 (`du_sum_kernel`, a thread a (h, n)).  The twin of the source's
+    `plan_of`, held to it on the card by its C query
+    `wkv6_chunked_bwd_plan`; r's type (`rkv_bytes`) sets launch 1's pieces
+    of dy (`k10_bwd_pieces`)."""
+    fwd = k10_plan(B, T, H, N, chunk)
+    chunks = B * H * fwd.G
+    scan = B * H * N * N
+    state, grad = k10_bwd_smem(N, fwd.Cp, k10_bwd_pieces(rkv_bytes))
+    passes = (
+        ("state_grad", chunks, K10_BWD_STATE_THREADS, state),
+        ("grad_scan", -(-scan // K10_BWD_SCAN_THREADS),
+         K10_BWD_SCAN_THREADS, 0),
+        ("chunk_grad", chunks, K10_BWD_GRAD_THREADS, grad),
+        ("du_sum", -(-(H * N) // K10_BWD_SUM_THREADS),
+         K10_BWD_SUM_THREADS, 0),
+    )
+    return K10BwdPlan(fwd.C, fwd.G, fwd.Cp, fwd.n_sub, passes,
+                      fwd.workspace_bytes)
 
 
 def _chunked_forward(r, k, v, w, u, s0=None, *, chunk: int = 64):

@@ -2061,11 +2061,13 @@ def _abs_ops(r, k, v, w, u, dy):
 @pytest.mark.parametrize("N", [16, 32, 64])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("B,T,H,chunk", [(2, 256, 4, 64), (1, 96, 2, 64),
-                                          (2, 128, 2, 16)])
+                                          (2, 128, 2, 16), (2, 40, 2, 64),
+                                          (3, 1, 2, 64)])
 def test_wkv6_chunked_bwd(cuda, B, T, H, chunk, dtype, N):
     """K10-bwd through the autograd Function (K10 once, K10-bwd once)
     against K10-bwd's plain version on the card within `_bwd_ok` (each f32
-    sum in another order; T 96 takes chunks of 32); twice, bit for bit."""
+    sum in another order; T 96 takes chunks of 32, T 40 one chunk of 40,
+    no multiple of the sub-chunk, T 1 a chunk of 1); twice, bit for bit."""
     dt = getattr(torch, dtype)
     r, k, v, w, u, dy = _wkv6_bwd_case(cuda, B, T, H, N, dt, B * T + N)
     before = (wkv6_chunked_kernel.launches, wkv6_chunked_bwd.launches)
@@ -2098,6 +2100,60 @@ def test_wkv6_chunked_bwd_strong_decay(cuda):
     _bwd_ok(got, ref, mag, w, 64)
 
 
+def test_wkv6_chunked_bwd_strong_decay_bf16(cuda):
+    """Strong decay on the forward's types (bf16 r, k, v; w = exp(-exp(x +
+    3)), f32) through the Function, T 120 in chunks of 40 (three
+    sub-chunks, the last padded): finite, within `_bwd_ok` of the plain
+    version (dr, dk, dv bf16), twice bit for bit."""
+    r, k, v, w, u, dy = _wkv6_bwd_case(cuda, 2, 120, 4, 64, torch.bfloat16,
+                                       8, shift=3.0)
+    ins = [t.clone().requires_grad_() for t in (r, k, v, w, u)]
+    y, _ = wkv6_chunked_kernel(*ins, chunk=40)
+    got = torch.autograd.grad(y, ins, dy)
+    ref = wkv6_chunked_bwd_plain(r, k, v, w, u, dy, chunk=40)
+    mag = wkv6_chunked_bwd_plain(*_abs_ops(r, k, v, w, u, dy), chunk=40)
+    _bwd_ok(got, ref, mag, w, 40, 3)
+    ws = _chunked_forward(r, k, v, w, u, chunk=40)[2]
+    again = wkv6_chunked_bwd(r, k, v, w, u, dy, chunk=40, workspace=ws)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("B,T,H,N,bf", [
+    (4, 1024, 64, 64, True), (4, 1024, 64, 64, False), (3, 96, 4, 64, True),
+    (1, 100, 2, 16, False), (2, 40, 2, 32, True), (1, 1, 2, 16, False)])
+def test_wkv6_chunked_bwd_plan_is_the_source(cuda, B, T, H, N, bf):
+    """`k10_bwd_plan`'s passes, which the CPU plan tests hold to the
+    card's limits, are the blocks, threads and shared bytes that the C
+    entry launches (`wkv6_chunked_bwd_plan`, from the same `plan_of` as
+    the launch)."""
+    import ctypes
+
+    from repro_torch.kernels.build import check, load_library
+    from repro_torch.kernels.wkv6 import k10_bwd_plan
+    out = (ctypes.c_int * 12)()
+    check(load_library().wkv6_chunked_bwd_plan(B, T, H, N, chunk_length(T),
+                                               int(bf), out),
+          "wkv6_chunked_bwd_plan")
+    plan = k10_bwd_plan(B, T, H, N, rkv_bytes=2 if bf else 4)
+    assert [tuple(out[3 * i:3 * i + 3]) for i in range(4)] == \
+        [p[1:] for p in plan.passes]
+
+
+@pytest.mark.parametrize("B,T,H,N", [(2, 40, 64, 64), (1, 1, 2, 16),
+                                     (3, 13, 5, 32), (1, 100, 2, 16)])
+def test_wkv6_seq_bwd_plan_is_the_source(cuda, B, T, H, N):
+    """`k6_bwd_plan` is the source's plan (the C query
+    `wkv6_seq_bwd_plan`, from the same `plan_of` as the launch)."""
+    import ctypes
+
+    from repro_torch.kernels.build import check, load_library
+    from repro_torch.kernels.wkv6 import K6BwdPlan, k6_bwd_plan
+    out = (ctypes.c_longlong * len(K6BwdPlan._fields))()
+    check(load_library().wkv6_seq_bwd_plan(B, T, H, N, out),
+          "wkv6_seq_bwd_plan")
+    assert tuple(out) == tuple(k6_bwd_plan(B, T, H, N))
+
+
 @pytest.mark.parametrize("form", ["s0", "bf16_w"])
 def test_wkv6_chunked_bwd_forms(cuda, form):
     """The forms the forward's own call does not take, through the
@@ -2125,13 +2181,14 @@ def test_wkv6_chunked_bwd_forms(cuda, form):
 
 
 @pytest.mark.parametrize("N", [16, 32, 64])
-@pytest.mark.parametrize("B,T,H", [(2, 40, 4), (1, 100, 2), (2, 1, 2)])
+@pytest.mark.parametrize("B,T,H", [(2, 40, 4), (1, 100, 2), (2, 1, 2),
+                                   (2, 13, 3)])
 def test_wkv6_seq_bwd(cuda, B, T, H, N):
     """K6-bwd through the autograd Function (K6 once, K6-bwd once) against
     K6-bwd's plain version on the card, per output max |d| <= 2^-10 and
     mean |d| <= 2^-13 of its magnitude (f32 sums of N terms and of up to
-    T decayed steps in another order); T 100 ends in a ragged window, T 1
-    is a lone step; twice, bit for bit."""
+    T decayed steps in another order); T 100 and T 13 end inside a group
+    of steps, T 1 is a lone step; twice, bit for bit."""
     r, k, v, w, u, dy = _wkv6_bwd_case(cuda, B, T, H, N, torch.float32,
                                        B * T + N + 1)
     s0 = torch.zeros((B, H, N, N), device=cuda)

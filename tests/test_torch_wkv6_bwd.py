@@ -112,9 +112,9 @@ def test_chunked_bwd_plain_matches_jax_vjp(N, chunk, k_scale):
 @pytest.mark.parametrize("T", [40, 128])
 @pytest.mark.parametrize("N", [16, 32])
 def test_seq_bwd_plain_matches_jax_vjp(N, T, k_scale):
-    """K6-bwd's plain version (windows of K6_BWD_WINDOW steps, T 40 ending
-    in a ragged one) against `jax.vjp` of JAX's `wkv6_scan` from the zero
-    state, within the module's tolerance."""
+    """K6-bwd's plain version (windows of K6_BWD_WINDOW steps) against
+    `jax.vjp` of JAX's `wkv6_scan` from the zero state, within the module's
+    tolerance."""
     r, k, v, w, u, dy = _inputs(T, N, k_scale, N + T + int(k_scale))
     ref = _jax_grads(j_scan, r, k, v, w, u, dy)
     s0 = torch.zeros((B, H, N, N))

@@ -1,7 +1,7 @@
 """Time K10 (`wkv6_chunked_kernel`, the chunked WKV-6 of the PyTorch
-port's RWKV-6 forward) on one CUDA card, on this tree and, with
-`--parent`, on another tree in the same call, and hold each to its plain
-version.
+port's RWKV-6 forward) and K10-bwd (`wkv6_chunked_bwd`, its backward) on
+one CUDA card, on this tree and, with `--parent`, on another tree in the
+same call, and hold each to its plain version.
 
 The cases: rwkv6-7b's shape at B1 T32768 H64 N64 with the forward's types
 (bf16 r, k, v; f32 w = exp(-exp(0.5·z)); u and no initial state; random
@@ -13,18 +13,30 @@ flushed, the host hidden behind a device sleep, CUDA events, mean of
 plain| over its bound), and run twice at the first shape (`repeatable`: the
 same bits).  `bound_ms` and its parts are `chip_smoke.py:_k10_bound_ms`'s
 (bytes, or the two-level form's operations; the one-level figure beside
-it as `one_level_f32_bound_ms`).  `chip_smoke.py` is
-loaded by path from this checkout, so another tree is held to the same
-bound and shapes.  The build's ptxas lines of `csrc/wkv6_chunked.cu`
-(registers, spills) and the `nvidia-smi` name and power limit are printed
-first.  One JSON line per case.
+it as `one_level_f32_bound_ms`).
+
+The backward's cases (`--cases bwd`, or `all`): rwkv6-7b's train shape,
+B4 T1024 H64 N64, with bf16 r, k, v and f32 w (the train step's), f32 r,
+k, v (the f32 step's), a random initial state, and a bf16 w; random
+operands and a N(0, 1) output gradient from the seed.  Each is timed the
+same way from the forward's workspace, checked against
+`wkv6_chunked_bwd_plain` within `chip_smoke.py:_wkv6_bwd_ok` (`ok`;
+`max_per_mag`: each output's largest |kernel - plain| over its
+magnitude's max), run twice (`repeatable`), and bounded by
+`chip_smoke.py:_k10_bwd_bound_ms`.
+
+`chip_smoke.py` is loaded by path from this checkout, so another tree is
+held to the same bounds and shapes.  The build's ptxas lines of
+`csrc/wkv6_chunked.cu` and `csrc/wkv6_chunked_bwd.cu` (registers, spills)
+and the `nvidia-smi` name and power limit are printed first.  One JSON
+line per case.
 
 With `--parent OTHER/src` the tool runs itself four times, one process a
 tree, in the order parent, change, change, parent, then prints each case's
 mean time per tree and their ratio:
 
-    python tools/bench_k10.py --parent build/parent/src
-    python tools/bench_k10.py --src OTHER/src --label other
+    python tools/bench_k10.py --parent build/parent/src --cases all
+    python tools/bench_k10.py --src OTHER/src --label other --cases bwd
 """
 from __future__ import annotations
 
@@ -42,6 +54,12 @@ ROOT = Path(__file__).resolve().parents[1]
 SEED = 0
 DEV = "cuda"
 TIMED = (1, 32768, 64, 64, False, 0.0, True)
+# the backward's cases: (B, T, H, N, s0, bf16 r/k/v, bf16 w)
+BWD_CASES = ((4, 1024, 64, 64, False, True, False),
+             (4, 1024, 64, 64, False, False, False),
+             (4, 1024, 64, 64, True, True, False),
+             (4, 1024, 64, 64, False, True, True))
+SOURCES = ("wkv6_chunked.cu", "wkv6_chunked_bwd.cu")
 
 
 def _smoke():
@@ -55,12 +73,12 @@ def _smoke():
 
 
 def _ptxas(log: str):
-    """The ptxas lines of the kernels in wkv6_chunked.cu, and the most
-    registers and spill bytes among them."""
+    """The ptxas lines of the kernels in SOURCES, and the most registers
+    and spill bytes among them."""
     keep, lines = False, []
     for ln in log.splitlines():
         if ln.startswith("== "):
-            keep = ln.strip() == "== wkv6_chunked.cu"
+            keep = ln.strip()[3:] in SOURCES
             continue
         if keep and ("Compiling entry" in ln or "registers" in ln
                      or "spill" in ln):
@@ -114,6 +132,39 @@ def bench(case, i, smoke, flush, reps):
     return row
 
 
+def bench_bwd(case, i, smoke, flush, reps):
+    """K10-bwd from the forward's workspace against its plain version."""
+    from repro_torch.kernels.wkv6 import (
+        _chunked_forward, wkv6_chunked_bwd, wkv6_chunked_bwd_plain)
+    B, T, H, N, with_s0, bf, bf_w = case
+    g = torch.Generator(device=DEV).manual_seed(SEED + 90 + i)
+    rn = lambda *s: torch.randn(s, generator=g, device=DEV)
+    dt = torch.bfloat16 if bf else torch.float32
+    r, k, v = (rn(B, T, H, N).to(dt) for _ in range(3))
+    w = torch.exp(-torch.exp(rn(B, T, H, N)))
+    if bf_w:
+        w = w.to(torch.bfloat16)
+    u, dy = rn(H, N), rn(B, T, H, N)
+    s0 = rn(B, H, N, N) if with_s0 else None
+    ws = _chunked_forward(r, k, v, w, u, s0)[2]
+    call = lambda: wkv6_chunked_bwd(r, k, v, w, u, dy, s0, workspace=ws)
+    got = call()
+    again = call()
+    torch.cuda.synchronize()
+    ref = wkv6_chunked_bwd_plain(r, k, v, w, u, dy, s0)
+    mag = wkv6_chunked_bwd_plain(r.abs(), k.abs(), v.abs(), w, u.abs(),
+                                 dy.abs(), None if s0 is None else s0.abs())
+    ok, errs = smoke._wkv6_bwd_ok(got, ref, mag, w, 64,
+                                  (3 if bf else 0) + (bf_w and bf))
+    del ref, mag
+    return {"case": ["bwd", *case], "ok": ok,
+            "repeatable": all(torch.equal(a, b) for a, b in zip(got, again)),
+            "max_per_mag": {n: e["max_per_mag"] for n, e in errs.items()},
+            **smoke._k10_bwd_bound_ms(B, T, H, N, 64, r.element_size(),
+                                      w.element_size()),
+            "ms": smoke._time_ms(call, flush, reps)}
+
+
 def run_tree(args) -> int:
     sys.path.insert(0, str(Path(args.src).resolve()))
     from repro_torch.kernels.build import BUILD_DIR, load_library
@@ -126,9 +177,14 @@ def run_tree(args) -> int:
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=DEV)
     ok = True
     with torch.no_grad():
-        for i, case in enumerate((TIMED,) + tuple(smoke.K10_SHAPES)):
+        fwd = (TIMED,) + tuple(smoke.K10_SHAPES)
+        for i, case in enumerate(fwd if args.cases != "bwd" else ()):
             row = bench(case, i, smoke, flush, args.reps)
             ok = ok and row["ok"] and row.get("repeatable", True)
+            print(json.dumps({"label": args.label, **row}), flush=True)
+        for i, case in enumerate(BWD_CASES if args.cases != "fwd" else ()):
+            row = bench_bwd(case, i, smoke, flush, args.reps)
+            ok = ok and row["ok"] and row["repeatable"]
             print(json.dumps({"label": args.label, **row}), flush=True)
     return 0 if ok else 1
 
@@ -142,7 +198,8 @@ def run_ab(args) -> int:
     for label, src in order:
         out = subprocess.run(
             [sys.executable, __file__, "--src", src, "--label", label,
-             "--reps", str(args.reps)], capture_output=True, text=True)
+             "--reps", str(args.reps), "--cases", args.cases],
+            capture_output=True, text=True)
         sys.stdout.write(out.stdout)
         sys.stderr.write(out.stderr[-4000:])
         rc = rc or out.returncode
@@ -168,6 +225,8 @@ def main() -> int:
                          "parent")
     ap.add_argument("--label", default="this")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--cases", choices=("fwd", "bwd", "all"), default="fwd",
+                    help="K10's cases, K10-bwd's, or both")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_k10: torch.cuda.is_available() is False",

@@ -10,7 +10,10 @@ The cases, at rwkv6-7b's heads (H 64, N 64), random operands from the seed
   forward        B2 T40, r, k, v widened from bf16, the zero f32 state, no
                  mask, the f32 carry (the forward's call at S 40)
 then the sweep in the prefill's form with every step valid: T 4, 16 and
-64 at B8, and B 1, 8 and 16 at T16 (how the time grows with T and B).
+64 at B8, and B 1, 8 and 16 at T16 (how the time grows with T and B);
+then K6-bwd (`wkv6_seq_bwd`) at the S 40 train step's shape, B2 T40,
+`forward`'s operands and a N(0, 1) output gradient (`train-bwd`: its
+bound `chip_smoke.py:phase_k6_bwd`'s, hashes of its five outputs).
 `prefill-f32carry` is the prefill without the bf16 snap (what the snap
 costs).  Each case is timed as `chip_smoke.py` times it
 (L2 flushed, the host hidden behind a device sleep, CUDA events, mean of
@@ -18,7 +21,8 @@ costs).  Each case is timed as `chip_smoke.py` times it
 at 3.35 TB/s, or its 7 f32 operations a term at 67 TFLOP/s); each row
 carries a SHA-256 of y and of the final state.  `chip_smoke.py` is loaded
 by path from this checkout, so another tree is timed and bounded alike.
-The build's ptxas lines of `csrc/wkv6_seq.cu` (registers, spills), the
+The build's ptxas lines of `csrc/wkv6_seq.cu` and `csrc/wkv6_seq_bwd.cu`
+(registers, spills), the
 `nvidia-smi` name and power limit, and the SM clocks are printed first.
 One JSON line per case.  `--sass FILE` writes the SASS of the tree's K6
 instances (`cuobjdump`) to FILE and prints each instance's instruction
@@ -83,6 +87,28 @@ def bench_case(smoke, k2, flush, reps, name, args, kw):
             "sha256": {"y": k2._sha(y), "S": k2._sha(sf)}}
 
 
+def bench_bwd(smoke, k2, flush, reps, args):
+    """K6-bwd on the forward case's operands with a seeded output
+    gradient, beside its bound (14 operations a term, as
+    `chip_smoke.py:phase_k6_bwd` counts them)."""
+    from repro_torch.kernels.wkv6 import wkv6_seq_bwd
+    r, k, v, w, u, s0 = args
+    B, T = r.shape[:2]
+    dy = torch.randn(r.shape, device=DEV,
+                     generator=torch.Generator(device=DEV).manual_seed(
+                         SEED + 94))
+    out = wkv6_seq_bwd(r, k, v, w, u, s0, dy)
+    torch.cuda.synchronize()
+    bms, by = smoke._bound(9 * 4 * B * T * H * N, 14.0 * B * T * H * N * N,
+                           smoke.PEAK_F32_FLOPS)
+    return {"case": "train-bwd", "B": B, "T": T, "H": H, "N": N,
+            "ms": smoke._time_ms(lambda: wkv6_seq_bwd(r, k, v, w, u, s0, dy),
+                                 flush, reps),
+            "bound_ms": bms, "bound_by": by,
+            "sha256": {n: k2._sha(t) for n, t in zip(
+                ("dr", "dk", "dv", "dw", "du"), out)}}
+
+
 def _sass(lib: Path, out: Path):
     """The SASS of every wkv6_seq_kernel instance into `out`; per
     instance, its instruction count by opcode."""
@@ -114,7 +140,7 @@ def run_tree(args) -> int:
     k2 = _load("_bench_k6_k2", ROOT / "tools" / "bench_k2.py")
     smoke = _load("_bench_k6_smoke", ROOT / "chip_smoke.py")
     lines, regs, spills = k2._ptxas((BUILD_DIR / "ptxas.log").read_text(),
-                                    ("wkv6_seq.cu",))
+                                    ("wkv6_seq.cu", "wkv6_seq_bwd.cu"))
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True)
@@ -140,6 +166,7 @@ def run_tree(args) -> int:
             a, kw = smoke._k6_operands(B, T, H, N, SEED + 100 + B * T)
             rows.append(bench_case(smoke, k2, flush, args.reps,
                                    f"sweep-b{B}-t{T}", a, kw))
+        rows.append(bench_bwd(smoke, k2, flush, args.reps, forward[0]))
     for row in rows:
         print(json.dumps({"label": args.label, **row}), flush=True)
     return 0
