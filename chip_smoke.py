@@ -477,14 +477,46 @@ each prints its seconds and peak device memory (`phase_done` lines):
                one more step split (`_step_split`); then step 0 at B 2, S
                40 (K6 8, K6-bwd 4, no K10), its gradients finite and as
                near the f32 witness as 1.25·√2 times the plain path's.
+17. The training drill and the analysis tools:
+      train_drill  (after phase 9's restore) the example's fault drill,
+                   `examples/train_rwkv4_torch.py`'s `run_drill` on
+                   rwkv4-mini (L6 D384 F1536 V8192, f32), B 16, S 128,
+                   100 steps under TrainingSupervisor, a checkpoint every
+                   10, a HostFailure at step 60, the restore: params bit
+                   for bit equal to the committed checkpoint, one restart,
+                   JAX's log strings, K2, K2-bwd, K11, K11-bwd, K12 and
+                   K12-bwd launched for every step run, the loss down,
+                   and `train_model` resumed from the same checkpoint
+                   ending on the same params bit for bit (deterministic
+                   algorithms scoped to the phase)
+      split        phase_split's readings, each taken where its model is
+                   built (`_reading`): one decode tick of the rwkv4 MIXED
+                   and the rwkv6-7b W8 model-path engines
+                   (`phase_decode_tick`), each prefill chunk of phase 2
+                   and 5, the rwkv6-7b forward at B 1, S 32768, and the
+                   rwkv6-7b train step by model line: host enqueue, whole
+                   call, device span and busy time and device time by
+                   kernel name (by model line and op for the train step)
+                   from torch.profiler, beside `launch/op_analysis.py`'s
+                   count of one more call on the same CUDA tensors and its
+                   roofline (`launch/roofline.py`)
+      dryrun       `python -m repro_torch.launch.dryrun --rwkv4`, a child
+                   process started after the build and waited for last:
+                   every cell of ASSIGNED_ARCHS and RWKV4_ARCHS x SHAPES
+                   counted at full size on meta tensors; one line per cell
+                   and the ok / skip / error counts; an error fails
 
 Weights are random, from a seed.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import atexit
+import contextlib
 import dataclasses
 import gc
+import importlib.util
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -495,6 +527,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 SEED = 0
 DEV = "cuda"
@@ -879,7 +912,9 @@ def phase_prefill_chunk(engine, label, flush):
     takes longer than `SLEEP_CYCLES` to enqueue the chunk, the time is the
     host's), the bound its plane bytes set (every plane's codes and aux
     read once) and the K5 launches it makes, counted from 0 around one
-    call."""
+    call.  Then `_reading` (phase_split) of one more chunk: host and
+    device split, device time by kernel name (K5 and the rest), the
+    count and its roofline."""
     from repro_torch.core.quant.serving import (
         CODES_KEY, is_packed_leaf, leaf_plane)
     from repro_torch.kernels.fused_prefill import (
@@ -918,6 +953,7 @@ def phase_prefill_chunk(engine, label, flush):
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
            "k5_launches": launches}
     _line(row)
+    _reading(f"prefill chunk {label} B{B} C{C}", call)
     return row
 
 
@@ -2897,47 +2933,134 @@ def _train_ops(model, B, S):
             "attention": cfg.n_layers * attn}
 
 
-def _step_split(model, params, batch):
-    """One more train step, after a warm one, split: the host's time to
-    enqueue it (until the step function returns), the whole step (until
-    the loss is read back, as `train_model` times it) and the device's
-    span between events recorded around it; then a third step under
-    torch.profiler for the device's busy time (the sum of the device-side
-    events' time: kernels, memcpys, memsets; the host-side ops that launch
-    them also carry it and are not counted; None where the profiler sees
-    no device event) and the 8 names that take most of it.  The profiled step's host
-    times are not used: tracing slows the host."""
+def _split(call, finish=None, *, by_line=False):
+    """One more call of `call`, after a warm one, split: the host's time
+    to enqueue it (until `call` returns), the whole call (until
+    `finish(out)` returns: a read back to the host, default a
+    synchronize) and the device's span between events recorded around
+    it; then a third call under torch.profiler for the device's busy time
+    (the sum of the device-side events' time: kernels, memcpys, memsets;
+    the host-side ops that launch them also carry it and are not counted;
+    None where the profiler sees no device event) and the 8 names that
+    take most of it.  With `by_line` the profiled call runs under
+    `_LineMarks`, and the device time of every aten op is keyed by the
+    model line that issued it and the op's name; device time no aten op
+    claims (the hand-written kernels, launched through ctypes) is
+    `unclaimed_device_ms`.  The profiled call's host times are not used:
+    tracing slows the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.steps import build_train_step
-    step_fn, _, (init_opt, _) = build_train_step(model)
-    opt = init_opt(params)
-    params, opt, m = step_fn(params, opt, batch)
-    float(m["loss"])
+    finish = finish or (lambda out: torch.cuda.synchronize())
+    finish(call())
     torch.cuda.synchronize()
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     s.record()
-    params, opt, m = step_fn(params, opt, batch)
+    out = call()
     t1 = time.perf_counter()
     e.record()
-    float(m["loss"])
+    finish(out)
     t2 = time.perf_counter()
     torch.cuda.synchronize()
+    del out
+    marks = _LineMarks() if by_line else contextlib.nullcontext()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        params, opt, m = step_fn(params, opt, batch)
-        float(m["loss"])
+        with marks:
+            finish(call())
         torch.cuda.synchronize()
+    # the device-side spans of `_LineMarks`' ranges are no device work
     dev = [(k.key, k.self_device_time_total / 1e3)
-           for k in prof.key_averages() if k.device_type == DeviceType.CUDA]
+           for k in prof.key_averages() if k.device_type == DeviceType.CUDA
+           and not k.key.startswith(_LineMarks.PREFIX)]
     busy = sum(ms for _, ms in dev)
-    return {"enqueue_ms": (t1 - t0) * 1e3, "step_ms": (t2 - t0) * 1e3,
-            "device_span_ms": s.elapsed_time(e),
-            "device_busy_ms": busy if dev else None,
-            "top_device_ms": [[n[:80], ms] for n, ms in
-                              sorted(dev, key=lambda x: -x[1])[:8]]}
+    res = {"enqueue_ms": (t1 - t0) * 1e3, "step_ms": (t2 - t0) * 1e3,
+           "device_span_ms": s.elapsed_time(e),
+           "device_busy_ms": busy if dev else None,
+           "top_device_ms": [[n[:80], ms] for n, ms in
+                             sorted(dev, key=lambda x: -x[1])[:8]]}
+    if by_line:
+        lines = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CPU and \
+                    ev.name.startswith(_LineMarks.PREFIX):
+                key = ev.name[len(_LineMarks.PREFIX):]
+                lines[key] = lines.get(key, 0.0) + \
+                    ev.device_time_total / 1e3
+        res["top_device_ms_by_line"] = [
+            [k, ms] for k, ms in sorted(lines.items(), key=lambda x: -x[1])
+            [:16]]
+        res["unclaimed_device_ms"] = busy - sum(lines.values())
+    return res
+
+
+class _LineMarks(TorchDispatchMode):
+    """Runs each aten op inside a profiler range named "line: <the model
+    line that issued it> | <op>": the first frame under
+    repro_torch/models/ on the Python stack
+    (`launch/op_analysis.model_line`), or for an op the autograd engine
+    issues outside the model's Python, its backward node ("backward
+    <node>").  The range's device time is the op's kernels' time."""
+
+    PREFIX = "line: "
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from repro_torch.launch.op_analysis import model_line
+        where = model_line()
+        if where is None:
+            node = torch._C._current_autograd_node()
+            where = ("outside models/" if node is None
+                     else f"backward {node.name()}")
+        name = f"{self.PREFIX}{where} | {func.overloadpacket.__name__}"
+        with torch.profiler.record_function(name):
+            return func(*args, **(kwargs or {}))
+
+
+def _reading(name, call, finish=None, *, by_line=False):
+    """One of phase_split's readings: `_split` of `call`, and beside it
+    `launch/op_analysis.py`'s count of one more call on the same CUDA
+    tensors (its FLOPs, bytes, kernel launches and 8 largest ops by bytes,
+    keyed by model line with `by_line`) and the roofline of that count
+    (`launch/roofline.py`, H100 SXM peaks).  Prints and returns it."""
+    from repro_torch.launch import roofline
+    from repro_torch.launch.op_analysis import analyze_call
+    split = _split(call, finish, by_line=by_line)
+    m = analyze_call(lambda: (finish or (lambda o: None))(call()),
+                     stack=by_line)
+    torch.cuda.synchronize()
+    r = roofline.analyze(m)
+    row = {"split": name, **split,
+           "count": {"flops": m.flops, "hbm_bytes": m.hbm_bytes,
+                     "flop_counter_flops": m.flop_counter_flops,
+                     "kernels": m.kernels, "seconds": m.seconds,
+                     "top_ops_by_bytes": [[k, st.count, st.flops, st.bytes]
+                                          for k, st in m.top(8)]},
+           "roofline": {"compute_ms": r.compute_s * 1e3,
+                        "memory_ms": r.memory_s * 1e3,
+                        "collective_ms": r.collective_s * 1e3,
+                        "bottleneck": r.bottleneck}}
+    _line(row)
+    return row
+
+
+def _step_split(model, params, batch, *, by_line=False):
+    """`_split` of one more train step on `params` (a fresh AdamW state),
+    its finish the loss read back, as `train_model` times a step; with
+    `by_line`, `_reading`'s count and roofline of one more step
+    beside it."""
+    from repro_torch.launch.steps import build_train_step
+    step_fn, _, (init_opt, _) = build_train_step(model)
+    st = {"params": params, "opt": init_opt(params)}
+
+    def call():
+        st["params"], st["opt"], m = step_fn(st["params"], st["opt"], batch)
+        return m
+    finish = lambda m: float(m["loss"])
+    if by_line:
+        return _reading(f"train {model.cfg.name} L{model.cfg.n_layers}",
+                        call, finish, by_line=True)
+    return _split(call, finish)
 
 
 def phase_train():
@@ -3565,7 +3688,9 @@ def phase_rwkv6_forward(model, params, toks):
     and the f32 witness within RWKV6_FWD_BOUNDS, and at S 40 (not a
     multiple of the chunk) K6 32 times and no K10, then K6 held to its
     plain version on layer 0's operands there (`_k6_fwd_check`).  Returns
-    the paths' launches and the K6 check's row."""
+    the paths' launches and the K6 check's row.  After the timed steps,
+    `_reading` (phase_split) of one more forward: the device time outside
+    K10 and K11 by kernel name, the count and its roofline."""
     from repro_torch.launch.steps import build_prefill_step
     L = model.cfg.n_layers
     B, S = toks.shape
@@ -3579,6 +3704,8 @@ def phase_rwkv6_forward(model, params, toks):
         raise AssertionError(f"rwkv6 forward: logits {tuple(logits.shape)}")
     del logits
     ms, peak = _timed_steps(step, params, batch)
+    _reading(f"forward rwkv6-7b B{B} S{S}", lambda: step(params, batch))
+    _release()
     ops = _rwkv6_fwd_ops(model.cfg, B, S)
     g = torch.Generator(device=DEV).manual_seed(SEED + 81)
     short = {"tokens": torch.randint(0, model.cfg.vocab, (2, 512),
@@ -4394,7 +4521,9 @@ def phase_rwkv6_train():
     RWKV6_TRAIN_BOUNDS.  Then `train_model` for 3 steps, the counters
     again (3x), finite losses, each step's ms, tokens/s and the peak
     device memory beside the step's operations bound, and one more step
-    split by `_step_split`.  Then the K6 route: step 0 at B 2, S 40 (K6 8,
+    split by `_step_split` by model line (phase_split's fourth reading:
+    the eager ops' device time keyed by the line of models/ that issued
+    them, the count by model line and its roofline).  Then the K6 route: step 0 at B 2, S 40 (K6 8,
     K6-bwd 4), finite gradients, each leaf's mean gap to the f32 witness
     within 1.25·√2 times the plain path's own (the recipe read in the
     same run).  At both lengths the f32 config also runs step 0 through
@@ -4440,7 +4569,8 @@ def phase_rwkv6_train():
     ops = _rwkv6_train_ops(model, B, S)
     step_ms = [t * 1e3 for t in out["step_s"]]
     steady = sum(step_ms[1:]) / len(step_ms[1:])
-    split = _step_split(model, out["params"], _rwkv6_batch(model.cfg, B, S))
+    split = _step_split(model, out["params"], _rwkv6_batch(model.cfg, B, S),
+                        by_line=True)
     _line({"phase": "train", "arch": "rwkv6-7b", "L": L, "B": B, "S": S,
            "params": model.param_count(), "steps": steps,
            "losses": out["losses"], "step_ms": step_ms,
@@ -6551,6 +6681,165 @@ def phase_restore_trained(model, restored):
     return rec["launches_after_restore"]
 
 
+# ---------------------------------------------------------------------------
+# The training drill and the analysis tools: phase_train_drill, the decode
+# ticks of phase_split (the other readings sit in the phases that build
+# their models), phase_dryrun
+# ---------------------------------------------------------------------------
+
+DRILL_STEPS, DRILL_EVERY = 100, 10
+DRILL_LOG = ["failure at step {fail}: hosts [3]",
+             "restored, resuming at step {back}"]
+
+
+def _example(name: str):
+    """The example module examples/<name>.py, loaded by path."""
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_train_drill():
+    """The example's drill (`examples/train_rwkv4_torch.py --drill`) on
+    the card: rwkv4-mini (L6 D384 F1536 V8192, f32, no remat), B 16, S
+    128, DRILL_STEPS steps driven by `TrainingSupervisor`, a checkpoint
+    every DRILL_EVERY, a `HostFailure` at 60% of the run, the restore from
+    `latest_step` (a fresh optimizer).  Checks: the restored params equal
+    the committed checkpoint bit for bit; one restart and JAX's log
+    strings; K2, K2-bwd, K11, K11-bwd, K12 and K12-bwd launched per step
+    as the model needs, for every step run (counters set to 0 just before
+    the supervised run, read just after); finite losses, the last below
+    the first; and `train_model` resumed from the restored checkpoint
+    ends on the supervised run's params bit for bit.  Both runs take
+    the example's `deterministic()` (torch.use_deterministic_algorithms
+    scoped to them: the embedding's gradient accumulates by atomics
+    otherwise); the same resume once more without it reads whether the
+    card needs it (not a check).  Returns the path's launches."""
+    from repro_torch.kernels.fused_ce import (
+        fused_cross_entropy, fused_cross_entropy_bwd)
+    from repro_torch.kernels.fused_layernorm import (
+        fused_layernorm, fused_layernorm_bwd)
+    from repro_torch.kernels.wkv4 import wkv4_seq, wkv4_seq_bwd
+    ex = _example("train_rwkv4_torch")
+    model = ex.get_model(ex.CFG_100M)
+    L = model.cfg.n_layers
+    d = _build_dir() / "train_drill"
+    shutil.rmtree(d, ignore_errors=True)
+    kw = dict(steps=DRILL_STEPS, batch=16, seq=128, ckpt_dir=d,
+              ckpt_every=DRILL_EVERY, device=DEV)
+    counters = (wkv4_seq, wkv4_seq_bwd, fused_layernorm, fused_layernorm_bwd,
+                fused_cross_entropy, fused_cross_entropy_bwd)
+    per_step = {"wkv4_seq": L, "wkv4_seq_bwd": L,
+                "fused_layernorm": 2 * L + 2,
+                "fused_layernorm_bwd": 2 * L + 2,
+                "fused_cross_entropy": 1, "fused_cross_entropy_bwd": 1}
+    with ex.deterministic():
+        for c in counters:
+            c.launches = 0
+        drill = ex.run_drill(model, **kw)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        shutil.copytree(d / "resume", d / "free" / "resume")
+        t0 = time.perf_counter()
+        resumed = ex.resume_run(model, **kw)
+        resume_s = time.perf_counter() - t0
+        same = ex.tree_bits_equal(resumed["params"], drill["params"])
+    free = ex.resume_run(model, **{**kw, "ckpt_dir": d / "free"})
+    same_free = ex.tree_bits_equal(free["params"], drill["params"])
+    shutil.rmtree(d)
+    losses = drill["losses"]
+    want_log = [DRILL_LOG[0].format(fail=drill["fail_at"]),
+                DRILL_LOG[1].format(back=drill["restored_step"])]
+    want = {n: c * len(losses) for n, c in per_step.items()}
+    row = {"phase": "train_drill", "model": model.cfg.name, "B": 16,
+           "S": 128, "steps": DRILL_STEPS, "steps_run": len(losses),
+           "fail_at": drill["fail_at"],
+           "restored_step": drill["restored_step"],
+           "restored_bits_equal": drill["restored_equal"],
+           "restarts": drill["restarts"], "log": drill["log"],
+           "launches": launches, "first_loss": losses[0],
+           "last_loss": losses[-1], "seconds": drill["seconds"],
+           "resume_seconds": resume_s,
+           "resumed_bits_equal": same,
+           "resumed_bits_equal_without_deterministic": same_free}
+    _line(row)
+    bad = []
+    if drill["restored_equal"] is not True:
+        bad.append("restored params differ from the checkpoint")
+    if drill["restarts"] != 1 or drill["log"] != want_log:
+        bad.append(f"log {drill['log']} (want {want_log})")
+    if launches != want:
+        bad.append(f"launches {launches} (want {want})")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        bad.append(f"losses {losses[0]} -> {losses[-1]}")
+    if not same:
+        bad.append("train_model resumed differs from the supervised run")
+    if bad:
+        raise AssertionError(f"train drill: {bad}")
+    return {"train-drill": launches}
+
+
+def phase_decode_tick(engine, label):
+    """phase_split's first reading: one decode tick of `engine`'s path.  A
+    fresh engine on the same prepared weights (its own programs, no
+    prefix cache) takes 8 requests (8-token prompts, 24 new tokens); once
+    every request holds its first token the ticks decode, and `_reading`
+    splits one (after a warm tick) and counts one more.  The engine is
+    then drained."""
+    from repro_torch.serving import ServingEngine
+    plan = engine.plan
+    eng = ServingEngine(plan.model, plan=_replan(plan), max_batch=8,
+                        device=DEV)
+    V = plan.model.cfg.vocab
+    g = torch.Generator().manual_seed(SEED + 91)
+    handles = [eng.submit(torch.randint(0, V, (8,), generator=g).tolist(),
+                          max_new_tokens=24) for _ in range(8)]
+    while not all(h.tokens for h in handles):
+        eng.step()
+    row = _reading(f"decode tick {label}", eng.step)
+    eng.run()
+    if not all(len(h.tokens) == 24 for h in handles):
+        raise AssertionError(f"decode tick {label}: streams cut short")
+    return row
+
+
+def _start_dryrun(src: Path):
+    """phase_dryrun's count, started as a child process beside the card's
+    phases: `python -m repro_torch.launch.dryrun --rwkv4` (every cell of
+    ASSIGNED_ARCHS and RWKV4_ARCHS x SHAPES at full size, on meta
+    tensors, on the host only), its output in build/dryrun.log."""
+    log = _build_dir() / "dryrun.log"
+    env = {**os.environ, "PYTHONPATH": str(src)}
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--rwkv4"],
+            stdout=f, stderr=subprocess.STDOUT, env=env,
+            cwd=str(src.parent))
+    return proc, log
+
+
+def phase_dryrun(proc, log: Path):
+    """Wait for the dry run's child: one line per cell (its bottleneck and
+    the three roofline terms, or why it is skipped), and the ok / skip /
+    error counts.  Any error cell, or no ok cell, fails the run."""
+    rc = proc.wait(timeout=900)
+    text = log.read_text()
+    cells = [ln for ln in text.splitlines() if ln.startswith("[")]
+    for ln in cells:
+        _line({"dryrun": ln})
+    m = re.search(r"done: (\d+) ok, (\d+) skip, (\d+) error", text)
+    counts = dict(zip(("ok", "skip", "error"),
+                      map(int, m.groups()))) if m else None
+    _line({"phase": "dryrun", "rc": rc, "cells": len(cells),
+           "counts": counts})
+    if rc != 0 or counts is None or counts["error"] or not counts["ok"]:
+        raise AssertionError(f"dry run: rc {rc}, counts {counts}:\n"
+                             + text[-3000:])
+    return counts
+
+
 _SHAPE_KEYS = ("M", "K", "N", "L", "B", "T", "C", "D", "F", "H", "S", "KVH",
                "d")
 
@@ -6622,6 +6911,10 @@ def main() -> int:
 
     t_start = time.perf_counter()
     usage = _timed("build", phase_build)
+    # the dry run counts on the host, beside the card's phases
+    dry_proc, dry_log = _start_dryrun(src)
+    atexit.register(lambda: dry_proc.poll() is None and (
+        dry_proc.kill(), dry_proc.wait()))
     common = dict(smoke=False, quantized=True, fused_prefill=True,
                   max_batch=8, prefill_chunk=16, seed=SEED, device=DEV)
     # rwkv4-169m: the block path (W8) and the model path (MIXED planes)
@@ -6662,6 +6955,8 @@ def main() -> int:
     by_path.update(_timed("crash resume rwkv4-169m", phase_crash_resume,
                           model))
     by_path.update(_timed("fault drills rwkv4-169m", phase_faults, model))
+    _timed("split decode tick rwkv4-169m", phase_decode_tick, model,
+           "rwkv4-169m MIXED model")
     # rwkv4-169m on plain bf16 weights (quantized=False): K3 and K4 on bf16
     # matrices, the model-path engine, one block-path step
     plain4 = ServingEngine("rwkv4-169m", fused_decode="model",
@@ -6754,6 +7049,8 @@ def main() -> int:
                              eng6, flush, refs6)
     by_path.update(paths)
     del flush
+    _timed("split decode tick rwkv6-7b", phase_decode_tick, eng6,
+           "rwkv6-7b W8 model")
     # the engine's packed W8 tree outlives the engine: K1 and K8 through
     # kernels/ops.py on its matrices, then the quantized serve step on it
     raw6, model6 = eng6.plan.prepared.raw, eng6.model
@@ -6868,6 +7165,9 @@ def main() -> int:
     by_path["restore-trained"] = _timed("restore trained rwkv4-169m",
                                         phase_restore_trained, m4t, restored)
     del restored
+    _release()
+    # the example's fault-tolerance drill on rwkv4-mini
+    by_path.update(_timed("train drill rwkv4-mini", phase_train_drill))
     _release()
     # rwkv6-7b's training at full width, 4 of its 32 layers: K10-bwd and
     # K6-bwd on layer 0's operands of its train steps, then the steps
@@ -7178,6 +7478,7 @@ def main() -> int:
                     "S 40 train step (B2 T40 H64 N64, f32); _time_ms's ~5 "
                     "us floor is part of the reading; two CUDA launches a "
                     "call; plain_ms the plain version of its passes")]
+    _timed("dry run", phase_dryrun, dry_proc, dry_log)
     _line({"phase_done": "all", "seconds": time.perf_counter() - t_start})
     _line({"kernels": kernels})
     print(_card(), flush=True)

@@ -3,8 +3,11 @@
 A copy of the fields of `repro/configs/base.py` that `models/rwkv4.py`,
 `models/rwkv6.py`, `models/transformer.py` and the train step consume, with
 `get_config` / `smoke_config` resolving the rwkv4 family, rwkv6-7b and
-the dense transformers (smollm-135m, phi3-mini-3.8b, minitron-4b), and
-`SHAPES`, the input shapes `launch/steps.py:build_step_for_cell` takes.
+the dense transformers (smollm-135m, phi3-mini-3.8b, minitron-4b),
+`SHAPES`, the input shapes `launch/steps.py:build_step_for_cell` takes,
+`supported_shapes`, and JAX's two arch lists: `ASSIGNED_ARCHS` names all
+ten, of which six are not ported yet (ROADMAP item 9; `list_configs`
+names the ported ones), and `RWKV4_ARCHS`.
 """
 from __future__ import annotations
 
@@ -26,6 +29,9 @@ SHAPES: dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
+
+# families that run long_500k (sub-quadratic decode state)
+_SUBQUADRATIC = {"ssm", "hybrid", "rwkv"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,10 +63,21 @@ class ModelConfig:
     # JAX, torch.utils.checkpoint here), and the optimizer
     remat: bool = True
     optimizer: str = "adamw"      # adamw | adafactor
+    # dry-run instrumentation: attention replaced by a zero-flop stub (the
+    # mean of v), so a count's difference (base - stub) isolates
+    # attention's traffic and FLOPs, as in JAX
+    attn_stub: bool = False
+    # the same for rwkv4's WKV recurrence: its output is v and K2 does not
+    # launch
+    wkv_stub: bool = False
 
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
 
 
 _ARCH_MODULES = {
@@ -74,6 +91,15 @@ _ARCH_MODULES = {
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "minitron-4b": "minitron_4b",
 }
+
+ASSIGNED_ARCHS = [
+    "whisper-medium", "moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b",
+    "smollm-135m", "minicpm3-4b", "minitron-4b", "phi3-mini-3.8b",
+    "rwkv6-7b", "zamba2-7b", "internvl2-2b",
+]
+
+RWKV4_ARCHS = ["rwkv4-169m", "rwkv4-430m", "rwkv4-1b5", "rwkv4-3b",
+               "rwkv4-7b"]
 
 
 def list_configs() -> list[str]:
@@ -97,3 +123,15 @@ def smoke_config(arch_id: str) -> ModelConfig:
     """Reduced same-family config for CPU tests."""
     mod = _module(arch_id)
     return mod.smoke(arch_id) if hasattr(mod, "smoke") else mod.SMOKE
+
+
+def supported_shapes(cfg: ModelConfig) -> dict[str, str]:
+    """shape name -> "ok" or a skip reason."""
+    out = {}
+    for name in SHAPES:
+        if name == "long_500k" and cfg.family not in _SUBQUADRATIC:
+            out[name] = ("skip: full-attention arch — 500k-token decode "
+                         "needs sub-quadratic attention")
+        else:
+            out[name] = "ok"
+    return out

@@ -10,10 +10,16 @@ No `--use_fast_math`: it changes `expf` and division, and both feed the WKV
 arithmetic.  `-fmad=false` keeps every elementwise a*b+c as a multiply and
 an add, each rounded, as eager PyTorch computes it; the matvec loops call
 `fmaf` explicitly.
+
+`counted` is the hook every kernel wrapper's launching function carries:
+it lets an op count (`launch/op_analysis.py`) record each launch as one
+op, and lets meta tensors pass through the kernels without a launch
+while the count runs.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import os
 import shutil
@@ -176,3 +182,107 @@ def stream_ptr(t) -> int:
     """The current CUDA stream of `t`'s device, as an integer handle."""
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# The op count's hook (launch/op_analysis.py)
+# ---------------------------------------------------------------------------
+
+
+def op_count():
+    """The op count (`launch/op_analysis.OpCount`, a dispatch mode) active
+    on this thread, or None.  The autograd engine carries the mode stack
+    to its backward threads, so a backward sees the count too."""
+    import torch
+    if not torch._C._len_torch_dispatch_stack():
+        return None
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if getattr(mode, "counts_kernels", False):
+            return mode
+    return None
+
+
+def kernel_route(t) -> bool:
+    """Whether a call on `t` takes the kernels' route (their autograd
+    Functions and reshapes): any tensor not on the CPU, and a CPU tensor
+    while an op count runs, so that a count records the same kernel ops
+    on every device.  Outside a count a CPU tensor takes the plain
+    version's own route, under autograd."""
+    return t.device.type != "cpu" or op_count() is not None
+
+
+def tensors(tree) -> list:
+    """Every tensor in a tree of dicts, lists, tuples and dataclasses,
+    each once."""
+    import torch
+    out, seen, stack = [], set(), [tree]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            if id(x) not in seen:
+                seen.add(id(x))
+                out.append(x)
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            stack.extend(getattr(x, f.name) for f in dataclasses.fields(x))
+    return out
+
+
+def nbytes(tree) -> int:
+    """The bytes of every tensor in `tree` at its stored dtype."""
+    return sum(t.numel() * t.element_size() for t in tensors(tree))
+
+
+def counted(name: str, *, meta, flops=None, launches=None,
+            operand_bytes=None):
+    """The launch-site hook of a kernel wrapper: decorates the function
+    that launches the kernel (the one that adds to `.launches`).
+
+    - No op count running: the call is what it was (a CUDA tensor
+      launches or raises, a CPU tensor takes the plain version, any other
+      device goes to the kernel, whose checks or build raise).
+    - An op count running: on meta operands nothing launches and
+      `meta(*args, **kw)` returns empty meta tensors of the kernel's
+      output shapes and dtypes; on others the call runs with the count
+      paused, so the plain version's own ops are not counted.  Either way
+      the count records one op `name`: its bytes at the boundary (every
+      tensor operand read once, or `operand_bytes(*args, **kw)`, plus
+      `meta`'s outputs written once, at their stored dtypes), its FLOPs
+      (`flops(*args, **kw)`: products only, as JAX's HLO analysis counts
+      them; 0 when None) and its launches (`launches(*args, **kw)`,
+      default 1, as the wrapper's `.launches` counts them).
+    """
+    def deco(fn):
+        @functools.wraps(fn)
+        def hooked(*args, **kw):
+            count = op_count()
+            if count is None:
+                return fn(*args, **kw)
+            with count.paused():
+                on_meta = tensors(args)[0].device.type == "meta"
+                out = meta(*args, **kw) if on_meta else fn(*args, **kw)
+                read = (operand_bytes(*args, **kw) if operand_bytes
+                        else nbytes((args, kw)))
+                count.record_kernel(
+                    name, read + nbytes(meta(*args, **kw)),
+                    0.0 if flops is None else float(flops(*args, **kw)),
+                    1 if launches is None else launches(*args, **kw))
+            return out
+        return hooked
+    return deco
+
+
+def meta_like(*ts):
+    """Empty meta tensors shaped and typed as `ts`."""
+    import torch
+    out = [torch.empty(t.shape, dtype=t.dtype, device="meta") for t in ts]
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def meta_empty(shape, dtype):
+    import torch
+    return torch.empty(shape, dtype=dtype, device="meta")

@@ -47,8 +47,9 @@ from repro_torch.core.quant.delta_pot import (
     FORMAT_W4, FORMAT_W8, dpot_dequantize, dpot_unpack_int8,
     dpot_unpack_nibbles)
 from repro_torch.device import exact_matmuls
-from repro_torch.kernels.build import refuse_grad
-from repro_torch.kernels.fused_prefill import launch_chunk_mm, piece_table
+from repro_torch.kernels.build import counted, refuse_grad
+from repro_torch.kernels.fused_prefill import (
+    launch_chunk_mm, matmul_flops, matmul_meta, piece_table)
 
 NO_GRAD = "the TPU kernel defines no gradient either"
 
@@ -95,6 +96,7 @@ def _launch(entry: str, plane: str, x, codes, scale, k_rows: int):
         tail=(int(x.dtype == torch.bfloat16),))
 
 
+@counted("dpot_matmul", meta=matmul_meta, flops=matmul_flops)
 def dpot_matmul(x: torch.Tensor, wq: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """K1: x (M, K) f32/bf16 @ W8 codes wq (K, N) uint8 with scale (N,)
@@ -106,6 +108,7 @@ def dpot_matmul(x: torch.Tensor, wq: torch.Tensor,
     return out
 
 
+@counted("dpot_matmul_w4", meta=matmul_meta, flops=matmul_flops)
 def dpot_matmul_w4(x: torch.Tensor, wq4: torch.Tensor,
                    scale: torch.Tensor) -> torch.Tensor:
     """K8: x (M, K) f32/bf16 @ W4 nibble pairs wq4 (K/2, N) uint8 with

@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.core.approx.units import exp_lut, lut_tensor, sigmoid_pwl
 from repro_torch.kernels.build import (
-    HW_UNTRAINED, check, load_library, refuse_grad, stream_ptr)
+    HW_UNTRAINED, check, counted, load_library, meta_like, refuse_grad,
+    stream_ptr)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -47,6 +48,7 @@ def _launch(x: torch.Tensor, mode: int, wrapper) -> torch.Tensor:
     return out
 
 
+@counted("exp_kernel", meta=meta_like)
 def exp_kernel(x: torch.Tensor) -> torch.Tensor:
     """e^x by the paper's EXP unit, elementwise, in x's dtype."""
     if x.device.type == "cpu":
@@ -54,6 +56,7 @@ def exp_kernel(x: torch.Tensor) -> torch.Tensor:
     return _launch(x, 0, exp_kernel)
 
 
+@counted("sigmoid_kernel", meta=meta_like)
 def sigmoid_kernel(x: torch.Tensor) -> torch.Tensor:
     """σ(x) by the paper's PWL unit, elementwise, in x's dtype."""
     if x.device.type == "cpu":

@@ -40,7 +40,9 @@ import math
 import torch
 
 from repro_torch.device import exact_matmuls
-from repro_torch.kernels.build import check, load_library, stream_ptr
+from repro_torch.kernels.build import (
+    check, counted, kernel_route, load_library, meta_empty, meta_like,
+    op_count, stream_ptr)
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
@@ -117,6 +119,25 @@ def _vec_rows(*ts) -> bool:
                                             for t in ts)
 
 
+def _attn_flops(units):
+    """`units`·B·H·Sq·Skv·d: JAX's HLO analysis of the plain attention
+    counts 4 (q kᵀ and p v, every key, the causal mask applied after),
+    and of its VJP 4 for dq (dp and dq) and 6 for dk, dv (dp, dv, dk)."""
+    def flops(q, k, *_, **__):
+        B, Sq, H, d = q.shape
+        return units * B * H * Sq * k.shape[1] * d
+    return flops
+
+
+def _fwd_meta(q, k, v, causal, return_lse):
+    out = meta_like(q)
+    if not return_lse:
+        return out
+    B, Sq, H, _ = q.shape
+    return out, meta_empty((B, H, Sq), torch.float32)
+
+
+@counted("flash_attention", meta=_fwd_meta, flops=_attn_flops(4))
 def _forward(q, k, v, causal: bool, return_lse: bool):
     """One forward: the plain version on the CPU, K13 on the card."""
     if q.device.type == "cpu":
@@ -325,6 +346,8 @@ def _on_card(q, name: str):
         raise RuntimeError(f"{name}: no kernel for device {q.device}")
 
 
+@counted("flash_attention_dq", meta=lambda q, *_, **__: meta_like(q),
+         flops=_attn_flops(4))
 def flash_attention_dq(q, k, v, o, lse, do, *, causal: bool = True,
                        delta=None):
     """dq (B, Sq, H, d) in q's dtype: K13-dq on the card (D = `_delta(o,
@@ -348,6 +371,9 @@ def flash_attention_dq(q, k, v, o, lse, do, *, causal: bool = True,
 flash_attention_dq.launches = 0
 
 
+@counted("flash_attention_dkv",
+         meta=lambda q, k, v, *_, **__: meta_like(k, v),
+         flops=_attn_flops(6))
 def flash_attention_dkv(q, k, v, o, lse, do, *, causal: bool = True,
                         delta=None):
     """(dk, dv) (B, Skv, KVH, d) in k's dtype, each GQA group summed in f32
@@ -377,9 +403,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
     for the output gradient `do`: the plain version on the CPU, K13-dq and
     K13-dkv (sharing one D) on the card."""
     _check_bwd(q, k, v, o, lse, do)
-    if q.device.type == "cpu":
+    if not kernel_route(q):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
-    _on_card(q, "flash_attention_bwd")
+    if op_count() is None:
+        _on_card(q, "flash_attention_bwd")
     delta = _delta(o, do)
     dq = flash_attention_dq(q, k, v, o, lse, do, causal=causal, delta=delta)
     dk, dv = flash_attention_dkv(q, k, v, o, lse, do, causal=causal,

@@ -23,7 +23,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import check, load_library, stream_ptr
+from repro_torch.kernels.build import (
+    check, counted, kernel_route, load_library, meta_empty, meta_like,
+    stream_ptr)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -55,8 +57,19 @@ def _check(x, labels, who):
         raise RuntimeError(f"{who}: no kernel for device {x.device}")
 
 
+def _fwd_meta(x, labels):
+    return (meta_empty(x.shape[:1], torch.float32),
+            meta_empty(x.shape[:1], torch.float32))
+
+
+@counted("fused_cross_entropy", meta=_fwd_meta)
 def _forward(x, labels):
-    """K12 on (N, V) logits and (N,) int32 labels -> (nll, lse) f32."""
+    """K12 on (N, V) logits and (N,) int32 labels -> (nll, lse) f32; on
+    the CPU (an op count's route) the plain NLL and the rows'
+    log-sum-exp."""
+    if x.device.type == "cpu":
+        return (fused_cross_entropy_plain(x, labels),
+                torch.logsumexp(x.to(torch.float32), dim=-1))
     _check(x, labels, "fused_cross_entropy")
     N, V = x.shape
     nll = torch.empty(N, dtype=torch.float32, device=x.device)
@@ -71,6 +84,7 @@ def _forward(x, labels):
     return nll, lse
 
 
+@counted("fused_cross_entropy_bwd", meta=lambda x, *_: meta_like(x))
 def fused_cross_entropy_bwd(x, labels, lse, g):
     """dx (N, V) in x's dtype of the NLL rows for their cotangent g (N,):
     the plain formula on the CPU, K12-bwd on the card."""
@@ -122,7 +136,7 @@ def fused_cross_entropy(logits, labels):
     """logits (..., V) f32 or bf16, labels (...) int -> the per-row NLL
     (...) f32.  On the card, with grad mode on and logits that require
     grad, the result carries gradients through K12-bwd."""
-    if logits.device.type == "cpu":
+    if not kernel_route(logits):
         return fused_cross_entropy_plain(logits, labels)
     V = logits.shape[-1]
     lead = logits.shape[:-1]

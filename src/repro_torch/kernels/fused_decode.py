@@ -57,7 +57,8 @@ from repro_torch.core.quant.serving import (
     CODES_KEY, FusedLayerStack, is_packed_leaf, leaf_plane, unfuse_layer,
     unpack_leaf)
 from repro_torch.device import exact_matmuls
-from repro_torch.kernels.build import check, load_library, stream_ptr
+from repro_torch.kernels.build import (
+    check, counted, load_library, meta_empty, meta_like, stream_ptr)
 from repro_torch.tree import tree_map
 
 # the RWKV-4 decode state leaves, in the order the kernels take them
@@ -481,6 +482,23 @@ def _k3_scratch(B: int, D: int, F: int, tiles: int, device, L: int = 1):
     return buf, [buf.data_ptr() + o for o in offs]
 
 
+def _rwkv4_flops(B: int, D: int, F: int, L: int = 1) -> int:
+    """The matvecs JAX's HLO analysis counts in RWKV-4's decode step, per
+    layer: r, k, v, o (D x D each), the channel mix's r (D x D), k (D x
+    F) and v (F x D), 2 operations a weight and lane."""
+    return 2 * L * B * (5 * D * D + 2 * D * F)
+
+
+def _rwkv4_meta(x, lead):
+    bf16 = torch.bfloat16
+    return (meta_empty(x.shape, bf16),
+            {k: meta_empty((*lead, *x.shape), bf16) for k in STATE_KEYS})
+
+
+@counted("rwkv4_block_decode",
+         meta=lambda lp, st, x, **_: _rwkv4_meta(x, ()),
+         flops=lambda lp, st, x, **_: _rwkv4_flops(
+             *x.shape, _out_cols(lp["ffn"]["wk"], "ffn.wk")))
 def rwkv4_block_decode(lp, st, x, *, bb: int | None = None, luts=None,
                        grid: int | None = None):
     """One layer's decode step: lp the layer's params (compute-cast, plane
@@ -684,6 +702,11 @@ def k4_tensor_maps(blocks: FusedLayerStack, D: int, kc: int):
     return out
 
 
+@counted("rwkv4_model_decode",
+         meta=lambda blocks, state, x, **_: _rwkv4_meta(
+             x, (blocks.n_layers,)),
+         flops=lambda blocks, state, x, **_: _rwkv4_flops(
+             *x.shape, stack_table(blocks, x.shape[1])[0], blocks.n_layers))
 def rwkv4_model_decode(blocks: FusedLayerStack, state, x, *,
                        bb: int | None = None, grid: int | None = None):
     """The whole L-layer decode step: blocks the slab form of the stacked
@@ -1104,6 +1127,32 @@ def rwkv6_model_decode_plain(blocks: FusedLayerStack, state, x, cfg):
                for k in RWKV6_STATE_KEYS}
 
 
+def _rwkv6_flops(x, cfg, L: int = 1) -> int:
+    """The products JAX's HLO analysis counts in RWKV-6's decode step, per
+    layer and lane, 2 operations each: maa_w1 and maa_w2 (D x 5R, 5R x
+    D), td_w1 and td_w2 (D x TR, TR x D), r, k, v, g, o and the channel
+    mix's r (D x D), its k and v (D x F, F x D), and the WKV's r·S (H N x
+    N)."""
+    B, D = x.shape
+    F, H, N = cfg.d_ff, cfg.n_heads, cfg.rwkv_head_dim
+    return 2 * L * B * (10 * _MAA_RANK * D + 2 * _TD_RANK * D + 6 * D * D
+                        + 2 * D * F + H * N * N)
+
+
+def _rwkv6_meta(st, x):
+    return meta_like(x), {k: meta_like(st[k]) for k in RWKV6_STATE_KEYS}
+
+
+def _rwkv6_launches(x, bb):
+    """One K7 launch a batch tile."""
+    return x.shape[0] // _rwkv6_tile(x.shape[0], bb)
+
+
+@counted("rwkv6_block_decode",
+         meta=lambda lp, st, x, cfg, **_: _rwkv6_meta(st, x),
+         flops=lambda lp, st, x, cfg, **_: _rwkv6_flops(x, cfg),
+         launches=lambda lp, st, x, cfg, *, bb=None, **_:
+             _rwkv6_launches(x, bb))
 def rwkv6_block_decode(lp, st, x, cfg, *, grid: int | None = None,
                        bb: int | None = None):
     """One RWKV-6 layer's decode step: lp the layer's params (compute-cast,
@@ -1169,6 +1218,12 @@ def rwkv6_stack_table(blocks: FusedLayerStack, D: int, F: int, H: int,
     return vec_offs, mats
 
 
+@counted("rwkv6_model_decode",
+         meta=lambda blocks, state, x, cfg, **_: _rwkv6_meta(state, x),
+         flops=lambda blocks, state, x, cfg, **_: _rwkv6_flops(
+             x, cfg, blocks.n_layers),
+         launches=lambda blocks, state, x, cfg, *, bb=None, **_:
+             _rwkv6_launches(x, bb))
 def rwkv6_model_decode(blocks: FusedLayerStack, state, x, cfg, *,
                        grid: int | None = None, bb: int | None = None):
     """The whole L-layer RWKV-6 decode step: blocks the slab form of the

@@ -30,7 +30,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.build import check, load_library, stream_ptr
+from repro_torch.kernels.build import (
+    check, counted, kernel_route, load_library, meta_like, stream_ptr)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # K11-bwd's blocks (two an SM on an H100): each owns a fixed set of rows
@@ -126,6 +127,7 @@ def _vec(D, *ts) -> int:
     return int(D % per16 == 0 and all(t.data_ptr() % 16 == 0 for t in ts))
 
 
+@counted("fused_layernorm", meta=lambda x, *_: meta_like(x))
 def _forward(x, gamma, beta, eps):
     """The plain version on the CPU, K11 on the card."""
     if x.device.type == "cpu":
@@ -146,6 +148,8 @@ def _forward(x, gamma, beta, eps):
     return out
 
 
+@counted("fused_layernorm_bwd",
+         meta=lambda x, gamma, beta, *_, **__: meta_like(x, gamma, beta))
 def fused_layernorm_bwd(x, gamma, beta, dy, *, eps: float = 1e-5):
     """(dx, dγ, dβ) of `fused_layernorm(x, gamma, beta)` for the output
     gradient dy (x's shape and dtype): the plain formula on the CPU, K11-bwd
@@ -203,7 +207,7 @@ def fused_layernorm(x, gamma, beta, *, eps: float = 1e-5):
     """x (..., D) f32 or bf16; gamma, beta (D,) f32 or bf16 -> LayerNorm
     over the last axis, in x's dtype.  On the card, with grad mode on and
     an operand that requires grad, its gradient comes from K11-bwd."""
-    if x.device.type != "cpu" and torch.is_grad_enabled() and (
+    if kernel_route(x) and torch.is_grad_enabled() and (
             x.requires_grad or gamma.requires_grad or beta.requires_grad):
         return _FusedLayerNorm.apply(x, gamma, beta, eps)
     return _forward(x, gamma, beta, eps)

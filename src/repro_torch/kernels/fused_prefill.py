@@ -39,7 +39,8 @@ from repro_torch.core.quant.delta_pot import (
     FORMAT_W4, FORMAT_W8, dpot_decode_codes)
 from repro_torch.core.quant.serving import _sign, leaf_plane, unpack_leaf
 from repro_torch.device import exact_matmuls
-from repro_torch.kernels.build import check, load_library, stream_ptr
+from repro_torch.kernels.build import (
+    check, counted, load_library, meta_empty, stream_ptr)
 
 # the kernel's tile (csrc/chunk_matmul.cu: BN, BK), the grid it aims for
 # (two blocks on each of the H100's 132 SMs: the 128-row instance's
@@ -258,6 +259,22 @@ def _vq(entry: str, x, idx, codebook):
     return launch_chunk_mm(entry, "vq", x, idx, (cb.data_ptr(), C))
 
 
+def matmul_meta(x, codes, *_):
+    """The chunk matmuls' output on the meta device: (M, N) in x's
+    dtype."""
+    return meta_empty((x.shape[0], codes.shape[1]), x.dtype)
+
+
+def matmul_flops(x, codes, *_):
+    """2·M·N·K: the products JAX's HLO analysis counts for `x @ w`."""
+    return 2 * x.shape[0] * codes.shape[1] * x.shape[1]
+
+
+def _counted_mm(name):
+    return counted(name, meta=matmul_meta, flops=matmul_flops)
+
+
+@_counted_mm("dpot_w8_matmul")
 def dpot_w8_matmul(x: torch.Tensor, wq: torch.Tensor,
                    scale: torch.Tensor) -> torch.Tensor:
     """x (M, K) bf16 @ W8 plane wq (K, N) uint8 with scale (..., N) f32
@@ -269,6 +286,7 @@ def dpot_w8_matmul(x: torch.Tensor, wq: torch.Tensor,
     return out
 
 
+@_counted_mm("dpot_w8_matmul_f32x")
 def dpot_w8_matmul_f32x(x: torch.Tensor, wq: torch.Tensor,
                         scale: torch.Tensor) -> torch.Tensor:
     """K5's f32-activation form: x (M, K) f32 @ the W8 plane -> (M, N)
@@ -280,6 +298,7 @@ def dpot_w8_matmul_f32x(x: torch.Tensor, wq: torch.Tensor,
     return out
 
 
+@_counted_mm("dpot_w4_matmul")
 def dpot_w4_matmul(x: torch.Tensor, wq4: torch.Tensor,
                    scale: torch.Tensor) -> torch.Tensor:
     """x (M, K) bf16 @ W4 plane wq4 (K/2, N) uint8 (row 2k in the low
@@ -291,6 +310,7 @@ def dpot_w4_matmul(x: torch.Tensor, wq4: torch.Tensor,
     return out
 
 
+@_counted_mm("dpot_w4_matmul_f32x")
 def dpot_w4_matmul_f32x(x: torch.Tensor, wq4: torch.Tensor,
                         scale: torch.Tensor) -> torch.Tensor:
     """K5-W4's f32-activation form: x (M, K) f32 @ the W4 plane -> (M, N)
@@ -302,6 +322,7 @@ def dpot_w4_matmul_f32x(x: torch.Tensor, wq4: torch.Tensor,
     return out
 
 
+@_counted_mm("vq_matmul")
 def vq_matmul(x: torch.Tensor, idx: torch.Tensor,
               codebook: torch.Tensor) -> torch.Tensor:
     """x (M, K) bf16 @ codebook[idx (K, N) uint8], codebook (..., C) bf16
@@ -313,6 +334,7 @@ def vq_matmul(x: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+@_counted_mm("vq_matmul_f32x")
 def vq_matmul_f32x(x: torch.Tensor, idx: torch.Tensor,
                    codebook: torch.Tensor) -> torch.Tensor:
     """K5-VQ's f32-activation form: x (M, K) f32 @ codebook[idx] -> (M, N)

@@ -37,7 +37,8 @@ import torch
 from repro_torch.core.approx.units import div_lut, exp_lut
 from repro_torch.core.wkv.wkv4 import WKV4State, wkv4_step
 from repro_torch.kernels.build import (
-    HW_UNTRAINED, check, load_library, refuse_grad, stream_ptr)
+    HW_UNTRAINED, check, counted, kernel_route, load_library, meta_empty,
+    refuse_grad, stream_ptr)
 
 _CARRY = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
@@ -226,6 +227,13 @@ def _check_f32(ops, device, who):
         raise TypeError(f"{who} takes f32 operands on one device")
 
 
+def _bwd_meta(k, v, w, u, *_, **__):
+    f32 = torch.float32
+    return (meta_empty(k.shape, f32), meta_empty(k.shape, f32),
+            meta_empty(w.shape, f32), meta_empty(u.shape, f32))
+
+
+@counted("wkv4_seq_bwd", meta=_bwd_meta)
 def wkv4_seq_bwd(k, v, w, u, a0, b0, o0, gy, *,
                  chunk: Optional[int] = None):
     """(gk, gv, gw, gu) of K2's exact y for the output gradient gy
@@ -258,6 +266,13 @@ def wkv4_seq_bwd(k, v, w, u, a0, b0, o0, gy, *,
 wkv4_seq_bwd.launches = 0
 
 
+def _fwd_meta(k, v, w, u, a0, *_, **__):
+    f32 = torch.float32
+    return meta_empty(k.shape, f32), tuple(meta_empty(a0.shape, f32)
+                                           for _ in range(3))
+
+
+@counted("wkv4_seq", meta=_fwd_meta)
 def _forward(k, v, w, u, a0, b0, o0, *, valid, carry_dtype, exp_table,
              div_table, tile=None, warps=None):
     """One forward: the plain version on the CPU, K2 on the card."""
@@ -328,7 +343,7 @@ def wkv4_seq(k, v, w, u, a0, b0, o0, *, valid=None,
         raise ValueError(f"carry_dtype {carry_dtype!r}: expected one of "
                          f"{sorted(c for c in _CARRY if c)} or None")
     _units(exp_table, div_table)
-    if k.device.type != "cpu" and torch.is_grad_enabled() and any(
+    if kernel_route(k) and torch.is_grad_enabled() and any(
             t.requires_grad for t in (k, v, w, u, a0, b0, o0)):
         own = (valid is None and _CARRY[carry_dtype] is None
                and exp_table is None

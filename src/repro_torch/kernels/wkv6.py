@@ -56,7 +56,8 @@ import torch
 
 from repro_torch.core.wkv.wkv6 import wkv6_step
 from repro_torch.kernels.build import (
-    check, load_library, refuse_grad, stream_ptr)
+    check, counted, kernel_route, load_library, meta_empty, nbytes,
+    refuse_grad, stream_ptr)
 
 OWN_CALLS = ("K10-bwd and K6-bwd differentiate the whole-sequence "
              "forward's own calls: from an initial state that takes no "
@@ -159,6 +160,20 @@ def k6_plan(B: int, T: int, H: int, N: int) -> K6Plan:
     return plan
 
 
+def seq_flops(r, *_, **__):
+    """2·B·T·H·N²: each step's r·S contraction, the one product JAX's HLO
+    analysis counts in `wkv6_scan`, and in its VJP."""
+    B, T, H, N = r.shape
+    return 2 * B * T * H * N * N
+
+
+def _seq_meta(r, *_, **__):
+    B, T, H, N = r.shape
+    return (meta_empty(r.shape, torch.float32),
+            meta_empty((B, H, N, N), torch.float32))
+
+
+@counted("wkv6_seq", meta=_seq_meta, flops=seq_flops)
 def _seq_forward(r, k, v, w, u, s0, *, valid=None,
                  carry_dtype: Optional[str] = None):
     """One forward: the plain version on the CPU, K6 on the card."""
@@ -285,6 +300,13 @@ def wkv6_seq_bwd_plain(r, k, v, w, u, s0, dy, *,
     return (*(torch.stack(o, dim=1) for o in out), du_sum)
 
 
+def _seq_bwd_meta(r, k, v, w, u, *_):
+    f32 = torch.float32
+    return (*(meta_empty(r.shape, f32) for _ in range(4)),
+            meta_empty(u.shape, f32))
+
+
+@counted("wkv6_seq_bwd", meta=_seq_bwd_meta, flops=seq_flops)
 def wkv6_seq_bwd(r, k, v, w, u, s0, dy):
     """(dr, dk, dv, dw, du) of K6's y from the f32 initial state s0 (which
     takes no gradient), without a valid mask or a carry snap, for the
@@ -345,7 +367,7 @@ def wkv6_seq(r, k, v, w, u, s0, *, valid=None,
         raise ValueError(f"carry_dtype {carry_dtype!r}: expected one of "
                          f"{sorted(c for c in _CARRY if c)} or None")
     ops = (r, k, v, w, u, s0)
-    if r.device.type != "cpu" and torch.is_grad_enabled() and any(
+    if kernel_route(r) and torch.is_grad_enabled() and any(
             t.requires_grad for t in ops):
         if valid is None and _CARRY[carry_dtype] is None and \
                 s0.dtype == torch.float32 and not s0.requires_grad and \
@@ -540,6 +562,52 @@ def k10_bwd_plan(B: int, T: int, H: int, N: int, chunk: int = 64, *,
                       fwd.workspace_bytes)
 
 
+def _subchunks(T: int, chunk: int):
+    """(C, S, sub-chunks a chunk) of JAX's `wkv6_chunked` at K10's chunk:
+    sub-chunks of min(16, C), or one where 16 does not divide C."""
+    C = chunk_length(T, chunk)
+    S = min(16, C)
+    if C % S:
+        S = C
+    return C, S, C // S
+
+
+def chunked_flops(r, *_, chunk: int = 64, **__):
+    """The products JAX's HLO analysis counts in `wkv6_chunked`, per
+    (b, t, h, n): 2N for the inter-chunk y and 2N for the state update,
+    4C for the earlier keys' scores and their values, 4S for the
+    diagonal sub-chunk's, 2 for the bonus."""
+    B, T, H, N = r.shape
+    C, S, _ = _subchunks(T, chunk)
+    return B * T * H * N * (4 * N + 4 * (C + S) + 2)
+
+
+def chunked_bwd_flops(r, *_, chunk: int = 64, **__):
+    """The products JAX's HLO analysis counts in the VJP of
+    `wkv6_chunked` for y's cotangent (`jax.vjp`; the final state takes
+    none), per (b, t, h, n): 8N, two products each for the inter-chunk y
+    and the state update, or 2N where T is one chunk (no state gradient
+    to carry: only y's own product against the initial state is left);
+    8C (the earlier keys' scores and values); 6S (the diagonal block: one
+    product for its scores, whose other cotangent is an outer product,
+    two for its values); and 2S more where a chunk has two sub-chunks or
+    more (XLA keeps one more product of the earlier keys' kind there)."""
+    B, T, H, N = r.shape
+    C, S, n_sub = _subchunks(T, chunk)
+    state = 8 * N if T > C else 2 * N
+    return B * T * H * N * (state + 8 * C + 6 * S + (2 * S if n_sub > 1
+                                                     else 0))
+
+
+def _chunked_meta(r, k, v, w, u, s0=None, *, chunk: int = 64):
+    B, T, H, N = r.shape
+    f32 = torch.float32
+    return (meta_empty(r.shape, f32), meta_empty((B, H, N, N), f32),
+            meta_empty((k10_plan(B, T, H, N, chunk).workspace_bytes // 4,),
+                       f32))
+
+
+@counted("wkv6_chunked_kernel", meta=_chunked_meta, flops=chunked_flops)
 def _chunked_forward(r, k, v, w, u, s0=None, *, chunk: int = 64):
     """One forward -> (y, final S, workspace): the plain version on the
     CPU (no workspace), K10 on the card, whose workspace then holds
@@ -690,6 +758,22 @@ def wkv6_chunked_bwd_plain(r, k, v, w, u, dy, s0=None, *, chunk: int = 64):
             du_sum)
 
 
+def _chunked_bwd_meta(r, k, v, w, u, *_, **__):
+    return (*(meta_empty(t.shape, t.dtype) for t in (r, k, v, w)),
+            meta_empty(u.shape, torch.float32))
+
+
+def _chunked_bwd_reads(r, k, v, w, u, dy, s0=None, *, chunk: int = 64,
+                       workspace=None):
+    """K10-bwd's operands and the forward's workspace it reads, whichever
+    device holds them (the CPU's plain forward makes no workspace)."""
+    B, T, H, N = r.shape
+    return (nbytes((r, k, v, w, u, dy, s0))
+            + k10_plan(B, T, H, N, chunk).workspace_bytes)
+
+
+@counted("wkv6_chunked_bwd", meta=_chunked_bwd_meta, flops=chunked_bwd_flops,
+         operand_bytes=_chunked_bwd_reads)
 def wkv6_chunked_bwd(r, k, v, w, u, dy, s0=None, *, chunk: int = 64,
                      workspace=None):
     """(dr, dk, dv, dw, du) of K10's y from the initial state s0 (zeros
@@ -770,7 +854,7 @@ def wkv6_chunked_kernel(r, k, v, w, u, s0=None, *, chunk: int = 64):
     with a workspace of `k10_plan(...).workspace_bytes`.  Under grad the
     forward's own call (an s0 that takes no gradient) runs through
     `_WKV6Chunked`, which keeps the workspace for `wkv6_chunked_bwd`."""
-    if r.device.type != "cpu" and torch.is_grad_enabled() and any(
+    if kernel_route(r) and torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (r, k, v, w, u, s0)):
         if s0 is not None and s0.requires_grad:
             refuse_grad("wkv6_chunked_kernel", r, k, v, w, u, s0,

@@ -187,8 +187,13 @@ def attention(q, k, v, *, causal: bool = True, q_offset=0,
     kernel maps query head h to kv head h // (H // KVH)), which carries
     gradients through K13-dq and K13-dkv when grad is enabled; otherwise
     the plain score matrix up to `flash_threshold` keys, the
-    online-softmax oracle above."""
-    Sq, H, KVH = q.shape[1], q.shape[2], k.shape[2]
+    online-softmax oracle above.  use_flash_kernel="stub" is the dry run's
+    instrumentation (cfg.attn_stub): the mean of v over (S, H), broadcast
+    to q's shape, ~zero FLOPs and bytes, as in JAX."""
+    B, Sq, H, KVH = q.shape[0], q.shape[1], q.shape[2], k.shape[2]
+    if use_flash_kernel == "stub":
+        vm = torch.mean(v, dim=(1, 2), keepdim=True)          # (B,1,1,dv)
+        return vm.expand(B, Sq, H, v.shape[-1]).to(q.dtype)
     if (use_flash_kernel and q_offset == 0 and Sq == k.shape[1]
             and Sq >= 512):
         return flash_attention(q, k, v, causal=causal)
@@ -253,8 +258,9 @@ def apply_attention(p, x, cfg, *, positions=None, causal=True,
         vc[:, start:start + S] = v.to(vc.dtype)
         o = attention(q, kc, vc, causal=True, q_offset=pos)
     else:
+        ufk = "stub" if cfg.attn_stub else cfg.use_flash_kernel
         o = attention(q, k, v, causal=causal, q_offset=0,
-                      use_flash_kernel=cfg.use_flash_kernel)
+                      use_flash_kernel=ufk)
     H, hd = o.shape[2], o.shape[3]
     out = o.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D)
     return out, kv_cache

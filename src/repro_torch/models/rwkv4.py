@@ -35,8 +35,9 @@ Two numerics, chosen by `hw=` as in the JAX package:
             engine does) and `launch/serve.py --legacy --hw-numerics`
             serves a fixed batch.  `forward` applies A9 over the whole
             (B, S, features) tensor, as JAX's forward does.
-JAX's `cfg.wkv_stub` (dry-run instrumentation) waits for the analysis
-tools (ROADMAP Queue 1 item 10).
+With `cfg.wkv_stub` (dry-run instrumentation, as in JAX) the forward's WKV
+output is v: K2 does not launch, so a count's difference isolates the
+recurrence (`launch/op_analysis.py`).
 """
 from __future__ import annotations
 
@@ -451,12 +452,16 @@ def _wkv_operands(p, x, nm):
     return r, args, tables
 
 
-def _time_mix_seq(p, x, nm):
+def _time_mix_seq(p, x, nm, wkv_stub=False):
     """TimeMix over a whole sequence: the mixes, the r/k/v products, the
     WKV over every position through K2 (its LUT form under hw) from the
-    zero state, the σ(r) gate and the output product."""
+    zero state (v itself under `wkv_stub`), the σ(r) gate and the output
+    product."""
     r, args, tables = _wkv_operands(p, x, nm)
-    out, _ = wkv4_seq(*args, **tables)
+    if wkv_stub:
+        out = args[1]
+    else:
+        out, _ = wkv4_seq(*args, **tables)
     out = nm.act_q(nm.sigmoid(r) * out.to(r.dtype))
     return _mm(out, p["wo"])
 
@@ -470,10 +475,11 @@ def _channel_mix_seq(p, x, nm):
     return nm.act_q(r * _mm(nm.act_q(k), p["wv"]))
 
 
-def _block_seq(lp, x, nm):
+def _block_seq(lp, x, nm, wkv_stub=False):
     """One layer over a whole sequence: ln1 -> TimeMix -> residual, ln2 ->
     ChannelMix -> residual (JAX's `forward.body`)."""
-    att = _time_mix_seq(lp["att"], L.layernorm_kernel(lp["ln1"], x), nm)
+    att = _time_mix_seq(lp["att"], L.layernorm_kernel(lp["ln1"], x), nm,
+                        wkv_stub)
     x = x + att.to(x.dtype)
     ffn = _channel_mix_seq(lp["ffn"], L.layernorm_kernel(lp["ln2"], x), nm)
     return x + ffn.to(x.dtype)
@@ -500,9 +506,10 @@ def forward(params, batch: dict, cfg: ModelConfig, *, hw: bool = False):
     for i in range(cfg.n_layers):
         lp = _layer(params["blocks"], i)
         if remat:
-            x = checkpoint(_block_seq, lp, x, nm, use_reentrant=False)
+            x = checkpoint(_block_seq, lp, x, nm, cfg.wkv_stub,
+                           use_reentrant=False)
         else:
-            x = _block_seq(lp, x, nm)
+            x = _block_seq(lp, x, nm, cfg.wkv_stub)
     x = L.layernorm_kernel(params["ln_f"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x @ params["head"].to(x.dtype), aux

@@ -17,9 +17,19 @@
                       tick (`repro_torch.serving.scheduler`).
   StragglerDetector — per-host step-duration EMA; flags hosts slower than
                       `threshold` x the fleet median.
+  HeartbeatMonitor  — per-host last-seen tracking with a dead-host
+                      predicate, on an injectable clock.
+  FailureInjector, HostFailure
+                    — the training drill's deterministic fault schedule:
+                      `check(step)` raises `HostFailure` at a scheduled
+                      step, once.
+  TrainingSupervisor— retry-with-restore loop around a step function:
+                      on a `HostFailure` it restores (the caller's
+                      `restore_fn`, e.g. the latest checkpoint) and
+                      resumes, giving up after `max_restarts`
+                      (`examples/train_rwkv4_torch.py --drill`).
 
-The training fault injector, its supervisor and the heartbeat monitor
-wait for the training drill (ROADMAP Queue 1 item 8c).
+JAX's `DegradedMode` event stays out: the port makes no path demotion.
 """
 from __future__ import annotations
 
@@ -486,3 +496,81 @@ class StragglerDetector:
         ordered = sorted(e for _, e in vals)
         median = ordered[len(ordered) // 2]
         return [h for h, e in vals if e > self.threshold * median]
+
+
+class HeartbeatMonitor:
+    """Per-host last-seen times; a host is dead once `timeout_s` passes
+    without a beat."""
+
+    def __init__(self, hosts: list[int], timeout_s: float = 60.0,
+                 clock: Callable[[], float] = time.monotonic):
+        self.timeout_s = timeout_s
+        self._clock = clock
+        self._last = {h: clock() for h in hosts}
+
+    def beat(self, host: int, at: float | None = None):
+        self._last[host] = self._clock() if at is None else at
+
+    def dead_hosts(self) -> list[int]:
+        now = self._clock()
+        return [h for h, t in self._last.items()
+                if now - t > self.timeout_s]
+
+    def alive_hosts(self) -> list[int]:
+        dead = set(self.dead_hosts())
+        return [h for h in self._last if h not in dead]
+
+
+@dataclasses.dataclass
+class FailureInjector:
+    """step -> host failures, for drills. `check(step)` raises HostFailure
+    at a scheduled step and drops it from the schedule."""
+
+    schedule: dict[int, list[int]] = dataclasses.field(default_factory=dict)
+    enabled: bool = True
+
+    def check(self, step: int):
+        if self.enabled and step in self.schedule:
+            hosts = self.schedule.pop(step)
+            raise HostFailure(step=step, hosts=hosts)
+
+
+class HostFailure(RuntimeError):
+    def __init__(self, step: int, hosts: list[int]):
+        super().__init__(f"hosts {hosts} failed at step {step}")
+        self.step = step
+        self.hosts = hosts
+
+
+class TrainingSupervisor:
+    """Retry-with-restore loop.
+
+    run(n_steps) calls `step_fn(step)`; on HostFailure it invokes
+    `restore_fn(failed_hosts)` (which reloads the latest checkpoint) and
+    resumes from the step the restore reports.  Gives up after
+    `max_restarts`, re-raising the failure.
+    """
+
+    def __init__(self, step_fn: Callable[[int], None],
+                 restore_fn: Callable[[list[int]], int],
+                 max_restarts: int = 3):
+        self.step_fn = step_fn
+        self.restore_fn = restore_fn
+        self.max_restarts = max_restarts
+        self.restarts = 0
+        self.log: list[str] = []
+
+    def run(self, n_steps: int, start_step: int = 0) -> int:
+        step = start_step
+        while step < n_steps:
+            try:
+                self.step_fn(step)
+                step += 1
+            except HostFailure as f:
+                self.restarts += 1
+                self.log.append(f"failure at step {f.step}: hosts {f.hosts}")
+                if self.restarts > self.max_restarts:
+                    raise
+                step = self.restore_fn(f.hosts)
+                self.log.append(f"restored, resuming at step {step}")
+        return step

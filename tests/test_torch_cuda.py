@@ -3197,3 +3197,71 @@ def test_lane_finite_on_the_card(cuda):
     assert eng.pool.lane_finite().tolist() == [True] * 4
     eng.pool.poison_slot(2, float("inf"))
     assert eng.pool.lane_finite().tolist() == [True, True, False, True]
+
+
+def _kernel_wrappers():
+    from repro_torch.kernels import (
+        expsig, fused_ce, fused_decode, fused_layernorm, fused_prefill,
+        flash_attention as fa, wkv4, wkv6)
+    return {w.__name__: w for w in (
+        fused_layernorm.fused_layernorm, fused_layernorm.fused_layernorm_bwd,
+        wkv4.wkv4_seq, wkv4.wkv4_seq_bwd, fused_ce.fused_cross_entropy,
+        fused_ce.fused_cross_entropy_bwd, wkv6.wkv6_chunked_kernel,
+        wkv6.wkv6_chunked_bwd, wkv6.wkv6_seq, wkv6.wkv6_seq_bwd,
+        fa.flash_attention, fa.flash_attention_dq, fa.flash_attention_dkv,
+        fused_prefill.dpot_w8_matmul, expsig.sigmoid_kernel,
+        fused_decode.rwkv4_block_decode, fused_decode.rwkv6_block_decode)}
+
+
+@pytest.mark.parametrize("arch,S,flash", [
+    ("rwkv4-169m", 64, False), ("rwkv6-7b", 128, False),
+    ("rwkv6-7b", 40, False), ("smollm-135m", 512, True)])
+def test_op_count_launches_are_the_counters(cuda, arch, S, flash):
+    """A smoke train step on the card under `OpCount`: each kernel's
+    recorded launches equal the rise of its wrapper's `.launches`, and the
+    count equals the same step's count on meta tensors, op for op."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.op_analysis import analyze_call
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.registry import Model, get_model
+    m = get_model(arch, smoke=True)
+    if flash:
+        m = Model(cfg=dataclasses.replace(m.cfg, use_flash_kernel=True),
+                  module=m.module)
+    step, meta_args, (init_opt, _) = build_train_step(
+        m, ShapeConfig("c", S, 2, "train"))
+    p = m.init_params(0, cuda)
+    toks = torch.randint(0, m.cfg.vocab, (2, S), dtype=torch.int32,
+                         device=cuda)
+    wrappers = _kernel_wrappers()
+    before = {n: w.launches for n, w in wrappers.items()}
+    got = analyze_call(step, p, init_opt(p),
+                       {"tokens": toks, "labels": toks})
+    torch.cuda.synchronize()
+    rise = {n: w.launches - before[n] for n, w in wrappers.items()
+            if w.launches != before[n]}
+    assert rise == got.kernels and rise
+    meta = analyze_call(step, *meta_args[:2], {
+        k: torch.empty((2, S), dtype=torch.int32, device="meta")
+        for k in ("tokens", "labels")})
+    assert got.ops == meta.ops
+
+
+def test_op_count_decode_launches_are_the_counters(cuda):
+    """The fused decode steps under `OpCount` on the card: K3 a layer,
+    K7 a layer at B 16 (two tiles each), as their counters rise."""
+    from repro_torch.launch.op_analysis import analyze_call
+    from repro_torch.models.registry import get_model
+    wrappers = _kernel_wrappers()
+    for arch, kernel, B in (("rwkv4-169m", "rwkv4_block_decode", 8),
+                            ("rwkv6-7b", "rwkv6_block_decode", 16)):
+        m = get_model(arch, smoke=True)
+        p = m.cast_params(m.init_params(0, cuda, torch.bfloat16))
+        st = m.init_decode_state(B, 0, device=cuda)
+        before = wrappers[kernel].launches
+        got = analyze_call(m.decode_step_fused, p, st,
+                           torch.zeros((B, 1), dtype=torch.int32,
+                                       device=cuda), 0)
+        assert got.kernels[kernel] == wrappers[kernel].launches - before \
+            == m.cfg.n_layers * (B // 8 if arch == "rwkv6-7b" else 1)

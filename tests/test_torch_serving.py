@@ -200,14 +200,18 @@ def _imports(path: pathlib.Path):
 def test_port_imports_no_jax_and_no_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files.append(ROOT / "examples" / "train_rwkv4_torch.py")
     assert len(files) > 20
     kernels = ROOT / "src" / "repro_torch" / "kernels"
     serving = ROOT / "src" / "repro_torch" / "serving"
+    launch = ROOT / "src" / "repro_torch" / "launch"
     assert {kernels / "fused_layernorm.py", kernels / "wkv6.py",
-            serving / "slo.py", serving / "snapshot.py",
-            serving / "scheduler.py", serving / "state_pool.py",
+            kernels / "build.py", serving / "slo.py",
+            serving / "snapshot.py", serving / "scheduler.py",
+            serving / "state_pool.py",
             ROOT / "src" / "repro_torch" / "runtime" / "monitor.py",
-            ROOT / "src" / "repro_torch" / "launch" / "serve.py"} <= set(files)
+            launch / "serve.py", launch / "op_analysis.py",
+            launch / "roofline.py", launch / "dryrun.py"} <= set(files)
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
